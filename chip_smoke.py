@@ -10,11 +10,18 @@ Phases, each raising on failure (so the script exits nonzero):
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device;
 2. build: compile every CUDA source of the port with ``nvcc`` (sm_90a);
 3. kernels: each kernel's wrapper against its plain PyTorch version on
-   the card, at the shapes of the Sintel path (440x1024 input, 55x128
-   feature grid, C = 256, 4 levels, r = 4) plus a small case with an
-   empty pyramid level; device times of kernel and plain version
+   the card, with device times of kernel and plain version
    (``torch.profiler``; CUDA events where it reports none) beside the
-   bound computed from the inputs;
+   bound computed from the inputs:
+   - inference kernels at the shapes of the Sintel path (440x1024 input,
+     55x128 feature grid, C = 256, 4 levels, r = 4) plus a small case
+     with an empty pyramid level;
+   - training kernels at the chairs stage (batch 8, 368x496, 46x62
+     feature grid, 12 iterations folded into the upsample-loss batch):
+     the pyramid lookup forward and backward with fp32 and bf16 storage,
+     and the upsample-loss sums (each column on its own scale), dflow
+     and dmask with an fp32 and a bf16 mask, plus a one-iteration case
+     whose residuals span the 1/3/5 px thresholds;
 4. path: ``make_eval_fn`` with the kernel configuration (on-demand
    correlation kernel + fused GRU gates) against the plain configuration
    on the same seeded weights, then the 32-iteration Sintel forward in
@@ -22,7 +29,17 @@ Phases, each raising on failure (so the script exits nonzero):
    configuration (ms/pair, device busy time, peak memory) with launch
    counts;
 5. demo: the demo CLI on ``demo-frames`` with ``--alternate_corr``;
-6. report: one JSON line ``{"kernels": [...]}``, the nvidia-smi line,
+6. train: ``make_train_step`` with the kernel configuration
+   (``allpairs_pallas`` + ``upsample_loss_kernel='pallas'``) against the
+   plain one (``allpairs`` + ``'xla'``) from the same seeded weights on
+   one synthetic FlyingChairs-shaped batch, TF32 off, in fp32 and bf16
+   (loss, metrics, every parameter's unclipped gradient); then the chairs
+   stage
+   (368x496, batch 8, 12 iterations, lr 2.5e-4) for both configurations
+   in fp32 and bf16: warm-up steps, 10 timed steps each (ms/step,
+   pairs/s, peak memory, device busy time, idle share) with exact launch
+   counts per step;
+7. report: one JSON line ``{"kernels": [...]}``, the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without CUDA it exits nonzero before any
@@ -32,6 +49,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -47,6 +65,7 @@ WORK = os.path.join(REPO, "build", "chip_smoke")
 
 SINTEL_HW = (436, 1024)          # a Sintel frame; pads to 440 x 1024
 R, LEVELS, C = 4, 4, 256
+CHAIRS_HW, CHAIRS_B, CHAIRS_ITERS = (368, 496), 8, 12
 
 
 def _peaks(name: str):
@@ -76,9 +95,9 @@ def _time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 
 def _device_ms(fn, reps: int = 20, match: str = None):
     """Device time per call from ``torch.profiler`` (CUDA activity only):
-    the summed time of the kernels whose name contains ``match``, or of
-    every kernel the call runs.  None when the profiler reports no device
-    time (then the CUDA-event time stands)."""
+    the summed time of the kernels whose name contains ``match`` (a string
+    or a tuple of them), or of every kernel the call runs.  None when the
+    profiler reports no device time (then the CUDA-event time stands)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -88,14 +107,67 @@ def _device_ms(fn, reps: int = 20, match: str = None):
             fn()
         torch.cuda.synchronize()
     total_us = 0.0
+    names = (match,) if isinstance(match, str) else match
     for e in prof.key_averages():
-        if match is None or match in e.key:
+        if names is None or any(n in e.key for n in names):
             total_us += (getattr(e, "device_time_total", None)
                          or getattr(e, "cuda_time_total", 0.0))
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
-def _timed(fn, match: str, reps: int = 30) -> dict:
+def _profile(fn, reps: int = 2) -> dict:
+    """Device activity of ``reps`` calls from ``torch.profiler`` (CUDA
+    activity only): ``busy_ms`` per call is the union of the device
+    intervals (kernels, copies and sets never counted twice), ``wall_ms``
+    per call the host clock over the same window, ``idle_share`` the
+    rest, and ``by_kind`` the summed kernel time per call by kind (the
+    port's four training kernels, cuDNN/cuBLAS convolutions and matrix
+    products, everything else).  Busy is None when the profiler reports
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    spans, kinds = [], {}
+    for e in prof.events():
+        tr = e.time_range
+        if getattr(e.device_type, "name", "") != "CUDA" or tr.end <= tr.start:
+            continue
+        spans.append((tr.start, tr.end))
+        name = e.name
+        if "pyr_" in name or "ul_" in name[:12]:
+            kind = name.split("<")[0].split("(")[0].replace("void ", "")
+        elif any(t in name.lower() for t in ("conv", "gemm", "cudnn", "xmma",
+                                              "cutlass", "sm90_", "wgrad",
+                                              "dgrad")):
+            kind = "conv_gemm"
+        else:
+            kind = "other"
+        kinds[kind] = kinds.get(kind, 0.0) + (tr.end - tr.start)
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    if not spans:
+        return {"busy_ms": None, "wall_ms": wall, "idle_share": None,
+                "by_kind": {}}
+    busy_ms = busy / reps / 1e3
+    return {"busy_ms": busy_ms, "wall_ms": wall,
+            "idle_share": max(0.0, 1.0 - busy_ms / wall),
+            "by_kind": {k: v / reps / 1e3 for k, v in sorted(kinds.items())}}
+
+
+def _timed(fn, match, reps: int = 30) -> dict:
     """CUDA-event time of one call (host launch gaps included) and the
     profiler's device time of its kernels; ``ms`` is the device time when
     the profiler reports one."""
@@ -275,6 +347,304 @@ def phase_kernels(peaks):
     return results
 
 
+def _bf16_close(got, want, fp32_tol: float) -> bool:
+    """Within one bf16 ulp of the plain value plus the fp32 bound."""
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool((diff <= ulp + fp32_tol).all())
+
+
+def _check(name: str, got, want) -> float:
+    """max |got - want|; raises beyond 1e-4 * max|want| + 1e-5 (fp32) or
+    one bf16 ulp of the plain value plus that bound (bf16)."""
+    got, want = got.detach(), want.detach()
+    tol = 1e-4 * float(want.float().abs().max()) + 1e-5
+    err = float((got.float() - want.float()).abs().max())
+    ok = (_bf16_close(got, want, tol) if got.dtype == torch.bfloat16
+          else err <= tol)
+    print(f"[kernels] {name}: max|err| {err:.3e} (tol {tol:.3e}"
+          f"{' + 1 bf16 ulp' if got.dtype == torch.bfloat16 else ''})",
+          flush=True)
+    if not ok or got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: kernel disagrees with the plain "
+                             f"version ({err}, {got.dtype}, {want.dtype})")
+    return err
+
+
+def _check_sums(name: str, got, want) -> float:
+    """The ``(gB, 5)`` upsample-loss sums: each column within
+    1e-4 * max|plain column| + 1e-5, so the pixel counts are held on their
+    own scale and not on the L1 column's."""
+    got, want = got.detach(), want.detach()
+    errs = (got - want).abs().amax(dim=0)
+    tols = 1e-4 * want.abs().amax(dim=0) + 1e-5
+    print(f"[kernels] {name}: per-column max|err| "
+          f"{[f'{e:.3e}' for e in errs.tolist()]} (tol "
+          f"{[f'{t:.3e}' for t in tols.tolist()]}); plain column max "
+          f"{[f'{m:.1f}' for m in want.abs().amax(dim=0).tolist()]}",
+          flush=True)
+    if not bool((errs <= tols).all()) or got.shape != want.shape:
+        raise AssertionError(f"{name}: kernel disagrees with the plain "
+                             f"version ({errs.tolist()} > {tols.tolist()})")
+    return float(errs.max())
+
+
+def _window_elems(coords: np.ndarray, shapes, k: int) -> float:
+    """Stored values this run's centers need: the in-level integer
+    positions of each query's (k+1)^2 bilinear window, per level."""
+    total = 0.0
+    for lvl, (hl, wl) in enumerate(shapes):
+        c = coords.reshape(-1, 2) / 2.0 ** lvl
+        cnt = []
+        for axis, size in ((0, wl), (1, hl)):
+            lo = np.floor(c[:, axis]) - (k - 1) // 2
+            pos = lo[:, None] + np.arange(k + 1)[None]
+            cnt.append(((pos >= 0) & (pos < size)).sum(1))
+        total += float((cnt[0] * cnt[1]).sum())
+    return total
+
+
+def _grid_sample_lookup(pyramid, coords, radius):
+    """The lookup as one ``grid_sample`` call per level (align_corners,
+    zeros padding): each query's row is an image, its window the grid.
+    Timed as the library yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+
+    B, H1, W1, _ = coords.shape
+    N = H1 * W1
+    k = 2 * radius + 1
+    d = torch.arange(k, dtype=torch.float32, device=coords.device) - radius
+    grids = []
+    for lvl, lv in enumerate(pyramid):
+        hl, wl = lv.shape[2:]
+        c = coords.reshape(B * N, 1, 1, 2) / 2.0 ** lvl
+        # grid[n, j, i] = (x + i - r, y + j - r)
+        gx = (c[..., 0] + d[None, None, :]).expand(B * N, k, k)
+        gy = (c[..., 1] + d[None, :, None]).expand(B * N, k, k)
+        grids.append(torch.stack([2 * gx / max(wl - 1, 1) - 1,
+                                  2 * gy / max(hl - 1, 1) - 1], -1))
+
+    def run(levels):
+        outs = [F.grid_sample(lv.reshape(B * N, 1, *lv.shape[2:]), g,
+                              mode="bilinear", padding_mode="zeros",
+                              align_corners=True)
+                for lv, g in zip(levels, grids)]
+        # (B*N, 1, j, i) -> x-major taps (B, H1, W1, L*k*k)
+        return torch.cat([o.reshape(B, N, k, k).transpose(2, 3).reshape(
+            B, N, k * k) for o in outs], -1).reshape(B, H1, W1, -1)
+
+    return run
+
+
+def phase_train_kernels(peaks):
+    """The pyramid lookup (fwd, bwd) and the upsample-loss (fwd, bwd)
+    kernels at the chairs training shapes, fp32 and bf16."""
+    from raft_tpu_torch.ops.corr import build_corr_pyramid
+    from raft_tpu_torch.ops.pyramid_kernels import (pyramid_lookup,
+                                                    pyramid_lookup_nchw,
+                                                    pyramid_lookup_plain)
+    from raft_tpu_torch.ops.upsample import (convex_upsample_flat_nchw,
+                                             depth_to_space_flow)
+    from raft_tpu_torch.ops.upsample_loss import (upsample_loss_sums,
+                                                  upsample_loss_sums_plain)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    results = {}
+    k = 2 * R + 1
+    B = CHAIRS_B
+    h8, w8 = CHAIRS_HW[0] // 8, CHAIRS_HW[1] // 8
+    N = h8 * w8
+    P = LEVELS * k * k
+    f1, f2, coords = _corr_inputs(rng, B, h8, w8, dev)
+    c_np = coords.cpu().numpy()
+    shapes = [(h8 >> lvl, w8 >> lvl) for lvl in range(LEVELS)]
+    win = _window_elems(c_np, shapes, k)
+    g = torch.from_numpy(rng.standard_normal((B, P, h8, w8)).astype(
+        np.float32)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "fp32" if dtype == torch.float32 else "bf16"
+        es = 4 if dtype == torch.float32 else 2
+        with torch.no_grad():
+            pyr = build_corr_pyramid(f1, f2, LEVELS, dtype)
+        pyr = [lv.requires_grad_(True) for lv in pyr]
+        got = pyramid_lookup_nchw(pyr, coords, R, dtype)
+        want = pyramid_lookup_plain(pyr, coords, R, dtype).permute(0, 3, 1,
+                                                                   2)
+        err_f = _check(f"pyramid_lookup_fwd {dt} {tuple(got.shape)}",
+                       got, want)
+        gg = g.to(dtype)
+        dk = torch.autograd.grad(got, pyr, gg, retain_graph=True)
+        dp = torch.autograd.grad(want, pyr, gg, retain_graph=True)
+        err_b = max(_check(f"pyramid_lookup_bwd {dt} level {i} "
+                           f"{tuple(a.shape)}", a, b)
+                    for i, (a, b) in enumerate(zip(dk, dp)))
+        nhwc = pyramid_lookup(pyr, coords, R, dtype)
+        if not torch.equal(nhwc.permute(0, 3, 1, 2), got):
+            raise AssertionError("pyramid_lookup: NHWC != NCHW taps")
+        with torch.no_grad():
+            tk = _timed(lambda: pyramid_lookup_nchw(pyr, coords, R, dtype),
+                        "pyr_fwd_kernel")
+            tp = _timed(lambda: pyramid_lookup_plain(pyr, coords, R, dtype),
+                        None, reps=10)
+        tkb = _timed(lambda: torch.autograd.grad(got, pyr, gg,
+                                                 retain_graph=True),
+                     "pyr_bwd_kernel", reps=10)
+        tpb = _timed(lambda: torch.autograd.grad(want, pyr, gg,
+                                                 retain_graph=True),
+                     None, reps=5)
+        lib_f = lib_b = None
+        if dtype == torch.float32:
+            run = _grid_sample_lookup(pyr, coords, R)
+            ref = run(pyr)
+            lib_err = float((ref.permute(0, 3, 1, 2) - want).abs().max())
+            print(f"[kernels] grid_sample yardstick vs plain: max|err| "
+                  f"{lib_err:.3e}", flush=True)
+            with torch.no_grad():
+                lib_f = _timed(lambda: run(pyr), None, reps=10)
+            lib_out = run(pyr)
+            gl = gg.permute(0, 2, 3, 1)
+            lib_b = _timed(lambda: torch.autograd.grad(
+                lib_out, pyr, gl, retain_graph=True), None, reps=5)
+            del lib_out, ref
+        out_bytes = B * P * N * es
+        lvl_bytes = sum(lv.numel() for lv in pyr) * es
+        nb_f = win * es + coords.numel() * 4 + out_bytes
+        ops_f = 9.0 * B * N * P
+        bound_f, by_f = _bound_ms(nb_f, ops_f, peaks)
+        nb_b = lvl_bytes + B * P * N * es + coords.numel() * 4
+        ops_b = 12.0 * win
+        bound_b, by_b = _bound_ms(nb_b, ops_b, peaks)
+        for name, err, t, tpl, lib, bound, by, nb, ops in (
+                ("pyramid_lookup_fwd", err_f, tk, tp, lib_f, bound_f, by_f,
+                 nb_f, ops_f),
+                ("pyramid_lookup_bwd", err_b, tkb, tpb, lib_b, bound_b, by_b,
+                 nb_b, ops_b)):
+            results[f"{name}/{dt}"] = dict(
+                max_abs_err=err, ms=t["ms"], plain_ms=tpl["ms"],
+                library_ms=None if lib is None else lib["ms"],
+                bound_ms=bound, bound_by=by, bytes=nb, ops=ops,
+                kernel_timing=t, plain_timing=tpl, library_timing=lib)
+            print(f"[kernels] {name} {dt}: kernel {t}, plain {tpl}, "
+                  f"library {lib}, bound {bound:.4f} ms ({by}; "
+                  f"{nb / 1e6:.1f} MB, {ops / 1e9:.4f} GFLOP)", flush=True)
+        del pyr, got, want, dk, dp, nhwc
+        torch.cuda.empty_cache()
+
+    # --- upsample-loss: 12 iterations x batch 8 folded, 46 x 62 ---
+    gB = CHAIRS_ITERS * B
+    H, W = h8, w8
+    # The |.| subgradient flips with the sign of a residual, and two fp32
+    # orders of the same sum can give opposite signs to a residual within
+    # ~1e-6 of 0: at this size (35 M residuals) a few would flip and move
+    # dflow by up to 16 * weight.  So the residuals are kept away from 0:
+    # the upsampled flow lies in 8 * [-1, 1] and the ground truth at
+    # +-[8.5, 24], both signs.  tests/test_torch_cuda.py covers exact
+    # zeros.
+    flow = torch.from_numpy(rng.uniform(-1, 1, (gB, H, W, 2)).astype(
+        np.float32)).to(dev)
+    gt = (rng.uniform(8.5, 24, (B, 8 * H, 8 * W, 2))
+          * rng.choice([-1.0, 1.0], (B, 8 * H, 8 * W, 2)))
+    gt = torch.from_numpy(gt.astype(np.float32)).to(dev)
+    vm = torch.from_numpy((rng.random((B, 8 * H, 8 * W)) > 0.1).astype(
+        np.float32)).to(dev)
+    wsum = torch.from_numpy(rng.random((gB, 5)).astype(np.float32)).to(dev)
+    mask32 = torch.from_numpy(rng.standard_normal((gB, 576, H, W)).astype(
+        np.float32)).to(dev)
+    # A second case whose residuals span the 1/3/5 px thresholds: one
+    # iteration (gB = B), ground truth = the plain upsampled flow + offsets
+    # whose end-point error is U(0.75, 7) px, kept >= 1e-3 from a
+    # threshold (the two sum orders differ by ~1e-6 px), with both
+    # components >= 0.5 px from 0; so the pixel counts are large and must
+    # agree exactly.
+    shape = (B, 8 * H, 8 * W)
+    r = rng.uniform(0.75, 7.0, shape)
+    near = np.min([np.abs(r - t) for t in (1.0, 3.0, 5.0)], axis=0) < 1e-3
+    r[near] *= 1.01
+    lo, hi = np.arcsin(0.5 / r), np.arccos(0.5 / r)
+    theta = lo + rng.random(shape) * (hi - lo)
+    off = (np.stack([r * np.cos(theta), r * np.sin(theta)], -1)
+           * rng.choice([-1.0, 1.0], shape + (2,)))
+    off = torch.from_numpy(off.astype(np.float32)).to(dev)
+
+    def run(fn, fl, m, g_t, v):
+        fl = fl.clone().requires_grad_(True)
+        m = m.clone().requires_grad_(True)
+        sums = fn(fl, m, g_t, v)
+        dfl, dm = torch.autograd.grad(sums, (fl, m), wsum[:fl.shape[0]],
+                                      retain_graph=True)
+        return sums, dfl, dm, fl, m
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "fp32" if dtype == torch.float32 else "bf16"
+        mask = mask32.to(dtype)
+        outs = [run(fn, flow, mask, gt, vm)
+                for fn in (upsample_loss_sums, upsample_loss_sums_plain)]
+        (sk, dflk, dmk, flk, mk), (sp, dflp, dmp, flp, mp) = outs
+        err_f = _check_sums(f"upsample_loss_fwd {dt} sums {tuple(sk.shape)}",
+                            sk, sp)
+        err_b = max(_check(f"upsample_loss_bwd {dt} dflow", dflk, dflp),
+                    _check(f"upsample_loss_bwd {dt} dmask "
+                           f"{tuple(dmk.shape)}", dmk, dmp))
+        with torch.no_grad():
+            up = convex_upsample_flat_nchw(flow[:B].permute(0, 3, 1, 2),
+                                           mask[:B])
+            gt_s = (depth_to_space_flow(up.permute(0, 2, 3, 1)) + off
+                    ).contiguous()
+        span = [run(fn, flow[:B], mask[:B], gt_s, vm)
+                for fn in (upsample_loss_sums, upsample_loss_sums_plain)]
+        counts = span[1][0][:, 2:].sum(dim=0).tolist()
+        print(f"[kernels] upsample_loss {dt} threshold case: plain 1/3/5 px "
+              f"counts {counts} of {float(vm.sum()):.0f} valid pixels",
+              flush=True)
+        if not 0 < counts[0] < counts[1] < counts[2] < float(vm.sum()):
+            raise AssertionError(f"threshold case does not span: {counts}")
+        err_f = max(err_f, _check_sums(
+            f"upsample_loss_fwd {dt} threshold case sums", span[0][0],
+            span[1][0]))
+        err_b = max(err_b,
+                    _check(f"upsample_loss_bwd {dt} threshold case dflow",
+                           span[0][1], span[1][1]),
+                    _check(f"upsample_loss_bwd {dt} threshold case dmask",
+                           span[0][2], span[1][2]))
+        del span, up, gt_s
+        with torch.no_grad():
+            tk = _timed(lambda: upsample_loss_sums(flow, mask, gt, vm),
+                        ("ul_fwd_kernel", "ul_reduce_kernel"), reps=10)
+            tp = _timed(lambda: upsample_loss_sums_plain(flow, mask, gt, vm),
+                        None, reps=5)
+        tkb = _timed(lambda: torch.autograd.grad(sk, (flk, mk), wsum,
+                                                 retain_graph=True),
+                     ("ul_bwd_kernel", "ul_dflow_kernel"), reps=10)
+        tpb = _timed(lambda: torch.autograd.grad(sp, (flp, mp), wsum,
+                                                 retain_graph=True),
+                     None, reps=5)
+        es = mask.element_size()
+        small = (flow.numel() + gt.numel() + vm.numel()) * 4
+        nb_f = mask.numel() * es + small + gB * 5 * 4
+        ops_f = 100.0 * gB * H * W * 64
+        nb_b = 2 * mask.numel() * es + small + gB * 4 + flow.numel() * 4
+        ops_b = 170.0 * gB * H * W * 64
+        for name, err, t, tpl, nb, ops in (
+                ("upsample_loss_fwd", err_f, tk, tp, nb_f, ops_f),
+                ("upsample_loss_bwd", err_b, tkb, tpb, nb_b, ops_b)):
+            bound, by = _bound_ms(nb, ops, peaks)
+            results[f"{name}/{dt}"] = dict(
+                max_abs_err=err, ms=t["ms"], plain_ms=tpl["ms"],
+                library_ms=None, bound_ms=bound, bound_by=by, bytes=nb,
+                ops=ops, kernel_timing=t, plain_timing=tpl)
+            print(f"[kernels] {name} {dt}: kernel {t}, plain {tpl}, bound "
+                  f"{bound:.4f} ms ({by}; {nb / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.3f} GFLOP)", flush=True)
+        del outs, sk, sp, dflk, dflp, dmk, dmp, flk, flp, mk, mp, mask
+        torch.cuda.empty_cache()
+    for name in ("pyramid_lookup_fwd", "pyramid_lookup_bwd",
+                 "upsample_loss_fwd", "upsample_loss_bwd"):
+        results[name] = results[f"{name}/fp32"]
+    return results
+
+
 def _frames(dev):
     """A Sintel-sized frame pair: a smooth seeded texture and the same
     texture shifted by (5, 2) px."""
@@ -287,28 +657,47 @@ def _frames(dev):
     return [f.permute(0, 2, 3, 1).contiguous().to(dev) for f in (f1, f2)]
 
 
-def _counts():
-    from raft_tpu_torch.ops import corr_kernels, gru_gates
+def _counters():
+    from raft_tpu_torch.ops import (corr_kernels, gru_gates, pyramid_kernels,
+                                    upsample_loss)
 
-    return {**corr_kernels.LAUNCHES, **gru_gates.LAUNCHES}
+    return (corr_kernels.LAUNCHES, gru_gates.LAUNCHES,
+            pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES)
+
+
+def _counts():
+    return {k: v for d in _counters() for k, v in d.items()}
 
 
 def _reset_counts():
-    from raft_tpu_torch.ops import corr_kernels, gru_gates
-
-    for d in (corr_kernels.LAUNCHES, gru_gates.LAUNCHES):
+    for d in _counters():
         for key in d:
             d[key] = 0
 
 
-def _expect_counts(iters_total: int, where: str):
+def _expect(nonzero: dict, where: str):
+    """Every kernel's count is 0 except those in ``nonzero``."""
     got = _counts()
-    want = {"corr_ondemand": iters_total, "gru_gate_rh": 2 * iters_total,
-            "gru_gate_blend": 2 * iters_total}
+    want = {**{k: 0 for k in got}, **nonzero}
     print(f"[{where}] launches {got} (expected {want})", flush=True)
     if got != want:
         raise AssertionError(f"{where}: launches {got} != {want}")
     return got
+
+
+def _expect_counts(iters_total: int, where: str):
+    return _expect({"corr_ondemand": iters_total,
+                    "gru_gate_rh": 2 * iters_total,
+                    "gru_gate_blend": 2 * iters_total}, where)
+
+
+def _expect_train_counts(steps: int, where: str):
+    """Per step: one lookup forward and one backward per iteration, one
+    upsample-loss forward and one backward (all iterations folded)."""
+    return _expect({"pyramid_lookup_fwd": CHAIRS_ITERS * steps,
+                    "pyramid_lookup_bwd": CHAIRS_ITERS * steps,
+                    "upsample_loss_fwd": steps,
+                    "upsample_loss_bwd": steps}, where)
 
 
 def phase_path():
@@ -386,18 +775,19 @@ def phase_path():
             if not (torch.isfinite(up).all() and up.shape == img1.shape[:3]
                     + (2,)):
                 raise AssertionError(f"{label} {dtype}: bad flow")
-            busy = _device_ms(lambda: eval_fn(sd, img1, img2), reps=2)
+            prof = _profile(lambda: eval_fn(sd, img1, img2), reps=2)
+            busy = prof["busy_ms"]
             key = f"{label}/{dtype}"
             wall = statistics.median(times)
             runs[key] = dict(ms_per_pair=wall, ms_all=times,
                              peak_mem_mb=peak / 2 ** 20,
                              device_busy_ms=busy,
-                             idle_share=None if busy is None
-                             else max(0.0, 1.0 - busy / wall))
+                             idle_share=prof["idle_share"], profile=prof)
             print(f"[path] 440x1024 iters=32 {key}: {wall:.2f} ms/pair "
                   f"(runs {', '.join(f'{t:.2f}' for t in times)}), device "
-                  f"busy {busy} ms/pair, peak {peak / 2 ** 20:.1f} MiB",
-                  flush=True)
+                  f"busy {busy} ms/pair of {prof['wall_ms']:.2f} profiled "
+                  f"(idle {prof['idle_share']}), peak "
+                  f"{peak / 2 ** 20:.1f} MiB", flush=True)
             del eval_fn, lo, up
     results["iters32"] = runs
     return results, main_counts, sd
@@ -424,6 +814,216 @@ def phase_demo(sd):
     return {"pngs": written, "corr_launches": moved}
 
 
+def _chairs_batch(dev):
+    """One synthetic FlyingChairs-shaped batch, made on the host from a
+    seed: uniform frames, flow 8 * N(0, 1), all pixels valid."""
+    rng = np.random.default_rng(0)
+    B, (H, W) = CHAIRS_B, CHAIRS_HW
+    batch = {"image1": rng.uniform(0, 255, (B, H, W, 3)),
+             "image2": rng.uniform(0, 255, (B, H, W, 3)),
+             "flow": 8.0 * rng.standard_normal((B, H, W, 2)),
+             "valid": np.ones((B, H, W))}
+    return {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+            for k, v in batch.items()}
+
+
+# Kernel vs plain configuration, one chairs step: each parameter's
+# unclipped gradient must agree.  A conv bias that a normalization follows
+# (most of fnet's and cnet's) has a gradient that is zero in exact
+# arithmetic and rounding noise in fp32, so a relative test alone cannot
+# hold it; each parameter is held within a share of its own scale plus a
+# floor on the model's scale (its largest gradient entry, or its global
+# norm).  bf16: the plain chain upsamples in bf16 and the kernel in fp32,
+# so the two differ by bf16 rounding, not by fp32 noise.  The bounds were
+# set from readings on the H100; in a sound run the worst parameter used
+# 8% of the fp32 bound and 20% of the bf16 one, and the bf16 loss differed
+# by 2.5e-4 relative (PERF.md, training slice findings).
+FP32_GRAD_REL, FP32_GRAD_FLOOR = 1e-3, 1e-6
+BF16_LOSS_TOL, BF16_GRAD_REL, BF16_GRAD_FLOOR = 2e-3, 0.1, 2e-4
+
+
+def _step_grads(sd, batch, cfg, model_cfg):
+    """Metrics and the gradients the optimizer sees of one train step."""
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    state = init_state(model_cfg, cfg, state_dict=sd)
+    grads = {}
+    opt_step = state.optimizer.step
+
+    def hooked(*a, **kw):
+        grads.update({n: p.grad.detach().clone()
+                      for n, p in state.model.named_parameters()})
+        return opt_step(*a, **kw)
+
+    state.optimizer.step = hooked
+    _, met = make_train_step(cfg)(state, batch)
+    met = {k: v.detach().cpu().numpy() for k, v in met.items()}
+    del state
+    torch.cuda.empty_cache()
+    return met, grads
+
+
+def _grad_agreement(gk: dict, gp: dict) -> dict:
+    """Per parameter: max|dg| against 1e-3 of max|g| plus the fp32 floor
+    on the model's largest entry, and |dg| against the bf16 share of |g|
+    plus the bf16 floor on the global norm, each as a ratio (<= 1 passes);
+    the worst parameter of each."""
+    if set(gk) != set(gp) or not gp:
+        raise AssertionError("train step: the two configurations' "
+                             "parameters differ")
+    gmax = max(float(g.abs().max()) for g in gp.values())
+    gnorm = float(torch.sqrt(sum(g.double().square().sum()
+                                 for g in gp.values())))
+    entry, leaf = {}, {}
+    for n, g in gp.items():
+        d = gk[n] - g
+        entry[n] = float(d.abs().max()) / (
+            FP32_GRAD_REL * float(g.abs().max()) + FP32_GRAD_FLOOR * gmax)
+        leaf[n] = float(d.norm()) / (BF16_GRAD_REL * float(g.norm())
+                                     + BF16_GRAD_FLOOR * gnorm)
+    we, wl = max(entry, key=entry.get), max(leaf, key=leaf.get)
+    return dict(entry_ratio=entry[we], entry_param=we, leaf_ratio=leaf[wl],
+                leaf_param=wl, max_entry=gmax, global_norm=gnorm)
+
+
+def compare_train_step(sd, batch, cfg, dtype: str) -> dict:
+    """One train step of the kernel configuration and of the plain one from
+    the same weights on the same batch, with the clip out of reach so the
+    optimizer sees the unclipped gradients, which are captured there.
+    fp32: metrics within 1e-4 relative and every parameter's gradient
+    within the fp32 bounds above; bf16: the loss within ``BF16_LOSS_TOL``
+    relative and every gradient within the bf16 bounds."""
+    from raft_tpu_torch.config import RAFTConfig
+
+    cmp_cfg = dataclasses.replace(cfg, clip=1e9)
+    (mk, gk), (mp, gp) = (
+        _step_grads(sd, batch, cmp_cfg,
+                    RAFTConfig.full(compute_dtype=dtype, **extra))
+        for extra in (dict(corr_impl="allpairs_pallas",
+                           upsample_loss_kernel="pallas"), {}))
+    rel = {k: float(np.abs(mk[k] - mp[k]).max()
+                    / max(float(np.abs(mp[k]).max()), 1e-12))
+           for k in ("loss", "epe", "1px", "3px", "5px", "grad_norm",
+                     "loss_iter", "epe_iter")}
+    agree = _grad_agreement(gk, gp)
+    print(f"[train] chairs {dtype} one step, kernel vs plain config: "
+          f"relative differences {rel}; gradients {agree}; loss "
+          f"{float(mp['loss']):.6f}", flush=True)
+    if dtype == "float32":
+        ok = all(v <= 1e-4 for v in rel.values()) and \
+            agree["entry_ratio"] <= 1.0
+    else:
+        ok = rel["loss"] <= BF16_LOSS_TOL and agree["leaf_ratio"] <= 1.0
+    if not ok:
+        raise AssertionError(f"train step {dtype} kernel vs plain: {rel}, "
+                             f"{agree}")
+    return dict(relative=rel, gradients=agree)
+
+
+def phase_train(sd):
+    from raft_tpu_torch.config import RAFTConfig, TrainConfig
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    dev = torch.device("cuda")
+    batch = _chairs_batch(dev)
+    cfg = TrainConfig(lr=2.5e-4, num_steps=120000, batch_size=CHAIRS_B,
+                      image_size=CHAIRS_HW, iters=CHAIRS_ITERS, wdecay=1e-4)
+    step_fn = make_train_step(cfg)
+    kernel_cfg = dict(corr_impl="allpairs_pallas",
+                      upsample_loss_kernel="pallas")
+    results = {}
+
+    # kernel configuration against the plain one: one step, fp32 and bf16
+    results["kernel_vs_plain"] = {
+        dtype: compare_train_step(sd, batch, cfg, dtype)
+        for dtype in ("float32", "bfloat16")}
+
+    # the chairs stage: fp32 and bf16, kernel and plain configurations
+    main_counts = None
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        for label, extra in (("kernel", kernel_cfg), ("plain", {})):
+            key = f"{label}/{dtype}"
+            mcfg = RAFTConfig.full(compute_dtype=dtype, **extra)
+            torch.cuda.empty_cache()
+            state = init_state(mcfg, cfg, state_dict=sd)
+            for _ in range(3):                                # warm-up
+                step_fn(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            times, losses = [], []
+            for i in range(10):
+                t0 = time.perf_counter()
+                _, met = step_fn(state, batch)
+                losses.append(met["loss"])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if i == 0 and key == "kernel/float32":        # the main path
+                    main_counts = _expect_train_counts(1, "train main step")
+            peak = torch.cuda.max_memory_allocated()
+            losses = [float(x) for x in losses]
+            if label == "kernel":
+                _expect_train_counts(10, f"train {key} 10 steps")
+            else:
+                _expect({}, f"train {key} 10 steps")
+            if not (np.isfinite(losses).all() and state.nonfinite_steps == 0):
+                raise AssertionError(f"train {key}: losses {losses}, "
+                                     f"{state.nonfinite_steps} non-finite")
+            prof = _profile(lambda: step_fn(state, batch), reps=3)
+            wall = statistics.median(times)
+            runs[key] = dict(ms_per_step=wall, ms_all=times,
+                             pairs_per_s=CHAIRS_B / wall * 1e3,
+                             peak_mem_mb=peak / 2 ** 20,
+                             device_busy_ms=prof["busy_ms"],
+                             idle_share=prof["idle_share"], profile=prof,
+                             losses=losses)
+            print(f"[train] chairs {key}: {wall:.2f} ms/step "
+                  f"({CHAIRS_B / wall * 1e3:.2f} pairs/s; steps "
+                  f"{', '.join(f'{t:.1f}' for t in times)}), device busy "
+                  f"{prof['busy_ms']} ms/step of {prof['wall_ms']:.1f} "
+                  f"profiled (idle {prof['idle_share']}), by kind "
+                  f"{prof['by_kind']}, peak {peak / 2 ** 20:.1f} MiB, "
+                  f"losses {losses[0]:.4f} .. {losses[-1]:.4f}", flush=True)
+            del state
+    results["chairs"] = runs
+    results["cotangent_sum"] = _cotangent_sum()
+    return results, main_counts
+
+
+def _cotangent_sum() -> dict:
+    """What autograd adds on top of the lookup backward: the 12 dense
+    per-iteration pyramid cotangents of a step summed into one, timed as
+    11 in-place adds per level at the chairs shape (the same reads and
+    writes autograd's accumulation does), fp32 and bf16."""
+    dev = torch.device("cuda")
+    B, N = CHAIRS_B, (CHAIRS_HW[0] // 8) * (CHAIRS_HW[1] // 8)
+    h8, w8 = CHAIRS_HW[0] // 8, CHAIRS_HW[1] // 8
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        acc = [torch.zeros(B, N, h8 >> l, w8 >> l, dtype=dtype, device=dev)
+               for l in range(LEVELS)]
+        new = [torch.ones_like(a) for a in acc]
+
+        def run():
+            for _ in range(CHAIRS_ITERS - 1):
+                for a, n in zip(acc, new):
+                    a.add_(n)
+
+        t = _timed(run, None, reps=5)
+        nbytes = 3 * sum(a.numel() for a in acc) * acc[0].element_size() \
+            * (CHAIRS_ITERS - 1)
+        dt = "fp32" if dtype == torch.float32 else "bf16"
+        out[dt] = dict(ms=t["ms"], timing=t, bytes=nbytes,
+                       bound_ms=nbytes / _peaks(
+                           torch.cuda.get_device_name(0))[0] * 1e3)
+        print(f"[train] summing 12 dense pyramid cotangents per step, {dt}: "
+              f"{t['ms']:.3f} ms (bound {out[dt]['bound_ms']:.3f} ms, "
+              f"{nbytes / 1e9:.2f} GB)", flush=True)
+        del acc, new
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--report", default=None,
@@ -440,25 +1040,39 @@ def main(argv=None) -> int:
     smi, name = phase_device()
     peaks = _peaks(name)
     build_s = phase_build()
-    kern = phase_kernels(peaks)
+    kern = {**phase_kernels(peaks), **phase_train_kernels(peaks)}
     path, main_counts, sd = phase_path()
     demo_res = phase_demo(sd)
+    train, train_counts = phase_train(sd)
 
-    sources = {"corr_ondemand": ("raft_tpu_torch/csrc/corr_ondemand.cu",
-                                 "raft_tpu/ops/pallas_corr.py:174"),
-               "gru_gate_rh": ("raft_tpu_torch/csrc/gru_gates.cu",
-                               "raft_tpu/ops/pallas_gru.py:84"),
-               "gru_gate_blend": ("raft_tpu_torch/csrc/gru_gates.cu",
-                                  "raft_tpu/ops/pallas_gru.py:99")}
+    sources = {
+        "corr_ondemand": ("raft_tpu_torch/csrc/corr_ondemand.cu",
+                          "raft_tpu/ops/pallas_corr.py:174"),
+        "gru_gate_rh": ("raft_tpu_torch/csrc/gru_gates.cu",
+                        "raft_tpu/ops/pallas_gru.py:84"),
+        "gru_gate_blend": ("raft_tpu_torch/csrc/gru_gates.cu",
+                           "raft_tpu/ops/pallas_gru.py:99"),
+        "pyramid_lookup_fwd": ("raft_tpu_torch/csrc/pyramid_lookup.cu",
+                               "raft_tpu/ops/pallas_corr.py:660"),
+        "pyramid_lookup_bwd": ("raft_tpu_torch/csrc/pyramid_lookup.cu",
+                               "raft_tpu/ops/pallas_corr.py:682"),
+        "upsample_loss_fwd": ("raft_tpu_torch/csrc/upsample_loss.cu",
+                              "raft_tpu/ops/pallas_upsample.py:110"),
+        "upsample_loss_bwd": ("raft_tpu_torch/csrc/upsample_loss.cu",
+                              "raft_tpu/ops/pallas_upsample.py:129")}
     kernels = []
     for kname, (src, replaces) in sources.items():
         r = kern[kname]
+        counts = (train_counts if kname.startswith(("pyramid", "upsample"))
+                  else main_counts)
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": main_counts[kname],
+            "replaces": replaces, "launches": counts[kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+        if kernels[-1]["launches"] < 1:
+            raise AssertionError(f"{kname}: no launch on its main path")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)
@@ -466,7 +1080,7 @@ def main(argv=None) -> int:
             json.dump({"nvidia_smi": smi, "device": name,
                        "torch": torch.__version__, "cuda": torch.version.cuda,
                        "build_s": build_s, "kernels": kern, "path": path,
-                       "demo": demo_res}, f, indent=1)
+                       "demo": demo_res, "train": train}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

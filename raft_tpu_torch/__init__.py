@@ -1,8 +1,11 @@
-"""RAFT inference in PyTorch with hand-written CUDA kernels for Hopper.
+"""RAFT inference and training in PyTorch with hand-written CUDA kernels
+for Hopper.
 
 The PyTorch port of the JAX package ``raft_tpu``; it imports neither JAX
 nor ``raft_tpu``.  Entry points: :func:`raft_tpu_torch.evaluate.
-make_eval_fn` and ``python -m raft_tpu_torch.cli.demo``.
+make_eval_fn`, ``python -m raft_tpu_torch.cli.demo``,
+:func:`raft_tpu_torch.train.step.make_train_step` and
+:func:`raft_tpu_torch.train.loop.train`.
 """
 
 from raft_tpu_torch.config import RAFTConfig

@@ -77,6 +77,7 @@ def make_eval_fn(model_cfg: RAFTConfig, iters: int,
             if flow_init is not None:
                 flow_init = torch.as_tensor(flow_init, dtype=torch.float32,
                                             device=dev)
-            return model(image1, image2, iters=iters, flow_init=flow_init)
+            return model(image1, image2, iters=iters, flow_init=flow_init,
+                         test_mode=True)
 
     return eval_fn

@@ -1,21 +1,27 @@
 """Feature / context encoder (the port of
 ``raft_tpu/models/extractor.py:31-87``, unfolded path): 7x7/s2 stem ->
-residual stages 64, 96/s2, 128/s2 -> 1x1 projection, 1/8 resolution."""
+residual stages 64, 96/s2, 128/s2 -> 1x1 projection, 1/8 resolution,
+then channel-wise dropout in train mode when ``dropout > 0``."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
-from raft_tpu_torch.models.layers import Conv, Norm, ResidualBlock
+from raft_tpu_torch.models.layers import (Conv, Norm, ResidualBlock,
+                                         channel_dropout)
 
 
 class BasicEncoder(nn.Module):
     """``(B, 3, H, W)`` -> ``(B, output_dim, H/8, W/8)``, in the input's
     dtype."""
 
-    def __init__(self, output_dim: int = 128, norm: str = "batch"):
+    def __init__(self, output_dim: int = 128, norm: str = "batch",
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.conv1 = Conv(3, 64, 7, 2, "kaiming_out")
         self.norm1 = Norm(norm, 64)
         cin = 64
@@ -26,9 +32,16 @@ class BasicEncoder(nn.Module):
             cin = planes
         self.conv2 = Conv(128, output_dim, 1, 1, "kaiming_out")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.norm1(self.conv1(x)))
+    def forward(self, x: torch.Tensor, freeze_bn: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = torch.relu(self.norm1(self.conv1(x), freeze_bn))
         for name in ("layer1_0", "layer1_1", "layer2_0", "layer2_1",
                      "layer3_0", "layer3_1"):
-            x = getattr(self, name)(x)
-        return self.conv2(x)
+            x = getattr(self, name)(x, freeze_bn)
+        x = self.conv2(x)
+        if self.training and self.dropout > 0:
+            if generator is None:
+                raise ValueError("dropout in train mode needs an explicit "
+                                 "torch.Generator")
+            x = channel_dropout(x, self.dropout, generator)
+        return x

@@ -7,6 +7,10 @@ in fp32 and return the input's dtype.  The JAX package's ``Folded*``
 classes are a TPU lane-packing layout of the same math and parameters and
 have no counterpart here.
 
+Train mode (``module.train()``) switches batch norm to batch statistics
+unless the caller passes ``freeze_bn``, as the JAX modules' ``train`` and
+``freeze_bn`` arguments do.
+
 Initialization is explicit: :meth:`Conv.init_` and :meth:`Norm.init_`
 draw from a ``torch.Generator`` on the CPU, so one seed gives the same
 weights on every device.
@@ -63,11 +67,19 @@ class Conv(nn.Module):
 
 
 class Norm(nn.Module):
-    """The encoders' norm modes, with inference statistics (eps 1e-5):
+    """The encoders' norm modes (eps 1e-5):
 
-    - 'batch': BatchNorm with stored running statistics;
+    - 'batch': BatchNorm with flax semantics.  In train mode (and not
+      ``freeze_bn``) it normalizes with the batch statistics and moves the
+      running ones with momentum 0.9 (torch's 0.1), the *biased* batch
+      variance in both places (``F.batch_norm(training=True)`` would put
+      the unbiased one into ``running_var``); otherwise it uses the
+      running statistics;
     - 'instance': per-sample, per-channel spatial norm, no affine;
     - 'none': identity.
+
+    Statistics and normalization are fp32; the result has the input's
+    dtype.
     """
 
     def __init__(self, kind: str, channels: int):
@@ -89,16 +101,41 @@ class Norm(nn.Module):
                 self.running_mean.zero_()
                 self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, freeze_bn: bool = False
+                ) -> torch.Tensor:
         if self.kind == "none":
             return x
         if self.kind == "instance":
             y = F.instance_norm(x.float(), eps=1e-5)
+        elif self.training and not freeze_bn:
+            xf = x.float()
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
+            scale = torch.rsqrt(var + 1e-5) * self.weight
+            y = (xf - mean[:, None, None]) * scale[:, None, None] \
+                + self.bias[:, None, None]
         else:
             y = F.batch_norm(x.float(), self.running_mean, self.running_var,
                              self.weight, self.bias, training=False,
                              eps=1e-5)
         return y.to(x.dtype)
+
+
+def channel_dropout(x: torch.Tensor, rate: float,
+                    generator: torch.Generator) -> torch.Tensor:
+    """Channel-wise dropout of ``(B, C, H, W)`` (flax ``Dropout`` with
+    ``broadcast_dims=(1, 2)`` on NHWC): each (sample, channel) is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``.  The draw
+    comes from ``generator``, which must live on ``x``'s device."""
+    if rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
+                      device=x.device) < 1.0 - rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
 
 
 class ResidualBlock(nn.Module):
@@ -116,9 +153,10 @@ class ResidualBlock(nn.Module):
             self.downsample_conv = Conv(cin, planes, 1, stride, "kaiming_out")
             self.norm3 = Norm(norm, planes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.norm1(self.conv1(x)))
-        y = torch.relu(self.norm2(self.conv2(y)))
+    def forward(self, x: torch.Tensor, freeze_bn: bool = False
+                ) -> torch.Tensor:
+        y = torch.relu(self.norm1(self.conv1(x), freeze_bn))
+        y = torch.relu(self.norm2(self.conv2(y), freeze_bn))
         if self.stride != 1:
-            x = self.norm3(self.downsample_conv(x))
+            x = self.norm3(self.downsample_conv(x), freeze_bn)
         return torch.relu(x + y)

@@ -1,2 +1,3 @@
 """Tensor ops of the port: plain PyTorch versions and CUDA kernel
-wrappers (``corr_kernels``, ``gru_gates``; built by ``build``)."""
+wrappers (``corr_kernels``, ``gru_gates``, ``pyramid_kernels``,
+``upsample_loss``; built by ``build``)."""

@@ -24,7 +24,7 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raft_tpu_torch"
-SOURCES = ("corr_ondemand", "gru_gates")
+SOURCES = ("corr_ondemand", "gru_gates", "pyramid_lookup", "upsample_loss")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -100,18 +100,24 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_launchable(name: str, *tensors) -> None:
-    """Refuse what no kernel of this slice takes: a tensor off the card,
-    or an input that wants a gradient (the kernels are forward only; the
-    backward kernels come with the training slice)."""
+def check_device(name: str, *tensors) -> None:
+    """Refuse a tensor off the card: the kernels run only there."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected CUDA tensors, got one on "
                              f"{t.device}")
+
+
+def check_launchable(name: str, *tensors) -> None:
+    """Refuse what a forward-only kernel does not take: a tensor off the
+    card, or an input that wants a gradient (the backward kernels of the
+    on-demand lookup and the GRU gates come with slice 3 of the port)."""
+    check_device(name, *tensors)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name} is forward only: its backward kernel belongs to the "
-            "training slice of the port; run under torch.no_grad() or "
+            f"{name} is forward only: its backward kernel belongs to slice 3 "
+            "of the port (the training slice of --alternate_corr and "
+            "fused_gru); run under torch.no_grad() or "
             "torch.inference_mode()")
 
 

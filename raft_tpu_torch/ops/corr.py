@@ -15,6 +15,20 @@ Window sampling is written as two dense 1-D interpolation-weight
 products, as in the JAX package; the semantics are those of
 ``grid_sample(align_corners=True, padding_mode='zeros')``.
 
+Pyramid layout.  The materialized pyramid is query-major, level l being
+``(B, N, H/2^l, W/2^l)`` with ``N = H*W`` queries, for both ``'allpairs'``
+and ``'allpairs_pallas'``: the two configurations share one pyramid build
+and differ only in the lookup.  On the GPU each query's correlation row is
+then contiguous, so the lookup kernel reads each window as a few short
+runs and its backward writes each query's dense ``dcorr`` row coalesced,
+without atomics and without query padding.  The JAX package's
+``build_corr_pyramid_flat`` stores the same values query-minor,
+``(B, Hl, Wl, Npad)`` with N padded to a multiple of 128, because the TPU
+wants queries in its 128 lanes; ``level.permute(0, 3, 1, 2)[:, :N]`` of
+that layout is this one.  Levels are stored in ``out_dtype`` (the
+config's ``corr_dtype``); the volume and its pooling are computed in fp32
+and the lookups accumulate in fp32.
+
 Tap-order contract: the output channel is ``l * k^2 + i * k + j`` with
 ``k = 2r+1``, where ``i`` walks x (displacement ``i - r``) and ``j`` walks
 y.  Public functions take and return the JAX layout: NHWC feature maps,
@@ -49,13 +63,16 @@ def _avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 
 
 def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
-                       num_levels: int = 4) -> List[torch.Tensor]:
-    """Materialized pyramid: level l is ``(B, H1*W1, H/2^l, W/2^l)`` fp32."""
+                       num_levels: int = 4,
+                       out_dtype: torch.dtype = torch.float32
+                       ) -> List[torch.Tensor]:
+    """Materialized pyramid: level l is ``(B, H1*W1, H/2^l, W/2^l)``,
+    pooled in fp32 and stored in ``out_dtype`` (fp32 or bf16)."""
     corr = all_pairs_correlation(fmap1, fmap2)
-    pyramid = [corr]
+    pyramid = [corr.to(out_dtype)]
     for _ in range(num_levels - 1):
         corr = _avg_pool_2x2(corr)
-        pyramid.append(corr)
+        pyramid.append(corr.to(out_dtype))
     return pyramid
 
 

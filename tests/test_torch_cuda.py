@@ -14,8 +14,12 @@ import torch
 from raft_tpu_torch.config import RAFTConfig
 from raft_tpu_torch.evaluate import make_eval_fn
 from raft_tpu_torch.models.raft import RAFT
-from raft_tpu_torch.ops import corr_kernels, gru_gates
+from raft_tpu_torch.ops import corr as corr_ops
+from raft_tpu_torch.ops import (corr_kernels, gru_gates, pyramid_kernels,
+                                upsample_loss)
 from raft_tpu_torch.ops.corr import chunked_corr_lookup, pool_fmap_pyramid
+from raft_tpu_torch.ops.upsample import (convex_upsample_flat_nchw,
+                                         depth_to_space_flow)
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +111,209 @@ def test_model_kernel_path_counts_and_matches_plain(dev):
     assert gru_gates.LAUNCHES == {"gru_gate_rh": 6, "gru_gate_blend": 6}
     _, up_p = plain(sd, i1, i2)
     assert float((up_k - up_p).abs().max()) <= 1e-3
+
+
+def _bf16_close(got, want, fp32_tol):
+    """Within one bf16 ulp of the plain value plus the fp32 bound."""
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool((diff <= ulp + fp32_tol).all())
+
+
+def _pyramid_case(seed, dev, dtype):
+    g = torch.Generator().manual_seed(seed)
+    B, H, W, C = 2, 7, 13, 64                  # level 3 pools to 0 x 1
+    f1, f2 = (torch.randn(B, H, W, C, generator=g) for _ in range(2))
+    ys, xs = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    coords = torch.stack([xs, ys], -1).float()[None].repeat(B, 1, 1, 1)
+    coords += torch.rand(B, H, W, 2, generator=g) * 8 - 4
+    coords[0, 0, 0] = torch.tensor([1e6, -2.5])
+    coords[1, 2, 3] = torch.tensor([5.0, 3.0])          # integer center
+    coords[-1, -1, -1] = torch.tensor([-7.25, float(H) - 0.5])
+    pyr = corr_ops.build_corr_pyramid(f1.to(dev), f2.to(dev), 4, dtype)
+    return [lv.requires_grad_(True) for lv in pyr], coords.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nchw", [False, True])
+def test_pyramid_lookup_kernels_match_plain(dev, dtype, nchw):
+    pyr, coords = _pyramid_case(3, dev, dtype)
+    assert pyr[-1].numel() == 0
+    lookup = (pyramid_kernels.pyramid_lookup_nchw if nchw
+              else pyramid_kernels.pyramid_lookup)
+    before = dict(pyramid_kernels.LAUNCHES)
+    got = lookup(pyr, coords, 4, dtype)
+    want = pyramid_kernels.pyramid_lookup_plain(pyr, coords, 4, dtype)
+    if nchw:
+        want = want.permute(0, 3, 1, 2)
+    g = torch.randn(got.shape, generator=torch.Generator().manual_seed(4)
+                    ).to(dev)
+    dgot = torch.autograd.grad(got, pyr, g.to(got.dtype))
+    dwant = torch.autograd.grad(want, pyr, g.to(want.dtype))
+    torch.cuda.synchronize()
+    assert pyramid_kernels.LAUNCHES == {
+        "pyramid_lookup_fwd": before["pyramid_lookup_fwd"] + 1,
+        "pyramid_lookup_bwd": before["pyramid_lookup_bwd"] + 1}
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 1e-4 * float(want.detach().float().abs().max()) + 1e-5
+    for a, b in [(got.detach(), want.detach())] + list(zip(dgot, dwant)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if not a.numel():                        # the empty level
+            continue
+        if dtype == torch.float32:
+            assert float((a - b).abs().max()) <= tol
+        else:
+            assert _bf16_close(a, b, tol)
+    assert float(got.float().abs().max()) > 0
+    k2 = 81
+    taps = got if not nchw else got.permute(0, 2, 3, 1)
+    assert torch.all(taps[..., 3 * k2:] == 0) and torch.all(taps[0, 0, 0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample_loss_kernels_match_plain(dev, dtype):
+    g = torch.Generator().manual_seed(5)
+    B, G, H, W = 2, 3, 5, 9
+    # Residuals are kept at least 0.5 from 0 (|8 * flow| <= 8, |gt| >= 8.5)
+    # except where both are exactly 0: two fp32 orders of one sum may give
+    # a near-zero residual opposite signs, and the |.| subgradient with it.
+    flow = (torch.rand(G * B, H, W, 2, generator=g) * 2 - 1).to(dev)
+    mask = torch.randn(G * B, 576, H, W, generator=g).to(dev, dtype)
+    gt = (torch.rand(B, 8 * H, 8 * W, 2, generator=g) * 15.5 + 8.5) * (
+        torch.randint(0, 2, (B, 8 * H, 8 * W, 2), generator=g) * 2 - 1)
+    gt = gt.to(dev)
+    gt[0, :8] = 0.0
+    flow[0::B] = 0.0                            # exact-zero residuals
+    vm = (torch.rand(B, 8 * H, 8 * W, generator=g) > 0.2).float().to(dev)
+    w = torch.rand(G * B, 5, generator=g).to(dev)
+
+    def both(flow, gt):
+        outs = []
+        for fn in (upsample_loss.upsample_loss_sums,
+                   upsample_loss.upsample_loss_sums_plain):
+            f = flow.clone().requires_grad_(True)
+            m = mask[:flow.shape[0]].clone().requires_grad_(True)
+            sums = fn(f, m, gt, vm)
+            (sums * w[:flow.shape[0]]).sum().backward()
+            outs.append((sums.detach(), f.grad, m.grad))
+        torch.cuda.synchronize()
+        (sk, *gk), (sp, *gp) = outs
+        # each sum column on its own scale: the pixel counts are not held
+        # to the L1 column's tolerance
+        tols = 1e-4 * sp.abs().amax(dim=0) + 1e-5
+        assert bool(((sk - sp).abs().amax(dim=0) <= tols).all())
+        for a, b in zip(gk, gp):
+            tol = 1e-4 * float(b.float().abs().max()) + 1e-5
+            if a.dtype == torch.bfloat16:
+                assert _bf16_close(a, b, tol)
+            else:
+                assert float((a - b).abs().max()) <= tol
+        assert gk[1].dtype == dtype
+        return sp
+
+    both(flow, gt)
+    # residuals spanning the 1/3/5 px thresholds: one iteration, ground
+    # truth = the plain upsampled flow + offsets whose end-point error is
+    # U(0.75, 7) px (>= 1e-3 from a threshold) with both components >= 0.5
+    # px from 0
+    shape = (B, 8 * H, 8 * W)
+    r = torch.rand(shape, generator=g) * 6.25 + 0.75
+    near = torch.stack([(r - t).abs() for t in (1.0, 3.0, 5.0)]).amin(0)
+    r = torch.where(near < 1e-3, r * 1.01, r)
+    lo, hi = torch.asin(0.5 / r), torch.acos(0.5 / r)
+    theta = lo + torch.rand(shape, generator=g) * (hi - lo)
+    off = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], -1) * (
+        torch.randint(0, 2, shape + (2,), generator=g) * 2 - 1)
+    f1 = flow[B:2 * B]
+    with torch.no_grad():
+        up = convex_upsample_flat_nchw(f1.permute(0, 3, 1, 2), mask[:B])
+        gt_s = (depth_to_space_flow(up.permute(0, 2, 3, 1)) + off.to(dev)
+                ).contiguous()
+    counts = both(f1.contiguous(), gt_s)[:, 2:].sum(dim=0).tolist()
+    assert 0 < counts[0] < counts[1] < counts[2] < float(vm.sum())
+
+
+def _train_step_both(dev, dtype):
+    """One train step of the kernel and the plain configuration from the
+    same weights, the clip out of reach: metrics, launch counts and the
+    unclipped gradients the optimizer saw."""
+    from raft_tpu_torch.config import TrainConfig
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    rng = np.random.default_rng(6)
+    B, H, W = 2, 48, 64
+    batch = {"image1": rng.uniform(0, 255, (B, H, W, 3)).astype(np.float32),
+             "image2": rng.uniform(0, 255, (B, H, W, 3)).astype(np.float32),
+             "flow": rng.standard_normal((B, H, W, 2)).astype(np.float32),
+             "valid": np.ones((B, H, W), np.float32)}
+    cfg = TrainConfig(lr=1e-4, num_steps=10, batch_size=B,
+                      image_size=(H, W), iters=3, clip=1e9)
+    sd = RAFT(RAFTConfig.full()).state_dict()
+    out = {}
+    for name, kw in (("kernel", dict(corr_impl="allpairs_pallas",
+                                     upsample_loss_kernel="pallas")),
+                     ("plain", {})):
+        state = init_state(RAFTConfig.full(compute_dtype=dtype, **kw), cfg,
+                           device=dev, state_dict=sd)
+        grads = {}
+        opt_step = state.optimizer.step
+
+        def hooked(*a, _grads=grads, _model=state.model, _step=opt_step,
+                   **k):
+            _grads.update({n: p.grad.detach().clone()
+                           for n, p in _model.named_parameters()})
+            return _step(*a, **k)
+
+        state.optimizer.step = hooked
+        for d in (pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES):
+            for key in d:
+                d[key] = 0
+        state, met = make_train_step(cfg, device=dev)(state, batch)
+        out[name] = (met, dict(pyramid_kernels.LAUNCHES),
+                     dict(upsample_loss.LAUNCHES), grads)
+    return out["kernel"], out["plain"]
+
+
+def _grad_bounds(gp):
+    """The model's largest gradient entry and global gradient norm: the
+    floors' scale.  A conv bias that a normalization follows has a zero
+    gradient in exact arithmetic and rounding noise in practice, which no
+    relative bound on the bias alone can hold."""
+    gmax = max(float(g.abs().max()) for g in gp.values())
+    gnorm = float(torch.sqrt(sum(g.double().square().sum()
+                                 for g in gp.values())))
+    return gmax, gnorm
+
+
+def test_train_step_kernel_config_counts_and_matches_plain(dev):
+    """fp32: metrics within 1e-4 relative, and each parameter's gradient
+    within 1e-3 of its largest entry plus 1e-6 of the model's."""
+    (mk, pk, uk, gk), (mp, pp, up, gp) = _train_step_both(dev, "float32")
+    assert pk == {"pyramid_lookup_fwd": 3, "pyramid_lookup_bwd": 3}
+    assert uk == {"upsample_loss_fwd": 1, "upsample_loss_bwd": 1}
+    assert set(pp.values()) == set(up.values()) == {0}
+    for k in ("loss", "epe", "grad_norm"):
+        assert abs(float(mk[k]) - float(mp[k])) <= 1e-4 * abs(float(mp[k]))
+    assert set(gk) == set(gp) and gp
+    gmax, _ = _grad_bounds(gp)
+    for n, g in gp.items():
+        assert float((gk[n] - g).abs().max()) <= (
+            1e-3 * float(g.abs().max()) + 1e-6 * gmax), n
+
+
+def test_train_step_kernel_config_matches_plain_bf16(dev):
+    """bf16: the plain chain upsamples in bf16 and the kernel in fp32, so
+    they differ by bf16 rounding: the loss within 2e-3 relative, each
+    parameter's gradient within 0.1 of its norm plus 2e-4 of the model's
+    global gradient norm (the bounds of chip_smoke.py's chairs check)."""
+    (mk, pk, uk, gk), (mp, _, _, gp) = _train_step_both(dev, "bfloat16")
+    assert pk == {"pyramid_lookup_fwd": 3, "pyramid_lookup_bwd": 3}
+    assert uk == {"upsample_loss_fwd": 1, "upsample_loss_bwd": 1}
+    assert abs(float(mk["loss"]) - float(mp["loss"])) <= 2e-3 * abs(
+        float(mp["loss"]))
+    assert set(gk) == set(gp) and gp
+    _, gnorm = _grad_bounds(gp)
+    for n, g in gp.items():
+        assert float((gk[n] - g).norm()) <= (0.1 * float(g.norm())
+                                             + 2e-4 * gnorm), n

@@ -10,11 +10,14 @@ from pathlib import Path
 import pytest
 import torch
 
-from raft_tpu_torch.config import RAFTConfig
+from raft_tpu_torch.config import RAFTConfig, TrainConfig
 from raft_tpu_torch.evaluate import make_eval_fn, make_inference_model
 from raft_tpu_torch.models.raft import RAFT
-from raft_tpu_torch.ops import build, corr_kernels, gru_gates
+from raft_tpu_torch.ops import (build, corr_kernels, gru_gates,
+                                pyramid_kernels, upsample_loss)
 from raft_tpu_torch.ops.corr import pool_fmap_pyramid
+from raft_tpu_torch.train.loop import train
+from raft_tpu_torch.train.step import init_state, make_train_step
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "raft_tpu_torch"
@@ -40,11 +43,16 @@ def test_import_loads_no_jax_and_no_raft_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "raft_tpu_torch.cli.demo" in MODULES
+    assert {"raft_tpu_torch.train.step", "raft_tpu_torch.train.loop",
+            "raft_tpu_torch.ops.pyramid_kernels",
+            "raft_tpu_torch.ops.upsample_loss"} <= set(MODULES)
 
 
 def test_no_source_imports_jax_or_raft_tpu():
     found = []
-    for path in PKG.rglob("*.py"):
+    paths = list(PKG.rglob("*.py"))
+    assert PKG / "train" / "step.py" in paths
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -62,20 +70,40 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         make_eval_fn(RAFTConfig.full(), 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_inference_model(RAFTConfig.full())
+    cfg = TrainConfig(num_steps=1, batch_size=1, iters=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_state(RAFTConfig.full(), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(RAFTConfig.full(), cfg, iter([]))
     assert make_eval_fn(RAFTConfig.full(), 2, device="cpu") is not None
+    assert make_train_step(cfg, device="cpu") is not None
 
 
 def test_unported_paths_name_their_slice():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        RAFT(RAFTConfig.full(corr_impl="allpairs_pallas"))
+    img = torch.zeros(1, 16, 16, 3)
+    for kw in ({"corr_impl": "pallas"}, {"fused_gru": True}):
+        model = RAFT(RAFTConfig.full(**kw))   # nn.Module starts in train
+        with pytest.raises(NotImplementedError, match="slice 3"):
+            model(img, img, iters=1)
+        with torch.no_grad():                 # inference stays open
+            lo, _ = model.eval()(img, img, iters=1, test_mode=True)
+        assert lo.shape == (1, 2, 2, 2)
+    for name in ("int8", "float8_e4m3fn", "float8_e5m2"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            RAFT(RAFTConfig.full(corr_dtype=name))
     with pytest.raises(NotImplementedError, match="later slice"):
         RAFT(RAFTConfig.small_model())
     with pytest.raises(ValueError, match="corr_impl"):
         RAFTConfig.full(corr_impl="nope")
-    model = RAFT(RAFTConfig.full())           # nn.Module starts in train
-    img = torch.zeros(1, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(img, img, iters=1)
+    with pytest.raises(ValueError, match="upsample_loss_kernel"):
+        RAFTConfig.full(upsample_loss_kernel="triton")
+    # the training slice's own configuration runs in train mode
+    model = RAFT(RAFTConfig.full(corr_impl="allpairs_pallas",
+                                 upsample_loss_kernel="pallas"))
+    flows = model(img, img, iters=2)
+    assert flows.shape == (2, 1, 16, 16, 2) and flows.requires_grad
     with torch.device("meta"):               # shapes only, no init
         assert RAFT(RAFTConfig.full()).fnet.conv1.weight.is_meta
 
@@ -83,7 +111,9 @@ def test_unported_paths_name_their_slice():
 def test_kernel_wrappers_refuse_meta_tensors():
     """A tensor that is not on the CPU goes to the kernel or raises; it
     never takes the plain version."""
-    before = (dict(corr_kernels.LAUNCHES), dict(gru_gates.LAUNCHES))
+    counters = (corr_kernels.LAUNCHES, gru_gates.LAUNCHES,
+                pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES)
+    before = [dict(c) for c in counters]
     f1 = torch.empty(1, 6, 8, 32, device="meta")
     f2 = pool_fmap_pyramid(torch.empty(1, 6, 8, 32, device="meta"), 4)
     coords = torch.empty(1, 6, 8, 2, device="meta")
@@ -96,23 +126,46 @@ def test_kernel_wrappers_refuse_meta_tensors():
         gru_gates.gru_gate_rh(h, h)
     with pytest.raises(ValueError, match="CUDA"):
         gru_gates.gru_gate_blend(h, h, h)
-    assert (corr_kernels.LAUNCHES, gru_gates.LAUNCHES) == before
+    pyr = [torch.empty(1, 48, 6 >> i, 8 >> i, device="meta")
+           for i in range(4)]
+    with pytest.raises(ValueError, match="CUDA"):
+        pyramid_kernels.pyramid_lookup(pyr, coords, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        pyramid_kernels.pyramid_lookup_nchw(pyr, coords, 4)
+    flow = torch.empty(2, 6, 8, 2, device="meta")
+    mask = torch.empty(2, 576, 6, 8, device="meta")
+    gt = torch.empty(1, 48, 64, 2, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        upsample_loss.upsample_loss_sums(flow, mask, gt, gt[..., 0])
+    assert [dict(c) for c in counters] == before
 
 
 def test_counters_stay_zero_on_cpu_forward():
-    before = (dict(corr_kernels.LAUNCHES), dict(gru_gates.LAUNCHES))
+    counters = (corr_kernels.LAUNCHES, gru_gates.LAUNCHES,
+                pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES)
+    before = [dict(c) for c in counters]
     eval_fn = make_eval_fn(RAFTConfig.full(corr_impl="pallas",
                                            fused_gru=True), 2, device="cpu")
     img = torch.rand(1, 32, 48, 3) * 255
     lo, up = eval_fn(RAFT(RAFTConfig.full()).state_dict(), img, img)
     assert lo.shape == (1, 4, 6, 2) and up.shape == (1, 32, 48, 2)
     assert torch.isfinite(up).all()
-    assert (corr_kernels.LAUNCHES, gru_gates.LAUNCHES) == before
+    cfg = TrainConfig(num_steps=1, batch_size=1, iters=2)
+    state = init_state(RAFTConfig.full(corr_impl="allpairs_pallas",
+                                       upsample_loss_kernel="pallas"), cfg,
+                       device="cpu")
+    batch = {"image1": img.numpy(), "image2": img.numpy(),
+             "flow": torch.zeros(1, 32, 48, 2).numpy(),
+             "valid": torch.ones(1, 32, 48).numpy()}
+    state, met = make_train_step(cfg, device="cpu")(state, batch)
+    assert state.step == 1 and torch.isfinite(met["loss"])
+    assert [dict(c) for c in counters] == before
 
 
 def test_build_names_sources_and_needs_nvcc(monkeypatch, tmp_path):
     paths = {n: build.library_path(n) for n in build.SOURCES}
-    assert set(paths) == {"corr_ondemand", "gru_gates"}
+    assert set(paths) == {"corr_ondemand", "gru_gates", "pyramid_lookup",
+                          "upsample_loss"}
     for name, p in paths.items():
         assert (build.CSRC_DIR / f"{name}.cu").is_file()
         assert p.parent == REPO / "build" / "raft_tpu_torch"

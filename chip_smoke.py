@@ -22,6 +22,13 @@ Phases, each raising on failure (so the script exits nonzero):
      and the upsample-loss sums (each column on its own scale), dflow
      and dmask with an fp32 and a bf16 mask, plus a one-iteration case
      whose residuals span the 1/3/5 px thresholds;
+   - backward kernels of the on-demand configuration at the chairs
+     shapes: the GRU gate backward (8, 128, 46, 62) in fp32 and bf16
+     (z/r channel halves of one tensor, rh's gradient a channel slice),
+     the on-demand lookup backward with an NHWC and an NCHW tap
+     gradient, and once more at B = 1 with a 136x240 feature grid
+     (1088x1920 input), where the JAX package moves level 0 onto its
+     blocked backward pair;
 4. path: ``make_eval_fn`` with the kernel configuration (on-demand
    correlation kernel + fused GRU gates) against the plain configuration
    on the same seeded weights, then the 32-iteration Sintel forward in
@@ -29,16 +36,20 @@ Phases, each raising on failure (so the script exits nonzero):
    configuration (ms/pair, device busy time, peak memory) with launch
    counts;
 5. demo: the demo CLI on ``demo-frames`` with ``--alternate_corr``;
-6. train: ``make_train_step`` with the kernel configuration
-   (``allpairs_pallas`` + ``upsample_loss_kernel='pallas'``) against the
-   plain one (``allpairs`` + ``'xla'``) from the same seeded weights on
-   one synthetic FlyingChairs-shaped batch, TF32 off, in fp32 and bf16
-   (loss, metrics, every parameter's unclipped gradient); then the chairs
-   stage
-   (368x496, batch 8, 12 iterations, lr 2.5e-4) for both configurations
-   in fp32 and bf16: warm-up steps, 10 timed steps each (ms/step,
-   pairs/s, peak memory, device busy time, idle share) with exact launch
-   counts per step;
+6. train: ``make_train_step`` with each kernel configuration against
+   its plain one from the same seeded weights on one synthetic
+   FlyingChairs-shaped batch, TF32 off, in fp32 and bf16 (loss, metrics,
+   every parameter's unclipped gradient): ``allpairs_pallas`` +
+   ``upsample_loss_kernel='pallas'`` against ``allpairs`` + ``'xla'``,
+   and the on-demand configuration (``corr_impl='pallas'`` +
+   ``fused_gru`` + ``'pallas'``) against ``chunked`` + unfused gates +
+   ``'xla'``; then the chairs stage (368x496, batch 8, 12 iterations, lr
+   2.5e-4) for the three configurations in fp32 and bf16: warm-up steps,
+   10 timed steps for the on-demand configuration and 5 for the two of
+   the earlier slice (ms/step, pairs/s, peak memory, device busy time,
+   idle share) with exact launch counts per step; then the peak memory
+   of a bf16 step at the things stage (400x720, batch 5, 12 iterations)
+   for the on-demand and the ``allpairs_pallas`` configurations;
 7. report: one JSON line ``{"kernels": [...]}``, the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -120,8 +131,8 @@ def _profile(fn, reps: int = 2) -> dict:
     activity only): ``busy_ms`` per call is the union of the device
     intervals (kernels, copies and sets never counted twice), ``wall_ms``
     per call the host clock over the same window, ``idle_share`` the
-    rest, and ``by_kind`` the summed kernel time per call by kind (the
-    port's four training kernels, cuDNN/cuBLAS convolutions and matrix
+    rest, and ``by_kind`` the summed kernel time per call by kind (each
+    of the port's kernels, cuDNN/cuBLAS convolutions and matrix
     products, everything else).  Busy is None when the profiler reports
     no device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -141,7 +152,8 @@ def _profile(fn, reps: int = 2) -> dict:
             continue
         spans.append((tr.start, tr.end))
         name = e.name
-        if "pyr_" in name or "ul_" in name[:12]:
+        if (any(t in name for t in ("pyr_", "corr_ondemand", "rh_",
+                                    "blend_")) or "ul_" in name[:12]):
             kind = name.split("<")[0].split("(")[0].replace("void ", "")
         elif any(t in name.lower() for t in ("conv", "gemm", "cudnn", "xmma",
                                               "cutlass", "sm90_", "wgrad",
@@ -326,7 +338,9 @@ def phase_kernels(peaks):
                         ulp = torch.exp2(torch.floor(torch.log2(w32)) - 7)
                         ok = bool((diff <= ulp + 1e-6).all())
                         tol = "1 bf16 ulp + 1e-6"
-                    tk, tp = _timed(kern, kname), _timed(plain, None)
+                    # batch 2 checks the batch strides; batch 1 is timed
+                    tk, tp = ((_timed(kern, kname), _timed(plain, None))
+                              if B == 1 else ({"ms": None}, {"ms": None}))
                     ms, plain_ms = tk["ms"], tp["ms"]
                     esize = got.element_size()
                     nbytes = (n_in + 1) * got.numel() * esize
@@ -645,6 +659,141 @@ def phase_train_kernels(peaks):
     return results
 
 
+def _corr_bwd_case(rng, B, h, w, label, peaks, time_plain=True):
+    """The on-demand lookup backward kernel against its plain version on
+    one input (centers = grid + U(-20, 20) px, 2% far off), with an NHWC
+    and an NCHW tap gradient; the kernel's and the plain version's time
+    and the bound from this run's centers.  df2 comes from atomic adds
+    whose order varies between runs: held to the tolerance, never
+    compared bit for bit."""
+    from raft_tpu_torch.ops.corr import pool_fmap_pyramid
+    from raft_tpu_torch.ops.corr_kernels import (
+        corr_lookup_ondemand, corr_lookup_ondemand_bwd_plain,
+        corr_lookup_ondemand_nchw)
+
+    dev = torch.device("cuda")
+    k = 2 * R + 1
+    P = LEVELS * k * k
+    f1, f2, coords = _corr_inputs(rng, B, h, w, dev)
+    f1.requires_grad_(True)
+    pyr = [lv.contiguous().requires_grad_(True)
+           for lv in pool_fmap_pyramid(f2, LEVELS)]
+    g = torch.from_numpy(rng.standard_normal((B, h, w, P)).astype(
+        np.float32)).to(dev)
+    leaves = [f1, *pyr]
+    want = corr_lookup_ondemand_bwd_plain(f1, pyr, coords, R, g)
+    want = [want[0], *want[1]]
+    err = 0.0
+    outs = {}
+    for layout, fn, cot in (
+            ("nhwc", corr_lookup_ondemand, g),
+            ("nchw", corr_lookup_ondemand_nchw, g.permute(0, 3, 1, 2))):
+        out = fn(f1, pyr, coords, R)
+        got = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+        for i, (a, b) in enumerate(zip(got, want)):
+            err = max(err, _check(f"corr_ondemand_bwd {label} {layout} "
+                                  f"{'df1' if i == 0 else f'df2 level {i - 1}'}"
+                                  f" {tuple(a.shape)}", a, b))
+        outs[layout] = (out, cot)
+    del got
+    out, cot = outs["nchw"]
+    tk = _timed(lambda: torch.autograd.grad(out, leaves, cot,
+                                            retain_graph=True),
+                "corr_ondemand_bwd_kernel", reps=10)
+    tp = (_timed(lambda: corr_lookup_ondemand_bwd_plain(f1, pyr, coords, R,
+                                                        g), None, reps=3)
+          if time_plain else {"ms": None})
+    shapes = [tuple(p.shape[1:3]) for p in pyr]
+    win = _window_elems(coords.cpu().numpy(), shapes, k)
+    lvl = sum(p.numel() for p in pyr)
+    nbytes = 4 * (2 * f1.numel() + coords.numel() + g.numel() + 2 * lvl)
+    ops = 4.0 * C * win + 8.0 * B * h * w * P
+    bound, by = _bound_ms(nbytes, ops, peaks)
+    print(f"[kernels] corr_ondemand_bwd {label} {tuple(f1.shape)} levels "
+          f"{shapes}: kernel {tk}, plain {tp}, bound {bound:.4f} ms ({by}; "
+          f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)", flush=True)
+    res = dict(max_abs_err=err, ms=tk["ms"], plain_ms=tp["ms"],
+               library_ms=None, bound_ms=bound, bound_by=by, bytes=nbytes,
+               ops=ops, kernel_timing=tk, plain_timing=tp)
+    del outs, out, want, leaves, pyr, f1, f2
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_bwd_kernels(peaks):
+    """The backward kernels of the on-demand configuration against their
+    plain versions: the GRU gates and the lookup at the chairs shapes,
+    and the lookup at a 136x240 grid."""
+    from raft_tpu_torch.ops.gru_gates import (gru_gate_blend,
+                                              gru_gate_blend_bwd_plain,
+                                              gru_gate_rh,
+                                              gru_gate_rh_bwd_plain)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    results = {}
+    B = CHAIRS_B
+    h8, w8 = CHAIRS_HW[0] // 8, CHAIRS_HW[1] // 8
+
+    # --- GRU gates: z/r halves of one convzr output; rh's gradient a
+    # channel slice of the gradient of cat([rh, x]) (x: 256 channels) ---
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "fp32" if dtype == torch.float32 else "bf16"
+
+        def mk(c, scale=1.0):
+            return (torch.from_numpy(rng.standard_normal((B, c, h8, w8))
+                                     .astype(np.float32)) * scale).to(
+                dev, dtype)
+
+        zr, q, hh = mk(256, 3.0), mk(128, 3.0), mk(128)
+        g_cat, g_bl = mk(384), mk(128)
+        g_rh = g_cat[:, :128]
+        zr.requires_grad_(True)
+        q.requires_grad_(True)
+        hh.requires_grad_(True)
+        z, r = torch.split(zr, 128, dim=1)
+        rh, bl = gru_gate_rh(r, hh), gru_gate_blend(z, q, hh)
+        cases = {
+            "gru_gate_rh_bwd": (
+                rh, (zr, hh), g_rh, lambda d: [d[0][:, 128:], d[1]],
+                lambda: gru_gate_rh_bwd_plain(r, hh, g_rh), 5, 9,
+                "rh_bwd_kernel"),
+            "gru_gate_blend_bwd": (
+                bl, (zr, q, hh), g_bl, lambda d: [d[0][:, :128], d[1], d[2]],
+                lambda: gru_gate_blend_bwd_plain(z, q, hh, g_bl), 7, 19,
+                "blend_bwd_kernel")}
+        for name, (out, leaves, g, pick, plain, n_io, flops,
+                   kname) in cases.items():
+            got = pick(torch.autograd.grad(out, leaves, g, retain_graph=True))
+            want = plain()
+            err = max(_check(f"{name} {dt} {'d' + v} {tuple(a.shape)}", a, b)
+                      for v, a, b in zip("zqh" if len(got) == 3 else "rh",
+                                         got, want))
+            tk = _timed(lambda: torch.autograd.grad(out, leaves, g,
+                                                    retain_graph=True),
+                        kname)
+            tp = _timed(plain, None)
+            nbytes = n_io * g_bl.numel() * g_bl.element_size()
+            bound, by = _bound_ms(nbytes, flops * g_bl.numel(), peaks)
+            print(f"[kernels] {name} {dt} {tuple(g_bl.shape)}: kernel {tk}, "
+                  f"plain {tp}, bound {bound:.4f} ms ({by})", flush=True)
+            results[f"{name}/{dt}"] = dict(
+                max_abs_err=err, ms=tk["ms"], plain_ms=tp["ms"],
+                library_ms=None, bound_ms=bound, bound_by=by, bytes=nbytes,
+                kernel_timing=tk, plain_timing=tp)
+        del zr, q, hh, g_cat, g_bl, rh, bl, cases
+
+    # --- on-demand lookup backward: chairs, then 1088x1920 at B = 1 ---
+    results["corr_ondemand_bwd/fp32"] = _corr_bwd_case(
+        rng, B, h8, w8, "chairs", peaks)
+    results["corr_ondemand_bwd/1088x1920"] = _corr_bwd_case(
+        rng, 1, 1088 // 8, 1920 // 8, "1088x1920", peaks, time_plain=False)
+    for name in ("gru_gate_rh_bwd", "gru_gate_blend_bwd",
+                 "corr_ondemand_bwd"):
+        results[name] = results[f"{name}/fp32"]
+    return results
+
+
 def _frames(dev):
     """A Sintel-sized frame pair: a smooth seeded texture and the same
     texture shifted by (5, 2) px."""
@@ -691,13 +840,22 @@ def _expect_counts(iters_total: int, where: str):
                     "gru_gate_blend": 2 * iters_total}, where)
 
 
-def _expect_train_counts(steps: int, where: str):
-    """Per step: one lookup forward and one backward per iteration, one
-    upsample-loss forward and one backward (all iterations folded)."""
-    return _expect({"pyramid_lookup_fwd": CHAIRS_ITERS * steps,
-                    "pyramid_lookup_bwd": CHAIRS_ITERS * steps,
-                    "upsample_loss_fwd": steps,
-                    "upsample_loss_bwd": steps}, where)
+def _expect_train_counts(label: str, steps: int, where: str):
+    """Per step of a kernel configuration: one lookup forward and one
+    backward per iteration, one upsample-loss forward and one backward
+    (all iterations folded); with the on-demand lookup and fused gates,
+    also two passes of both gates, forward and backward, per iteration.
+    None for the plain configuration."""
+    it = CHAIRS_ITERS * steps
+    loss = {"upsample_loss_fwd": steps, "upsample_loss_bwd": steps}
+    return _expect({
+        "kernel": {"pyramid_lookup_fwd": it, "pyramid_lookup_bwd": it,
+                   **loss},
+        "ondemand": {"corr_ondemand": it, "corr_ondemand_bwd": it,
+                     "gru_gate_rh": 2 * it, "gru_gate_rh_bwd": 2 * it,
+                     "gru_gate_blend": 2 * it, "gru_gate_blend_bwd": 2 * it,
+                     **loss},
+        "plain": {}}[label], where)
 
 
 def phase_path():
@@ -886,27 +1044,37 @@ def _grad_agreement(gk: dict, gp: dict) -> dict:
                 leaf_param=wl, max_entry=gmax, global_norm=gnorm)
 
 
-def compare_train_step(sd, batch, cfg, dtype: str) -> dict:
-    """One train step of the kernel configuration and of the plain one from
-    the same weights on the same batch, with the clip out of reach so the
-    optimizer sees the unclipped gradients, which are captured there.
-    fp32: metrics within 1e-4 relative and every parameter's gradient
-    within the fp32 bounds above; bf16: the loss within ``BF16_LOSS_TOL``
-    relative and every gradient within the bf16 bounds."""
+# (kernel configuration, its plain configuration) of each training path
+KERNEL_CFG = dict(corr_impl="allpairs_pallas", upsample_loss_kernel="pallas")
+ONDEMAND_CFG = dict(corr_impl="pallas", fused_gru=True,
+                    upsample_loss_kernel="pallas")
+TRAIN_PAIRS = {"kernel": (KERNEL_CFG, {}),
+               "ondemand": (ONDEMAND_CFG,
+                            dict(corr_impl="chunked", fused_gru=False,
+                                 upsample_loss_kernel="xla"))}
+
+
+def compare_train_step(sd, batch, cfg, dtype: str, pair: str) -> dict:
+    """One train step of a kernel configuration and of its plain one
+    (``TRAIN_PAIRS[pair]``) from the same weights on the same batch, with
+    the clip out of reach so the optimizer sees the unclipped gradients,
+    which are captured there.  fp32: metrics within 1e-4 relative and
+    every parameter's gradient within the fp32 bounds above; bf16: the
+    loss within ``BF16_LOSS_TOL`` relative and every gradient within the
+    bf16 bounds."""
     from raft_tpu_torch.config import RAFTConfig
 
     cmp_cfg = dataclasses.replace(cfg, clip=1e9)
     (mk, gk), (mp, gp) = (
         _step_grads(sd, batch, cmp_cfg,
                     RAFTConfig.full(compute_dtype=dtype, **extra))
-        for extra in (dict(corr_impl="allpairs_pallas",
-                           upsample_loss_kernel="pallas"), {}))
+        for extra in TRAIN_PAIRS[pair])
     rel = {k: float(np.abs(mk[k] - mp[k]).max()
                     / max(float(np.abs(mp[k]).max()), 1e-12))
            for k in ("loss", "epe", "1px", "3px", "5px", "grad_norm",
                      "loss_iter", "epe_iter")}
     agree = _grad_agreement(gk, gp)
-    print(f"[train] chairs {dtype} one step, kernel vs plain config: "
+    print(f"[train] chairs {dtype} one step, {pair} vs plain config: "
           f"relative differences {rel}; gradients {agree}; loss "
           f"{float(mp['loss']):.6f}", flush=True)
     if dtype == "float32":
@@ -915,7 +1083,7 @@ def compare_train_step(sd, batch, cfg, dtype: str) -> dict:
     else:
         ok = rel["loss"] <= BF16_LOSS_TOL and agree["leaf_ratio"] <= 1.0
     if not ok:
-        raise AssertionError(f"train step {dtype} kernel vs plain: {rel}, "
+        raise AssertionError(f"train step {dtype} {pair} vs plain: {rel}, "
                              f"{agree}")
     return dict(relative=rel, gradients=agree)
 
@@ -929,48 +1097,55 @@ def phase_train(sd):
     cfg = TrainConfig(lr=2.5e-4, num_steps=120000, batch_size=CHAIRS_B,
                       image_size=CHAIRS_HW, iters=CHAIRS_ITERS, wdecay=1e-4)
     step_fn = make_train_step(cfg)
-    kernel_cfg = dict(corr_impl="allpairs_pallas",
-                      upsample_loss_kernel="pallas")
     results = {}
 
-    # kernel configuration against the plain one: one step, fp32 and bf16
+    # each kernel configuration against its plain one: one step, fp32 and
+    # bf16
+    t0 = time.perf_counter()
     results["kernel_vs_plain"] = {
-        dtype: compare_train_step(sd, batch, cfg, dtype)
-        for dtype in ("float32", "bfloat16")}
+        f"{pair}/{dtype}": compare_train_step(sd, batch, cfg, dtype, pair)
+        for pair in TRAIN_PAIRS for dtype in ("float32", "bfloat16")}
+    print(f"[time] train step comparisons: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
-    # the chairs stage: fp32 and bf16, kernel and plain configurations
-    main_counts = None
+    # the chairs stage: fp32 and bf16, the three configurations; each
+    # kernel configuration's main path is its first fp32 timed step.  The
+    # configurations of the earlier slice run fewer steps (warm-up, timed,
+    # profiled), to keep the script near its time budget.
+    main_counts = {}
     runs = {}
     for dtype in ("float32", "bfloat16"):
-        for label, extra in (("kernel", kernel_cfg), ("plain", {})):
+        for label, extra, (n_warm, n_timed, n_prof) in (
+                ("kernel", KERNEL_CFG, (2, 5, 2)), ("plain", {}, (2, 5, 2)),
+                ("ondemand", ONDEMAND_CFG, (3, 10, 3))):
+            t0 = time.perf_counter()
             key = f"{label}/{dtype}"
             mcfg = RAFTConfig.full(compute_dtype=dtype, **extra)
             torch.cuda.empty_cache()
             state = init_state(mcfg, cfg, state_dict=sd)
-            for _ in range(3):                                # warm-up
+            for _ in range(n_warm):                           # warm-up
                 step_fn(state, batch)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _reset_counts()
             times, losses = [], []
-            for i in range(10):
+            for i in range(n_timed):
                 t0 = time.perf_counter()
                 _, met = step_fn(state, batch)
                 losses.append(met["loss"])
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
-                if i == 0 and key == "kernel/float32":        # the main path
-                    main_counts = _expect_train_counts(1, "train main step")
+                if i == 0 and dtype == "float32" and label != "plain":
+                    main_counts[label] = _expect_train_counts(
+                        label, 1, f"train {label} main step")
             peak = torch.cuda.max_memory_allocated()
             losses = [float(x) for x in losses]
-            if label == "kernel":
-                _expect_train_counts(10, f"train {key} 10 steps")
-            else:
-                _expect({}, f"train {key} 10 steps")
+            _expect_train_counts(label, n_timed,
+                                 f"train {key} {n_timed} steps")
             if not (np.isfinite(losses).all() and state.nonfinite_steps == 0):
                 raise AssertionError(f"train {key}: losses {losses}, "
                                      f"{state.nonfinite_steps} non-finite")
-            prof = _profile(lambda: step_fn(state, batch), reps=3)
+            prof = _profile(lambda: step_fn(state, batch), reps=n_prof)
             wall = statistics.median(times)
             runs[key] = dict(ms_per_step=wall, ms_all=times,
                              pairs_per_s=CHAIRS_B / wall * 1e3,
@@ -986,9 +1161,66 @@ def phase_train(sd):
                   f"{prof['by_kind']}, peak {peak / 2 ** 20:.1f} MiB, "
                   f"losses {losses[0]:.4f} .. {losses[-1]:.4f}", flush=True)
             del state
+            print(f"[time] chairs {key}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
     results["chairs"] = runs
+    t0 = time.perf_counter()
+    results["things"] = _things_memory(sd)
+    print(f"[time] things: {time.perf_counter() - t0:.1f} s", flush=True)
     results["cotangent_sum"] = _cotangent_sum()
     return results, main_counts
+
+
+def _things_memory(sd) -> dict:
+    """Peak memory and step time of one bf16 train step at the things
+    stage (``scripts/train_single_host.sh:8``: 400x720, batch 5, 12
+    iterations) for the on-demand and the ``allpairs_pallas``
+    configurations: one warm-up step, then 3 timed steps each."""
+    from raft_tpu_torch.config import RAFTConfig, TrainConfig
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    B, (H, W) = 5, (400, 720)
+    rng = np.random.default_rng(4)
+    batch = {"image1": rng.uniform(0, 255, (B, H, W, 3)),
+             "image2": rng.uniform(0, 255, (B, H, W, 3)),
+             "flow": 8.0 * rng.standard_normal((B, H, W, 2)),
+             "valid": np.ones((B, H, W))}
+    batch = {k: torch.from_numpy(v.astype(np.float32)).cuda()
+             for k, v in batch.items()}
+    cfg = TrainConfig(lr=1.25e-4, num_steps=100000, batch_size=B,
+                      image_size=(H, W), iters=CHAIRS_ITERS, wdecay=1e-4)
+    step_fn = make_train_step(cfg)
+    out = {}
+    for label, extra in (("ondemand", ONDEMAND_CFG), ("kernel", KERNEL_CFG)):
+        torch.cuda.empty_cache()
+        state = init_state(RAFTConfig.full(compute_dtype="bfloat16",
+                                           **extra), cfg, state_dict=sd)
+        step_fn(state, batch)                                 # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _reset_counts()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, met = step_fn(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        _expect_train_counts(label, 3, f"things bf16 {label} 3 steps")
+        peak = torch.cuda.max_memory_allocated()
+        if not (np.isfinite(float(met["loss"]))
+                and state.nonfinite_steps == 0):
+            raise AssertionError(f"things {label}: loss {met['loss']}")
+        out[label] = dict(peak_mem_mb=peak / 2 ** 20,
+                          resident_mb=base / 2 ** 20,
+                          ms_per_step=statistics.median(times), ms_all=times)
+        print(f"[train] things bf16 {label}: peak {peak / 2 ** 20:.1f} MiB "
+              f"(resident between steps {base / 2 ** 20:.1f} MiB), "
+              f"{statistics.median(times):.2f} ms/step (steps "
+              f"{', '.join(f'{t:.1f}' for t in times)})", flush=True)
+        del state
+    torch.cuda.empty_cache()
+    return out
 
 
 def _cotangent_sum() -> dict:
@@ -1037,13 +1269,26 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    secs = {}
+
+    def timed_phase(fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        secs[fn.__name__] = time.perf_counter() - t
+        print(f"[time] {fn.__name__}: {secs[fn.__name__]:.1f} s", flush=True)
+        return out
+
     smi, name = phase_device()
     peaks = _peaks(name)
     build_s = phase_build()
-    kern = {**phase_kernels(peaks), **phase_train_kernels(peaks)}
-    path, main_counts, sd = phase_path()
-    demo_res = phase_demo(sd)
-    train, train_counts = phase_train(sd)
+    kern = {**timed_phase(phase_kernels, peaks),
+            **timed_phase(phase_train_kernels, peaks),
+            **timed_phase(phase_bwd_kernels, peaks)}
+    path, main_counts, sd = timed_phase(phase_path)
+    demo_res = timed_phase(phase_demo, sd)
+    train, train_counts = timed_phase(phase_train, sd)
+    secs["total"] = time.perf_counter() - t0
 
     sources = {
         "corr_ondemand": ("raft_tpu_torch/csrc/corr_ondemand.cu",
@@ -1059,12 +1304,24 @@ def main(argv=None) -> int:
         "upsample_loss_fwd": ("raft_tpu_torch/csrc/upsample_loss.cu",
                               "raft_tpu/ops/pallas_upsample.py:110"),
         "upsample_loss_bwd": ("raft_tpu_torch/csrc/upsample_loss.cu",
-                              "raft_tpu/ops/pallas_upsample.py:129")}
+                              "raft_tpu/ops/pallas_upsample.py:129"),
+        "corr_ondemand_bwd": ("raft_tpu_torch/csrc/corr_ondemand.cu",
+                              "raft_tpu/ops/pallas_corr.py:261,375,396"),
+        "gru_gate_rh_bwd": ("raft_tpu_torch/csrc/gru_gates.cu",
+                            "raft_tpu/ops/pallas_gru.py:90"),
+        "gru_gate_blend_bwd": ("raft_tpu_torch/csrc/gru_gates.cu",
+                               "raft_tpu/ops/pallas_gru.py:106")}
     kernels = []
     for kname, (src, replaces) in sources.items():
         r = kern[kname]
-        counts = (train_counts if kname.startswith(("pyramid", "upsample"))
-                  else main_counts)
+        # each kernel's launches on the main path it belongs to: the
+        # inference forward, the allpairs_pallas or the on-demand train step
+        if kname.startswith(("pyramid", "upsample")):
+            counts = train_counts["kernel"]
+        elif kname.endswith("_bwd"):
+            counts = train_counts["ondemand"]
+        else:
+            counts = main_counts
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[kname],
@@ -1079,7 +1336,8 @@ def main(argv=None) -> int:
         with open(args.report, "w") as f:
             json.dump({"nvidia_smi": smi, "device": name,
                        "torch": torch.__version__, "cuda": torch.version.cuda,
-                       "build_s": build_s, "kernels": kern, "path": path,
+                       "build_s": build_s, "phase_s": secs,
+                       "kernels": kern, "path": path,
                        "demo": demo_res, "train": train}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

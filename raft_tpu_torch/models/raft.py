@@ -103,6 +103,8 @@ class RAFT(nn.Module):
             return lambda c: chunked_corr_lookup(
                 fmap1, f2_pyramid, c, r, cfg.corr_block_size
             ).permute(0, 3, 1, 2).contiguous()
+        # 'pallas': the on-demand kernels; their backward reaches fmap2
+        # through the pooling by autograd
         f2_pyramid = [f2.contiguous() for f2 in f2_pyramid]
         return lambda c: corr_lookup_ondemand_nchw(
             fmap1, f2_pyramid, c.contiguous(), r)
@@ -115,14 +117,6 @@ class RAFT(nn.Module):
         """``(B, H, W, 3)`` frames -> one of the three outputs of the
         module docstring; ``flow_init`` is ``(B, H/8, W/8, 2)``."""
         cfg = self.config
-        if torch.is_grad_enabled() and (cfg.corr_impl == "pallas"
-                                        or cfg.fused_gru):
-            raise NotImplementedError(
-                "gradients through corr_impl='pallas' or fused_gru=True need "
-                "the backward kernels of the on-demand lookup and the GRU "
-                "gates, which belong to slice 3 of the port; train with "
-                "corr_impl='allpairs_pallas' or 'allpairs' and "
-                "fused_gru=False, or run under torch.no_grad()")
         dt = cfg.dtype
         hdim = cfg.hidden_dim
         image1 = 2.0 * (image1.float() / 255.0) - 1.0

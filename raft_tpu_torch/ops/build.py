@@ -108,19 +108,6 @@ def check_device(name: str, *tensors) -> None:
                              f"{t.device}")
 
 
-def check_launchable(name: str, *tensors) -> None:
-    """Refuse what a forward-only kernel does not take: a tensor off the
-    card, or an input that wants a gradient (the backward kernels of the
-    on-demand lookup and the GRU gates come with slice 3 of the port)."""
-    check_device(name, *tensors)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} is forward only: its backward kernel belongs to slice 3 "
-            "of the port (the training slice of --alternate_corr and "
-            "fused_gru); run under torch.no_grad() or "
-            "torch.inference_mode()")
-
-
 def stream_handle(t) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s
     device, for a ctypes call."""

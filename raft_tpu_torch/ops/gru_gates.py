@@ -1,16 +1,22 @@
 """Fused ConvGRU gate chains: the CUDA kernels' wrappers and their plain
-versions (the port of ``raft_tpu/ops/pallas_gru.py:84-189``, forward).
+versions (the port of ``raft_tpu/ops/pallas_gru.py:84-189``).
 
 - :func:`gru_gate_rh`     -- ``sigmoid(r_raw) * h``
 - :func:`gru_gate_blend`  -- ``(1-sigmoid(z_raw))*h + sigmoid(z_raw)*tanh(q_raw)``
 
-Math is fp32 whatever the storage type, and the result has ``h``'s dtype
-(fp32 or bf16), as in the JAX kernels.  ``csrc/gru_gates.cu`` replaces
-``_rh_fwd_kernel`` and ``_blend_fwd_kernel``.
+Math is fp32 whatever the storage type, and each result has its
+operand's dtype (fp32 or bf16), as in the JAX kernels.
+``csrc/gru_gates.cu`` replaces ``_rh_fwd_kernel`` and ``_blend_fwd_kernel``
+and their backward kernels ``_rh_bwd_kernel`` and ``_blend_bwd_kernel``.
+:class:`GruGateRh` and :class:`GruGateBlend` are the
+``torch.autograd.Function``s around them: they save only the raw inputs,
+and the backward kernel recomputes sigmoid and tanh from them, as the
+JAX ``custom_vjp`` does.
 
-A wrapper takes the plain version only for tensors on the CPU.  For any
-other device it launches the kernel or raises; nothing falls back.
-``LAUNCHES`` counts kernel launches.
+A wrapper takes the plain versions (forward and backward) only for
+tensors on the CPU.  For any other device it launches the kernel or
+raises; nothing falls back.  ``LAUNCHES`` counts kernel launches,
+forward and backward.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import torch
 
 from raft_tpu_torch.ops import build
 
-LAUNCHES = {"gru_gate_rh": 0, "gru_gate_blend": 0}
+LAUNCHES = {"gru_gate_rh": 0, "gru_gate_blend": 0, "gru_gate_rh_bwd": 0,
+            "gru_gate_blend_bwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -39,11 +46,36 @@ def gru_gate_blend_plain(z_raw: torch.Tensor, q_raw: torch.Tensor,
     return ((1.0 - sz) * h.float() + sz * tq).to(h.dtype)
 
 
-def _fn(symbol: str, n_inputs: int):
+def gru_gate_rh_bwd_plain(r_raw: torch.Tensor, h: torch.Tensor,
+                          g: torch.Tensor):
+    """Plain version of the rh backward: ``(dr, dh)`` from the raw inputs
+    and the output gradient ``g``, fp32 math in ``_rh_bwd_kernel``'s
+    operation order, each result in its operand's dtype."""
+    s = torch.sigmoid(r_raw.float())
+    gf = g.float()
+    return ((gf * h.float() * s * (1.0 - s)).to(r_raw.dtype),
+            (gf * s).to(h.dtype))
+
+
+def gru_gate_blend_bwd_plain(z_raw: torch.Tensor, q_raw: torch.Tensor,
+                             h: torch.Tensor, g: torch.Tensor):
+    """Plain version of the blend backward: ``(dz, dq, dh)``, fp32 math in
+    ``_blend_bwd_kernel``'s operation order, each result in its operand's
+    dtype."""
+    sz = torch.sigmoid(z_raw.float())
+    tq = torch.tanh(q_raw.float())
+    gf = g.float()
+    return ((gf * (tq - h.float()) * sz * (1.0 - sz)).to(z_raw.dtype),
+            (gf * sz * (1.0 - tq * tq)).to(q_raw.dtype),
+            (gf * (1.0 - sz)).to(h.dtype))
+
+
+def _fn(symbol: str, n_inputs: int, n_outputs: int):
     fn = getattr(build.load("gru_gates"), symbol)
     if fn.argtypes is None:
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [ci, ci] + [vp, ll] * n_inputs + [vp, ll, ll, vp]
+        fn.argtypes = ([ci, ci] + [vp, ll] * n_inputs + [vp] * n_outputs
+                       + [ll, ll, vp])
         fn.restype = ci
     return fn
 
@@ -61,8 +93,11 @@ def _batch_strided(t: torch.Tensor):
     return t, (t.stride(0) if t.shape[0] > 1 else t[0].numel())
 
 
-def _launch(name: str, symbol: str, inputs, h: torch.Tensor):
-    build.check_launchable(name, *inputs)
+def _launch(name: str, inputs, h: torch.Tensor, n_outputs: int = 1):
+    """Launch kernel ``name`` on same-shape, same-dtype operands (batch
+    strided, read in place); returns its ``n_outputs`` contiguous results
+    in ``h``'s dtype."""
+    build.check_device(name, *inputs)
     if h.dim() < 1:
         raise ValueError(f"{name}: expected at least one dimension")
     for t in inputs:
@@ -73,28 +108,69 @@ def _launch(name: str, symbol: str, inputs, h: torch.Tensor):
                 f"{tuple(h.shape)} {h.dtype} {h.device}")
     if h.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {h.dtype} not in float32/bfloat16")
-    out = torch.empty(h.shape, dtype=h.dtype, device=h.device)
+    outs = [torch.empty(h.shape, dtype=h.dtype, device=h.device)
+            for _ in range(n_outputs)]
     total = h.numel()
     if total == 0:
-        return out
+        return outs
     inputs = [_batch_strided(t) for t in inputs]
     args = []
     for t, s in inputs:
         args += [t.data_ptr(), s]
-    rc = _fn(symbol, len(inputs))(
-        h.device.index or 0, _DTYPE_CODES[h.dtype], *args, out.data_ptr(),
-        total // h.shape[0], total, build.stream_handle(h))
+    symbol = name if name.endswith("_bwd") else name + "_fwd"
+    rc = _fn(symbol, len(inputs), n_outputs)(
+        h.device.index or 0, _DTYPE_CODES[h.dtype], *args,
+        *[o.data_ptr() for o in outs], total // h.shape[0], total,
+        build.stream_handle(h))
     build.check_status(name, rc)
     LAUNCHES[name] += 1
-    return out
+    return outs
+
+
+class GruGateRh(torch.autograd.Function):
+    """``(r_raw, h) -> sigmoid(r_raw) * h``; saves the raw inputs only.
+    The kernels on the card, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, r_raw, h):
+        ctx.save_for_backward(r_raw, h)
+        if h.device.type == "cpu":
+            return gru_gate_rh_plain(r_raw, h)
+        return _launch("gru_gate_rh", [r_raw, h], h)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        r_raw, h = ctx.saved_tensors
+        if h.device.type == "cpu":
+            return gru_gate_rh_bwd_plain(r_raw, h, g)
+        return tuple(_launch("gru_gate_rh_bwd", [r_raw, h, g], h, 2))
+
+
+class GruGateBlend(torch.autograd.Function):
+    """``(z_raw, q_raw, h) -> (1-s(z))h + s(z)tanh(q)``; saves the raw
+    inputs only.  The kernels on the card, the plain versions on the
+    CPU."""
+
+    @staticmethod
+    def forward(ctx, z_raw, q_raw, h):
+        ctx.save_for_backward(z_raw, q_raw, h)
+        if h.device.type == "cpu":
+            return gru_gate_blend_plain(z_raw, q_raw, h)
+        return _launch("gru_gate_blend", [z_raw, q_raw, h], h)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        z_raw, q_raw, h = ctx.saved_tensors
+        if h.device.type == "cpu":
+            return gru_gate_blend_bwd_plain(z_raw, q_raw, h, g)
+        return tuple(_launch("gru_gate_blend_bwd", [z_raw, q_raw, h, g], h,
+                             3))
 
 
 def gru_gate_rh(r_raw: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Fused ``sigmoid(r_raw) * h`` (the reset-gated hidden state);
     ``r_raw`` is the r half of the convzr output before the sigmoid."""
-    if h.device.type == "cpu":
-        return gru_gate_rh_plain(r_raw, h)
-    return _launch("gru_gate_rh", "gru_gate_rh_fwd", [r_raw, h], h)
+    return GruGateRh.apply(r_raw, h)
 
 
 def gru_gate_blend(z_raw: torch.Tensor, q_raw: torch.Tensor,
@@ -102,7 +178,4 @@ def gru_gate_blend(z_raw: torch.Tensor, q_raw: torch.Tensor,
     """Fused GRU hidden-state blend
     ``(1-sigmoid(z_raw))*h + sigmoid(z_raw)*tanh(q_raw)`` from the raw
     (pre-sigmoid / pre-tanh) conv outputs."""
-    if h.device.type == "cpu":
-        return gru_gate_blend_plain(z_raw, q_raw, h)
-    return _launch("gru_gate_blend", "gru_gate_blend_fwd",
-                   [z_raw, q_raw, h], h)
+    return GruGateBlend.apply(z_raw, q_raw, h)

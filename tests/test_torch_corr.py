@@ -7,8 +7,16 @@ r = 3 and 4, a non-square level grid whose last level pools to nothing
 (6 x 10 -> 3 x 5 -> 1 x 2 -> 0 x 1), asymmetric flows, and centers far
 outside the image.  fp32 tolerance rtol = atol = 1e-5 (sums in another
 order).
+
+Gradients: ``df1`` and ``df2`` of the port's on-demand lookup (through
+``pool_fmap_pyramid``) against ``jax.vjp`` of JAX ``pallas_corr_lookup``
+in interpret mode, twins of ``tests/test_pallas_corr.py``'s gradient
+tests: the fused backward, every level on the blocked pair, a mixed
+partition (level 0 blocked), offsets of +-20 px, an empty level; radius
+3 and rtol = atol = 1e-4 as there.  ``coords`` get no gradient.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +26,9 @@ from raft_tpu.ops import corr as jcorr
 from raft_tpu.ops.pallas_corr import pallas_corr_lookup
 from raft_tpu_torch.ops import corr as tcorr
 from raft_tpu_torch.ops import corr_kernels
-from raft_tpu_torch.ops.corr_kernels import corr_lookup_ondemand
+from raft_tpu_torch.ops.corr_kernels import (corr_lookup_ondemand,
+                                             corr_lookup_ondemand_bwd_plain,
+                                             corr_lookup_ondemand_nchw)
 
 B, H, W, C, LEVELS = 2, 6, 10, 32, 4
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -104,3 +114,105 @@ def test_ondemand_wrapper_on_cpu_is_the_plain_version():
     got = corr_lookup_ondemand(tf1, pyr, tc, 4)
     assert torch.equal(got, tcorr.chunked_corr_lookup(tf1, pyr, tc, 4))
     assert corr_kernels.LAUNCHES == before
+
+
+def _grad_case(seed, shape, levels, offset, radius=4):
+    """fp32 (f1, f2, coords, g): centers = grid + U(-offset, offset), plus
+    a few far outside the image, and a random tap cotangent."""
+    rng = np.random.default_rng(seed)
+    b, h, w, c = shape
+    f1, f2 = (rng.standard_normal(shape).astype(np.float32)
+              for _ in range(2))
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    grid = np.stack([xs, ys], -1).astype(np.float32)[None]
+    coords = (grid + rng.uniform(-offset, offset, (b, h, w, 2))).astype(
+        np.float32)
+    coords[0, 0, 0] = (40.0, -30.0)
+    coords[-1, 1, 2] = (-1e6, 3.5)
+    g = rng.standard_normal((b, h, w, levels * (2 * radius + 1) ** 2)
+                            ).astype(np.float32)
+    return f1, f2, coords, g
+
+
+# (label, (B, H, W, C), levels, offset px, JAX backward partition)
+GRAD_CASES = [
+    ("fused_empty_level", (2, 6, 10, 32), 4, 3.0, "fused"),
+    ("blocked_empty_level", (2, 6, 10, 32), 4, 3.0, "blocked"),
+    ("mixed_empty_level", (2, 6, 10, 32), 4, 3.0, "mixed"),
+    ("fused_offsets20", (2, 12, 16, 32), 3, 20.0, "fused"),
+    ("blocked_offsets20", (2, 12, 16, 32), 3, 20.0, "blocked"),
+]
+
+
+@pytest.mark.parametrize("label,shape,levels,offset,partition", GRAD_CASES,
+                         ids=[c[0] for c in GRAD_CASES])
+def test_ondemand_gradients_match_jax_pallas(monkeypatch, label, shape,
+                                             levels, offset, partition):
+    from raft_tpu.ops import pallas_corr as pc
+
+    radius = 3
+    f1, f2, coords, g = _grad_case(len(label), shape, levels, offset,
+                                   radius)
+    jf2_levels = [(lvl, x) for lvl, x in enumerate(
+        jcorr.pool_fmap_pyramid(jnp.asarray(f2), levels))
+        if x.shape[1] and x.shape[2]]
+    k = 2 * radius + 1
+    if partition == "blocked":
+        monkeypatch.setattr(pc, "_FUSED_BWD_BUDGET", 0)
+    elif partition == "mixed":
+        small = pc._fused_bwd_est(jf2_levels[1:], 64, k)
+        assert small < pc._fused_bwd_est(jf2_levels, 64, k)
+        monkeypatch.setattr(pc, "_FUSED_BWD_BUDGET", small + 1)
+    monkeypatch.setattr(pc, "_BWD_BLOCK_Q", 64)
+    blocked, fused = pc._partition_bwd_levels(jf2_levels, 64, k)
+    assert {"fused": (0, len(jf2_levels)), "blocked": (len(jf2_levels), 0),
+            "mixed": (1, len(jf2_levels) - 1)}[partition] == (
+        len(blocked), len(fused))
+
+    def jax_fn(a, b):
+        pyr = tuple(jcorr.pool_fmap_pyramid(b, levels))
+        return pallas_corr_lookup(a, pyr, jnp.asarray(coords), radius, 64,
+                                  True)
+
+    _, vjp = jax.vjp(jax_fn, jnp.asarray(f1), jnp.asarray(f2))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+    tf1, tf2 = (torch.from_numpy(a).requires_grad_(True) for a in (f1, f2))
+    tc = torch.from_numpy(coords).requires_grad_(True)
+    pyr = tcorr.pool_fmap_pyramid(tf2, levels)
+    if label.endswith("empty_level"):
+        assert pyr[-1].numel() == 0
+    out = corr_lookup_ondemand(tf1, pyr, tc, radius)
+    got = torch.autograd.grad(out, (tf1, tf2), torch.from_numpy(g))
+    for a, b in zip(got, want):
+        assert np.abs(b).max() > 0
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("nchw", [False, True])
+def test_ondemand_plain_backward_and_zero_coords_gradient(nchw):
+    """``corr_lookup_ondemand_bwd_plain`` (what the backward kernel is held
+    against on the card) against autograd of the wrapper, per level; the
+    empty level gets a zero ``df2``; ``coords`` get no gradient (twin of
+    ``test_coords_gradient_is_zero``)."""
+    f1, f2, coords, g = _grad_case(11, (B, H, W, C), LEVELS, 3.0)
+    tf1 = torch.from_numpy(f1).requires_grad_(True)
+    tc = torch.from_numpy(coords).requires_grad_(True)
+    pyr = [lv.detach().requires_grad_(True)
+           for lv in tcorr.pool_fmap_pyramid(torch.from_numpy(f2), LEVELS)]
+    assert pyr[-1].numel() == 0
+    tg = torch.from_numpy(g)
+    if nchw:
+        out = corr_lookup_ondemand_nchw(tf1, pyr, tc, 4)
+        cot = tg.permute(0, 3, 1, 2)
+    else:
+        out = corr_lookup_ondemand(tf1, pyr, tc, 4)
+        cot = tg
+    want = torch.autograd.grad(out, [tf1, *pyr], cot, retain_graph=True)
+    df1, df2 = corr_lookup_ondemand_bwd_plain(tf1, pyr, tc, 4, tg)
+    assert len(df2) == LEVELS and df2[-1].shape == pyr[-1].shape
+    for a, b in zip([df1, *df2], want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    (dc,) = torch.autograd.grad(out, tc, cot, allow_unused=True)
+    assert dc is None or not dc.any()

@@ -62,12 +62,45 @@ def test_corr_kernel_matches_plain(dev, radius, C, hw):
     assert torch.equal(nchw, got.permute(0, 3, 1, 2))
 
 
-def test_corr_kernel_refuses_gradients(dev):
-    f1, f2, coords = _corr_case(0, 1, 6, 8, 32, dev)
+@pytest.mark.parametrize("nchw,hw,spread", [
+    (False, (7, 13), 0.0), (True, (7, 13), 0.0), (True, (24, 40), 20.0)])
+def test_corr_kernel_gradients_match_plain(dev, nchw, hw, spread):
+    """The backward kernel against ``corr_lookup_ondemand_bwd_plain``, per
+    level; ``coords`` get no gradient.  The 7 x 13 grid has an empty
+    level; on the 24 x 40 grid, centers spread by U(-20, 20) px put
+    windows partly and wholly off the levels.  df2 comes from
+    atomic adds whose order varies between runs, so it is held to the
+    tolerance, never compared bit for bit."""
+    f1, f2, coords = _corr_case(9, 2, *hw, 64, dev)
+    coords += (torch.rand(coords.shape, generator=torch.Generator()
+                          .manual_seed(12)).to(dev) * 2 - 1) * spread
     f1.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        corr_kernels.corr_lookup_ondemand(f1, pool_fmap_pyramid(f2, 4),
-                                          coords, 4)
+    coords.requires_grad_(True)
+    pyr = [lv.requires_grad_(True) for lv in pool_fmap_pyramid(f2, 4)]
+    assert (pyr[-1].numel() == 0) == (hw == (7, 13))
+    before = dict(corr_kernels.LAUNCHES)
+    lookup = (corr_kernels.corr_lookup_ondemand_nchw if nchw
+              else corr_kernels.corr_lookup_ondemand)
+    out = lookup(f1, pyr, coords, 4)
+    g = torch.randn(2, *hw, 4 * 81,
+                    generator=torch.Generator().manual_seed(10)).to(dev)
+    cot = g.permute(0, 3, 1, 2) if nchw else g
+    got = list(torch.autograd.grad(out, [f1, coords, *pyr], cot,
+                                   allow_unused=True))
+    dc = got.pop(1)
+    df1, df2 = corr_kernels.corr_lookup_ondemand_bwd_plain(f1, pyr, coords,
+                                                           4, g)
+    torch.cuda.synchronize()
+    assert corr_kernels.LAUNCHES == {
+        "corr_ondemand": before["corr_ondemand"] + 1,
+        "corr_ondemand_bwd": before["corr_ondemand_bwd"] + 1}
+    assert dc is None
+    for a, b in zip(got, [df1, *df2]):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        if b.numel():
+            tol = 1e-4 * float(b.abs().max()) + 1e-5
+            assert float((a - b).abs().max()) <= tol
+    assert float(df1.abs().max()) > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -95,6 +128,41 @@ def test_gate_kernels_match_plain(dev, dtype):
             assert bool((diff <= ulp + 1e-6).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gate_backward_kernels_match_plain(dev, dtype):
+    """``GruGateRh`` / ``GruGateBlend`` backward kernels against
+    ``gru_gate_*_bwd_plain``: z/r channel halves of one tensor and rh's
+    gradient a channel slice of a wider one, as in the model; within
+    1e-4 * max|plain| + 1e-5, plus one bf16 ulp for bf16 results."""
+    g = torch.Generator().manual_seed(11)
+    zr = (torch.randn(3, 64, 5, 7, generator=g) * 3).to(dev, dtype)
+    q = (torch.randn(3, 32, 5, 7, generator=g) * 3).to(dev, dtype)
+    h = torch.randn(3, 32, 5, 7, generator=g).to(dev, dtype)
+    g_cat = torch.randn(3, 96, 5, 7, generator=g).to(dev, dtype)
+    g_rh, g_bl = g_cat[:, :32], g_cat[:, 32:64]
+    zr.requires_grad_(True)
+    q.requires_grad_(True)
+    h.requires_grad_(True)
+    z, r = torch.split(zr, 32, dim=1)
+    before = dict(gru_gates.LAUNCHES)
+    d_rh = torch.autograd.grad(gru_gates.gru_gate_rh(r, h), (zr, h), g_rh)
+    d_bl = torch.autograd.grad(gru_gates.gru_gate_blend(z, q, h), (zr, q, h),
+                               g_bl)
+    torch.cuda.synchronize()
+    assert gru_gates.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    got = [d_rh[0][:, 32:], d_rh[1], d_bl[0][:, :32], d_bl[1], d_bl[2]]
+    assert not d_rh[0][:, :32].any() and not d_bl[0][:, 32:].any()
+    want = list(gru_gates.gru_gate_rh_bwd_plain(r, h, g_rh)) + list(
+        gru_gates.gru_gate_blend_bwd_plain(z, q, h, g_bl))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == dtype
+        tol = 1e-4 * float(b.float().abs().max()) + 1e-5
+        if dtype == torch.float32:
+            assert float((a - b).abs().max()) <= tol
+        else:
+            assert _bf16_close(a, b, tol)
+
+
 def test_model_kernel_path_counts_and_matches_plain(dev):
     sd = RAFT(RAFTConfig.full()).state_dict()
     rng = np.random.default_rng(2)
@@ -107,8 +175,11 @@ def test_model_kernel_path_counts_and_matches_plain(dev):
         for key in d:
             d[key] = 0
     _, up_k = kernel(sd, i1, i2)
-    assert corr_kernels.LAUNCHES == {"corr_ondemand": 3}
-    assert gru_gates.LAUNCHES == {"gru_gate_rh": 6, "gru_gate_blend": 6}
+    assert corr_kernels.LAUNCHES == {"corr_ondemand": 3,
+                                     "corr_ondemand_bwd": 0}
+    assert gru_gates.LAUNCHES == {"gru_gate_rh": 6, "gru_gate_blend": 6,
+                                  "gru_gate_rh_bwd": 0,
+                                  "gru_gate_blend_bwd": 0}
     _, up_p = plain(sd, i1, i2)
     assert float((up_k - up_p).abs().max()) <= 1e-3
 
@@ -234,7 +305,14 @@ def test_upsample_loss_kernels_match_plain(dev, dtype):
     assert 0 < counts[0] < counts[1] < counts[2] < float(vm.sum())
 
 
-def _train_step_both(dev, dtype):
+KERNEL_KW = dict(corr_impl="allpairs_pallas", upsample_loss_kernel="pallas")
+ONDEMAND_KW = dict(corr_impl="pallas", fused_gru=True,
+                   upsample_loss_kernel="pallas")
+ONDEMAND_PLAIN_KW = dict(corr_impl="chunked", fused_gru=False,
+                         upsample_loss_kernel="xla")
+
+
+def _train_step_both(dev, dtype, kernel_kw=KERNEL_KW, plain_kw=None):
     """One train step of the kernel and the plain configuration from the
     same weights, the clip out of reach: metrics, launch counts and the
     unclipped gradients the optimizer saw."""
@@ -250,10 +328,10 @@ def _train_step_both(dev, dtype):
     cfg = TrainConfig(lr=1e-4, num_steps=10, batch_size=B,
                       image_size=(H, W), iters=3, clip=1e9)
     sd = RAFT(RAFTConfig.full()).state_dict()
+    counters = (corr_kernels.LAUNCHES, gru_gates.LAUNCHES,
+                pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES)
     out = {}
-    for name, kw in (("kernel", dict(corr_impl="allpairs_pallas",
-                                     upsample_loss_kernel="pallas")),
-                     ("plain", {})):
+    for name, kw in (("kernel", kernel_kw), ("plain", plain_kw or {})):
         state = init_state(RAFTConfig.full(compute_dtype=dtype, **kw), cfg,
                            device=dev, state_dict=sd)
         grads = {}
@@ -266,12 +344,12 @@ def _train_step_both(dev, dtype):
             return _step(*a, **k)
 
         state.optimizer.step = hooked
-        for d in (pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES):
+        for d in counters:
             for key in d:
                 d[key] = 0
         state, met = make_train_step(cfg, device=dev)(state, batch)
-        out[name] = (met, dict(pyramid_kernels.LAUNCHES),
-                     dict(upsample_loss.LAUNCHES), grads)
+        launches = {k: v for d in counters for k, v in d.items() if v}
+        out[name] = (met, launches, grads)
     return out["kernel"], out["plain"]
 
 
@@ -286,13 +364,7 @@ def _grad_bounds(gp):
     return gmax, gnorm
 
 
-def test_train_step_kernel_config_counts_and_matches_plain(dev):
-    """fp32: metrics within 1e-4 relative, and each parameter's gradient
-    within 1e-3 of its largest entry plus 1e-6 of the model's."""
-    (mk, pk, uk, gk), (mp, pp, up, gp) = _train_step_both(dev, "float32")
-    assert pk == {"pyramid_lookup_fwd": 3, "pyramid_lookup_bwd": 3}
-    assert uk == {"upsample_loss_fwd": 1, "upsample_loss_bwd": 1}
-    assert set(pp.values()) == set(up.values()) == {0}
+def _check_fp32(mk, gk, mp, gp):
     for k in ("loss", "epe", "grad_norm"):
         assert abs(float(mk[k]) - float(mp[k])) <= 1e-4 * abs(float(mp[k]))
     assert set(gk) == set(gp) and gp
@@ -302,14 +374,7 @@ def test_train_step_kernel_config_counts_and_matches_plain(dev):
             1e-3 * float(g.abs().max()) + 1e-6 * gmax), n
 
 
-def test_train_step_kernel_config_matches_plain_bf16(dev):
-    """bf16: the plain chain upsamples in bf16 and the kernel in fp32, so
-    they differ by bf16 rounding: the loss within 2e-3 relative, each
-    parameter's gradient within 0.1 of its norm plus 2e-4 of the model's
-    global gradient norm (the bounds of chip_smoke.py's chairs check)."""
-    (mk, pk, uk, gk), (mp, _, _, gp) = _train_step_both(dev, "bfloat16")
-    assert pk == {"pyramid_lookup_fwd": 3, "pyramid_lookup_bwd": 3}
-    assert uk == {"upsample_loss_fwd": 1, "upsample_loss_bwd": 1}
+def _check_bf16(mk, gk, mp, gp):
     assert abs(float(mk["loss"]) - float(mp["loss"])) <= 2e-3 * abs(
         float(mp["loss"]))
     assert set(gk) == set(gp) and gp
@@ -317,3 +382,40 @@ def test_train_step_kernel_config_matches_plain_bf16(dev):
     for n, g in gp.items():
         assert float((gk[n] - g).norm()) <= (0.1 * float(g.norm())
                                              + 2e-4 * gnorm), n
+
+
+TRAIN_LAUNCHES = {"pyramid_lookup_fwd": 3, "pyramid_lookup_bwd": 3,
+                  "upsample_loss_fwd": 1, "upsample_loss_bwd": 1}
+ONDEMAND_LAUNCHES = {"corr_ondemand": 3, "corr_ondemand_bwd": 3,
+                     "gru_gate_rh": 6, "gru_gate_rh_bwd": 6,
+                     "gru_gate_blend": 6, "gru_gate_blend_bwd": 6,
+                     "upsample_loss_fwd": 1, "upsample_loss_bwd": 1}
+
+
+def test_train_step_kernel_config_counts_and_matches_plain(dev):
+    """fp32: metrics within 1e-4 relative, and each parameter's gradient
+    within 1e-3 of its largest entry plus 1e-6 of the model's."""
+    (mk, lk, gk), (mp, lp, gp) = _train_step_both(dev, "float32")
+    assert lk == TRAIN_LAUNCHES and lp == {}
+    _check_fp32(mk, gk, mp, gp)
+
+
+def test_train_step_kernel_config_matches_plain_bf16(dev):
+    """bf16: the plain chain upsamples in bf16 and the kernel in fp32, so
+    they differ by bf16 rounding: the loss within 2e-3 relative, each
+    parameter's gradient within 0.1 of its norm plus 2e-4 of the model's
+    global gradient norm (the bounds of chip_smoke.py's chairs check)."""
+    (mk, lk, gk), (mp, _, gp) = _train_step_both(dev, "bfloat16")
+    assert lk == TRAIN_LAUNCHES
+    _check_bf16(mk, gk, mp, gp)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_ondemand_config_counts_and_matches_plain(dev, dtype):
+    """The on-demand kernel configuration (lookup + fused gates, forward
+    and backward kernels, upsample-loss kernels) against its plain one
+    (``chunked``, unfused gates, ``'xla'``), under the bounds above."""
+    (mk, lk, gk), (mp, lp, gp) = _train_step_both(
+        dev, dtype, ONDEMAND_KW, ONDEMAND_PLAIN_KW)
+    assert lk == ONDEMAND_LAUNCHES and lp == {}
+    (_check_fp32 if dtype == "float32" else _check_bf16)(mk, gk, mp, gp)

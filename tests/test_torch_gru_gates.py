@@ -1,11 +1,20 @@
 """The port's GRU gate functions against the JAX package's Pallas gate
-kernels (``raft_tpu/ops/pallas_gru.py``, run in interpret mode).
+kernels (``raft_tpu/ops/pallas_gru.py``, run in interpret mode), forward
+and backward.
 
-On the CPU the port's wrappers run their plain versions; the CUDA
-kernels are held against the same plain versions on the card by
-``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+On the CPU the port's wrappers run their plain versions, forward and
+backward; the CUDA kernels are held against the
+same plain versions, and the backward kernels against
+``gru_gate_*_bwd_plain``, on the card by ``chip_smoke.py`` and
+``tests/test_torch_cuda.py``.  Gradient tolerances: fp32 rtol 1e-5 /
+atol 1e-6 (the same fp32 formulas, sigmoid and tanh from two libraries);
+bf16 one bf16 ulp (fp32 math rounded once in both) plus that fp32 atol,
+since ``1 - tanh(q)^2`` cancels where |q| is large and two tanh
+implementations differ there by an fp32 ulp (JAX gives 0 where torch
+gives 1e-8).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +24,9 @@ from raft_tpu.ops.pallas_gru import (gru_gate_blend as jax_blend,
                                      gru_gate_rh as jax_rh)
 from raft_tpu_torch.ops import gru_gates
 from raft_tpu_torch.ops.gru_gates import (gru_gate_blend,
+                                          gru_gate_blend_bwd_plain,
                                           gru_gate_blend_plain, gru_gate_rh,
+                                          gru_gate_rh_bwd_plain,
                                           gru_gate_rh_plain)
 
 SHAPE = (2, 16, 6, 10)   # (B, hidden, H, W), NCHW as the model calls them
@@ -82,3 +93,74 @@ def test_cpu_wrappers_take_the_plain_versions():
     torch.testing.assert_close(gru_gate_blend_plain(z, q, h),
                                (1 - sz) * h + sz * torch.tanh(q),
                                rtol=0, atol=1e-6)
+
+
+def _assert_close(got, want, dtype):
+    got = _np(got)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        assert np.all(np.abs(got - want) <= _bf16_ulp(want) + 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gate_gradients_match_jax_kernels(dtype):
+    """Twin of tests/test_pallas_fused.py's gate gradient test: z/r are
+    the channel halves of one conv output, and rh's output gradient is a
+    channel slice of a wider one (the gradient of ``cat([rh, x])``), as
+    in the model."""
+    z, r, q, h = _operands(2, dtype)
+    rng = np.random.default_rng(3)
+    B, C, H, W = SHAPE
+    g_cat = torch.from_numpy(rng.standard_normal(
+        (B, 2 * C, H, W)).astype(np.float32)).to(dtype)
+    g_rh = g_cat[:, :C]
+    g_bl = torch.from_numpy(rng.standard_normal(SHAPE).astype(
+        np.float32)).to(dtype)
+    assert not g_rh.is_contiguous()
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+
+    # JAX: the Pallas custom_vjp backward kernels
+    _, vjp_rh = jax.vjp(lambda a, b: jax_rh(a, b, interpret=True),
+                        _jax(r, jdt), _jax(h, jdt))
+    want_rh = [np.asarray(x, np.float32) for x in vjp_rh(_jax(g_rh, jdt))]
+    _, vjp_bl = jax.vjp(lambda a, b, c: jax_blend(a, b, c, interpret=True),
+                        _jax(z, jdt), _jax(q, jdt), _jax(h, jdt))
+    want_bl = [np.asarray(x, np.float32) for x in vjp_bl(_jax(g_bl, jdt))]
+
+    # the port: autograd through the wrappers (z/r split from one leaf)
+    zr = torch.cat([z, r], dim=1).detach().requires_grad_(True)
+    q_, h_ = (t.detach().requires_grad_(True) for t in (q, h))
+    zs, rs = torch.split(zr, C, dim=1)
+    dzr_rh, dh_rh = torch.autograd.grad(gru_gate_rh(rs, h_), (zr, h_), g_rh)
+    got_rh = [dzr_rh[:, C:], dh_rh]
+    assert torch.all(dzr_rh[:, :C] == 0)
+    got_bl = list(torch.autograd.grad(gru_gate_blend(zs, q_, h_),
+                                      (zr, q_, h_), g_bl))
+    assert torch.all(got_bl[0][:, C:] == 0)
+    got_bl[0] = got_bl[0][:, :C]
+    plain_rh = gru_gate_rh_bwd_plain(r, h, g_rh)
+    plain_bl = gru_gate_blend_bwd_plain(z, q, h, g_bl)
+    for got, plain, want in zip(got_rh + got_bl, plain_rh + plain_bl,
+                                want_rh + want_bl):
+        assert got.dtype == plain.dtype == dtype
+        assert np.isfinite(want).all() and np.abs(want).max() > 0
+        _assert_close(got, want, dtype)
+        _assert_close(plain, want, dtype)
+
+
+def test_plain_backward_is_autograd_of_plain_forward():
+    """``gru_gate_*_bwd_plain`` (what the backward kernels are held
+    against on the card) against autograd of the plain forwards, fp32."""
+    z, r, q, h = _operands(4, torch.float32)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        SHAPE).astype(np.float32))
+    leaves = [t.detach().requires_grad_(True) for t in (z, r, q, h)]
+    zl, rl, ql, hl = leaves
+    want_rh = torch.autograd.grad(gru_gate_rh_plain(rl, hl), (rl, hl), g)
+    want_bl = torch.autograd.grad(gru_gate_blend_plain(zl, ql, hl),
+                                  (zl, ql, hl), g)
+    got = gru_gate_rh_bwd_plain(r, h, g) + gru_gate_blend_bwd_plain(z, q, h,
+                                                                    g)
+    for a, b in zip(got, want_rh + want_bl):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

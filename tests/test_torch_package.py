@@ -83,10 +83,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def test_unported_paths_name_their_slice():
     img = torch.zeros(1, 16, 16, 3)
-    for kw in ({"corr_impl": "pallas"}, {"fused_gru": True}):
+    cfg = TrainConfig(num_steps=1, batch_size=1, iters=1,
+                      image_size=(16, 16))
+    batch = {"image1": img.numpy(), "image2": img.numpy(),
+             "flow": torch.zeros(1, 16, 16, 2).numpy(),
+             "valid": torch.ones(1, 16, 16).numpy()}
+    for kw in ({"corr_impl": "pallas"}, {"fused_gru": True},
+               {"corr_impl": "pallas", "fused_gru": True,
+                "upsample_loss_kernel": "pallas"}):
+        # the on-demand lookup and the fused gates train
+        state = init_state(RAFTConfig.full(**kw), cfg, device="cpu")
+        state, met = make_train_step(cfg, device="cpu")(state, batch)
+        assert state.step == 1 and torch.isfinite(met["loss"])
         model = RAFT(RAFTConfig.full(**kw))   # nn.Module starts in train
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            model(img, img, iters=1)
+        flows = model(img, img, iters=1)
+        assert flows.shape == (1, 1, 16, 16, 2) and flows.requires_grad
         with torch.no_grad():                 # inference stays open
             lo, _ = model.eval()(img, img, iters=1, test_mode=True)
         assert lo.shape == (1, 2, 2, 2)
@@ -157,6 +168,11 @@ def test_counters_stay_zero_on_cpu_forward():
     batch = {"image1": img.numpy(), "image2": img.numpy(),
              "flow": torch.zeros(1, 32, 48, 2).numpy(),
              "valid": torch.ones(1, 32, 48).numpy()}
+    state, met = make_train_step(cfg, device="cpu")(state, batch)
+    assert state.step == 1 and torch.isfinite(met["loss"])
+    state = init_state(RAFTConfig.full(corr_impl="pallas", fused_gru=True,
+                                       upsample_loss_kernel="pallas"), cfg,
+                       device="cpu")
     state, met = make_train_step(cfg, device="cpu")(state, batch)
     assert state.step == 1 and torch.isfinite(met["loss"])
     assert [dict(c) for c in counters] == before

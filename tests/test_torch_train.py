@@ -8,7 +8,9 @@
 - fused vs stacked loss through the port's step, twin of ``:169``;
 - one full-model train step (64x64, batch 2, 2 iterations, fp32) from the
   same converted weights against JAX ``make_loss_fn`` + ``make_optimizer``
-  (one jit of the JAX step, ~35 s on the CPU, shared by the module);
+  (one jit of the JAX step per JAX configuration, ~35 s on the CPU, shared
+  by the module): the plain, the materialized-kernel and the on-demand
+  kernel configurations (``corr_impl='pallas'`` + fused gates);
 - the non-finite guard, ``accum_steps`` and the reduced loop.
 
 Tolerances of the full step: loss and metrics rtol 1e-4; each parameter's
@@ -43,7 +45,8 @@ from raft_tpu.train.step import make_loss_fn as jax_make_loss_fn
 from raft_tpu_torch.config import RAFTConfig, TrainConfig
 from raft_tpu_torch.convert import flax_from_state_dict, state_dict_from_flax
 from raft_tpu_torch.models.layers import Norm, channel_dropout
-from raft_tpu_torch.ops import pyramid_kernels, upsample_loss
+from raft_tpu_torch.ops import (corr_kernels, gru_gates, pyramid_kernels,
+                                upsample_loss)
 from raft_tpu_torch.train import loop, loss, optim
 from raft_tpu_torch.train.step import init_state, make_train_step
 
@@ -207,15 +210,15 @@ def test_batch_norm_train_stats_match_flax():
     assert torch.equal(norm.running_var, before)
 
 
-@pytest.fixture(scope="module")
-def jax_step():
+def _jax_step(**model_kw):
     """JAX's loss, gradients, batch statistics and one optax update from
     the fixture weights on ``_batch(0)``."""
     variables, _ = full_raft_variables(0)
     jcfg = JaxTrainConfig(**KW)
     # remat changes what JAX recomputes, not what it computes; off, the
     # one CPU compile is ~10 s shorter
-    jmodel = JaxRAFT(JaxRAFTConfig.full(remat=False, remat_upsample=False))
+    jmodel = JaxRAFT(JaxRAFTConfig.full(remat=False, remat_upsample=False,
+                                        **model_kw))
     loss_fn = jax_make_loss_fn(jmodel, jcfg)
     batch = {k: jnp.asarray(v) for k, v in _batch(0).items()}
     (lval, (met, new_bs)), grads = jax.jit(
@@ -236,19 +239,41 @@ def jax_step():
                 grad_norm=float(optax.global_norm(grads)))
 
 
-@pytest.mark.parametrize("model_kw", [
-    {}, {"corr_impl": "allpairs_pallas", "upsample_loss_kernel": "pallas"}])
-def test_train_step_matches_jax(jax_step, model_kw):
-    """Both configurations (on the CPU the kernel one runs the plain
-    versions of its kernels) against the JAX step."""
+@pytest.fixture(scope="module")
+def jax_step():
+    return _jax_step()
+
+
+@pytest.fixture(scope="module")
+def jax_step_ondemand():
+    """The JAX step of the on-demand configuration; on the CPU the JAX
+    package resolves it to its own plain reference (``chunked`` lookup,
+    unfused gates)."""
+    return _jax_step(corr_impl="pallas", fused_gru=True)
+
+
+@pytest.mark.parametrize("model_kw,reference", [
+    ({}, "jax_step"),
+    ({"corr_impl": "allpairs_pallas", "upsample_loss_kernel": "pallas"},
+     "jax_step"),
+    ({"corr_impl": "pallas", "fused_gru": True,
+      "upsample_loss_kernel": "pallas"}, "jax_step_ondemand")],
+    ids=["model_kw0", "model_kw1", "model_kw2"])
+def test_train_step_matches_jax(request, model_kw, reference):
+    """Each configuration (on the CPU the kernel ones run the plain
+    versions of their kernels, forward and backward) against the JAX
+    step of the same configuration."""
+    jax_step = request.getfixturevalue(reference)
     _, sd = full_raft_variables(0)
     cfg = TrainConfig(**KW)
     state = init_state(RAFTConfig.full(**model_kw), cfg, device="cpu",
                        state_dict=sd)
     seen = _capture_grads(state)
-    before = (dict(pyramid_kernels.LAUNCHES), dict(upsample_loss.LAUNCHES))
+    counters = (corr_kernels.LAUNCHES, gru_gates.LAUNCHES,
+                pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES)
+    before = [dict(c) for c in counters]
     state, met = make_train_step(cfg, device="cpu")(state, _batch(0))
-    assert (pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES) == before
+    assert [dict(c) for c in counters] == before
     assert state.step == 1 and state.nonfinite_steps == 0
 
     np.testing.assert_allclose(float(met["loss"]), jax_step["loss"],

@@ -29,6 +29,12 @@ Phases, each raising on failure (so the script exits nonzero):
      gradient, and once more at B = 1 with a 136x240 feature grid
      (1088x1920 input), where the JAX package moves level 0 onto its
      blocked backward pair;
+   - the kernels of the quantized / fused-encoder slice at the chairs
+     shapes: the lookup on int8, e4m3 and e5m2 codes with fp32 and bf16
+     taps (plus an empty level), and the fused lookup + convc1 (F = 256)
+     on fp32, bf16, int8 and e4m3 levels, forward and backward (dW, db,
+     dpyramid), with the unfused pair (lookup kernel + cuDNN 1x1 conv +
+     relu) timed beside it;
 4. path: ``make_eval_fn`` with the kernel configuration (on-demand
    correlation kernel + fused GRU gates) against the plain configuration
    on the same seeded weights, then the 32-iteration Sintel forward in
@@ -40,16 +46,21 @@ Phases, each raising on failure (so the script exits nonzero):
    its plain one from the same seeded weights on one synthetic
    FlyingChairs-shaped batch, TF32 off, in fp32 and bf16 (loss, metrics,
    every parameter's unclipped gradient): ``allpairs_pallas`` +
-   ``upsample_loss_kernel='pallas'`` against ``allpairs`` + ``'xla'``,
-   and the on-demand configuration (``corr_impl='pallas'`` +
-   ``fused_gru`` + ``'pallas'``) against ``chunked`` + unfused gates +
-   ``'xla'``; then the chairs stage (368x496, batch 8, 12 iterations, lr
-   2.5e-4) for the three configurations in fp32 and bf16: warm-up steps,
-   10 timed steps for the on-demand configuration and 5 for the two of
-   the earlier slice (ms/step, pairs/s, peak memory, device busy time,
+   ``upsample_loss_kernel='pallas'`` against ``allpairs`` + ``'xla'``;
+   the on-demand configuration (``corr_impl='pallas'`` + ``fused_gru`` +
+   ``'pallas'``) against ``chunked`` + unfused gates + ``'xla'``; and
+   ``allpairs_pallas`` + ``fused_lookup_encoder`` + ``'pallas'`` with
+   ``corr_dtype`` int8 and auto against ``allpairs`` + the same
+   ``corr_dtype`` + ``'xla'`` (under int8 ``fnet``'s gradient is exactly
+   zero on both sides).  Then the chairs stage (368x496, batch 8, 12
+   iterations, lr 2.5e-4) for every configuration in fp32 and bf16:
+   warm-up steps, 10 timed steps for the two fused-encoder
+   configurations, 5 for the three of the earlier slices and 3 for the
+   unfused int8 one (ms/step, pairs/s, peak memory, device busy time,
    idle share) with exact launch counts per step; then the peak memory
    of a bf16 step at the things stage (400x720, batch 5, 12 iterations)
-   for the on-demand and the ``allpairs_pallas`` configurations;
+   for the on-demand, the ``allpairs_pallas`` and the int8 + fused
+   configurations;
 7. report: one JSON line ``{"kernels": [...]}``, the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -153,7 +164,8 @@ def _profile(fn, reps: int = 2) -> dict:
         spans.append((tr.start, tr.end))
         name = e.name
         if (any(t in name for t in ("pyr_", "corr_ondemand", "rh_",
-                                    "blend_")) or "ul_" in name[:12]):
+                                    "blend_", "lookup_encode"))
+                or "ul_" in name[:12]):
             kind = name.split("<")[0].split("(")[0].replace("void ", "")
         elif any(t in name.lower() for t in ("conv", "gemm", "cudnn", "xmma",
                                               "cutlass", "sm90_", "wgrad",
@@ -659,6 +671,155 @@ def phase_train_kernels(peaks):
     return results
 
 
+def phase_slice4_kernels(peaks):
+    """The lookup on a quantized pyramid (kernel 1) and the fused lookup +
+    convc1 (kernel 2, forward and backward) at the chairs training shapes
+    against their plain versions, with the unfused pair (lookup kernel +
+    cuDNN 1x1 conv + relu) timed beside kernel 2 as a comparison."""
+    import torch.nn.functional as F
+    from raft_tpu_torch.ops.corr import build_corr_pyramid
+    from raft_tpu_torch.ops.lookup_encode import (
+        pyramid_lookup_encode, pyramid_lookup_encode_bwd_plain,
+        pyramid_lookup_encode_plain)
+    from raft_tpu_torch.ops.pyramid_kernels import (
+        pyramid_lookup_nchw, pyramid_lookup_plain, pyramid_lookup_quantized,
+        pyramid_lookup_quantized_nchw)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    results = {}
+    k = 2 * R + 1
+    B = CHAIRS_B
+    h8, w8 = CHAIRS_HW[0] // 8, CHAIRS_HW[1] // 8
+    N = h8 * w8
+    P = LEVELS * k * k
+    f1, f2, coords = _corr_inputs(rng, B, h8, w8, dev)
+    shapes = [(h8 >> lvl, w8 >> lvl) for lvl in range(LEVELS)]
+    win = _window_elems(coords.cpu().numpy(), shapes, k)
+
+    # --- kernel 1: int8 / e4m3 / e5m2 codes, fp32 and bf16 taps ---
+    for qname in ("int8", "float8_e4m3fn", "float8_e5m2"):
+        with torch.no_grad():
+            pyr = build_corr_pyramid(f1, f2, LEVELS, qname)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            dt = "fp32" if out_dtype == torch.float32 else "bf16"
+            got = pyramid_lookup_quantized_nchw(pyr, coords, R, out_dtype)
+            want = pyramid_lookup_plain(pyr, coords, R, out_dtype).permute(
+                0, 3, 1, 2)
+            err = _check(f"pyramid_lookup_quantized {qname} -> {dt} "
+                         f"{tuple(got.shape)}", got, want)
+            nhwc = pyramid_lookup_quantized(pyr, coords, R, out_dtype)
+            if not torch.equal(nhwc.permute(0, 3, 1, 2), got):
+                raise AssertionError("pyramid_lookup_quantized: NHWC != NCHW")
+            if qname != "int8":
+                continue
+            with torch.no_grad():
+                tk = _timed(lambda: pyramid_lookup_quantized_nchw(
+                    pyr, coords, R, out_dtype), "pyr_fwd_kernel")
+                tp = _timed(lambda: pyramid_lookup_plain(pyr, coords, R,
+                                                         out_dtype),
+                            None, reps=10)
+            es = got.element_size()
+            nb = win + coords.numel() * 4 + B * LEVELS * 4 + B * P * N * es
+            ops = 10.0 * B * N * P
+            bound, by = _bound_ms(nb, ops, peaks)
+            results[f"pyramid_lookup_quantized/int8/{dt}"] = dict(
+                max_abs_err=err, ms=tk["ms"], plain_ms=tp["ms"],
+                library_ms=None, bound_ms=bound, bound_by=by, bytes=nb,
+                ops=ops, kernel_timing=tk, plain_timing=tp)
+            print(f"[kernels] pyramid_lookup_quantized int8 -> {dt}: kernel "
+                  f"{tk}, plain {tp}, bound {bound:.4f} ms ({by}; "
+                  f"{nb / 1e6:.1f} MB, {ops / 1e9:.4f} GFLOP)", flush=True)
+        del pyr, got, want, nhwc
+    # an empty level: a 6 x 8 grid pools to 3 x 4, 1 x 2 and 0 x 1
+    sf1, sf2, sc = _corr_inputs(rng, 2, 6, 8, dev)
+    with torch.no_grad():
+        spyr = build_corr_pyramid(sf1, sf2, LEVELS, "int8")
+    got = pyramid_lookup_quantized(spyr, sc, R)
+    _check("pyramid_lookup_quantized int8 empty level", got,
+           pyramid_lookup_plain(spyr, sc, R))
+    if spyr[-1].values.numel() or got[..., 3 * k * k:].abs().max():
+        raise AssertionError("pyramid_lookup_quantized: empty level not zero")
+
+    # --- kernel 2: F = 256, forward and backward ---
+    gen = torch.Generator().manual_seed(6)
+    Fc = 256
+    w = (torch.randn(Fc, P, 1, 1, generator=gen) / P ** 0.5).to(dev)
+    b = (torch.randn(Fc, generator=gen) * 0.1).to(dev)
+    w.requires_grad_(True)
+    b.requires_grad_(True)
+    cot32 = torch.randn(B, Fc, h8, w8, generator=gen).to(dev)
+    for label, store, out_dtype, timed in (
+            ("fp32", torch.float32, torch.float32, True),
+            ("bf16", torch.bfloat16, torch.bfloat16, True),
+            ("int8", "int8", torch.float32, True),
+            ("int8->bf16", "int8", torch.bfloat16, False),
+            ("e4m3", "float8_e4m3fn", torch.float32, False)):
+        with torch.no_grad():
+            pyr = build_corr_pyramid(f1, f2, LEVELS, store)
+        quantized = not torch.is_tensor(pyr[0])
+        if not quantized:
+            pyr = [lv.requires_grad_(True) for lv in pyr]
+        leaves = [w, b] + ([] if quantized else pyr)
+        cot = cot32.to(out_dtype)
+        got = pyramid_lookup_encode(pyr, coords, R, w, b, out_dtype)
+        with torch.no_grad():
+            want = pyramid_lookup_encode_plain(pyr, coords, R, w, b,
+                                               out_dtype)
+        err_f = _check(f"lookup_encode fwd {label} {tuple(got.shape)}", got,
+                       want)
+        # the backward against the plain backward on the kernel's output,
+        # so both apply the same relu mask (a pre-activation within
+        # rounding of 0 may land on either side in two forwards)
+        dk = torch.autograd.grad(got, leaves, cot, retain_graph=True)
+        dw, db, dl = pyramid_lookup_encode_bwd_plain(pyr, coords, R, w,
+                                                     got.detach(), cot)
+        err_b = max(_check(f"lookup_encode bwd {label} {n}", a, c)
+                    for n, a, c in zip(
+                        ["dW", "db"] + [f"dlevel{i}" for i in range(LEVELS)],
+                        dk, [dw, db] + (dl or [])))
+        del dk, dw, db, dl
+        if not timed:
+            del pyr, got, want, leaves
+            continue
+        wc, bc = w.detach().to(out_dtype), b.detach().to(out_dtype)
+        lookup = (pyramid_lookup_quantized_nchw if quantized
+                  else pyramid_lookup_nchw)
+        with torch.no_grad():
+            tk = _timed(lambda: pyramid_lookup_encode(
+                pyr, coords, R, w, b, out_dtype), "lookup_encode_kernel")
+            tp = _timed(lambda: pyramid_lookup_encode_plain(
+                pyr, coords, R, w, b, out_dtype), None, reps=10)
+            tu = _timed(lambda: torch.relu(F.conv2d(
+                lookup(pyr, coords, R, out_dtype), wc, bc)), None)
+        tkb = _timed(lambda: torch.autograd.grad(got, leaves, cot,
+                                                 retain_graph=True),
+                     None, reps=10)
+        es_s = 1 if quantized else pyr[0].element_size()
+        nb = (win * es_s + coords.numel() * 4 + w.numel() * 4 + Fc * 4
+              + (B * LEVELS * 4 if quantized else 0)
+              + B * Fc * N * got.element_size())
+        ops = 2.0 * B * N * P * Fc + 9.0 * B * N * P
+        bound, by = _bound_ms(nb, ops, peaks)
+        results[f"lookup_encode/{label}"] = dict(
+            max_abs_err=max(err_f, err_b), max_abs_err_fwd=err_f,
+            max_abs_err_bwd=err_b, ms=tk["ms"], plain_ms=tp["ms"],
+            library_ms=None, unfused_ms=tu["ms"], bwd_ms=tkb["ms"],
+            bound_ms=bound, bound_by=by, bytes=nb, ops=ops,
+            kernel_timing=tk, plain_timing=tp, unfused_timing=tu,
+            bwd_timing=tkb)
+        print(f"[kernels] lookup_encode {label}: kernel {tk}, plain {tp}, "
+              f"unfused lookup + conv1x1 + relu {tu}, backward (recompute "
+              f"+ dW/db + lookup bwd) {tkb}, bound {bound:.4f} ms ({by}; "
+              f"{nb / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)", flush=True)
+        del pyr, got, want, leaves
+        torch.cuda.empty_cache()
+    results["pyramid_lookup_quantized"] = \
+        results["pyramid_lookup_quantized/int8/fp32"]
+    results["lookup_encode"] = results["lookup_encode/int8"]
+    return results
+
+
 def _corr_bwd_case(rng, B, h, w, label, peaks, time_plain=True):
     """The on-demand lookup backward kernel against its plain version on
     one input (centers = grid + U(-20, 20) px, 2% far off), with an NHWC
@@ -807,11 +968,12 @@ def _frames(dev):
 
 
 def _counters():
-    from raft_tpu_torch.ops import (corr_kernels, gru_gates, pyramid_kernels,
-                                    upsample_loss)
+    from raft_tpu_torch.ops import (corr_kernels, gru_gates, lookup_encode,
+                                    pyramid_kernels, upsample_loss)
 
     return (corr_kernels.LAUNCHES, gru_gates.LAUNCHES,
-            pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES)
+            pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES,
+            lookup_encode.LAUNCHES)
 
 
 def _counts():
@@ -844,13 +1006,22 @@ def _expect_train_counts(label: str, steps: int, where: str):
     """Per step of a kernel configuration: one lookup forward and one
     backward per iteration, one upsample-loss forward and one backward
     (all iterations folded); with the on-demand lookup and fused gates,
-    also two passes of both gates, forward and backward, per iteration.
-    None for the plain configuration."""
+    also two passes of both gates, forward and backward, per iteration;
+    with the fused encoder one fused launch per iteration and the lookup
+    its backward recomputes the taps with (the quantized lookup under
+    int8, the lookup forward and backward otherwise); an unfused int8
+    step one quantized lookup per iteration.  None for the plain
+    configuration."""
     it = CHAIRS_ITERS * steps
     loss = {"upsample_loss_fwd": steps, "upsample_loss_bwd": steps}
     return _expect({
         "kernel": {"pyramid_lookup_fwd": it, "pyramid_lookup_bwd": it,
                    **loss},
+        "int8_fused": {"lookup_encode": it, "pyramid_lookup_quantized": it,
+                       **loss},
+        "auto_fused": {"lookup_encode": it, "pyramid_lookup_fwd": it,
+                       "pyramid_lookup_bwd": it, **loss},
+        "int8": {"pyramid_lookup_quantized": it, **loss},
         "ondemand": {"corr_ondemand": it, "corr_ondemand_bwd": it,
                      "gru_gate_rh": 2 * it, "gru_gate_rh_bwd": 2 * it,
                      "gru_gate_blend": 2 * it, "gru_gate_blend_bwd": 2 * it,
@@ -1048,10 +1219,15 @@ def _grad_agreement(gk: dict, gp: dict) -> dict:
 KERNEL_CFG = dict(corr_impl="allpairs_pallas", upsample_loss_kernel="pallas")
 ONDEMAND_CFG = dict(corr_impl="pallas", fused_gru=True,
                     upsample_loss_kernel="pallas")
+INT8_FUSED_CFG = dict(KERNEL_CFG, corr_dtype="int8", fused_lookup_encoder=True)
+AUTO_FUSED_CFG = dict(KERNEL_CFG, fused_lookup_encoder=True)
+INT8_CFG = dict(KERNEL_CFG, corr_dtype="int8")
 TRAIN_PAIRS = {"kernel": (KERNEL_CFG, {}),
                "ondemand": (ONDEMAND_CFG,
                             dict(corr_impl="chunked", fused_gru=False,
-                                 upsample_loss_kernel="xla"))}
+                                 upsample_loss_kernel="xla")),
+               "int8_fused": (INT8_FUSED_CFG, dict(corr_dtype="int8")),
+               "auto_fused": (AUTO_FUSED_CFG, {})}
 
 
 def compare_train_step(sd, batch, cfg, dtype: str, pair: str) -> dict:
@@ -1077,6 +1253,15 @@ def compare_train_step(sd, batch, cfg, dtype: str, pair: str) -> dict:
     print(f"[train] chairs {dtype} one step, {pair} vs plain config: "
           f"relative differences {rel}; gradients {agree}; loss "
           f"{float(mp['loss']):.6f}", flush=True)
+    if TRAIN_PAIRS[pair][0].get("corr_dtype") == "int8":
+        # the codes carry no gradient: fnet, whose features reach the loss
+        # only through them, gets exactly zero on both sides
+        fnet = [n for n in gp if n.startswith("fnet.")]
+        nonzero = [n for n in fnet if gk[n].any() or gp[n].any()]
+        print(f"[train] {pair} {dtype}: {len(fnet)} fnet gradients, "
+              f"{len(nonzero)} not exactly zero", flush=True)
+        if not fnet or nonzero:
+            raise AssertionError(f"{pair}: fnet gradients {nonzero}")
     if dtype == "float32":
         ok = all(v <= 1e-4 for v in rel.values()) and \
             agree["entry_ratio"] <= 1.0
@@ -1108,17 +1293,20 @@ def phase_train(sd):
     print(f"[time] train step comparisons: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # the chairs stage: fp32 and bf16, the three configurations; each
-    # kernel configuration's main path is its first fp32 timed step.  The
-    # configurations of the earlier slice run fewer steps (warm-up, timed,
-    # profiled), to keep the script near its time budget.
+    # the chairs stage: fp32 and bf16, every configuration; each kernel
+    # configuration's main path is its first fp32 timed step.  Steps per
+    # configuration: (warm-up, timed, profiled); the configurations of the
+    # earlier slices run fewer, to keep the script near its time budget.
     main_counts = {}
     runs = {}
     for dtype in ("float32", "bfloat16"):
         for label, extra, (n_warm, n_timed, n_prof) in (
                 ("kernel", KERNEL_CFG, (2, 5, 2)), ("plain", {}, (2, 5, 2)),
-                ("ondemand", ONDEMAND_CFG, (3, 10, 3))):
-            t0 = time.perf_counter()
+                ("ondemand", ONDEMAND_CFG, (2, 5, 2)),
+                ("int8_fused", INT8_FUSED_CFG, (3, 10, 3)),
+                ("auto_fused", AUTO_FUSED_CFG, (3, 10, 3)),
+                ("int8", INT8_CFG, (1, 3, 1))):
+            t_cfg = time.perf_counter()
             key = f"{label}/{dtype}"
             mcfg = RAFTConfig.full(compute_dtype=dtype, **extra)
             torch.cuda.empty_cache()
@@ -1161,8 +1349,8 @@ def phase_train(sd):
                   f"{prof['by_kind']}, peak {peak / 2 ** 20:.1f} MiB, "
                   f"losses {losses[0]:.4f} .. {losses[-1]:.4f}", flush=True)
             del state
-            print(f"[time] chairs {key}: {time.perf_counter() - t0:.1f} s",
-                  flush=True)
+            print(f"[time] chairs {key}: "
+                  f"{time.perf_counter() - t_cfg:.1f} s", flush=True)
     results["chairs"] = runs
     t0 = time.perf_counter()
     results["things"] = _things_memory(sd)
@@ -1174,8 +1362,9 @@ def phase_train(sd):
 def _things_memory(sd) -> dict:
     """Peak memory and step time of one bf16 train step at the things
     stage (``scripts/train_single_host.sh:8``: 400x720, batch 5, 12
-    iterations) for the on-demand and the ``allpairs_pallas``
-    configurations: one warm-up step, then 3 timed steps each."""
+    iterations) for the on-demand, the ``allpairs_pallas`` and the int8 +
+    fused-encoder configurations: one warm-up step, then 3 timed steps
+    each."""
     from raft_tpu_torch.config import RAFTConfig, TrainConfig
     from raft_tpu_torch.train.step import init_state, make_train_step
 
@@ -1191,7 +1380,8 @@ def _things_memory(sd) -> dict:
                       image_size=(H, W), iters=CHAIRS_ITERS, wdecay=1e-4)
     step_fn = make_train_step(cfg)
     out = {}
-    for label, extra in (("ondemand", ONDEMAND_CFG), ("kernel", KERNEL_CFG)):
+    for label, extra in (("ondemand", ONDEMAND_CFG), ("kernel", KERNEL_CFG),
+                         ("int8_fused", INT8_FUSED_CFG)):
         torch.cuda.empty_cache()
         state = init_state(RAFTConfig.full(compute_dtype="bfloat16",
                                            **extra), cfg, state_dict=sd)
@@ -1284,7 +1474,8 @@ def main(argv=None) -> int:
     build_s = phase_build()
     kern = {**timed_phase(phase_kernels, peaks),
             **timed_phase(phase_train_kernels, peaks),
-            **timed_phase(phase_bwd_kernels, peaks)}
+            **timed_phase(phase_bwd_kernels, peaks),
+            **timed_phase(phase_slice4_kernels, peaks)}
     path, main_counts, sd = timed_phase(phase_path)
     demo_res = timed_phase(phase_demo, sd)
     train, train_counts = timed_phase(phase_train, sd)
@@ -1310,13 +1501,21 @@ def main(argv=None) -> int:
         "gru_gate_rh_bwd": ("raft_tpu_torch/csrc/gru_gates.cu",
                             "raft_tpu/ops/pallas_gru.py:90"),
         "gru_gate_blend_bwd": ("raft_tpu_torch/csrc/gru_gates.cu",
-                               "raft_tpu/ops/pallas_gru.py:106")}
+                               "raft_tpu/ops/pallas_gru.py:106"),
+        "pyramid_lookup_quantized": ("raft_tpu_torch/csrc/pyramid_lookup.cu",
+                                     "raft_tpu/ops/pallas_corr.py:660 via "
+                                     ":871"),
+        "lookup_encode": ("raft_tpu_torch/csrc/lookup_encode.cu",
+                          "raft_tpu/ops/pallas_corr.py:1165")}
     kernels = []
     for kname, (src, replaces) in sources.items():
         r = kern[kname]
         # each kernel's launches on the main path it belongs to: the
-        # inference forward, the allpairs_pallas or the on-demand train step
-        if kname.startswith(("pyramid", "upsample")):
+        # inference forward, the allpairs_pallas, the on-demand or the
+        # int8 + fused-encoder train step
+        if kname in ("pyramid_lookup_quantized", "lookup_encode"):
+            counts = train_counts["int8_fused"]
+        elif kname.startswith(("pyramid", "upsample")):
             counts = train_counts["kernel"]
         elif kname.endswith("_bwd"):
             counts = train_counts["ondemand"]

@@ -16,7 +16,13 @@ packages:
 - ``'allpairs_pallas'``: the same materialized pyramid as ``'allpairs'``,
   sampled by the hand-written pyramid-lookup CUDA kernel and its
   backward (``ops/pyramid_kernels.py``); on a CPU tensor it runs the
-  ``'allpairs'`` lookup.
+  ``'allpairs'`` lookup.  With ``fused_lookup_encoder`` the lookup and the
+  motion encoder's first 1x1 conv run as one kernel
+  (``ops/lookup_encode.py``).
+
+A materialized pyramid may be stored quantized (``corr_dtype`` ``'int8'``,
+``'float8_e4m3fn'``, ``'float8_e5m2'``): codes plus one fp32 scale per
+(batch element, level), ``ops/corr.py``.
 
 TPU-tuned knobs of the JAX package (``scan_unroll``, ``upsample_group``,
 ``remat*``, ``lookup_block_q``, ``corr_precision``) have no counterpart.
@@ -31,10 +37,11 @@ from typing import Tuple
 
 import torch
 
+from raft_tpu_torch.ops.corr import corr_quant_spec
+
 CORR_IMPLS = ("allpairs", "chunked", "pallas", "allpairs_pallas")
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# Storage dtypes of the materialized pyramid; the quantized ones belong to
-# a later slice of the port (the quantized-lookup kernel).
+# Storage dtypes of the materialized pyramid.
 CORR_DTYPES = ("auto", "float32", "bfloat16", "int8", "float8_e4m3fn",
                "float8_e5m2")
 QUANTIZED_CORR_DTYPES = ("int8", "float8_e4m3fn", "float8_e5m2")
@@ -58,8 +65,11 @@ class RAFTConfig:
     corr_block_size: int = 256
     # Storage dtype of the materialized pyramid ('allpairs' and
     # 'allpairs_pallas'): 'auto' is bf16 under bf16 compute, fp32
-    # otherwise.  The correlation and its pooling are computed in fp32 and
-    # the lookups accumulate in fp32; only the stored levels round.
+    # otherwise; 'int8' / 'float8_e4m3fn' / 'float8_e5m2' store codes and
+    # a per-level scale, with no gradient through the volume (fnet then
+    # learns nothing from it).  The correlation and its pooling are
+    # computed in fp32 and the lookups accumulate in fp32; only the
+    # stored levels round.
     corr_dtype: str = "auto"
     # Encoders and update block compute in this dtype; parameters stay
     # fp32 and are cast at each conv.  Correlation and coordinates stay
@@ -73,6 +83,10 @@ class RAFTConfig:
     # Fused GRU gate chains (ops/gru_gates.py): sigmoid(r)*h and the
     # blend each become one kernel launch on CUDA (forward only).
     fused_gru: bool = False
+    # Pyramid lookup + the motion encoder's convc1 (+ bias + relu) as one
+    # CUDA kernel (ops/lookup_encode.py): the tap tensor never reaches
+    # device memory.  Only with corr_impl='allpairs_pallas'.
+    fused_lookup_encoder: bool = False
 
     def __post_init__(self):
         for name, value, allowed in (
@@ -84,6 +98,18 @@ class RAFTConfig:
             if value not in allowed:
                 raise ValueError(f"unknown {name} {value!r}; "
                                  f"allowed: {', '.join(allowed)}")
+        if self.corr_dtype_is_quantized and self.corr_impl in ("chunked",
+                                                               "pallas"):
+            raise ValueError(
+                f"corr_dtype={self.corr_dtype!r} requires a materialized "
+                "pyramid (corr_impl 'allpairs' or 'allpairs_pallas'); the "
+                f"on-demand {self.corr_impl!r} path never stores the volume, "
+                "so there is nothing to quantize")
+        if self.fused_lookup_encoder and self.corr_impl != "allpairs_pallas":
+            raise ValueError(
+                "fused_lookup_encoder=True requires corr_impl="
+                f"'allpairs_pallas' (got {self.corr_impl!r}): the fused "
+                "kernel samples the materialized pyramid")
 
     @classmethod
     def full(cls, **kw) -> "RAFTConfig":
@@ -114,14 +140,17 @@ class RAFTConfig:
         return self.corr_dtype
 
     @property
+    def corr_dtype_is_quantized(self) -> bool:
+        """True for int8 / fp8 storage (codes + a per-level scale)."""
+        return self.resolved_corr_dtype in QUANTIZED_CORR_DTYPES
+
+    @property
     def corr_torch_dtype(self) -> torch.dtype:
-        """The pyramid's storage dtype; a quantized one raises."""
-        name = self.resolved_corr_dtype
-        if name in QUANTIZED_CORR_DTYPES:
-            raise NotImplementedError(
-                f"corr_dtype={name!r} (quantized pyramid storage) belongs to "
-                "a later slice of the port, with the quantized lookup kernel")
-        return COMPUTE_DTYPES[name]
+        """The pyramid's storage dtype: fp32 or bf16 for plain levels,
+        ``torch.int8`` / ``torch.float8_e4m3fn`` / ``torch.float8_e5m2``
+        for the codes of quantized ones."""
+        spec = corr_quant_spec(self.resolved_corr_dtype)
+        return spec[0] if spec else COMPUTE_DTYPES[self.resolved_corr_dtype]
 
     def replace(self, **kw) -> "RAFTConfig":
         return dataclasses.replace(self, **kw)

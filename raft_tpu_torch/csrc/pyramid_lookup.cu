@@ -4,10 +4,13 @@
 // Replaces the TPU kernels `_pyr_multi_fwd_kernel` (+ `_pyr_fwd_level_body`)
 // and `_pyr_multi_bwd_kernel` (+ `_pyr_bwd_level_body`) in
 // raft_tpu/ops/pallas_corr.py, reached through `pallas_pyramid_lookup`
-// (its custom_vjp `_pyr_fwd` / `_pyr_bwd`).
+// (its custom_vjp `_pyr_fwd` / `_pyr_bwd`), and the same forward body on a
+// quantized pyramid, `pallas_pyramid_lookup_quantized` (primal only).
 //
 // Function.  Level l of the pyramid is (B, N, Hl, Wl): query n's
-// correlation row over the level's pixels, stored fp32 or bf16.  For
+// correlation row over the level's pixels, stored fp32 or bf16, or as
+// int8 / fp8 (e4m3, e5m2) codes with one fp32 scale per (batch, level),
+// whose taps are the codes' samples times the scale.  For
 // query n with level-0 center c = coords[b, n] and level center c / 2^l
 // (no half-pixel offset), tap (i, j) is the bilinear (align-corners,
 // zeros padding) sample at (c.x + i - r, c.y + j - r) of the row; the
@@ -19,10 +22,11 @@
 // What bounds it on an H100.  Forward: per query and level the window
 // touches (k+1)^2 = 100 stored values, so at the chairs training shape
 // (B = 8, N = 2852, four levels) a lookup needs about 9 M values (36 MB
-// fp32) plus the taps (30 MB fp32): ~20 us at 3.35 TB/s, and only
-// ~0.1 GFLOP.  Backward: the dense dcorr write, 345 MB fp32 (173 MB
-// bf16) per lookup, ~103 us (52 us) at 3.35 TB/s; that write is the
-// bound and the window arithmetic is noise beside it.
+// fp32, 9 MB as one-byte codes) plus the taps (30 MB fp32): ~20 us at
+// 3.35 TB/s (~12 us from codes), and only ~0.1 GFLOP.  Backward: the
+// dense dcorr write, 345 MB fp32 (173 MB bf16) per lookup, ~103 us
+// (52 us) at 3.35 TB/s; that write is the bound and the window
+// arithmetic is noise beside it.
 //
 // Design.  The TPU kernel scans every row of a level for every query
 // block on the VPU, because the TPU has no cheap gather; here each query
@@ -45,66 +49,18 @@
 //   - far-off and non-finite centers are tested in float before any int
 //     cast and give zero taps (forward) and zero rows (backward).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "pyramid_window.cuh"
 
-#define MAX_LEVELS 8
 #define QPB 8  // queries (warps) per block
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T>
-struct Levels {
-  T* p[MAX_LEVELS];
-  int h[MAX_LEVELS];
-  int w[MAX_LEVELS];
-};
-
-// Window of one query at one level: its integer origin (x0, y0), the
-// fractional offsets, and whether it overlaps the level at all.  Written
-// in float so far-out or non-finite centers never reach an int cast.
-struct Window {
-  int x0, y0;
-  float fx, fy;
-  bool any;
-};
-
-__device__ __forceinline__ Window window_of(float cx0, float cy0, int l,
-                                            int hl, int wl, int radius) {
-  const int kp = 2 * radius + 2;
-  const float s = 1.0f / (float)(1 << l);  // exact power of two
-  const float cx = cx0 * s, cy = cy0 * s;
-  const float fx0 = floorf(cx), fy0 = floorf(cy);
-  Window w;
-  w.any = hl > 0 && wl > 0 && fx0 > -(float)(2 * kp) &&
-          fx0 < (float)(wl + 2 * kp) && fy0 > -(float)(2 * kp) &&
-          fy0 < (float)(hl + 2 * kp);
-  w.x0 = w.any ? (int)fx0 - radius : 0;
-  w.y0 = w.any ? (int)fy0 - radius : 0;
-  w.fx = cx - fx0;
-  w.fy = cy - fy0;
-  return w;
-}
 
 template <typename T, typename To>
 __global__ void __launch_bounds__(32 * QPB)
-pyr_fwd_kernel(Levels<T> lv, const float* __restrict__ coords, int L, int N,
-               int radius, To* __restrict__ out, long long out_sb,
-               long long out_sq, long long out_sp) {
+pyr_fwd_kernel(Levels<T> lv, const float* __restrict__ coords,
+               const float* __restrict__ scale, int L, int N, int radius,
+               To* __restrict__ out, long long out_sb, long long out_sq,
+               long long out_sp) {
   const int k = 2 * radius + 1;
-  const int kp = k + 1;
-  const int npos = kp * kp;
+  const int npos = (k + 1) * (k + 1);
   const int kk = k * k;
   const int P = L * kk;
   extern __shared__ float smem[];
@@ -121,29 +77,11 @@ pyr_fwd_kernel(Levels<T> lv, const float* __restrict__ coords, int L, int N,
     const float cx0 = coords[qi * 2 + 0];
     const float cy0 = coords[qi * 2 + 1];
     for (int l = 0; l < L; ++l) {
-      const int hl = lv.h[l], wl = lv.w[l];
-      const Window wd = window_of(cx0, cy0, l, hl, wl, radius);
-      float* trow = tile + warp * P + l * kk;
-      if (!wd.any) {
-        for (int t = lane; t < kk; t += 32) trow[t] = 0.0f;
-        continue;
-      }
-      const T* row = lv.p[l] + qi * hl * wl;
-      for (int p = lane; p < npos; p += 32) {
-        const int X = wd.x0 + p % kp;
-        const int Y = wd.y0 + p / kp;
-        const bool in = X >= 0 && X < wl && Y >= 0 && Y < hl;
-        vals[p] = in ? to_f(row[Y * wl + X]) : 0.0f;
-      }
-      __syncwarp();
-      const float fx = wd.fx, fy = wd.fy;
-      for (int t = lane; t < kk; t += 32) {
-        const int i = t / k, j = t % k;  // i walks x, j walks y
-        const float* d = vals + j * kp + i;
-        trow[t] = (1.0f - fx) * ((1.0f - fy) * d[0] + fy * d[kp]) +
-                  fx * ((1.0f - fy) * d[1] + fy * d[kp + 1]);
-      }
-      __syncwarp();  // vals are rewritten by the next level
+      // a quantized level's taps are its codes' samples times the
+      // (batch, level) scale
+      const float s = scale ? scale[b * L + l] : 1.0f;
+      warp_window_taps(lv.p[l], qi, lv.h[l], lv.w[l], l, cx0, cy0, radius,
+                       s, vals, tile + warp * P + l * kk, 1, lane);
     }
   }
   __syncthreads();
@@ -270,29 +208,17 @@ pyr_bwd_kernel(Levels<T> lv, const float* __restrict__ coords,
   }
 }
 
-template <typename T>
-static Levels<T> make_levels(const long long* ptrs, const int* hs,
-                             const int* ws, int L) {
-  Levels<T> lv;
-  for (int l = 0; l < MAX_LEVELS; ++l) {
-    lv.p[l] = l < L ? reinterpret_cast<T*>(ptrs[l]) : nullptr;
-    lv.h[l] = l < L ? hs[l] : 0;
-    lv.w[l] = l < L ? ws[l] : 0;
-  }
-  return lv;
-}
-
 template <typename T, typename To>
 static void launch_fwd(const long long* ptrs, const int* hs, const int* ws,
                        int L, int B, int N, int radius, const float* coords,
-                       void* out, long long sb, long long sq, long long sp,
-                       cudaStream_t st) {
+                       const float* scale, void* out, long long sb,
+                       long long sq, long long sp, cudaStream_t st) {
   const int k = 2 * radius + 1;
   const size_t smem =
       (size_t)QPB * (L * k * k + (k + 1) * (k + 1)) * sizeof(float);
   const dim3 grid((N + QPB - 1) / QPB, B);
   pyr_fwd_kernel<T, To><<<grid, 32 * QPB, smem, st>>>(
-      make_levels<T>(ptrs, hs, ws, L), coords, L, N, radius,
+      make_levels<T>(ptrs, hs, ws, L), coords, scale, L, N, radius,
       reinterpret_cast<To*>(out), sb, sq, sp);
 }
 
@@ -310,35 +236,51 @@ static void launch_bwd(const long long* ptrs, const int* hs, const int* ws,
       reinterpret_cast<const Tg*>(g), sb, sq, sp, L, N, radius);
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t
-// (0 = success).  Level arrays are host arrays of L entries; strides are
-// in elements.
+template <typename T>
+static void launch_fwd_to(int out_dtype, const long long* ptrs, const int* hs,
+                          const int* ws, int L, int B, int N, int radius,
+                          const float* coords, const float* scale, void* out,
+                          long long sb, long long sq, long long sp,
+                          cudaStream_t st) {
+  if (out_dtype == 0)
+    launch_fwd<T, float>(ptrs, hs, ws, L, B, N, radius, coords, scale, out,
+                         sb, sq, sp, st);
+  else
+    launch_fwd<T, __nv_bfloat16>(ptrs, hs, ws, L, B, N, radius, coords,
+                                 scale, out, sb, sq, sp, st);
+}
+
+// Level dtype codes: 0 = float32, 1 = bfloat16, 2 = int8, 3 = fp8 e4m3,
+// 4 = fp8 e5m2; tap and gradient dtype codes: 0 = float32, 1 = bfloat16.
+// `scale` is null for plain levels and a (B, L) fp32 array for quantized
+// ones.  Returns a cudaError_t (0 = success).  Level arrays are host arrays
+// of L entries; strides are in elements.
 extern "C" int pyramid_lookup_fwd(int device, int level_dtype, int out_dtype,
                                   const long long* level_ptrs, const int* hs,
                                   const int* ws, int L, int B, int N,
-                                  int radius, const void* coords, void* out,
+                                  int radius, const void* coords,
+                                  const void* scale, void* out,
                                   long long out_sb, long long out_sq,
                                   long long out_sp, void* stream) {
   if (L < 1 || L > MAX_LEVELS || B < 1 || N < 1 || radius < 0 ||
-      level_dtype < 0 || level_dtype > 1 || out_dtype < 0 || out_dtype > 1)
+      level_dtype < 0 || level_dtype > 4 || out_dtype < 0 || out_dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float* c = reinterpret_cast<const float*>(coords);
-  if (level_dtype == 0 && out_dtype == 0)
-    launch_fwd<float, float>(level_ptrs, hs, ws, L, B, N, radius, c, out,
-                             out_sb, out_sq, out_sp, st);
-  else if (level_dtype == 0)
-    launch_fwd<float, __nv_bfloat16>(level_ptrs, hs, ws, L, B, N, radius, c,
-                                     out, out_sb, out_sq, out_sp, st);
-  else if (out_dtype == 0)
-    launch_fwd<__nv_bfloat16, float>(level_ptrs, hs, ws, L, B, N, radius, c,
-                                     out, out_sb, out_sq, out_sp, st);
-  else
-    launch_fwd<__nv_bfloat16, __nv_bfloat16>(level_ptrs, hs, ws, L, B, N,
-                                             radius, c, out, out_sb, out_sq,
-                                             out_sp, st);
+  const float* sc = reinterpret_cast<const float*>(scale);
+#define FWD(T)                                                             \
+  launch_fwd_to<T>(out_dtype, level_ptrs, hs, ws, L, B, N, radius, c, sc, \
+                   out, out_sb, out_sq, out_sp, st)
+  switch (level_dtype) {
+    case 0: FWD(float); break;
+    case 1: FWD(__nv_bfloat16); break;
+    case 2: FWD(int8_t); break;
+    case 3: FWD(__nv_fp8_e4m3); break;
+    default: FWD(__nv_fp8_e5m2); break;
+  }
+#undef FWD
   return (int)cudaGetLastError();
 }
 

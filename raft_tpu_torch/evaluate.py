@@ -6,7 +6,9 @@ caller asks for the CPU; without CUDA and without an explicit CPU request
 they raise.  There is no tuning registry in the port: the configuration
 is used as given, apart from the one fixed inference override of the JAX
 package (the training-only ``allpairs_pallas`` lookup maps to
-``allpairs``).
+``allpairs``, and the fused lookup + ``convc1`` kernel, which needs it,
+is turned off with it; a quantized pyramid is then sampled by the plain
+``corr_lookup``, as in JAX).
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ def make_inference_model(model_cfg: RAFTConfig,
     on ``device``, holding ``state_dict`` when one is given."""
     dev = resolve_device(device)
     if model_cfg.corr_impl == "allpairs_pallas":
-        model_cfg = model_cfg.replace(corr_impl="allpairs")
+        model_cfg = model_cfg.replace(corr_impl="allpairs",
+                                      fused_lookup_encoder=False)
     model = RAFT(model_cfg).eval()
     if state_dict is not None:
         model.load_state_dict(state_dict)

@@ -20,8 +20,11 @@ Train mode is ``model.train()``: batch norm uses batch statistics unless
 Dtype casts sit where the JAX model puts them: images are normalized in
 fp32 and cast to the compute dtype; the feature maps, the correlation
 and the coordinates are fp32; the materialized pyramid is stored in
-``corr_dtype`` (bf16 under bf16 compute by default, as in JAX); the
-lookup taps and the flow enter the update block in the compute dtype;
+``corr_dtype`` (bf16 under bf16 compute by default, as in JAX; int8 or
+fp8 codes with per-level scales when quantized, with no gradient through
+the volume); the lookup taps (or, with ``fused_lookup_encoder``, the
+fused lookup + ``convc1`` output) and the flow enter the update block in
+the compute dtype;
 the flow update returns to fp32; the mask stays in the compute dtype for
 the loss chain and is fp32 for the returned flows.
 
@@ -41,11 +44,13 @@ import torch.nn as nn
 from raft_tpu_torch.config import RAFTConfig
 from raft_tpu_torch.models.extractor import BasicEncoder
 from raft_tpu_torch.models.layers import Conv, Norm
-from raft_tpu_torch.models.update import BasicUpdateBlock, MaskHead
+from raft_tpu_torch.models.update import (BasicUpdateBlock, FusedCorrLookup,
+                                          MaskHead)
 from raft_tpu_torch.ops.corr import (build_corr_pyramid, chunked_corr_lookup,
                                      corr_lookup, pool_fmap_pyramid)
 from raft_tpu_torch.ops.corr_kernels import corr_lookup_ondemand_nchw
-from raft_tpu_torch.ops.pyramid_kernels import pyramid_lookup_nchw
+from raft_tpu_torch.ops.pyramid_kernels import (pyramid_lookup_nchw,
+                                                pyramid_lookup_quantized_nchw)
 from raft_tpu_torch.ops.sampler import coords_grid
 from raft_tpu_torch.ops.upsample import convex_upsample_nchw
 from raft_tpu_torch.ops.upsample_loss import (upsample_loss_sums,
@@ -64,7 +69,6 @@ class RAFT(nn.Module):
             raise NotImplementedError(
                 "the small model (SmallEncoder, ConvGRU, upflow8) is a later "
                 "slice of the port")
-        config.corr_torch_dtype              # a quantized pyramid raises
         self.config = config
         hdim, cdim = config.hidden_dim, config.context_dim
         self.fnet = BasicEncoder(256, "instance", config.dropout)
@@ -86,16 +90,22 @@ class RAFT(nn.Module):
     def _lookup_fn(self, fmap1: torch.Tensor,
                    fmap2: torch.Tensor) -> Callable:
         """Correlation state for one pair -> ``coords -> (B, P, H, W)``
-        taps, dispatched on ``corr_impl``."""
+        taps, dispatched on ``corr_impl`` (a :class:`FusedCorrLookup` for
+        the motion encoder with ``fused_lookup_encoder``)."""
         cfg = self.config
         r, L = cfg.corr_radius, cfg.corr_levels
         if cfg.corr_impl in ("allpairs", "allpairs_pallas"):
             pyramid = build_corr_pyramid(fmap1, fmap2, L,
                                          cfg.corr_torch_dtype)
+            if cfg.fused_lookup_encoder:
+                return lambda c: FusedCorrLookup(pyramid, c.contiguous(), r,
+                                                 cfg.dtype)
             if cfg.corr_impl == "allpairs_pallas":
-                # the kernel emits the taps in the compute dtype directly
-                return lambda c: pyramid_lookup_nchw(pyramid, c, r,
-                                                     cfg.dtype)
+                # the kernels emit the taps in the compute dtype directly
+                lookup = (pyramid_lookup_quantized_nchw
+                          if cfg.corr_dtype_is_quantized
+                          else pyramid_lookup_nchw)
+                return lambda c: lookup(pyramid, c, r, cfg.dtype)
             return lambda c: corr_lookup(pyramid, c, r).permute(
                 0, 3, 1, 2).contiguous()
         f2_pyramid = pool_fmap_pyramid(fmap2, L)
@@ -130,20 +140,26 @@ class RAFT(nn.Module):
         fmaps = self.fnet(torch.cat([x1, x2], dim=0).to(dt), freeze_bn,
                           generator)
         fmaps = fmaps.float().permute(0, 2, 3, 1).contiguous()   # NHWC
+        _, H8, W8, _ = fmaps.shape
         lookup = self._lookup_fn(fmaps[:B], fmaps[B:])
+        # From here the lookup state alone holds the features: a quantized
+        # pyramid holds no graph, so fnet's saved activations are freed now
+        # rather than when the forward returns
+        del fmaps
 
         ctx = self.cnet(x1.to(dt), freeze_bn, generator)
         net = torch.tanh(ctx[:, :hdim])
         inp = torch.relu(ctx[:, hdim:])
 
-        _, H8, W8, _ = fmaps.shape
-        coords0 = coords_grid(B, H8, W8, device=fmaps.device)
+        coords0 = coords_grid(B, H8, W8, device=x1.device)
         coords1 = coords0 if flow_init is None else coords0 + flow_init
         update_block = self.refine["update_block"]
         nets, flows = [], []
         for _ in range(iters):
             coords1 = coords1.detach()
-            corr = lookup(coords1).to(dt)
+            corr = lookup(coords1)
+            if not isinstance(corr, FusedCorrLookup):
+                corr = corr.to(dt)
             flow = (coords1 - coords0).permute(0, 3, 1, 2).contiguous().to(dt)
             net, delta_flow = update_block(net, inp, corr, flow)
             coords1 = coords1 + delta_flow.float().permute(0, 2, 3, 1)

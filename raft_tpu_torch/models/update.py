@@ -11,15 +11,37 @@ init, as in the reference.
   chains run through ``ops/gru_gates.py`` (one CUDA kernel each on the
   card).
 - The mask head output is scaled by 0.25.
+- With ``fused_lookup_encoder`` the refinement step hands the motion
+  encoder a :class:`FusedCorrLookup` in place of the tap tensor, and the
+  encoder runs the pyramid lookup and ``convc1`` (+ bias + relu) as one
+  kernel (``ops/lookup_encode.py``) with ``convc1``'s own parameters, so
+  both paths share one state dict.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import List
 
 import torch
 import torch.nn as nn
 
 from raft_tpu_torch.models.layers import Conv
 from raft_tpu_torch.ops.gru_gates import gru_gate_blend, gru_gate_rh
+from raft_tpu_torch.ops.lookup_encode import pyramid_lookup_encode
+
+
+@dataclasses.dataclass
+class FusedCorrLookup:
+    """A correlation lookup deferred into the motion encoder: the
+    materialized pyramid (plain or quantized levels), the ``(B, H, W, 2)``
+    fp32 lookup centers, the window radius and the dtype of the fused
+    output (the compute dtype)."""
+
+    pyramid: List
+    coords: torch.Tensor
+    radius: int
+    dtype: torch.dtype
 
 
 class FlowHead(nn.Module):
@@ -68,8 +90,13 @@ class BasicMotionEncoder(nn.Module):
         self.convf2 = Conv(128, 64, 3)
         self.conv = Conv(64 + 192, 126, 3)
 
-    def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
-        cor = torch.relu(self.convc1(corr))
+    def forward(self, flow: torch.Tensor, corr) -> torch.Tensor:
+        if isinstance(corr, FusedCorrLookup):
+            cor = pyramid_lookup_encode(corr.pyramid, corr.coords,
+                                        corr.radius, self.convc1.weight,
+                                        self.convc1.bias, corr.dtype)
+        else:
+            cor = torch.relu(self.convc1(corr))
         cor = torch.relu(self.convc2(cor))
         flo = torch.relu(self.convf1(flow))
         flo = torch.relu(self.convf2(flo))

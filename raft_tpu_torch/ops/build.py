@@ -3,10 +3,11 @@
 Each ``raft_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface,
 ``build/raft_tpu_torch/<name>-<hash>.so`` at the repository root.  The
-hash covers the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.  Builds of several sources run in parallel (one
-``nvcc`` each) under an exclusive file lock, so concurrent processes do
-not race on the same output.  Nothing is compiled at import.
+hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.  Builds of several sources run in parallel (one ``nvcc`` each)
+under an exclusive file lock, so concurrent processes do not race on the
+same output.  Nothing is compiled at import.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raft_tpu_torch"
-SOURCES = ("corr_ondemand", "gru_gates", "pyramid_lookup", "upsample_loss")
+SOURCES = ("corr_ondemand", "gru_gates", "lookup_encode", "pyramid_lookup",
+           "upsample_loss")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -47,9 +49,10 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library for source ``name`` lives at its current hash."""
-    src = CSRC_DIR / f"{name}.cu"
+    parts = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        b"".join(p.read_bytes() for p in parts)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

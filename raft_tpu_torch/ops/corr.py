@@ -29,6 +29,16 @@ that layout is this one.  Levels are stored in ``out_dtype`` (the
 config's ``corr_dtype``); the volume and its pooling are computed in fp32
 and the lookups accumulate in fp32.
 
+Quantized storage (the port of ``raft_tpu/ops/corr.py:77-169``).  With a
+quantized ``out_dtype`` (int8, fp8 e4m3fn or e5m2) each level is a
+:class:`QuantizedLevel`: codes ``q = clip(round(corr / scale))`` in the
+level's layout and one symmetric fp32 scale per batch element, calibrated
+from the level's largest magnitude.  Sampling is linear in the stored
+values, so a lookup samples the codes in fp32 and multiplies the taps by
+the scale; no dequantized volume is made.  The quantize step is detached:
+codes have no tangent space, so no gradient flows through the volume to
+the feature encoder (as in the JAX package, which stop-gradients it).
+
 Tap-order contract: the output channel is ``l * k^2 + i * k + j`` with
 ``k = 2r+1``, where ``i`` walks x (displacement ``i - r``) and ``j`` walks
 y.  Public functions take and return the JAX layout: NHWC feature maps,
@@ -38,7 +48,7 @@ y.  Public functions take and return the JAX layout: NHWC feature maps,
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -62,17 +72,88 @@ def _avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dim=(3, 5)) * 0.25
 
 
+class QuantizedLevel(NamedTuple):
+    """One quantized pyramid level: ``values`` are the codes in the
+    level's layout ``(B, N, Hl, Wl)`` (int8 or fp8), ``scale`` is
+    ``(B, 1, 1, 1)`` fp32 with ``corr ~ values * scale``."""
+
+    values: torch.Tensor
+    scale: torch.Tensor
+
+
+CorrLevel = Union[torch.Tensor, QuantizedLevel]
+
+# name -> (code dtype, qmax): qmax is the largest magnitude the codes
+# represent (127 for int8, the finite maximum for the fp8 formats), so the
+# scale maps the level's largest magnitude onto the top of the code range.
+_QUANT_SPECS = {
+    "int8": (torch.int8, 127.0),
+    "float8_e4m3fn": (torch.float8_e4m3fn, 448.0),
+    "float8_e5m2": (torch.float8_e5m2, 57344.0),
+}
+_QUANT_NAMES = {dt: name for name, (dt, _) in _QUANT_SPECS.items()}
+
+
+def corr_quant_spec(dtype: Union[str, torch.dtype]
+                    ) -> Optional[Tuple[torch.dtype, float]]:
+    """``(code dtype, qmax)`` of a quantized storage dtype, given by name or
+    as a torch dtype; None for a plain one."""
+    if isinstance(dtype, torch.dtype):
+        dtype = _QUANT_NAMES.get(dtype)
+    return _QUANT_SPECS.get(dtype)
+
+
+def quantize_corr_level(corr: torch.Tensor,
+                        spec: Tuple[torch.dtype, float]) -> QuantizedLevel:
+    """Calibrate and quantize one fp32 level (detached): the largest
+    magnitude per batch element, ``scale = max(amax, 1e-12) / qmax``,
+    ``q = corr / scale``, rounded half to even for int8 only (the fp8
+    casts round themselves), clipped to +-qmax and cast.  An empty level
+    gives zeros with scale 1."""
+    dtype, qmax = spec
+    c = corr.detach().float()
+    if c.numel() == 0:
+        return QuantizedLevel(torch.zeros(c.shape, dtype=dtype,
+                                          device=c.device),
+                              torch.ones(c.shape[0], 1, 1, 1,
+                                         device=c.device))
+    amax = c.abs().amax(dim=(1, 2, 3), keepdim=True)
+    scale = torch.clamp(amax, min=1e-12) / qmax
+    q = c / scale
+    if not dtype.is_floating_point:
+        q = torch.round(q)
+    return QuantizedLevel(torch.clamp(q, -qmax, qmax).to(dtype), scale)
+
+
+def dequantize_level(level: CorrLevel) -> torch.Tensor:
+    """fp32 view of a level (tests; the lookups never make one)."""
+    if isinstance(level, QuantizedLevel):
+        return level.values.float() * level.scale
+    return level.float()
+
+
+def _store_level(corr: torch.Tensor, out_dtype) -> CorrLevel:
+    """One fp32 level in its storage form: cast, or quantized."""
+    spec = corr_quant_spec(out_dtype)
+    if spec is not None:
+        return quantize_corr_level(corr, spec)
+    return corr.to(out_dtype)
+
+
 def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
                        num_levels: int = 4,
-                       out_dtype: torch.dtype = torch.float32
-                       ) -> List[torch.Tensor]:
+                       out_dtype: Union[str, torch.dtype] = torch.float32
+                       ) -> List[CorrLevel]:
     """Materialized pyramid: level l is ``(B, H1*W1, H/2^l, W/2^l)``,
-    pooled in fp32 and stored in ``out_dtype`` (fp32 or bf16)."""
+    pooled in fp32 and stored in ``out_dtype``: fp32 or bf16, or a
+    quantized dtype (``torch.int8``, ``torch.float8_e4m3fn``,
+    ``torch.float8_e5m2`` or their names), which gives
+    :class:`QuantizedLevel` levels."""
     corr = all_pairs_correlation(fmap1, fmap2)
-    pyramid = [corr.to(out_dtype)]
+    pyramid = [_store_level(corr, out_dtype)]
     for _ in range(num_levels - 1):
         corr = _avg_pool_2x2(corr)
-        pyramid.append(corr.to(out_dtype))
+        pyramid.append(_store_level(corr, out_dtype))
     return pyramid
 
 
@@ -109,14 +190,20 @@ def _sample_windows(corr: torch.Tensor, coords: torch.Tensor,
     return taps.reshape(B, N, k * k)
 
 
-def corr_lookup(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+def corr_lookup(pyramid: Sequence[CorrLevel], coords: torch.Tensor,
                 radius: int) -> torch.Tensor:
     """Sample the materialized pyramid at ``(B, H1, W1, 2)`` level-0
-    coords -> ``(B, H1, W1, levels * (2r+1)^2)`` fp32."""
+    coords -> ``(B, H1, W1, levels * (2r+1)^2)`` fp32.  A quantized level's
+    codes are sampled in fp32 and its taps multiplied by its scale."""
     B, H1, W1, _ = coords.shape
     c = coords.reshape(B, H1 * W1, 2).float()
-    outs = [_sample_windows(corr, c / (2.0 ** lvl), radius)
-            for lvl, corr in enumerate(pyramid)]
+    outs = []
+    for lvl, corr in enumerate(pyramid):
+        if isinstance(corr, QuantizedLevel):
+            taps = _sample_windows(corr.values, c / (2.0 ** lvl), radius)
+            outs.append(taps * corr.scale.reshape(B, 1, 1))
+        else:
+            outs.append(_sample_windows(corr, c / (2.0 ** lvl), radius))
     return torch.cat(outs, dim=-1).reshape(B, H1, W1, -1)
 
 

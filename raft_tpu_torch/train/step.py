@@ -8,6 +8,9 @@ clip + AdamW/OneCycle update, on one device.
 - ``cfg.accum_steps > 1`` splits the batch into equal microbatches, runs
   forward and backward on each and sums the gradients in fp32; the update
   sees their mean.  Batch-norm statistics move microbatch by microbatch.
+- A parameter that the loss does not reach (``fnet`` under a quantized
+  pyramid, whose codes carry no gradient) takes a zero gradient, so AdamW
+  still decays its weights and moments, as optax does.
 - ``cfg.nonfinite_guard``: a step whose loss or gradient norm is not
   finite leaves the parameters, the optimizer state and the batch-norm
   statistics as they were (bit for bit), bumps ``nonfinite_steps``, and
@@ -17,7 +20,7 @@ clip + AdamW/OneCycle update, on one device.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 
@@ -80,6 +83,12 @@ def make_loss_fn(cfg: TrainConfig) -> Callable:
     return loss_fn
 
 
+def _grads(params) -> List[torch.Tensor]:
+    """Each parameter's gradient, zero where the backward gave none."""
+    return [torch.zeros_like(p) if p.grad is None else p.grad
+            for p in params]
+
+
 def _to_device(batch: Mapping, dev: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
             for k in BATCH_KEYS}
@@ -113,7 +122,7 @@ def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda"
         if accum == 1:
             loss, metrics = loss_fn(model, batch, state.generator)
             loss.backward()
-            grads = [p.grad for p in params]
+            grads = _grads(params)
         else:
             m = B // accum
             acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
@@ -123,7 +132,7 @@ def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda"
                 model.zero_grad(set_to_none=True)
                 loss_i, metrics_i = loss_fn(model, micro, state.generator)
                 loss_i.backward()
-                torch._foreach_add_(acc, [p.grad.float() for p in params])
+                torch._foreach_add_(acc, [g.float() for g in _grads(params)])
                 losses.append(loss_i.detach())
                 parts.append(metrics_i)
             grads = [a / accum for a in acc]

@@ -15,8 +15,8 @@ from raft_tpu_torch.config import RAFTConfig
 from raft_tpu_torch.evaluate import make_eval_fn
 from raft_tpu_torch.models.raft import RAFT
 from raft_tpu_torch.ops import corr as corr_ops
-from raft_tpu_torch.ops import (corr_kernels, gru_gates, pyramid_kernels,
-                                upsample_loss)
+from raft_tpu_torch.ops import (corr_kernels, gru_gates, lookup_encode,
+                                pyramid_kernels, upsample_loss)
 from raft_tpu_torch.ops.corr import chunked_corr_lookup, pool_fmap_pyramid
 from raft_tpu_torch.ops.upsample import (convex_upsample_flat_nchw,
                                          depth_to_space_flow)
@@ -192,7 +192,10 @@ def _bf16_close(got, want, fp32_tol):
     return bool((diff <= ulp + fp32_tol).all())
 
 
-def _pyramid_case(seed, dev, dtype):
+def _pyramid_case(seed, dev, dtype, grad=True):
+    """A 7 x 13 grid (level 3 pools to 0 x 1) with centers spread by
+    U(-4, 4) px, one far off, one integer and one on the last row; levels
+    in ``dtype`` (quantized ones as codes and scales)."""
     g = torch.Generator().manual_seed(seed)
     B, H, W, C = 2, 7, 13, 64                  # level 3 pools to 0 x 1
     f1, f2 = (torch.randn(B, H, W, C, generator=g) for _ in range(2))
@@ -203,7 +206,9 @@ def _pyramid_case(seed, dev, dtype):
     coords[1, 2, 3] = torch.tensor([5.0, 3.0])          # integer center
     coords[-1, -1, -1] = torch.tensor([-7.25, float(H) - 0.5])
     pyr = corr_ops.build_corr_pyramid(f1.to(dev), f2.to(dev), 4, dtype)
-    return [lv.requires_grad_(True) for lv in pyr], coords.to(dev)
+    if grad and dtype.is_floating_point and dtype.itemsize > 1:
+        pyr = [lv.requires_grad_(True) for lv in pyr]
+    return pyr, coords.to(dev)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -223,9 +228,9 @@ def test_pyramid_lookup_kernels_match_plain(dev, dtype, nchw):
     dgot = torch.autograd.grad(got, pyr, g.to(got.dtype))
     dwant = torch.autograd.grad(want, pyr, g.to(want.dtype))
     torch.cuda.synchronize()
-    assert pyramid_kernels.LAUNCHES == {
-        "pyramid_lookup_fwd": before["pyramid_lookup_fwd"] + 1,
-        "pyramid_lookup_bwd": before["pyramid_lookup_bwd"] + 1}
+    assert pyramid_kernels.LAUNCHES == dict(
+        before, pyramid_lookup_fwd=before["pyramid_lookup_fwd"] + 1,
+        pyramid_lookup_bwd=before["pyramid_lookup_bwd"] + 1)
     assert got.dtype == dtype and got.shape == want.shape
     tol = 1e-4 * float(want.detach().float().abs().max()) + 1e-5
     for a, b in [(got.detach(), want.detach())] + list(zip(dgot, dwant)):
@@ -329,7 +334,8 @@ def _train_step_both(dev, dtype, kernel_kw=KERNEL_KW, plain_kw=None):
                       image_size=(H, W), iters=3, clip=1e9)
     sd = RAFT(RAFTConfig.full()).state_dict()
     counters = (corr_kernels.LAUNCHES, gru_gates.LAUNCHES,
-                pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES)
+                pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES,
+                lookup_encode.LAUNCHES)
     out = {}
     for name, kw in (("kernel", kernel_kw), ("plain", plain_kw or {})):
         state = init_state(RAFTConfig.full(compute_dtype=dtype, **kw), cfg,
@@ -419,3 +425,129 @@ def test_train_step_ondemand_config_counts_and_matches_plain(dev, dtype):
         dev, dtype, ONDEMAND_KW, ONDEMAND_PLAIN_KW)
     assert lk == ONDEMAND_LAUNCHES and lp == {}
     (_check_fp32 if dtype == "float32" else _check_bf16)(mk, gk, mp, gp)
+
+
+def _close(a, b):
+    """fp32: within 1e-4 * max|plain| + 1e-5; bf16: plus one bf16 ulp."""
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if not b.numel():
+        return
+    tol = 1e-4 * float(b.detach().float().abs().max()) + 1e-5
+    if a.dtype == torch.bfloat16:
+        assert _bf16_close(a.detach(), b.detach(), tol)
+    else:
+        assert float((a.detach() - b.detach()).abs().max()) <= tol
+
+
+QDTYPES = [torch.int8, torch.float8_e4m3fn, torch.float8_e5m2]
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_quantized_lookup_kernel_matches_plain(dev, qdtype, out_dtype):
+    """The lookup kernel on int8 / fp8 codes, each level's taps times its
+    scale, against the plain version fed the same codes; primal only."""
+    pyr, coords = _pyramid_case(13, dev, qdtype)
+    assert isinstance(pyr[0], corr_ops.QuantizedLevel)
+    assert pyr[-1].values.numel() == 0
+    coords.requires_grad_(True)
+    before = dict(pyramid_kernels.LAUNCHES)
+    got = pyramid_kernels.pyramid_lookup_quantized(pyr, coords, 4, out_dtype)
+    nchw = pyramid_kernels.pyramid_lookup_quantized_nchw(pyr, coords, 4,
+                                                         out_dtype)
+    torch.cuda.synchronize()
+    assert pyramid_kernels.LAUNCHES == dict(
+        before, pyramid_lookup_quantized=before["pyramid_lookup_quantized"]
+        + 2)
+    want = pyramid_kernels.pyramid_lookup_plain(pyr, coords.detach(), 4,
+                                                out_dtype)
+    assert got.dtype == out_dtype and not got.requires_grad
+    _close(got, want)
+    assert torch.equal(nchw, got.permute(0, 3, 1, 2))
+    assert float(got.float().abs().max()) > 0
+    assert torch.all(got[..., 3 * 81:] == 0) and torch.all(got[0, 0, 0] == 0)
+
+
+# (level dtype, output dtype, F): F = 300 runs two feature passes, F = 40
+# masks a partial warp of features; N = 91 leaves a ragged query tile
+ENCODE_CASES = [(torch.float32, torch.float32, 300),
+                (torch.bfloat16, torch.bfloat16, 256),
+                (torch.int8, torch.bfloat16, 40),
+                (torch.float8_e4m3fn, torch.float32, 256)]
+
+
+@pytest.mark.parametrize("dtype,out_dtype,F", ENCODE_CASES)
+def test_lookup_encode_kernel_matches_plain(dev, dtype, out_dtype, F):
+    """The fused lookup + convc1 kernel and its backward (dW, db and, for
+    fp32 / bf16 levels, dpyramid) against the plain forward and the plain
+    backward on the kernel's output (one relu mask for both), with the
+    launches of the fused kernel and of the lookup kernels its backward
+    recomputes the taps with."""
+    pyr, coords = _pyramid_case(14, dev, dtype)
+    quantized = isinstance(pyr[0], corr_ops.QuantizedLevel)
+    g = torch.Generator().manual_seed(15)
+    w = (torch.randn(F, 4 * 81, 1, 1, generator=g) / 18).to(dev)
+    b = (torch.randn(F, generator=g) * 0.1).to(dev)
+    w.requires_grad_(True)
+    b.requires_grad_(True)
+    leaves = [w, b] + ([] if quantized else list(pyr))
+    before = (dict(lookup_encode.LAUNCHES), dict(pyramid_kernels.LAUNCHES))
+    got = lookup_encode.pyramid_lookup_encode(pyr, coords, 4, w, b,
+                                              out_dtype)
+    with torch.no_grad():
+        want = lookup_encode.pyramid_lookup_encode_plain(pyr, coords, 4, w,
+                                                         b, out_dtype)
+    cot = torch.randn(got.shape, generator=g).to(dev, out_dtype)
+    dgot = torch.autograd.grad(got, leaves, cot)
+    dw, db, dl = lookup_encode.pyramid_lookup_encode_bwd_plain(
+        pyr, coords, 4, w, got.detach(), cot)
+    dwant = [dw, db] + (dl or [])
+    torch.cuda.synchronize()
+    recompute = ({"pyramid_lookup_quantized": 1} if quantized else
+                 {"pyramid_lookup_fwd": 1, "pyramid_lookup_bwd": 1})
+    assert lookup_encode.LAUNCHES == {
+        "lookup_encode": before[0]["lookup_encode"] + 1}
+    assert pyramid_kernels.LAUNCHES == {
+        k: v + recompute.get(k, 0) for k, v in before[1].items()}
+    assert got.shape == (2, F, 7, 13) and got.is_contiguous()
+    _close(got, want)
+    assert float(got.float().max()) > 0 and float(got.float().min()) == 0
+    for a, c in zip(dgot, dwant):
+        _close(a, c)
+    assert float(dgot[0].abs().max()) > 0 and float(dgot[1].abs().max()) > 0
+
+
+INT8_FUSED_KW = dict(corr_impl="allpairs_pallas", corr_dtype="int8",
+                     fused_lookup_encoder=True, upsample_loss_kernel="pallas")
+AUTO_FUSED_KW = dict(corr_impl="allpairs_pallas", fused_lookup_encoder=True,
+                     upsample_loss_kernel="pallas")
+INT8_KW = dict(corr_impl="allpairs_pallas", corr_dtype="int8",
+               upsample_loss_kernel="pallas")
+INT8_PLAIN_KW = dict(corr_impl="allpairs", corr_dtype="int8",
+                     upsample_loss_kernel="xla")
+LOSS_LAUNCHES = {"upsample_loss_fwd": 1, "upsample_loss_bwd": 1}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel_kw,plain_kw,launches", [
+    (INT8_FUSED_KW, INT8_PLAIN_KW,
+     {"lookup_encode": 3, "pyramid_lookup_quantized": 3, **LOSS_LAUNCHES}),
+    (AUTO_FUSED_KW, {}, {"lookup_encode": 3, "pyramid_lookup_fwd": 3,
+                         "pyramid_lookup_bwd": 3, **LOSS_LAUNCHES}),
+    (INT8_KW, INT8_PLAIN_KW,
+     {"pyramid_lookup_quantized": 3, **LOSS_LAUNCHES})],
+    ids=["int8_fused", "auto_fused", "int8"])
+def test_train_step_quantized_and_fused_configs_match_plain(
+        dev, dtype, kernel_kw, plain_kw, launches):
+    """The slice's kernel configurations against their plain ones (the
+    same ``corr_dtype``, ``allpairs``, unfused, ``'xla'``), under the
+    bounds above, with exact launch counts; under int8 ``fnet`` gets
+    exactly zero gradient on both sides."""
+    (mk, lk, gk), (mp, lp, gp) = _train_step_both(dev, dtype, kernel_kw,
+                                                  plain_kw)
+    assert lk == launches and lp == {}
+    (_check_fp32 if dtype == "float32" else _check_bf16)(mk, gk, mp, gp)
+    if kernel_kw.get("corr_dtype") == "int8":
+        for grads in (gk, gp):
+            fnet = [g for n, g in grads.items() if n.startswith("fnet.")]
+            assert fnet and not any(bool(g.any()) for g in fnet)

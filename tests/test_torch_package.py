@@ -13,9 +13,9 @@ import torch
 from raft_tpu_torch.config import RAFTConfig, TrainConfig
 from raft_tpu_torch.evaluate import make_eval_fn, make_inference_model
 from raft_tpu_torch.models.raft import RAFT
-from raft_tpu_torch.ops import (build, corr_kernels, gru_gates,
+from raft_tpu_torch.ops import (build, corr_kernels, gru_gates, lookup_encode,
                                 pyramid_kernels, upsample_loss)
-from raft_tpu_torch.ops.corr import pool_fmap_pyramid
+from raft_tpu_torch.ops.corr import QuantizedLevel, pool_fmap_pyramid
 from raft_tpu_torch.train.loop import train
 from raft_tpu_torch.train.step import init_state, make_train_step
 
@@ -45,7 +45,8 @@ def test_import_loads_no_jax_and_no_raft_tpu():
     assert "raft_tpu_torch.cli.demo" in MODULES
     assert {"raft_tpu_torch.train.step", "raft_tpu_torch.train.loop",
             "raft_tpu_torch.ops.pyramid_kernels",
-            "raft_tpu_torch.ops.upsample_loss"} <= set(MODULES)
+            "raft_tpu_torch.ops.upsample_loss",
+            "raft_tpu_torch.ops.lookup_encode"} <= set(MODULES)
 
 
 def test_no_source_imports_jax_or_raft_tpu():
@@ -102,8 +103,18 @@ def test_unported_paths_name_their_slice():
             lo, _ = model.eval()(img, img, iters=1, test_mode=True)
         assert lo.shape == (1, 2, 2, 2)
     for name in ("int8", "float8_e4m3fn", "float8_e5m2"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            RAFT(RAFTConfig.full(corr_dtype=name))
+        # quantized pyramids train, unfused and fused; the on-demand
+        # lookups and an unfusable configuration are refused at once
+        for kw in ({"corr_impl": "allpairs"},
+                   {"corr_impl": "allpairs_pallas",
+                    "fused_lookup_encoder": True}):
+            model = RAFT(RAFTConfig.full(corr_dtype=name, **kw))
+            flows = model(img, img, iters=1)
+            assert flows.shape == (1, 1, 16, 16, 2) and flows.requires_grad
+        with pytest.raises(ValueError, match="materialized"):
+            RAFTConfig.full(corr_dtype=name, corr_impl="pallas")
+    with pytest.raises(ValueError, match="allpairs_pallas"):
+        RAFTConfig.full(fused_lookup_encoder=True)
     with pytest.raises(NotImplementedError, match="later slice"):
         RAFT(RAFTConfig.small_model())
     with pytest.raises(ValueError, match="corr_impl"):
@@ -123,7 +134,8 @@ def test_kernel_wrappers_refuse_meta_tensors():
     """A tensor that is not on the CPU goes to the kernel or raises; it
     never takes the plain version."""
     counters = (corr_kernels.LAUNCHES, gru_gates.LAUNCHES,
-                pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES)
+                pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES,
+                lookup_encode.LAUNCHES)
     before = [dict(c) for c in counters]
     f1 = torch.empty(1, 6, 8, 32, device="meta")
     f2 = pool_fmap_pyramid(torch.empty(1, 6, 8, 32, device="meta"), 4)
@@ -143,6 +155,17 @@ def test_kernel_wrappers_refuse_meta_tensors():
         pyramid_kernels.pyramid_lookup(pyr, coords, 4)
     with pytest.raises(ValueError, match="CUDA"):
         pyramid_kernels.pyramid_lookup_nchw(pyr, coords, 4)
+    qpyr = [QuantizedLevel(lv.to(torch.int8), torch.empty(1, 1, 1, 1,
+                                                          device="meta"))
+            for lv in pyr]
+    for fn in (pyramid_kernels.pyramid_lookup_quantized,
+               pyramid_kernels.pyramid_lookup_quantized_nchw):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(qpyr, coords, 4)
+    w = torch.empty(256, 324, 1, 1, device="meta")
+    for p in (pyr, qpyr):
+        with pytest.raises(ValueError, match="CUDA"):
+            lookup_encode.pyramid_lookup_encode(p, coords, 4, w, w[:, 0, 0, 0])
     flow = torch.empty(2, 6, 8, 2, device="meta")
     mask = torch.empty(2, 576, 6, 8, device="meta")
     gt = torch.empty(1, 48, 64, 2, device="meta")
@@ -153,7 +176,8 @@ def test_kernel_wrappers_refuse_meta_tensors():
 
 def test_counters_stay_zero_on_cpu_forward():
     counters = (corr_kernels.LAUNCHES, gru_gates.LAUNCHES,
-                pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES)
+                pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES,
+                lookup_encode.LAUNCHES)
     before = [dict(c) for c in counters]
     eval_fn = make_eval_fn(RAFTConfig.full(corr_impl="pallas",
                                            fused_gru=True), 2, device="cpu")
@@ -170,18 +194,21 @@ def test_counters_stay_zero_on_cpu_forward():
              "valid": torch.ones(1, 32, 48).numpy()}
     state, met = make_train_step(cfg, device="cpu")(state, batch)
     assert state.step == 1 and torch.isfinite(met["loss"])
-    state = init_state(RAFTConfig.full(corr_impl="pallas", fused_gru=True,
-                                       upsample_loss_kernel="pallas"), cfg,
-                       device="cpu")
-    state, met = make_train_step(cfg, device="cpu")(state, batch)
-    assert state.step == 1 and torch.isfinite(met["loss"])
+    for kw in ({"corr_impl": "pallas", "fused_gru": True},
+               {"corr_impl": "allpairs_pallas", "corr_dtype": "int8",
+                "fused_lookup_encoder": True},
+               {"corr_impl": "allpairs_pallas", "corr_dtype": "int8"}):
+        state = init_state(RAFTConfig.full(upsample_loss_kernel="pallas",
+                                           **kw), cfg, device="cpu")
+        state, met = make_train_step(cfg, device="cpu")(state, batch)
+        assert state.step == 1 and torch.isfinite(met["loss"])
     assert [dict(c) for c in counters] == before
 
 
 def test_build_names_sources_and_needs_nvcc(monkeypatch, tmp_path):
     paths = {n: build.library_path(n) for n in build.SOURCES}
-    assert set(paths) == {"corr_ondemand", "gru_gates", "pyramid_lookup",
-                          "upsample_loss"}
+    assert set(paths) == {"corr_ondemand", "gru_gates", "lookup_encode",
+                          "pyramid_lookup", "upsample_loss"}
     for name, p in paths.items():
         assert (build.CSRC_DIR / f"{name}.cu").is_file()
         assert p.parent == REPO / "build" / "raft_tpu_torch"

@@ -9,8 +9,10 @@
 - one full-model train step (64x64, batch 2, 2 iterations, fp32) from the
   same converted weights against JAX ``make_loss_fn`` + ``make_optimizer``
   (one jit of the JAX step per JAX configuration, ~35 s on the CPU, shared
-  by the module): the plain, the materialized-kernel and the on-demand
-  kernel configurations (``corr_impl='pallas'`` + fused gates);
+  by the module): the plain, the materialized-kernel, the fused
+  lookup + ``convc1`` (JAX's CPU step resolves it to its unfused
+  ``allpairs`` reference, the same function in exact arithmetic) and the
+  on-demand kernel configurations (``corr_impl='pallas'`` + fused gates);
 - the non-finite guard, ``accum_steps`` and the reduced loop.
 
 Tolerances of the full step: loss and metrics rtol 1e-4; each parameter's
@@ -45,8 +47,8 @@ from raft_tpu.train.step import make_loss_fn as jax_make_loss_fn
 from raft_tpu_torch.config import RAFTConfig, TrainConfig
 from raft_tpu_torch.convert import flax_from_state_dict, state_dict_from_flax
 from raft_tpu_torch.models.layers import Norm, channel_dropout
-from raft_tpu_torch.ops import (corr_kernels, gru_gates, pyramid_kernels,
-                                upsample_loss)
+from raft_tpu_torch.ops import (corr_kernels, gru_gates, lookup_encode,
+                                pyramid_kernels, upsample_loss)
 from raft_tpu_torch.train import loop, loss, optim
 from raft_tpu_torch.train.step import init_state, make_train_step
 
@@ -210,11 +212,11 @@ def test_batch_norm_train_stats_match_flax():
     assert torch.equal(norm.running_var, before)
 
 
-def _jax_step(**model_kw):
+def _jax_step(train_kw=KW, **model_kw):
     """JAX's loss, gradients, batch statistics and one optax update from
     the fixture weights on ``_batch(0)``."""
     variables, _ = full_raft_variables(0)
-    jcfg = JaxTrainConfig(**KW)
+    jcfg = JaxTrainConfig(**train_kw)
     # remat changes what JAX recomputes, not what it computes; off, the
     # one CPU compile is ~10 s shorter
     jmodel = JaxRAFT(JaxRAFTConfig.full(remat=False, remat_upsample=False,
@@ -252,25 +254,20 @@ def jax_step_ondemand():
     return _jax_step(corr_impl="pallas", fused_gru=True)
 
 
-@pytest.mark.parametrize("model_kw,reference", [
-    ({}, "jax_step"),
-    ({"corr_impl": "allpairs_pallas", "upsample_loss_kernel": "pallas"},
-     "jax_step"),
-    ({"corr_impl": "pallas", "fused_gru": True,
-      "upsample_loss_kernel": "pallas"}, "jax_step_ondemand")],
-    ids=["model_kw0", "model_kw1", "model_kw2"])
-def test_train_step_matches_jax(request, model_kw, reference):
-    """Each configuration (on the CPU the kernel ones run the plain
-    versions of their kernels, forward and backward) against the JAX
-    step of the same configuration."""
-    jax_step = request.getfixturevalue(reference)
+def check_step_matches_jax(jax_step, model_kw, train_kw=KW):
+    """One CPU step of the port's configuration ``model_kw`` (the kernel
+    ones run the plain versions of their kernels, forward and backward)
+    against ``jax_step``: loss, metrics, every gradient, the update of
+    every parameter (also of those the loss does not reach, which AdamW
+    only decays) and the batch statistics."""
     _, sd = full_raft_variables(0)
-    cfg = TrainConfig(**KW)
+    cfg = TrainConfig(**train_kw)
     state = init_state(RAFTConfig.full(**model_kw), cfg, device="cpu",
                        state_dict=sd)
     seen = _capture_grads(state)
     counters = (corr_kernels.LAUNCHES, gru_gates.LAUNCHES,
-                pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES)
+                pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES,
+                lookup_encode.LAUNCHES)
     before = [dict(c) for c in counters]
     state, met = make_train_step(cfg, device="cpu")(state, _batch(0))
     assert [dict(c) for c in counters] == before
@@ -300,13 +297,34 @@ def test_train_step_matches_jax(request, model_kw, reference):
                                    atol=tol, err_msg=k)
         if "running" not in k:                 # the update really moved
             assert not torch.equal(after[k], sd[k]), k
-            big = np.abs(jax_step["grads"][k].numpy()) >= 1e-4 * gmax
+            jg = jax_step["grads"][k].numpy()
+            big = np.abs(jg) >= 1e-4 * gmax
             w = want.numpy()[big]
             np.testing.assert_allclose(
                 after[k].numpy()[big], w, rtol=0,
                 atol=1e-3 * lr0 + 2 * float(np.spacing(np.abs(w)).max(
                     initial=0.0)), err_msg=k)
-    # the trained state converts to the flax tree and back
+            if not jg.any():                   # decayed only, as optax does
+                np.testing.assert_allclose(after[k].numpy(), want.numpy(),
+                                           rtol=2e-7, atol=0, err_msg=k)
+    return state, seen
+
+
+@pytest.mark.parametrize("model_kw,reference", [
+    ({}, "jax_step"),
+    ({"corr_impl": "allpairs_pallas", "upsample_loss_kernel": "pallas"},
+     "jax_step"),
+    ({"corr_impl": "pallas", "fused_gru": True,
+      "upsample_loss_kernel": "pallas"}, "jax_step_ondemand"),
+    ({"corr_impl": "allpairs_pallas", "fused_lookup_encoder": True,
+      "upsample_loss_kernel": "pallas"}, "jax_step")],
+    ids=["model_kw0", "model_kw1", "model_kw2", "fused_encoder"])
+def test_train_step_matches_jax(request, model_kw, reference):
+    """Each configuration against the JAX step of the same configuration;
+    the trained state converts to the flax tree and back."""
+    jax_step = request.getfixturevalue(reference)
+    state, _ = check_step_matches_jax(jax_step, model_kw)
+    after = state.model.state_dict()
     tree = flax_from_state_dict(after)
     back = state_dict_from_flax(tree)
     assert all(torch.equal(back[k], after[k]) for k in after)

@@ -15,7 +15,10 @@ Phases, each raising on failure (so the script exits nonzero):
    bound computed from the inputs:
    - inference kernels at the shapes of the Sintel path (440x1024 input,
      55x128 feature grid, C = 256, 4 levels, r = 4) plus a small case
-     with an empty pyramid level;
+     with an empty pyramid level; the on-demand lookup under three center
+     distributions, (a) U(-20, 20) px with 2% far, (b) a smooth flow up to
+     20 px with 2% far, (c) U(-1, 1) px, with the share of (tile, level)
+     pairs on the kernel's box path;
    - training kernels at the chairs stage (batch 8, 368x496, 46x62
      feature grid, 12 iterations folded into the upsample-loss batch):
      the pyramid lookup forward and backward with fp32 and bf16 storage,
@@ -28,7 +31,7 @@ Phases, each raising on failure (so the script exits nonzero):
      the on-demand lookup backward with an NHWC and an NCHW tap
      gradient, and once more at B = 1 with a 136x240 feature grid
      (1088x1920 input), where the JAX package moves level 0 onto its
-     blocked backward pair;
+     blocked backward pair, each under the distributions (a), (b), (c);
    - the kernels of the quantized / fused-encoder slice at the chairs
      shapes: the lookup on int8, e4m3 and e5m2 codes with fp32 and bf16
      taps (plus an empty level), and the fused lookup + convc1 (F = 256)
@@ -234,17 +237,37 @@ def phase_build():
     return secs
 
 
-def _corr_inputs(rng, B, h, w, dev):
+# center distributions of the on-demand kernel cases: (a) is the
+# correctness case of earlier slices, (b) and (c) are
+# corr_kernels.sample_centers' "smooth" and "near"
+CENTERS = {"a": "U(-20, 20) px, 2% far", "b": "smooth flow up to 20 px, "
+           "2% far", "c": "U(-1, 1) px"}
+
+
+def _corr_inputs(rng, B, h, w, dev, dist="a"):
+    from raft_tpu_torch.ops.corr_kernels import sample_centers
+
     f1 = torch.from_numpy(rng.standard_normal((B, h, w, C))
                           .astype(np.float32)).to(dev)
     f2 = torch.from_numpy(rng.standard_normal((B, h, w, C))
                           .astype(np.float32)).to(dev)
+    if dist != "a":
+        kind = {"b": "smooth", "c": "near"}[dist]
+        coords = sample_centers(kind, B, h, w, int(rng.integers(1 << 30)))
+        return f1, f2, torch.from_numpy(coords).to(dev)
     ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
     grid = np.stack([xs, ys], -1).astype(np.float32)[None]
     coords = grid + rng.uniform(-20, 20, (B, h, w, 2)).astype(np.float32)
     far = rng.random((B, h, w)) < 0.02           # some far off the image
     coords[far] = rng.choice([-1e3, -45.0, w + 45.0, 1e4], (far.sum(), 2))
     return f1, f2, torch.from_numpy(coords).to(dev)
+
+
+def _box_share(counts) -> float:
+    """Share of the (tile, level) pairs with a window in the level that
+    took the kernel's box path."""
+    box, per_query = counts
+    return box / max(box + per_query, 1)
 
 
 def _corr_ops(coords: np.ndarray, shapes, k: int) -> float:
@@ -267,7 +290,8 @@ def _corr_ops(coords: np.ndarray, shapes, k: int) -> float:
 def phase_kernels(peaks):
     from raft_tpu_torch.ops.corr import chunked_corr_lookup, pool_fmap_pyramid
     from raft_tpu_torch.ops.corr_kernels import (corr_lookup_ondemand,
-                                                 corr_lookup_ondemand_nchw)
+                                                 corr_lookup_ondemand_nchw,
+                                                 kernel_path_counts)
     from raft_tpu_torch.ops.gru_gates import (gru_gate_blend,
                                               gru_gate_blend_plain,
                                               gru_gate_rh, gru_gate_rh_plain)
@@ -277,11 +301,14 @@ def phase_kernels(peaks):
     results = {}
     k = 2 * R + 1
     with torch.inference_mode():
-        # --- on-demand correlation: Sintel shape, then an empty level ---
+        # --- on-demand correlation: Sintel shape under the center
+        # distributions (a), (b), (c), then an empty level ---
         h8, w8 = 440 // 8, SINTEL_HW[1] // 8
-        for label, (B, h, w) in (("sintel", (1, h8, w8)),
-                                 ("empty_level", (2, 6, 8))):
-            f1, f2, coords = _corr_inputs(rng, B, h, w, dev)
+        for label, (B, h, w), dist in (
+                ("sintel", (1, h8, w8), "a"), ("sintel_b", (1, h8, w8), "b"),
+                ("sintel_c", (1, h8, w8), "c"),
+                ("empty_level", (2, 6, 8), "a")):
+            f1, f2, coords = _corr_inputs(rng, B, h, w, dev, dist)
             pyr = pool_fmap_pyramid(f2, LEVELS)
             got = corr_lookup_ondemand(f1, pyr, coords, R)
             got_nchw = corr_lookup_ondemand_nchw(f1, pyr, coords, R)
@@ -289,34 +316,47 @@ def phase_kernels(peaks):
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             tol = 1e-4 * float(want.abs().max()) + 1e-5
-            print(f"[kernels] corr_ondemand {label} {tuple(f1.shape)} "
-                  f"levels {[tuple(p.shape[1:3]) for p in pyr]}: max|err| "
-                  f"{err:.3e} (tol {tol:.3e})", flush=True)
+            paths = kernel_path_counts(f1, pyr, coords, R)["fwd"]
+            print(f"[kernels] corr_ondemand {label} ({dist}: {CENTERS[dist]}) "
+                  f"{tuple(f1.shape)} levels "
+                  f"{[tuple(p.shape[1:3]) for p in pyr]}: max|err| "
+                  f"{err:.3e} (tol {tol:.3e}); (tile, level) pairs box / "
+                  f"per-query {paths}, box share {_box_share(paths):.3f}",
+                  flush=True)
             if not err <= tol:
                 raise AssertionError(f"corr_ondemand {label}: {err} > {tol}")
             if not torch.equal(got_nchw, got.permute(0, 3, 1, 2)):
                 raise AssertionError("corr_ondemand: NCHW != NHWC taps")
             if label == "empty_level" and got[..., 3 * k * k:].abs().max():
                 raise AssertionError("corr_ondemand: empty level not zero")
-            if label == "sintel":
+            if dist == "c" and not _box_share(paths) > 0.9:
+                raise AssertionError(f"corr_ondemand {label}: box share "
+                                     f"{paths} under near-grid centers")
+            if label == "sintel" and not paths[1] > 0:
+                raise AssertionError("corr_ondemand: the per-query path "
+                                     f"was not exercised: {paths}")
+            if label.startswith("sintel"):
                 tk = _timed(lambda: corr_lookup_ondemand_nchw(
                     f1, pyr, coords, R), "corr_ondemand_kernel")
-                tp = _timed(lambda: chunked_corr_lookup(
-                    f1, pyr, coords, R), None, reps=20)
+                tp = (_timed(lambda: chunked_corr_lookup(
+                    f1, pyr, coords, R), None, reps=20) if dist == "a"
+                    else {"ms": None})
                 ms, plain_ms = tk["ms"], tp["ms"]
                 nbytes = 4 * (f1.numel() + coords.numel() + want.numel()
                               + sum(p.numel() for p in pyr))
                 shapes = [tuple(p.shape[1:3]) for p in pyr]
                 ops = _corr_ops(coords.cpu().numpy(), shapes, k)
                 bound, by = _bound_ms(nbytes, ops, peaks)
-                results["corr_ondemand"] = dict(
+                results[f"corr_ondemand/{dist}"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops,
+                    paths=paths, box_share=_box_share(paths),
                     kernel_timing=tk, plain_timing=tp)
-                print(f"[kernels] corr_ondemand sintel: kernel {tk}, plain "
+                print(f"[kernels] corr_ondemand {label}: kernel {tk}, plain "
                       f"{tp}, bound {bound:.4f} ms ({by}; "
                       f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)",
                       flush=True)
+        results["corr_ondemand"] = results["corr_ondemand/a"]
 
         # --- GRU gates: (1|2, 128, 55, 128), fp32 and bf16, split views ---
         for B in (1, 2):
@@ -820,22 +860,22 @@ def phase_slice4_kernels(peaks):
     return results
 
 
-def _corr_bwd_case(rng, B, h, w, label, peaks, time_plain=True):
+def _corr_bwd_case(rng, B, h, w, label, peaks, time_plain=True, dist="a"):
     """The on-demand lookup backward kernel against its plain version on
-    one input (centers = grid + U(-20, 20) px, 2% far off), with an NHWC
-    and an NCHW tap gradient; the kernel's and the plain version's time
-    and the bound from this run's centers.  df2 comes from atomic adds
-    whose order varies between runs: held to the tolerance, never
-    compared bit for bit."""
+    one input (centers from distribution ``dist`` of ``CENTERS``), with
+    an NHWC and an NCHW tap gradient; the kernel's (and the plain
+    version's) time, the bound from this run's centers and the box-path
+    share.  df2 comes from atomic adds whose order varies between runs:
+    held to the tolerance, never compared bit for bit."""
     from raft_tpu_torch.ops.corr import pool_fmap_pyramid
     from raft_tpu_torch.ops.corr_kernels import (
         corr_lookup_ondemand, corr_lookup_ondemand_bwd_plain,
-        corr_lookup_ondemand_nchw)
+        corr_lookup_ondemand_nchw, kernel_path_counts)
 
     dev = torch.device("cuda")
     k = 2 * R + 1
     P = LEVELS * k * k
-    f1, f2, coords = _corr_inputs(rng, B, h, w, dev)
+    f1, f2, coords = _corr_inputs(rng, B, h, w, dev, dist)
     f1.requires_grad_(True)
     pyr = [lv.contiguous().requires_grad_(True)
            for lv in pool_fmap_pyramid(f2, LEVELS)]
@@ -852,11 +892,21 @@ def _corr_bwd_case(rng, B, h, w, label, peaks, time_plain=True):
         out = fn(f1, pyr, coords, R)
         got = torch.autograd.grad(out, leaves, cot, retain_graph=True)
         for i, (a, b) in enumerate(zip(got, want)):
-            err = max(err, _check(f"corr_ondemand_bwd {label} {layout} "
+            err = max(err, _check(f"corr_ondemand_bwd {label} ({dist}) "
+                                  f"{layout} "
                                   f"{'df1' if i == 0 else f'df2 level {i - 1}'}"
                                   f" {tuple(a.shape)}", a, b))
         outs[layout] = (out, cot)
     del got
+    with torch.no_grad():
+        paths = kernel_path_counts(f1.detach(), [p.detach() for p in pyr],
+                                   coords, R, g)["bwd"]
+    if dist == "c" and not _box_share(paths) > 0.9:
+        raise AssertionError(f"corr_ondemand_bwd {label}: box share {paths} "
+                             "under near-grid centers")
+    if dist == "a" and not paths[1] > 0:
+        raise AssertionError(f"corr_ondemand_bwd {label}: the per-query "
+                             f"path was not exercised: {paths}")
     out, cot = outs["nchw"]
     tk = _timed(lambda: torch.autograd.grad(out, leaves, cot,
                                             retain_graph=True),
@@ -870,12 +920,15 @@ def _corr_bwd_case(rng, B, h, w, label, peaks, time_plain=True):
     nbytes = 4 * (2 * f1.numel() + coords.numel() + g.numel() + 2 * lvl)
     ops = 4.0 * C * win + 8.0 * B * h * w * P
     bound, by = _bound_ms(nbytes, ops, peaks)
-    print(f"[kernels] corr_ondemand_bwd {label} {tuple(f1.shape)} levels "
-          f"{shapes}: kernel {tk}, plain {tp}, bound {bound:.4f} ms ({by}; "
-          f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)", flush=True)
+    print(f"[kernels] corr_ondemand_bwd {label} ({dist}: {CENTERS[dist]}) "
+          f"{tuple(f1.shape)} levels {shapes}: kernel {tk}, plain {tp}, "
+          f"bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+          f"{ops / 1e9:.3f} GFLOP); (tile, level) pairs box / per-query "
+          f"{paths}, box share {_box_share(paths):.3f}", flush=True)
     res = dict(max_abs_err=err, ms=tk["ms"], plain_ms=tp["ms"],
                library_ms=None, bound_ms=bound, bound_by=by, bytes=nbytes,
-               ops=ops, kernel_timing=tk, plain_timing=tp)
+               ops=ops, paths=paths, box_share=_box_share(paths),
+               kernel_timing=tk, plain_timing=tp)
     del outs, out, want, leaves, pyr, f1, f2
     torch.cuda.empty_cache()
     return res
@@ -944,11 +997,16 @@ def phase_bwd_kernels(peaks):
                 kernel_timing=tk, plain_timing=tp)
         del zr, q, hh, g_cat, g_bl, rh, bl, cases
 
-    # --- on-demand lookup backward: chairs, then 1088x1920 at B = 1 ---
-    results["corr_ondemand_bwd/fp32"] = _corr_bwd_case(
-        rng, B, h8, w8, "chairs", peaks)
-    results["corr_ondemand_bwd/1088x1920"] = _corr_bwd_case(
-        rng, 1, 1088 // 8, 1920 // 8, "1088x1920", peaks, time_plain=False)
+    # --- on-demand lookup backward: chairs, then 1088x1920 at B = 1, each
+    # under the center distributions (a), (b), (c) ---
+    for dist in CENTERS:
+        sfx = "" if dist == "a" else f"/{dist}"
+        results[f"corr_ondemand_bwd/fp32{sfx}"] = _corr_bwd_case(
+            rng, B, h8, w8, "chairs", peaks, time_plain=dist == "a",
+            dist=dist)
+        results[f"corr_ondemand_bwd/1088x1920{sfx}"] = _corr_bwd_case(
+            rng, 1, 1088 // 8, 1920 // 8, "1088x1920", peaks,
+            time_plain=False, dist=dist)
     for name in ("gru_gate_rh_bwd", "gru_gate_blend_bwd",
                  "corr_ondemand_bwd"):
         results[name] = results[f"{name}/fp32"]

@@ -46,34 +46,86 @@ def _corr_case(seed, B, H, W, C, dev):
     return f1.to(dev), f2.to(dev), coords.to(dev)
 
 
-@pytest.mark.parametrize("radius,C,hw", [(4, 256, (7, 13)), (3, 128, (6, 8)),
-                                         (4, 32, (13, 5))])
-def test_corr_kernel_matches_plain(dev, radius, C, hw):
+def _centers(dist, B, H, W, seed, dev):
+    """``corr_kernels.sample_centers`` on the card, plus +inf and -inf
+    centers (zeros on both sides) when they are spread."""
+    c = torch.from_numpy(corr_kernels.sample_centers(dist, B, H, W, seed))
+    if dist in ("spread", "mixed"):
+        c[0, H - 1, W - 1] = torch.tensor([float("inf"), 2.0])
+        c[-1, 0, W - 1] = torch.tensor([3.0, float("-inf")])
+    return c.to(dev)
+
+
+def _check_paths(dist, counts):
+    """The (tile, level) pairs of each kernel path: near-grid and smooth
+    centers take the box path, spread ones meet the per-query path, mixed
+    ones take both in one launch."""
+    box, per_query = counts
+    if dist == "near":
+        assert box > 0 and per_query == 0
+    elif dist == "spread":
+        assert per_query > 0
+    elif dist == "mixed":
+        assert box > 0 and per_query > 0
+    else:
+        assert box > 0
+
+
+# "offsets": the grid + asymmetric offsets, one far and one off-level
+# center (_corr_case); the other distributions are
+# corr_kernels.sample_centers'.  Grid sides that are not multiples of the
+# kernels' 4 x 8 query tile give ragged tiles; 7 x 13 has an empty level;
+# 46 x 62 (the chairs grid) runs boxes of several slabs in many blocks.
+@pytest.mark.parametrize("radius,C,hw,dist", [
+    (4, 256, (7, 13), "offsets"), (3, 128, (6, 8), "offsets"),
+    (4, 32, (13, 5), "offsets"), (4, 256, (30, 44), "spread"),
+    (4, 256, (30, 44), "smooth"), (4, 256, (30, 44), "near"),
+    (4, 32, (27, 45), "mixed"), (4, 512, (13, 21), "near"),
+    (4, 256, (7, 13), "near"), (4, 256, (46, 62), "smooth")])
+def test_corr_kernel_matches_plain(dev, radius, C, hw, dist):
     f1, f2, coords = _corr_case(radius + C, 2, *hw, C, dev)
+    if dist != "offsets":
+        coords = _centers(dist, 2, *hw, radius + C, dev)
+        coords[1, 1, 1] = float("nan")        # zeros in the kernel
     pyr = pool_fmap_pyramid(f2, 4)
     with torch.no_grad():
         got = corr_kernels.corr_lookup_ondemand(f1, pyr, coords, radius)
         nchw = corr_kernels.corr_lookup_ondemand_nchw(f1, pyr, coords,
                                                       radius)
-        want = chunked_corr_lookup(f1, pyr, coords, radius)
+        want = chunked_corr_lookup(f1, pyr, coords.nan_to_num(1e4), radius)
     torch.cuda.synchronize()
     tol = 1e-4 * float(want.abs().max()) + 1e-5
     assert float((got - want).abs().max()) <= tol
     assert torch.equal(nchw, got.permute(0, 3, 1, 2))
+    if dist != "offsets":
+        assert not got[1, 1, 1].any()
+        if hw == (7, 13):
+            assert not got[..., 3 * (2 * radius + 1) ** 2:].any()
+        _check_paths(dist, corr_kernels.kernel_path_counts(
+            f1, pyr, coords, radius)["fwd"])
 
 
-@pytest.mark.parametrize("nchw,hw,spread", [
-    (False, (7, 13), 0.0), (True, (7, 13), 0.0), (True, (24, 40), 20.0)])
-def test_corr_kernel_gradients_match_plain(dev, nchw, hw, spread):
+@pytest.mark.parametrize("nchw,hw,spread,dist,C", [
+    (False, (7, 13), 0.0, "offsets", 64), (True, (7, 13), 0.0, "offsets", 64),
+    (True, (24, 40), 20.0, "offsets", 64), (False, (30, 44), 0.0, "spread", 256),
+    (True, (30, 44), 0.0, "smooth", 256), (False, (30, 44), 0.0, "near", 32),
+    (True, (27, 45), 0.0, "mixed", 256), (False, (13, 21), 0.0, "near", 512),
+    (True, (7, 13), 0.0, "near", 256)])
+def test_corr_kernel_gradients_match_plain(dev, nchw, hw, spread, dist, C):
     """The backward kernel against ``corr_lookup_ondemand_bwd_plain``, per
     level; ``coords`` get no gradient.  The 7 x 13 grid has an empty
     level; on the 24 x 40 grid, centers spread by U(-20, 20) px put
-    windows partly and wholly off the levels.  df2 comes from
-    atomic adds whose order varies between runs, so it is held to the
-    tolerance, never compared bit for bit."""
-    f1, f2, coords = _corr_case(9, 2, *hw, 64, dev)
-    coords += (torch.rand(coords.shape, generator=torch.Generator()
-                          .manual_seed(12)).to(dev) * 2 - 1) * spread
+    windows partly and wholly off the levels; the other distributions
+    send (tile, level) pairs down the box path, the per-query path or
+    both in one launch.  df2 comes from atomic adds whose order varies
+    between runs, so it is held to the tolerance, never compared bit for
+    bit."""
+    f1, f2, coords = _corr_case(9, 2, *hw, C, dev)
+    if dist == "offsets":
+        coords += (torch.rand(coords.shape, generator=torch.Generator()
+                              .manual_seed(12)).to(dev) * 2 - 1) * spread
+    else:
+        coords = _centers(dist, 2, *hw, 9, dev)
     f1.requires_grad_(True)
     coords.requires_grad_(True)
     pyr = [lv.requires_grad_(True) for lv in pool_fmap_pyramid(f2, 4)]
@@ -101,6 +153,11 @@ def test_corr_kernel_gradients_match_plain(dev, nchw, hw, spread):
             tol = 1e-4 * float(b.abs().max()) + 1e-5
             assert float((a - b).abs().max()) <= tol
     assert float(df1.abs().max()) > 0
+    if dist != "offsets":
+        with torch.no_grad():
+            _check_paths(dist, corr_kernels.kernel_path_counts(
+                f1.detach(), [lv.detach() for lv in pyr], coords, 4,
+                g)["bwd"])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -8,7 +8,8 @@ GPU (written for the H100).
 Phases, each raising on failure (so the script exits nonzero):
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device;
-2. build: compile every CUDA source of the port with ``nvcc`` (sm_90a);
+2. build: compile every CUDA source of the port with ``nvcc`` (sm_90a)
+   and count the tensor-core instructions in ``lookup_encode``'s SASS;
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, with device times of kernel and plain version
    (``torch.profiler``; CUDA events where it reports none) beside the
@@ -37,7 +38,12 @@ Phases, each raising on failure (so the script exits nonzero):
      taps (plus an empty level), and the fused lookup + convc1 (F = 256)
      on fp32, bf16, int8 and e4m3 levels, forward and backward (dW, db,
      dpyramid), with the unfused pair (lookup kernel + cuDNN 1x1 conv +
-     relu) timed beside it;
+     relu) timed beside it and two bounds (3xTF32 on the tensor cores,
+     fp32 on CUDA cores), plus F = 40;
+   - NaN and infinite centers on grids with an empty level for every
+     lookup (on-demand forward and backward, pyramid forward and backward
+     in both layouts, quantized, fused encoder): the kernel's NaN entries
+     must be the plain version's and the rest within the tolerance;
 4. path: ``make_eval_fn`` with the kernel configuration (on-demand
    correlation kernel + fused GRU gates) against the plain configuration
    on the same seeded weights, then the 32-iteration Sintel forward in
@@ -94,11 +100,11 @@ CHAIRS_HW, CHAIRS_B, CHAIRS_ITERS = (368, 496), 8, 12
 
 
 def _peaks(name: str):
-    """(bytes/s, fp32 FLOP/s) of the card: NVIDIA's data-sheet figures
-    (SXM unless the name says PCIe)."""
+    """(bytes/s, fp32 FLOP/s, dense TF32 tensor-core FLOP/s) of the card:
+    NVIDIA's data-sheet figures (SXM unless the name says PCIe)."""
     if "PCIe" in name:
-        return 2.0e12, 51e12
-    return 3.35e12, 67e12
+        return 2.0e12, 51e12, 378e12
+    return 3.35e12, 67e12, 495e12
 
 
 def _time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
@@ -224,6 +230,9 @@ def phase_device():
 
 
 def phase_build():
+    """Compile every source; then count the tensor-core instructions
+    (HMMA / GMMA) in the SASS of the fused lookup + convc1 library, which
+    must run its contraction on the tensor cores."""
     from raft_tpu_torch.ops import build
 
     t0 = time.perf_counter()
@@ -234,7 +243,25 @@ def phase_build():
         print(f"[build] {src}: " + " | ".join(lines[-6:]))
     print(f"[build] {len(reports)} sources compiled in {secs:.2f} s",
           flush=True)
-    return secs
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(build.library_path("lookup_encode"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    per_fn, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+        elif fn and ("HMMA" in ln or "GMMA" in ln):
+            per_fn[fn] = per_fn.get(fn, 0) + 1
+    mma = sum(per_fn.values())
+    print(f"[build] lookup_encode SASS: {mma} HMMA/GMMA instructions in "
+          f"{len(per_fn)} kernels ({sorted(set(per_fn.values()))} each)",
+          flush=True)
+    if not mma:
+        raise AssertionError("lookup_encode: no tensor-core instruction in "
+                             "its SASS")
+    return dict(build_s=secs, lookup_encode_sass_mma=mma,
+                lookup_encode_sass_kernels=len(per_fn))
 
 
 # center distributions of the on-demand kernel cases: (a) is the
@@ -289,7 +316,8 @@ def _corr_ops(coords: np.ndarray, shapes, k: int) -> float:
 
 def phase_kernels(peaks):
     from raft_tpu_torch.ops.corr import chunked_corr_lookup, pool_fmap_pyramid
-    from raft_tpu_torch.ops.corr_kernels import (corr_lookup_ondemand,
+    from raft_tpu_torch.ops.corr_kernels import (_plain,
+                                                 corr_lookup_ondemand,
                                                  corr_lookup_ondemand_nchw,
                                                  kernel_path_counts)
     from raft_tpu_torch.ops.gru_gates import (gru_gate_blend,
@@ -302,33 +330,36 @@ def phase_kernels(peaks):
     k = 2 * R + 1
     with torch.inference_mode():
         # --- on-demand correlation: Sintel shape under the center
-        # distributions (a), (b), (c), then an empty level ---
+        # distributions (a), (b), (c), then an empty level with two NaN
+        # centers (NaN taps on the non-empty levels) ---
         h8, w8 = 440 // 8, SINTEL_HW[1] // 8
         for label, (B, h, w), dist in (
                 ("sintel", (1, h8, w8), "a"), ("sintel_b", (1, h8, w8), "b"),
                 ("sintel_c", (1, h8, w8), "c"),
                 ("empty_level", (2, 6, 8), "a")):
             f1, f2, coords = _corr_inputs(rng, B, h, w, dev, dist)
+            if label == "empty_level":
+                coords[1, 1, 1] = float("nan")
+                coords[0, 2, 3, 0] = float("nan")
             pyr = pool_fmap_pyramid(f2, LEVELS)
             got = corr_lookup_ondemand(f1, pyr, coords, R)
             got_nchw = corr_lookup_ondemand_nchw(f1, pyr, coords, R)
-            want = chunked_corr_lookup(f1, pyr, coords, R)
+            want = _plain(f1, pyr, coords, R)
             torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            tol = 1e-4 * float(want.abs().max()) + 1e-5
+            err = _check(f"corr_ondemand {label} ({dist}: {CENTERS[dist]}) "
+                         f"{tuple(f1.shape)} levels "
+                         f"{[tuple(p.shape[1:3]) for p in pyr]}", got, want)
             paths = kernel_path_counts(f1, pyr, coords, R)["fwd"]
-            print(f"[kernels] corr_ondemand {label} ({dist}: {CENTERS[dist]}) "
-                  f"{tuple(f1.shape)} levels "
-                  f"{[tuple(p.shape[1:3]) for p in pyr]}: max|err| "
-                  f"{err:.3e} (tol {tol:.3e}); (tile, level) pairs box / "
-                  f"per-query {paths}, box share {_box_share(paths):.3f}",
+            print(f"[kernels] corr_ondemand {label}: (tile, level) pairs box "
+                  f"/ per-query {paths}, box share {_box_share(paths):.3f}",
                   flush=True)
-            if not err <= tol:
-                raise AssertionError(f"corr_ondemand {label}: {err} > {tol}")
-            if not torch.equal(got_nchw, got.permute(0, 3, 1, 2)):
+            if not _same(got_nchw, got.permute(0, 3, 1, 2)):
                 raise AssertionError("corr_ondemand: NCHW != NHWC taps")
-            if label == "empty_level" and got[..., 3 * k * k:].abs().max():
-                raise AssertionError("corr_ondemand: empty level not zero")
+            if label == "empty_level" and (
+                    got[..., 3 * k * k:].abs().max()
+                    or int(got.isnan().sum()) != 2 * 3 * k * k):
+                raise AssertionError("corr_ondemand: empty level not zero, "
+                                     "or NaN taps off the NaN centers")
             if dist == "c" and not _box_share(paths) > 0.9:
                 raise AssertionError(f"corr_ondemand {label}: box share "
                                      f"{paths} under near-grid centers")
@@ -422,20 +453,40 @@ def _bf16_close(got, want, fp32_tol: float) -> bool:
 
 
 def _check(name: str, got, want) -> float:
-    """max |got - want|; raises beyond 1e-4 * max|want| + 1e-5 (fp32) or
-    one bf16 ulp of the plain value plus that bound (bf16)."""
+    """max |got - want| over the finite entries; raises unless both have
+    the same NaN entries and the others are within 1e-4 * max|want| +
+    1e-5 (fp32) or one bf16 ulp of the plain value plus that bound
+    (bf16)."""
     got, want = got.detach(), want.detach()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} "
+                             f"against {want.dtype} {tuple(want.shape)}")
+    nan = torch.isnan(want)
+    n_nan = int(nan.sum())
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"{name}: NaN entries differ ({n_nan} in the "
+                             f"plain version, {int(got.isnan().sum())} in "
+                             "the kernel's)")
+    if not want.numel():                     # an empty level
+        return 0.0
+    got, want = got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0)
     tol = 1e-4 * float(want.float().abs().max()) + 1e-5
     err = float((got.float() - want.float()).abs().max())
     ok = (_bf16_close(got, want, tol) if got.dtype == torch.bfloat16
           else err <= tol)
     print(f"[kernels] {name}: max|err| {err:.3e} (tol {tol:.3e}"
-          f"{' + 1 bf16 ulp' if got.dtype == torch.bfloat16 else ''})",
-          flush=True)
-    if not ok or got.dtype != want.dtype or got.shape != want.shape:
+          f"{' + 1 bf16 ulp' if got.dtype == torch.bfloat16 else ''})"
+          f"{f', {n_nan} NaN on both sides' if n_nan else ''}", flush=True)
+    if not ok:
         raise AssertionError(f"{name}: kernel disagrees with the plain "
-                             f"version ({err}, {got.dtype}, {want.dtype})")
+                             f"version ({err} > {tol})")
     return err
+
+
+def _same(a, b) -> bool:
+    """Bit for bit equal, NaN entries included."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        a.nan_to_num(), b.nan_to_num())
 
 
 def _check_sums(name: str, got, want) -> float:
@@ -549,6 +600,12 @@ def phase_train_kernels(peaks):
         nhwc = pyramid_lookup(pyr, coords, R, dtype)
         if not torch.equal(nhwc.permute(0, 3, 1, 2), got):
             raise AssertionError("pyramid_lookup: NHWC != NCHW taps")
+        # the backward from an NHWC tap gradient (the other layout)
+        dkh = torch.autograd.grad(nhwc, pyr, gg.permute(0, 2, 3, 1))
+        err_b = max([err_b] + [_check(f"pyramid_lookup_bwd {dt} NHWC level "
+                                      f"{i}", a, b)
+                               for i, (a, b) in enumerate(zip(dkh, dp))])
+        del dkh
         with torch.no_grad():
             tk = _timed(lambda: pyramid_lookup_nchw(pyr, coords, R, dtype),
                         "pyr_fwd_kernel")
@@ -705,6 +762,37 @@ def phase_train_kernels(peaks):
                   f"{ops / 1e9:.3f} GFLOP)", flush=True)
         del outs, sk, sp, dflk, dflp, dmk, dmp, flk, flp, mk, mp, mask
         torch.cuda.empty_cache()
+    # a ragged grid whose level 3 pools to nothing (rows of 91, 18 and 3
+    # values, not multiples of 8) with a NaN x and a NaN y center: NaN taps
+    # and all-NaN dcorr rows on the non-empty levels, both layouts
+    sf1, sf2, sc = _corr_inputs(rng, 2, 7, 13, dev)
+    sc[1, 3, 4, 0] = float("nan")
+    sc[0, 5, 6, 1] = float("nan")
+    sc[1, 4, 9, 0] = float("inf")            # no window: zero taps
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "fp32" if dtype == torch.float32 else "bf16"
+        with torch.no_grad():
+            spyr = build_corr_pyramid(sf1, sf2, LEVELS, dtype)
+        spyr = [lv.requires_grad_(True) for lv in spyr]
+        want = pyramid_lookup_plain(spyr, sc, R, dtype)
+        sg = torch.from_numpy(rng.standard_normal(want.shape).astype(
+            np.float32)).to(dev, dtype)
+        dp = torch.autograd.grad(want, spyr, sg)
+        for layout, fn, cot in (
+                ("nhwc", pyramid_lookup, sg),
+                ("nchw", pyramid_lookup_nchw, sg.permute(0, 3, 1, 2))):
+            got = fn(spyr, sc, R, dtype)
+            _check(f"pyramid_lookup_fwd {dt} 7x13 {layout} NaN centers",
+                   got if layout == "nhwc" else got.permute(0, 2, 3, 1),
+                   want)
+            dk = torch.autograd.grad(got, spyr, cot)
+            for i, (a, b) in enumerate(zip(dk, dp)):
+                _check(f"pyramid_lookup_bwd {dt} 7x13 {layout} level {i} "
+                       f"{tuple(a.shape)}", a, b)
+                if a.numel() and int(a.isnan().sum()) != 2 * a[0, 0].numel():
+                    raise AssertionError("pyramid_lookup_bwd: NaN rows")
+        if int(want.isnan().sum()) != 2 * 3 * k * k:
+            raise AssertionError("pyramid_lookup: NaN taps off the centers")
     for name in ("pyramid_lookup_fwd", "pyramid_lookup_bwd",
                  "upsample_loss_fwd", "upsample_loss_bwd"):
         results[name] = results[f"{name}/fp32"]
@@ -772,14 +860,18 @@ def phase_slice4_kernels(peaks):
                   f"{nb / 1e6:.1f} MB, {ops / 1e9:.4f} GFLOP)", flush=True)
         del pyr, got, want, nhwc
     # an empty level: a 6 x 8 grid pools to 3 x 4, 1 x 2 and 0 x 1
+    # and a NaN center: NaN taps on the three non-empty levels
     sf1, sf2, sc = _corr_inputs(rng, 2, 6, 8, dev)
+    sc[1, 1, 1, 0] = float("nan")
     with torch.no_grad():
         spyr = build_corr_pyramid(sf1, sf2, LEVELS, "int8")
     got = pyramid_lookup_quantized(spyr, sc, R)
-    _check("pyramid_lookup_quantized int8 empty level", got,
+    _check("pyramid_lookup_quantized int8 empty level, NaN center", got,
            pyramid_lookup_plain(spyr, sc, R))
-    if spyr[-1].values.numel() or got[..., 3 * k * k:].abs().max():
-        raise AssertionError("pyramid_lookup_quantized: empty level not zero")
+    if (spyr[-1].values.numel() or got[..., 3 * k * k:].abs().max()
+            or int(got.isnan().sum()) != 3 * k * k):
+        raise AssertionError("pyramid_lookup_quantized: empty level not "
+                             "zero, or NaN taps off the NaN center")
 
     # --- kernel 2: F = 256, forward and backward ---
     gen = torch.Generator().manual_seed(6)
@@ -839,21 +931,70 @@ def phase_slice4_kernels(peaks):
         nb = (win * es_s + coords.numel() * 4 + w.numel() * 4 + Fc * 4
               + (B * LEVELS * 4 if quantized else 0)
               + B * Fc * N * got.element_size())
+        # two bounds: the function's fp32 operations on CUDA cores, and
+        # the 3xTF32 split on the tensor cores (three products per
+        # multiply-add at the dense TF32 peak) that the kernel runs and is
+        # measured against
         ops = 2.0 * B * N * P * Fc + 9.0 * B * N * P
-        bound, by = _bound_ms(nb, ops, peaks)
+        bound_fp32, _ = _bound_ms(nb, ops, peaks)
+        t_tc = 3 * 2.0 * B * N * P * Fc / peaks[2] * 1e3
+        t_bytes = nb / peaks[0] * 1e3
+        bound, by = max(t_tc, t_bytes), ("operations" if t_tc >= t_bytes
+                                         else "bytes")
         results[f"lookup_encode/{label}"] = dict(
             max_abs_err=max(err_f, err_b), max_abs_err_fwd=err_f,
             max_abs_err_bwd=err_b, ms=tk["ms"], plain_ms=tp["ms"],
             library_ms=None, unfused_ms=tu["ms"], bwd_ms=tkb["ms"],
-            bound_ms=bound, bound_by=by, bytes=nb, ops=ops,
-            kernel_timing=tk, plain_timing=tp, unfused_timing=tu,
-            bwd_timing=tkb)
+            bound_ms=bound, bound_by=by, bound_fp32_cuda_cores_ms=bound_fp32,
+            bytes=nb, ops=ops, kernel_timing=tk, plain_timing=tp,
+            unfused_timing=tu, bwd_timing=tkb)
         print(f"[kernels] lookup_encode {label}: kernel {tk}, plain {tp}, "
               f"unfused lookup + conv1x1 + relu {tu}, backward (recompute "
-              f"+ dW/db + lookup bwd) {tkb}, bound {bound:.4f} ms ({by}; "
-              f"{nb / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)", flush=True)
+              f"+ dW/db + lookup bwd) {tkb}, bound {bound:.4f} ms ({by}, "
+              f"3xTF32 on tensor cores; {nb / 1e6:.1f} MB, "
+              f"{ops / 1e9:.3f} GFLOP), fp32 CUDA-core bound "
+              f"{bound_fp32:.4f} ms; kernel/unfused "
+              f"{tk['ms'] / tu['ms']:.3f}", flush=True)
         del pyr, got, want, leaves
         torch.cuda.empty_cache()
+    # F = 40 (mma tiles past F) on e4m3 levels at chairs, then a ragged
+    # grid with an empty level and a NaN x and a NaN y center on fp32
+    # levels: NaN in all F outputs of those queries and in dW's rows of
+    # the non-empty levels; forward and backward
+    sf1, sf2, sc = _corr_inputs(rng, 2, 7, 13, dev)
+    sc[1, 3, 4, 0] = float("nan")
+    sc[0, 5, 6, 1] = float("nan")
+    sc[1, 4, 9, 0] = float("inf")            # no window: zero taps
+    for label, (cf1, cf2, cc), store, out_dtype, fn in (
+            ("e4m3 F=40", (f1, f2, coords), "float8_e4m3fn", torch.bfloat16,
+             40),
+            ("fp32 7x13 NaN centers", (sf1, sf2, sc), torch.float32,
+             torch.float32, Fc)):
+        with torch.no_grad():
+            pyr = build_corr_pyramid(cf1, cf2, LEVELS, store)
+        quantized = not torch.is_tensor(pyr[0])
+        if not quantized:
+            pyr = [lv.requires_grad_(True) for lv in pyr]
+        wf = w.detach()[:fn].clone().requires_grad_(True)
+        bf = b.detach()[:fn].clone().requires_grad_(True)
+        leaves = [wf, bf] + ([] if quantized else pyr)
+        got = pyramid_lookup_encode(pyr, cc, R, wf, bf, out_dtype)
+        with torch.no_grad():
+            want = pyramid_lookup_encode_plain(pyr, cc, R, wf, bf, out_dtype)
+        _check(f"lookup_encode fwd {label} {tuple(got.shape)}", got, want)
+        cot = torch.from_numpy(rng.standard_normal(got.shape).astype(
+            np.float32)).to(dev, out_dtype)
+        dk = torch.autograd.grad(got, leaves, cot)
+        dw, db, dl = pyramid_lookup_encode_bwd_plain(pyr, cc, R, wf,
+                                                     got.detach(), cot)
+        for n, a, c in zip(["dW", "db"] + [f"dlevel{i}" for i in range(4)],
+                           dk, [dw, db] + (dl or [])):
+            _check(f"lookup_encode bwd {label} {n}", a, c)
+        if cc is sc and (int(got.isnan().sum()) != 2 * fn or int(
+                dk[0].isnan().sum()) != 3 * k * k * fn):
+            raise AssertionError("lookup_encode: NaN entries off the NaN "
+                                 "centers")
+        del pyr, got, want, leaves, dk
     results["pyramid_lookup_quantized"] = \
         results["pyramid_lookup_quantized/int8/fp32"]
     results["lookup_encode"] = results["lookup_encode/int8"]
@@ -1007,6 +1148,29 @@ def phase_bwd_kernels(peaks):
         results[f"corr_ondemand_bwd/1088x1920{sfx}"] = _corr_bwd_case(
             rng, 1, 1088 // 8, 1920 // 8, "1088x1920", peaks,
             time_plain=False, dist=dist)
+    # a NaN center on a grid with an empty level: its df1 row and all of
+    # df2_l[1] NaN on each non-empty level, as in the plain version
+    from raft_tpu_torch.ops.corr import pool_fmap_pyramid
+    from raft_tpu_torch.ops.corr_kernels import (
+        corr_lookup_ondemand_bwd_plain, corr_lookup_ondemand_nchw)
+
+    f1, f2, coords = _corr_inputs(rng, 2, 7, 13, dev)
+    coords[1, 2, 3, 1] = float("nan")
+    f1.requires_grad_(True)
+    pyr = [lv.contiguous().requires_grad_(True)
+           for lv in pool_fmap_pyramid(f2, LEVELS)]
+    g = torch.from_numpy(rng.standard_normal(
+        (2, 7, 13, LEVELS * (2 * R + 1) ** 2)).astype(np.float32)).to(dev)
+    out = corr_lookup_ondemand_nchw(f1, pyr, coords, R)
+    got = torch.autograd.grad(out, [f1, *pyr], g.permute(0, 3, 1, 2))
+    df1, df2 = corr_lookup_ondemand_bwd_plain(f1, pyr, coords, R, g)
+    for i, (a, b) in enumerate(zip(got, [df1, *df2])):
+        _check(f"corr_ondemand_bwd 7x13 NaN center "
+               f"{'df1' if i == 0 else f'df2 level {i - 1}'}", a, b)
+    if (int(got[0].isnan().sum()) != C
+            or not all(bool(d[1].isnan().all()) for d in got[1:4])):
+        raise AssertionError("corr_ondemand_bwd: NaN entries")
+    del f1, f2, pyr, out, got, df1, df2
     for name in ("gru_gate_rh_bwd", "gru_gate_blend_bwd",
                  "corr_ondemand_bwd"):
         results[name] = results[f"{name}/fp32"]
@@ -1529,7 +1693,7 @@ def main(argv=None) -> int:
 
     smi, name = phase_device()
     peaks = _peaks(name)
-    build_s = phase_build()
+    build_res = phase_build()
     kern = {**timed_phase(phase_kernels, peaks),
             **timed_phase(phase_train_kernels, peaks),
             **timed_phase(phase_bwd_kernels, peaks),
@@ -1593,7 +1757,7 @@ def main(argv=None) -> int:
         with open(args.report, "w") as f:
             json.dump({"nvidia_smi": smi, "device": name,
                        "torch": torch.__version__, "cuda": torch.version.cuda,
-                       "build_s": build_s, "phase_s": secs,
+                       "build": build_res, "phase_s": secs,
                        "kernels": kern, "path": path,
                        "demo": demo_res, "train": train}, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -14,9 +14,15 @@
 // (c.x + i - r, c.y + j - r) of the correlation row
 // <f1[b, y, x], f2_l[b, Y, X]> / sqrt(C).  The output channel is
 // l*k*k + i*k + j (x-major, k = 2r+1).  An empty level (Hl or Wl = 0), a
-// far or a non-finite center gives zeros.  The backward maps the tap
+// far or an infinite center gives zeros.  A NaN center (a NaN in either
+// coordinate) gives NaN taps on every non-empty level, as the TPU kernel
+// does (its bilinear weights are NaN).  The backward maps the tap
 // cotangent g to df1 and df2_l (the transpose of the same sums); coords
-// get no gradient; df2 buffers are zeroed by the caller.
+// get no gradient; df2 buffers are zeroed by the caller.  In the
+// transpose a NaN center's weights reach every position of each
+// non-empty level: its df1 row is NaN, and so is all of df2_l[b] of its
+// batch element b, which the block holding it fills with NaN (other
+// blocks' adds into a NaN stay NaN).
 //
 // What bounds both kernels on an H100: fp32 arithmetic.  Per query and
 // level the bilinear window touches (k+1)^2 = 100 integer positions, each
@@ -39,7 +45,7 @@
 // This design: neighbouring queries read nearly the same f2 rows, so a
 // block owns a 2-D tile of TY x TX = 4 x 8 queries and, per level, the
 // union box of their windows (clamped to the level; far, non-finite and
-// off-level windows left out).  For smooth flow the level-0 box is about
+// off-level windows left out; NaN centers are handled apart, as above).  For smooth flow the level-0 box is about
 // (4 + 9) x (8 + 9) = 221 positions against 32 x 100 = 3200 window rows,
 // and at the coarse levels the windows nearly coincide.
 //   - Box path, taken when the box holds at most NB_MAX positions.  The box
@@ -91,6 +97,7 @@
 // strides, so one kernel serves (B, N, P) and (B, P, N).
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <algorithm>
 #include <climits>
@@ -121,7 +128,9 @@ struct TileLevel {
   int x0[TQ], y0[TQ];   // window origins (level coordinates)
   float fx[TQ], fy[TQ];  // fractional offsets (0 for an inactive query)
   int act[TQ];           // the window overlaps the level
+  int nanq[TQ];          // a NaN center on a non-empty level
   int bx0, by0, bw, nb;  // box origin, width, positions (0: no window)
+  int anynan;            // some query of the tile has a NaN center here
 };
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -176,11 +185,12 @@ __device__ void tile_level_setup(TileLevel& tl, const float* coords,
   const int n = query_index(lane, ty0, tx0, H1, W1);
   int x0 = 0, y0 = 0;
   float fx = 0.0f, fy = 0.0f;
-  bool act = false;
+  bool act = false, nanc = false;
   if (n >= 0 && hl > 0 && wl > 0) {
     const float s = 1.0f / (float)(1 << l);  // exact power of two
     const long long qi = b * N + n;
     const float cx = coords[qi * 2 + 0] * s, cy = coords[qi * 2 + 1] * s;
+    nanc = cx != cx || cy != cy;
     const float fx0 = floorf(cx), fy0 = floorf(cy);
     // in float, so far-out or non-finite centers never reach an int cast
     if (fx0 > -(float)(2 * kp) && fx0 < (float)(wl + 2 * kp) &&
@@ -199,6 +209,8 @@ __device__ void tile_level_setup(TileLevel& tl, const float* coords,
   tl.fx[lane] = fx;
   tl.fy[lane] = fy;
   tl.act[lane] = act;
+  tl.nanq[lane] = nanc;
+  const bool anynan = __any_sync(0xffffffffu, nanc);
   int lx = act ? max(x0, 0) : INT_MAX, hx = act ? min(x0 + k, wl - 1) : -1;
   int ly = act ? max(y0, 0) : INT_MAX, hy = act ? min(y0 + k, hl - 1) : -1;
 #pragma unroll
@@ -214,6 +226,7 @@ __device__ void tile_level_setup(TileLevel& tl, const float* coords,
     tl.by0 = any ? ly : 0;
     tl.bw = any ? hx - lx + 1 : 0;
     tl.nb = any ? (hx - lx + 1) * (hy - ly + 1) : 0;
+    tl.anynan = anynan;
   }
 }
 
@@ -478,8 +491,9 @@ corr_ondemand_kernel(const float* __restrict__ f1,
       const float* d = win + q * ws + j * kp + i;
       const float fx = tl.fx[q], fy = tl.fy[q];
       ob[(long long)n * out_sq + (long long)(l * kk + t) * out_sp] =
-          (1.0f - fy) * ((1.0f - fx) * d[0] + fx * d[1]) +
-          fy * ((1.0f - fx) * d[kp] + fx * d[kp + 1]);
+          tl.nanq[q] ? CUDART_NAN_F
+                     : (1.0f - fy) * ((1.0f - fx) * d[0] + fx * d[1]) +
+                           fy * ((1.0f - fx) * d[kp] + fx * d[kp + 1]);
     }
     __syncthreads();  // win is rewritten by the next level
   }
@@ -530,6 +544,17 @@ corr_ondemand_bwd_kernel(const float* __restrict__ f1,
   for (int e = tid; e < TQ * C; e += NT) df1s[e] = 0.0f;
   window_table(pxy, kp, tid);
   __syncthreads();
+  // a NaN center's weights reach all of df2_l[b] (see the header)
+  for (int l = 0; l < L; ++l) {
+    if (!tls[l].anynan) continue;  // block-uniform
+    float4* d = reinterpret_cast<float4*>(dl.df2[l] +
+                                          b * lv.h[l] * lv.w[l] * C);
+    const float4 v = make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F,
+                                 CUDART_NAN_F);
+    for (long long e = tid; e < (long long)lv.h[l] * lv.w[l] * C / 4;
+         e += NT)
+      d[e] = v;
+  }
   for (int l = 0; l < L; ++l) {
     const int hl = lv.h[l], wl = lv.w[l];
     const TileLevel& tl = tls[l];
@@ -742,9 +767,13 @@ corr_ondemand_bwd_kernel(const float* __restrict__ f1,
   for (int e = tid; e < TQ * C / 4; e += NT) {
     const int q = e / (C / 4), c4 = e % (C / 4);
     const int n = query_index(q, ty0, tx0, H1, W1);
+    bool nanq = false;
+    for (int l = 0; l < L; ++l) nanq |= tls[l].nanq[q] != 0;
     if (n >= 0)
       reinterpret_cast<float4*>(df1 + (b * N + n) * C)[c4] =
-          reinterpret_cast<const float4*>(df1s + q * C)[c4];
+          nanq ? make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F,
+                             CUDART_NAN_F)
+               : reinterpret_cast<const float4*>(df1s + q * C)[c4];
   }
 }
 

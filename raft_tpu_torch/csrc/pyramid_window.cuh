@@ -9,12 +9,18 @@
 // (c.x + i - r, c.y + j - r) of the row, tap index i*k + j (x-major,
 // k = 2r+1).  Stored values convert to fp32 exactly; all arithmetic is
 // fp32.
+//
+// Non-finite centers: a NaN in either coordinate gives k*k NaN taps on
+// every non-empty level (its bilinear weights are NaN, as in the plain
+// versions and the TPU kernels); an infinite or far-off center gives
+// zeros; an empty level (Hl or Wl = 0) gives zeros whatever the center.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <cstdint>
 
@@ -60,12 +66,14 @@ static Levels<T> make_levels(const long long* ptrs, const int* hs,
 }
 
 // Window of one query at one level: its integer origin (x0, y0), the
-// fractional offsets, and whether it overlaps the level at all.  Written
-// in float so far-out or non-finite centers never reach an int cast.
+// fractional offsets, whether it overlaps the level at all, and whether
+// its center is NaN on a non-empty level (then `any` is false and every
+// tap, and every value of the query's gradient row, is NaN).  Written in
+// float so far-out or non-finite centers never reach an int cast.
 struct Window {
   int x0, y0;
   float fx, fy;
-  bool any;
+  bool any, nan;
 };
 
 __device__ __forceinline__ Window window_of(float cx0, float cy0, int l,
@@ -80,6 +88,7 @@ __device__ __forceinline__ Window window_of(float cx0, float cy0, int l,
           fy0 < (float)(hl + 2 * kp);
   w.x0 = w.any ? (int)fx0 - radius : 0;
   w.y0 = w.any ? (int)fy0 - radius : 0;
+  w.nan = hl > 0 && wl > 0 && (cx0 != cx0 || cy0 != cy0);
   w.fx = cx - fx0;
   w.fy = cy - fy0;
   return w;
@@ -100,7 +109,8 @@ __device__ __forceinline__ void warp_window_taps(
   const int kk = k * k;
   const Window wd = window_of(cx0, cy0, l, hl, wl, radius);
   if (!wd.any) {
-    for (int t = lane; t < kk; t += 32) dst[t * dst_stride] = 0.0f;
+    const float v = wd.nan ? CUDART_NAN_F : 0.0f;
+    for (int t = lane; t < kk; t += 32) dst[t * dst_stride] = v;
     return;
   }
   const T* row = level + qi * hl * wl;

@@ -5,7 +5,8 @@
 (forward) and, in one backward kernel, ``_odm_bwd_kernel`` and the
 blocked pair ``_odm_bwd_df1/df2_blocked_kernel``.  The plain version of
 the forward is :func:`raft_tpu_torch.ops.corr.chunked_corr_lookup` (the
-same function, blockwise in PyTorch), that of the backward
+same function, blockwise in PyTorch) with an empty level's taps set to
+zero, what the wrappers run on the CPU; that of the backward
 :func:`corr_lookup_ondemand_bwd_plain`.  :class:`CorrLookupOndemand` is
 the ``torch.autograd.Function`` around the two kernels: it saves
 ``fmap1``, the pooled levels and ``coords``; gradients reach ``fmap2``
@@ -13,7 +14,11 @@ through :func:`raft_tpu_torch.ops.corr.pool_fmap_pyramid` by autograd.
 
 ``coords`` get no gradient on either device (the JAX ``custom_vjp``
 returns zeros; the model detaches them every iteration): both wrappers
-detach them.
+detach them.  On an empty level the wrappers give zero taps whatever the
+center, as the kernels and the TPU kernel do (``chunked_corr_lookup``,
+the twin of JAX's plain function, gives NaN there for a NaN center).  A
+NaN center gives NaN taps on the other levels and, in the backward, a
+NaN ``df1`` row and NaN over all of its batch element's ``df2_l``.
 
 A wrapper takes the plain version only for tensors on the CPU.  For any
 other device it launches the kernel or raises; nothing falls back.
@@ -35,6 +40,7 @@ import torch
 
 from raft_tpu_torch.ops import build
 from raft_tpu_torch.ops.corr import chunked_corr_lookup
+from raft_tpu_torch.ops.pyramid_kernels import _zero_empty_levels
 
 LAUNCHES = {"corr_ondemand": 0, "corr_ondemand_bwd": 0}
 
@@ -211,6 +217,14 @@ class CorrLookupOndemand(torch.autograd.Function):
         return (df1, None, None, None, *df2)
 
 
+def _plain(fmap1, fmap2_pyramid, coords, radius):
+    """The plain version of the forward kernel: ``chunked_corr_lookup``
+    with an empty level's taps set to zero."""
+    return _zero_empty_levels(
+        chunked_corr_lookup(fmap1, fmap2_pyramid, coords, radius),
+        [f2.shape[1:3].numel() == 0 for f2 in fmap2_pyramid], radius)
+
+
 def kernel_path_counts(fmap1: torch.Tensor,
                        fmap2_pyramid: Sequence[torch.Tensor],
                        coords: torch.Tensor, radius: int,
@@ -293,8 +307,7 @@ def corr_lookup_ondemand(fmap1: torch.Tensor,
       ``coords``.
     """
     if fmap1.device.type == "cpu":
-        return chunked_corr_lookup(fmap1, fmap2_pyramid, coords.detach(),
-                                   radius)
+        return _plain(fmap1, fmap2_pyramid, coords.detach(), radius)
     return CorrLookupOndemand.apply(fmap1, coords.detach(), radius, False,
                                     *fmap2_pyramid)
 
@@ -306,7 +319,7 @@ def corr_lookup_ondemand_nchw(fmap1: torch.Tensor,
     """:func:`corr_lookup_ondemand` writing ``(B, L*(2r+1)^2, H1, W1)``,
     the layout the motion encoder's first conv reads (the model's entry)."""
     if fmap1.device.type == "cpu":
-        return chunked_corr_lookup(fmap1, fmap2_pyramid, coords.detach(),
-                                   radius).permute(0, 3, 1, 2).contiguous()
+        return _plain(fmap1, fmap2_pyramid, coords.detach(),
+                      radius).permute(0, 3, 1, 2).contiguous()
     return CorrLookupOndemand.apply(fmap1, coords.detach(), radius, True,
                                     *fmap2_pyramid)

@@ -11,9 +11,15 @@ of ``W'`` are multiplied by that (batch element, level)'s scale: the
 conv is linear in the taps, so this is the dequantized lookup followed by
 the conv.  The sum is fp32 and the result is stored once in ``out_dtype``,
 NCHW ``(B, F, H1, W1)``.  Under bf16 compute it therefore differs from
-the unfused bf16 conv by bf16 rounding, as JAX's fused path does.
-``csrc/lookup_encode.cu`` replaces the TPU kernel ``_pyr_encode_kernel``;
-the ``(B, N, L*k*k)`` tap tensor never reaches device memory.
+the unfused bf16 conv by bf16 rounding, as JAX's fused path does.  The
+taps are the lookup kernels' (``pyramid_lookup_plain``): an empty level
+gives zero taps, a NaN center NaN taps on the other levels, and the relu
+keeps NaN.  ``csrc/lookup_encode.cu`` replaces the TPU kernel
+``_pyr_encode_kernel`` (its contraction on tensor cores in a 3xTF32
+split); the ``(B, N, L*k*k)`` tap tensor never reaches device memory.
+The wrapper builds ``W'`` as the kernel reads it, as JAX's caller does
+outside its kernel: zero-padded to a multiple of 8 rows and of 4
+columns, one matrix per batch element for a quantized pyramid.
 
 :class:`PyramidLookupEncode` is the port of the custom VJP ``_pyr_enc_bwd``.
 It saves the pyramid, the coords, the weight, the bias and ``out``; its
@@ -43,25 +49,34 @@ from typing import Sequence
 import torch
 
 from raft_tpu_torch.ops import build
-from raft_tpu_torch.ops.corr import QuantizedLevel, corr_lookup
+from raft_tpu_torch.ops.corr import QuantizedLevel
 from raft_tpu_torch.ops.pyramid_kernels import (DTYPE_CODES,
                                                 LEVEL_DTYPE_CODES, SMEM_MAX,
                                                 check_levels, check_scale,
                                                 launch_bwd, launch_fwd,
-                                                level_args, split_quantized)
+                                                level_args,
+                                                pyramid_lookup_plain,
+                                                split_quantized)
 
 LAUNCHES = {"lookup_encode": 0}
 
 # the kernel's tiling (csrc/lookup_encode.cu): queries per block, warps,
-# features per warp, staged weight rows and their padding
-_QT, _NWARPS, _FW, _TK, _FPAD = 32, 8, 32, 16, 4
+# windows a warp samples at once; the largest radius it samples
+_MT, _NWARPS, _PP, _MAX_RADIUS = 64, 8, 2, 5
+
+
+def _kpad(levels: int, radius: int) -> int:
+    return -(-levels * (2 * radius + 1) ** 2 // 8) * 8
 
 
 def smem_bytes(levels: int, radius: int) -> int:
-    """Dynamic shared memory of one block of the fused kernel."""
-    k = 2 * radius + 1
-    return 4 * (_TK * (_NWARPS * _FW + _FPAD)
-                + levels * k * k * (_QT + 1) + _NWARPS * (k + 1) ** 2)
+    """Dynamic shared memory of one block of the fused kernel; a radius
+    the kernel does not sample counts as too large."""
+    if radius > _MAX_RADIUS:
+        return SMEM_MAX + 1
+    return 4 * (_MT * (_kpad(levels, radius) + 4)
+                + (_NWARPS * _PP + 1) * (2 * radius + 2) ** 2
+                + (2 * radius + 1) ** 2)
 
 
 def _weight_matrix(weight: torch.Tensor, scale, kk: int) -> torch.Tensor:
@@ -87,7 +102,8 @@ def pyramid_lookup_encode_plain(pyramid: Sequence, coords: torch.Tensor,
     levels, scale = split_quantized(pyramid)
     B, H1, W1, _ = coords.shape
     kk = (2 * radius + 1) ** 2
-    taps = corr_lookup(levels, coords, radius).reshape(B, H1 * W1, -1)
+    taps = pyramid_lookup_plain(levels, coords, radius).reshape(
+        B, H1 * W1, -1)
     out = torch.matmul(taps, _weight_matrix(weight, scale, kk))
     out = torch.relu(out + bias.float())                     # (B, N, F)
     return out.transpose(1, 2).reshape(B, -1, H1, W1).to(
@@ -100,7 +116,7 @@ def _fn():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([ci, ci, ci, ctypes.POINTER(ctypes.c_longlong),
                         ctypes.POINTER(ci), ctypes.POINTER(ci), ci, ci, ci,
-                        ci, vp, vp, vp, vp, ci, vp, vp])
+                        ci, vp, vp, ctypes.c_longlong, vp, ci, ci, vp, vp])
         fn.restype = ci
     return fn
 
@@ -128,14 +144,18 @@ def _launch(levels, scale, coords, radius, weight, bias, out_dtype):
         raise ValueError(f"{name}: out_dtype {out_dtype} not in "
                          "float32/bfloat16")
     _, H1, W1, _ = coords.shape
-    out = torch.empty((B, F, H1, W1), dtype=out_dtype, device=coords.device)
     ptrs, hs, ws, L = level_args(levels)
+    # W' as the kernel reads it: (1 or B, K_pad, F4), zero-padded
+    f4 = -(-F // 4) * 4
+    wp = torch.zeros((1 if scale is None else B, _kpad(L, radius), f4),
+                     dtype=torch.float32, device=coords.device)
+    wp[:, :KK, :F] = _weight_matrix(weight, scale, KK // L)
+    out = torch.empty((B, F, H1, W1), dtype=out_dtype, device=coords.device)
     rc = _fn()(coords.device.index or 0, LEVEL_DTYPE_CODES[levels[0].dtype],
                DTYPE_CODES[out_dtype], ptrs, hs, ws, L, B, N, radius,
-               coords.data_ptr(),
-               None if scale is None else scale.data_ptr(),
-               weight.data_ptr(), bias.data_ptr(), F, out.data_ptr(),
-               build.stream_handle(coords))
+               coords.data_ptr(), wp.data_ptr(),
+               0 if scale is None else wp.shape[1] * f4, bias.data_ptr(), F,
+               f4, out.data_ptr(), build.stream_handle(coords))
     build.check_status(name, rc)
     LAUNCHES[name] += 1
     return out
@@ -175,21 +195,22 @@ def pyramid_lookup_encode_bwd_plain(pyramid: Sequence, coords: torch.Tensor,
     """Plain version of the backward, given the forward's output ``out``
     (whose relu mask it applies) and its gradient ``g``: ``(dweight,
     dbias, dlevels)``, ``dlevels`` None for a quantized pyramid.  The
-    taps are ``corr_lookup``'s and the pyramid gradient is autograd's
-    transpose of it, in each level's dtype."""
+    taps are ``pyramid_lookup_plain``'s and the pyramid gradient is
+    autograd's transpose of it, in each level's dtype."""
     levels, scale = split_quantized(pyramid)
     coords = coords.detach()
 
     def dlevels_fn(g_taps):
         with torch.enable_grad():
             lv = [x.detach().requires_grad_(True) for x in levels]
-            taps = corr_lookup(lv, coords, radius)
+            taps = pyramid_lookup_plain(lv, coords, radius)
             return list(torch.autograd.grad(taps, lv,
                                             g_taps.permute(0, 2, 3, 1)))
 
     dw, db, dlevels = _backward(
         levels, scale, coords, radius, weight, out, g, True,
-        lambda: corr_lookup(pyramid, coords, radius).permute(0, 3, 1, 2),
+        lambda: pyramid_lookup_plain(pyramid, coords, radius).permute(
+            0, 3, 1, 2),
         dlevels_fn)
     return dw, db, None if scale is not None else dlevels
 

@@ -18,7 +18,12 @@ The pyramid is the port's query-major one (``ops/corr.py``), levels
 ``(B, N, Hl, Wl)`` fp32 or bf16, or quantized levels
 (:class:`raft_tpu_torch.ops.corr.QuantizedLevel`), from
 :func:`raft_tpu_torch.ops.corr.build_corr_pyramid`; the plain version is
-:func:`raft_tpu_torch.ops.corr.corr_lookup` cast to ``out_dtype``.
+:func:`raft_tpu_torch.ops.corr.corr_lookup` with an empty level's taps
+set to zero, cast to ``out_dtype``.  Non-finite centers give what the
+TPU kernels give: a NaN center NaN taps on every non-empty level (and a
+dcorr row that is NaN everywhere), an infinite one zeros, an empty level
+zeros whatever the center; ``corr_lookup`` itself, the twin of the JAX
+package's plain lookup, gives NaN on an empty level too.
 
 A wrapper takes the plain version only for tensors on the CPU.  For any
 other device it launches the kernel or raises; nothing falls back.
@@ -46,7 +51,18 @@ LEVEL_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 _MAX_LEVELS = 8
 _SMEM_LIMIT = 48 * 1024
 SMEM_MAX = 227 * 1024       # dynamic shared memory a block may use
-_QPB = 8   # queries per block, as in the kernels
+_QPB, _BQ = 8, 32   # queries per block of the forward and the backward
+
+
+def _zero_empty_levels(taps: torch.Tensor, empty: Sequence[bool],
+                       radius: int) -> torch.Tensor:
+    """``taps`` ``(..., L*(2r+1)^2)`` with the levels flagged in ``empty``
+    set to zero, as the kernels give them whatever the center."""
+    if not any(empty):
+        return taps
+    mask = torch.tensor(empty, device=taps.device).repeat_interleave(
+        (2 * radius + 1) ** 2)
+    return taps.masked_fill(mask, 0.0)
 
 
 def pyramid_lookup_plain(pyramid: Sequence, coords: torch.Tensor,
@@ -54,8 +70,11 @@ def pyramid_lookup_plain(pyramid: Sequence, coords: torch.Tensor,
                          ) -> torch.Tensor:
     """Plain version, of plain and of quantized pyramids alike:
     ``(B, H1, W1, L*(2r+1)^2)`` taps in ``out_dtype``, accumulated in fp32
-    whatever the levels' dtype."""
-    return corr_lookup(pyramid, coords, radius).to(out_dtype)
+    whatever the levels' dtype; an empty level's taps are zero."""
+    empty = [(lv.values if isinstance(lv, QuantizedLevel) else lv)
+             .shape[2:].numel() == 0 for lv in pyramid]
+    return _zero_empty_levels(corr_lookup(pyramid, coords, radius), empty,
+                              radius).to(out_dtype)
 
 
 def _fn(symbol: str):
@@ -72,10 +91,11 @@ def _fn(symbol: str):
 
 
 def _lookup_smem_bytes(levels: int, radius: int) -> int:
-    """Shared memory of one block of the lookup kernels (the backward's,
-    the larger)."""
+    """Shared memory of one block of the lookup kernels, the larger of
+    the forward's and the backward's."""
     k = 2 * radius + 1
-    return _QPB * (2 * levels * k * k + levels * ((k + 1) ** 2 + 3)) * 4
+    return 4 * max(_QPB * (levels * k * k + (k + 1) ** 2),
+                   _BQ * (k * k + (k + 1) ** 2 + 8) + (k + 1) ** 2)
 
 
 def check_levels(name, levels, coords, radius, dtypes=DTYPE_CODES,

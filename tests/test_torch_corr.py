@@ -14,6 +14,12 @@ in interpret mode, twins of ``tests/test_pallas_corr.py``'s gradient
 tests: the fused backward, every level on the blocked pair, a mixed
 partition (level 0 blocked), offsets of +-20 px, an empty level; radius
 3 and rtol = atol = 1e-4 as there.  ``coords`` get no gradient.
+
+Non-finite centers (the on-demand wrappers on the CPU against JAX
+``pallas_corr_lookup``): a NaN in either coordinate gives NaN taps on
+each non-empty level and zeros on the empty one, a NaN ``df1`` row and
+NaN over all of its batch element's ``df2_l``; infinite centers give
+zeros.  ``assert_allclose`` holds NaN to NaN position for position.
 """
 
 import jax
@@ -216,3 +222,51 @@ def test_ondemand_plain_backward_and_zero_coords_gradient(nchw):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     (dc,) = torch.autograd.grad(out, tc, cot, allow_unused=True)
     assert dc is None or not dc.any()
+
+
+def test_nan_and_inf_centers_match_jax_pallas():
+    """Taps, ``df1`` and each level's ``df2`` of the CPU wrapper (and of
+    ``corr_lookup_ondemand_bwd_plain``, the backward kernel's yardstick)
+    against ``jax.vjp`` of the TPU kernel for NaN and infinite centers on
+    a pyramid with an empty level.  ``chunked_corr_lookup``, the twin of
+    JAX's plain function, differs on the empty level only (NaN there)."""
+    f1, f2, coords, g = _grad_case(21, (B, H, W, C), LEVELS, 3.0)
+    coords[1, 1, 1] = (np.nan, 2.0)
+    coords[1, 2, 5] = (2.0, np.nan)
+    coords[1, 4, 8] = (np.inf, np.nan)
+    coords[0, 3, 3] = (np.inf, 3.0)
+    coords[0, 4, 4] = (1.0, -np.inf)
+    jf2 = tuple(jcorr.pool_fmap_pyramid(jnp.asarray(f2), LEVELS))
+    taps, vjp = jax.vjp(
+        lambda a, p: pallas_corr_lookup(a, p, jnp.asarray(coords), 4, 64,
+                                        True), jnp.asarray(f1), jf2)
+    jdf1, jdf2 = vjp(jnp.asarray(g))
+    want = np.asarray(taps)
+
+    tf1 = torch.from_numpy(f1).requires_grad_(True)
+    pyr = [lv.detach().requires_grad_(True)
+           for lv in tcorr.pool_fmap_pyramid(torch.from_numpy(f2), LEVELS)]
+    tc = torch.from_numpy(coords)
+    got = corr_lookup_ondemand(tf1, pyr, tc, 4)
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+    nanq = ((1, 1, 1), (1, 2, 5), (1, 4, 8))
+    for q in nanq:
+        assert np.isnan(want[q][:3 * 81]).all()
+        assert np.all(want[q][3 * 81:] == 0.0)
+    assert np.isnan(want).sum() == 3 * 3 * 81
+    assert np.all(want[0, 3, 3] == 0.0) and np.all(want[0, 4, 4] == 0.0)
+    chunked = tcorr.chunked_corr_lookup(tf1, pyr, tc, 4).detach().numpy()
+    assert np.isnan(chunked[1, 1, 1]).all()
+    np.testing.assert_array_equal(chunked[..., :3 * 81], got.detach()
+                                  .numpy()[..., :3 * 81])
+
+    grads = torch.autograd.grad(got, [tf1, *pyr], torch.from_numpy(g))
+    df1, df2 = corr_lookup_ondemand_bwd_plain(tf1, pyr, tc, 4,
+                                              torch.from_numpy(g))
+    wants = [np.asarray(jdf1)] + [np.asarray(d) for d in jdf2]
+    for a, b, w in zip(grads, [df1, *df2], wants):
+        np.testing.assert_allclose(a.numpy(), w, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(b.numpy(), w, rtol=1e-4, atol=1e-4)
+    assert np.isnan(wants[0]).sum() == 3 * C
+    for d in wants[1:4]:
+        assert np.isnan(d[1]).all() and not np.isnan(d[0]).any()

@@ -17,7 +17,7 @@ from raft_tpu_torch.models.raft import RAFT
 from raft_tpu_torch.ops import corr as corr_ops
 from raft_tpu_torch.ops import (corr_kernels, gru_gates, lookup_encode,
                                 pyramid_kernels, upsample_loss)
-from raft_tpu_torch.ops.corr import chunked_corr_lookup, pool_fmap_pyramid
+from raft_tpu_torch.ops.corr import pool_fmap_pyramid
 from raft_tpu_torch.ops.upsample import (convex_upsample_flat_nchw,
                                          depth_to_space_flow)
 
@@ -83,24 +83,33 @@ def _check_paths(dist, counts):
     (4, 32, (27, 45), "mixed"), (4, 512, (13, 21), "near"),
     (4, 256, (7, 13), "near"), (4, 256, (46, 62), "smooth")])
 def test_corr_kernel_matches_plain(dev, radius, C, hw, dist):
+    """The forward kernel against its plain version (``chunked_corr_lookup``
+    with an empty level's taps zero, what the wrapper runs on the CPU),
+    NaN centers included: NaN taps on the non-empty levels."""
     f1, f2, coords = _corr_case(radius + C, 2, *hw, C, dev)
     if dist != "offsets":
         coords = _centers(dist, 2, *hw, radius + C, dev)
-        coords[1, 1, 1] = float("nan")        # zeros in the kernel
+    coords[1, 1, 1] = float("nan")
+    coords[0, 1, 2, 0] = float("nan")
     pyr = pool_fmap_pyramid(f2, 4)
     with torch.no_grad():
         got = corr_kernels.corr_lookup_ondemand(f1, pyr, coords, radius)
         nchw = corr_kernels.corr_lookup_ondemand_nchw(f1, pyr, coords,
                                                       radius)
-        want = chunked_corr_lookup(f1, pyr, coords.nan_to_num(1e4), radius)
+        want = corr_kernels._plain(f1, pyr, coords, radius)
     torch.cuda.synchronize()
-    tol = 1e-4 * float(want.abs().max()) + 1e-5
-    assert float((got - want).abs().max()) <= tol
-    assert torch.equal(nchw, got.permute(0, 3, 1, 2))
+    _close(got, want)
+    assert torch.equal(nchw.isnan(), got.permute(0, 3, 1, 2).isnan())
+    assert torch.equal(nchw.nan_to_num(), got.permute(0, 3, 1, 2)
+                       .nan_to_num())
+    kk = (2 * radius + 1) ** 2
+    nonempty = sum(1 for p in pyr if p.shape[1] * p.shape[2]) * kk
+    assert torch.isnan(got[1, 1, 1, :nonempty]).all()
+    assert torch.isnan(got[0, 1, 2, :nonempty]).all()
+    assert int(torch.isnan(got).sum()) == 2 * nonempty
+    if hw == (7, 13):
+        assert not got[..., 3 * kk:].any()
     if dist != "offsets":
-        assert not got[1, 1, 1].any()
-        if hw == (7, 13):
-            assert not got[..., 3 * (2 * radius + 1) ** 2:].any()
         _check_paths(dist, corr_kernels.kernel_path_counts(
             f1, pyr, coords, radius)["fwd"])
 
@@ -117,7 +126,9 @@ def test_corr_kernel_gradients_match_plain(dev, nchw, hw, spread, dist, C):
     level; on the 24 x 40 grid, centers spread by U(-20, 20) px put
     windows partly and wholly off the levels; the other distributions
     send (tile, level) pairs down the box path, the per-query path or
-    both in one launch.  df2 comes from atomic adds whose order varies
+    both in one launch.  With the NCHW layout a NaN center sits at
+    (1, 1, 1): its df1 row and all of df2_l[1] are NaN on each non-empty
+    level, on both sides.  df2 comes from atomic adds whose order varies
     between runs, so it is held to the tolerance, never compared bit for
     bit."""
     f1, f2, coords = _corr_case(9, 2, *hw, C, dev)
@@ -126,6 +137,8 @@ def test_corr_kernel_gradients_match_plain(dev, nchw, hw, spread, dist, C):
                               .manual_seed(12)).to(dev) * 2 - 1) * spread
     else:
         coords = _centers(dist, 2, *hw, 9, dev)
+    if nchw:
+        coords[1, 1, 1, 0] = float("nan")
     f1.requires_grad_(True)
     coords.requires_grad_(True)
     pyr = [lv.requires_grad_(True) for lv in pool_fmap_pyramid(f2, 4)]
@@ -148,11 +161,14 @@ def test_corr_kernel_gradients_match_plain(dev, nchw, hw, spread, dist, C):
         "corr_ondemand_bwd": before["corr_ondemand_bwd"] + 1}
     assert dc is None
     for a, b in zip(got, [df1, *df2]):
-        assert a.shape == b.shape and a.dtype == torch.float32
-        if b.numel():
-            tol = 1e-4 * float(b.abs().max()) + 1e-5
-            assert float((a - b).abs().max()) <= tol
-    assert float(df1.abs().max()) > 0
+        assert a.dtype == torch.float32
+        _close(a, b)
+    assert float(df1.nan_to_num().abs().max()) > 0
+    if nchw:
+        assert torch.isnan(got[0][1, 1, 1]).all()
+        assert int(torch.isnan(got[0]).sum()) == C
+        for d in got[1:]:
+            assert torch.isnan(d[1]).all() and not torch.isnan(d[0]).any()
     if dist != "offsets":
         with torch.no_grad():
             _check_paths(dist, corr_kernels.kernel_path_counts(
@@ -249,12 +265,18 @@ def _bf16_close(got, want, fp32_tol):
     return bool((diff <= ulp + fp32_tol).all())
 
 
-def _pyramid_case(seed, dev, dtype, grad=True):
-    """A 7 x 13 grid (level 3 pools to 0 x 1) with centers spread by
-    U(-4, 4) px, one far off, one integer and one on the last row; levels
-    in ``dtype`` (quantized ones as codes and scales)."""
+# NaN centers of _pyramid_case: NaN taps on every non-empty level
+NAN_QUERIES = ((1, 3, 4), (0, 5, 6))
+
+
+def _pyramid_case(seed, dev, dtype, grad=True, B=2, hw=(7, 13)):
+    """A 7 x 13 grid (level 3 pools to 0 x 1; row lengths 91, 18, 3 not
+    multiples of 8) or another one, with centers spread by U(-4, 4) px,
+    one far off, one integer, one on the last row, two infinite ones and
+    two NaN ones (a NaN x and a NaN y); levels in ``dtype`` (quantized
+    ones as codes and scales)."""
     g = torch.Generator().manual_seed(seed)
-    B, H, W, C = 2, 7, 13, 64                  # level 3 pools to 0 x 1
+    (H, W), C = hw, 64
     f1, f2 = (torch.randn(B, H, W, C, generator=g) for _ in range(2))
     ys, xs = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
     coords = torch.stack([xs, ys], -1).float()[None].repeat(B, 1, 1, 1)
@@ -262,17 +284,38 @@ def _pyramid_case(seed, dev, dtype, grad=True):
     coords[0, 0, 0] = torch.tensor([1e6, -2.5])
     coords[1, 2, 3] = torch.tensor([5.0, 3.0])          # integer center
     coords[-1, -1, -1] = torch.tensor([-7.25, float(H) - 0.5])
+    coords[NAN_QUERIES[0]] = torch.tensor([float("nan"), 2.0])
+    coords[NAN_QUERIES[1]] = torch.tensor([1.0, float("nan")])
+    coords[1, 4, 9] = torch.tensor([float("inf"), 2.0])     # zero taps
+    coords[0, 6, 1] = torch.tensor([1.0, float("-inf")])
     pyr = corr_ops.build_corr_pyramid(f1.to(dev), f2.to(dev), 4, dtype)
     if grad and dtype.is_floating_point and dtype.itemsize > 1:
         pyr = [lv.requires_grad_(True) for lv in pyr]
     return pyr, coords.to(dev)
 
 
+def _check_nan_taps(taps, levels):
+    """Taps (B, H, W, P): the NaN queries' taps NaN on the ``levels``
+    non-empty levels, nothing else NaN."""
+    for q in NAN_QUERIES:
+        assert torch.isnan(taps[q][:levels * 81]).all()
+    assert int(torch.isnan(taps).sum()) == len(NAN_QUERIES) * levels * 81
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("nchw", [False, True])
-def test_pyramid_lookup_kernels_match_plain(dev, dtype, nchw):
-    pyr, coords = _pyramid_case(3, dev, dtype)
-    assert pyr[-1].numel() == 0
+@pytest.mark.parametrize("B,hw", [(2, (7, 13)), (8, (46, 62))],
+                         ids=["7x13", "chairs"])
+def test_pyramid_lookup_kernels_match_plain(dev, dtype, nchw, B, hw):
+    """The forward and the backward kernel against the plain version and
+    its autograd, in both tap layouts: a ragged grid with an empty level
+    and the chairs grid (B = 8, 46 x 62).  The backward's dense rows are
+    written flat with 16-byte stores, so row lengths that are not
+    multiples of 8 and the NaN queries' all-NaN rows test its head, tail
+    and straddling vectors."""
+    pyr, coords = _pyramid_case(3, dev, dtype, B=B, hw=hw)
+    levels = sum(1 for lv in pyr if lv.numel())
+    assert levels == (3 if hw == (7, 13) else 4)
     lookup = (pyramid_kernels.pyramid_lookup_nchw if nchw
               else pyramid_kernels.pyramid_lookup)
     before = dict(pyramid_kernels.LAUNCHES)
@@ -289,19 +332,18 @@ def test_pyramid_lookup_kernels_match_plain(dev, dtype, nchw):
         before, pyramid_lookup_fwd=before["pyramid_lookup_fwd"] + 1,
         pyramid_lookup_bwd=before["pyramid_lookup_bwd"] + 1)
     assert got.dtype == dtype and got.shape == want.shape
-    tol = 1e-4 * float(want.detach().float().abs().max()) + 1e-5
-    for a, b in [(got.detach(), want.detach())] + list(zip(dgot, dwant)):
-        assert a.dtype == b.dtype and a.shape == b.shape
-        if not a.numel():                        # the empty level
-            continue
-        if dtype == torch.float32:
-            assert float((a - b).abs().max()) <= tol
-        else:
-            assert _bf16_close(a, b, tol)
-    assert float(got.float().abs().max()) > 0
-    k2 = 81
+    # every comparison on the scale of the plain taps
+    scale = float(want.detach().float().nan_to_num().abs().max())
+    for a, b in [(got, want)] + list(zip(dgot, dwant)):
+        _close(a, b, scale)
     taps = got if not nchw else got.permute(0, 2, 3, 1)
-    assert torch.all(taps[..., 3 * k2:] == 0) and torch.all(taps[0, 0, 0] == 0)
+    assert float(taps.detach().float().nan_to_num().abs().max()) > 0
+    assert torch.all(taps[..., levels * 81:] == 0)
+    assert torch.all(taps[0, 0, 0] == 0) and torch.all(taps[1, 4, 9] == 0)
+    _check_nan_taps(taps, levels)
+    for d in dgot:                  # the NaN queries' whole rows
+        if d.numel():
+            assert int(torch.isnan(d).sum()) == 2 * d[0, 0].numel()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -484,16 +526,24 @@ def test_train_step_ondemand_config_counts_and_matches_plain(dev, dtype):
     (_check_fp32 if dtype == "float32" else _check_bf16)(mk, gk, mp, gp)
 
 
-def _close(a, b):
-    """fp32: within 1e-4 * max|plain| + 1e-5; bf16: plus one bf16 ulp."""
+def _close(a, b, scale=None):
+    """The same NaN entries, position for position; the others within
+    1e-4 * scale + 1e-5, plus one bf16 ulp for bf16 results; ``scale``
+    defaults to max|plain| over the plain version's finite entries."""
+    a, b = a.detach(), b.detach()
     assert a.dtype == b.dtype and a.shape == b.shape
+    nan = torch.isnan(b)
+    assert torch.equal(torch.isnan(a), nan)
     if not b.numel():
         return
-    tol = 1e-4 * float(b.detach().float().abs().max()) + 1e-5
+    a, b = a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0)
+    if scale is None:
+        scale = float(b.float().abs().max())
+    tol = 1e-4 * scale + 1e-5
     if a.dtype == torch.bfloat16:
-        assert _bf16_close(a.detach(), b.detach(), tol)
+        assert _bf16_close(a, b, tol)
     else:
-        assert float((a.detach() - b.detach()).abs().max()) <= tol
+        assert float((a - b).abs().max()) <= tol
 
 
 QDTYPES = [torch.int8, torch.float8_e4m3fn, torch.float8_e5m2]
@@ -520,27 +570,42 @@ def test_quantized_lookup_kernel_matches_plain(dev, qdtype, out_dtype):
                                                 out_dtype)
     assert got.dtype == out_dtype and not got.requires_grad
     _close(got, want)
-    assert torch.equal(nchw, got.permute(0, 3, 1, 2))
-    assert float(got.float().abs().max()) > 0
+    assert torch.equal(nchw.isnan(), got.permute(0, 3, 1, 2).isnan())
+    assert torch.equal(nchw.nan_to_num(), got.permute(0, 3, 1, 2)
+                       .nan_to_num())
+    assert float(got.float().nan_to_num().abs().max()) > 0
     assert torch.all(got[..., 3 * 81:] == 0) and torch.all(got[0, 0, 0] == 0)
+    assert torch.all(got[1, 4, 9] == 0) and torch.all(got[0, 6, 1] == 0)
+    _check_nan_taps(got, 3)
 
 
-# (level dtype, output dtype, F): F = 300 runs two feature passes, F = 40
-# masks a partial warp of features; N = 91 leaves a ragged query tile
-ENCODE_CASES = [(torch.float32, torch.float32, 300),
-                (torch.bfloat16, torch.bfloat16, 256),
-                (torch.int8, torch.bfloat16, 40),
-                (torch.float8_e4m3fn, torch.float32, 256)]
+# (level dtype, output dtype, F, B, grid): F = 300 runs two feature
+# passes of 256, F = 40 and 300 leave mma tiles past F; the 7 x 13 grid
+# (N = 91) leaves a ragged 64-query tile and has an empty level; the
+# chairs grid is the training shape
+CHAIRS = (8, (46, 62))
+ENCODE_CASES = [(torch.float32, torch.float32, 300, 2, (7, 13)),
+                (torch.bfloat16, torch.bfloat16, 256, 2, (7, 13)),
+                (torch.int8, torch.bfloat16, 40, 2, (7, 13)),
+                (torch.float8_e4m3fn, torch.float32, 256, 2, (7, 13)),
+                (torch.float32, torch.float32, 256, *CHAIRS),
+                (torch.bfloat16, torch.bfloat16, 256, *CHAIRS),
+                (torch.int8, torch.float32, 256, *CHAIRS),
+                (torch.float8_e4m3fn, torch.bfloat16, 40, *CHAIRS)]
 
 
-@pytest.mark.parametrize("dtype,out_dtype,F", ENCODE_CASES)
-def test_lookup_encode_kernel_matches_plain(dev, dtype, out_dtype, F):
+@pytest.mark.parametrize("dtype,out_dtype,F,B,hw", ENCODE_CASES)
+def test_lookup_encode_kernel_matches_plain(dev, dtype, out_dtype, F, B, hw):
     """The fused lookup + convc1 kernel and its backward (dW, db and, for
     fp32 / bf16 levels, dpyramid) against the plain forward and the plain
     backward on the kernel's output (one relu mask for both), with the
     launches of the fused kernel and of the lookup kernels its backward
-    recomputes the taps with."""
-    pyr, coords = _pyramid_case(14, dev, dtype)
+    recomputes the taps with.  Twice: with the NaN centers replaced by
+    finite ones, where every value is compared, and with them, where they
+    give NaN in all F outputs of their queries and make dW's rows of the
+    non-empty levels NaN (their relu mask is 0, their taps NaN)."""
+    pyr, coords = _pyramid_case(14, dev, dtype, B=B, hw=hw)
+    levels = 3 if hw == (7, 13) else 4
     quantized = isinstance(pyr[0], corr_ops.QuantizedLevel)
     g = torch.Generator().manual_seed(15)
     w = (torch.randn(F, 4 * 81, 1, 1, generator=g) / 18).to(dev)
@@ -548,30 +613,46 @@ def test_lookup_encode_kernel_matches_plain(dev, dtype, out_dtype, F):
     w.requires_grad_(True)
     b.requires_grad_(True)
     leaves = [w, b] + ([] if quantized else list(pyr))
-    before = (dict(lookup_encode.LAUNCHES), dict(pyramid_kernels.LAUNCHES))
-    got = lookup_encode.pyramid_lookup_encode(pyr, coords, 4, w, b,
-                                              out_dtype)
-    with torch.no_grad():
-        want = lookup_encode.pyramid_lookup_encode_plain(pyr, coords, 4, w,
-                                                         b, out_dtype)
-    cot = torch.randn(got.shape, generator=g).to(dev, out_dtype)
-    dgot = torch.autograd.grad(got, leaves, cot)
-    dw, db, dl = lookup_encode.pyramid_lookup_encode_bwd_plain(
-        pyr, coords, 4, w, got.detach(), cot)
-    dwant = [dw, db] + (dl or [])
-    torch.cuda.synchronize()
-    recompute = ({"pyramid_lookup_quantized": 1} if quantized else
-                 {"pyramid_lookup_fwd": 1, "pyramid_lookup_bwd": 1})
-    assert lookup_encode.LAUNCHES == {
-        "lookup_encode": before[0]["lookup_encode"] + 1}
-    assert pyramid_kernels.LAUNCHES == {
-        k: v + recompute.get(k, 0) for k, v in before[1].items()}
-    assert got.shape == (2, F, 7, 13) and got.is_contiguous()
-    _close(got, want)
-    assert float(got.float().max()) > 0 and float(got.float().min()) == 0
-    for a, c in zip(dgot, dwant):
-        _close(a, c)
-    assert float(dgot[0].abs().max()) > 0 and float(dgot[1].abs().max()) > 0
+    cot = torch.randn((B, F, *hw), generator=g).to(dev, out_dtype)
+    finite = coords.clone()
+    for q in NAN_QUERIES:
+        finite[q] = finite[q].nan_to_num(3.5)
+    for c in (finite, coords):
+        before = (dict(lookup_encode.LAUNCHES),
+                  dict(pyramid_kernels.LAUNCHES))
+        got = lookup_encode.pyramid_lookup_encode(pyr, c, 4, w, b, out_dtype)
+        with torch.no_grad():
+            want = lookup_encode.pyramid_lookup_encode_plain(pyr, c, 4, w, b,
+                                                             out_dtype)
+        dgot = torch.autograd.grad(got, leaves, cot)
+        dw, db, dl = lookup_encode.pyramid_lookup_encode_bwd_plain(
+            pyr, c, 4, w, got.detach(), cot)
+        dwant = [dw, db] + (dl or [])
+        torch.cuda.synchronize()
+        recompute = ({"pyramid_lookup_quantized": 1} if quantized else
+                     {"pyramid_lookup_fwd": 1, "pyramid_lookup_bwd": 1})
+        assert lookup_encode.LAUNCHES == {
+            "lookup_encode": before[0]["lookup_encode"] + 1}
+        assert pyramid_kernels.LAUNCHES == {
+            k: v + recompute.get(k, 0) for k, v in before[1].items()}
+        assert got.shape == (B, F, *hw) and got.is_contiguous()
+        _close(got, want)
+        fin = got.detach().float().nan_to_num()
+        assert float(fin.max()) > 0 and float(fin.min()) == 0
+        for a, d in zip(dgot, dwant):
+            _close(a, d)
+        assert float(dgot[1].abs().max()) > 0
+        if c is finite:
+            assert not torch.isnan(got).any()
+            assert float(dgot[0].abs().max()) > 0
+            continue
+        for bq, y, x in NAN_QUERIES:
+            assert torch.isnan(got[bq, :, y, x]).all()
+        assert int(torch.isnan(got).sum()) == len(NAN_QUERIES) * F
+        dw_nan = torch.isnan(dgot[0].reshape(F, -1))
+        assert dw_nan[:, :levels * 81].all()
+        assert not dw_nan[:, levels * 81:].any()
+        assert not torch.isnan(dgot[1]).any()
 
 
 INT8_FUSED_KW = dict(corr_impl="allpairs_pallas", corr_dtype="int8",

@@ -18,6 +18,14 @@ Tolerances: fp32 results 1e-5 (forward) and 1e-4 (gradients): fp32 sums
 in other orders, and for a quantized pyramid the scale folded into the
 weights against multiplied into the taps.  A bf16 result within one bf16
 ulp of the fp32 reference plus that fp32 bound.
+
+Non-finite centers, on a 6x10 grid whose fourth level pools to nothing
+(the TPU kernel in interpret mode, once more): a NaN center gives NaN in
+all F outputs of its query (the relu keeps NaN); its relu mask is then
+0, so ``dW`` is NaN on the rows of the three non-empty levels only (the
+empty level's taps are 0, not NaN), ``db`` is finite and the pyramid
+gradient is NaN on the query's rows.  ``assert_allclose`` holds NaN to
+NaN position for position.
 """
 
 import jax
@@ -270,3 +278,52 @@ def test_fused_and_unfused_models_share_one_state_dict():
         lo_f, up_f = mf(i1, i2, iters=2, test_mode=True)
     np.testing.assert_allclose(up_f.numpy(), up_b.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+def test_nan_center_matches_jax_kernel():
+    """out, dW, db and dpyramid for a NaN center (and an infinite one) on
+    a pyramid with an empty level, against ``jax.vjp`` of the TPU kernel
+    from a random finite cotangent: 3 x 81 x F NaN entries of dW."""
+    b_, h, w_, lv, r, f = 2, 6, 10, 4, 4, 16
+    kk = lv * (2 * r + 1) ** 2
+    rng = np.random.default_rng(8)
+    f1, f2 = (rng.standard_normal((b_, h, w_, C)).astype(np.float32)
+              for _ in range(2))
+    coords = (np.asarray(coords_grid(b_, h, w_)) + rng.uniform(
+        -2, 2, (b_, h, w_, 2))).astype(np.float32)
+    coords[1, 1, 1] = (np.nan, 2.0)
+    coords[0, 2, 3] = (np.inf, 1.0)
+    w = (rng.standard_normal((kk, f)) * kk ** -0.5).astype(np.float32)
+    b = (rng.standard_normal((f,)) * 0.1).astype(np.float32)
+    g = rng.standard_normal((b_, h, w_, f)).astype(np.float32)
+    jpyr = jcorr.build_corr_pyramid_flat(jnp.asarray(f1), jnp.asarray(f2),
+                                         lv, pad_q=64)
+    assert jpyr[-1].shape[1:3] == (0, 1)
+    out, vjp = jax.vjp(lambda w_, b_, p_: pallas_pyramid_lookup_encode(
+        p_, jnp.asarray(coords), w_, b_, r, 64, True), jnp.asarray(w),
+        jnp.asarray(b), jpyr)
+    gw, gb, gpyr = (np.asarray(x) if i < 2 else x
+                    for i, x in enumerate(vjp(jnp.asarray(g))))
+    want = np.asarray(out)
+
+    tw = torch.from_numpy(np.ascontiguousarray(w.T)).reshape(
+        f, kk, 1, 1).requires_grad_(True)
+    tb = torch.from_numpy(b).requires_grad_(True)
+    tpyr = [torch.from_numpy(np.array(x)).permute(0, 3, 1, 2)[:, :h * w_]
+            .contiguous().requires_grad_(True) for x in jpyr]
+    got = pyramid_lookup_encode(tpyr, torch.from_numpy(coords), r, tw, tb)
+    np.testing.assert_allclose(_nhwc(got), want, **FWD_TOL)
+    assert np.isnan(want).sum() == f and np.isnan(want[1, 1, 1]).all()
+    got.backward(torch.from_numpy(g).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(tw.grad.reshape(f, kk).numpy().T, gw,
+                               **GRAD_TOL)
+    assert np.isnan(gw).sum() == 3 * 81 * f
+    assert not np.isnan(gw[3 * 81:]).any()
+    np.testing.assert_allclose(tb.grad.numpy(), gb, **GRAD_TOL)
+    assert np.isfinite(gb).all()
+    for t, d in zip(tpyr, gpyr):
+        d = np.asarray(d).transpose(0, 3, 1, 2)[:, :h * w_]
+        np.testing.assert_allclose(t.grad.numpy(), d, **GRAD_TOL)
+        if d.size:
+            assert np.isnan(d).sum() == d[0, 0].size
+            assert np.isnan(d[1, w_ + 1]).all()

@@ -12,7 +12,16 @@ order); bf16 levels of the two builds within one bf16 rounding;
 ``dpyramid`` and the feature-map gradients through the pyramid
 build 1e-4; bf16 storage rtol 0.02 / atol 0.05 (correlation values are
 O(sqrt(C)) and bf16 keeps 8 significant bits; each tap mixes four stored
-values), with the cotangent in the level's dtype.
+values), with the cotangent in the level's dtype.  ``assert_allclose``
+also holds NaN to NaN, position for position.
+
+Non-finite centers: a NaN center gives NaN taps on every non-empty level,
+zeros on the empty one, and a dcorr row that is NaN everywhere on the
+non-empty levels; infinite ones give zeros.  The kernel is compared on
+NaN x coordinates only: with a NaN y the TPU kernel's row-tile skip
+(``ymax = max(cy)`` over a 128-query block is NaN, so no tile is "hit")
+drops the rows of every query of that block, a fault of the reference
+that the port does not copy (ROADMAP.md, queue C).
 """
 
 import jax
@@ -119,6 +128,10 @@ def test_plain_lookup_matches_pallas_kernel(jax_ref):
 
 
 def test_out_of_range_centers_give_zero():
+    """Far and infinite centers give zero taps and a zero gradient; the
+    ``(inf, nan)`` center is a NaN center: NaN taps on the three non-empty
+    levels, zeros on the empty one (as JAX's on-demand TPU kernel gives
+    it, ``tests/test_torch_corr.py``)."""
     f1, f2, _ = _setup(3)
     coords = np.full((B, H, W, 2), -100.0, np.float32)
     coords[1, 1] = (np.inf, np.nan)
@@ -128,8 +141,55 @@ def test_out_of_range_centers_give_zero():
            for lv in tcorr.build_corr_pyramid(tf1, tf2, LEVELS)]
     got = pyramid_lookup(pyr, tc, 4)
     assert torch.all(got[0] == 0.0) and torch.all(got[1, 2] == 0.0)
+    assert torch.all(got[1, 0] == 0.0) and torch.all(got[1, 3:] == 0.0)
+    assert torch.isnan(got[1, 1, :, :3 * 81]).all()
+    assert torch.all(got[1, 1, :, 3 * 81:] == 0.0)
     got[0].sum().backward()
     assert all(torch.all(lv.grad[0] == 0.0) for lv in pyr)
+
+
+def _special_centers(coords):
+    """NaN x centers (one with an infinite y) and infinite ones."""
+    coords = coords.copy()
+    coords[1, 1, 1] = (np.nan, 2.0)
+    coords[0, 3, 4] = (np.nan, np.inf)
+    coords[0, 2, 2] = (np.inf, 3.0)
+    coords[1, 4, 5] = (-np.inf, 1.0)
+    coords[1, 0, 7] = (3.0, np.inf)
+    return coords
+
+
+def test_nan_and_inf_centers_match_pallas_kernel():
+    """Taps and ``dpyramid`` (from a random cotangent) of the plain version
+    against the TPU kernel for NaN and infinite centers on a pyramid with
+    an empty level: the same NaN entries, the finite ones within the
+    tolerances above."""
+    f1, f2, coords = _setup(5)
+    coords = _special_centers(coords)
+    pyr = _jax_flat(f1, f2)
+    taps, vjp = jax.vjp(lambda p: _jax_lookup(p, coords), pyr)
+    g = np.random.default_rng(6).standard_normal(taps.shape).astype(
+        np.float32)
+    (dpyr,) = vjp(jnp.asarray(g))
+    want = np.asarray(taps)
+    tf1, tf2, tc = _t(f1, f2, coords)
+    tpyr = [lv.requires_grad_(True)
+            for lv in tcorr.build_corr_pyramid(tf1, tf2, LEVELS)]
+    got = pyramid_lookup(tpyr, tc, 4)
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+    for q in ((1, 1, 1), (0, 3, 4)):
+        assert np.isnan(want[q][:3 * 81]).all()
+        assert np.all(want[q][3 * 81:] == 0.0)
+    assert np.isnan(want).sum() == 2 * 3 * 81
+    for q in ((0, 2, 2), (1, 4, 5), (1, 0, 7)):
+        assert np.all(want[q] == 0.0)
+    got.backward(torch.from_numpy(g))
+    for lv, d in zip(tpyr, dpyr):
+        d = _query_major(d)
+        np.testing.assert_allclose(lv.grad.numpy(), d, rtol=1e-4, atol=1e-4)
+        if d.size:      # the NaN queries' whole rows, nothing else
+            assert np.isnan(d).sum() == 2 * d[0, 0].size
+            assert np.isnan(d[1, 1 * W + 1]).all()
 
 
 def test_grads_match_pallas_kernel(jax_ref):

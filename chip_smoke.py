@@ -8,8 +8,11 @@ GPU (written for the H100).
 Phases, each raising on failure (so the script exits nonzero):
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device;
-2. build: compile every CUDA source of the port with ``nvcc`` (sm_90a)
-   and count the tensor-core instructions in ``lookup_encode``'s SASS;
+2. build: compile every CUDA source of the port with ``nvcc`` (sm_90a),
+   count the tensor-core instructions in ``lookup_encode``'s SASS, and
+   check that the radius-3 and radius-4 instantiations of the pyramid
+   lookup forward (``pyr_fwd_kernel``) have no local-memory instruction
+   (``LDL``/``STL``) in theirs;
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, with device times of kernel and plain version
    (``torch.profiler``; CUDA events where it reports none) beside the
@@ -83,6 +86,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -229,10 +233,30 @@ def phase_device():
     return smi, name
 
 
+def _sass_counts(build, name: str, pattern: str) -> dict:
+    """{kernel function (mangled name): number of SASS instructions
+    matching ``pattern``} in the library of source ``name``, every kernel
+    listed (``cuobjdump -sass``, next to ``nvcc``)."""
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(build.library_path(name))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    per_fn, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            per_fn[fn] = 0
+        elif fn and re.search(pattern, ln):
+            per_fn[fn] += 1
+    return per_fn
+
+
 def phase_build():
     """Compile every source; then count the tensor-core instructions
     (HMMA / GMMA) in the SASS of the fused lookup + convc1 library, which
-    must run its contraction on the tensor cores."""
+    must run its contraction on the tensor cores, and the local-memory
+    instructions (LDL / STL) of the pyramid lookup forward's radius-3 and
+    radius-4 instantiations, which must have none."""
     from raft_tpu_torch.ops import build
 
     t0 = time.perf_counter()
@@ -243,16 +267,8 @@ def phase_build():
         print(f"[build] {src}: " + " | ".join(lines[-6:]))
     print(f"[build] {len(reports)} sources compiled in {secs:.2f} s",
           flush=True)
-    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run(
-        [cuobjdump, "-sass", str(build.library_path("lookup_encode"))],
-        capture_output=True, text=True, check=True, timeout=300).stdout
-    per_fn, fn = {}, None
-    for ln in sass.splitlines():
-        if "Function :" in ln:
-            fn = ln.split("Function :")[1].strip()
-        elif fn and ("HMMA" in ln or "GMMA" in ln):
-            per_fn[fn] = per_fn.get(fn, 0) + 1
+    per_fn = {f: n for f, n in _sass_counts(
+        build, "lookup_encode", r"HMMA|GMMA").items() if n}
     mma = sum(per_fn.values())
     print(f"[build] lookup_encode SASS: {mma} HMMA/GMMA instructions in "
           f"{len(per_fn)} kernels ({sorted(set(per_fn.values()))} each)",
@@ -260,8 +276,25 @@ def phase_build():
     if not mma:
         raise AssertionError("lookup_encode: no tensor-core instruction in "
                              "its SASS")
+    # pyr_fwd_kernel<T, To, RADIUS>: the radius is the last template
+    # argument of the mangled name (Li4E, Li3E; Lin1E for the runtime one)
+    local = {}
+    for f, n in _sass_counts(build, "pyramid_lookup",
+                             r"\b(LDL|STL)\b").items():
+        m = re.search(r"pyr_fwd_kernelI.*?Li(n?\d+)EE", f)
+        if m:
+            local.setdefault(m.group(1), []).append(n)
+    print(f"[build] pyramid_lookup SASS: LDL/STL per pyr_fwd_kernel "
+          f"instantiation by radius {local}", flush=True)
+    for radius in ("3", "4"):
+        if len(local.get(radius, [])) != 10 or any(local[radius]):
+            raise AssertionError(f"pyr_fwd_kernel radius {radius}: "
+                                 f"{local.get(radius)} local-memory "
+                                 "instructions (10 instantiations, none "
+                                 "expected)")
     return dict(build_s=secs, lookup_encode_sass_mma=mma,
-                lookup_encode_sass_kernels=len(per_fn))
+                lookup_encode_sass_kernels=len(per_fn),
+                pyr_fwd_sass_local=local)
 
 
 # center distributions of the on-demand kernel cases: (a) is the
@@ -1557,19 +1590,25 @@ def phase_train(sd):
                                      f"{state.nonfinite_steps} non-finite")
             prof = _profile(lambda: step_fn(state, batch), reps=n_prof)
             wall = statistics.median(times)
+            # the pyramid lookup kernels' device time per launch inside the
+            # step: each runs once per iteration (the counts above)
+            per_launch = {kind: prof["by_kind"][kind] / CHAIRS_ITERS
+                          for kind in ("pyr_fwd_kernel", "pyr_bwd_kernel")
+                          if kind in prof["by_kind"]}
             runs[key] = dict(ms_per_step=wall, ms_all=times,
                              pairs_per_s=CHAIRS_B / wall * 1e3,
                              peak_mem_mb=peak / 2 ** 20,
                              device_busy_ms=prof["busy_ms"],
                              idle_share=prof["idle_share"], profile=prof,
-                             losses=losses)
+                             per_launch_ms=per_launch, losses=losses)
             print(f"[train] chairs {key}: {wall:.2f} ms/step "
                   f"({CHAIRS_B / wall * 1e3:.2f} pairs/s; steps "
                   f"{', '.join(f'{t:.1f}' for t in times)}), device busy "
                   f"{prof['busy_ms']} ms/step of {prof['wall_ms']:.1f} "
                   f"profiled (idle {prof['idle_share']}), by kind "
-                  f"{prof['by_kind']}, peak {peak / 2 ** 20:.1f} MiB, "
-                  f"losses {losses[0]:.4f} .. {losses[-1]:.4f}", flush=True)
+                  f"{prof['by_kind']}, per launch {per_launch}, peak "
+                  f"{peak / 2 ** 20:.1f} MiB, losses {losses[0]:.4f} .. "
+                  f"{losses[-1]:.4f}", flush=True)
             del state
             print(f"[time] chairs {key}: "
                   f"{time.perf_counter() - t_cfg:.1f} s", flush=True)

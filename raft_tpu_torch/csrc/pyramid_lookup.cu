@@ -23,25 +23,73 @@
 // position, as in the TPU kernel); an infinite or far-off one gives zero
 // taps and a zero row.
 //
-// What bounds it on an H100.  Forward: per query and level the window
-// touches (k+1)^2 = 100 stored values, so at the chairs training shape
-// (B = 8, N = 2852, four levels) a lookup needs about 9 M values (36 MB
-// fp32, 9 MB as one-byte codes) plus the taps (30 MB fp32): ~20 us at
-// 3.35 TB/s (~12 us from codes), and only ~0.1 GFLOP.  Backward: the
-// dense dcorr write, 345 MB fp32 (173 MB bf16) per lookup, ~103 us
-// (52 us) at 3.35 TB/s; that write is the bound and the window
+// What bounds it on an H100.  Forward: the taps written plus the window
+// values read.  Per query and level the window is (k+1) = 10 runs of ten
+// stored values, one run per window row, each starting at any element of
+// a row 11 KB (fp32, level 0 at chairs) away from the next query's; so
+// the reads are short runs, not a stream: 40 B of fp32 span 2-3 32-byte
+// sectors, 20 B of bf16 1-2, 10 B of codes 1-2.  At the chairs training
+// shape (B = 8, N = 2852, four levels) a lookup needs ~9 M window values
+// (36 MB fp32, 9 MB as one-byte codes) plus the taps (30 MB fp32): ~20 us
+// at 3.35 TB/s (~12 us from codes), and only ~0.1 GFLOP; counted in
+// sectors the reads are ~1.7x (fp32) to ~4x (codes) the values.
+// Backward: the dense dcorr write, 345 MB fp32 (173 MB bf16) per lookup,
+// ~103 us (52 us) at 3.35 TB/s; that write is the bound and the window
 // arithmetic is noise beside it.
 //
 // Design.  The TPU kernel scans every row of a level for every query
 // block on the VPU, because the TPU has no cheap gather; here each query
 // reads only its window.
-//   - Forward: one warp per query, QPB = 8 queries (warps) per block, grid
-//     (N / QPB, B).  Per level the warp loads the (k+1)^2 window positions
-//     of its query's row (ten short runs of ten values), zeros outside the
-//     level, into shared memory, forms the k*k taps with the JAX
-//     operation order (y interpolation first, then x), and stages them in
-//     a tile that is written with the caller's strides (query-major
-//     (B, N, P) or channel-major (B, P, N), both coalesced).
+//   - Forward: a block of FNT = 256 threads owns FQ = 32 consecutive
+//     queries of one batch element, grid (N / FQ, B), and works in three
+//     steps with a barrier between them:
+//     (1) a table of the block's (query, level) windows: origin, the rows
+//         and columns inside the level, the fractional offsets, and a mode
+//         (no window / window / NaN center), one thread per window;
+//     (2) every window of every level is copied into shared memory with
+//         cp.async, a warp per window and lanes over its words, all
+//         copies issued before one wait, so a single round trip covers
+//         the block's 32 x L windows.  A window row is copied as the
+//         4-byte-aligned words that hold its run (10 words fp32, 6 bf16, 4
+//         for codes: cp.async moves 4, 8 or 16 bytes, never 1 or 2);
+//         words with no in-level value are zero-filled (source size 0).
+//         The per-query stride in shared memory is odd (L * 10 * words +
+//         1), so lanes over queries read distinct banks;
+//     (3) taps: lanes over the 32 queries, warps over (level, block of
+//         tap rows); each lane keeps two window rows in registers, forms
+//         y then x interpolation (the JAX order), and stores each tap
+//         straight from registers: in the channel-major layout the model
+//         reads, one store of 32 consecutive queries per channel (128 B
+//         fp32, 64 B bf16: whole sectors).  The query-major layout (no
+//         model path uses it) stages the taps in a (32, P + 1) tile and
+//         writes the block's rows, one contiguous span, after a barrier.
+//     The radius is a template parameter for 3 and 4 (the small and the
+//     full model), so k, k+1, the words per row and every division by
+//     them fold; any other radius takes the same kernel with a runtime
+//     radius (the tap loop then reads shared memory per value).  The
+//     level count stays a runtime value: the level tables are
+//     __grid_constant__, so a runtime level index reads the parameter
+//     bank and nothing is copied to local memory (no LDL / STL in the
+//     SASS; chip_smoke.py checks it).  Per block: 55-56 registers a
+//     thread (four blocks per SM; capping them lower for more blocks
+//     spills and was slower), shared memory 4 * (32 * (L * 10 * words +
+//     1) + 7 * 32 * L) bytes, 55 KB fp32, 34 KB bf16, 24 KB codes at four
+//     levels and r = 4 (plus a 41 KB tile of taps for the query-major
+//     layout).  At chairs the copies alone take about the DRAM time of
+//     their sectors (13 us bf16) and the taps and stores alone about as
+//     long again (14 us); the two phases of the resident blocks barely
+//     overlap (PERF.md).
+//     TMA does not fit: a tensor map needs global strides that are
+//     multiples of 16 bytes, and the level rows are 248 / 124 / 62 B wide
+//     at chairs level 0 (fp32 / bf16 / codes).
+//     The first design (PERF.md) ran one warp per query, 8 queries per
+//     per block, its four levels in turn, each level's window loaded and
+//     waited for before its taps (at most one level's loads of a query in
+//     flight per warp); it indexed a by-value level table by a runtime
+//     level (a local-memory copy in every thread), divided by runtime
+//     sizes for every value, and staged the taps in a tile behind a block
+//     barrier before stores of 8 queries (16 B in bf16: half a sector):
+//     0.095 ms fp32 and 0.085 bf16 at chairs.  The values are unchanged.
 //   - Backward: one block of BNT = 256 threads per (level, batch element,
 //     BQ = 32 consecutive queries), level 0 (the largest) first, so the
 //     blocks are many and alike.  The block stages the level's tap
@@ -69,59 +117,205 @@
 
 #include <algorithm>
 
-#define QPB 8        // queries (warps) per block of the forward
+#define FQ 32        // queries per block of the forward (a lane each)
+#define FNT 256      // threads per block of the forward (8 warps)
 #define BQ 32        // queries per block of the backward
 #define BNT 256      // threads per block of the backward
 
-template <typename T, typename To>
-__global__ void __launch_bounds__(32 * QPB)
-pyr_fwd_kernel(Levels<T> lv, const float* __restrict__ coords,
-               const float* __restrict__ scale, int L, int N, int radius,
+// The forward's window table: one int per (query, level) window and field.
+enum { T_SLO, T_SHI, T_X, T_Y, T_FX, T_FY, T_MODE, T_FIELDS };
+
+// 4-byte words that hold a run of kp values of es bytes starting at any
+// element (es < 4 runs start at byte 0..4-es of their first word).
+__host__ __device__ constexpr int run_words(int kp, int es) {
+  return ((es < 4 ? 4 - es : 0) + kp * es + 3) / 4;
+}
+
+// Dynamic shared memory of one forward block (bytes), with the tile of
+// taps that the query-major layout stages; ops/pyramid_kernels.py checks
+// the same formula (staged) against the card's 227 KB.
+static size_t fwd_smem_bytes(int L, int radius, int es, bool staged) {
+  const int kp = 2 * radius + 2;
+  return 4 * ((size_t)FQ * (L * kp * run_words(kp, es) + 1) +
+              (size_t)T_FIELDS * FQ * L +
+              (staged ? (size_t)FQ * (L * (kp - 1) * (kp - 1) + 1) : 0));
+}
+
+// 4 bytes global -> shared, asynchronously; src_bytes = 0 writes a zero
+// word without reading (src must still be a valid address).
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+template <typename T, typename To, int RADIUS>
+__global__ void __launch_bounds__(FNT, 4)
+pyr_fwd_kernel(const __grid_constant__ Levels<T> lv,
+               const float* __restrict__ coords,
+               const float* __restrict__ scale, int L, int N, int radius_rt,
                To* __restrict__ out, long long out_sb, long long out_sq,
                long long out_sp) {
-  const int k = 2 * radius + 1;
-  const int npos = (k + 1) * (k + 1);
-  const int kk = k * k;
-  const int P = L * kk;
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* tile = smem;                              // (QPB, P)
-  float* vals = smem + QPB * P + warp * npos;      // (k+1)^2 per warp
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * QPB;
-  const int q = q0 + warp;
+  constexpr int ES = (int)sizeof(T);
+  // compile-time for RADIUS >= 0: every division by these folds
+  const int radius = RADIUS >= 0 ? RADIUS : radius_rt;
+  const int k = 2 * radius + 1, kp = k + 1, kk = k * k;
+  const int wpr = run_words(kp, ES);  // words per window row
+  const int nwd = kp * wpr;           // words per window
+  const int qs = L * nwd + 1;         // words per query: odd
+  const int nt = FQ * L;              // windows of the block
+  const int P = L * kk;               // taps per query
+  // query-major rows are staged and written flat; channel-major planes
+  // are stored straight from registers
+  const bool staged = out_sp == 1;
+  extern __shared__ __align__(16) int fsm[];
+  int* tab = fsm;                     // (T_FIELDS, nt)
+  int* win = fsm + T_FIELDS * nt;     // (FQ, qs): query, level, row, word
+  float* stile = reinterpret_cast<float*>(win + FQ * qs);  // (FQ, P + 1)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y, q0 = blockIdx.x * FQ;
 
-  if (q < N) {
-    const long long qi = (long long)b * N + q;
-    const float cx0 = coords[qi * 2 + 0];
-    const float cy0 = coords[qi * 2 + 1];
-    for (int l = 0; l < L; ++l) {
-      // a quantized level's taps are its codes' samples times the
-      // (batch, level) scale
-      const float s = scale ? scale[b * L + l] : 1.0f;
-      warp_window_taps(lv.p[l], qi, lv.h[l], lv.w[l], l, cx0, cy0, radius,
-                       s, vals, tile + warp * P + l * kk, 1, lane);
+  // (1) the window table, window t = l * FQ + query
+  for (int t = tid; t < nt; t += FNT) {
+    const int l = t / FQ, q = q0 + t % FQ;
+    int mode = 0, xr = 0, yr = 0;
+    long long s00 = 0;  // byte offset of the window's (0, 0) value
+    float fx = 0.0f, fy = 0.0f;
+    if (q < N) {
+      const long long qi = (long long)b * N + q;
+      const int hl = lv.h[l], wl = lv.w[l];
+      const Window wd = window_of(coords[qi * 2 + 0], coords[qi * 2 + 1], l,
+                                  hl, wl, radius);
+      // window columns [xa, xb) and rows [ya, yb) inside the level
+      const int xa = max(0, -wd.x0), xb = max(xa, min(kp, wl - wd.x0));
+      const int ya = max(0, -wd.y0), yb = max(ya, min(kp, hl - wd.y0));
+      mode = wd.nan ? 2 : (wd.any && xa < xb && ya < yb);
+      xr = xa | (xb << 16);
+      yr = ya | (yb << 16);
+      s00 = ((qi * hl + wd.y0) * wl + wd.x0) * ES;
+      fx = wd.fx;
+      fy = wd.fy;
     }
+    tab[T_SLO * nt + t] = (int)s00;
+    tab[T_SHI * nt + t] = (int)(s00 >> 32);
+    tab[T_X * nt + t] = xr;
+    tab[T_Y * nt + t] = yr;
+    tab[T_FX * nt + t] = __float_as_int(fx);
+    tab[T_FY * nt + t] = __float_as_int(fy);
+    tab[T_MODE * nt + t] = mode;
   }
   __syncthreads();
 
-  const int nq = min(QPB, N - q0);
-  To* ob = out + (long long)b * out_sb;
-  if (out_sp == 1) {
-    // query-major rows: each query's P taps are contiguous
-    for (int e = threadIdx.x; e < nq * P; e += blockDim.x) {
-      const int qq = e / P, p = e % P;
-      ob[(long long)(q0 + qq) * out_sq + p] = from_f<To>(tile[qq * P + p]);
+  // (2) every window of the block into shared memory: a warp per window,
+  // lanes over its words, all copies in flight before one wait
+  const unsigned win_s = (unsigned)__cvta_generic_to_shared(win);
+  for (int t = warp; t < nt; t += FNT / 32) {
+    if (tab[T_MODE * nt + t] != 1) continue;  // warp-uniform
+    const int l = t / FQ;
+    const long long s00 =
+        ((long long)tab[T_SHI * nt + t] << 32) | (unsigned)tab[T_SLO * nt + t];
+    const int xr = tab[T_X * nt + t], yr = tab[T_Y * nt + t];
+    const int xa = xr & 0xffff, xb = xr >> 16, ya = yr & 0xffff, yb = yr >> 16;
+    const char* base = reinterpret_cast<const char*>(lv.p[l]);
+    const int rs = lv.w[l] * ES;  // bytes per level row
+    const unsigned dst = win_s + 4u * ((t % FQ) * qs + l * nwd);
+#pragma unroll
+    for (int p = lane; p < nwd; p += 32) {
+      const int dy = p / wpr, w = p - dy * wpr;
+      const long long s0 = s00 + (long long)dy * rs;  // the run's first value
+      bool ok = dy >= ya && dy < yb;
+      if constexpr (ES == 4) {
+        ok = ok && w >= xa && w < xb;
+      } else {  // the word's bytes relative to the run's first value
+        const int rel = 4 * w - (int)(s0 & 3);
+        ok = ok && rel + 4 > xa * ES && rel < xb * ES;
+      }
+      cp_async4(dst + 4u * p, base + (ok ? (s0 & ~3LL) + 4 * w : 0),
+                ok ? 4 : 0);
     }
-  } else {
-    // channel-major planes: QPB consecutive queries per channel
-    for (int e = threadIdx.x; e < QPB * P; e += blockDim.x) {
-      const int p = e / QPB, qq = e % QPB;
-      if (qq < nq)
-        ob[(long long)p * out_sp + (long long)(q0 + qq) * out_sq] =
-            from_f<To>(tile[qq * P + p]);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // (3) taps: lanes over queries, warps over (level, block of tap rows)
+  const int jc = max(1, (FNT / 32) / L);  // blocks of tap rows per level
+  const int jr = (k + jc - 1) / jc;       // tap rows per block
+  const int q = q0 + lane;
+  for (int u = warp; u < L * jc; u += FNT / 32) {
+    const int l = u / jc, j0 = (u - l * jc) * jr, j1 = min(k, j0 + jr);
+    if (j0 >= j1) continue;
+    const int t = l * FQ + lane;
+    const int mode = tab[T_MODE * nt + t];
+    const float fx = __int_as_float(tab[T_FX * nt + t]);
+    const float fy = __int_as_float(tab[T_FY * nt + t]);
+    const int xr = tab[T_X * nt + t];
+    const int xa = xr & 0xffff, xb = xr >> 16;
+    const int s0lo = tab[T_SLO * nt + t];
+    const int rs = lv.w[l] * ES;
+    // a quantized level's taps are its codes' samples times the
+    // (batch, level) scale
+    const float s = scale ? scale[b * L + l] : 1.0f;
+    const float fill = mode == 2 ? CUDART_NAN_F : 0.0f;
+    const unsigned char* slot =
+        reinterpret_cast<const unsigned char*>(win + lane * qs + l * nwd);
+    To* o = out + (long long)b * out_sb + (long long)min(q, N - 1) * out_sq +
+            (long long)l * kk * out_sp;
+    // the window value at (row dy, column x): rows and words outside the
+    // level are zero; a word shared with a neighbouring value outside the
+    // level is masked by column
+    auto value = [&](int dy, int x) -> float {
+      if constexpr (ES == 4) {
+        return reinterpret_cast<const float*>(slot)[dy * wpr + x];
+      } else {
+        const int sh = (s0lo + dy * rs) & 3;  // the run's first byte
+        const float v = to_f(
+            *reinterpret_cast<const T*>(slot + dy * wpr * 4 + sh + x * ES));
+        return x >= xa && x < xb ? v : 0.0f;
+      }
+    };
+    auto store = [&](int i, int j, float tap) {
+      const float v = mode == 1 ? tap : fill;
+      if (staged)
+        stile[lane * (P + 1) + l * kk + i * k + j] = v;
+      else if (q < N)
+        o[(long long)(i * k + j) * out_sp] = from_f<To>(v);
+    };
+    if constexpr (RADIUS >= 0) {
+      constexpr int KP = 2 * RADIUS + 2;
+      float r0[KP], r1[KP];  // window rows j and j + 1
+#pragma unroll
+      for (int x = 0; x < KP; ++x) r0[x] = value(j0, x);
+      for (int j = j0; j < j1; ++j) {
+#pragma unroll
+        for (int x = 0; x < KP; ++x) r1[x] = value(j + 1, x);
+        // y interpolation first, then x (the JAX order)
+        float a0 = (1.0f - fy) * r0[0] + fy * r1[0];
+#pragma unroll
+        for (int i = 0; i < KP - 1; ++i) {
+          const float a1 = (1.0f - fy) * r0[i + 1] + fy * r1[i + 1];
+          store(i, j, s * ((1.0f - fx) * a0 + fx * a1));
+          a0 = a1;
+        }
+#pragma unroll
+        for (int x = 0; x < KP; ++x) r0[x] = r1[x];
+      }
+    } else {
+      for (int j = j0; j < j1; ++j)
+        for (int i = 0; i < k; ++i)
+          store(i, j,
+                s * ((1.0f - fx) * ((1.0f - fy) * value(j, i) +
+                                    fy * value(j + 1, i)) +
+                     fx * ((1.0f - fy) * value(j, i + 1) +
+                           fy * value(j + 1, i + 1))));
     }
+  }
+  if (staged) {  // block-uniform: the block's rows are one span
+    __syncthreads();
+    To* ob = out + (long long)b * out_sb + (long long)q0 * out_sq;
+    for (int qq = warp; qq < min(FQ, N - q0); qq += FNT / 32)
+      for (int c = lane; c < P; c += 32)
+        ob[(long long)qq * out_sq + c] = from_f<To>(stile[qq * (P + 1) + c]);
   }
 }
 
@@ -336,18 +530,38 @@ pyr_bwd_kernel(const __grid_constant__ Levels<T> lv,
   }
 }
 
+template <typename T, typename To, int RADIUS>
+static cudaError_t launch_fwd(const Levels<T>& lv, int L, int B, int N,
+                              int radius, const float* coords,
+                              const float* scale, void* out, long long sb,
+                              long long sq, long long sp, cudaStream_t st) {
+  const size_t smem = fwd_smem_bytes(L, radius, (int)sizeof(T), sp == 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      pyr_fwd_kernel<T, To, RADIUS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + FQ - 1) / FQ, B);
+  pyr_fwd_kernel<T, To, RADIUS><<<grid, FNT, smem, st>>>(
+      lv, coords, scale, L, N, radius, reinterpret_cast<To*>(out), sb, sq,
+      sp);
+  return cudaGetLastError();
+}
+
+// radius 3 and 4 (the small and the full model) at compile time, any
+// other at run time
 template <typename T, typename To>
-static void launch_fwd(const long long* ptrs, const int* hs, const int* ws,
-                       int L, int B, int N, int radius, const float* coords,
-                       const float* scale, void* out, long long sb,
-                       long long sq, long long sp, cudaStream_t st) {
-  const int k = 2 * radius + 1;
-  const size_t smem =
-      (size_t)QPB * (L * k * k + (k + 1) * (k + 1)) * sizeof(float);
-  const dim3 grid((N + QPB - 1) / QPB, B);
-  pyr_fwd_kernel<T, To><<<grid, 32 * QPB, smem, st>>>(
-      make_levels<T>(ptrs, hs, ws, L), coords, scale, L, N, radius,
-      reinterpret_cast<To*>(out), sb, sq, sp);
+static cudaError_t launch_fwd_r(const Levels<T>& lv, int L, int B, int N,
+                                int radius, const float* coords,
+                                const float* scale, void* out, long long sb,
+                                long long sq, long long sp, cudaStream_t st) {
+  if (radius == 4)
+    return launch_fwd<T, To, 4>(lv, L, B, N, radius, coords, scale, out, sb,
+                                sq, sp, st);
+  if (radius == 3)
+    return launch_fwd<T, To, 3>(lv, L, B, N, radius, coords, scale, out, sb,
+                                sq, sp, st);
+  return launch_fwd<T, To, -1>(lv, L, B, N, radius, coords, scale, out, sb,
+                               sq, sp, st);
 }
 
 // Dynamic shared memory of one backward block (bytes).
@@ -376,24 +590,31 @@ static void launch_bwd(const long long* ptrs, const int* hs, const int* ws,
                        long long sp, cudaStream_t st) {
   const BwdPlan plan = bwd_plan(hs, ws, L, B, N);
   if (plan.first[MAX_LEVELS] == 0) return;  // every level is empty
-  pyr_bwd_kernel<T, Tg>
-      <<<plan.first[MAX_LEVELS], BNT, bwd_smem_bytes(radius), st>>>(
-          make_levels<T>(ptrs, hs, ws, L), plan, coords,
-          reinterpret_cast<const Tg*>(g), sb, sq, sp, L, N, radius);
+  const size_t smem = bwd_smem_bytes(radius);
+  // past 48 KB only when allowed; a refusal is left for cudaGetLastError
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(pyr_bwd_kernel<T, Tg>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return;
+  pyr_bwd_kernel<T, Tg><<<plan.first[MAX_LEVELS], BNT, smem, st>>>(
+      make_levels<T>(ptrs, hs, ws, L), plan, coords,
+      reinterpret_cast<const Tg*>(g), sb, sq, sp, L, N, radius);
 }
 
 template <typename T>
-static void launch_fwd_to(int out_dtype, const long long* ptrs, const int* hs,
-                          const int* ws, int L, int B, int N, int radius,
-                          const float* coords, const float* scale, void* out,
-                          long long sb, long long sq, long long sp,
-                          cudaStream_t st) {
+static cudaError_t launch_fwd_to(int out_dtype, const long long* ptrs,
+                                 const int* hs, const int* ws, int L, int B,
+                                 int N, int radius, const float* coords,
+                                 const float* scale, void* out, long long sb,
+                                 long long sq, long long sp,
+                                 cudaStream_t st) {
+  const Levels<T> lv = make_levels<T>(ptrs, hs, ws, L);
   if (out_dtype == 0)
-    launch_fwd<T, float>(ptrs, hs, ws, L, B, N, radius, coords, scale, out,
-                         sb, sq, sp, st);
-  else
-    launch_fwd<T, __nv_bfloat16>(ptrs, hs, ws, L, B, N, radius, coords,
-                                 scale, out, sb, sq, sp, st);
+    return launch_fwd_r<T, float>(lv, L, B, N, radius, coords, scale, out,
+                                  sb, sq, sp, st);
+  return launch_fwd_r<T, __nv_bfloat16>(lv, L, B, N, radius, coords, scale,
+                                        out, sb, sq, sp, st);
 }
 
 // Level dtype codes: 0 = float32, 1 = bfloat16, 2 = int8, 3 = fp8 e4m3,
@@ -411,23 +632,25 @@ extern "C" int pyramid_lookup_fwd(int device, int level_dtype, int out_dtype,
   if (L < 1 || L > MAX_LEVELS || B < 1 || N < 1 || radius < 0 ||
       level_dtype < 0 || level_dtype > 4 || out_dtype < 0 || out_dtype > 1)
     return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < L; ++l)  // the window rows are copied as 4-byte words
+    if (level_ptrs[l] % 4) return (int)cudaErrorMisalignedAddress;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float* c = reinterpret_cast<const float*>(coords);
   const float* sc = reinterpret_cast<const float*>(scale);
-#define FWD(T)                                                             \
-  launch_fwd_to<T>(out_dtype, level_ptrs, hs, ws, L, B, N, radius, c, sc, \
+#define FWD(T)                                                              \
+  launch_fwd_to<T>(out_dtype, level_ptrs, hs, ws, L, B, N, radius, c, sc,  \
                    out, out_sb, out_sq, out_sp, st)
   switch (level_dtype) {
-    case 0: FWD(float); break;
-    case 1: FWD(__nv_bfloat16); break;
-    case 2: FWD(int8_t); break;
-    case 3: FWD(__nv_fp8_e4m3); break;
-    default: FWD(__nv_fp8_e5m2); break;
+    case 0: err = FWD(float); break;
+    case 1: err = FWD(__nv_bfloat16); break;
+    case 2: err = FWD(int8_t); break;
+    case 3: err = FWD(__nv_fp8_e4m3); break;
+    default: err = FWD(__nv_fp8_e5m2); break;
   }
 #undef FWD
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 extern "C" int pyramid_lookup_bwd(int device, int level_dtype, int g_dtype,

@@ -93,41 +93,3 @@ __device__ __forceinline__ Window window_of(float cx0, float cy0, int l,
   w.fy = cy - fy0;
   return w;
 }
-
-// One warp: the k*k taps of query row `qi` at level l, each times `s`,
-// into dst[t * dst_stride].  The warp loads the (k+1)^2 window positions
-// (k+1 short runs of the row, zeros outside the level) into its `vals`
-// scratch in shared memory, then forms the taps in the JAX package's
-// operation order (y interpolation first, then x).
-template <typename T>
-__device__ __forceinline__ void warp_window_taps(
-    const T* __restrict__ level, long long qi, int hl, int wl, int l,
-    float cx0, float cy0, int radius, float s, float* vals, float* dst,
-    int dst_stride, int lane) {
-  const int k = 2 * radius + 1;
-  const int kp = k + 1;
-  const int kk = k * k;
-  const Window wd = window_of(cx0, cy0, l, hl, wl, radius);
-  if (!wd.any) {
-    const float v = wd.nan ? CUDART_NAN_F : 0.0f;
-    for (int t = lane; t < kk; t += 32) dst[t * dst_stride] = v;
-    return;
-  }
-  const T* row = level + qi * hl * wl;
-  for (int p = lane; p < kp * kp; p += 32) {
-    const int X = wd.x0 + p % kp;
-    const int Y = wd.y0 + p / kp;
-    const bool in = X >= 0 && X < wl && Y >= 0 && Y < hl;
-    vals[p] = in ? to_f(row[Y * wl + X]) : 0.0f;
-  }
-  __syncwarp();
-  const float fx = wd.fx, fy = wd.fy;
-  for (int t = lane; t < kk; t += 32) {
-    const int i = t / k, j = t % k;  // i walks x, j walks y
-    const float* d = vals + j * kp + i;
-    dst[t * dst_stride] =
-        s * ((1.0f - fx) * ((1.0f - fy) * d[0] + fy * d[kp]) +
-             fx * ((1.0f - fy) * d[1] + fy * d[kp + 1]));
-  }
-  __syncwarp();  // vals are rewritten by the warp's next window
-}

@@ -49,9 +49,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LEVEL_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                      torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 _MAX_LEVELS = 8
-_SMEM_LIMIT = 48 * 1024
 SMEM_MAX = 227 * 1024       # dynamic shared memory a block may use
-_QPB, _BQ = 8, 32   # queries per block of the forward and the backward
+_FQ, _BQ = 32, 32   # queries per block of the forward and the backward
+_T_FIELDS = 7       # ints per window in the forward's window table
 
 
 def _zero_empty_levels(taps: torch.Tensor, empty: Sequence[bool],
@@ -92,14 +92,19 @@ def _fn(symbol: str):
 
 def _lookup_smem_bytes(levels: int, radius: int) -> int:
     """Shared memory of one block of the lookup kernels, the larger of
-    the forward's and the backward's."""
-    k = 2 * radius + 1
-    return 4 * max(_QPB * (levels * k * k + (k + 1) ** 2),
-                   _BQ * (k * k + (k + 1) ** 2 + 8) + (k + 1) ** 2)
+    the forward's (fp32 levels, the largest, and the tile that stages
+    query-major taps) and the backward's (``csrc/pyramid_lookup.cu``:
+    ``fwd_smem_bytes``, ``bwd_smem_bytes``)."""
+    k, kp = 2 * radius + 1, 2 * radius + 2
+    # a window row of fp32 values is kp 4-byte words
+    fwd = (_FQ * (levels * kp * kp + 1) + _T_FIELDS * _FQ * levels
+           + _FQ * (levels * k * k + 1))
+    bwd = _BQ * (k * k + kp * kp + 8) + kp * kp
+    return 4 * max(fwd, bwd)
 
 
 def check_levels(name, levels, coords, radius, dtypes=DTYPE_CODES,
-                 smem_bytes=_lookup_smem_bytes, smem_limit=_SMEM_LIMIT):
+                 smem_bytes=_lookup_smem_bytes, smem_limit=SMEM_MAX):
     """Shapes, dtypes and layouts the kernels take; returns (B, N).
     ``smem_bytes(L, radius)`` is the shared memory a block of the kernel
     needs, held to ``smem_limit``."""

@@ -269,12 +269,13 @@ def _bf16_close(got, want, fp32_tol):
 NAN_QUERIES = ((1, 3, 4), (0, 5, 6))
 
 
-def _pyramid_case(seed, dev, dtype, grad=True, B=2, hw=(7, 13)):
+def _pyramid_case(seed, dev, dtype, grad=True, B=2, hw=(7, 13), levels=4):
     """A 7 x 13 grid (level 3 pools to 0 x 1; row lengths 91, 18, 3 not
-    multiples of 8) or another one, with centers spread by U(-4, 4) px,
-    one far off, one integer, one on the last row, two infinite ones and
-    two NaN ones (a NaN x and a NaN y); levels in ``dtype`` (quantized
-    ones as codes and scales)."""
+    multiples of 8, and odd, so bf16 and one-byte rows start off 4-byte
+    boundaries) or another one, with centers spread by U(-4, 4) px, one
+    far off, one integer, one on the last row, two infinite ones and two
+    NaN ones (a NaN x and a NaN y); ``levels`` levels in ``dtype``
+    (quantized ones as codes and scales)."""
     g = torch.Generator().manual_seed(seed)
     (H, W), C = hw, 64
     f1, f2 = (torch.randn(B, H, W, C, generator=g) for _ in range(2))
@@ -288,39 +289,51 @@ def _pyramid_case(seed, dev, dtype, grad=True, B=2, hw=(7, 13)):
     coords[NAN_QUERIES[1]] = torch.tensor([1.0, float("nan")])
     coords[1, 4, 9] = torch.tensor([float("inf"), 2.0])     # zero taps
     coords[0, 6, 1] = torch.tensor([1.0, float("-inf")])
-    pyr = corr_ops.build_corr_pyramid(f1.to(dev), f2.to(dev), 4, dtype)
+    pyr = corr_ops.build_corr_pyramid(f1.to(dev), f2.to(dev), levels, dtype)
     if grad and dtype.is_floating_point and dtype.itemsize > 1:
         pyr = [lv.requires_grad_(True) for lv in pyr]
     return pyr, coords.to(dev)
 
 
-def _check_nan_taps(taps, levels):
+def _check_nan_taps(taps, levels, kk=81):
     """Taps (B, H, W, P): the NaN queries' taps NaN on the ``levels``
-    non-empty levels, nothing else NaN."""
+    non-empty levels (``kk`` taps each), nothing else NaN."""
     for q in NAN_QUERIES:
-        assert torch.isnan(taps[q][:levels * 81]).all()
-    assert int(torch.isnan(taps).sum()) == len(NAN_QUERIES) * levels * 81
+        assert torch.isnan(taps[q][:levels * kk]).all()
+    assert int(torch.isnan(taps).sum()) == len(NAN_QUERIES) * levels * kk
+
+
+# (radius, levels) of the lookup cases: the full model's 4 and 4, the
+# small model's radius 3, radius 2 (the forward's runtime-radius
+# instantiation), and 3 and 5 levels
+LOOKUP_SHAPES = [(4, 4), (3, 4), (2, 4), (4, 3), (4, 5)]
+LOOKUP_IDS = [f"r{r}L{n}" for r, n in LOOKUP_SHAPES]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("nchw", [False, True])
 @pytest.mark.parametrize("B,hw", [(2, (7, 13)), (8, (46, 62))],
                          ids=["7x13", "chairs"])
-def test_pyramid_lookup_kernels_match_plain(dev, dtype, nchw, B, hw):
+@pytest.mark.parametrize("radius,n_levels", LOOKUP_SHAPES, ids=LOOKUP_IDS)
+def test_pyramid_lookup_kernels_match_plain(dev, dtype, nchw, B, hw, radius,
+                                            n_levels):
     """The forward and the backward kernel against the plain version and
     its autograd, in both tap layouts: a ragged grid with an empty level
-    and the chairs grid (B = 8, 46 x 62).  The backward's dense rows are
-    written flat with 16-byte stores, so row lengths that are not
-    multiples of 8 and the NaN queries' all-NaN rows test its head, tail
-    and straddling vectors."""
-    pyr, coords = _pyramid_case(3, dev, dtype, B=B, hw=hw)
+    and the chairs grid (B = 8, 46 x 62), at each radius and level count
+    of ``LOOKUP_SHAPES``.  Neither query count (91, 2852) is a multiple of
+    the forward's 32-query tile.  The backward's dense rows are written
+    flat with 16-byte stores, so row lengths that are not multiples of 8
+    and the NaN queries' all-NaN rows test its head, tail and straddling
+    vectors."""
+    pyr, coords = _pyramid_case(3, dev, dtype, B=B, hw=hw, levels=n_levels)
+    kk = (2 * radius + 1) ** 2
     levels = sum(1 for lv in pyr if lv.numel())
-    assert levels == (3 if hw == (7, 13) else 4)
+    assert levels == (3 if hw == (7, 13) else n_levels)
     lookup = (pyramid_kernels.pyramid_lookup_nchw if nchw
               else pyramid_kernels.pyramid_lookup)
     before = dict(pyramid_kernels.LAUNCHES)
-    got = lookup(pyr, coords, 4, dtype)
-    want = pyramid_kernels.pyramid_lookup_plain(pyr, coords, 4, dtype)
+    got = lookup(pyr, coords, radius, dtype)
+    want = pyramid_kernels.pyramid_lookup_plain(pyr, coords, radius, dtype)
     if nchw:
         want = want.permute(0, 3, 1, 2)
     g = torch.randn(got.shape, generator=torch.Generator().manual_seed(4)
@@ -337,13 +350,32 @@ def test_pyramid_lookup_kernels_match_plain(dev, dtype, nchw, B, hw):
     for a, b in [(got, want)] + list(zip(dgot, dwant)):
         _close(a, b, scale)
     taps = got if not nchw else got.permute(0, 2, 3, 1)
+    assert taps.shape[-1] == n_levels * kk
     assert float(taps.detach().float().nan_to_num().abs().max()) > 0
-    assert torch.all(taps[..., levels * 81:] == 0)
+    assert torch.all(taps[..., levels * kk:] == 0)
     assert torch.all(taps[0, 0, 0] == 0) and torch.all(taps[1, 4, 9] == 0)
-    _check_nan_taps(taps, levels)
+    _check_nan_taps(taps, levels, kk)
     for d in dgot:                  # the NaN queries' whole rows
         if d.numel():
             assert int(torch.isnan(d).sum()) == 2 * d[0, 0].numel()
+
+
+def test_pyramid_lookup_refuses_what_does_not_fit(dev):
+    """A radius whose blocks need more shared memory than the card has, or
+    more levels than the kernels' tables hold, raises before any launch:
+    no kernel runs and nothing falls back to the plain version."""
+    pyr, coords = _pyramid_case(3, dev, torch.float32, grad=False)
+    qpyr, _ = _pyramid_case(3, dev, torch.int8)
+    before = dict(pyramid_kernels.LAUNCHES)
+    assert pyramid_kernels._lookup_smem_bytes(4, 6) <= pyramid_kernels.SMEM_MAX
+    assert pyramid_kernels._lookup_smem_bytes(4, 7) > pyramid_kernels.SMEM_MAX
+    for fn, levels in ((pyramid_kernels.pyramid_lookup_nchw, pyr),
+                       (pyramid_kernels.pyramid_lookup_quantized, qpyr)):
+        with pytest.raises(ValueError, match="shared-memory"):
+            fn(levels, coords, 7)
+        with pytest.raises(ValueError, match="levels"):
+            fn(list(levels) * 3, coords, 4)
+    assert pyramid_kernels.LAUNCHES == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -551,32 +583,40 @@ QDTYPES = [torch.int8, torch.float8_e4m3fn, torch.float8_e5m2]
 
 @pytest.mark.parametrize("qdtype", QDTYPES)
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-def test_quantized_lookup_kernel_matches_plain(dev, qdtype, out_dtype):
+@pytest.mark.parametrize("radius,n_levels", LOOKUP_SHAPES, ids=LOOKUP_IDS)
+def test_quantized_lookup_kernel_matches_plain(dev, qdtype, out_dtype, radius,
+                                               n_levels):
     """The lookup kernel on int8 / fp8 codes, each level's taps times its
-    scale, against the plain version fed the same codes; primal only."""
-    pyr, coords = _pyramid_case(13, dev, qdtype)
+    scale, against the plain version fed the same codes, in both tap
+    layouts, at each radius and level count of ``LOOKUP_SHAPES``; primal
+    only.  The 7 x 13 grid's one-byte rows (91, 18, 3 codes) start at
+    every offset within a 4-byte word."""
+    pyr, coords = _pyramid_case(13, dev, qdtype, levels=n_levels)
+    kk = (2 * radius + 1) ** 2
     assert isinstance(pyr[0], corr_ops.QuantizedLevel)
-    assert pyr[-1].values.numel() == 0
+    assert all(lv.values.numel() == 0 for lv in pyr[3:])
     coords.requires_grad_(True)
     before = dict(pyramid_kernels.LAUNCHES)
-    got = pyramid_kernels.pyramid_lookup_quantized(pyr, coords, 4, out_dtype)
-    nchw = pyramid_kernels.pyramid_lookup_quantized_nchw(pyr, coords, 4,
+    got = pyramid_kernels.pyramid_lookup_quantized(pyr, coords, radius,
+                                                   out_dtype)
+    nchw = pyramid_kernels.pyramid_lookup_quantized_nchw(pyr, coords, radius,
                                                          out_dtype)
     torch.cuda.synchronize()
     assert pyramid_kernels.LAUNCHES == dict(
         before, pyramid_lookup_quantized=before["pyramid_lookup_quantized"]
         + 2)
-    want = pyramid_kernels.pyramid_lookup_plain(pyr, coords.detach(), 4,
+    want = pyramid_kernels.pyramid_lookup_plain(pyr, coords.detach(), radius,
                                                 out_dtype)
     assert got.dtype == out_dtype and not got.requires_grad
+    assert got.shape[-1] == n_levels * kk
     _close(got, want)
     assert torch.equal(nchw.isnan(), got.permute(0, 3, 1, 2).isnan())
     assert torch.equal(nchw.nan_to_num(), got.permute(0, 3, 1, 2)
                        .nan_to_num())
     assert float(got.float().nan_to_num().abs().max()) > 0
-    assert torch.all(got[..., 3 * 81:] == 0) and torch.all(got[0, 0, 0] == 0)
+    assert torch.all(got[..., 3 * kk:] == 0) and torch.all(got[0, 0, 0] == 0)
     assert torch.all(got[1, 4, 9] == 0) and torch.all(got[0, 6, 1] == 0)
-    _check_nan_taps(got, 3)
+    _check_nan_taps(got, 3, kk)
 
 
 # (level dtype, output dtype, F, B, grid): F = 300 runs two feature

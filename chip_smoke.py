@@ -28,10 +28,15 @@ Phases, each raising on failure (so the script exits nonzero):
      the pyramid lookup forward and backward with fp32 and bf16 storage,
      and the upsample-loss sums (each column on its own scale), dflow
      and dmask with an fp32 and a bf16 mask, plus a one-iteration case
-     whose residuals span the 1/3/5 px thresholds;
+     whose residuals span the 1/3/5 px thresholds, and grids that take
+     every access width of the upsample-loss backward (an odd 45x63 at
+     B = 1, 45x62, 40x64, and the chairs grid with the mask one value
+     into its allocation);
    - backward kernels of the on-demand configuration at the chairs
      shapes: the GRU gate backward (8, 128, 46, 62) in fp32 and bf16
-     (z/r channel halves of one tensor, rh's gradient a channel slice),
+     (z/r channel halves of one tensor, rh's gradient a channel slice;
+     then the reset-gate backward on each access path: an odd 45x63
+     grid, 3 channels, r and the gradient's batch stride off 16 bytes),
      the on-demand lookup backward with an NHWC and an NCHW tap
      gradient, and once more at B = 1 with a 136x240 feature grid
      (1088x1920 input), where the JAX package moves level 0 onto its
@@ -69,7 +74,9 @@ Phases, each raising on failure (so the script exits nonzero):
    warm-up steps, 10 timed steps for the two fused-encoder
    configurations, 5 for the three of the earlier slices and 3 for the
    unfused int8 one (ms/step, pairs/s, peak memory, device busy time,
-   idle share) with exact launch counts per step; then the peak memory
+   idle share, and device time per launch inside the step of the pyramid
+   lookup, upsample-loss backward and reset-gate backward kernels) with
+   exact launch counts per step; then the peak memory
    of a bf16 step at the things stage (400x720, batch 5, 12 iterations)
    for the on-demand, the ``allpairs_pallas`` and the int8 + fused
    configurations;
@@ -131,8 +138,10 @@ def _time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 def _device_ms(fn, reps: int = 20, match: str = None):
     """Device time per call from ``torch.profiler`` (CUDA activity only):
     the summed time of the kernels whose name contains ``match`` (a string
-    or a tuple of them), or of every kernel the call runs.  None when the
-    profiler reports no device time (then the CUDA-event time stands)."""
+    or a tuple of them, each launched once a call: the sum of their mean
+    times per launch, so a launch the trace lost does not count as zero),
+    or of every kernel the call runs.  None when the profiler reports no
+    device time (then the CUDA-event time stands)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -145,8 +154,14 @@ def _device_ms(fn, reps: int = 20, match: str = None):
     names = (match,) if isinstance(match, str) else match
     for e in prof.key_averages():
         if names is None or any(n in e.key for n in names):
-            total_us += (getattr(e, "device_time_total", None)
-                         or getattr(e, "cuda_time_total", 0.0))
+            t = (getattr(e, "device_time_total", None)
+                 or getattr(e, "cuda_time_total", 0.0))
+            if names is not None and e.count and t > 0:
+                if e.count != reps:
+                    print(f"[profile] {e.key[:60]}: {e.count} of {reps} "
+                          "launches traced", flush=True)
+                t = t / e.count * reps
+            total_us += t
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
@@ -587,6 +602,68 @@ def _grid_sample_lookup(pyramid, coords, radius):
     return run
 
 
+# Grids of the upsample-loss backward on each access path: an odd grid at
+# B = 1, H*W = 2 mod 4, H*W = 0 mod 8, and the chairs grid with the mask
+# one value into its allocation; with the chairs case above (16 / 8
+# bytes) every path of the kernel runs.  (label, G, B, H, W, offset in
+# values, bytes per dmask store at a plane's edges in fp32, in bf16)
+UL_RAGGED = (("45x63 B=1", 12, 1, 45, 63, 0, 4, 2),
+             ("45x62", 2, 2, 45, 62, 0, 8, 4),
+             ("40x64", 2, 2, 40, 64, 0, 16, 16),
+             ("46x62 +1", 2, 2, 46, 62, 1, 4, 2))
+
+
+def _ul_ragged_cases(rng, dev):
+    """The upsample-loss sums, dflow and dmask of the kernels against the
+    plain version on ``UL_RAGGED``, fp32 and bf16 masks, residuals kept
+    away from 0 as in the chairs case; raises unless each case takes its
+    access path."""
+    from raft_tpu_torch.ops.upsample_loss import (bwd_vector_bytes,
+                                                  upsample_loss_sums,
+                                                  upsample_loss_sums_plain)
+
+    for label, G, B, H, W, offset, vb32, vb16 in UL_RAGGED:
+        gB = G * B
+        flow = torch.from_numpy(rng.uniform(-1, 1, (gB, H, W, 2)).astype(
+            np.float32)).to(dev)
+        gt = (rng.uniform(8.5, 24, (B, 8 * H, 8 * W, 2))
+              * rng.choice([-1.0, 1.0], (B, 8 * H, 8 * W, 2)))
+        gt = torch.from_numpy(gt.astype(np.float32)).to(dev)
+        vm = torch.from_numpy((rng.random((B, 8 * H, 8 * W)) > 0.1).astype(
+            np.float32)).to(dev)
+        wsum = torch.from_numpy(rng.random((gB, 5)).astype(np.float32)).to(
+            dev)
+        mask32 = torch.from_numpy(rng.standard_normal(
+            (gB, 576, H, W)).astype(np.float32)).to(dev)
+        for dtype, want_vb in ((torch.float32, vb32), (torch.bfloat16, vb16)):
+            dt = "fp32" if dtype == torch.float32 else "bf16"
+            outs = []
+            for fn in (upsample_loss_sums, upsample_loss_sums_plain):
+                leaf = torch.zeros(mask32.numel() + offset, dtype=dtype,
+                                   device=dev)
+                with torch.no_grad():
+                    leaf[offset:].copy_(mask32.reshape(-1))
+                leaf.requires_grad_(True)
+                m = leaf[offset:].view(mask32.shape)
+                if fn is upsample_loss_sums:    # dmask: a fresh allocation
+                    vb = bwd_vector_bytes(m.data_ptr(), 0, H * W,
+                                          m.element_size())
+                fl = flow.clone().requires_grad_(True)
+                sums = fn(fl, m, gt, vm)
+                dfl, dleaf = torch.autograd.grad(sums, (fl, leaf), wsum)
+                outs.append((sums, dfl, dleaf[offset:].view(m.shape)))
+            name = (f"upsample_loss {dt} {label} (G={G}, B={B}, {vb}-byte "
+                    "edge stores)")
+            if vb != want_vb:
+                raise AssertionError(f"{name}: expected {want_vb} bytes")
+            (sk, dflk, dmk), (sp, dflp, dmp) = outs
+            _check_sums(f"{name} sums", sk, sp)
+            _check(f"{name} dflow", dflk, dflp)
+            _check(f"{name} dmask", dmk, dmp)
+            del outs, sk, dflk, dmk, sp, dflp, dmp, leaf, m
+    torch.cuda.empty_cache()
+
+
 def phase_train_kernels(peaks):
     """The pyramid lookup (fwd, bwd) and the upsample-loss (fwd, bwd)
     kernels at the chairs training shapes, fp32 and bf16."""
@@ -596,7 +673,8 @@ def phase_train_kernels(peaks):
                                                     pyramid_lookup_plain)
     from raft_tpu_torch.ops.upsample import (convex_upsample_flat_nchw,
                                              depth_to_space_flow)
-    from raft_tpu_torch.ops.upsample_loss import (upsample_loss_sums,
+    from raft_tpu_torch.ops.upsample_loss import (bwd_vector_bytes,
+                                                  upsample_loss_sums,
                                                   upsample_loss_sums_plain)
 
     dev = torch.device("cuda")
@@ -738,6 +816,12 @@ def phase_train_kernels(peaks):
         outs = [run(fn, flow, mask, gt, vm)
                 for fn in (upsample_loss_sums, upsample_loss_sums_plain)]
         (sk, dflk, dmk, flk, mk), (sp, dflp, dmp, flp, mp) = outs
+        vb = bwd_vector_bytes(mask.data_ptr(), dmk.data_ptr(), H * W,
+                              mask.element_size())
+        print(f"[kernels] upsample_loss_bwd {dt} chairs: {vb}-byte edge "
+              "accesses", flush=True)
+        if vb != (16 if dtype == torch.float32 else 8):
+            raise AssertionError(f"upsample_loss_bwd {dt}: {vb} bytes")
         err_f = _check_sums(f"upsample_loss_fwd {dt} sums {tuple(sk.shape)}",
                             sk, sp)
         err_b = max(_check(f"upsample_loss_bwd {dt} dflow", dflk, dflp),
@@ -795,6 +879,7 @@ def phase_train_kernels(peaks):
                   f"{ops / 1e9:.3f} GFLOP)", flush=True)
         del outs, sk, sp, dflk, dflp, dmk, dmp, flk, flp, mk, mp, mask
         torch.cuda.empty_cache()
+    _ul_ragged_cases(np.random.default_rng(5), dev)
     # a ragged grid whose level 3 pools to nothing (rows of 91, 18 and 3
     # values, not multiples of 8) with a NaN x and a NaN y center: NaN taps
     # and all-NaN dcorr rows on the non-empty levels, both layouts
@@ -1108,6 +1193,56 @@ def _corr_bwd_case(rng, B, h, w, label, peaks, time_plain=True, dist="a"):
     return res
 
 
+# Layouts of the reset-gate backward on each access path: the model's
+# (r a channel half, g a channel slice) on an odd grid (16-byte vectors),
+# 3 channels on that grid, and r one channel off with a gradient of one
+# more channel (so its batch stride is off too), at the chairs size (bf16
+# off 16 bytes; more units than one wave) and on the odd grid (both
+# types off).  (label, B, C, H, W, r channel offset, extra gradient
+# channels, values per access in fp32, in bf16)
+RH_RAGGED = (("45x63", 2, 128, 45, 63, 0, 0, 4, 8),
+             ("3 channels 45x63", 2, 3, 45, 63, 0, 0, 1, 1),
+             ("46x62 offset", 8, 128, 46, 62, 1, 1, 4, 1),
+             ("45x63 offset", 2, 128, 45, 63, 1, 1, 1, 1))
+
+
+def _rh_ragged_cases(rng, dev):
+    """``gru_gate_rh``'s backward kernel against its plain version on
+    ``RH_RAGGED``, fp32 and bf16; raises unless each case takes its
+    access path."""
+    from raft_tpu_torch.ops import gru_gates
+
+    for label, B, C, H, W, r_off, g_pad, ve32, ve16 in RH_RAGGED:
+        for dtype, want_ve in ((torch.float32, ve32), (torch.bfloat16, ve16)):
+            dt = "fp32" if dtype == torch.float32 else "bf16"
+
+            def mk(c, scale=1.0):
+                return (torch.from_numpy(rng.standard_normal((B, c, H, W))
+                                         .astype(np.float32)) * scale).to(
+                    dev, dtype)
+
+            zr, hh, g_cat = mk(2 * C + r_off, 3.0), mk(C), mk(3 * C + g_pad)
+            zr.requires_grad_(True)
+            hh.requires_grad_(True)
+            r, g = zr[:, C + r_off:2 * C + r_off], g_cat[:, :C]
+            strides = [gru_gates._batch_strided(t)[1] for t in (r, hh, g)]
+            ve, _ = gru_gates.rh_bwd_plan(
+                [r.data_ptr(), hh.data_ptr(), g.data_ptr()], strides,
+                C * H * W, B, hh.element_size(), 132)
+            name = (f"gru_gate_rh_bwd {dt} {label} {(B, C, H, W)} ({ve} "
+                    "values per access)")
+            if ve != want_ve:
+                raise AssertionError(f"{name}: expected {want_ve}")
+            dzr, dh = torch.autograd.grad(gru_gates.gru_gate_rh(r, hh),
+                                          (zr, hh), g)
+            want = gru_gates.gru_gate_rh_bwd_plain(r, hh, g)
+            _check(f"{name} dr", dzr[:, C + r_off:2 * C + r_off], want[0])
+            _check(f"{name} dh", dh, want[1])
+            if dzr[:, :C + r_off].any():
+                raise AssertionError(f"{name}: dr outside r")
+            del zr, hh, g_cat, r, g, dzr, dh, want
+
+
 def phase_bwd_kernels(peaks):
     """The backward kernels of the on-demand configuration against their
     plain versions: the GRU gates and the lookup at the chairs shapes,
@@ -1170,6 +1305,7 @@ def phase_bwd_kernels(peaks):
                 library_ms=None, bound_ms=bound, bound_by=by, bytes=nbytes,
                 kernel_timing=tk, plain_timing=tp)
         del zr, q, hh, g_cat, g_bl, rh, bl, cases
+    _rh_ragged_cases(np.random.default_rng(6), dev)
 
     # --- on-demand lookup backward: chairs, then 1088x1920 at B = 1, each
     # under the center distributions (a), (b), (c) ---
@@ -1590,10 +1726,16 @@ def phase_train(sd):
                                      f"{state.nonfinite_steps} non-finite")
             prof = _profile(lambda: step_fn(state, batch), reps=n_prof)
             wall = statistics.median(times)
-            # the pyramid lookup kernels' device time per launch inside the
-            # step: each runs once per iteration (the counts above)
-            per_launch = {kind: prof["by_kind"][kind] / CHAIRS_ITERS
-                          for kind in ("pyr_fwd_kernel", "pyr_bwd_kernel")
+            # device time per launch inside the step of the pyramid lookup
+            # kernels (once per iteration), the upsample-loss backward's
+            # two (once per step) and the reset-gate backward (twice per
+            # iteration): the counts above
+            per_launch = {kind: prof["by_kind"][kind] / n
+                          for kind, n in (
+                              ("pyr_fwd_kernel", CHAIRS_ITERS),
+                              ("pyr_bwd_kernel", CHAIRS_ITERS),
+                              ("ul_bwd_kernel", 1), ("ul_dflow_kernel", 1),
+                              ("rh_bwd_kernel", 2 * CHAIRS_ITERS))
                           if kind in prof["by_kind"]}
             runs[key] = dict(ms_per_step=wall, ms_all=times,
                              pairs_per_s=CHAIRS_B / wall * 1e3,

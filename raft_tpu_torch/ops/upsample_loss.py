@@ -21,6 +21,17 @@ Layouts: ``flow`` ``(gB, H, W, 2)`` fp32 (the model's coordinates);
 resolution, shared by the ``g = gB / B`` folded iterations (sample n uses
 ``n % B``).
 
+The backward kernel stages the mask in shared memory and stores dmask
+from it in whole 32-byte sectors, 16 bytes an access; only at a channel
+plane's first and last 32 bytes, which it shares with the neighbouring
+planes, does it store pieces of the widest width that both base
+addresses and the plane stride ``H*W*es`` allow (:func:`bwd_vector_bytes`:
+16, 8, 4 or 2 bytes; 8 for a bf16 mask at the chairs grid, whose planes
+are 5,704 bytes apart).  Each width is a path of the kernel, not a
+fallback.  dmask is allocated at the mask's address mod 16
+(:func:`empty_like_mod16`) and the ground truth 16-byte aligned
+(:func:`aligned16`), as the kernel needs.
+
 A wrapper takes the plain version only for tensors on the CPU.  For any
 other device it launches the kernel or raises; nothing falls back.
 ``LAUNCHES`` counts kernel launches, forward and backward.
@@ -76,6 +87,36 @@ def upsample_loss_sums_plain(flow: torch.Tensor, mask: torch.Tensor,
     return torch.stack([l1] + metrics, dim=-1).reshape(gB, 5)
 
 
+def bwd_vector_bytes(mask_ptr: int, dmask_ptr: int, hw: int,
+                     itemsize: int) -> int:
+    """Bytes per dmask store of the backward kernel at a channel plane's
+    first and last 32 bytes: the widest of 16, 8, 4 and 2 (at least one
+    value) that divides both base addresses and the plane stride
+    ``hw * itemsize``."""
+    for vb in (16, 8, 4, 2):
+        if vb >= itemsize and not (mask_ptr % vb or dmask_ptr % vb
+                                   or hw * itemsize % vb):
+            return vb
+    raise ValueError(f"upsample_loss_bwd: addresses {mask_ptr:#x}, "
+                     f"{dmask_ptr:#x} are not aligned to their "
+                     f"{itemsize}-byte values")
+
+
+def empty_like_mod16(t: torch.Tensor) -> torch.Tensor:
+    """An uninitialised contiguous tensor like ``t`` whose address is
+    ``t``'s mod 16 (the backward kernel stages a row of the mask and of
+    dmask at one offset)."""
+    off = t.data_ptr() % 16 // t.element_size()
+    return torch.empty(t.numel() + off, dtype=t.dtype,
+                       device=t.device)[off:].view(t.shape)
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its address is off 16 bytes (the
+    backward kernel copies the ground truth in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _fn(symbol: str):
     fn = getattr(build.load("upsample_loss"), symbol)
     if fn.argtypes is None:
@@ -84,8 +125,8 @@ def _fn(symbol: str):
             fn.argtypes = [ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp,
                            vp]
         else:
-            fn.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp,
-                           vp, vp, vp]
+            fn.argtypes = [ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                           vp, vp, vp, vp]
         fn.restype = ci
     return fn
 
@@ -145,12 +186,15 @@ class UpsampleLossSums(torch.autograd.Function):
         B = gt.shape[0]
         dev = flow.device
         gl1 = g[:, 0].float().contiguous()
-        dmask = torch.empty_like(mask)
+        dmask = empty_like_mod16(mask)
         scratch = torch.empty(gB * 18 * H * W, dtype=torch.float32,
                               device=dev)
         dflow = torch.empty_like(flow)
+        vb = bwd_vector_bytes(mask.data_ptr(), dmask.data_ptr(), H * W,
+                              mask.element_size())
+        gt, vmask = aligned16(gt), aligned16(vmask)
         rc = _fn("upsample_loss_bwd")(
-            dev.index or 0, _DTYPE_CODES[mask.dtype], flow.data_ptr(),
+            dev.index or 0, _DTYPE_CODES[mask.dtype], vb, flow.data_ptr(),
             mask.data_ptr(), gt.data_ptr(), vmask.data_ptr(),
             gl1.data_ptr(), gB, B, H, W, dmask.data_ptr(),
             scratch.data_ptr(), dflow.data_ptr(), build.stream_handle(flow))

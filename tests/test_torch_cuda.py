@@ -201,30 +201,51 @@ def test_gate_kernels_match_plain(dev, dtype):
             assert bool((diff <= ulp + 1e-6).all())
 
 
+# Operand layouts of the rh backward, each on one access path: "model"
+# (z/r halves of one tensor, rh's gradient a channel slice, as in the
+# model: 16-byte vectors), "chairs" (the chairs step's shape: more units
+# than one wave of blocks, so blocks walk several), "odd" (3 channels on
+# a 5 x 7 grid: one value per access) and "offset" (r one channel off and
+# a gradient whose batch stride is odd: one value per access).
+GATE_LAYOUTS = {"model": (3, 32, (5, 7), 0, 0, 16),
+                "chairs": (8, 128, (46, 62), 0, 0, 16),
+                "odd": (2, 3, (5, 7), 0, 0, 1),
+                "offset": (3, 32, (5, 7), 1, 1, 1)}
+
+
+@pytest.mark.parametrize("layout", list(GATE_LAYOUTS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gate_backward_kernels_match_plain(dev, dtype):
+def test_gate_backward_kernels_match_plain(dev, dtype, layout):
     """``GruGateRh`` / ``GruGateBlend`` backward kernels against
     ``gru_gate_*_bwd_plain``: z/r channel halves of one tensor and rh's
-    gradient a channel slice of a wider one, as in the model; within
+    gradient a channel slice of a wider one, as in the model, on each
+    access path of the rh backward (``GATE_LAYOUTS``); within
     1e-4 * max|plain| + 1e-5, plus one bf16 ulp for bf16 results."""
+    B, C, (H, W), r_off, g_pad, vec_bytes = GATE_LAYOUTS[layout]
     g = torch.Generator().manual_seed(11)
-    zr = (torch.randn(3, 64, 5, 7, generator=g) * 3).to(dev, dtype)
-    q = (torch.randn(3, 32, 5, 7, generator=g) * 3).to(dev, dtype)
-    h = torch.randn(3, 32, 5, 7, generator=g).to(dev, dtype)
-    g_cat = torch.randn(3, 96, 5, 7, generator=g).to(dev, dtype)
-    g_rh, g_bl = g_cat[:, :32], g_cat[:, 32:64]
+    zr = (torch.randn(B, 2 * C + r_off, H, W, generator=g) * 3).to(dev, dtype)
+    q = (torch.randn(B, C, H, W, generator=g) * 3).to(dev, dtype)
+    h = torch.randn(B, C, H, W, generator=g).to(dev, dtype)
+    g_cat = torch.randn(B, 3 * C + g_pad, H, W, generator=g).to(dev, dtype)
+    g_rh, g_bl = g_cat[:, :C], g_cat[:, C:2 * C]
     zr.requires_grad_(True)
     q.requires_grad_(True)
     h.requires_grad_(True)
-    z, r = torch.split(zr, 32, dim=1)
+    z, r = zr[:, :C], zr[:, C + r_off:2 * C + r_off]
+    ins = [gru_gates._batch_strided(t)[1] for t in (r, h, g_rh)]
+    vec, _ = gru_gates.rh_bwd_plan(
+        [r.data_ptr(), h.data_ptr(), g_rh.data_ptr()], ins, C * H * W, B,
+        h.element_size(), 132)
+    assert vec * h.element_size() == vec_bytes or vec == vec_bytes == 1
     before = dict(gru_gates.LAUNCHES)
     d_rh = torch.autograd.grad(gru_gates.gru_gate_rh(r, h), (zr, h), g_rh)
     d_bl = torch.autograd.grad(gru_gates.gru_gate_blend(z, q, h), (zr, q, h),
                                g_bl)
     torch.cuda.synchronize()
     assert gru_gates.LAUNCHES == {k: v + 1 for k, v in before.items()}
-    got = [d_rh[0][:, 32:], d_rh[1], d_bl[0][:, :32], d_bl[1], d_bl[2]]
-    assert not d_rh[0][:, :32].any() and not d_bl[0][:, 32:].any()
+    got = [d_rh[0][:, C + r_off:2 * C + r_off], d_rh[1], d_bl[0][:, :C],
+           d_bl[1], d_bl[2]]
+    assert not d_rh[0][:, :C + r_off].any() and not d_bl[0][:, C:].any()
     want = list(gru_gates.gru_gate_rh_bwd_plain(r, h, g_rh)) + list(
         gru_gates.gru_gate_blend_bwd_plain(z, q, h, g_bl))
     for a, b in zip(got, want):
@@ -378,10 +399,24 @@ def test_pyramid_lookup_refuses_what_does_not_fit(dev):
     assert pyramid_kernels.LAUNCHES == before
 
 
+# Grids of the upsample-loss case, each on one access path of the
+# backward kernel: (H, W), offset of the mask in values from the start of
+# its allocation, and the bytes per dmask store at a plane's edges in fp32
+# and bf16.  All but
+# "hw45" span two or three of the kernel's 128-pixel runs, with channel
+# planes off 32-byte boundaries (except "hw256"), so the runs' shared
+# sectors and the last partial run are exercised.
+UL_GRIDS = {"odd": ((13, 21), 0, 4, 2), "hw256": ((16, 16), 0, 16, 16),
+            "hw276": ((12, 23), 0, 16, 8), "hw270": ((10, 27), 0, 8, 4),
+            "hw45": ((5, 9), 0, 4, 2), "offset": ((12, 23), 1, 4, 2)}
+
+
+@pytest.mark.parametrize("grid", list(UL_GRIDS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_upsample_loss_kernels_match_plain(dev, dtype):
+def test_upsample_loss_kernels_match_plain(dev, dtype, grid):
+    (H, W), offset, vb32, vb16 = UL_GRIDS[grid]
     g = torch.Generator().manual_seed(5)
-    B, G, H, W = 2, 3, 5, 9
+    B, G = 2, 3
     # Residuals are kept at least 0.5 from 0 (|8 * flow| <= 8, |gt| >= 8.5)
     # except where both are exactly 0: two fp32 orders of one sum may give
     # a near-zero residual opposite signs, and the |.| subgradient with it.
@@ -395,15 +430,26 @@ def test_upsample_loss_kernels_match_plain(dev, dtype):
     vm = (torch.rand(B, 8 * H, 8 * W, generator=g) > 0.2).float().to(dev)
     w = torch.rand(G * B, 5, generator=g).to(dev)
 
+    def leaf_mask(n):
+        """The first n samples of the mask as a leaf, and the view of it
+        that the functions take: ``offset`` values into the leaf."""
+        leaf = torch.zeros(n * 576 * H * W + offset, dtype=dtype, device=dev)
+        m = leaf[offset:].view(n, 576, H, W)
+        with torch.no_grad():
+            m.copy_(mask[:n])
+        leaf.requires_grad_(True)
+        return leaf, leaf[offset:].view(n, 576, H, W)
+
     def both(flow, gt):
         outs = []
         for fn in (upsample_loss.upsample_loss_sums,
                    upsample_loss.upsample_loss_sums_plain):
             f = flow.clone().requires_grad_(True)
-            m = mask[:flow.shape[0]].clone().requires_grad_(True)
+            leaf, m = leaf_mask(flow.shape[0])
             sums = fn(f, m, gt, vm)
             (sums * w[:flow.shape[0]]).sum().backward()
-            outs.append((sums.detach(), f.grad, m.grad))
+            outs.append((sums.detach(), f.grad,
+                         leaf.grad[offset:].view(m.shape)))
         torch.cuda.synchronize()
         (sk, *gk), (sp, *gp) = outs
         # each sum column on its own scale: the pixel counts are not held
@@ -419,6 +465,10 @@ def test_upsample_loss_kernels_match_plain(dev, dtype):
         assert gk[1].dtype == dtype
         return sp
 
+    _, m = leaf_mask(G * B)
+    assert upsample_loss.bwd_vector_bytes(
+        m.data_ptr(), torch.empty_like(m).data_ptr(), H * W,
+        m.element_size()) == (vb32 if dtype == torch.float32 else vb16)
     both(flow, gt)
     # residuals spanning the 1/3/5 px thresholds: one iteration, ground
     # truth = the plain upsampled flow + offsets whose end-point error is

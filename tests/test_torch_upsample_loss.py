@@ -188,3 +188,45 @@ def test_cpu_wrapper_is_the_plain_version():
     got = upsample_loss_sums(flow, mask, gt, vm)
     assert torch.equal(got, upsample_loss_sums_plain(flow, mask, gt, vm))
     assert upsample_loss.LAUNCHES == before
+
+
+# The backward kernel's access width for the dmask stores at a channel
+# plane's edges, per grid: (H, W), fp32 bytes, bf16 bytes, for masks that
+# start an allocation (the chairs, Sintel, things and KITTI training
+# grids, an odd grid, and one with H*W = 2 mod 4).
+@pytest.mark.parametrize("hw,fp32,bf16", [
+    ((46, 62), 16, 8), ((55, 128), 16, 16), ((50, 90), 16, 8),
+    ((47, 156), 16, 8), ((45, 63), 4, 2), ((5, 6), 8, 4)])
+def test_bwd_access_width_per_grid(hw, fp32, bf16):
+    hw = hw[0] * hw[1]
+    base = 512 * 4099                       # an allocation's start
+    width = upsample_loss.bwd_vector_bytes
+    assert width(base, base, hw, 4) == fp32
+    assert width(base, base, hw, 2) == bf16
+    for vb, es in ((fp32, 4), (bf16, 2)):
+        # every channel plane of every sample starts on a VB boundary
+        assert all((base + c * hw * es) % vb == 0 for c in range(2 * 576))
+    # a mask view one value into its allocation, or a dmask off 8 bytes
+    assert width(base + 4, base, hw, 4) == 4
+    assert width(base + 2, base, hw, 2) == 2
+    assert width(base, base + 8, hw, 4) == min(fp32, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        width(base + 1, base, hw, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1, 3, 7])
+def test_bwd_buffers_keep_the_kernels_alignment(dtype, offset):
+    """dmask is allocated at the mask's address mod 16 (so the kernel can
+    stage a row of both at one offset), and a ground truth off 16 bytes
+    is copied to an aligned one; values and shapes are kept."""
+    buf = torch.arange(2 * 576 * 5 * 9 + offset, dtype=torch.float32)
+    mask = buf.to(dtype)[offset:].view(2, 576, 5, 9)
+    dmask = upsample_loss.empty_like_mod16(mask)
+    assert dmask.shape == mask.shape and dmask.dtype == dtype
+    assert dmask.is_contiguous()
+    assert (dmask.data_ptr() - mask.data_ptr()) % 16 == 0
+    gt = buf[offset:offset + 2 * 40 * 72 * 2].view(2, 40, 72, 2)
+    g16 = upsample_loss.aligned16(gt)
+    assert g16.data_ptr() % 16 == 0 and torch.equal(g16, gt)
+    assert (g16 is gt) == (gt.data_ptr() % 16 == 0)

@@ -11,8 +11,9 @@ Phases, each raising on failure (so the script exits nonzero):
 2. build: compile every CUDA source of the port with ``nvcc`` (sm_90a),
    count the tensor-core instructions in ``lookup_encode``'s SASS, and
    check that the radius-3 and radius-4 instantiations of the pyramid
-   lookup forward (``pyr_fwd_kernel``) have no local-memory instruction
-   (``LDL``/``STL``) in theirs;
+   lookup forward (``pyr_fwd_kernel``) and every instantiation of the
+   upsample-loss forward (``ul_fwd_kernel``) have no local-memory
+   instruction (``LDL``/``STL``) in theirs;
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, with device times of kernel and plain version
    (``torch.profiler``; CUDA events where it reports none) beside the
@@ -28,8 +29,9 @@ Phases, each raising on failure (so the script exits nonzero):
      the pyramid lookup forward and backward with fp32 and bf16 storage,
      and the upsample-loss sums (each column on its own scale), dflow
      and dmask with an fp32 and a bf16 mask, plus a one-iteration case
-     whose residuals span the 1/3/5 px thresholds, and grids that take
-     every access width of the upsample-loss backward (an odd 45x63 at
+     whose residuals span the 1/3/5 px thresholds (the pixel counts
+     equal to the plain version's), and grids that take every access
+     width of the upsample-loss forward and backward (an odd 45x63 at
      B = 1, 45x62, 40x64, and the chairs grid with the mask one value
      into its allocation);
    - backward kernels of the on-demand configuration at the chairs
@@ -75,8 +77,8 @@ Phases, each raising on failure (so the script exits nonzero):
    configurations, 5 for the three of the earlier slices and 3 for the
    unfused int8 one (ms/step, pairs/s, peak memory, device busy time,
    idle share, and device time per launch inside the step of the pyramid
-   lookup, upsample-loss backward and reset-gate backward kernels) with
-   exact launch counts per step; then the peak memory
+   lookup, upsample-loss forward and backward and reset-gate backward
+   kernels) with exact launch counts per step; then the peak memory
    of a bf16 step at the things stage (400x720, batch 5, 12 iterations)
    for the on-demand, the ``allpairs_pallas`` and the int8 + fused
    configurations;
@@ -271,7 +273,8 @@ def phase_build():
     (HMMA / GMMA) in the SASS of the fused lookup + convc1 library, which
     must run its contraction on the tensor cores, and the local-memory
     instructions (LDL / STL) of the pyramid lookup forward's radius-3 and
-    radius-4 instantiations, which must have none."""
+    radius-4 instantiations and of every upsample-loss forward
+    instantiation, which must have none."""
     from raft_tpu_torch.ops import build
 
     t0 = time.perf_counter()
@@ -307,9 +310,19 @@ def phase_build():
                                  f"{local.get(radius)} local-memory "
                                  "instructions (10 instantiations, none "
                                  "expected)")
+    # ul_fwd_kernel<T, VB>: fp32 at 16, 8 and 4 bytes, bf16 at 16, 8, 4, 2
+    ul_local = {f: n for f, n in _sass_counts(
+        build, "upsample_loss", r"\b(LDL|STL)\b").items()
+        if "ul_fwd_kernel" in f}
+    print(f"[build] upsample_loss SASS: LDL/STL per ul_fwd_kernel "
+          f"instantiation {sorted(ul_local.values())}", flush=True)
+    if len(ul_local) != 7 or any(ul_local.values()):
+        raise AssertionError(f"ul_fwd_kernel: {ul_local} local-memory "
+                             "instructions (7 instantiations, none "
+                             "expected)")
     return dict(build_s=secs, lookup_encode_sass_mma=mma,
                 lookup_encode_sass_kernels=len(per_fn),
-                pyr_fwd_sass_local=local)
+                pyr_fwd_sass_local=local, ul_fwd_sass_local=ul_local)
 
 
 # center distributions of the on-demand kernel cases: (a) is the
@@ -602,11 +615,13 @@ def _grid_sample_lookup(pyramid, coords, radius):
     return run
 
 
-# Grids of the upsample-loss backward on each access path: an odd grid at
+# Grids of the upsample-loss kernels on each access path: an odd grid at
 # B = 1, H*W = 2 mod 4, H*W = 0 mod 8, and the chairs grid with the mask
 # one value into its allocation; with the chairs case above (16 / 8
-# bytes) every path of the kernel runs.  (label, G, B, H, W, offset in
-# values, bytes per dmask store at a plane's edges in fp32, in bf16)
+# bytes) every path of both kernels runs.  (label, G, B, H, W, offset in
+# values, bytes per dmask store at a plane's edges in fp32, in bf16; the
+# forward loads the mask as many bytes at a time, and 40x64 in bf16 is
+# its one path with 8 pixels a lane)
 UL_RAGGED = (("45x63 B=1", 12, 1, 45, 63, 0, 4, 2),
              ("45x62", 2, 2, 45, 62, 0, 8, 4),
              ("40x64", 2, 2, 40, 64, 0, 16, 16),
@@ -617,8 +632,8 @@ def _ul_ragged_cases(rng, dev):
     """The upsample-loss sums, dflow and dmask of the kernels against the
     plain version on ``UL_RAGGED``, fp32 and bf16 masks, residuals kept
     away from 0 as in the chairs case; raises unless each case takes its
-    access path."""
-    from raft_tpu_torch.ops.upsample_loss import (bwd_vector_bytes,
+    access paths (forward and backward)."""
+    from raft_tpu_torch.ops.upsample_loss import (bwd_vector_bytes, fwd_plan,
                                                   upsample_loss_sums,
                                                   upsample_loss_sums_plain)
 
@@ -648,13 +663,15 @@ def _ul_ragged_cases(rng, dev):
                 if fn is upsample_loss_sums:    # dmask: a fresh allocation
                     vb = bwd_vector_bytes(m.data_ptr(), 0, H * W,
                                           m.element_size())
+                    plan = fwd_plan(m.data_ptr(), H * W, m.element_size())
                 fl = flow.clone().requires_grad_(True)
                 sums = fn(fl, m, gt, vm)
                 dfl, dleaf = torch.autograd.grad(sums, (fl, leaf), wsum)
                 outs.append((sums, dfl, dleaf[offset:].view(m.shape)))
-            name = (f"upsample_loss {dt} {label} (G={G}, B={B}, {vb}-byte "
-                    "edge stores)")
-            if vb != want_vb:
+            name = (f"upsample_loss {dt} {label} (G={G}, B={B}, forward "
+                    f"{plan.vec_bytes}-byte loads of {plan.pixels} pixels, "
+                    f"backward {vb}-byte edge stores)")
+            if vb != want_vb or plan.vec_bytes != want_vb:
                 raise AssertionError(f"{name}: expected {want_vb} bytes")
             (sk, dflk, dmk), (sp, dflp, dmp) = outs
             _check_sums(f"{name} sums", sk, sp)
@@ -673,7 +690,7 @@ def phase_train_kernels(peaks):
                                                     pyramid_lookup_plain)
     from raft_tpu_torch.ops.upsample import (convex_upsample_flat_nchw,
                                              depth_to_space_flow)
-    from raft_tpu_torch.ops.upsample_loss import (bwd_vector_bytes,
+    from raft_tpu_torch.ops.upsample_loss import (bwd_vector_bytes, fwd_plan,
                                                   upsample_loss_sums,
                                                   upsample_loss_sums_plain)
 
@@ -818,10 +835,12 @@ def phase_train_kernels(peaks):
         (sk, dflk, dmk, flk, mk), (sp, dflp, dmp, flp, mp) = outs
         vb = bwd_vector_bytes(mask.data_ptr(), dmk.data_ptr(), H * W,
                               mask.element_size())
-        print(f"[kernels] upsample_loss_bwd {dt} chairs: {vb}-byte edge "
-              "accesses", flush=True)
-        if vb != (16 if dtype == torch.float32 else 8):
-            raise AssertionError(f"upsample_loss_bwd {dt}: {vb} bytes")
+        plan = fwd_plan(mask.data_ptr(), H * W, mask.element_size())
+        print(f"[kernels] upsample_loss {dt} chairs: forward {plan}, "
+              f"backward {vb}-byte edge accesses", flush=True)
+        if vb != (16 if dtype == torch.float32 else 8) or (
+                plan.vec_bytes, plan.pixels) != (vb, 4):
+            raise AssertionError(f"upsample_loss {dt}: {plan}, {vb} bytes")
         err_f = _check_sums(f"upsample_loss_fwd {dt} sums {tuple(sk.shape)}",
                             sk, sp)
         err_b = max(_check(f"upsample_loss_bwd {dt} dflow", dflk, dflp),
@@ -843,6 +862,13 @@ def phase_train_kernels(peaks):
         err_f = max(err_f, _check_sums(
             f"upsample_loss_fwd {dt} threshold case sums", span[0][0],
             span[1][0]))
+        # the kernel tests the squared EPE against 1, 9, 25 (the plain
+        # version the EPE against 1, 3, 5): no count may differ
+        if not torch.equal(span[0][0][:, 2:], span[1][0][:, 2:]):
+            raise AssertionError(
+                f"upsample_loss_fwd {dt}: 1/3/5 px counts "
+                f"{span[0][0][:, 2:].sum(0).tolist()} against the plain "
+                f"{counts}")
         err_b = max(err_b,
                     _check(f"upsample_loss_bwd {dt} threshold case dflow",
                            span[0][1], span[1][1]),
@@ -1727,13 +1753,14 @@ def phase_train(sd):
             prof = _profile(lambda: step_fn(state, batch), reps=n_prof)
             wall = statistics.median(times)
             # device time per launch inside the step of the pyramid lookup
-            # kernels (once per iteration), the upsample-loss backward's
-            # two (once per step) and the reset-gate backward (twice per
-            # iteration): the counts above
+            # kernels (once per iteration), the upsample-loss forward's and
+            # backward's two each (once per step) and the reset-gate
+            # backward (twice per iteration): the counts above
             per_launch = {kind: prof["by_kind"][kind] / n
                           for kind, n in (
                               ("pyr_fwd_kernel", CHAIRS_ITERS),
                               ("pyr_bwd_kernel", CHAIRS_ITERS),
+                              ("ul_fwd_kernel", 1), ("ul_reduce_kernel", 1),
                               ("ul_bwd_kernel", 1), ("ul_dflow_kernel", 1),
                               ("rh_bwd_kernel", 2 * CHAIRS_ITERS))
                           if kind in prof["by_kind"]}

@@ -6,8 +6,8 @@ one NVIDIA GPU, in one process.
 
 ``--kernel`` (default ``pyramid_lookup_fwd``) picks the kernel and the
 source that holds it: ``pyramid_lookup_fwd`` (``pyramid_lookup.cu``),
-``upsample_loss_bwd`` (``upsample_loss.cu``) or ``gru_gate_rh_bwd``
-(``gru_gates.cu``).  The script builds that source as it is ("change"),
+``upsample_loss_fwd`` or ``upsample_loss_bwd`` (``upsample_loss.cu``) or
+``gru_gate_rh_bwd`` (``gru_gates.cu``).  The script builds that source as it is ("change"),
 the same source from another checkout's ``csrc`` directory
 (``--parent``), and probes: copies of a source with one step of the
 kernel left out or changed (``PROBES``; those named ``parent_*`` are
@@ -28,6 +28,12 @@ compute wrong results on purpose and are only timed.
   ``chip_smoke.py``'s kernel phase makes them, on fp32, bf16 and int8
   levels with channel-major taps as the model reads them, and once with
   query-major taps on fp32 levels (``pyramid_kernels.launch_fwd``).
+- ``upsample_loss_fwd``: the same inputs; the time of ``ul_fwd_kernel``
+  + ``ul_reduce_kernel`` (the loss sums, no gradient) and, as a yardstick
+  of the card's read rate, of one ``mask.sum()`` (the kernel reads the
+  mask once and writes next to nothing); and the SASS instructions a
+  subpixel of the parent's and the change's softmax loop at the chairs
+  widths (``_sass_per_subpixel``).
 - ``upsample_loss_bwd``: 12 iterations x B = 8 folded, 46 x 62, fp32 and
   bf16 masks, inputs as ``chip_smoke.py`` makes them; the time of
   ``ul_bwd_kernel`` + ``ul_dflow_kernel`` and, apart, of
@@ -38,7 +44,8 @@ compute wrong results on purpose and are only timed.
   half of a 256-channel tensor and the gradient a channel slice of a
   384-channel one, as in the model.
 
-Prints the card's name and power limit, then one JSON line.
+Prints each variant's ``ptxas`` lines for the kernel (registers, stack),
+the card's name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import ctypes
 import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -62,9 +70,33 @@ OUT = os.path.join(REPO, "build", "lookup_ab")
 
 # kernel -> (source and wrapper module name, profiler names of its kernels)
 KERNELS = {"pyramid_lookup_fwd": ("pyramid_lookup", "pyr_fwd_kernel"),
+           "upsample_loss_fwd": ("upsample_loss",
+                                 ("ul_fwd_kernel", "ul_reduce_kernel")),
            "upsample_loss_bwd": ("upsample_loss",
                                  ("ul_bwd_kernel", "ul_dflow_kernel")),
            "gru_gate_rh_bwd": ("gru_gates", "rh_bwd_kernel")}
+
+# upsample_loss_fwd: the arithmetic of a pixel skipped (its values summed
+# so that the loads stay), and the stage copies dropped
+_UL_NO_MATH = [(
+    "        float e[9];\n"
+    "#pragma unroll\n"
+    "        for (int c = 0; c < 9; ++c) e[c] = word_val<T>(w[c], i);\n",
+    "        float t = v + gq.x + gq.y;\n"
+    "#pragma unroll\n"
+    "        for (int c = 0; c < 9; ++c) t += word_val<T>(w[c], i);\n"
+    "        s5[0] += t;\n"
+    "        if (t == 12345.678f) {\n"
+    "        float e[9];\n"
+    "#pragma unroll\n"
+    "        for (int c = 0; c < 9; ++c) e[c] = word_val<T>(w[c], i);\n"), (
+    "        s5[4] += d2 < 25.0f ? v : 0.0f;\n",
+    "        s5[4] += d2 < 25.0f ? v : 0.0f;\n        }\n")]
+_UL_NO_GT = [(
+    "    for (int u = 0; u < 2 * P; ++u) {  // (x, y) of 2 columns",
+    "    for (int u = 0; u < 2 * P * (s < 0); ++u) {  // none"), (
+    "    for (int u = 0; u < P; ++u) {  // 4 columns a chunk",
+    "    for (int u = 0; u < P * (s < 0); ++u) {  // none")]
 
 # kernel -> [(probe name, [(text it replaces, replacement), ...])]
 PROBES = {
@@ -81,6 +113,44 @@ PROBES = {
             "        o[(long long)(i * k + j) * out_sp] = from_f<To>(v);",
             "      else if (q < N && v == 12345.678f)\n"
             "        o[(long long)(i * k + j) * out_sp] = from_f<To>(v);")]),
+    ],
+    "upsample_loss_fwd": [
+        # the reads alone: the mask loads and the staged ground truth
+        # summed, no softmax, upsample or loss arithmetic
+        ("no_math", _UL_NO_MATH),
+        # the ground truth and valid mask never staged (the arithmetic
+        # reads what the shared memory held)
+        ("no_gt", _UL_NO_GT),
+        # neither: the mask loads alone
+        ("reads", _UL_NO_MATH + _UL_NO_GT),
+        # a stage copied for every item, not once for the G iterations
+        # that share it
+        ("gt_per_item", [
+            ("    if (it == i0 || g == 0) {", "    if (true) {"),
+            ("      const long long nx = (it / G + 1) * G;",
+             "      const long long nx = it + 1;")]),
+        # neighbouring warps on the same tile (ranges of its items), not
+        # on neighbouring tiles
+        ("same_tile", [("kj = k % NT, kr = k / NT;",
+                        "kj = k / RR, kr = k % RR;")]),
+        # the mask loaded with __ldcs (evict-first) instead of ld_stream
+        ("ldcs", [("? ld_stream<U>(pa + u) : U{};", "? __ldcs(pa + u) : U{};")]),
+        # registers for 4 blocks an SM everywhere (fp32 spills)
+        ("regs128", [("  static constexpr int MIN_BLOCKS = es == 4 ? 3 : "
+                      "P == 4 && NPC <= 2 ? 4 : 2;",
+                      "  static constexpr int MIN_BLOCKS = 4;")]),
+        # the parent kernel without its ground-truth and valid-mask reads
+        ("parent_no_gt", [(
+            "        const float dx = accx * inv - gtb[gi * 2 + 0];\n"
+            "        const float dy = accy * inv - gtb[gi * 2 + 1];\n"
+            "        const float v = vmb[gi];",
+            "        const float dx = accx * inv - 0.5f;\n"
+            "        const float dy = accy * inv + 0.5f;\n"
+            "        const float v = 1.0f;\n        (void)gi;")]),
+        # the parent kernel with 2^x in place of the accurate expf
+        ("parent_ex2", [(
+            "e[k] = expf(v[k] - gmax);",
+            "e[k] = exp2f((v[k] - gmax) * 1.4426950408889634f);")]),
     ],
     "upsample_loss_bwd": [
         # the ground truth and valid mask never copied (the compute reads
@@ -231,6 +301,93 @@ def _time_pyramid(libs, first, order, build):
     return result
 
 
+def _ul_inputs(rng, dev):
+    """The upsample-loss inputs at the chairs training shape, as
+    ``chip_smoke.py`` makes them (residuals kept >= 0.5 from 0): flow,
+    ground truth, valid mask, the cotangent of the sums and an fp32
+    mask."""
+    B, (H, W) = cs.CHAIRS_B, (cs.CHAIRS_HW[0] // 8, cs.CHAIRS_HW[1] // 8)
+    gB = cs.CHAIRS_ITERS * B
+    flow = torch.from_numpy(rng.uniform(-1, 1, (gB, H, W, 2)).astype(
+        np.float32)).to(dev)
+    gt = (rng.uniform(8.5, 24, (B, 8 * H, 8 * W, 2))
+          * rng.choice([-1.0, 1.0], (B, 8 * H, 8 * W, 2)))
+    gt = torch.from_numpy(gt.astype(np.float32)).to(dev)
+    vm = torch.from_numpy((rng.random((B, 8 * H, 8 * W)) > 0.1)
+                          .astype(np.float32)).to(dev)
+    cot = torch.from_numpy(rng.random((gB, 5)).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.standard_normal(
+        (gB, 576, H, W)).astype(np.float32)).to(dev)
+    return flow, gt, vm, cot, mask
+
+
+def _sass_per_subpixel(lib: str, kernel: str) -> dict:
+    """Static SASS of the innermost loop of ``kernel`` (a substring of its
+    mangled name) in library ``lib`` that computes a softmax: its
+    instructions, its MUFU.EX2 (nine a subpixel) and so its instructions
+    a subpixel (``cuobjdump -sass``, next to ``nvcc``)."""
+    from raft_tpu_torch.ops import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    body = next(f for f in sass.split("Function : ")[1:]
+                if f.split("\n", 1)[0].strip().startswith(kernel))
+    ins = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    best = None
+    for pc, text in ins:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if not m or int(m.group(1), 16) >= pc:
+            continue
+        lo = int(m.group(1), 16)
+        loop = [t for a, t in ins if lo <= a <= pc]
+        ex2 = sum("MUFU.EX2" in t for t in loop)
+        if ex2 >= 9 and (best is None or len(loop) < best[0]):
+            best = (len(loop), ex2)
+    n, ex2 = best
+    return {"loop_instructions": n, "ex2": ex2,
+            "per_subpixel": n * 9 / ex2}
+
+
+def _time_forward(libs, first, order, build, mods):
+    """``upsample_loss_fwd`` at the chairs shapes, fp32 and bf16 masks:
+    each variant's sums through its checkout's wrapper (``mods``), held
+    to the plain version for the parent and the change; and one
+    ``mask.sum()``, the read-rate yardstick."""
+    source, match = KERNELS["upsample_loss_fwd"]
+    dev = torch.device("cuda")
+    flow, gt, vm, _, mask32 = _ul_inputs(np.random.default_rng(2), dev)
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "fp32" if dtype == torch.float32 else "bf16"
+        mask = mask32.to(dtype)
+        with torch.no_grad():
+            want = mods["change"].upsample_loss_sums_plain(flow, mask, gt, vm)
+            for cur in first:
+                build._loaded[source] = libs[cur]
+                cs._check_sums(f"lookup_ab {cur} upsample_loss_fwd {dt}",
+                               mods[cur].upsample_loss_sums(flow, mask, gt,
+                                                            vm), want)
+            result[f"{dt} mask.sum"] = [cs._device_ms(mask.sum)
+                                        for _ in range(2)]
+            print(f"[lookup_ab] upsample_loss_fwd {dt}: mask.sum() "
+                  f"{result[f'{dt} mask.sum']} ms", flush=True)
+            times = {n: [] for n in libs}
+            for cur in order:
+                build._loaded[source] = libs[cur]
+                mod = mods[cur]
+                times[cur].append(cs._timed(
+                    lambda: mod.upsample_loss_sums(flow, mask, gt, vm),
+                    match)["ms"])
+        result[dt] = times
+        print(f"[lookup_ab] upsample_loss_fwd {dt}: " + ", ".join(
+            f"{n} {' '.join(f'{t:.4f}' for t in ts)} ms"
+            for n, ts in times.items()), flush=True)
+        del mask, want
+    return result
+
+
 def _time_backward(kernel, libs, first, order, build, mods):
     """``upsample_loss_bwd`` or ``gru_gate_rh_bwd`` at the chairs shapes
     (the module docstring), fp32 and bf16: each variant's backward through
@@ -244,20 +401,9 @@ def _time_backward(kernel, libs, first, order, build, mods):
     for dtype in (torch.float32, torch.bfloat16):
         dt = "fp32" if dtype == torch.float32 else "bf16"
         if kernel == "upsample_loss_bwd":
-            gB = cs.CHAIRS_ITERS * B
-            flow = torch.from_numpy(rng.uniform(-1, 1, (gB, H, W, 2)).astype(
-                np.float32)).to(dev).requires_grad_(True)
-            # residuals kept >= 0.5 from 0, as chip_smoke.py keeps them
-            gt = (rng.uniform(8.5, 24, (B, 8 * H, 8 * W, 2))
-                  * rng.choice([-1.0, 1.0], (B, 8 * H, 8 * W, 2)))
-            gt = torch.from_numpy(gt.astype(np.float32)).to(dev)
-            vm = torch.from_numpy((rng.random((B, 8 * H, 8 * W)) > 0.1)
-                                  .astype(np.float32)).to(dev)
-            cot = torch.from_numpy(rng.random((gB, 5)).astype(
-                np.float32)).to(dev)
-            mask = torch.from_numpy(rng.standard_normal(
-                (gB, 576, H, W)).astype(np.float32)).to(
-                dev, dtype).requires_grad_(True)
+            flow, gt, vm, cot, mask = _ul_inputs(rng, dev)
+            flow.requires_grad_(True)
+            mask = mask.to(dtype).requires_grad_(True)
             leaves = (flow, mask)
 
             def forward(mod):
@@ -354,11 +500,20 @@ def main(argv=None) -> int:
         else:
             builds[name] = _start_build(name, csrc, source, replace)
     libs = {}
+    match = KERNELS[args.kernel][1]
+    match = (match,) if isinstance(match, str) else match
     for name, (proc, lib) in builds.items():  # all nvcc run together
         log, _ = proc.communicate(timeout=900)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         libs[name] = ctypes.CDLL(lib)
+        lines = log.splitlines()
+        for i, ln in enumerate(lines):   # "Compiling entry ..." + "Used"
+            if "Compiling entry" in ln and any(m in ln for m in match):
+                used = [x for x in lines[i + 1:i + 6] if "Used" in x]
+                print(f"[lookup_ab] {name}: {ln.split(chr(39))[1][:60]} "
+                      f"{used[0].split(':', 1)[1].strip() if used else ''}",
+                      flush=True)
     first = [n for n in ("parent", "change") if n in libs]
     probes = [n for n in libs if n not in first]
     order = first + probes + probes[::-1] + first[::-1]
@@ -370,7 +525,22 @@ def main(argv=None) -> int:
     ours = importlib.import_module(f"raft_tpu_torch.ops.{source}")
     theirs = _wrapper(parent, source) if parent else None
     mods = {n: theirs if n.startswith("parent") else ours for n in libs}
-    result = _time_backward(args.kernel, libs, first, order, build, mods)
+    if args.kernel == "upsample_loss_fwd":
+        result = _time_forward(libs, first, order, build, mods)
+        # parent: ul_fwd_kernel<T>; change: ul_fwd_kernel<T, VB> at the
+        # chairs widths (16 bytes fp32, 8 bytes bf16)
+        for name, kern in (("parent", ("_Z13ul_fwd_kernelIfE",
+                                       "_Z13ul_fwd_kernelI13__nv_bfloat16E")),
+                           ("change", ("_Z13ul_fwd_kernelIfLi16E",
+                                       "_Z13ul_fwd_kernelI13__nv_bfloat16Li8E"))):
+            if name in libs:
+                result[f"{name} SASS"] = {
+                    dt: _sass_per_subpixel(libs[name]._name, k)
+                    for dt, k in zip(("fp32", "bf16"), kern)}
+                print(f"[lookup_ab] {name} SASS of the softmax loop: "
+                      f"{result[f'{name} SASS']}", flush=True)
+    else:
+        result = _time_backward(args.kernel, libs, first, order, build, mods)
     print(smi)
     print(json.dumps({"kernel": args.kernel, "ab_ms": result,
                       "order": order}))

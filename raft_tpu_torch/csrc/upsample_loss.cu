@@ -28,17 +28,68 @@
 // full-resolution pixel, 1.8 and 3.0 GFLOP: 27 and 45 us at 67 TFLOP/s.
 // So both are bound by bytes.
 //
-// Design of the forward.  The TPU kernel holds a whole sample in VMEM and
-// broadcasts the flow over 64 lanes so that every tap is a static slice;
-// here one thread per (sample, low-res pixel) loops over its 64
-// subpixels, so for every (tap, subpixel) channel a warp reads 32
-// consecutive pixels of the NCHW mask (coalesced), the 3x3 flow window
-// lives in registers, and the ground truth is read at full resolution
-// directly (the TPU's space-to-depth layout is not needed).  Each thread
-// sums its 64 subpixels, the block reduces with a fixed shuffle tree and
-// then its warps in order, and writes one partial per block; a second
-// kernel adds each sample's partials in block order.  No atomics, so the
-// sums are the same run to run.
+// Design of the forward (`ul_fwd_kernel`, redesigned for Hopper).  It
+// replaces `_upsample_loss_fwd_kernel` (raft_tpu/ops/pallas_upsample.py,
+// through `_core_fwd`).  What held the one-thread-per-pixel version at
+// 61% (fp32) and 39% (bf16) of its bound, measured with lookup_ab.py's
+// probes on it at the chairs shape (PERF.md): its ground-truth reads,
+// 32 addresses 64 bytes apart a warp for every subpixel (without them
+// 0.32 -> 0.23 ms fp32, 0.25 -> 0.17 bf16); not its accurate expf (2^x
+// in its place: -2% / -3%).  And a probe of this kernel's reads alone
+// showed what a redesign meets: a group's nine tap planes lie 64 planes
+// apart, so the mask is read in short rows of many planes at once, and
+// how fast depends on which rows the warps at work read together.  Now:
+//   - a lane owns P consecutive flat pixels of one sample (P = 4, or 8
+//     for a bf16 mask whose planes are 16-byte aligned); each of the nine
+//     taps of a plane is one 16-byte (or 8-byte) load of its P values,
+//     all nine issued before the first is used, past L1, asking L2 for
+//     whole 256-byte blocks (`ld_stream`);
+//   - a warp owns a tile of 32 groups (32 P pixels) and items of four
+//     subpixel planes (a stage: row p, columns q0 .. q0 + 3) of one
+//     sample; the warps of a tile split its items (b, stage, g) into
+//     equal ranges, g fastest, and neighbouring warps hold neighbouring
+//     tiles: the warps at work together read whole rows of the same
+//     planes (neighbouring warps on one tile: 4% slower, probe
+//     `same_tile`); persistent warps, as many as fit on the card at once
+//     (the occupancy API), so no wave is left over;
+//   - the ground truth and valid mask of a stage (32 and 16 bytes under
+//     each pixel) are copied into the warp's shared memory with 16-byte
+//     cp.async, consecutive lanes on neighbouring pixels, the next stage
+//     while this one is used; the G folded iterations that share a
+//     ground-truth sample are consecutive items, so each stage is read
+//     once for all of them (a copy per item: a third slower in bf16,
+//     probe `gt_per_item`); the reads from it are swizzled over the
+//     banks;
+//   - the 3x3 windows of the flow around the lane's P pixels live in
+//     registers as three rows of P + 2 values (zero outside the sample);
+//     where an image row ends inside the group, a 0/1 factor drops the
+//     taps across it; the factor 8 goes into the reciprocal;
+//   - the softmax is the backward's (`softmax9_ex2`: 2^x on the
+//     special-function unit after a log2(e) scale, a correctly rounded
+//     reciprocal), so both compute the same weights; the EPE takes the
+//     approximate square root, and the 1/3/5 px tests compare its square
+//     (dx^2 + dy^2 < 1, 9, 25), which gives the plain version's counts
+//     except within an ulp of a threshold;
+//   - each item's lane sums go through a fixed shuffle tree to one
+//     partial; `ul_reduce_kernel` adds a sample's partials, a warp a
+//     sample, in a fixed order.  No atomics: the same sums run to run (on
+//     a given card, whose SM count sets the ranges).
+//   Registers are sized for the most blocks an SM without spills: 3
+//   (fp32), 4 (bf16, 4 pixels a lane in one or two pieces), 2 (the other
+//   bf16 paths); keeping the next plane's loads in flight within a warp
+//   was no faster than the other warps'.
+// Access width.  A tap of P values is loaded in pieces of VB bytes, the
+// widest of 16, 8, 4 and 2 that divides the mask's address and the plane
+// stride H*W*es (the wrapper picks it; a template argument here); a
+// group starts where its first piece is VB-aligned in every plane, and
+// pieces outside the sample are not read:
+//   VB = 16: fp32, H*W % 4 == 0 (the chairs, Sintel, things and KITTI
+//            grids; P = 4); bf16, H*W % 8 == 0 (Sintel; P = 8);
+//   VB = 8:  fp32, H*W % 4 == 2 (two pieces); bf16, H*W % 8 == 4 (the
+//            chairs, things and KITTI grids; one piece);
+//   VB = 4:  fp32, odd H*W (four pieces); bf16, H*W % 4 == 2 (two);
+//   VB = 2:  bf16, odd H*W (four pieces);
+// and a mask that starts off those boundaries takes the narrower width.
 //
 // Design of the backward (`ul_bwd_kernel`, redesigned for Hopper).  What
 // held the one-thread-per-pixel version at half its bound: for every
@@ -125,93 +176,452 @@ __device__ __forceinline__ void flow_window(const float* __restrict__ fl,
   }
 }
 
-// Softmax weights of one subpixel group: e[k] = exp(m_k - max), and
-// 1 / sum(e), with the TPU kernel's operation order.
-template <typename T>
-__device__ __forceinline__ float softmax9(const T* __restrict__ m,
-                                          long long stride, float* e) {
-  float v[9];
+template <int VB> struct Piece;  // an unsigned type of VB bytes
+template <> struct Piece<16> { using type = uint4; };
+template <> struct Piece<8> { using type = uint2; };
+template <> struct Piece<4> { using type = unsigned; };
+template <> struct Piece<2> { using type = unsigned short; };
+
+// 16 bytes from global to shared memory with cp.async, past L1, with L2
+// fetching whole 128-byte lines (a staged row covers parts of its first
+// and last).
+__device__ __forceinline__ void copy_in(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+// The same, or 16 zero bytes when `ok` is false (nothing is read).
+__device__ __forceinline__ void copy_in_or_zero(void* dst, const void* src,
+                                                bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile(
+      "cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(d),
+      "l"(src), "r"(ok ? 16 : 0));
+}
+
+template <int VB>
+__device__ __forceinline__ void copy_out(void* dst, const void* src) {
+  using P = typename Piece<VB>::type;
+  *static_cast<P*>(dst) = *static_cast<const P*>(src);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 2^x on the special-function unit (relative error ~2^-22).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Softmax of one subpixel group, in place: the nine logits in, e[k] =
+// 2^((m_k - max) log2 e) out; returns 1 / sum(e), correctly rounded.
+// The forward and the backward both take their weights from here.
+__device__ __forceinline__ float softmax9_ex2(float (&e)[9]) {
+  constexpr float L2E = 1.4426950408889634f;  // log2(e)
+  float gmax = e[0];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) v[k] = to_f(m[k * 64 * stride]);
-  float gmax = v[0];
+  for (int k = 1; k < 9; ++k) gmax = fmaxf(gmax, e[k]);
+  const float ms = gmax * L2E;
 #pragma unroll
-  for (int k = 1; k < 9; ++k) gmax = fmaxf(gmax, v[k]);
-#pragma unroll
-  for (int k = 0; k < 9; ++k) e[k] = expf(v[k] - gmax);
+  for (int k = 0; k < 9; ++k) e[k] = ex2(fmaf(e[k], L2E, -ms));
   float denom = e[0];
 #pragma unroll
   for (int k = 1; k < 9; ++k) denom += e[k];
-  return 1.0f / denom;
+  return __frcp_rn(denom);
 }
 
+// ---- forward ----
+#define FWD_WARPS 4  // warps a block (each on its own)
+#define FWD_THREADS (32 * FWD_WARPS)
+
+// The forward's shapes for a mask of T read VB bytes at a time.
+template <typename T, int VB>
+struct Fwd {
+  static constexpr int es = (int)sizeof(T);
+  static constexpr int P = VB == 16 ? 16 / es : 4;  // pixels a lane
+  static constexpr int NX = 32 * P;                 // pixels a tile
+  static constexpr int NPC = P * es / VB;           // pieces a tap
+  static constexpr int NW = P * es / 4;             // 32-bit words a tap
+  // a stage: ground truth (x, y) of columns q0, q0 + 1 and q0 + 2, q0 + 3
+  // (two 16-byte chunks), and the valid mask of q0 .. q0 + 3 (one), under
+  // each of the tile's pixels
+  static constexpr int STAGE = 3 * NX * 16;
+  // a warp's shared memory: two stages and the ground-truth offsets of
+  // the tile's pixels
+  static constexpr int SMEM = 2 * STAGE + NX * 4;
+  // blocks an SM the registers are sized for: the most without spills
+  static constexpr int MIN_BLOCKS = es == 4 ? 3 : P == 4 && NPC <= 2 ? 4 : 2;
+};
+
+// 16-byte chunk slot of tile pixel x: spreads the lanes' reads (pixels P
+// apart) over the banks.
+__device__ __forceinline__ int swz(int x) { return x ^ ((x >> 3) & 7); }
+
+__device__ __forceinline__ void put_words(unsigned* w, uint4 x) {
+  w[0] = x.x;
+  w[1] = x.y;
+  w[2] = x.z;
+  w[3] = x.w;
+}
+__device__ __forceinline__ void put_words(unsigned* w, uint2 x) {
+  w[0] = x.x;
+  w[1] = x.y;
+}
+__device__ __forceinline__ void put_words(unsigned* w, unsigned x) {
+  w[0] = x;
+}
+
+// A load past L1 that asks L2 for the whole 256-byte block around it
+// (the lanes of a warp and its neighbours read the rest).
+template <typename U> __device__ __forceinline__ U ld_stream(const U* p);
+template <> __device__ __forceinline__ uint4 ld_stream<uint4>(const uint4* p) {
+  uint4 r;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
+}
+template <> __device__ __forceinline__ uint2 ld_stream<uint2>(const uint2* p) {
+  uint2 r;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v2.u32 {%0, %1}, [%2];"
+      : "=r"(r.x), "=r"(r.y)
+      : "l"(p));
+  return r;
+}
+template <>
+__device__ __forceinline__ unsigned ld_stream<unsigned>(const unsigned* p) {
+  unsigned r;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.u32 %0, [%1];"
+      : "=r"(r)
+      : "l"(p));
+  return r;
+}
+template <>
+__device__ __forceinline__ unsigned short ld_stream<unsigned short>(
+    const unsigned short* p) {
+  unsigned short r;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.u16 %0, [%1];"
+      : "=h"(r)
+      : "l"(p));
+  return r;
+}
+
+// The lane's P values of one tap plane as 32-bit words, VB bytes a load
+// (`ld_stream`); a piece outside the sample (bit u of `valid` clear) is
+// not read and holds zeros.
+template <typename T, int VB>
+__device__ __forceinline__ void load_tap(unsigned (&w)[Fwd<T, VB>::NW],
+                                         const T* a, unsigned valid) {
+  using F = Fwd<T, VB>;
+  using U = typename Piece<VB>::type;
+  const U* pa = reinterpret_cast<const U*>(a);
+#pragma unroll
+  for (int u = 0; u < F::NPC; ++u) {
+    const U x = (valid >> u & 1u) ? ld_stream<U>(pa + u) : U{};
+    if constexpr (VB >= 4) {
+      put_words(w + u * (VB / 4), x);
+    } else if (u & 1) {  // bf16 values two bytes a load
+      w[u >> 1] |= (unsigned)x << 16;
+    } else {
+      w[u >> 1] = x;
+    }
+  }
+}
+
+// Value i of a lane's words.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ float word_val(const unsigned* w, int i) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(w[i]);
+  } else {
+    return __uint_as_float((i & 1) ? (w[i >> 1] & 0xffff0000u)
+                                   : (w[i >> 1] << 16));
+  }
+}
+
+// sqrt on the special-function unit.
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float y;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Warp k of R = NT * RR owns tile kj = k % NT of 32 groups (lane l's
+// group starts at pixel kj * NX + l * P - off) and the kr = k / NT-th of
+// RR equal ranges of its items it = (b * 16 + s) * G + g: sample
+// n = g * B + b, stage s (row p = s / 2, columns q0 = 4 (s % 2) ..
+// q0 + 3: the planes 4 s .. 4 s + 3).  So the warps at work together read
+// neighbouring tiles of the same planes (the mask in whole rows of its
+// planes), and the G items of a stage share its staged ground truth.
+// Item (kj, it) writes its 5 sums to partial[((b * G + g) * NT + kj) *
+// 16 + s]: a sample's partials lie together.
+template <typename T, int VB>
+__global__ void __launch_bounds__(FWD_THREADS, Fwd<T, VB>::MIN_BLOCKS)
 ul_fwd_kernel(const float* __restrict__ flow, const T* __restrict__ mask,
               const float* __restrict__ gt, const float* __restrict__ vm,
-              int B, int H, int W, float* __restrict__ partial) {
-  const int n = blockIdx.y;
-  const int HW = H * W;
-  const int pix = blockIdx.x * THREADS + threadIdx.x;
-  float s[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (pix < HW) {
-    const int h = pix / W, w = pix % W, b = n % B;
-    const int W8 = 8 * W;
-    float fx[9], fy[9], e[9];
-    flow_window(flow + (long long)n * HW * 2, h, w, H, W, fx, fy);
-    const T* m = mask + (long long)n * 576 * HW + pix;
-    const float* gtb = gt + (long long)b * 64 * HW * 2;
-    const float* vmb = vm + (long long)b * 64 * HW;
-    for (int p = 0; p < 8; ++p) {
-      for (int q = 0; q < 8; ++q) {
-        const int pq = p * 8 + q;
-        const float inv = softmax9(m + (long long)pq * HW, HW, e);
-        float accx = 0.0f, accy = 0.0f;
+              int G, int B, int H, int W, int off, int NT, int RR,
+              float* __restrict__ partial) {
+  using F = Fwd<T, VB>;
+  constexpr int P = F::P, NX = F::NX, NW = F::NW, NV = 3 * (P + 2);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int k = blockIdx.x * FWD_WARPS + (threadIdx.x >> 5);
+  if (k >= NT * RR) return;
+  unsigned char* stages = smem + (threadIdx.x >> 5) * F::SMEM;
+  int* goff = reinterpret_cast<int*>(stages + 2 * F::STAGE);
+  const int HW = H * W, W8 = 8 * W, kj = k % NT, kr = k / NT;
+  const long long items = (long long)B * 16 * G;  // a tile's
+  const long long i0 = kr * items / RR, i1 = (kr + 1) * items / RR;
+  if (i0 >= i1) return;
+  // the lane's first pixel; which of its pieces lie inside the sample (a
+  // piece is wholly in or out: a plane's ends are VB-aligned); keep[i]:
+  // pixel i is not the last of its image row (the taps across a row end
+  // inside the group drop); which window values exist (inside the
+  // sample, and at the group's ends not across the image's left or right
+  // edge); the ground-truth offsets (floats, of row 8h and column 8w) of
+  // the lane's pixels, -1 outside the sample
+  const int x0 = kj * NX + lane * P - off;
+  unsigned pvalid = 0;
 #pragma unroll
-        for (int k = 0; k < 9; ++k) {
-          accx += e[k] * fx[k];
-          accy += e[k] * fy[k];
-        }
-        const long long gi = (long long)(8 * h + p) * W8 + 8 * w + q;
-        const float dx = accx * inv - gtb[gi * 2 + 0];
-        const float dy = accy * inv - gtb[gi * 2 + 1];
-        const float v = vmb[gi];
-        const float epe = sqrtf(dx * dx + dy * dy);
-        s[0] += v * (fabsf(dx) + fabsf(dy));
-        s[1] += v * epe;
-        s[2] += v * (epe < 1.0f ? 1.0f : 0.0f);
-        s[3] += v * (epe < 3.0f ? 1.0f : 0.0f);
-        s[4] += v * (epe < 5.0f ? 1.0f : 0.0f);
+  for (int u = 0; u < F::NPC; ++u) {
+    const int x = x0 + u * (VB / F::es);
+    pvalid |= (x >= 0 && x < HW) ? 1u << u : 0u;
+  }
+  float keep[P];
+  unsigned vbits = 0;
+  {
+    int h = x0 >= 0 ? x0 / W : -((W - 1 - x0) / W);  // floor
+    int c = x0 - h * W;
+    const int c0 = c;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int x = x0 + i;
+      goff[lane * P + i] = x >= 0 && x < HW ? (8 * h * W8 + 8 * c) * 2 : -1;
+      keep[i] = c == W - 1 ? 0.0f : 1.0f;
+      if (++c == W) {
+        c = 0;
+        ++h;
+      }
+    }
+    const int cl = c == 0 ? W - 1 : c - 1;  // column of the last pixel
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+      for (int m = 0; m < P + 2; ++m) {
+        const int f = x0 - 1 + m + (r - 1) * W;
+        const bool in = f >= 0 && f < HW && !(m == 0 && c0 == 0) &&
+                        !(m == P + 1 && cl == W - 1);
+        vbits |= in ? 1u << (r * (P + 2) + m) : 0u;
       }
     }
   }
-  // Fixed-order block reduction: a shuffle tree per warp, then the warps
-  // in order.
-  __shared__ float red[THREADS / 32][5];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncwarp();  // the table is complete
+  // stage s of sample b (row p = s / 2, columns q0 = 4 (s % 2) ..) into
+  // buffer sb: the (x, y) of columns q0 .. q0 + 3 (two 16-byte chunks)
+  // and their valid mask (one) under each tile pixel, consecutive lanes
+  // on neighbouring pixels
+  auto issue = [&](int b, int s, int sb) {
+    unsigned char* st = stages + sb * F::STAGE;
+    const float* gtb = gt + (long long)b * 64 * HW * 2;
+    const float* vmb = vm + (long long)b * 64 * HW;
+    const long long rg = (long long)(s >> 1) * W8 * 2 + (s & 1) * 8;
+    const long long rv = (long long)(s >> 1) * W8 + (s & 1) * 4;
 #pragma unroll
-  for (int c = 0; c < 5; ++c) {
-    float x = s[c];
-    for (int off = 16; off > 0; off >>= 1)
-      x += __shfl_xor_sync(0xffffffffu, x, off);
-    if (lane == 0) red[warp][c] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < 5) {
-    float t = 0.0f;
-    for (int i = 0; i < THREADS / 32; ++i) t += red[i][threadIdx.x];
-    partial[((long long)n * gridDim.x + blockIdx.x) * 5 + threadIdx.x] = t;
+    for (int u = 0; u < 2 * P; ++u) {  // (x, y) of 2 columns a chunk
+      const int c = lane + 32 * u, x = c >> 1, h = c & 1;
+      const int o = goff[x];
+      copy_in_or_zero(st + (h * NX + swz(x)) * 16,
+                      o >= 0 ? gtb + o + rg + h * 4 : gtb, o >= 0);
+    }
+#pragma unroll
+    for (int u = 0; u < P; ++u) {  // 4 columns a chunk
+      const int x = lane + 32 * u;
+      const int o = goff[x];
+      copy_in_or_zero(st + (2 * NX + swz(x)) * 16,
+                      o >= 0 ? vmb + (o >> 1) + rv : vmb, o >= 0);
+    }
+    cp_async_commit();
+  };
+  // the nine tap planes c * 64 + pl of the lane's group, at m = the
+  // group's first pixel in plane pl
+  auto load9 = [&](unsigned (&w)[9][NW], const T* m) {
+#pragma unroll
+    for (int c = 0; c < 9; ++c)
+      load_tap<T, VB>(w[c], m + (long long)c * 64 * HW, pvalid);
+  };
+  // plane 0 of item i: sample g * B + b, planes from 4 s
+  auto plane0 = [&](long long i) {
+    const int g = (int)(i % G), s = (int)(i / G % 16), b = (int)(i / G / 16);
+    return mask + ((long long)(g * B + b) * 576 + 4 * s) * HW + x0;
+  };
+  unsigned wa[9][NW];
+  load9(wa, plane0(i0));
+  int sb = 0;
+  issue((int)(i0 / G / 16), (int)(i0 / G % 16), sb);
+  for (long long it = i0; it < i1; ++it) {
+    const int g = (int)(it % G), s = (int)(it / G % 16);
+    const int b = (int)(it / G / 16), n = g * B + b;
+    if (it == i0 || g == 0) {
+      // a new stage: flip to it (staged ahead) unless it is the first;
+      // stage the next one into the other buffer, whose last reader (the
+      // stage before) is done; then wait for this one
+      if (it != i0) sb ^= 1;
+      __syncwarp();
+      const long long nx = (it / G + 1) * G;  // the next stage's first item
+      if (nx < i1)
+        issue((int)(nx / G / 16), (int)(nx / G % 16), sb ^ 1);
+      else
+        cp_async_commit();  // an empty group keeps the count of the wait
+      cp_async_wait<1>();
+      __syncwarp();  // every lane's copies of this stage have landed
+    }
+    const unsigned char* st = stages + sb * F::STAGE;
+    // the 3 x 3 windows of the flow (its factor 8 goes into 1 / sum):
+    // three rows of P + 2 values
+    float vx[NV], vy[NV];
+    {
+      const float2* fl = reinterpret_cast<const float2*>(flow) +
+                         (long long)n * HW + x0 - 1 - W;
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int m = 0; m < P + 2; ++m) {
+          const int v = r * (P + 2) + m;
+          const float2 f2 = (vbits >> v & 1u) ? __ldg(fl + r * W + m)
+                                              : make_float2(0.0f, 0.0f);
+          vx[v] = f2.x;
+          vy[v] = f2.y;
+        }
+      }
+    }
+    float s5[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    // plane qi of the stage for the lane's P pixels
+    auto plane = [&](const unsigned (&w)[9][NW], int qi) {
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const int x = swz(lane * P + i);
+        const float2 gq = *reinterpret_cast<const float2*>(
+            st + ((qi >> 1) * NX + x) * 16 + (qi & 1) * 8);
+        const float v =
+            *reinterpret_cast<const float*>(st + (2 * NX + x) * 16 + qi * 4);
+        float e[9];
+#pragma unroll
+        for (int c = 0; c < 9; ++c) e[c] = word_val<T>(w[c], i);
+        const float inv8 = 8.0f * softmax9_ex2(e);
+        // the convex combination, by window column (taps k = 3 r + c):
+        // the middle one, then the left one, dropped across a row end
+        // before the pixel, and the right one, across a row end after it
+        float cx[3], cy[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          cx[c] = e[c] * vx[i + c];
+          cy[c] = e[c] * vy[i + c];
+#pragma unroll
+          for (int r = 1; r < 3; ++r) {
+            cx[c] = fmaf(e[3 * r + c], vx[r * (P + 2) + i + c], cx[c]);
+            cy[c] = fmaf(e[3 * r + c], vy[r * (P + 2) + i + c], cy[c]);
+          }
+        }
+        const float kl = i > 0 ? keep[i > 0 ? i - 1 : 0] : 1.0f;
+        const float kr = i < P - 1 ? keep[i] : 1.0f;
+        const float ax = fmaf(kr, cx[2], fmaf(kl, cx[0], cx[1]));
+        const float ay = fmaf(kr, cy[2], fmaf(kl, cy[0], cy[1]));
+        const float dx = fmaf(ax, inv8, -gq.x);
+        const float dy = fmaf(ay, inv8, -gq.y);
+        const float d2 = fmaf(dx, dx, dy * dy);
+        s5[0] = fmaf(v, fabsf(dx) + fabsf(dy), s5[0]);
+        s5[1] = fmaf(v, sqrt_approx(d2), s5[1]);
+        s5[2] += d2 < 1.0f ? v : 0.0f;
+        s5[3] += d2 < 9.0f ? v : 0.0f;
+        s5[4] += d2 < 25.0f ? v : 0.0f;
+      }
+    };
+    // the four planes; the last brings in plane 0 of the next item
+    const T* mp = plane0(it);
+    plane(wa, 0);
+#pragma unroll
+    for (int qi = 1; qi < 4; ++qi) {
+      load9(wa, mp + (long long)qi * HW);
+      plane(wa, qi);
+    }
+    if (it + 1 < i1) load9(wa, plane0(it + 1));
+    // the item's sums: a fixed shuffle tree
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      float x = s5[c];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+      if (lane == 0)
+        partial[((((long long)b * G + g) * NT + kj) * 16 + s) * 5 + c] = x;
+    }
   }
 }
 
-// sums[n, c] = the block partials of sample n, added in block order.
-__global__ void ul_reduce_kernel(const float* __restrict__ partial,
-                                 int nblk, int gB, float* __restrict__ sums) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= gB * 5) return;
-  const int n = i / 5, c = i % 5;
-  float t = 0.0f;
-  for (int j = 0; j < nblk; ++j) t += partial[((long long)n * nblk + j) * 5 + c];
-  sums[i] = t;
+// sums[n, c] = the partials of sample n's items, added in a fixed order:
+// lane l of warp n adds the items l, l + 32, ... of the sample, then a
+// shuffle tree adds the lanes.
+__global__ void ul_reduce_kernel(const float* __restrict__ partial, int NT,
+                                 int G, int B, float* __restrict__ sums) {
+  const int n = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (n >= G * B) return;
+  const float* pp =
+      partial + ((long long)(n % B) * G + n / B) * NT * 16 * 5;
+  float t[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = lane; i < NT * 16; i += 32) {
+#pragma unroll
+    for (int c = 0; c < 5; ++c) t[c] += pp[i * 5 + c];
+  }
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      t[c] += __shfl_xor_sync(0xffffffffu, t[c], o);
+    if (lane == 0) sums[n * 5 + c] = t[c];
+  }
+}
+
+template <typename T, int VB>
+static cudaError_t launch_ul_fwd(cudaStream_t st, const float* f,
+                                 const void* mask, const float* g,
+                                 const float* v, int G, int B, int H, int W,
+                                 int off, int NT, float* part) {
+  using F = Fwd<T, VB>;
+  auto kernel = ul_fwd_kernel<T, VB>;
+  const int smem = FWD_WARPS * F::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, FWD_THREADS, smem)) != cudaSuccess)
+    return err;
+  // persistent warps, as many as fit at once: RR ranges a tile
+  const long long fit =
+      (long long)(per_sm > 0 ? per_sm : 1) * sms * FWD_WARPS;
+  const long long items = (long long)B * 16 * G;
+  long long RR = fit / NT;
+  RR = RR < 1 ? 1 : (RR > items ? items : RR);
+  const long long warps = RR * NT;
+  kernel<<<(int)((warps + FWD_WARPS - 1) / FWD_WARPS), FWD_THREADS, smem,
+           st>>>(f, reinterpret_cast<const T*>(mask), g, v, G, B, H, W, off,
+                 NT, (int)RR, part);
+  return cudaGetLastError();
 }
 
 // ---- backward ----
@@ -239,42 +649,6 @@ struct __align__(16) BwdStage {
   float g[Bpc<T>::value * CQ * 2];  // ground truth (x, y), pixel j, column qq
   float v[Bpc<T>::value * CQ];      // valid mask of pixel j, column qq
 };
-
-template <int VB> struct Piece;  // an unsigned type of VB bytes
-template <> struct Piece<16> { using type = uint4; };
-template <> struct Piece<8> { using type = uint2; };
-template <> struct Piece<4> { using type = unsigned; };
-template <> struct Piece<2> { using type = unsigned short; };
-
-// 16 bytes from global to shared memory with cp.async, past L1, with L2
-// fetching whole 128-byte lines (a staged row covers parts of its first
-// and last).
-__device__ __forceinline__ void copy_in(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-template <int VB>
-__device__ __forceinline__ void copy_out(void* dst, const void* src) {
-  using P = typename Piece<VB>::type;
-  *static_cast<P*>(dst) = *static_cast<const P*>(src);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// 2^x on the special-function unit (relative error ~2^-22).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Block -> (b, g, run), run fastest; sample n = g * B + b.  VB: bytes
 // per store at a plane's first and last granule (the file's note).
@@ -401,7 +775,6 @@ ul_bwd_kernel(const float* __restrict__ flow, const T* __restrict__ mask,
     sx[k] = sy[k] = 0.0f;
   }
   const float dl1 = gl1[n];
-  constexpr float L2E = 1.4426950408889634f;  // log2(e)
 #pragma unroll
   for (int ch = 0; ch < AHEAD; ++ch) issue(ch);
   for (int ch = 0; ch < NCH; ++ch) {
@@ -439,16 +812,7 @@ ul_bwd_kernel(const float* __restrict__ flow, const T* __restrict__ mask,
         float e[9];
 #pragma unroll
         for (int k = 0; k < 9; ++k) e[k] = to_f(m[k * CQ * RB / es]);
-        float gmax = e[0];
-#pragma unroll
-        for (int k = 1; k < 9; ++k) gmax = fmaxf(gmax, e[k]);
-        const float ms = gmax * L2E;
-#pragma unroll
-        for (int k = 0; k < 9; ++k) e[k] = ex2(fmaf(e[k], L2E, -ms));
-        float denom = e[0];
-#pragma unroll
-        for (int k = 1; k < 9; ++k) denom += e[k];
-        const float inv = __frcp_rn(denom);
+        const float inv = softmax9_ex2(e);
         float accx = 0.0f, accy = 0.0f;
 #pragma unroll
         for (int k = 0; k < 9; ++k) {
@@ -529,35 +893,59 @@ ul_dflow_kernel(const float* __restrict__ scratch, int H, int W,
   dflow[((long long)n * HW + pix) * 2 + 1] = 8.0f * ay;
 }
 
-// mask_dtype: 0 = float32, 1 = bfloat16.  `partial` holds
-// gB * ceil(H*W / 256) * 5 floats.  Returns a cudaError_t (0 = success).
-extern "C" int upsample_loss_fwd(int device, int mask_dtype, const void* flow,
-                                 const void* mask, const void* gt,
-                                 const void* vm, int gB, int B, int H, int W,
-                                 void* partial, void* sums, void* stream) {
+// mask_dtype: 0 = float32, 1 = bfloat16.  vec_bytes: the access width of
+// the mask loads (the file's note); it must divide the mask's address and
+// H * W * element size.  `partial` holds `partial_floats` >= gB * NT * 80
+// floats, NT the tiles of a sample (the wrapper's `fwd_plan`); `flow` is
+// 8-byte and `gt` and `vm` are 16-byte aligned.  Returns a
+// cudaError_t (0 = success).
+extern "C" int upsample_loss_fwd(int device, int mask_dtype, int vec_bytes,
+                                 const void* flow, const void* mask,
+                                 const void* gt, const void* vm, int gB,
+                                 int B, int H, int W, void* partial,
+                                 long long partial_floats, void* sums,
+                                 void* stream) {
   if (gB < 1 || B < 1 || gB % B || H < 1 || W < 1 || mask_dtype < 0 ||
-      mask_dtype > 1)
+      mask_dtype > 1 || (long long)H * W >= (1LL << 24))
+    return (int)cudaErrorInvalidValue;
+  const int es = mask_dtype == 0 ? 4 : 2, HW = H * W;
+  const unsigned long long mp = reinterpret_cast<unsigned long long>(mask);
+  if ((vec_bytes != 16 && vec_bytes != 8 && vec_bytes != 4 &&
+       vec_bytes != 2) || vec_bytes < es ||
+      (mp | (unsigned long long)HW * es) % vec_bytes ||
+      (reinterpret_cast<unsigned long long>(gt) |
+       reinterpret_cast<unsigned long long>(vm)) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int P = vec_bytes == 16 ? 16 / es : 4;
+  const int off = (int)(mp % (unsigned long long)(P * es)) / es;
+  const int NT = ((HW + off + P - 1) / P + 31) / 32;
+  if (partial_floats < (long long)gB * NT * 80 ||
+      reinterpret_cast<unsigned long long>(flow) % 8)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int nblk = (H * W + THREADS - 1) / THREADS;
-  const dim3 grid(nblk, gB);
+  const int G = gB / B;
   const float* f = reinterpret_cast<const float*>(flow);
   const float* g = reinterpret_cast<const float*>(gt);
   const float* v = reinterpret_cast<const float*>(vm);
   float* part = reinterpret_cast<float*>(partial);
-  if (mask_dtype == 0)
-    ul_fwd_kernel<float><<<grid, THREADS, 0, st>>>(
-        f, reinterpret_cast<const float*>(mask), g, v, B, H, W, part);
-  else
-    ul_fwd_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        f, reinterpret_cast<const __nv_bfloat16*>(mask), g, v, B, H, W,
-        part);
-  err = cudaGetLastError();
+#define UL_FWD(T, VB) \
+  err = launch_ul_fwd<T, VB>(st, f, mask, g, v, G, B, H, W, off, NT, part)
+  if (mask_dtype == 0) {
+    if (vec_bytes == 16) UL_FWD(float, 16);
+    else if (vec_bytes == 8) UL_FWD(float, 8);
+    else UL_FWD(float, 4);
+  } else {
+    if (vec_bytes == 16) UL_FWD(__nv_bfloat16, 16);
+    else if (vec_bytes == 8) UL_FWD(__nv_bfloat16, 8);
+    else if (vec_bytes == 4) UL_FWD(__nv_bfloat16, 4);
+    else UL_FWD(__nv_bfloat16, 2);
+  }
+#undef UL_FWD
   if (err != cudaSuccess) return (int)err;
-  ul_reduce_kernel<<<(gB * 5 + 127) / 128, 128, 0, st>>>(
-      part, nblk, gB, reinterpret_cast<float*>(sums));
+  ul_reduce_kernel<<<(gB + 3) / 4, 128, 0, st>>>(
+      part, NT, G, B, reinterpret_cast<float*>(sums));
   return (int)cudaGetLastError();
 }
 

@@ -21,16 +21,27 @@ Layouts: ``flow`` ``(gB, H, W, 2)`` fp32 (the model's coordinates);
 resolution, shared by the ``g = gB / B`` folded iterations (sample n uses
 ``n % B``).
 
+The forward kernel loads the mask P values a lane at a time (P = 4, or 8
+for a bf16 mask whose channel planes are 16-byte aligned), in pieces of
+the widest width that both the mask's address and the plane stride
+``H*W*es`` allow (:func:`fwd_plan`: 16, 8, 4 or 2 bytes; 16 for an fp32
+mask at the training grids, 8 for a bf16 one at the chairs grid, whose
+planes are 5,704 bytes apart).  Each warp owns a tile of 32 groups and
+an equal share of the tile's items (a sample and four subpixel planes),
+the folded iterations that share a ground-truth sample consecutive so
+that they share its staged copy; each item's 5 sums go to a partial
+buffer (``fwd_plan``'s ``partial`` floats a sample), and a second kernel
+adds each sample's partials in order.  The ground truth and valid mask
+are read 16-byte aligned and the flow 8-byte aligned (:func:`aligned16`).
+
 The backward kernel stages the mask in shared memory and stores dmask
 from it in whole 32-byte sectors, 16 bytes an access; only at a channel
 plane's first and last 32 bytes, which it shares with the neighbouring
 planes, does it store pieces of the widest width that both base
-addresses and the plane stride ``H*W*es`` allow (:func:`bwd_vector_bytes`:
-16, 8, 4 or 2 bytes; 8 for a bf16 mask at the chairs grid, whose planes
-are 5,704 bytes apart).  Each width is a path of the kernel, not a
-fallback.  dmask is allocated at the mask's address mod 16
-(:func:`empty_like_mod16`) and the ground truth 16-byte aligned
-(:func:`aligned16`), as the kernel needs.
+addresses and the plane stride allow (:func:`bwd_vector_bytes`).  Each
+width is a path of a kernel, not a fallback.  dmask is allocated at the
+mask's address mod 16 (:func:`empty_like_mod16`) and the ground truth
+16-byte aligned (:func:`aligned16`), as the kernels need.
 
 A wrapper takes the plain version only for tensors on the CPU.  For any
 other device it launches the kernel or raises; nothing falls back.
@@ -40,6 +51,7 @@ other device it launches the kernel or raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -50,7 +62,6 @@ from raft_tpu_torch.ops.upsample import (convex_upsample_flat_nchw,
 LAUNCHES = {"upsample_loss_fwd": 0, "upsample_loss_bwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_THREADS = 256   # low-res pixels per block, as in the kernels
 
 
 def abs_pos0(x: torch.Tensor) -> torch.Tensor:
@@ -102,6 +113,35 @@ def bwd_vector_bytes(mask_ptr: int, dmask_ptr: int, hw: int,
                      f"{itemsize}-byte values")
 
 
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """How the forward kernel covers a mask: ``vec_bytes`` per load,
+    ``pixels`` a lane, the sample's first group starting ``offset``
+    values before its first pixel (so that every load is aligned),
+    ``tiles`` of 32 groups a sample, and ``partial`` floats a sample (5
+    sums for each tile and each of the 16 stages of four subpixel
+    planes)."""
+    vec_bytes: int
+    pixels: int
+    offset: int
+    tiles: int
+    partial: int
+
+
+def fwd_plan(mask_ptr: int, hw: int, itemsize: int) -> FwdPlan:
+    """The forward kernel's plan for a mask at address ``mask_ptr`` with
+    ``hw`` pixels a channel plane of ``itemsize``-byte values: loads of
+    the widest of 16, 8, 4 and 2 bytes (at least one value) that divides
+    the address and the plane stride; 16 / itemsize pixels a lane at 16
+    bytes, else 4."""
+    vb = bwd_vector_bytes(mask_ptr, mask_ptr, hw, itemsize)
+    pixels = 16 // itemsize if vb == 16 else 4
+    offset = mask_ptr % (pixels * itemsize) // itemsize
+    groups = -(-(hw + offset) // pixels)
+    tiles = -(-groups // 32)
+    return FwdPlan(vb, pixels, offset, tiles, tiles * 16 * 5)
+
+
 def empty_like_mod16(t: torch.Tensor) -> torch.Tensor:
     """An uninitialised contiguous tensor like ``t`` whose address is
     ``t``'s mod 16 (the backward kernel stages a row of the mask and of
@@ -113,7 +153,7 @@ def empty_like_mod16(t: torch.Tensor) -> torch.Tensor:
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it when its address is off 16 bytes (the
-    backward kernel copies the ground truth in 16-byte pieces)."""
+    kernels copy the ground truth in 16-byte pieces)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -122,8 +162,8 @@ def _fn(symbol: str):
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         if symbol == "upsample_loss_fwd":
-            fn.argtypes = [ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp,
-                           vp]
+            fn.argtypes = [ci, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp,
+                           ctypes.c_longlong, vp, vp]
         else:
             fn.argtypes = [ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci,
                            vp, vp, vp, vp]
@@ -163,14 +203,17 @@ class UpsampleLossSums(torch.autograd.Function):
     def forward(ctx, flow, mask, gt, vmask):
         name = "upsample_loss"
         gB, B, H, W = _check(name, flow, mask, gt, vmask)
-        nblk = -(-(H * W) // _THREADS)
+        plan = fwd_plan(mask.data_ptr(), H * W, mask.element_size())
         dev = flow.device
-        partial = torch.empty(gB * nblk * 5, dtype=torch.float32, device=dev)
+        partial = torch.empty(gB * plan.partial, dtype=torch.float32,
+                              device=dev)
         sums = torch.empty((gB, 5), dtype=torch.float32, device=dev)
+        f16, g16, v16 = aligned16(flow), aligned16(gt), aligned16(vmask)
         rc = _fn("upsample_loss_fwd")(
-            dev.index or 0, _DTYPE_CODES[mask.dtype], flow.data_ptr(),
-            mask.data_ptr(), gt.data_ptr(), vmask.data_ptr(), gB, B, H, W,
-            partial.data_ptr(), sums.data_ptr(), build.stream_handle(flow))
+            dev.index or 0, _DTYPE_CODES[mask.dtype], plan.vec_bytes,
+            f16.data_ptr(), mask.data_ptr(), g16.data_ptr(),
+            v16.data_ptr(), gB, B, H, W, partial.data_ptr(), partial.numel(),
+            sums.data_ptr(), build.stream_handle(flow))
         build.check_status(name, rc)
         LAUNCHES["upsample_loss_fwd"] += 1
         ctx.save_for_backward(flow, mask, gt, vmask)

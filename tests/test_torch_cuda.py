@@ -402,10 +402,14 @@ def test_pyramid_lookup_refuses_what_does_not_fit(dev):
 # Grids of the upsample-loss case, each on one access path of the
 # backward kernel: (H, W), offset of the mask in values from the start of
 # its allocation, and the bytes per dmask store at a plane's edges in fp32
-# and bf16.  All but
+# and bf16, which are also the forward kernel's bytes per mask load (8
+# pixels a lane for "hw256" in bf16, 4 otherwise).  All but
 # "hw45" span two or three of the kernel's 128-pixel runs, with channel
 # planes off 32-byte boundaries (except "hw256"), so the runs' shared
-# sectors and the last partial run are exercised.
+# sectors and the last partial run are exercised; the forward's tiles (32
+# lanes' pixels) leave lanes past the sample's end on every grid but
+# "hw256", and the offset grid starts its first group a value before the
+# sample.
 UL_GRIDS = {"odd": ((13, 21), 0, 4, 2), "hw256": ((16, 16), 0, 16, 16),
             "hw276": ((12, 23), 0, 16, 8), "hw270": ((10, 27), 0, 8, 4),
             "hw45": ((5, 9), 0, 4, 2), "offset": ((12, 23), 1, 4, 2)}
@@ -440,7 +444,7 @@ def test_upsample_loss_kernels_match_plain(dev, dtype, grid):
         leaf.requires_grad_(True)
         return leaf, leaf[offset:].view(n, 576, H, W)
 
-    def both(flow, gt):
+    def both(flow, gt, exact_counts=False):
         outs = []
         for fn in (upsample_loss.upsample_loss_sums,
                    upsample_loss.upsample_loss_sums_plain):
@@ -456,6 +460,8 @@ def test_upsample_loss_kernels_match_plain(dev, dtype, grid):
         # to the L1 column's tolerance
         tols = 1e-4 * sp.abs().amax(dim=0) + 1e-5
         assert bool(((sk - sp).abs().amax(dim=0) <= tols).all())
+        if exact_counts:        # squared EPE against 1, 9, 25 in the kernel
+            assert torch.equal(sk[:, 2:], sp[:, 2:])
         for a, b in zip(gk, gp):
             tol = 1e-4 * float(b.float().abs().max()) + 1e-5
             if a.dtype == torch.bfloat16:
@@ -466,10 +472,22 @@ def test_upsample_loss_kernels_match_plain(dev, dtype, grid):
         return sp
 
     _, m = leaf_mask(G * B)
+    vb = vb32 if dtype == torch.float32 else vb16
     assert upsample_loss.bwd_vector_bytes(
         m.data_ptr(), torch.empty_like(m).data_ptr(), H * W,
-        m.element_size()) == (vb32 if dtype == torch.float32 else vb16)
-    both(flow, gt)
+        m.element_size()) == vb
+    plan = upsample_loss.fwd_plan(m.data_ptr(), H * W, m.element_size())
+    assert (plan.vec_bytes, plan.pixels, plan.offset) == (
+        vb, 8 if vb == 16 and dtype == torch.bfloat16 else 4, offset)
+    sp = both(flow, gt)
+    # the forward's sums are the same run to run (a fixed order, no
+    # atomics)
+    with torch.no_grad():
+        again = [upsample_loss.upsample_loss_sums(flow, m, gt, vm)
+                 for _ in range(2)]
+    assert torch.equal(again[0], again[1])
+    assert bool(((again[0] - sp).abs().amax(dim=0)
+                 <= 1e-4 * sp.abs().amax(dim=0) + 1e-5).all())
     # residuals spanning the 1/3/5 px thresholds: one iteration, ground
     # truth = the plain upsampled flow + offsets whose end-point error is
     # U(0.75, 7) px (>= 1e-3 from a threshold) with both components >= 0.5
@@ -487,7 +505,8 @@ def test_upsample_loss_kernels_match_plain(dev, dtype, grid):
         up = convex_upsample_flat_nchw(f1.permute(0, 3, 1, 2), mask[:B])
         gt_s = (depth_to_space_flow(up.permute(0, 2, 3, 1)) + off.to(dev)
                 ).contiguous()
-    counts = both(f1.contiguous(), gt_s)[:, 2:].sum(dim=0).tolist()
+    counts = both(f1.contiguous(), gt_s, exact_counts=True)[:, 2:].sum(
+        dim=0).tolist()
     assert 0 < counts[0] < counts[1] < counts[2] < float(vm.sum())
 
 

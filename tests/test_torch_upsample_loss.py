@@ -13,6 +13,8 @@ gradient within one bf16 ulp (2^-7 relative): the two fp32 values
 before the rounding differ in the last bits and may round apart.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -212,6 +214,40 @@ def test_bwd_access_width_per_grid(hw, fp32, bf16):
     assert width(base, base + 8, hw, 4) == min(fp32, 8)
     with pytest.raises(ValueError, match="aligned"):
         width(base + 1, base, hw, 2)
+
+
+# The forward kernel's plan per grid: (H, W), then for an fp32 and a bf16
+# mask that starts an allocation (bytes per load, pixels a lane, tiles of
+# 32 lanes a sample): the chairs, Sintel, things and KITTI training grids,
+# an odd grid, and one with H*W = 2 mod 4.
+@pytest.mark.parametrize("hw,fp32,bf16", [
+    ((46, 62), (16, 4, 23), (8, 4, 23)),
+    ((55, 128), (16, 4, 55), (16, 8, 28)),
+    ((50, 90), (16, 4, 36), (8, 4, 36)),
+    ((47, 156), (16, 4, 58), (8, 4, 58)),
+    ((45, 63), (4, 4, 23), (2, 4, 23)),
+    ((5, 6), (8, 4, 1), (4, 4, 1))])
+def test_fwd_plan_per_grid(hw, fp32, bf16):
+    hw = hw[0] * hw[1]
+    base = 512 * 4099                       # an allocation's start
+    for es, (vb, pixels, tiles) in ((4, fp32), (2, bf16)):
+        plan = upsample_loss.fwd_plan(base, hw, es)
+        assert (plan.vec_bytes, plan.pixels, plan.offset, plan.tiles) == (
+            vb, pixels, 0, tiles)
+        # 5 sums for each tile and each of the 16 stages of 4 planes
+        assert plan.partial == tiles * 16 * 5
+        # the tiles cover the sample; a lane's loads are whole pieces
+        assert tiles * 32 * pixels >= hw > (tiles - 1) * 32 * pixels
+        assert pixels * es % vb == 0 and (hw * es) % vb == 0
+    # a mask one value into its allocation: narrower loads, and its first
+    # group starts a value before the sample so that every load is aligned
+    for es, narrow in ((4, 4), (2, 2)):
+        plan = upsample_loss.fwd_plan(base + es, hw, es)
+        assert (plan.vec_bytes, plan.pixels, plan.offset) == (narrow, 4, 1)
+        assert (base + es - plan.offset * es) % (4 * es) == 0
+        assert plan.tiles == math.ceil(math.ceil((hw + 1) / 4) / 32)
+    with pytest.raises(ValueError, match="aligned"):
+        upsample_loss.fwd_plan(base + 1, hw, 2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -61,7 +61,25 @@ Phases, each raising on failure (so the script exits nonzero):
    configuration (ms/pair, device busy time, peak memory) with launch
    counts;
 5. demo: the demo CLI on ``demo-frames`` with ``--alternate_corr``;
-6. train: ``make_train_step`` with each kernel configuration against
+6. eval: the evaluation path on synthetic dataset trees written with the
+   port's writers (Sintel: two scenes of 3 and 5 frames at 436x1024,
+   clean and final; KITTI: a pair at each of four real resolutions, one
+   376x1248 bucket, sparse ground truth; FlyingChairs: 4 pairs at
+   384x512), every sequence a seeded texture under a constant shift:
+   ``validate_sintel`` and ``validate_kitti`` under the kernel
+   configuration against the plain one (fp32: every flow within 1e-3 px
+   at 4 iterations, the EPE within 1e-2 px at 32 / 24), with exact
+   launch counts for every batch; the evaluate CLI for each dataset in a
+   subprocess against the same validator in this process (the printed
+   EPE within 1.5e-3); the Sintel submission with a warm start at batch 2
+   against batch 1 (every ``.flo`` within 1e-3 px) and the KITTI
+   submission read back at each image's shape; ``validate_sintel``
+   ms/pair (kernel configuration bf16 and fp32, ``allpairs`` bf16), its
+   host share and where the host's part goes, host ms of a PNG decode,
+   a KITTI ground truth (as written, and every row Paeth-filtered) and a
+   ``forward_interpolate``, and the peak memory of ``validate_kitti`` at
+   batch 4 in bf16;
+7. train: ``make_train_step`` with each kernel configuration against
    its plain one from the same seeded weights on one synthetic
    FlyingChairs-shaped batch, TF32 off, in fp32 and bf16 (loss, metrics,
    every parameter's unclipped gradient): ``allpairs_pallas`` +
@@ -82,7 +100,7 @@ Phases, each raising on failure (so the script exits nonzero):
    of a bf16 step at the things stage (400x720, batch 5, 12 iterations)
    for the on-demand, the ``allpairs_pallas`` and the int8 + fused
    configurations;
-7. report: one JSON line ``{"kernels": [...]}``, the nvidia-smi line,
+8. report: one JSON line ``{"kernels": [...]}``, the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without CUDA it exits nonzero before any
@@ -92,6 +110,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -1560,6 +1579,494 @@ def phase_demo(sd):
     return {"pngs": written, "corr_launches": moved}
 
 
+# -- phase eval: the evaluation path on synthetic dataset trees ------------
+
+EVAL_SINTEL_SCENES = (("alley_1", 3, (2, 1)), ("ambush_2", 5, (-3, 2)))
+EVAL_KITTI_HW = ((375, 1242), (370, 1224), (374, 1238), (376, 1241))
+EVAL_CHAIRS_HW, EVAL_CHAIRS_PAIRS = (384, 512), 4
+EVAL_ITERS = {"sintel": 32, "kitti": 24, "chairs": 24}
+EVAL_CHECK_ITERS = 4
+EVAL_KERNEL_CFG = dict(corr_impl="pallas", fused_gru=True)
+EVAL_PLAIN_CFG = dict(corr_impl="chunked", fused_gru=False)
+
+
+def _texture(seed: int, h: int, w: int) -> np.ndarray:
+    """A smooth seeded texture (h + 64, w + 64, 3) in [0, 255], float32."""
+    g = torch.Generator().manual_seed(seed)
+    base = torch.rand(1, 3, h + 64, w + 64, generator=g) * 255
+    base = torch.nn.functional.avg_pool2d(base, 9, stride=1, padding=4)
+    return base[0].permute(1, 2, 0).numpy()
+
+
+def _shifted(base: np.ndarray, hw, k: int, shift) -> np.ndarray:
+    """Frame ``k`` of a sequence moving by ``shift`` = (u, v) px a frame:
+    frame k+1 at p + shift shows what frame k shows at p."""
+    (h, w), (u, v) = hw, shift
+    y0, x0 = 32 - k * v, 32 - k * u
+    return np.clip(base[y0:y0 + h, x0:x0 + w], 0, 255).astype(np.uint8)
+
+
+def _eval_trees(root: str) -> dict:
+    """Synthetic Sintel, KITTI and FlyingChairs trees under ``root``, each
+    sequence a seeded texture shifted by a constant flow, written with the
+    port's own writers: Sintel ``training`` and ``test``, ``clean`` and
+    ``final`` (clean plus seeded noise), two scenes of 3 and 5 frames at
+    436x1024 (ragged sequences); KITTI ``training`` and ``testing``, one
+    pair at each of four real resolutions (one 376x1248 bucket), its
+    16-bit ground truth with about a third of the pixels invalid; 4
+    FlyingChairs ``.ppm`` pairs at 384x512 with ``.flo`` files and a split
+    file naming them all validation."""
+    from PIL import Image
+
+    from raft_tpu_torch.data import frame_utils, png16
+
+    rng = np.random.default_rng(0)
+    n_pairs = {"sintel": 0, "kitti": 0, "chairs": 0}
+    for si, (scene, frames, shift) in enumerate(EVAL_SINTEL_SCENES):
+        base = _texture(10 + si, *SINTEL_HW)
+        clean = [_shifted(base, SINTEL_HW, k, shift) for k in range(frames)]
+        noise = rng.normal(0, 8, (frames,) + SINTEL_HW + (3,))
+        final = [np.clip(c + n, 0, 255).astype(np.uint8)
+                 for c, n in zip(clean, noise)]
+        for split in ("training", "test"):
+            for dstype, seq in (("clean", clean), ("final", final)):
+                d = os.path.join(root, "Sintel", split, dstype, scene)
+                os.makedirs(d)
+                for k, img in enumerate(seq):
+                    Image.fromarray(img).save(
+                        os.path.join(d, f"frame_{k + 1:04d}.png"))
+        d = os.path.join(root, "Sintel", "training", "flow", scene)
+        os.makedirs(d)
+        gt = np.broadcast_to(np.float32(shift), SINTEL_HW + (2,))
+        for k in range(frames - 1):
+            frame_utils.write_flo(os.path.join(d, f"frame_{k + 1:04d}.flo"),
+                                  gt)
+        n_pairs["sintel"] += 2 * (frames - 1)
+    for split in ("training", "testing"):
+        os.makedirs(os.path.join(root, "KITTI", split, "image_2"))
+    os.makedirs(os.path.join(root, "KITTI", "training", "flow_occ"))
+    for i, hw in enumerate(EVAL_KITTI_HW):
+        shift = (4 - i, i - 1)
+        base = _texture(20 + i, *hw)
+        for split in ("training", "testing"):
+            for k, tag in ((0, "10"), (1, "11")):
+                Image.fromarray(_shifted(base, hw, k, shift)).save(
+                    os.path.join(root, "KITTI", split, "image_2",
+                                 f"{i:06d}_{tag}.png"))
+        uv = np.broadcast_to(64.0 * np.float64(shift) + 2 ** 15, hw + (2,))
+        valid = rng.random(hw + (1,)) > 1 / 3
+        png16.write_png(os.path.join(root, "KITTI", "training", "flow_occ",
+                                     f"{i:06d}_10.png"),
+                        np.concatenate([uv, valid], -1).astype(np.uint16))
+        n_pairs["kitti"] += 1
+    chairs = os.path.join(root, "FlyingChairs_release", "data")
+    os.makedirs(chairs)
+    for i in range(EVAL_CHAIRS_PAIRS):
+        shift = (i - 2, 1 + i)
+        base = _texture(30 + i, *EVAL_CHAIRS_HW)
+        for k in (0, 1):
+            Image.fromarray(_shifted(base, EVAL_CHAIRS_HW, k, shift)).save(
+                os.path.join(chairs, f"{i:05d}_img{k + 1}.ppm"))
+        frame_utils.write_flo(
+            os.path.join(chairs, f"{i:05d}_flow.flo"),
+            np.broadcast_to(np.float32(shift), EVAL_CHAIRS_HW + (2,)))
+        n_pairs["chairs"] += 1
+    split = os.path.join(root, "chairs_split.txt")
+    with open(split, "w") as f:
+        f.write("2\n" * EVAL_CHAIRS_PAIRS)
+    return {"root": root, "sintel": os.path.join(root, "Sintel"),
+            "kitti": os.path.join(root, "KITTI"), "chairs": chairs,
+            "split": split, "pairs": n_pairs}
+
+
+def _count_check(iters: int, kernel: bool, where: str):
+    """The launches of one forward: ``iters`` on-demand lookups and twice
+    ``iters`` of each gate for the kernel configuration, none at all for
+    the plain one."""
+    got = _counts()
+    want = {k: 0 for k in got}
+    if kernel:
+        want.update(corr_ondemand=iters, gru_gate_rh=2 * iters,
+                    gru_gate_blend=2 * iters)
+    if got != want:
+        raise AssertionError(f"{where}: launches {got} != {want}")
+
+
+def _recording(eval_fn, iters: int, kernel: bool, where: str, outs: list):
+    """``eval_fn`` that checks each call's exact launch counts (set to 0
+    just before it, read just after) and keeps its ``flow_up``."""
+    def fn(sd, im1, im2, flow_init=None):
+        _reset_counts()
+        lo, up = eval_fn(sd, im1, im2, flow_init)
+        torch.cuda.synchronize()
+        _count_check(iters, kernel, where)
+        outs.append(up.clone())
+        fn.calls += 1
+        return lo, up
+
+    fn.calls = 0
+    return fn
+
+
+def _validate(name: str, sd, cfg, iters: int, trees: dict, eval_fn=None,
+              batch_size=None, device="cuda"):
+    from raft_tpu_torch import evaluate
+
+    kw = {"sintel": dict(root=trees["sintel"]),
+          "kitti": dict(root=trees["kitti"]),
+          "chairs": dict(root=trees["chairs"],
+                         split_file=trees["split"])}[name]
+    if batch_size is not None:
+        kw["batch_size"] = batch_size
+    return evaluate.VALIDATORS[name](sd, cfg, iters=iters, eval_fn=eval_fn,
+                                     device=device, **kw)
+
+
+def _kernel_vs_plain(sd, trees, dev) -> dict:
+    """Sintel and KITTI validators under the kernel configuration and the
+    plain one (``chunked`` + unfused gates), fp32: every flow within 1e-3
+    px at 4 iterations, the EPE within 1e-2 px at the validators' own
+    iteration counts; exact launch counts for every batch."""
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.evaluate import make_eval_fn
+
+    out = {}
+    for name in ("sintel", "kitti"):
+        for iters in (EVAL_CHECK_ITERS, EVAL_ITERS[name]):
+            res, flows, batches = {}, {}, {}
+            for label, extra in (("kernel", EVAL_KERNEL_CFG),
+                                 ("plain", EVAL_PLAIN_CFG)):
+                cfg = RAFTConfig.full(**extra)
+                flows[label] = []
+                fn = _recording(make_eval_fn(cfg, iters, device=dev), iters,
+                                label == "kernel", f"eval {name} {label}",
+                                flows[label])
+                res[label] = _validate(name, sd, cfg, iters, trees,
+                                       eval_fn=fn, device=dev)
+                batches[label] = fn.calls
+            px = max(float((k - p).abs().max())
+                     for k, p in zip(flows["kernel"], flows["plain"]))
+            finite = all(bool(torch.isfinite(k).all())
+                         for k in flows["kernel"])
+            depe = max(abs(res["kernel"][k] - res["plain"][k])
+                       for k in res["plain"])
+            key = f"{name}/iters{iters}"
+            out[key] = dict(max_px=px, max_epe_diff=depe, kernel=res["kernel"],
+                            plain=res["plain"], batches=batches["kernel"])
+            print(f"[eval] {key} kernel vs plain config (fp32): "
+                  f"max|dflow_up| {px:.3e} px over {batches['kernel']} "
+                  f"batches, EPE {res['kernel']} vs {res['plain']} "
+                  f"(|diff| {depe:.3e}); launches exact every batch",
+                  flush=True)
+            if batches["kernel"] != batches["plain"] or not finite:
+                raise AssertionError(f"eval {key}: batches {batches}, "
+                                     f"finite {finite}")
+            if iters == EVAL_CHECK_ITERS and not px <= 1e-3:
+                raise AssertionError(f"eval {key}: kernel vs plain {px} px")
+            if iters != EVAL_CHECK_ITERS and not depe <= 1e-2:
+                raise AssertionError(f"eval {key}: EPE diff {depe}")
+    return out
+
+
+@contextlib.contextmanager
+def _default_tf32():
+    """PyTorch's default TF32 settings (cuDNN on, matmul off), as a fresh
+    process such as the CLI's has them."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _cli_vs_inprocess(weights, sd, trees, dev) -> dict:
+    """``python -m raft_tpu_torch.cli.evaluate --alternate_corr`` (bf16,
+    the validators' iterations and batch 4) for each dataset in a
+    subprocess, against the same validator in this process: the printed
+    EPE within 1.5e-3 (3 printed decimals; cuDNN may choose other
+    algorithms in another process) and exit code 0."""
+    from raft_tpu_torch.config import RAFTConfig
+
+    procs = {}
+    try:
+        for name in ("sintel", "kitti", "chairs"):
+            cmd = [sys.executable, "-m", "raft_tpu_torch.cli.evaluate",
+                   "--model", weights, "--dataset", name, "--alternate_corr",
+                   "--iters", str(EVAL_ITERS[name]),
+                   "--data_root", trees["root"], "--chairs_split",
+                   trees["split"], "--device", str(dev)]
+            procs[name] = subprocess.Popen(
+                cmd, cwd=REPO, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True,
+                env=dict(os.environ, PYTHONPATH=REPO))
+        cfg = RAFTConfig.full(compute_dtype="bfloat16", **EVAL_KERNEL_CFG)
+        with _default_tf32():
+            want = {name: _validate(name, sd, cfg, EVAL_ITERS[name], trees,
+                                    batch_size=4, device=dev)
+                    for name in procs}
+        outs = {name: p.communicate(timeout=600)
+                for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = {}
+    for name, p in procs.items():
+        stdout, stderr = outs[name]
+        printed = [float(x) for x in re.findall(
+            r"(?:EPE|KITTI): (\d+\.\d+)", stdout)]
+        inproc = [want[name][k] for k in
+                  {"sintel": ("clean", "final"), "kitti": ("kitti-epe",),
+                   "chairs": ("chairs",)}[name]]
+        diff = (max(abs(a - b) for a, b in zip(printed, inproc))
+                if len(printed) == len(inproc) else None)
+        res[name] = dict(rc=p.returncode, printed=printed, inprocess=inproc,
+                         max_diff=diff, stdout=stdout)
+        print(f"[eval] CLI --dataset {name} --alternate_corr (bf16): rc "
+              f"{p.returncode}, printed {stdout.strip()!r}, in-process "
+              f"{inproc} (max|diff| {diff})", flush=True)
+        if p.returncode != 0 or diff is None or not diff <= 1.5e-3:
+            raise AssertionError(f"eval CLI {name}: rc {p.returncode}, "
+                                 f"{printed} vs {inproc}; "
+                                 f"stderr {stderr[-2000:]}")
+    return res
+
+
+def _submissions(sd, trees, dev) -> dict:
+    """The Sintel submission with a warm start under the kernel
+    configuration (fp32, 4 iterations) at batch 2 (ragged sequences share
+    lanes) against batch 1, every ``.flo`` within 1e-3 px; the KITTI
+    submission read back at each image's own shape."""
+    from raft_tpu_torch import evaluate
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.data import frame_utils
+
+    cfg = RAFTConfig.full(**EVAL_KERNEL_CFG)
+    out = os.path.join(trees["root"], "submission")
+    calls = {}
+    for bs in (2, 1):
+        fn = _recording(evaluate.make_eval_fn(cfg, EVAL_CHECK_ITERS,
+                                              device=dev),
+                        EVAL_CHECK_ITERS, True, f"sintel submission b{bs}",
+                        [])
+        evaluate.create_sintel_submission(
+            sd, cfg, iters=EVAL_CHECK_ITERS, warm_start=True,
+            root=trees["sintel"], output_path=os.path.join(out, f"b{bs}"),
+            eval_fn=fn, batch_size=bs, device=dev)
+        calls[bs] = fn.calls
+    err, n = 0.0, 0
+    for dstype in ("clean", "final"):
+        for scene, frames, _ in EVAL_SINTEL_SCENES:
+            for k in range(1, frames):
+                rel = os.path.join(dstype, scene, f"frame{k:04d}.flo")
+                a = frame_utils.read_flo(os.path.join(out, "b2", rel))
+                b = frame_utils.read_flo(os.path.join(out, "b1", rel))
+                if a.shape != SINTEL_HW + (2,) or not np.isfinite(a).all():
+                    raise AssertionError(f"submission {rel}: {a.shape}")
+                err = max(err, float(np.abs(a - b).max()))
+                n += 1
+    print(f"[eval] sintel submission (warm start, kernel config fp32, "
+          f"iters {EVAL_CHECK_ITERS}): {n} .flo, batch 2 ({calls[2]} "
+          f"forwards) vs batch 1 ({calls[1]}): max|diff| {err:.3e} px "
+          f"(tol 1e-3)", flush=True)
+    if not err <= 1e-3:
+        raise AssertionError(f"sintel submission batch 2 vs 1: {err}")
+    kdir = os.path.join(out, "kitti")
+    evaluate.create_kitti_submission(sd, cfg, iters=EVAL_CHECK_ITERS,
+                                     root=trees["kitti"], output_path=kdir,
+                                     device=dev)
+    shapes = []
+    for i, hw in enumerate(EVAL_KITTI_HW):
+        flow, valid = frame_utils.read_flow_kitti(
+            os.path.join(kdir, f"{i:06d}_10.png"))
+        shapes.append(flow.shape[:2])
+        if flow.shape[:2] != hw or not valid.all():
+            raise AssertionError(f"kitti submission {i}: {flow.shape}")
+    print(f"[eval] kitti submission: {len(shapes)} PNGs at {shapes}",
+          flush=True)
+    return dict(sintel_flo=n, sintel_b2_vs_b1_px=err, forwards=calls,
+                kitti_shapes=shapes)
+
+
+def _paeth_png(path: str, img: np.ndarray):
+    """``img`` (uint16, H x W x 3) as a PNG whose every row is Paeth
+    filtered, as the encoders of real KITTI files mostly choose."""
+    import struct
+    import zlib
+
+    h, w, _ = img.shape
+    raw = np.frombuffer(img.astype(">u2").tobytes(), np.uint8).reshape(h, -1)
+    x = raw.astype(np.int32)
+    up = np.vstack([np.zeros_like(x[:1]), x[:-1]])
+    a = np.hstack([np.zeros_like(x[:, :6]), x[:, :-6]])
+    c = np.hstack([np.zeros_like(up[:, :6]), up[:, :-6]])
+    p = a + up - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - up), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, up, c))
+    rows = np.hstack([np.full((h, 1), 4), (x - pred) & 0xFF]).astype(np.uint8)
+
+    def chunk(ctype, body):
+        return (struct.pack(">I", len(body)) + ctype + body
+                + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + chunk(b"IEND", b""))
+
+
+def _host_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _validator_times(sd, trees, dev) -> dict:
+    """``validate_sintel`` ms/pair (wall, after one warm-up call) for the
+    kernel configuration in bf16 and fp32 and ``allpairs`` in bf16; the
+    same batches through ``make_eval_fn`` alone (host-stacked, so the
+    host-to-device copy included) and the validator's host share 1 -
+    forward / validator; where the host's part goes (decode, padding,
+    device-to-host copy, EPE); host ms per decoded frame and ground truth
+    and per ``forward_interpolate``; the peak memory of ``validate_kitti``
+    (batch 4, one 376x1248 bucket) in bf16."""
+    from raft_tpu_torch import evaluate
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.data import datasets, frame_utils
+    from raft_tpu_torch.ops.pad import InputPadder
+    from raft_tpu_torch.utils.warp import forward_interpolate
+
+    pairs = trees["pairs"]["sintel"]
+    res = {"pairs": pairs}
+    for label, dtype, extra in (("kernel", "bfloat16", EVAL_KERNEL_CFG),
+                                ("kernel", "float32", EVAL_KERNEL_CFG),
+                                ("allpairs", "bfloat16", {})):
+        key = f"{label}/{dtype}"
+        cfg = RAFTConfig.full(compute_dtype=dtype, **extra)
+        fn = evaluate.make_eval_fn(cfg, EVAL_ITERS["sintel"], device=dev)
+        iters = EVAL_ITERS["sintel"]
+        _validate("sintel", sd, cfg, iters, trees, eval_fn=fn, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _validate("sintel", sd, cfg, iters, trees, eval_fn=fn, device=dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        # the same work, step by step: decode, pad and stack, forward
+        # (synchronized), device-to-host copy, EPE
+        parts = dict(decode=0.0, pad=0.0, forward=0.0, copy=0.0, epe=0.0)
+        for dstype in ("clean", "final"):
+            ds = datasets.MpiSintel(split="training", dstype=dstype,
+                                    root=trees["sintel"])
+            for start in range(0, len(ds), 2):
+                idx = list(range(start, min(start + 2, len(ds))))
+                t = time.perf_counter()
+                samples = [ds.load(i) for i in idx]
+                t1 = time.perf_counter()
+                pads = [InputPadder(s["image1"].shape,
+                                    target=evaluate._bucket_hw(ds))
+                        for s in samples]
+                im1 = [p.pad_np(s["image1"]) for p, s in zip(pads, samples)]
+                im2 = [p.pad_np(s["image2"]) for p, s in zip(pads, samples)]
+                im1 += [im1[-1]] * (2 - len(idx))
+                im2 += [im2[-1]] * (2 - len(idx))
+                b1, b2 = np.stack(im1), np.stack(im2)
+                t2 = time.perf_counter()
+                _, up = fn(sd, b1, b2)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                up = up.cpu().numpy()
+                t4 = time.perf_counter()
+                for j, (s, p) in enumerate(zip(samples, pads)):
+                    np.sqrt(np.sum((p.unpad(up[j]) - s["flow"]) ** 2, -1))
+                t5 = time.perf_counter()
+                for part, a, b in (("decode", t, t1), ("pad", t1, t2),
+                                   ("forward", t2, t3), ("copy", t3, t4),
+                                   ("epe", t4, t5)):
+                    parts[part] += (b - a) * 1e3
+        res[key] = dict(ms_per_pair=wall / pairs,
+                        parts_ms_per_pair={k: v / pairs
+                                           for k, v in parts.items()},
+                        host_share=1.0 - parts["forward"] / wall)
+        print(f"[eval] validate_sintel {key} (batch 2, {iters} iters, {pairs} "
+              f"pairs): {wall / pairs:.2f} ms/pair; step by step per pair "
+              f"{ {k: round(v / pairs, 3) for k, v in parts.items()} } ms; "
+              f"host share 1 - forward/validator = "
+              f"{res[key]['host_share']:.3f}", flush=True)
+        del fn
+    # host costs of the path's pieces
+    ds = datasets.MpiSintel(split="training", root=trees["sintel"])
+    frame = ds.image_list[0][0]
+    res["png_decode_ms"] = _host_ms(lambda: frame_utils.read_gen(frame), 10)
+    gt = os.path.join(trees["kitti"], "training", "flow_occ", "000000_10.png")
+    res["kitti_gt_decode_ms"] = _host_ms(
+        lambda: frame_utils.read_flow_kitti(gt), 5)
+    paeth = os.path.join(trees["root"], "paeth_gt.png")
+    _paeth_png(paeth, frame_utils.read_png(gt))
+    t0 = time.perf_counter()
+    back = frame_utils.read_png(paeth)
+    res["kitti_gt_paeth_decode_ms"] = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(back, frame_utils.read_png(gt)):
+        raise AssertionError("Paeth-filtered ground truth decodes wrong")
+    low = np.random.default_rng(3).normal(0, 4, (55, 128, 2))
+    res["forward_interpolate_ms"] = _host_ms(
+        lambda: forward_interpolate(low), 10)
+    print(f"[eval] host ms: PIL decode of a 436x1024 PNG "
+          f"{res['png_decode_ms']:.2f}; KITTI ground truth (png16, NumPy) "
+          f"{res['kitti_gt_decode_ms']:.2f} as written here (filter 0), "
+          f"{res['kitti_gt_paeth_decode_ms']:.1f} with every row Paeth; "
+          f"forward_interpolate of 55x128 {res['forward_interpolate_ms']:.2f}",
+          flush=True)
+    # the KITTI bucket's peak memory, batch 4, bf16
+    for label, extra in (("kernel", EVAL_KERNEL_CFG), ("allpairs", {})):
+        cfg = RAFTConfig.full(compute_dtype="bfloat16", **extra)
+        fn = evaluate.make_eval_fn(cfg, EVAL_ITERS["kitti"], device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _validate("kitti", sd, cfg, EVAL_ITERS["kitti"], trees, eval_fn=fn,
+                  batch_size=4, device=dev)
+        peak = torch.cuda.max_memory_allocated()
+        res[f"kitti_peak_mb/{label}/bfloat16"] = peak / 2 ** 20
+        print(f"[eval] validate_kitti {label} bf16 batch 4 (one bucket): "
+              f"peak {peak / 2 ** 20:.1f} MiB ({base / 2 ** 20:.1f} MiB "
+              "before: weights)", flush=True)
+        del fn
+    return res
+
+
+def phase_eval(sd, dev="cuda"):
+    """The evaluation path on synthetic Sintel, KITTI and FlyingChairs
+    trees (``_eval_trees``), with phase 4's seed-0 weights."""
+    import tempfile
+
+    out = {}
+    os.makedirs(WORK, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=WORK) as root:
+        trees = _eval_trees(root)
+        weights = os.path.join(root, "weights.pth")
+        torch.save(sd, weights)
+        print(f"[eval] trees: {trees['pairs']} pairs", flush=True)
+        for key, fn, args in (
+                ("kernel_vs_plain", _kernel_vs_plain, (sd, trees, dev)),
+                ("cli", _cli_vs_inprocess, (weights, sd, trees, dev)),
+                ("submissions", _submissions, (sd, trees, dev)),
+                ("times", _validator_times, (sd, trees, dev))):
+            t0 = time.perf_counter()
+            out[key] = fn(*args)
+            print(f"[time] eval {key}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    return out
+
+
 def _chairs_batch(dev):
     """One synthetic FlyingChairs-shaped batch, made on the host from a
     seed: uniform frames, flow 8 * N(0, 1), all pixels valid."""
@@ -1908,6 +2415,7 @@ def main(argv=None) -> int:
             **timed_phase(phase_slice4_kernels, peaks)}
     path, main_counts, sd = timed_phase(phase_path)
     demo_res = timed_phase(phase_demo, sd)
+    eval_res = timed_phase(phase_eval, sd)
     train, train_counts = timed_phase(phase_train, sd)
     secs["total"] = time.perf_counter() - t0
 
@@ -1967,7 +2475,8 @@ def main(argv=None) -> int:
                        "torch": torch.__version__, "cuda": torch.version.cuda,
                        "build": build_res, "phase_s": secs,
                        "kernels": kern, "path": path,
-                       "demo": demo_res, "train": train}, f, indent=1)
+                       "demo": demo_res, "eval": eval_res,
+                       "train": train}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

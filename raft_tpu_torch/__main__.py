@@ -1,0 +1,44 @@
+"""``python -m raft_tpu_torch <subcommand>``: the port's multi-tool, with
+the subcommands the port has::
+
+    python -m raft_tpu_torch evaluate --model weights.pth --dataset sintel
+    python -m raft_tpu_torch demo --model weights.pth --path demo-frames
+"""
+
+from __future__ import annotations
+
+import importlib
+import sys
+
+_SUBCOMMANDS = {
+    "evaluate": ("raft_tpu_torch.cli.evaluate",
+                 "validation on Sintel / KITTI / FlyingChairs"),
+    "demo": ("raft_tpu_torch.cli.demo", "flow visualization over a frame dir"),
+}
+
+
+def _usage() -> str:
+    lines = ["usage: python -m raft_tpu_torch <subcommand> [args...]", "",
+             "subcommands:"]
+    for name, (_, desc) in _SUBCOMMANDS.items():
+        lines.append(f"  {name:<12} {desc}")
+    lines.append("")
+    lines.append("run a subcommand with --help for its flags")
+    return "\n".join(lines)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(_usage())
+        return 0
+    cmd, rest = argv[0], argv[1:]
+    if cmd not in _SUBCOMMANDS:
+        print(f"unknown subcommand {cmd!r}\n\n{_usage()}", file=sys.stderr)
+        return 2
+    importlib.import_module(_SUBCOMMANDS[cmd][0]).main(rest)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,122 @@
+"""Evaluation CLI (the port of ``raft_tpu/cli/evaluate.py``): a validator
+over a dataset tree, printing the JAX validator's line.
+
+    python -m raft_tpu_torch.cli.evaluate --model weights.pth \\
+        --dataset sintel --alternate_corr
+
+``--model`` is a ``.pth`` holding the port's own ``state_dict`` or a
+reference-format one (the JAX CLI reads orbax directories instead).
+``--alternate_corr`` runs the kernel configuration: the on-demand
+correlation lookup (the CUDA kernel on the card) and the fused GRU gates.
+``--epe_delta float32,int8`` runs the validator once per correlation
+storage dtype and prints the deltas against the first.  It runs on the
+card unless ``--device cpu``; without CUDA it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from raft_tpu_torch.config import validate_corr_dtype
+
+DEFAULT_ITERS = {"chairs": 24, "sintel": 32, "kitti": 24}
+
+
+def _corr_dtype_arg(value: str) -> str:
+    try:
+        return validate_corr_dtype(value)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+
+
+def _epe_delta_arg(value: str):
+    dtypes = [d.strip() for d in value.split(",") if d.strip()]
+    if len(dtypes) < 2:
+        raise argparse.ArgumentTypeError(
+            f"--epe_delta needs a comma list of >= 2 corr dtypes "
+            f"(e.g. 'float32,int8'), got {value!r}")
+    try:
+        return [validate_corr_dtype(d, flag="--epe_delta") for d in dtypes]
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="RAFT evaluation (PyTorch port)")
+    p.add_argument("--model", required=True,
+                   help=".pth state dict (the port's or reference format)")
+    p.add_argument("--dataset", required=True,
+                   choices=["chairs", "sintel", "kitti"])
+    p.add_argument("--small", action="store_true",
+                   help="the small model (a later slice of the port)")
+    p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
+    p.add_argument("--corr_dtype", default="auto", type=_corr_dtype_arg,
+                   help="storage dtype of the materialized correlation "
+                        "pyramid (auto / float32 / bfloat16 / int8 / "
+                        "float8_e4m3fn / float8_e5m2)")
+    p.add_argument("--epe_delta", default=None, type=_epe_delta_arg,
+                   metavar="DTYPE,DTYPE[,...]",
+                   help="run the validator under each corr storage dtype "
+                        "and print per-metric deltas against the first; "
+                        "overrides --corr_dtype")
+    p.add_argument("--alternate_corr", action="store_true",
+                   help="on-demand correlation lookup and fused GRU gates "
+                        "(the CUDA kernels on the card)")
+    p.add_argument("--iters", type=int, default=None,
+                   help="refinement iterations (default: 24 chairs, 32 "
+                        "sintel, 24 kitti)")
+    p.add_argument("--data_root", default="datasets")
+    p.add_argument("--chairs_split", default="chairs_split.txt")
+    p.add_argument("--eval_batch", type=int, default=4,
+                   help="images per forward (one batch shape a split)")
+    p.add_argument("--no_bucket", action="store_true",
+                   help="KITTI: pad each image to its own /8 shape, one "
+                        "image a batch, instead of one bucket shape")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    import os.path as osp
+
+    from raft_tpu_torch import evaluate
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.convert import load_state_dict_file
+
+    evaluate.resolve_device(args.device)
+    compute_dtype = "bfloat16" if args.precision == "bf16" else "float32"
+    mk = RAFTConfig.small_model if args.small else RAFTConfig.full
+    if args.alternate_corr:
+        model_cfg = mk(compute_dtype=compute_dtype,
+                       corr_dtype=args.corr_dtype, fused_gru=True,
+                       corr_impl=evaluate.default_alternate_corr_impl(
+                           args.device))
+    else:
+        model_cfg = mk(compute_dtype=compute_dtype,
+                       corr_dtype=args.corr_dtype)
+    state_dict = load_state_dict_file(args.model, model_cfg)
+    iters = args.iters or DEFAULT_ITERS[args.dataset]
+
+    kwargs = {
+        "chairs": dict(root=osp.join(args.data_root,
+                                     "FlyingChairs_release/data"),
+                       split_file=args.chairs_split),
+        "sintel": dict(root=osp.join(args.data_root, "Sintel")),
+        "kitti": dict(root=osp.join(args.data_root, "KITTI"),
+                      bucket=not args.no_bucket),
+    }[args.dataset]
+    if args.epe_delta:
+        return evaluate.evaluate_epe_delta(
+            state_dict, model_cfg, args.epe_delta, dataset=args.dataset,
+            iters=iters, batch_size=args.eval_batch, device=args.device,
+            **kwargs)
+    return evaluate.VALIDATORS[args.dataset](
+        state_dict, model_cfg, iters=iters, batch_size=args.eval_batch,
+        device=args.device, **kwargs)
+
+
+if __name__ == "__main__":
+    main()

@@ -48,6 +48,15 @@ QUANTIZED_CORR_DTYPES = ("int8", "float8_e4m3fn", "float8_e5m2")
 UPSAMPLE_LOSS_KERNELS = ("xla", "pallas")
 
 
+def validate_corr_dtype(value: str, flag: str = "corr_dtype") -> str:
+    """``value`` if it names a correlation storage dtype, else a
+    ``ValueError`` naming the allowed set (for the CLI's edge)."""
+    if value not in CORR_DTYPES:
+        raise ValueError(
+            f"invalid {flag}={value!r}; allowed: {', '.join(CORR_DTYPES)}")
+    return value
+
+
 @dataclasses.dataclass(frozen=True)
 class RAFTConfig:
     """Model hyperparameters: the full model (hidden 128 / context 128 /

@@ -1,1 +1,24 @@
-"""Frame readers of the port."""
+"""Host-side data of the port: file formats and datasets."""
+
+from raft_tpu_torch.data.frame_utils import (  # noqa: F401
+    read_disp_kitti,
+    read_flo,
+    read_flow_kitti,
+    read_gen,
+    read_image,
+    read_pfm,
+    write_flo,
+    write_flow_kitti,
+    write_pfm,
+)
+from raft_tpu_torch.data.png16 import read_png, write_png  # noqa: F401
+from raft_tpu_torch.data.datasets import (  # noqa: F401
+    ConcatFlowDataset,
+    FlowDataset,
+    FlyingChairs,
+    FlyingThings3D,
+    HD1K,
+    KITTI,
+    MpiSintel,
+    SampleReadError,
+)

@@ -1,4 +1,19 @@
-"""Inference entry points (the port of ``raft_tpu/evaluate.py:40-134``).
+"""Inference entry points, validation and leaderboard submissions (the port
+of ``raft_tpu/evaluate.py``).
+
+- ``validate_chairs``: EPE at 24 iterations;
+- ``validate_sintel``: clean and final EPE and 1/3/5 px at 32 iterations;
+- ``validate_kitti``: EPE and F1-all (``epe > 3 and epe / |gt| > 0.05``)
+  at 24 iterations, every resolution padded to one bucket;
+- ``create_sintel_submission``: ``.flo`` files of the test split, with
+  an optional warm start (the previous frame's 1/8 flow forward-warped
+  along itself into the next frame's ``flow_init``);
+- ``create_kitti_submission``: 16-bit PNG flow of the test split;
+- ``evaluate_epe_delta``: one validator under several ``corr_dtype``s.
+
+Images stream through the test-mode forward in batches of one shape:
+each batch is decoded and padded on the host, moved to the device by the
+forward, and its flows come back with ``.cpu()``; the metrics are NumPy.
 
 Every inference path goes through :func:`make_inference_model` /
 :func:`make_eval_fn`.  They run on the card (``device="cuda"``) unless the
@@ -13,12 +28,18 @@ is turned off with it; a quantized pyramid is then sampled by the plain
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Union
+import os
+import os.path as osp
+from typing import Dict, Mapping, Optional, Union
 
+import numpy as np
 import torch
 
-from raft_tpu_torch.config import RAFTConfig
+from raft_tpu_torch.config import RAFTConfig, validate_corr_dtype
+from raft_tpu_torch.data import datasets, frame_utils
 from raft_tpu_torch.models.raft import RAFT
+from raft_tpu_torch.ops.pad import InputPadder, max_bucket_hw
+from raft_tpu_torch.utils.warp import forward_interpolate
 
 DeviceLike = Union[str, torch.device]
 
@@ -84,3 +105,264 @@ def make_eval_fn(model_cfg: RAFTConfig, iters: int,
                          test_mode=True)
 
     return eval_fn
+
+
+def _peek_hw(path: str):
+    """Image (H, W) from the file header only (no pixel decode)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        w, h = im.size
+    return h, w
+
+
+_BUCKET_CACHE: Dict[tuple, tuple] = {}
+
+
+def _bucket_hw(ds) -> tuple:
+    """One /8-aligned bucket shape covering every image of ``ds``.
+
+    KITTI's resolutions vary (375x1242, 370x1224, ...); padding all of
+    them to the largest lets the split stream through batches of one
+    shape.  Edge-replicate padding repeats the border, so pixels inside
+    the frame see the same receptive fields; what changes is the instance
+    norm's statistics over the larger canvas.  The header peeks are
+    cached per set of image paths (validators build a fresh dataset on
+    every call)."""
+    key = tuple(p1 for (p1, _) in ds.image_list)
+    hit = _BUCKET_CACHE.get(key)
+    if hit is None:
+        if len(_BUCKET_CACHE) >= 64:
+            _BUCKET_CACHE.clear()
+        hit = _BUCKET_CACHE[key] = max_bucket_hw(_peek_hw(p) for p in key)
+    return hit
+
+
+def _batched_flows(state_dict, eval_fn, ds, mode: str, batch_size: int,
+                   target=None):
+    """Stream ``ds`` through ``eval_fn`` in batches of one shape; yields
+    ``(sample, flow (H, W, 2) float32 array)`` per image, unpadded.
+
+    Every image is padded to ``target`` (or to its own /8 shape, so then
+    all images must share a resolution); the batch is stacked on the host
+    and the forward moves it to its device.  The final partial batch
+    repeats its last image, whose outputs are dropped."""
+    n = len(ds)
+    for start in range(0, n, batch_size):
+        idxs = list(range(start, min(start + batch_size, n)))
+        samples = [ds.load(i) for i in idxs]
+        padders = [InputPadder(s["image1"].shape, mode=mode, target=target)
+                   for s in samples]
+        im1 = [p.pad_np(s["image1"]) for p, s in zip(padders, samples)]
+        im2 = [p.pad_np(s["image2"]) for p, s in zip(padders, samples)]
+        pad_n = batch_size - len(idxs)
+        if pad_n:
+            im1 += [im1[-1]] * pad_n
+            im2 += [im2[-1]] * pad_n
+        _, flow_up = eval_fn(state_dict, np.stack(im1), np.stack(im2))
+        flow_up = flow_up.cpu().numpy()
+        for j, (s, p) in enumerate(zip(samples, padders)):
+            yield s, p.unpad(flow_up[j])
+
+
+def _epe(flow: np.ndarray, gt: np.ndarray) -> np.ndarray:
+    return np.sqrt(np.sum((flow - gt) ** 2, axis=-1))
+
+
+def validate_chairs(state_dict, model_cfg: RAFTConfig = RAFTConfig.full(),
+                    iters: int = 24,
+                    root: str = "datasets/FlyingChairs_release/data",
+                    split_file: str = "chairs_split.txt",
+                    eval_fn=None, batch_size: int = 4,
+                    device: DeviceLike = "cuda") -> Dict[str, float]:
+    """FlyingChairs validation-split EPE (384x512 images, one shape)."""
+    eval_fn = eval_fn or make_eval_fn(model_cfg, iters, device=device)
+    ds = datasets.FlyingChairs(split="validation", root=root,
+                               split_file=split_file)
+    epe_list = [_epe(flow, sample["flow"]).reshape(-1)
+                for sample, flow in _batched_flows(state_dict, eval_fn, ds,
+                                                   "chairs", batch_size)]
+    epe = float(np.mean(np.concatenate(epe_list)))
+    print(f"Validation Chairs EPE: {epe:.3f}", flush=True)
+    return {"chairs": epe}
+
+
+def validate_sintel(state_dict, model_cfg: RAFTConfig = RAFTConfig.full(),
+                    iters: int = 32, root: str = "datasets/Sintel",
+                    eval_fn=None, batch_size: int = 2,
+                    device: DeviceLike = "cuda") -> Dict[str, float]:
+    """Sintel training-split clean and final EPE, 1/3/5 px (436x1024
+    frames, padded to 440x1024)."""
+    eval_fn = eval_fn or make_eval_fn(model_cfg, iters, device=device)
+    results = {}
+    for dstype in ("clean", "final"):
+        ds = datasets.MpiSintel(split="training", dstype=dstype, root=root)
+        epe_all = np.concatenate([
+            _epe(flow, sample["flow"]).reshape(-1)
+            for sample, flow in _batched_flows(state_dict, eval_fn, ds,
+                                               "sintel", batch_size,
+                                               target=_bucket_hw(ds))])
+        epe = float(np.mean(epe_all))
+        px1 = float(np.mean(epe_all < 1))
+        px3 = float(np.mean(epe_all < 3))
+        px5 = float(np.mean(epe_all < 5))
+        print(f"Validation ({dstype}) EPE: {epe:.3f}, 1px: {px1:.3f}, "
+              f"3px: {px3:.3f}, 5px: {px5:.3f}", flush=True)
+        results[dstype] = epe
+    return results
+
+
+def validate_kitti(state_dict, model_cfg: RAFTConfig = RAFTConfig.full(),
+                   iters: int = 24, root: str = "datasets/KITTI",
+                   eval_fn=None, batch_size: int = 4, bucket: bool = True,
+                   device: DeviceLike = "cuda") -> Dict[str, float]:
+    """KITTI-15 training-split EPE and F1-all over the valid pixels.
+
+    ``bucket=True`` pads every resolution to one shape and streams
+    batches of ``batch_size``; ``bucket=False`` pads each image to its
+    own /8 shape, one image a batch (the reference's padding)."""
+    eval_fn = eval_fn or make_eval_fn(model_cfg, iters, device=device)
+    ds = datasets.KITTI(split="training", root=root)
+    target, bs = (_bucket_hw(ds), batch_size) if bucket else (None, 1)
+    epe_list, out_list = [], []
+    for sample, flow in _batched_flows(state_dict, eval_fn, ds, "kitti", bs,
+                                       target=target):
+        epe = _epe(flow, sample["flow"])
+        mag = np.sqrt(np.sum(sample["flow"] ** 2, axis=-1))
+        val = sample["valid"] >= 0.5
+        out = (epe > 3.0) & ((epe / np.maximum(mag, 1e-12)) > 0.05)
+        epe_list.append(epe[val].mean())
+        out_list.append(out[val])
+    epe = float(np.mean(epe_list))
+    f1 = 100.0 * float(np.mean(np.concatenate(out_list)))
+    print(f"Validation KITTI: {epe:.3f}, {f1:.3f}", flush=True)
+    return {"kitti-epe": epe, "kitti-f1": f1}
+
+
+def create_sintel_submission(state_dict,
+                             model_cfg: RAFTConfig = RAFTConfig.full(),
+                             iters: int = 32, warm_start: bool = False,
+                             root: str = "datasets/Sintel",
+                             output_path: str = "sintel_submission",
+                             eval_fn=None, batch_size: int = 4,
+                             device: DeviceLike = "cuda") -> None:
+    """Write the test split's ``.flo`` predictions,
+    ``<output_path>/<dstype>/<scene>/frame%04d.flo``.
+
+    Each batch lane carries one sequence, so the warm start chains frames
+    within a lane while lanes share one forward.  ``warm_start`` seeds
+    each frame with the previous frame's 1/8 flow forward-warped along
+    itself (on the host), for the lanes still active; a finished or
+    padding lane gets a zero ``flow_init``, which equals no warm start.
+    Finished lanes repeat their last frame and padding lanes mirror the
+    last real lane; their outputs are never written."""
+    eval_fn = eval_fn or make_eval_fn(model_cfg, iters, device=device)
+    for dstype in ("clean", "final"):
+        ds = datasets.MpiSintel(split="test", dstype=dstype, root=root)
+        seq_frames: Dict[str, list] = {}
+        for i, (scene, frame) in enumerate(ds.extra_info):
+            seq_frames.setdefault(scene, []).append((frame, i))
+        lanes_all = [[i for _, i in sorted(v)] for v in seq_frames.values()]
+        if not lanes_all:
+            continue
+        B = min(batch_size, len(lanes_all))
+        for g0 in range(0, len(lanes_all), B):
+            real = lanes_all[g0:g0 + B]
+            lanes = real + [[]] * (B - len(real))
+            flow_prev = None
+            cache = [None] * B  # (sample, padder) of a finished lane
+            for t in range(max(len(ln) for ln in real)):
+                samples, padders = [], []
+                for j, ln in enumerate(lanes):
+                    if t < len(ln):
+                        s = ds.load(ln[t])
+                        p = InputPadder(s["image1"].shape, mode="sintel")
+                        cache[j] = (s, p)
+                    elif cache[j] is not None:
+                        s, p = cache[j]
+                    else:
+                        s, p = samples[len(real) - 1], padders[len(real) - 1]
+                    samples.append(s)
+                    padders.append(p)
+                im1 = np.stack([p.pad_np(s["image1"])
+                                for p, s in zip(padders, samples)])
+                im2 = np.stack([p.pad_np(s["image2"])
+                                for p, s in zip(padders, samples)])
+                flow_low, flow_up = eval_fn(state_dict, im1, im2, flow_prev)
+                flow_up = flow_up.cpu().numpy()
+                if warm_start:
+                    low = flow_low.cpu().numpy()
+                    flow_prev = np.stack([
+                        forward_interpolate(low[j])
+                        if t + 1 < len(lanes[j]) else np.zeros_like(low[j])
+                        for j in range(B)])
+                for j, (ln, s, p) in enumerate(zip(lanes, samples, padders)):
+                    if t >= len(ln):
+                        continue
+                    scene, frame = s["extra_info"]
+                    out_dir = osp.join(output_path, dstype, scene)
+                    os.makedirs(out_dir, exist_ok=True)
+                    frame_utils.write_flo(
+                        osp.join(out_dir, f"frame{frame + 1:04d}.flo"),
+                        p.unpad(flow_up[j]))
+
+
+def create_kitti_submission(state_dict,
+                            model_cfg: RAFTConfig = RAFTConfig.full(),
+                            iters: int = 24, root: str = "datasets/KITTI",
+                            output_path: str = "kitti_submission",
+                            eval_fn=None, batch_size: int = 4,
+                            bucket: bool = False,
+                            device: DeviceLike = "cuda") -> None:
+    """Write the test split's 16-bit PNG flow, ``<output_path>/<frame>``.
+
+    ``bucket=False`` (the default) pads each image exactly, one image a
+    batch, as the uploaded artifact is; ``bucket=True`` streams the split
+    in batches of one bucket shape, as the validator does."""
+    eval_fn = eval_fn or make_eval_fn(model_cfg, iters, device=device)
+    ds = datasets.KITTI(split="testing", root=root)
+    os.makedirs(output_path, exist_ok=True)
+    target, bs = (_bucket_hw(ds), batch_size) if bucket else (None, 1)
+    for sample, flow in _batched_flows(state_dict, eval_fn, ds, "kitti", bs,
+                                       target=target):
+        (frame_id,) = sample["extra_info"]
+        frame_utils.write_flow_kitti(osp.join(output_path, frame_id), flow)
+
+
+VALIDATORS = {
+    "chairs": validate_chairs,
+    "sintel": validate_sintel,
+    "kitti": validate_kitti,
+}
+
+
+def evaluate_epe_delta(state_dict, model_cfg: RAFTConfig, dtypes,
+                       dataset: str = "chairs", iters: int = 24,
+                       batch_size: int = 4, **validator_kwargs) -> Dict:
+    """One checkpoint, one dataset, N correlation storage dtypes: runs
+    the validator once per ``corr_dtype`` (nothing else differs) and
+    reports each arm's metrics and their deltas against the first.
+
+    Returns ``{"dataset", "dtypes", "per_dtype": {dtype: metrics},
+    "delta_vs_<base>": {dtype: {metric: delta}}}``."""
+    dtypes = [validate_corr_dtype(d) for d in dtypes]
+    if len(dtypes) < 2:
+        raise ValueError(f"--epe_delta needs >= 2 dtypes, got {dtypes}")
+    validator = VALIDATORS[dataset]
+    per_dtype: Dict[str, Dict[str, float]] = {}
+    for dt in dtypes:
+        cfg = model_cfg.replace(corr_dtype=dt)
+        print(f"--- corr_dtype={dt} ---", flush=True)
+        per_dtype[dt] = validator(state_dict, cfg, iters=iters,
+                                  batch_size=batch_size, **validator_kwargs)
+    base = dtypes[0]
+    deltas = {
+        dt: {k: round(per_dtype[dt][k] - per_dtype[base][k], 6)
+             for k in per_dtype[base]}
+        for dt in dtypes[1:]
+    }
+    for dt, d in deltas.items():
+        line = ", ".join(f"{k}: {v:+.4f}" for k, v in d.items())
+        print(f"EPE delta {dt} - {base} [{dataset}]: {line}", flush=True)
+    return {"dataset": dataset, "dtypes": list(dtypes),
+            "per_dtype": per_dtype, f"delta_vs_{base}": deltas}

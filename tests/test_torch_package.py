@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from raft_tpu_torch.config import RAFTConfig, TrainConfig
-from raft_tpu_torch.evaluate import make_eval_fn, make_inference_model
+from raft_tpu_torch.evaluate import (VALIDATORS, make_eval_fn,
+                                     make_inference_model)
 from raft_tpu_torch.models.raft import RAFT
 from raft_tpu_torch.ops import (build, corr_kernels, gru_gates, lookup_encode,
                                 pyramid_kernels, upsample_loss)
@@ -46,7 +47,10 @@ def test_import_loads_no_jax_and_no_raft_tpu():
     assert {"raft_tpu_torch.train.step", "raft_tpu_torch.train.loop",
             "raft_tpu_torch.ops.pyramid_kernels",
             "raft_tpu_torch.ops.upsample_loss",
-            "raft_tpu_torch.ops.lookup_encode"} <= set(MODULES)
+            "raft_tpu_torch.ops.lookup_encode", "raft_tpu_torch.__main__",
+            "raft_tpu_torch.cli.evaluate", "raft_tpu_torch.data.datasets",
+            "raft_tpu_torch.data.png16", "raft_tpu_torch.utils.warp"
+            } <= set(MODULES)
 
 
 def test_no_source_imports_jax_or_raft_tpu():
@@ -71,6 +75,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         make_eval_fn(RAFTConfig.full(), 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_inference_model(RAFTConfig.full())
+    for validate in VALIDATORS.values():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            validate({})
     cfg = TrainConfig(num_steps=1, batch_size=1, iters=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_train_step(cfg)

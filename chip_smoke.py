@@ -100,7 +100,28 @@ Phases, each raising on failure (so the script exits nonzero):
    of a bf16 step at the things stage (400x720, batch 5, 12 iterations)
    for the on-demand, the ``allpairs_pallas`` and the int8 + fused
    configurations;
-8. report: one JSON line ``{"kernels": [...]}``, the nvidia-smi line,
+8. train_cli: the training entry point on a synthetic FlyingChairs tree
+   (24 training and 4 validation ``.ppm`` pairs at 384x512 with ``.flo``
+   files and a split file): the native host library must load on this
+   host (its build time, and whether cv2 is importable); the loader alone
+   (``ShardedLoader(fetch_dataset('chairs', (368, 496)), 8)``) at 1 worker
+   and at the CLI's default, samples/s and one sample's decode / augment
+   / stack; ``python -m raft_tpu_torch train`` in a subprocess (bf16,
+   ``--corr_impl auto``, 8 steps, a checkpoint every 2) stopped by SIGTERM
+   after its second checkpoint (exit 143, the step saved), ``verify-ckpt
+   --json`` on the run directory, its newest step torn with
+   ``chaos.tear_files`` and flagged, the rerun falling back past it and
+   finishing, and ``evaluate --model <run dir>``; the CLI's configuration
+   in this process with exact launch counts; the resume check in process
+   (fp32, TF32 off, the shipped kernel configuration, device prefetch 2:
+   4 steps against 2, a preemption and 2 more; the host batch stream
+   bit-equal, the saved state restored bit for bit, final loss and
+   parameters within the stated tolerance); one checkpoint's snapshot and
+   commit time; and the bf16 shipped configuration on the real loader at
+   ``device_prefetch`` 0 and 2 (ms/step, pairs/s, queue wait, prep and
+   copy times, idle share, exact launch counts) beside phase train's
+   reused batch;
+9. report: one JSON line ``{"kernels": [...]}``, the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without CUDA it exits nonzero before any
@@ -112,9 +133,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -2383,6 +2406,515 @@ def _cotangent_sum() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase train_cli: the training entry point on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_CLI_PAIRS, TRAIN_CLI_VAL_PAIRS = 24, 4
+TRAIN_CLI_STEPS, TRAIN_CLI_VAL_FREQ = 8, 2
+RESUME_STEPS, RESUME_AT = 4, 2
+TIMED_WARM, TIMED_STEPS = 3, 10
+
+
+def _train_tree(root: str) -> dict:
+    """A synthetic FlyingChairs tree in the real layout and resolution:
+    ``TRAIN_CLI_PAIRS`` training and ``TRAIN_CLI_VAL_PAIRS`` validation
+    ``.ppm`` pairs at 384x512 (seeded textures under a constant shift) with
+    ``.flo`` files and a split file.  Cut: the pair count (real: 22232
+    training, 640 validation)."""
+    from PIL import Image
+
+    from raft_tpu_torch.data import frame_utils
+
+    data = os.path.join(root, "datasets", "FlyingChairs_release", "data")
+    os.makedirs(data)
+    n = TRAIN_CLI_PAIRS + TRAIN_CLI_VAL_PAIRS
+    for i in range(n):
+        shift = (i % 7 - 3, i % 5 - 2)
+        base = _texture(100 + i, *EVAL_CHAIRS_HW)
+        for k in (0, 1):
+            Image.fromarray(_shifted(base, EVAL_CHAIRS_HW, k, shift)).save(
+                os.path.join(data, f"{i:05d}_img{k + 1}.ppm"))
+        frame_utils.write_flo(
+            os.path.join(data, f"{i:05d}_flow.flo"),
+            np.broadcast_to(np.float32(shift), EVAL_CHAIRS_HW + (2,)))
+    split = os.path.join(root, "chairs_split.txt")
+    with open(split, "w") as f:
+        f.write("1\n" * TRAIN_CLI_PAIRS + "2\n" * TRAIN_CLI_VAL_PAIRS)
+    return {"data_root": os.path.join(root, "datasets"), "split": split,
+            "data": data}
+
+
+def _native_status() -> dict:
+    """The native host library on this host: it must load (the chairs
+    path runs the C augmentors here, not the NumPy fallback)."""
+    import importlib.util
+
+    from raft_tpu_torch.native import build as native
+
+    t0 = time.perf_counter()
+    lib = native.load()
+    res = dict(native.status(), load_s=time.perf_counter() - t0,
+               aug_switch=bool(os.environ.get(native.NO_NATIVE_AUG_ENV)),
+               cv2=importlib.util.find_spec("cv2") is not None)
+    print(f"[train_cli] native host library: loaded {res['loaded']}, build "
+          f"{res['build_s']} s (load call {res['load_s']:.3f} s), "
+          f"{res['path']}; cv2 importable: {res['cv2']}", flush=True)
+    if lib is None or native.aug_lib() is None:
+        raise AssertionError(f"native host library not in use: {res}")
+    return res
+
+
+def _loader_throughput(tree: dict) -> dict:
+    """``ShardedLoader(fetch_dataset('chairs', (368, 496)), 8)`` alone on
+    the host: samples/s and ms per batch at 1 worker and at the CLI's
+    default, and one sample's time split into decode, augment and stack."""
+    from raft_tpu_torch.data import datasets, frame_utils
+
+    ds = datasets.fetch_dataset("chairs", CHAIRS_HW, root=tree["data_root"],
+                                split_file=tree["split"])
+    out = {"cpus": len(os.sched_getaffinity(0))}
+    for workers in (1, min(16, out["cpus"])):
+        loader = datasets.ShardedLoader(ds, CHAIRS_B, seed=0,
+                                        num_workers=workers)
+        it = loader.batches()
+        next(it)                                          # pool warm-up
+        t0 = time.perf_counter()
+        n = 6
+        for _ in range(n):
+            b = next(it)
+        dt = time.perf_counter() - t0
+        it.close()
+        if b["image1"].shape != (CHAIRS_B,) + CHAIRS_HW + (3,):
+            raise AssertionError(f"loader batch {b['image1'].shape}")
+        out[f"workers_{workers}"] = dict(
+            samples_per_s=n * CHAIRS_B / dt, ms_per_batch=dt / n * 1e3)
+        print(f"[train_cli] loader alone, {workers} worker(s): "
+              f"{n * CHAIRS_B / dt:.1f} samples/s, {dt / n * 1e3:.1f} ms a "
+              f"batch of {CHAIRS_B}", flush=True)
+    parts = {"decode": [], "augment": [], "stack": []}
+    samples = []
+    for i in range(CHAIRS_B):
+        img1_p, img2_p = ds.image_list[i]
+        t0 = time.perf_counter()
+        img1 = datasets._to_rgb(frame_utils.read_gen(img1_p))
+        img2 = datasets._to_rgb(frame_utils.read_gen(img2_p))
+        flow = np.asarray(frame_utils.read_gen(ds.flow_list[i]), np.float32)
+        t1 = time.perf_counter()
+        a1, a2, f = ds.augmentor(np.random.default_rng(i), img1, img2, flow)
+        t2 = time.perf_counter()
+        parts["decode"].append((t1 - t0) * 1e3)
+        parts["augment"].append((t2 - t1) * 1e3)
+        samples.append({"image1": a1.astype(np.float32),
+                        "image2": a2.astype(np.float32), "flow": f})
+    t0 = time.perf_counter()
+    {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    parts["stack"] = [(time.perf_counter() - t0) * 1e3 / CHAIRS_B]
+    out["sample_ms"] = {k: statistics.median(v) for k, v in parts.items()}
+    print(f"[train_cli] one sample on the host (median ms): "
+          f"{out['sample_ms']}", flush=True)
+    return out
+
+
+class _Child:
+    """A subprocess whose output lines are read on a thread, so the caller
+    can wait for a line with a deadline."""
+
+    def __init__(self, args):
+        import queue
+        import threading
+
+        self.lines, self._q = [], queue.Queue()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "raft_tpu_torch", *args], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=REPO, PYTHONUNBUFFERED="1"))
+        self._thread = threading.Thread(target=self._read, daemon=True)
+        self._thread.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self._q.put(line.rstrip("\n"))
+        self._q.put(None)
+
+    def wait_for(self, pattern: str, count: int = 1, timeout: float = 300):
+        """Lines until the ``count``-th one matching ``pattern``."""
+        import queue
+
+        deadline, seen = time.monotonic() + timeout, 0
+        while True:
+            try:
+                line = self._q.get(timeout=max(deadline - time.monotonic(),
+                                               0.01))
+            except queue.Empty:
+                raise AssertionError(f"no {pattern!r} within {timeout} s: "
+                                     + "\n".join(self.lines[-20:]))
+            if line is None:
+                raise AssertionError(f"child ended before {pattern!r}: "
+                                     + "\n".join(self.lines[-40:]))
+            self.lines.append(line)
+            if re.search(pattern, line):
+                seen += 1
+                if seen == count:
+                    return line
+
+    def finish(self, timeout: float = 600) -> int:
+        rc = self.proc.wait(timeout=timeout)
+        self._thread.join(timeout=10)
+        while not self._q.empty():
+            line = self._q.get()
+            if line is not None:
+                self.lines.append(line)
+        return rc
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _run_cli(*args, timeout: float = 600) -> tuple:
+    child = _Child(list(args))
+    try:
+        rc = child.finish(timeout)
+    finally:
+        child.kill()
+    return rc, child.lines
+
+
+def _cli_run(tree: dict, ckpt_dir: str) -> dict:
+    """The train CLI in a subprocess (bf16, ``--corr_impl auto``): SIGTERM
+    after its second checkpoint, exit 143 with the step it stopped at
+    saved; ``verify-ckpt --json`` finds every step ok; the newest step
+    torn, ``verify-ckpt`` flags it; the rerun falls back past it, resumes
+    and finishes at ``TRAIN_CLI_STEPS``; the evaluate CLI reads the run
+    directory."""
+    from raft_tpu_torch import chaos
+    from raft_tpu_torch.train.checkpoint import CheckpointManager
+
+    args = ["train", "--name", "smoke", "--stage", "chairs",
+            "--precision", "bf16", "--batch_size", str(CHAIRS_B),
+            "--image_size", *map(str, CHAIRS_HW),
+            "--iters", str(CHAIRS_ITERS), "--num_steps",
+            str(TRAIN_CLI_STEPS), "--val_freq", str(TRAIN_CLI_VAL_FREQ),
+            "--lr", "0.00025", "--data_root", tree["data_root"],
+            "--chairs_split", tree["split"], "--ckpt_dir", ckpt_dir]
+    run_dir = os.path.join(ckpt_dir, "smoke")
+    res = {}
+    t0 = time.perf_counter()
+    child = _Child(args)
+    try:
+        child.wait_for(r"^throughput:", count=2)
+        child.proc.send_signal(signal.SIGTERM)
+        rc = child.finish()
+    finally:
+        child.kill()
+    stop = [int(m.group(1)) for line in child.lines
+            for m in [re.match(r"preempted at step (\d+)", line)] if m]
+    mgr = CheckpointManager(run_dir)
+    steps = mgr.all_steps()
+    res["sigterm"] = dict(rc=rc, stopped_at=stop, steps=steps,
+                          s=time.perf_counter() - t0, out=child.lines[-30:])
+    print(f"[train_cli] CLI SIGTERM after the second checkpoint: rc {rc}, "
+          f"stopped at {stop}, saved steps {steps} "
+          f"({res['sigterm']['s']:.1f} s)", flush=True)
+    if rc != 143 or len(stop) != 1 or steps[-1] != stop[0] \
+            or len(steps) < 2:
+        raise AssertionError(f"train CLI SIGTERM: {res['sigterm']}")
+
+    rc, lines = _run_cli("verify-ckpt", run_dir, "--json")
+    rep = json.loads(lines[-1])
+    res["verify"] = dict(rc=rc, report=rep)
+    print(f"[train_cli] verify-ckpt: rc {rc}, {rep['steps']}", flush=True)
+    if rc != 0 or not rep["ok"] or [s["step"] for s in rep["steps"]] != steps:
+        raise AssertionError(f"verify-ckpt: {res['verify']}")
+
+    torn = chaos.tear_files(os.path.join(run_dir, str(steps[-1])))
+    rc, lines = _run_cli("verify-ckpt", run_dir, "--json")
+    rep = json.loads(lines[-1])
+    res["verify_torn"] = dict(rc=rc, report=rep, torn=torn)
+    print(f"[train_cli] step {steps[-1]} torn ({len(torn)} files): "
+          f"verify-ckpt rc {rc}, latest valid {rep['latest_valid']}",
+          flush=True)
+    if rc != 1 or rep["latest_valid"] != steps[-2] \
+            or rep["steps"][-1]["ok"]:
+        raise AssertionError(f"verify-ckpt after tearing: {rep}")
+
+    t0 = time.perf_counter()
+    rc, lines = _run_cli(*args)
+    out = "\n".join(lines)
+    resumed = re.findall(r"^resumed from step (\d+)", out, re.M)
+    res["rerun"] = dict(rc=rc, resumed=resumed, s=time.perf_counter() - t0,
+                        fallback="checkpoint fallback: step(s) "
+                        f"[{steps[-1]}] unrestorable" in out,
+                        steps=CheckpointManager(run_dir).all_steps(),
+                        out=lines[-30:])
+    print(f"[train_cli] CLI rerun: rc {rc}, resumed from {resumed}, "
+          f"fallback past the torn step {res['rerun']['fallback']}, saved "
+          f"steps {res['rerun']['steps']} ({res['rerun']['s']:.1f} s)",
+          flush=True)
+    if rc != 0 or resumed != [str(steps[-2])] or not res["rerun"]["fallback"] \
+            or res["rerun"]["steps"][-1] != TRAIN_CLI_STEPS:
+        raise AssertionError(f"train CLI rerun: {res['rerun']}")
+
+    rc, lines = _run_cli("evaluate", "--model", run_dir, "--dataset",
+                         "chairs", "--data_root", tree["data_root"],
+                         "--chairs_split", tree["split"])
+    epe = [float(x) for line in lines
+           for x in re.findall(r"Validation Chairs EPE: (\d+\.\d+)", line)]
+    res["evaluate"] = dict(rc=rc, epe=epe, out=lines[-10:])
+    print(f"[train_cli] evaluate --model <run dir> --dataset chairs: rc {rc},"
+          f" EPE {epe}", flush=True)
+    if rc != 0 or len(epe) != 1 or not np.isfinite(epe[0]):
+        raise AssertionError(f"evaluate CLI on the run dir: {res['evaluate']}")
+    return res
+
+
+def _cli_config_counts(tree: dict, ckpt_dir: str) -> dict:
+    """The CLI's configuration (bf16, ``--corr_impl auto`` ->
+    ``allpairs_pallas``, the plain upsample) through the same entry point
+    in this process for 2 steps: exactly 12 lookup forwards and 12
+    backwards a step, and no other kernel."""
+    from raft_tpu_torch.cli import train as train_cli
+
+    _reset_counts()
+    state = train_cli.run([
+        "--name", "counts", "--stage", "chairs", "--precision", "bf16",
+        "--batch_size", str(CHAIRS_B), "--image_size", *map(str, CHAIRS_HW),
+        "--iters", str(CHAIRS_ITERS), "--num_steps", "2",
+        "--data_root", tree["data_root"], "--chairs_split", tree["split"],
+        "--ckpt_dir", ckpt_dir])
+    if state.step != 2:
+        raise AssertionError(f"CLI in process: step {state.step}")
+    return _expect({"pyramid_lookup_fwd": 2 * CHAIRS_ITERS,
+                    "pyramid_lookup_bwd": 2 * CHAIRS_ITERS},
+                   "train_cli CLI configuration in process, 2 steps")
+
+
+class _HashingLoader:
+    """A loader whose streams record a SHA-256 of every host batch they
+    give (the loop adds no noise here: the chairs stage has none)."""
+
+    def __init__(self, loader):
+        self.loader, self.hashes = loader, []
+
+    def batches_from_step(self, step):
+        for b in self.loader.batches_from_step(step):
+            h = hashlib.sha256()
+            for k in sorted(b):
+                h.update(np.ascontiguousarray(b[k]).tobytes())
+            self.hashes.append(h.hexdigest())
+            yield b
+
+
+def _resume_check(tree: dict, ckpt_dir: str, sd) -> dict:
+    """In process, fp32 with TF32 off, the shipped kernel configuration,
+    ``device_prefetch=2``: ``train(loader=...)`` for ``RESUME_STEPS``
+    steps, against ``RESUME_AT`` steps, a preemption (the ``preempt``
+    fault) and the rest.  The host batch stream must be bit-equal, the
+    state saved at ``RESUME_AT`` must restore bit for bit (held against
+    the live state a validator copies at that step), and the final loss
+    and parameters must agree within the tolerance below: cuDNN may sum
+    in another order in another run, and Adam turns a near-zero gradient
+    entry into a step of up to ``lr`` either way (2 * lr a step)."""
+    from raft_tpu_torch import chaos
+    from raft_tpu_torch.config import RAFTConfig, TrainConfig
+    from raft_tpu_torch.data.datasets import ShardedLoader, fetch_dataset
+    from raft_tpu_torch.train import loop
+    from raft_tpu_torch.train.checkpoint import CheckpointManager
+    from raft_tpu_torch.train.step import init_state
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the resume check runs with TF32 off")
+    ds = fetch_dataset("chairs", CHAIRS_HW, root=tree["data_root"],
+                       split_file=tree["split"])
+    mk = lambda: _HashingLoader(ShardedLoader(ds, CHAIRS_B, seed=5))
+    mcfg = RAFTConfig.full(**KERNEL_CFG)
+    cfg = TrainConfig(name="full", lr=2.5e-4, num_steps=RESUME_STEPS,
+                      batch_size=CHAIRS_B, image_size=CHAIRS_HW,
+                      iters=CHAIRS_ITERS, val_freq=RESUME_AT, log_freq=100,
+                      seed=5, ckpt_dir=ckpt_dir, device_prefetch=2)
+    full_loader, timings = mk(), []
+    _reset_counts()
+    full = loop.train(mcfg, cfg, loader=full_loader, restore_params=sd,
+                      timings=timings)
+    counts = _expect_train_counts("kernel", RESUME_STEPS,
+                                  f"train_cli resume check, "
+                                  f"{RESUME_STEPS} steps")
+    grabbed = {}
+
+    def grab(state_dict):
+        grabbed.update({k: v.detach().clone()
+                        for k, v in state_dict.items()})
+        return {}
+
+    cut_cfg = dataclasses.replace(cfg, name="cut")
+    cut_loader = mk()
+    chaos.install(chaos.FaultPlan.parse(f"preempt@step={RESUME_AT}"))
+    try:
+        loop.train(mcfg, cut_cfg, loader=cut_loader, restore_params=sd,
+                   validators={"grab": grab})
+        raise AssertionError("the preempt fault did not stop the run")
+    except SystemExit as e:
+        if e.code != 143:
+            raise
+    finally:
+        chaos.uninstall()
+    mgr = CheckpointManager(os.path.join(ckpt_dir, "cut"))
+    template = init_state(mcfg, cut_cfg)
+    mgr.restore_latest(template)
+    restored_equal = template.step == RESUME_AT and all(
+        torch.equal(v, grabbed[k])
+        for k, v in template.model.state_dict().items())
+    del template
+    res_loader, res_timings = mk(), []
+    resumed = loop.train(mcfg, cut_cfg, loader=res_loader,
+                         restore_params=sd, timings=res_timings)
+    want = full_loader.hashes[:RESUME_STEPS]
+    got = cut_loader.hashes[:RESUME_AT] + \
+        res_loader.hashes[:RESUME_STEPS - RESUME_AT]
+    p_full = {k: v.detach() for k, v in full.model.named_parameters()}
+    p_res = {k: v.detach() for k, v in resumed.model.named_parameters()}
+    dp = max(float((p_full[k] - p_res[k]).abs().max()) for k in p_full)
+    bit_equal = all(torch.equal(p_full[k], p_res[k]) for k in p_full)
+    l_full = float(timings[-1]["loss"])
+    l_res = float(res_timings[-1]["loss"])
+    rel = abs(l_full - l_res) / max(abs(l_full), 1e-12)
+    tol_p = 2 * cfg.lr * (RESUME_STEPS - RESUME_AT)
+    res = dict(stream_equal=got == want, restored_bit_equal=restored_equal,
+               params_bit_equal=bit_equal, param_max_abs_diff=dp,
+               param_tol=tol_p, loss_full=l_full, loss_resumed=l_res,
+               loss_rel_diff=rel, loss_tol=1e-3, counts=counts,
+               resumed_step=resumed.step)
+    print(f"[train_cli] resume check (fp32, TF32 off, prefetch 2): host "
+          f"batch stream bit-equal {res['stream_equal']}, step {RESUME_AT} "
+          f"restores bit for bit {restored_equal}, final loss {l_full:.6f} "
+          f"vs {l_res:.6f} (rel {rel:.2e}, tol 1e-3), parameters max|diff| "
+          f"{dp:.3e} (tol {tol_p:.1e}; bit-equal {bit_equal})", flush=True)
+    if not (res["stream_equal"] and restored_equal and rel <= 1e-3
+            and dp <= tol_p and resumed.step == RESUME_STEPS):
+        raise AssertionError(f"train_cli resume check: {res}")
+
+    # the commit of one chairs-model checkpoint on its own
+    mgr = CheckpointManager(os.path.join(ckpt_dir, "commit"))
+    t0 = time.perf_counter()
+    mgr.save_async(RESUME_STEPS, resumed)
+    snap_ms = (time.perf_counter() - t0) * 1e3
+    mgr.wait()
+    res["checkpoint"] = dict(snapshot_ms=snap_ms,
+                             commit_ms=mgr.commit_s[-1] * 1e3,
+                             bytes=os.path.getsize(os.path.join(
+                                 mgr.directory, str(RESUME_STEPS),
+                                 "state.pt")))
+    mgr.close()
+    print(f"[train_cli] checkpoint: save_async returns after "
+          f"{snap_ms:.1f} ms (host snapshot), commit "
+          f"{res['checkpoint']['commit_ms']:.1f} ms for "
+          f"{res['checkpoint']['bytes'] / 2 ** 20:.1f} MiB", flush=True)
+    return res
+
+
+def _loader_step_times(tree: dict, ckpt_dir: str, sd, reused: dict) -> dict:
+    """bf16, the shipped configuration, the real loader: ``train()`` at
+    ``device_prefetch`` 0 and 2 for ``TIMED_WARM + TIMED_STEPS`` steps
+    (ms/step, pairs/s, queue wait, prep and copy: medians of the timed
+    steps; exact launch counts), then the same pipeline and step under
+    ``torch.profiler`` for the idle share, beside phase train's reused
+    batch (``reused``)."""
+    from raft_tpu_torch.config import RAFTConfig, TrainConfig
+    from raft_tpu_torch.data.datasets import ShardedLoader, fetch_dataset
+    from raft_tpu_torch.data.prefetch import CudaBatchPut, DevicePipeline
+    from raft_tpu_torch.train import loop
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    ds = fetch_dataset("chairs", CHAIRS_HW, root=tree["data_root"],
+                       split_file=tree["split"])
+    workers = min(16, len(os.sched_getaffinity(0)))
+    mcfg = RAFTConfig.full(compute_dtype="bfloat16", **KERNEL_CFG)
+    n = TIMED_WARM + TIMED_STEPS
+    out = {"reused_batch": {k: reused.get(k) for k in
+                            ("ms_per_step", "idle_share",
+                             "device_busy_ms")}}
+    for depth in (0, 2):
+        cfg = TrainConfig(name=f"time{depth}", lr=2.5e-4, num_steps=n,
+                          batch_size=CHAIRS_B, image_size=CHAIRS_HW,
+                          iters=CHAIRS_ITERS, val_freq=10 ** 6,
+                          log_freq=100, ckpt_dir=ckpt_dir,
+                          device_prefetch=depth)
+        timings = []
+        _reset_counts()
+        loop.train(mcfg, cfg, loader=ShardedLoader(ds, CHAIRS_B, seed=1,
+                                                   num_workers=workers),
+                   restore_params=sd, timings=timings)
+        counts = _expect_train_counts("kernel", n, f"train_cli bf16 "
+                                      f"prefetch {depth}, {n} steps")
+        med = lambda key: statistics.median(
+            t[key] for t in timings[TIMED_WARM:])
+        ms = med("step_s") * 1e3
+        # the loop's own body under the profiler: pipeline + step
+        state = init_state(mcfg, cfg, state_dict=sd)
+        step_fn = make_train_step(cfg)
+        put = CudaBatchPut(torch.device("cuda"), depth + 1)
+        pipe = DevicePipeline(ShardedLoader(ds, CHAIRS_B, seed=2,
+                                            num_workers=workers).batches(),
+                              put_fn=put.put, ready_fn=put.ready,
+                              depth=depth)
+        try:
+            for _ in range(2):
+                step_fn(state, next(pipe))
+            prof = _profile(lambda: step_fn(state, next(pipe)), reps=3)
+        finally:
+            pipe.close()
+        del state
+        out[f"prefetch_{depth}"] = dict(
+            ms_per_step=ms, pairs_per_s=CHAIRS_B / ms * 1e3,
+            queue_wait_ms=med("queue_wait_s") * 1e3,
+            prep_ms=med("prep_s") * 1e3, h2d_ms=med("h2d_s") * 1e3,
+            ms_all=[t["step_s"] * 1e3 for t in timings],
+            device_busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+            profiled_wall_ms=prof["wall_ms"], counts=counts)
+        r = out[f"prefetch_{depth}"]
+        print(f"[train_cli] bf16 real loader, device_prefetch {depth}: "
+              f"{ms:.2f} ms/step ({r['pairs_per_s']:.2f} pairs/s), queue "
+              f"wait {r['queue_wait_ms']:.2f} ms, prep {r['prep_ms']:.3f} "
+              f"ms, h2d {r['h2d_ms']:.3f} ms, device busy "
+              f"{prof['busy_ms']} ms of {prof['wall_ms']:.1f} (idle "
+              f"{prof['idle_share']}); reused batch (phase train): "
+              f"{out['reused_batch']}", flush=True)
+    return out
+
+
+def phase_train_cli(sd, train_res):
+    """The training entry point on the card (see the module docstring,
+    phase 8).  ``sd``: the seed-0 weights; ``train_res``: phase train's
+    results (its reused-batch bf16 numbers)."""
+    import shutil
+
+    work = os.path.join(WORK, "train_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    res, secs = {}, {}
+
+    def part(name, fn, *a):
+        t = time.perf_counter()
+        res[name] = fn(*a)
+        secs[name] = time.perf_counter() - t
+        print(f"[time] train_cli {name}: {secs[name]:.1f} s", flush=True)
+
+    part("tree", _train_tree, work)
+    tree = res["tree"]
+    part("native", _native_status)
+    part("loader", _loader_throughput, tree)
+    part("cli", _cli_run, tree, os.path.join(work, "cli"))
+    part("cli_counts", _cli_config_counts, tree, os.path.join(work, "cnt"))
+    part("resume", _resume_check, tree, os.path.join(work, "resume"), sd)
+    part("timing", _loader_step_times, tree, os.path.join(work, "timing"),
+         sd, train_res["chairs"]["kernel/bfloat16"])
+    res["phase_s"] = secs
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--report", default=None,
@@ -2417,6 +2949,7 @@ def main(argv=None) -> int:
     demo_res = timed_phase(phase_demo, sd)
     eval_res = timed_phase(phase_eval, sd)
     train, train_counts = timed_phase(phase_train, sd)
+    train_cli = timed_phase(phase_train_cli, sd, train)
     secs["total"] = time.perf_counter() - t0
 
     sources = {
@@ -2476,7 +3009,7 @@ def main(argv=None) -> int:
                        "build": build_res, "phase_s": secs,
                        "kernels": kern, "path": path,
                        "demo": demo_res, "eval": eval_res,
-                       "train": train}, f, indent=1)
+                       "train": train, "train_cli": train_cli}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

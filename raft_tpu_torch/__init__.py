@@ -4,8 +4,9 @@ for Hopper.
 The PyTorch port of the JAX package ``raft_tpu``; it imports neither JAX
 nor ``raft_tpu``.  Entry points: :func:`raft_tpu_torch.evaluate.
 make_eval_fn`, ``python -m raft_tpu_torch.cli.demo``,
-:func:`raft_tpu_torch.train.step.make_train_step` and
-:func:`raft_tpu_torch.train.loop.train`.
+:func:`raft_tpu_torch.train.step.make_train_step`,
+:func:`raft_tpu_torch.train.loop.train` and ``python -m raft_tpu_torch
+train|verify-ckpt|evaluate|demo``.
 """
 
 from raft_tpu_torch.config import RAFTConfig

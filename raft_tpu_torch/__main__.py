@@ -1,6 +1,8 @@
 """``python -m raft_tpu_torch <subcommand>``: the port's multi-tool, with
 the subcommands the port has::
 
+    python -m raft_tpu_torch train --name raft-chairs --stage chairs
+    python -m raft_tpu_torch verify-ckpt checkpoints/raft-chairs
     python -m raft_tpu_torch evaluate --model weights.pth --dataset sintel
     python -m raft_tpu_torch demo --model weights.pth --path demo-frames
 """
@@ -11,6 +13,9 @@ import importlib
 import sys
 
 _SUBCOMMANDS = {
+    "train": ("raft_tpu_torch.cli.train", "train one curriculum stage"),
+    "verify-ckpt": ("raft_tpu_torch.cli.verify_ckpt",
+                    "check a run directory's checkpoints restore"),
     "evaluate": ("raft_tpu_torch.cli.evaluate",
                  "validation on Sintel / KITTI / FlyingChairs"),
     "demo": ("raft_tpu_torch.cli.demo", "flow visualization over a frame dir"),
@@ -36,8 +41,8 @@ def main(argv=None) -> int:
     if cmd not in _SUBCOMMANDS:
         print(f"unknown subcommand {cmd!r}\n\n{_usage()}", file=sys.stderr)
         return 2
-    importlib.import_module(_SUBCOMMANDS[cmd][0]).main(rest)
-    return 0
+    rc = importlib.import_module(_SUBCOMMANDS[cmd][0]).main(rest)
+    return rc if isinstance(rc, int) else 0
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ over a dataset tree, printing the JAX validator's line.
         --dataset sintel --alternate_corr
 
 ``--model`` is a ``.pth`` holding the port's own ``state_dict`` or a
-reference-format one (the JAX CLI reads orbax directories instead).
+reference-format one, or a training run directory (``<ckpt_dir>/<name>``
+of the train CLI), whose newest restorable step gives the weights.
 ``--alternate_corr`` runs the kernel configuration: the on-demand
 correlation lookup (the CUDA kernel on the card) and the fused GRU gates.
 ``--epe_delta float32,int8`` runs the validator once per correlation
@@ -44,7 +45,8 @@ def _epe_delta_arg(value: str):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="RAFT evaluation (PyTorch port)")
     p.add_argument("--model", required=True,
-                   help=".pth state dict (the port's or reference format)")
+                   help=".pth state dict (the port's or reference format) "
+                        "or a training run directory")
     p.add_argument("--dataset", required=True,
                    choices=["chairs", "sintel", "kitti"])
     p.add_argument("--small", action="store_true",
@@ -77,6 +79,24 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def load_model_state_dict(path: str, model_cfg):
+    """The weights of ``--model``: a ``.pth`` file, or the newest
+    restorable step of a training run directory."""
+    import os
+
+    from raft_tpu_torch.convert import load_state_dict_file
+    from raft_tpu_torch.train.checkpoint import CheckpointManager
+
+    if not os.path.isdir(path):
+        return load_state_dict_file(path, model_cfg)
+    sd = CheckpointManager(path).restore_params()
+    if sd is None:
+        raise SystemExit(f"--model {path}: no checkpoint in this run "
+                         "directory")
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in sd.items()}
+
+
 def main(argv=None):
     args = parse_args(argv)
 
@@ -84,7 +104,6 @@ def main(argv=None):
 
     from raft_tpu_torch import evaluate
     from raft_tpu_torch.config import RAFTConfig
-    from raft_tpu_torch.convert import load_state_dict_file
 
     evaluate.resolve_device(args.device)
     compute_dtype = "bfloat16" if args.precision == "bf16" else "float32"
@@ -97,7 +116,7 @@ def main(argv=None):
     else:
         model_cfg = mk(compute_dtype=compute_dtype,
                        corr_dtype=args.corr_dtype)
-    state_dict = load_state_dict_file(args.model, model_cfg)
+    state_dict = load_model_state_dict(args.model, model_cfg)
     iters = args.iters or DEFAULT_ITERS[args.dataset]
 
     kwargs = {

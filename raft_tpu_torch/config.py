@@ -33,7 +33,7 @@ of the entry points.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -168,8 +168,13 @@ class RAFTConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters: the subset of the JAX package's
-    ``TrainConfig`` that the port's step and reduced loop read."""
+    ``TrainConfig`` that the port's step, loop and train CLI read, under
+    its names and defaults."""
 
+    name: str = "raft"
+    stage: str = "chairs"
+    restore_ckpt: Optional[str] = None
+    validation: Tuple[str, ...] = ()
     lr: float = 4e-4
     num_steps: int = 100000
     batch_size: int = 6
@@ -183,6 +188,7 @@ class TrainConfig:
     add_noise: bool = False
     seed: int = 1234
     log_freq: int = 100
+    val_freq: int = 5000        # checkpoint + validation cadence in steps
     freeze_bn: bool = False     # every stage but chairs
     # Sequence loss inside the upsample stage (space-to-depth sums, the
     # full-resolution per-iteration flows never exist); False returns the
@@ -193,3 +199,13 @@ class TrainConfig:
     # A step whose loss or gradients are not finite leaves parameters,
     # optimizer state and batch-norm statistics as they were.
     nonfinite_guard: bool = True
+    # Loader decode window in batches (0: max(2 * batch, 2 * workers)
+    # samples).
+    prefetch_batches: int = 0
+    # Batches prepared and copied to the device ahead of the step on a
+    # background thread (0: the serial fetch -> prep -> copy -> step path;
+    # the batch stream is the same either way).
+    device_prefetch: int = 2
+    ckpt_dir: str = "checkpoints"
+    # Background checkpoint commits in flight before save_async waits.
+    ckpt_commit_window: int = 2

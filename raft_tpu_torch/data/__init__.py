@@ -1,4 +1,5 @@
-"""Host-side data of the port: file formats and datasets."""
+"""Host-side data of the port: file formats, datasets, augmentation, the
+sharded loader and the device pipeline."""
 
 from raft_tpu_torch.data.frame_utils import (  # noqa: F401
     read_disp_kitti,
@@ -21,4 +22,15 @@ from raft_tpu_torch.data.datasets import (  # noqa: F401
     KITTI,
     MpiSintel,
     SampleReadError,
+    ShardedLoader,
+    fetch_dataset,
+)
+from raft_tpu_torch.data.augment import (  # noqa: F401
+    ColorJitter,
+    FlowAugmentor,
+    SparseFlowAugmentor,
+)
+from raft_tpu_torch.data.prefetch import (  # noqa: F401
+    DevicePipeline,
+    PipelineInterrupted,
 )

@@ -1,26 +1,38 @@
-"""Optical-flow datasets (the port's copy of ``raft_tpu/data/datasets.py``).
+"""Optical-flow datasets and the sharded training loader (the port's copy
+of ``raft_tpu/data/datasets.py``).
 
 The five dataset classes with the reference directory conventions
 (``MpiSintel``, ``FlyingChairs``, ``FlyingThings3D``, ``KITTI``,
 ``HD1K``), the replicate-and-concatenate mixing (``100 * clean + final``),
-grayscale tiling and alpha dropping, and the dense validity rule
-``|flow| < 1000``.  Samples are NumPy NHWC arrays.
+grayscale tiling and alpha dropping, the dense validity rule
+``|flow| < 1000``, training augmentation (``data/augment.py``), the stage
+mixtures (:func:`fetch_dataset`) and :class:`ShardedLoader`.  Samples are
+NumPy NHWC arrays; batches are dicts of stacked arrays.
 
-Training augmentation is not ported yet: a dataset built with
-``aug_params`` raises ``NotImplementedError`` (ROADMAP A4.1, the
-augmentors, with ``fetch_dataset``).
+``ShardedLoader`` shuffles the whole dataset per epoch from
+``SeedSequence([seed, epoch])`` and gives each rank a disjoint stride of
+the permutation; each sample is augmented with a generator from
+``SeedSequence([seed, epoch, index])``, so the stream does not depend on
+how the worker threads are scheduled.  Decoding and augmentation run in a
+thread pool (the native C ops and PIL release the GIL).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import os.path as osp
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from glob import glob
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from raft_tpu_torch import chaos
 from raft_tpu_torch.data import frame_utils
+from raft_tpu_torch.data.augment import FlowAugmentor, SparseFlowAugmentor
 
 
 class SampleReadError(ValueError):
@@ -67,13 +79,12 @@ class FlowDataset:
 
     def __init__(self, aug_params: Optional[dict] = None,
                  sparse: bool = False):
-        if aug_params is not None:
-            raise NotImplementedError(
-                "training augmentation (FlowAugmentor / SparseFlowAugmentor)"
-                " is a later slice of the port (ROADMAP A4.1); pass "
-                "aug_params=None")
         self.sparse = sparse
         self.is_test = False
+        self.augmentor = None
+        if aug_params is not None:
+            cls = SparseFlowAugmentor if sparse else FlowAugmentor
+            self.augmentor = cls(**aug_params)
         self.name = type(self).__name__
         self.split: Optional[str] = None
         self.flow_list: List[str] = []
@@ -84,6 +95,7 @@ class FlowDataset:
         out = FlowDataset.__new__(FlowDataset)
         out.sparse = self.sparse
         out.is_test = self.is_test
+        out.augmentor = self.augmentor
         out.name = self.name
         out.split = self.split
         out.flow_list = list(self.flow_list)
@@ -110,12 +122,19 @@ class FlowDataset:
         """The member dataset and its local index that serve ``index``."""
         return self, index
 
-    def load(self, index: int) -> Dict[str, np.ndarray]:
+    def load(self, index: int,
+             rng: Optional[np.random.Generator] = None
+             ) -> Dict[str, np.ndarray]:
         """One sample: float32 ``image1`` / ``image2`` (H, W, 3) in
-        [0, 255], ``flow`` (H, W, 2) and ``valid`` (H, W); a test split
-        gives the images and ``extra_info`` only."""
+        [0, 255], ``flow`` (H, W, 2) and ``valid`` (H, W), augmented with
+        ``rng`` (a fresh unseeded generator when None) when the dataset has
+        an augmentor; a test split gives the images and ``extra_info``
+        only."""
         ds, index = self._sample_parts(index)
         index = index % len(ds.image_list)
+        if chaos.should_inject("corrupt_image", point="data.sample_read"):
+            raise SampleReadError(ds.image_list[index][0], ds, index,
+                                  "chaos-injected corrupt sample")
         img1 = _read_sample(ds, index, ds.image_list[index][0],
                             lambda p: _to_rgb(frame_utils.read_gen(p)))
         img2 = _read_sample(ds, index, ds.image_list[index][1],
@@ -125,6 +144,7 @@ class FlowDataset:
                     "image2": img2.astype(np.float32),
                     "extra_info": ds.extra_info[index]}
 
+        valid = None
         if ds.sparse:
             flow, valid = _read_sample(ds, index, ds.flow_list[index],
                                        frame_utils.read_flow_kitti)
@@ -132,6 +152,17 @@ class FlowDataset:
             flow = _read_sample(
                 ds, index, ds.flow_list[index],
                 lambda p: np.asarray(frame_utils.read_gen(p), np.float32))
+
+        if ds.augmentor is not None:
+            if rng is None:
+                rng = np.random.default_rng()
+            if ds.sparse:
+                img1, img2, flow, valid = ds.augmentor(
+                    rng, img1, img2, flow, valid)
+            else:
+                img1, img2, flow = ds.augmentor(rng, img1, img2, flow)
+
+        if valid is None:
             valid = ((np.abs(flow[..., 0]) < 1000)
                      & (np.abs(flow[..., 1]) < 1000))
         return {"image1": img1.astype(np.float32),
@@ -280,3 +311,206 @@ class HD1K(FlowDataset):
                 self.flow_list.append(flows[i])
                 self.image_list.append((images[i], images[i + 1]))
             seq_ix += 1
+
+
+# ---------------------------------------------------------------------------
+# Stage mixtures
+# ---------------------------------------------------------------------------
+
+def fetch_dataset(stage: str, image_size: Tuple[int, int],
+                  root: str = "datasets", train_ds: str = "C+T+K+S+H",
+                  split_file: str = "chairs_split.txt") -> FlowDataset:
+    """The training mixture of ``stage`` with the reference's augmentation
+    parameters and replication weights."""
+    crop = {"crop_size": tuple(image_size)}
+    if stage == "chairs":
+        aug = dict(crop, min_scale=-0.1, max_scale=1.0, do_flip=True)
+        return FlyingChairs(aug, split="training",
+                            root=osp.join(root, "FlyingChairs_release/data"),
+                            split_file=split_file)
+    if stage == "things":
+        aug = dict(crop, min_scale=-0.4, max_scale=0.8, do_flip=True)
+        things_root = osp.join(root, "FlyingThings3D")
+        clean = FlyingThings3D(aug, root=things_root,
+                               dstype="frames_cleanpass")
+        final = FlyingThings3D(aug, root=things_root,
+                               dstype="frames_finalpass")
+        return clean + final
+    if stage == "sintel":
+        aug = dict(crop, min_scale=-0.2, max_scale=0.6, do_flip=True)
+        things = FlyingThings3D(aug, root=osp.join(root, "FlyingThings3D"),
+                                dstype="frames_cleanpass")
+        clean = MpiSintel(aug, split="training",
+                          root=osp.join(root, "Sintel"), dstype="clean")
+        final = MpiSintel(aug, split="training",
+                          root=osp.join(root, "Sintel"), dstype="final")
+        if train_ds == "C+T+K+S+H":
+            kitti = KITTI(dict(crop, min_scale=-0.3, max_scale=0.5,
+                               do_flip=True), root=osp.join(root, "KITTI"))
+            hd1k = HD1K(dict(crop, min_scale=-0.5, max_scale=0.2,
+                             do_flip=True), root=osp.join(root, "HD1k"))
+            return 100 * clean + 100 * final + 200 * kitti + 5 * hd1k + things
+        if train_ds == "C+T+K/S":
+            return 100 * clean + 100 * final + things
+        raise ValueError(f"unknown train_ds mixture: {train_ds!r}")
+    if stage == "kitti":
+        aug = dict(crop, min_scale=-0.2, max_scale=0.4, do_flip=False)
+        return KITTI(aug, split="training", root=osp.join(root, "KITTI"))
+    raise ValueError(f"unknown stage: {stage!r}")
+
+
+# ---------------------------------------------------------------------------
+# Sharded loader
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ShardedLoader:
+    """A globally shuffled, per-rank sharded batch iterator with a thread
+    pool.  Batches are dicts of stacked NHWC float32 arrays of
+    ``batch_size`` samples.
+
+    ``prefetch_batches``: how many batches of decode futures the pool keeps
+    in flight ahead of the consumer; 0 = ``max(2 * batch_size,
+    2 * num_workers)`` samples.  A sample whose read fails
+    (``ValueError`` / ``OSError``) is retried ``sample_retries`` times, then
+    quarantined (``quarantined_total`` counts it, one line is printed) and
+    replaced by an index drawn from ``SeedSequence([seed, epoch, index,
+    _RESAMPLE_SALT, resample])``, up to ``sample_resamples`` times; any
+    other error propagates.
+    """
+
+    dataset: FlowDataset
+    batch_size: int            # per-rank batch size
+    seed: int = 1234
+    num_hosts: int = 1
+    host_id: int = 0
+    num_workers: int = 4
+    drop_last: bool = True
+    prefetch_batches: int = 0
+    sample_retries: int = 1
+    sample_resamples: int = 8
+
+    #: Salt that separates replacement-index draws from the per-sample
+    #: augmentation streams (the JAX package's constant).
+    _RESAMPLE_SALT = 0x51A7
+
+    def __post_init__(self):
+        if not 0 <= self.host_id < self.num_hosts:
+            raise ValueError(f"host_id {self.host_id} outside "
+                             f"[0, {self.num_hosts})")
+        if len(self.dataset) == 0:
+            raise ValueError("empty dataset")
+        for name in ("prefetch_batches", "sample_retries",
+                     "sample_resamples"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0, got "
+                                 f"{getattr(self, name)}")
+        self.quarantined_total = 0
+        self._quarantine_lock = threading.Lock()
+
+    def epoch_indices(self, epoch: int) -> np.ndarray:
+        """This rank's sample indices of ``epoch``: a disjoint stride of a
+        permutation that every rank draws alike."""
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, epoch]))
+        perm = rng.permutation(len(self.dataset))
+        return perm[self.host_id::self.num_hosts]
+
+    def _load_one(self, epoch: int, index: int) -> Dict[str, np.ndarray]:
+        """One sample, retrying, quarantining and replacing a failed read
+        (see the class docstring)."""
+        if chaos.should_inject("worker_err", point="data.loader_worker"):
+            raise chaos.InjectedWorkerCrash(
+                "chaos-injected loader-worker crash (not a decode "
+                "error: must fail the run, not quarantine)")
+        index = int(index)
+        idx, last_err = index, None
+        for resample in range(self.sample_resamples + 1):
+            for _attempt in range(self.sample_retries + 1):
+                # a fresh generator per attempt: a replacement sees exactly
+                # the draws it would get as a first-class sample
+                rng = np.random.default_rng(
+                    np.random.SeedSequence([self.seed, epoch, idx]))
+                try:
+                    return self.dataset.load(idx, rng)
+                except (ValueError, OSError) as e:
+                    last_err = e
+            self._quarantine(epoch, index, idx, resample, last_err)
+            r = np.random.default_rng(np.random.SeedSequence(
+                [self.seed, epoch, index, self._RESAMPLE_SALT, resample]))
+            idx = int(r.integers(len(self.dataset)))
+        raise RuntimeError(
+            f"sample {index} and {self.sample_resamples} replacement "
+            f"draw(s) all failed to load; giving up (last error: "
+            f"{type(last_err).__name__}: {last_err})") from last_err
+
+    def _quarantine(self, epoch: int, index: int, idx: int,
+                    resample: int, err: Exception) -> None:
+        with self._quarantine_lock:
+            self.quarantined_total += 1
+        print(f"sample quarantined: epoch {epoch} index {idx} (for "
+              f"{index}, resample {resample}) after "
+              f"{self.sample_retries + 1} attempt(s): "
+              f"{type(err).__name__}: {err}", flush=True)
+
+    def steps_per_epoch(self) -> int:
+        """Batches per epoch on this rank (the same every epoch)."""
+        n = len(self.epoch_indices(0))
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
+
+    def batches_from_step(self, step: int) -> Iterator[Dict[str, np.ndarray]]:
+        """The stream as if ``step`` batches had been drawn already: a
+        resumed run continues the shuffle instead of replaying epoch 0."""
+        spe = self.steps_per_epoch()
+        if spe == 0:
+            raise ValueError(
+                f"per-rank dataset share smaller than "
+                f"batch_size={self.batch_size} with drop_last: no "
+                "batches would ever be produced")
+        start_epoch, skip = divmod(step, spe)
+        return self.batches(start_epoch, skip_batches=skip)
+
+    def batches(self, start_epoch: int = 0,
+                skip_batches: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+        """The endless stream, epoch after epoch.  ``skip_batches`` drops
+        the first batches of the first epoch without decoding them."""
+        epoch = start_epoch
+        window = (self.prefetch_batches * self.batch_size
+                  if self.prefetch_batches > 0
+                  else max(2 * self.batch_size, 2 * self.num_workers))
+        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            while True:
+                idx = self.epoch_indices(epoch)
+                n = len(idx)
+                usable = (n // self.batch_size) * self.batch_size \
+                    if self.drop_last else n
+                if usable == 0:
+                    raise ValueError(
+                        f"per-rank dataset share ({n} samples) smaller than "
+                        f"batch_size={self.batch_size} with drop_last: no "
+                        "batches would ever be produced")
+                if epoch == start_epoch and skip_batches:
+                    skipped = min(skip_batches * self.batch_size, usable)
+                    idx = idx[skipped:]
+                    usable -= skipped
+                pending = deque()
+                it = iter(idx[:usable])
+                for i in it:
+                    pending.append(pool.submit(self._load_one, epoch, i))
+                    if len(pending) >= window:
+                        break
+                buf: List[Dict[str, np.ndarray]] = []
+                while pending:
+                    buf.append(pending.popleft().result())
+                    nxt = next(it, None)
+                    if nxt is not None:
+                        pending.append(
+                            pool.submit(self._load_one, epoch, nxt))
+                    if len(buf) == self.batch_size:
+                        yield {k: np.stack([b[k] for b in buf])
+                               for k in buf[0]}
+                        buf = []
+                if buf and not self.drop_last:
+                    yield {k: np.stack([b[k] for b in buf]) for k in buf[0]}
+                epoch += 1

@@ -3,9 +3,11 @@
 
 KITTI's optical-flow ground truth is 16 bits per channel RGB, which PIL
 cannot read.  The decoder parses the chunks, inflates the IDAT stream with
-:mod:`zlib` and undoes the row filters: row by row when every row is None,
-Sub or Up, else one anti-diagonal of pixels at a time (real KITTI files
-are mostly Paeth rows, whose pixels each need their left neighbour).
+:mod:`zlib` and undoes the row filters: in C through the native host
+library when it loads, else in NumPy, row by row when every row is None,
+Sub or Up, and one anti-diagonal of pixels at a time otherwise (real
+KITTI files are mostly Paeth rows, whose pixels each need their left
+neighbour).
 Non-interlaced, 8 or 16 bits, gray, gray + alpha, RGB and RGBA.  The
 writer emits filter type 0.
 """
@@ -16,6 +18,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from raft_tpu_torch.native.build import load as native_lib
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type -> channel count
@@ -76,11 +80,22 @@ def _unfilter(flat: np.ndarray, height: int, stride: int,
     """Undo the row filters of the inflated stream ``(height, 1 + stride)``
     -> ``(height, stride)`` uint8.
 
-    Rows of None, Sub and Up only go row by row, each row vectorized (Sub
+    With the native host library (``raft_tpu_torch/native``) every row
+    goes through its C row filter, as in the JAX package.  Without it,
+    rows of None, Sub and Up only go row by row, each row vectorized (Sub
     is a running sum over pixel columns, mod 256).  An Average or Paeth
     row needs its left neighbour decoded first, which a row loop can only
     walk pixel by pixel; so any such row sends the image through
     :func:`_unfilter_diagonals` instead."""
+    lib = native_lib()
+    if lib is not None:
+        out = np.empty(height * stride, np.uint8)
+        src = np.ascontiguousarray(flat)
+        bad = lib.png_unfilter(src.ctypes.data, out.ctypes.data, height,
+                               stride, bpp)
+        if bad:
+            raise ValueError(f"bad filter type {bad}")
+        return out.reshape(height, stride)
     rows = flat.reshape(height, stride + 1)
     ftypes = rows[:, 0]
     bad = ftypes[ftypes > 4]

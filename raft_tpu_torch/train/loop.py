@@ -1,19 +1,52 @@
-"""A reduced training loop (the port of ``raft_tpu/train/loop.py:94-116``):
-host batches from an iterator, optional image noise, the step, and a log
-line every ``log_freq`` steps.  Checkpointing, telemetry, prefetch and the
-data loader are later items of the port."""
+"""The training loop (the port of ``raft_tpu/train/loop.py``).
+
+- Host batches come from a ``ShardedLoader`` (or a caller's iterator) and
+  pass through the overlapped input pipeline (``data/prefetch.py``): a
+  producer thread applies the image noise and copies batch N+1 to the
+  device while the step runs on batch N (``cfg.device_prefetch``; 0 = the
+  serial path, the same batch stream either way).
+- Checkpoints carry the full state (``train/checkpoint.py``); a run whose
+  ``ckpt_dir/name`` holds one resumes from its newest restorable step and
+  continues the loader's shuffle from there.
+- Preemption is cooperative: :func:`request_preemption` (the train CLI's
+  SIGTERM handler, or the ``preempt`` chaos fault) makes the loop save the
+  last completed step and exit with ``SystemExit(143)`` at the next step
+  boundary, or at once while it waits for input.
+- The image noise's generator is ``SeedSequence([seed + 1, start_step])``,
+  as in the JAX package: a resumed run does not replay the noise of step
+  0, and a run started at step k draws what the JAX package draws.
+
+The JAX loop's telemetry, tracing, health, watchdog and profiler hooks are
+not carried over (ROADMAP A8).
+"""
 
 from __future__ import annotations
 
-import itertools
-from typing import Callable, Dict, Iterable, Mapping, Optional
+import functools
+import os
+import threading
+import time
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 
+from raft_tpu_torch import chaos
 from raft_tpu_torch.config import RAFTConfig, TrainConfig
+from raft_tpu_torch.data.prefetch import (CudaBatchPut, DevicePipeline,
+                                          PipelineInterrupted, host_put)
 from raft_tpu_torch.evaluate import DeviceLike, resolve_device
+from raft_tpu_torch.train.checkpoint import CheckpointManager
+from raft_tpu_torch.train.logger import Logger
 from raft_tpu_torch.train.state import TrainState
 from raft_tpu_torch.train.step import init_state, make_train_step
+
+_PREEMPT = threading.Event()
+
+
+def request_preemption() -> None:
+    """Ask the running :func:`train` to checkpoint and exit after the
+    current step (safe from a signal handler)."""
+    _PREEMPT.set()
 
 
 def add_image_noise(rng: np.random.Generator, batch: Mapping) -> Dict:
@@ -28,28 +61,134 @@ def add_image_noise(rng: np.random.Generator, batch: Mapping) -> Dict:
     return out
 
 
-def train(model_cfg: RAFTConfig, cfg: TrainConfig,
-          batches: Iterable[Mapping], device: DeviceLike = "cuda",
-          state_dict: Optional[Mapping] = None,
-          log: Callable[[str], None] = print) -> TrainState:
-    """Run up to ``cfg.num_steps`` steps over ``batches`` (dicts of NHWC
-    numpy arrays: ``image1``, ``image2``, ``flow``, ``valid``) and return
-    the state.  Every ``cfg.log_freq`` steps ``log`` gets the mean of the
-    scalar metrics over the window."""
+def noise_prep(seed: int, start_step: int) -> Callable[[Mapping], Dict]:
+    """The pipeline's prep for ``add_noise``: :func:`add_image_noise` with
+    one generator from ``SeedSequence([seed + 1, start_step])`` for the
+    whole stream, called once per batch in stream order."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed + 1,
+                                                        start_step]))
+    return functools.partial(add_image_noise, rng)
+
+
+def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
+          loader=None,
+          validators: Optional[Dict[str, Callable]] = None,
+          restore_params: Optional[Mapping] = None,
+          tensorboard_dir: Optional[str] = None,
+          device: DeviceLike = "cuda",
+          log: Optional[Callable[[str], None]] = None,
+          timings: Optional[list] = None) -> TrainState:
+    """Train up to ``cfg.num_steps`` steps and return the state.
+
+    ``batches``: an iterator of host batches (dicts of NHWC arrays:
+    ``image1``, ``image2``, ``flow``, ``valid``); or ``loader``: a
+    ``ShardedLoader``, whose stream continues from the restored step on
+    resume.  ``validators``: name -> fn(state_dict) -> dict, run every
+    ``cfg.val_freq`` steps after the checkpoint.  ``restore_params``: a
+    model ``state_dict`` to start from (a previous stage's weights).
+    ``log``: where the logger's lines go (default: printed).
+    ``timings``: a list that gets one dict per step: ``loss`` (a device
+    tensor, not read back), ``queue_wait_s`` (time blocked on the
+    pipeline), ``step_s`` (queue wait + step, which ends in one host sync),
+    and the producer's ``prep_s`` and ``h2d_s``.
+    """
+    if (batches is None) == (loader is None):
+        raise ValueError("pass exactly one of batches= or loader=")
     dev = resolve_device(device)
-    state = init_state(model_cfg, cfg, device=dev, state_dict=state_dict)
+    _PREEMPT.clear()
+    state = init_state(model_cfg, cfg, device=dev,
+                       state_dict=restore_params)
+    print(f"Parameter Count: "
+          f"{sum(p.numel() for p in state.model.parameters())}", flush=True)
+
+    mgr = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name),
+                            commit_window=max(int(cfg.ckpt_commit_window),
+                                              1))
+    if mgr.restore_latest(state) is not None:
+        saved_on = mgr.saved_topology(state.step) or {}
+        print(f"resumed from step {state.step}"
+              + (f" (saved on {saved_on.get('device_count')} x "
+                 f"{saved_on.get('device')})" if saved_on else ""),
+              flush=True)
+
     step_fn = make_train_step(cfg, device=dev)
-    rng = np.random.default_rng(cfg.seed)
-    window = []
-    for batch in itertools.islice(batches, cfg.num_steps):
-        if cfg.add_noise:
-            batch = add_image_noise(rng, batch)
-        state, metrics = step_fn(state, batch)
-        window.append({k: v for k, v in metrics.items() if v.dim() == 0})
-        if state.step % cfg.log_freq == 0:
-            means = {k: float(sum(float(m[k]) for m in window) / len(window))
-                     for k in window[0]}
-            log(f"step {state.step} lr {state.schedule(state.step - 1):.3e} "
-                + " ".join(f"{k} {v:.4f}" for k, v in sorted(means.items())))
-            window = []
+    step = state.step
+    if loader is not None:
+        batches = loader.batches_from_step(step)
+    prep_fn = noise_prep(cfg.seed, step) if cfg.add_noise else None
+    logger = Logger(cfg.log_freq, lr_fn=state.schedule,
+                    tensorboard_dir=tensorboard_dir, log=log)
+    depth = max(int(cfg.device_prefetch), 0)
+    if dev.type == "cuda":
+        put = CudaBatchPut(dev, depth + 1)
+        put_fn, ready_fn = put.put, put.ready
+    else:
+        put_fn, ready_fn = host_put, None
+    pipeline = DevicePipeline(batches, put_fn=put_fn, ready_fn=ready_fn,
+                              prep_fn=prep_fn, depth=depth,
+                              interrupt=_PREEMPT.is_set)
+    t0, steps_t0 = time.time(), step
+    try:
+        while True:
+            t_iter = time.perf_counter()
+            try:
+                batch = next(pipeline)
+            except StopIteration:
+                break
+            except PipelineInterrupted:
+                raise SystemExit(143)
+            queue_wait_s = time.perf_counter() - t_iter
+            if step >= cfg.num_steps:
+                break
+            if chaos.should_inject("preempt", step=step,
+                                   point="train.preempt"):
+                request_preemption()
+            if _PREEMPT.is_set():
+                raise SystemExit(143)  # step boundary: state consistent
+            state, metrics = step_fn(state, batch)
+            step += 1
+            logger.push(step - 1, metrics)
+            if timings is not None:
+                timings.append({
+                    "step": step - 1, "loss": metrics["loss"],
+                    "queue_wait_s": queue_wait_s,
+                    "step_s": time.perf_counter() - t_iter,
+                    "prep_s": pipeline.last_prep_s,
+                    "h2d_s": pipeline.last_h2d_s})
+            if _PREEMPT.is_set():
+                raise SystemExit(143)
+
+            if step % cfg.val_freq == 0:
+                mgr.save_async(step, state)
+                if validators:
+                    sd = dict(state.model.state_dict())
+                    results = {}
+                    for fn in validators.values():
+                        results.update(fn(sd))
+                    logger.write_dict(step, results)
+                dt = time.time() - t0
+                ips = (step - steps_t0) * cfg.batch_size / max(dt, 1e-9)
+                print(f"throughput: {ips:.2f} image-pairs/sec (host)",
+                      flush=True)
+                t0, steps_t0 = time.time(), step
+
+        if mgr.last_requested_step() != state.step:
+            mgr.save(state.step, state)
+    except (KeyboardInterrupt, SystemExit):
+        # flush the last completed step so the next run resumes there,
+        # optimizer state and the loader's position in the shuffle included
+        print(f"preempted at step {state.step}; checkpointing", flush=True)
+        try:
+            mgr.wait()
+        except Exception as e:
+            print(f"checkpoint flush failed during preemption: {e}",
+                  flush=True)
+        if mgr.latest_step() != state.step:
+            mgr.save(state.step, state)
+        raise
+    finally:
+        pipeline.close()
+        mgr.wait()
+        mgr.close()
+        logger.close()
     return state

@@ -7,6 +7,8 @@ a machine without JAX it runs without the repository's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -798,3 +800,99 @@ def test_train_step_quantized_and_fused_configs_match_plain(
         for grads in (gk, gp):
             fnet = [g for n, g in grads.items() if n.startswith("fnet.")]
             assert fnet and not any(bool(g.any()) for g in fnet)
+
+
+# ---------------------------------------------------------------------------
+# the training input side and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+def _host_batches(n, B=2, H=64, W=96):
+    rng = np.random.default_rng(8)
+    for _ in range(n):
+        img1 = rng.uniform(0, 255, (B, H, W, 3)).astype(np.float32)
+        yield {"image1": img1, "image2": np.roll(img1, 2, axis=2),
+               "flow": rng.normal(0, 2, (B, H, W, 2)).astype(np.float32),
+               "valid": np.ones((B, H, W), np.float32)}
+
+
+def test_prefetch_on_card_matches_serial(dev):
+    """``CudaBatchPut`` through a depth-2 pipeline (pinned ring, side
+    stream, event wait, ``record_stream``) against depth 0: the batches the
+    step reads are bit-equal to the host batches, and three steps of the
+    kernel configuration give equal losses (cuDNN deterministic)."""
+    from raft_tpu_torch.config import TrainConfig
+    from raft_tpu_torch.data.prefetch import CudaBatchPut, DevicePipeline
+    from raft_tpu_torch.train.loop import noise_prep
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        host = list(_host_batches(3))
+        prep = noise_prep(5, 0)              # one generator, stream order
+        noisy = [prep(b) for b in host]
+        cfg = TrainConfig(num_steps=10, batch_size=2, image_size=(64, 96),
+                          iters=3, lr=1e-4)
+        mcfg = RAFTConfig.full(corr_impl="allpairs_pallas",
+                               upsample_loss_kernel="pallas")
+        sd = RAFT(mcfg, seed=0).state_dict()
+        losses = {}
+        for depth in (0, 2):
+            put = CudaBatchPut(dev, depth + 1)
+            pipe = DevicePipeline(iter(host), put_fn=put.put,
+                                  ready_fn=put.ready,
+                                  prep_fn=noise_prep(5, 0), depth=depth)
+            state = init_state(mcfg, cfg, device=dev, state_dict=sd)
+            step_fn = make_train_step(cfg, device=dev)
+            out = []
+            for want in noisy:
+                batch = next(pipe)
+                for k in ("image1", "image2", "flow", "valid"):
+                    assert batch[k].is_cuda
+                    assert torch.equal(batch[k].cpu(),
+                                       torch.from_numpy(want[k]))
+                state, met = step_fn(state, batch)
+                out.append(float(met["loss"]))
+            pipe.close()
+            losses[depth] = out
+        assert losses[0] == losses[2], losses
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def test_checkpoint_snapshot_of_cuda_state_restores_bit_for_bit(dev,
+                                                               tmp_path):
+    """``save_async`` copies the CUDA state to host before it returns: a
+    step taken right after it (which changes the parameters in place) does
+    not reach the checkpoint, and a fresh CUDA state restores to exactly
+    the saved one, the CUDA dropout generator included."""
+    from raft_tpu_torch.config import TrainConfig
+    from raft_tpu_torch.train.checkpoint import CheckpointManager
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    cfg = TrainConfig(num_steps=10, batch_size=2, image_size=(64, 96),
+                      iters=2, lr=1e-4)
+    mcfg = RAFTConfig.full(dropout=0.1, corr_impl="allpairs_pallas")
+    state = init_state(mcfg, cfg, device=dev)
+    step_fn = make_train_step(cfg, device=dev)
+    batches = _host_batches(2)
+    state, _ = step_fn(state, next(batches))
+    want = ({k: v.clone() for k, v in state.model.state_dict().items()},
+            [{k: v.clone() for k, v in s.items()}
+             for s in state.optimizer.state_dict()["state"].values()],
+            state.generator.get_state())
+    mgr = CheckpointManager(str(tmp_path / "run"))
+    mgr.save_async(1, state)
+    state, _ = step_fn(state, next(batches))      # overwrites in place
+    mgr.wait()
+    fresh = init_state(mcfg, dataclasses.replace(cfg, seed=7), device=dev)
+    mgr.restore_latest(fresh)
+    assert fresh.step == 1 and fresh.generator.device.type == "cuda"
+    for k, v in fresh.model.state_dict().items():
+        assert v.is_cuda and torch.equal(v, want[0][k]), k
+    got_opt = list(fresh.optimizer.state_dict()["state"].values())
+    for g, w in zip(got_opt, want[1]):
+        for k in w:
+            assert torch.equal(g[k].to(w[k].device), w[k]), k
+    assert torch.equal(fresh.generator.get_state(), want[2])
+    assert not torch.equal(state.generator.get_state(), want[2])
+    mgr.close()

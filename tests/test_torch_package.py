@@ -10,6 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from raft_tpu_torch.cli import train as train_cli
 from raft_tpu_torch.config import RAFTConfig, TrainConfig
 from raft_tpu_torch.evaluate import (VALIDATORS, make_eval_fn,
                                      make_inference_model)
@@ -49,8 +50,15 @@ def test_import_loads_no_jax_and_no_raft_tpu():
             "raft_tpu_torch.ops.upsample_loss",
             "raft_tpu_torch.ops.lookup_encode", "raft_tpu_torch.__main__",
             "raft_tpu_torch.cli.evaluate", "raft_tpu_torch.data.datasets",
-            "raft_tpu_torch.data.png16", "raft_tpu_torch.utils.warp"
+            "raft_tpu_torch.data.png16", "raft_tpu_torch.utils.warp",
+            "raft_tpu_torch.native.build", "raft_tpu_torch.data.augment",
+            "raft_tpu_torch.data.prefetch", "raft_tpu_torch.chaos",
+            "raft_tpu_torch.chaos.errors", "raft_tpu_torch.chaos.plan",
+            "raft_tpu_torch.train.checkpoint", "raft_tpu_torch.train.logger",
+            "raft_tpu_torch.cli.train", "raft_tpu_torch.cli.verify_ckpt"
             } <= set(MODULES)
+    for name in ("png_filters.c", "aug_ops.c"):
+        assert (PKG / "native" / name).is_file()
 
 
 def test_no_source_imports_jax_or_raft_tpu():
@@ -85,6 +93,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         init_state(RAFTConfig.full(), cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train(RAFTConfig.full(), cfg, iter([]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.run(["--num_steps", "1"])
     assert make_eval_fn(RAFTConfig.full(), 2, device="cpu") is not None
     assert make_train_step(cfg, device="cpu") is not None
 

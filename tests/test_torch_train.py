@@ -410,15 +410,16 @@ def test_accum_steps_matches_full_batch():
             _batch(7, b=4, h=32, w=48))
 
 
-def test_train_loop_logs_and_adds_noise():
+def test_train_loop_logs_and_adds_noise(tmp_path):
     cfg = TrainConfig(**{**KW, "num_steps": 3, "image_size": (32, 48)},
-                      log_freq=2, add_noise=True)
+                      log_freq=2, add_noise=True, ckpt_dir=str(tmp_path))
     lines = []
     batches = (_batch(10 + i, h=32, w=48) for i in range(5))
     state = loop.train(RAFTConfig.full(), cfg, batches, device="cpu",
                        log=lines.append)
     assert state.step == 3 and state.nonfinite_steps == 0
-    assert len(lines) == 1 and lines[0].startswith("step 2 ")
+    assert len(lines) == 2 and lines[0].startswith("[     2, ")
+    assert lines[1].startswith("[     3, ")   # the trailing partial window
     rng = np.random.default_rng(0)
     b = _batch(1, h=8, w=8)
     noisy = loop.add_image_noise(rng, b)

@@ -16,7 +16,7 @@ Phases, each raising on failure (so the script exits nonzero):
    instruction (``LDL``/``STL``) in theirs;
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, with device times of kernel and plain version
-   (``torch.profiler``; CUDA events where it reports none) beside the
+   (``torch.profiler``; the run fails where it reports none) beside the
    bound computed from the inputs:
    - inference kernels at the shapes of the Sintel path (440x1024 input,
      55x128 feature grid, C = 256, 4 levels, r = 4) plus a small case
@@ -121,8 +121,34 @@ Phases, each raising on failure (so the script exits nonzero):
    ``device_prefetch`` 0 and 2 (ms/step, pairs/s, queue wait, prep and
    copy times, idle share, exact launch counts) beside phase train's
    reused batch;
-9. report: one JSON line ``{"kernels": [...]}``, the nvidia-smi line,
-   and last ``{"ok": true, "device": {...}}``.
+9. small: the small model at full width (hidden 96, context 64, radius
+   3, C = 128): each kernel of its paths at its shapes against the plain
+   version, timed beside its bound (run as phase small_kernels right
+   after phase kernels, early in the process; the on-demand forward at the Sintel
+   grid and backward at chairs under (a), (b), (c); the pyramid forward
+   and backward at radius 3 in fp32 and bf16; the quantized forward; the
+   fused lookup + convc1 with F = 96 from K = 196 taps, fp32, bf16 and
+   int8, beside the unfused pair; the four gate kernels on 96-channel
+   halves, with the reset-gate backward's access path); the test-mode
+   forward at 440x1024 in the on-demand (+ fused gates) and the
+   fused-encoder configurations against the plain one within 1e-3 px at
+   4 iterations, then 32 iterations in fp32 and bf16 (ms/pair, device
+   busy and idle share, peak memory) with exact launch counts and none
+   of the upsample-loss kernel; the chairs train step of
+   ``allpairs_pallas`` (fp32, bf16) and of the on-demand configuration
+   (fp32) against their plain ones (phase train's bounds), then timed
+   with exact launch counts (ms/step, pairs/s, peak memory); the remat
+   sweep: the full model's shipped kernel configuration in bf16 at the
+   chairs and things stages under ``none``, ``save_corr``, ``full``,
+   ``dots`` and ``save_corr`` + ``remat_upsample`` (peak memory, ms/step,
+   launch counts a step), and each policy's fp32 gradients against
+   ``none``; ``python -m raft_tpu_torch curriculum`` in a subprocess on
+   two small stages, killed between them by ``stage_kill`` (exit 143)
+   and resumed, and ``lk-compare --small`` on the demo frames;
+10. report: one JSON line ``{"kernels": [...]}`` (each kernel with its
+   small-model launches and, where phase small timed it, its times
+   there), the nvidia-smi line, and last ``{"ok": true, "device":
+   {...}}``.
 
 It imports nothing of JAX.  Without CUDA it exits nonzero before any
 result.
@@ -185,15 +211,21 @@ def _device_ms(fn, reps: int = 20, match: str = None):
     or a tuple of them, each launched once a call: the sum of their mean
     times per launch, so a launch the trace lost does not count as zero),
     or of every kernel the call runs.  None when the profiler reports no
-    device time (then the CUDA-event time stands)."""
+    device time.  The launches sit 10 ms of idle card inside each end of
+    the traced window: the trace was seen to drop more of them the older
+    the process (1 of 20 in the first minute, all after ~400 s; the cause
+    is not known), and the margin keeps them inside should the device's
+    and the host's clocks drift apart."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.01)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(0.01)
     total_us = 0.0
     names = (match,) if isinstance(match, str) else match
     for e in prof.key_averages():
@@ -264,13 +296,16 @@ def _profile(fn, reps: int = 2) -> dict:
 
 
 def _timed(fn, match, reps: int = 30) -> dict:
-    """CUDA-event time of one call (host launch gaps included) and the
-    profiler's device time of its kernels; ``ms`` is the device time when
-    the profiler reports one."""
+    """The profiler's device time of one call's kernels (``ms``) beside
+    its CUDA-event time (host launch gaps included); raises when the
+    profiler reports no device time, so that no event time stands in for
+    a kernel's."""
     event_ms = _time_ms(fn, reps=reps)
     dev_ms = _device_ms(fn, match=match)
-    return {"ms": dev_ms if dev_ms is not None else event_ms,
-            "event_ms": event_ms, "device_ms": dev_ms}
+    if dev_ms is None:
+        raise AssertionError(f"the profiler reported no device time for "
+                             f"{match or 'a plain version'}")
+    return {"ms": dev_ms, "event_ms": event_ms, "device_ms": dev_ms}
 
 
 def _bound_ms(nbytes: float, ops: float, peaks) -> tuple:
@@ -374,12 +409,12 @@ CENTERS = {"a": "U(-20, 20) px, 2% far", "b": "smooth flow up to 20 px, "
            "2% far", "c": "U(-1, 1) px"}
 
 
-def _corr_inputs(rng, B, h, w, dev, dist="a"):
+def _corr_inputs(rng, B, h, w, dev, dist="a", c=C):
     from raft_tpu_torch.ops.corr_kernels import sample_centers
 
-    f1 = torch.from_numpy(rng.standard_normal((B, h, w, C))
+    f1 = torch.from_numpy(rng.standard_normal((B, h, w, c))
                           .astype(np.float32)).to(dev)
-    f2 = torch.from_numpy(rng.standard_normal((B, h, w, C))
+    f2 = torch.from_numpy(rng.standard_normal((B, h, w, c))
                           .astype(np.float32)).to(dev)
     if dist != "a":
         kind = {"b": "smooth", "c": "near"}[dist]
@@ -400,7 +435,8 @@ def _box_share(counts) -> float:
     return box / max(box + per_query, 1)
 
 
-def _corr_ops(coords: np.ndarray, shapes, k: int) -> float:
+def _corr_ops(coords: np.ndarray, shapes, k: int, channels: int = C
+              ) -> float:
     """fp32 operations this run's centers need: a C-long dot product (2C)
     for every in-level integer position of each bilinear window, plus
     4 multiplies and 3 adds per tap."""
@@ -413,7 +449,7 @@ def _corr_ops(coords: np.ndarray, shapes, k: int) -> float:
             lo = np.floor(c[:, axis]) - (k - 1) // 2
             pos = lo[:, None] + np.arange(k + 1)[None]
             cnt.append(((pos >= 0) & (pos < size)).sum(1))
-        ops += float((cnt[0] * cnt[1]).sum()) * 2 * C + n * k * k * 7
+        ops += float((cnt[0] * cnt[1]).sum()) * 2 * channels + n * k * k * 7
     return ops
 
 
@@ -423,9 +459,6 @@ def phase_kernels(peaks):
                                                  corr_lookup_ondemand,
                                                  corr_lookup_ondemand_nchw,
                                                  kernel_path_counts)
-    from raft_tpu_torch.ops.gru_gates import (gru_gate_blend,
-                                              gru_gate_blend_plain,
-                                              gru_gate_rh, gru_gate_rh_plain)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -492,59 +525,130 @@ def phase_kernels(peaks):
                       flush=True)
         results["corr_ondemand"] = results["corr_ondemand/a"]
 
-        # --- GRU gates: (1|2, 128, 55, 128), fp32 and bf16, split views ---
+        # --- GRU gates: (1|2, 128, 55, 128), fp32 and bf16, split views;
+        # batch 2 checks the batch strides, batch 1 is timed ---
         for B in (1, 2):
             for dtype in (torch.float32, torch.bfloat16):
-                zr, q, hh = (torch.from_numpy(
-                    rng.standard_normal((B, c, h8, w8)).astype(np.float32)
-                    * scale).to(dev, dtype)
-                    for c, scale in ((256, 3.0), (128, 3.0), (128, 1.0)))
-                z, r = torch.split(zr, 128, dim=1)      # split views
-                cases = {
-                    "gru_gate_rh": (lambda: gru_gate_rh(r, hh),
-                                    lambda: gru_gate_rh_plain(r, hh), 2, 4,
-                                    "rh_kernel"),
-                    "gru_gate_blend": (lambda: gru_gate_blend(z, q, hh),
-                                       lambda: gru_gate_blend_plain(z, q, hh),
-                                       3, 8, "blend_kernel"),
-                }
-                for name, (kern, plain, n_in, flops, kname) in cases.items():
-                    got, want = kern(), plain()
-                    torch.cuda.synchronize()
-                    diff = (got.float() - want.float()).abs()
-                    err = float(diff.max())
-                    if dtype == torch.float32:
-                        ok, tol = err <= 1e-6, "1e-6"
-                    else:
-                        # one bf16 ulp of the plain value, plus the fp32
-                        # bound: where (1-s)h and s*tanh(q) cancel, an fp32
-                        # difference of 1e-7 is several ulps of the tiny
-                        # result
-                        w32 = want.float().abs().clamp_min(2.0 ** -126)
-                        ulp = torch.exp2(torch.floor(torch.log2(w32)) - 7)
-                        ok = bool((diff <= ulp + 1e-6).all())
-                        tol = "1 bf16 ulp + 1e-6"
-                    # batch 2 checks the batch strides; batch 1 is timed
-                    tk, tp = ((_timed(kern, kname), _timed(plain, None))
-                              if B == 1 else ({"ms": None}, {"ms": None}))
-                    ms, plain_ms = tk["ms"], tp["ms"]
-                    esize = got.element_size()
-                    nbytes = (n_in + 1) * got.numel() * esize
-                    bound, by = _bound_ms(nbytes, flops * got.numel(), peaks)
-                    dt = "fp32" if dtype == torch.float32 else "bf16"
-                    print(f"[kernels] {name} B={B} {dt} "
-                          f"{tuple(got.shape)}: max|err| {err:.3e} ({tol}); "
-                          f"kernel {tk}, plain {tp}, bound {bound:.4f} ms "
-                          f"({by})", flush=True)
-                    if not ok:
-                        raise AssertionError(f"{name} B={B} {dt}: {err}")
-                    results[f"{name}/B{B}/{dt}"] = dict(
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=by, bytes=nbytes,
-                        kernel_timing=tk, plain_timing=tp)
+                dt = "fp32" if dtype == torch.float32 else "bf16"
+                for name, rec in _gate_fwd_case(
+                        rng, B, 128, h8, w8, dtype, peaks, "[kernels]",
+                        time_it=B == 1).items():
+                    results[f"{name}/B{B}/{dt}"] = rec
                     if B == 1 and dtype == torch.float32:
-                        results[name] = results[f"{name}/B{B}/{dt}"]
+                        results[name] = rec
     return results
+
+
+def _record(results, key, err, tk, tp, nbytes, ops, peaks, tag="[small]",
+            **extra):
+    bound, by = _bound_ms(nbytes, ops, peaks)
+    results[key] = dict(max_abs_err=err, ms=tk["ms"], plain_ms=tp["ms"],
+                        library_ms=None, bound_ms=bound, bound_by=by,
+                        bytes=nbytes, ops=ops, kernel_timing=tk,
+                        plain_timing=tp, **extra)
+    print(f"{tag} {key}: kernel {tk['ms']} ms, plain {tp['ms']} ms, bound "
+          f"{bound:.4f} ms ({by}; {nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} "
+          f"GFLOP), max|err| {err:.3e}", flush=True)
+
+
+def _gate_fwd_case(rng, B, ch, h, w, dtype, peaks, tag: str,
+                   time_it: bool = True) -> dict:
+    """``gru_gate_rh`` and ``gru_gate_blend`` on the z/r halves of one
+    (B, 2 ch, h, w) conv output (split views) against their plain
+    versions: within 1e-6 in fp32, and in bf16 within one bf16 ulp of the
+    plain value plus 1e-6 (where (1-s)h and s*tanh(q) cancel, an fp32
+    difference of 1e-7 is several ulps of the tiny result); timed beside
+    the bound when ``time_it``.  {name: record}"""
+    from raft_tpu_torch.ops.gru_gates import (gru_gate_blend,
+                                              gru_gate_blend_plain,
+                                              gru_gate_rh, gru_gate_rh_plain)
+
+    dev = torch.device("cuda")
+    dt = "fp32" if dtype == torch.float32 else "bf16"
+    zr, q, hh = (torch.from_numpy(
+        rng.standard_normal((B, c, h, w)).astype(np.float32) * scale).to(
+        dev, dtype) for c, scale in ((2 * ch, 3.0), (ch, 3.0), (ch, 1.0)))
+    z, r = torch.split(zr, ch, dim=1)               # split views
+    out = {}
+    for name, kern, plain, n_in, flops, kname in (
+            ("gru_gate_rh", lambda: gru_gate_rh(r, hh),
+             lambda: gru_gate_rh_plain(r, hh), 2, 4, "rh_kernel"),
+            ("gru_gate_blend", lambda: gru_gate_blend(z, q, hh),
+             lambda: gru_gate_blend_plain(z, q, hh), 3, 8, "blend_kernel")):
+        with torch.no_grad():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            if dtype == torch.float32:
+                ok, tol = err <= 1e-6, "1e-6"
+            else:
+                ok, tol = _bf16_close(got, want, 1e-6), "1 bf16 ulp + 1e-6"
+            print(f"{tag} {name} {dt} {tuple(got.shape)}: max|err| "
+                  f"{err:.3e} ({tol})", flush=True)
+            if not ok:
+                raise AssertionError(f"{name} {dt} {tuple(got.shape)}: "
+                                     f"{err}")
+            tk, tp = ((_timed(kern, kname), _timed(plain, None)) if time_it
+                      else ({"ms": None}, {"ms": None}))
+        n = got.numel()
+        _record(out, name, err, tk, tp, (n_in + 1) * n * got.element_size(),
+                flops * n, peaks, tag=f"{tag} {dt} {tuple(got.shape)}")
+    return out
+
+
+def _gate_bwd_case(rng, B, ch, x_ch, h, w, dtype, peaks, tag: str) -> dict:
+    """The backward kernels of ``gru_gate_rh`` and ``gru_gate_blend`` on
+    the z/r halves of one (B, 2 ch, h, w) conv output, rh's gradient a
+    channel slice of the gradient of cat([rh, x]) (x: ``x_ch`` channels),
+    against their plain versions (``_check``), timed beside the bound; the
+    reset-gate backward's record carries its access width
+    (``rh_bwd_vector_bytes``).  {name: record}"""
+    from raft_tpu_torch.ops import gru_gates
+
+    dev = torch.device("cuda")
+    dt = "fp32" if dtype == torch.float32 else "bf16"
+
+    def mk(c, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal((B, c, h, w))
+                                 .astype(np.float32)) * scale).to(dev, dtype)
+
+    zr, q, hh = mk(2 * ch, 3.0), mk(ch, 3.0), mk(ch)
+    g_cat, g_bl = mk(ch + x_ch), mk(ch)
+    g_rh = g_cat[:, :ch]
+    for t in (zr, q, hh):
+        t.requires_grad_(True)
+    z, r = torch.split(zr, ch, dim=1)           # views that carry grad
+    n, es = hh.numel(), hh.element_size()
+    strides = [gru_gates._batch_strided(t)[1] for t in (r, hh, g_rh)]
+    vec, units = gru_gates.rh_bwd_plan(
+        [r.data_ptr(), hh.data_ptr(), g_rh.data_ptr()], strides,
+        ch * h * w, B, es,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"{tag} gru_gate_rh_bwd {dt} {(B, ch, h, w)}: rh_bwd_plan {vec} "
+          f"values ({vec * es} bytes) per access, {units} units", flush=True)
+    rh, bl = gru_gates.gru_gate_rh(r, hh), gru_gates.gru_gate_blend(z, q, hh)
+    out = {}
+    for name, o, leaves, gg, pick, plain, n_io, flops, kname, extra in (
+            ("gru_gate_rh_bwd", rh, (zr, hh), g_rh,
+             lambda d: [d[0][:, ch:], d[1]],
+             lambda: gru_gates.gru_gate_rh_bwd_plain(r, hh, g_rh), 5, 9,
+             "rh_bwd_kernel", {"rh_bwd_vector_bytes": vec * es}),
+            ("gru_gate_blend_bwd", bl, (zr, q, hh), g_bl,
+             lambda d: [d[0][:, :ch], d[1], d[2]],
+             lambda: gru_gates.gru_gate_blend_bwd_plain(z, q, hh, g_bl), 7,
+             19, "blend_bwd_kernel", {})):
+        got = pick(torch.autograd.grad(o, leaves, gg, retain_graph=True))
+        err = max(_check(f"{tag} {name} {dt} {'d' + v} {tuple(a.shape)}",
+                         a, b)
+                  for v, a, b in zip("zqh" if len(got) == 3 else "rh", got,
+                                     plain()))
+        tk = _timed(lambda: torch.autograd.grad(o, leaves, gg,
+                                                retain_graph=True), kname)
+        _record(out, name, err, tk, _timed(plain, None), n_io * n * es,
+                flops * n, peaks, tag=f"{tag} {dt} {(B, ch, h, w)}",
+                **extra)
+    return out
 
 
 def _bf16_close(got, want, fp32_tol: float) -> bool:
@@ -1187,12 +1291,13 @@ def phase_slice4_kernels(peaks):
     return results
 
 
-def _corr_bwd_case(rng, B, h, w, label, peaks, time_plain=True, dist="a"):
+def _corr_bwd_case(rng, B, h, w, label, peaks, time_plain=True, dist="a",
+                   r=R, c=C):
     """The on-demand lookup backward kernel against its plain version on
-    one input (centers from distribution ``dist`` of ``CENTERS``), with
-    an NHWC and an NCHW tap gradient; the kernel's (and the plain
-    version's) time, the bound from this run's centers and the box-path
-    share.  df2 comes from atomic adds whose order varies between runs:
+    one input (centers from distribution ``dist`` of ``CENTERS``; radius
+    ``r``, ``c`` features), with an NHWC and an NCHW tap gradient; the
+    kernel's (and the plain version's) time, the bound from this run's
+    centers and the box-path share.  df2 comes from atomic adds whose order varies between runs:
     held to the tolerance, never compared bit for bit."""
     from raft_tpu_torch.ops.corr import pool_fmap_pyramid
     from raft_tpu_torch.ops.corr_kernels import (
@@ -1200,23 +1305,23 @@ def _corr_bwd_case(rng, B, h, w, label, peaks, time_plain=True, dist="a"):
         corr_lookup_ondemand_nchw, kernel_path_counts)
 
     dev = torch.device("cuda")
-    k = 2 * R + 1
+    k = 2 * r + 1
     P = LEVELS * k * k
-    f1, f2, coords = _corr_inputs(rng, B, h, w, dev, dist)
+    f1, f2, coords = _corr_inputs(rng, B, h, w, dev, dist, c)
     f1.requires_grad_(True)
     pyr = [lv.contiguous().requires_grad_(True)
            for lv in pool_fmap_pyramid(f2, LEVELS)]
     g = torch.from_numpy(rng.standard_normal((B, h, w, P)).astype(
         np.float32)).to(dev)
     leaves = [f1, *pyr]
-    want = corr_lookup_ondemand_bwd_plain(f1, pyr, coords, R, g)
+    want = corr_lookup_ondemand_bwd_plain(f1, pyr, coords, r, g)
     want = [want[0], *want[1]]
     err = 0.0
     outs = {}
     for layout, fn, cot in (
             ("nhwc", corr_lookup_ondemand, g),
             ("nchw", corr_lookup_ondemand_nchw, g.permute(0, 3, 1, 2))):
-        out = fn(f1, pyr, coords, R)
+        out = fn(f1, pyr, coords, r)
         got = torch.autograd.grad(out, leaves, cot, retain_graph=True)
         for i, (a, b) in enumerate(zip(got, want)):
             err = max(err, _check(f"corr_ondemand_bwd {label} ({dist}) "
@@ -1227,7 +1332,7 @@ def _corr_bwd_case(rng, B, h, w, label, peaks, time_plain=True, dist="a"):
     del got
     with torch.no_grad():
         paths = kernel_path_counts(f1.detach(), [p.detach() for p in pyr],
-                                   coords, R, g)["bwd"]
+                                   coords, r, g)["bwd"]
     if dist == "c" and not _box_share(paths) > 0.9:
         raise AssertionError(f"corr_ondemand_bwd {label}: box share {paths} "
                              "under near-grid centers")
@@ -1238,14 +1343,14 @@ def _corr_bwd_case(rng, B, h, w, label, peaks, time_plain=True, dist="a"):
     tk = _timed(lambda: torch.autograd.grad(out, leaves, cot,
                                             retain_graph=True),
                 "corr_ondemand_bwd_kernel", reps=10)
-    tp = (_timed(lambda: corr_lookup_ondemand_bwd_plain(f1, pyr, coords, R,
+    tp = (_timed(lambda: corr_lookup_ondemand_bwd_plain(f1, pyr, coords, r,
                                                         g), None, reps=3)
           if time_plain else {"ms": None})
     shapes = [tuple(p.shape[1:3]) for p in pyr]
     win = _window_elems(coords.cpu().numpy(), shapes, k)
     lvl = sum(p.numel() for p in pyr)
     nbytes = 4 * (2 * f1.numel() + coords.numel() + g.numel() + 2 * lvl)
-    ops = 4.0 * C * win + 8.0 * B * h * w * P
+    ops = 4.0 * c * win + 8.0 * B * h * w * P
     bound, by = _bound_ms(nbytes, ops, peaks)
     print(f"[kernels] corr_ondemand_bwd {label} ({dist}: {CENTERS[dist]}) "
           f"{tuple(f1.shape)} levels {shapes}: kernel {tk}, plain {tp}, "
@@ -1315,11 +1420,6 @@ def phase_bwd_kernels(peaks):
     """The backward kernels of the on-demand configuration against their
     plain versions: the GRU gates and the lookup at the chairs shapes,
     and the lookup at a 136x240 grid."""
-    from raft_tpu_torch.ops.gru_gates import (gru_gate_blend,
-                                              gru_gate_blend_bwd_plain,
-                                              gru_gate_rh,
-                                              gru_gate_rh_bwd_plain)
-
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
     results = {}
@@ -1330,49 +1430,9 @@ def phase_bwd_kernels(peaks):
     # channel slice of the gradient of cat([rh, x]) (x: 256 channels) ---
     for dtype in (torch.float32, torch.bfloat16):
         dt = "fp32" if dtype == torch.float32 else "bf16"
-
-        def mk(c, scale=1.0):
-            return (torch.from_numpy(rng.standard_normal((B, c, h8, w8))
-                                     .astype(np.float32)) * scale).to(
-                dev, dtype)
-
-        zr, q, hh = mk(256, 3.0), mk(128, 3.0), mk(128)
-        g_cat, g_bl = mk(384), mk(128)
-        g_rh = g_cat[:, :128]
-        zr.requires_grad_(True)
-        q.requires_grad_(True)
-        hh.requires_grad_(True)
-        z, r = torch.split(zr, 128, dim=1)
-        rh, bl = gru_gate_rh(r, hh), gru_gate_blend(z, q, hh)
-        cases = {
-            "gru_gate_rh_bwd": (
-                rh, (zr, hh), g_rh, lambda d: [d[0][:, 128:], d[1]],
-                lambda: gru_gate_rh_bwd_plain(r, hh, g_rh), 5, 9,
-                "rh_bwd_kernel"),
-            "gru_gate_blend_bwd": (
-                bl, (zr, q, hh), g_bl, lambda d: [d[0][:, :128], d[1], d[2]],
-                lambda: gru_gate_blend_bwd_plain(z, q, hh, g_bl), 7, 19,
-                "blend_bwd_kernel")}
-        for name, (out, leaves, g, pick, plain, n_io, flops,
-                   kname) in cases.items():
-            got = pick(torch.autograd.grad(out, leaves, g, retain_graph=True))
-            want = plain()
-            err = max(_check(f"{name} {dt} {'d' + v} {tuple(a.shape)}", a, b)
-                      for v, a, b in zip("zqh" if len(got) == 3 else "rh",
-                                         got, want))
-            tk = _timed(lambda: torch.autograd.grad(out, leaves, g,
-                                                    retain_graph=True),
-                        kname)
-            tp = _timed(plain, None)
-            nbytes = n_io * g_bl.numel() * g_bl.element_size()
-            bound, by = _bound_ms(nbytes, flops * g_bl.numel(), peaks)
-            print(f"[kernels] {name} {dt} {tuple(g_bl.shape)}: kernel {tk}, "
-                  f"plain {tp}, bound {bound:.4f} ms ({by})", flush=True)
-            results[f"{name}/{dt}"] = dict(
-                max_abs_err=err, ms=tk["ms"], plain_ms=tp["ms"],
-                library_ms=None, bound_ms=bound, bound_by=by, bytes=nbytes,
-                kernel_timing=tk, plain_timing=tp)
-        del zr, q, hh, g_cat, g_bl, rh, bl, cases
+        for name, rec in _gate_bwd_case(rng, B, 128, 256, h8, w8, dtype,
+                                        peaks, "[kernels]").items():
+            results[f"{name}/{dt}"] = rec
     _rh_ragged_cases(np.random.default_rng(6), dev)
 
     # --- on-demand lookup backward: chairs, then 1088x1920 at B = 1, each
@@ -2177,7 +2237,8 @@ TRAIN_PAIRS = {"kernel": (KERNEL_CFG, {}),
                "auto_fused": (AUTO_FUSED_CFG, {})}
 
 
-def compare_train_step(sd, batch, cfg, dtype: str, pair: str) -> dict:
+def compare_train_step(sd, batch, cfg, dtype: str, pair: str,
+                       mk=None) -> dict:
     """One train step of a kernel configuration and of its plain one
     (``TRAIN_PAIRS[pair]``) from the same weights on the same batch, with
     the clip out of reach so the optimizer sees the unclipped gradients,
@@ -2187,17 +2248,18 @@ def compare_train_step(sd, batch, cfg, dtype: str, pair: str) -> dict:
     bf16 bounds."""
     from raft_tpu_torch.config import RAFTConfig
 
+    preset = mk or RAFTConfig.full
     cmp_cfg = dataclasses.replace(cfg, clip=1e9)
     (mk, gk), (mp, gp) = (
-        _step_grads(sd, batch, cmp_cfg,
-                    RAFTConfig.full(compute_dtype=dtype, **extra))
+        _step_grads(sd, batch, cmp_cfg, preset(compute_dtype=dtype, **extra))
         for extra in TRAIN_PAIRS[pair])
     rel = {k: float(np.abs(mk[k] - mp[k]).max()
                     / max(float(np.abs(mp[k]).max()), 1e-12))
            for k in ("loss", "epe", "1px", "3px", "5px", "grad_norm",
                      "loss_iter", "epe_iter")}
     agree = _grad_agreement(gk, gp)
-    print(f"[train] chairs {dtype} one step, {pair} vs plain config: "
+    print(f"[train] chairs {dtype} one step, {preset.__name__} {pair} vs "
+          f"plain config: "
           f"relative differences {rel}; gradients {agree}; loss "
           f"{float(mp['loss']):.6f}", flush=True)
     if TRAIN_PAIRS[pair][0].get("corr_dtype") == "int8":
@@ -2915,6 +2977,636 @@ def phase_train_cli(sd, train_res):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase small: the small model at full width, remat, curriculum, lk-compare
+# ---------------------------------------------------------------------------
+
+# the small model's shapes: radius 3 (7 x 7 windows, K = 196 taps over 4
+# levels), C = 128 features, hidden 96 (96-channel gate halves), F = 96
+# outputs of convc1
+SMALL_R, SMALL_C, SMALL_F, SMALL_HIDDEN = 3, 128, 96, 96
+SMALL_ITERS, SMALL_CHECK_ITERS = 32, 4
+SMALL_ODM_CFG = dict(corr_impl="pallas", fused_gru=True)
+SMALL_FUSED_CFG = dict(corr_impl="allpairs_pallas", fused_lookup_encoder=True,
+                       upsample_loss_kernel="pallas")
+SMALL_PLAIN_CFG = dict(corr_impl="chunked")
+# per iteration of the small model's test-mode forward
+SMALL_INFER_LAUNCHES = {"ondemand": {"corr_ondemand": 1, "gru_gate_rh": 1,
+                                     "gru_gate_blend": 1},
+                        "fused": {"lookup_encode": 1}}
+# per iteration of a small train step (no upsample-loss kernel: the small
+# model has no mask head)
+SMALL_TRAIN_LAUNCHES = {
+    "kernel": {"pyramid_lookup_fwd": 1, "pyramid_lookup_bwd": 1},
+    "ondemand": {"corr_ondemand": 1, "corr_ondemand_bwd": 1,
+                 "gru_gate_rh": 1, "gru_gate_rh_bwd": 1,
+                 "gru_gate_blend": 1, "gru_gate_blend_bwd": 1}}
+# remat sweep: (label, remat, remat_policy, remat_upsample)
+REMAT_POLICIES = (("none", False, "save_corr", False),
+                  ("save_corr", True, "save_corr", False),
+                  ("full", True, "full", False),
+                  ("dots", True, "dots", False),
+                  ("save_corr+up", True, "save_corr", True))
+REMAT_STEPS = (1, 5)                       # warm-up, timed
+# fp32 gradients of a remat policy against none: the recompute runs the
+# same cuDNN calls on the same inputs, but cuDNN may pick other
+# algorithms in another memory state; the bound of phase train_cli's
+# resume check
+REMAT_GRAD_REL = 1e-3
+
+
+def phase_small_kernels(peaks) -> dict:
+    """Each kernel of the small model's paths at its shapes against its
+    plain version, timed beside its bound (the formulas of phase
+    kernels)."""
+    from raft_tpu_torch.ops.corr import (build_corr_pyramid,
+                                         chunked_corr_lookup,
+                                         pool_fmap_pyramid)
+    from raft_tpu_torch.ops.corr_kernels import (_plain,
+                                                 corr_lookup_ondemand_nchw,
+                                                 kernel_path_counts)
+    from raft_tpu_torch.ops.lookup_encode import (
+        _kpad, pyramid_lookup_encode, pyramid_lookup_encode_bwd_plain,
+        pyramid_lookup_encode_plain)
+    from raft_tpu_torch.ops.pyramid_kernels import (
+        pyramid_lookup_nchw, pyramid_lookup_plain,
+        pyramid_lookup_quantized_nchw)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    res = {}
+    r, c, k = SMALL_R, SMALL_C, 2 * SMALL_R + 1
+    P = LEVELS * k * k
+    # --- on-demand forward at the Sintel grid, C 128, r 3, (a) (b) (c) ---
+    h8, w8 = 440 // 8, SINTEL_HW[1] // 8
+    with torch.inference_mode():
+        for dist in CENTERS:
+            f1, f2, coords = _corr_inputs(rng, 1, h8, w8, dev, dist, c)
+            pyr = [p.contiguous() for p in pool_fmap_pyramid(f2, LEVELS)]
+            got = corr_lookup_ondemand_nchw(f1, pyr, coords, r)
+            want = _plain(f1, pyr, coords, r).permute(0, 3, 1, 2)
+            err = _check(f"small corr_ondemand ({dist}) {tuple(got.shape)}",
+                         got, want)
+            paths = kernel_path_counts(f1, pyr, coords, r)["fwd"]
+            tk = _timed(lambda: corr_lookup_ondemand_nchw(f1, pyr, coords, r),
+                        "corr_ondemand_kernel")
+            tp = (_timed(lambda: chunked_corr_lookup(f1, pyr, coords, r),
+                         None, reps=10) if dist == "a" else {"ms": None})
+            shapes = [tuple(p.shape[1:3]) for p in pyr]
+            nbytes = 4 * (f1.numel() + coords.numel() + want.numel()
+                          + sum(p.numel() for p in pyr))
+            _record(res, f"corr_ondemand/{dist}", err, tk, tp, nbytes,
+                    _corr_ops(coords.cpu().numpy(), shapes, k, c), peaks,
+                    paths=paths, box_share=_box_share(paths))
+    # --- on-demand backward at the chairs grid ---
+    B = CHAIRS_B
+    hc, wc = CHAIRS_HW[0] // 8, CHAIRS_HW[1] // 8
+    for dist in CENTERS:
+        res[f"corr_ondemand_bwd/{dist}"] = _corr_bwd_case(
+            rng, B, hc, wc, "small chairs r3 C128", peaks,
+            time_plain=dist == "a", dist=dist, r=r, c=c)
+
+    # --- pyramid lookup forward / backward, r 3, fp32 and bf16 ---
+    f1, f2, coords = _corr_inputs(rng, B, hc, wc, dev, "a", c)
+    N = hc * wc
+    shapes = [(hc >> l, wc >> l) for l in range(LEVELS)]
+    win = _window_elems(coords.cpu().numpy(), shapes, k)
+    g = torch.from_numpy(rng.standard_normal((B, P, hc, wc)).astype(
+        np.float32)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "fp32" if dtype == torch.float32 else "bf16"
+        es = 4 if dtype == torch.float32 else 2
+        with torch.no_grad():
+            pyr = build_corr_pyramid(f1, f2, LEVELS, dtype)
+        pyr = [lv.requires_grad_(True) for lv in pyr]
+        got = pyramid_lookup_nchw(pyr, coords, r, dtype)
+        want = pyramid_lookup_plain(pyr, coords, r, dtype).permute(0, 3, 1, 2)
+        err_f = _check(f"small pyramid_lookup_fwd r3 {dt} "
+                       f"{tuple(got.shape)}", got, want)
+        gg = g.to(dtype)
+        dk = torch.autograd.grad(got, pyr, gg, retain_graph=True)
+        dp = torch.autograd.grad(want, pyr, gg, retain_graph=True)
+        err_b = max(_check(f"small pyramid_lookup_bwd r3 {dt} level {i}",
+                           a, b_) for i, (a, b_) in enumerate(zip(dk, dp)))
+        with torch.no_grad():
+            tk = _timed(lambda: pyramid_lookup_nchw(pyr, coords, r, dtype),
+                        "pyr_fwd_kernel")
+            tp = _timed(lambda: pyramid_lookup_plain(pyr, coords, r, dtype),
+                        None, reps=10)
+        tkb = _timed(lambda: torch.autograd.grad(got, pyr, gg,
+                                                 retain_graph=True),
+                     "pyr_bwd_kernel", reps=10)
+        tpb = _timed(lambda: torch.autograd.grad(want, pyr, gg,
+                                                 retain_graph=True),
+                     None, reps=5)
+        lvl_bytes = sum(lv.numel() for lv in pyr) * es
+        _record(res, f"pyramid_lookup_fwd/{dt}", err_f, tk, tp,
+                win * es + coords.numel() * 4 + B * P * N * es,
+                9.0 * B * N * P, peaks)
+        _record(res, f"pyramid_lookup_bwd/{dt}", err_b, tkb, tpb,
+                lvl_bytes + B * P * N * es + coords.numel() * 4, 12.0 * win,
+                peaks)
+        del pyr, got, want, dk, dp
+    # --- the quantized forward, r 3, int8 codes -> fp32 / bf16 taps ---
+    with torch.no_grad():
+        qpyr = build_corr_pyramid(f1, f2, LEVELS, "int8")
+        for out_dtype in (torch.float32, torch.bfloat16):
+            dt = "fp32" if out_dtype == torch.float32 else "bf16"
+            got = pyramid_lookup_quantized_nchw(qpyr, coords, r, out_dtype)
+            want = pyramid_lookup_plain(qpyr, coords, r, out_dtype).permute(
+                0, 3, 1, 2)
+            err = _check(f"small pyramid_lookup_quantized r3 int8 -> {dt}",
+                         got, want)
+            tk = _timed(lambda: pyramid_lookup_quantized_nchw(
+                qpyr, coords, r, out_dtype), "pyr_fwd_kernel")
+            tp = _timed(lambda: pyramid_lookup_plain(qpyr, coords, r,
+                                                     out_dtype), None,
+                        reps=10)
+            _record(res, f"pyramid_lookup_quantized/int8/{dt}", err, tk, tp,
+                    win + coords.numel() * 4 + B * LEVELS * 4
+                    + B * P * N * got.element_size(), 10.0 * B * N * P,
+                    peaks)
+    # --- fused lookup + convc1: K 196 (padded to 200), F 96 ---
+    import torch.nn.functional as F_
+
+    gen = torch.Generator().manual_seed(13)
+    Fc = SMALL_F
+    w = (torch.randn(Fc, P, 1, 1, generator=gen) / P ** 0.5).to(dev)
+    b = (torch.randn(Fc, generator=gen) * 0.1).to(dev)
+    w.requires_grad_(True)
+    b.requires_grad_(True)
+    cot32 = torch.randn(B, Fc, hc, wc, generator=gen).to(dev)
+    print(f"[small] lookup_encode: K {P} padded to {_kpad(LEVELS, r)}, F "
+          f"{Fc}", flush=True)
+    for label, store, out_dtype in (
+            ("fp32", torch.float32, torch.float32),
+            ("bf16", torch.bfloat16, torch.bfloat16),
+            ("int8", "int8", torch.float32)):
+        with torch.no_grad():
+            pyr = build_corr_pyramid(f1, f2, LEVELS, store)
+        quantized = not torch.is_tensor(pyr[0])
+        if not quantized:
+            pyr = [lv.requires_grad_(True) for lv in pyr]
+        leaves = [w, b] + ([] if quantized else pyr)
+        got = pyramid_lookup_encode(pyr, coords, r, w, b, out_dtype)
+        if got.shape != (B, Fc, hc, wc):
+            raise AssertionError(f"lookup_encode F={Fc}: {tuple(got.shape)}")
+        with torch.no_grad():
+            want = pyramid_lookup_encode_plain(pyr, coords, r, w, b,
+                                               out_dtype)
+        err_f = _check(f"small lookup_encode fwd {label} F={Fc} "
+                       f"{tuple(got.shape)}", got, want)
+        cot = cot32.to(out_dtype)
+        dk = torch.autograd.grad(got, leaves, cot, retain_graph=True)
+        dw, db, dl = pyramid_lookup_encode_bwd_plain(pyr, coords, r, w,
+                                                     got.detach(), cot)
+        err_b = max(_check(f"small lookup_encode bwd {label} {n}", a, d)
+                    for n, a, d in zip(
+                        ["dW", "db"] + [f"dlevel{i}" for i in range(LEVELS)],
+                        dk, [dw, db] + (dl or [])))
+        wc_, bc_ = w.detach().to(out_dtype), b.detach().to(out_dtype)
+        lookup = (pyramid_lookup_quantized_nchw if quantized
+                  else pyramid_lookup_nchw)
+        with torch.no_grad():
+            tk = _timed(lambda: pyramid_lookup_encode(
+                pyr, coords, r, w, b, out_dtype), "lookup_encode_kernel")
+            tp = _timed(lambda: pyramid_lookup_encode_plain(
+                pyr, coords, r, w, b, out_dtype), None, reps=10)
+            tu = _timed(lambda: torch.relu(F_.conv2d(
+                lookup(pyr, coords, r, out_dtype), wc_, bc_)), None)
+        es_s = 1 if quantized else pyr[0].element_size()
+        nb = (win * es_s + coords.numel() * 4 + w.numel() * 4 + Fc * 4
+              + (B * LEVELS * 4 if quantized else 0)
+              + B * Fc * N * got.element_size())
+        ops = 2.0 * B * N * P * Fc + 9.0 * B * N * P
+        t_tc = 3 * 2.0 * B * N * P * Fc / peaks[2] * 1e3
+        t_bytes = nb / peaks[0] * 1e3
+        bound, by = max(t_tc, t_bytes), ("operations" if t_tc >= t_bytes
+                                         else "bytes")
+        res[f"lookup_encode/{label}"] = dict(
+            max_abs_err=max(err_f, err_b), ms=tk["ms"], plain_ms=tp["ms"],
+            library_ms=None, unfused_ms=tu["ms"], bound_ms=bound,
+            bound_by=by, bytes=nb, ops=ops, kernel_timing=tk,
+            plain_timing=tp, unfused_timing=tu)
+        print(f"[small] lookup_encode/{label} F={Fc}: kernel {tk['ms']} ms, "
+              f"plain {tp['ms']}, unfused lookup + conv1x1 + relu "
+              f"{tu['ms']}, bound {bound:.4f} ms ({by}, 3xTF32), kernel/"
+              f"unfused {tk['ms'] / tu['ms']:.3f}", flush=True)
+        del pyr, got, want, leaves, dk
+    torch.cuda.empty_cache()
+
+    # --- the gates at 96 channels: forward at the Sintel grid (B = 1),
+    # backward at the chairs grid, the halves of one conv output; rh's
+    # gradient the first 96 channels of cat([rh, x])'s (x: 64 context + 82
+    # motion channels), as in ConvGRU ---
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "fp32" if dtype == torch.float32 else "bf16"
+        cases = {**_gate_fwd_case(rng, 1, SMALL_HIDDEN, h8, w8, dtype, peaks,
+                                  "[small]"),
+                 **_gate_bwd_case(rng, B, SMALL_HIDDEN, 146, hc, wc, dtype,
+                                  peaks, "[small]")}
+        for name, rec in cases.items():
+            res[f"{name}/{dt}"] = rec
+        vec_bytes = cases["gru_gate_rh_bwd"]["rh_bwd_vector_bytes"]
+        if vec_bytes != 16:
+            raise AssertionError(f"rh_bwd_plan: {vec_bytes}-byte accesses, "
+                                 "not the 16-byte path")
+    for name in ("corr_ondemand", "corr_ondemand_bwd"):
+        res[name] = res[f"{name}/a"]
+    for name in ("pyramid_lookup_fwd", "pyramid_lookup_bwd", "gru_gate_rh",
+                 "gru_gate_blend", "gru_gate_rh_bwd", "gru_gate_blend_bwd"):
+        res[name] = res[f"{name}/fp32"]
+    res["pyramid_lookup_quantized"] = res["pyramid_lookup_quantized/int8/fp32"]
+    res["lookup_encode"] = res["lookup_encode/int8"]
+    torch.cuda.empty_cache()
+    return res
+
+
+def _small_model(sd, extra, dtype, dev):
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models.raft import RAFT
+
+    model = RAFT(RAFTConfig.small_model(compute_dtype=dtype, **extra))
+    model.load_state_dict(sd)
+    return model.to(dev).eval()
+
+
+def _small_inference(sd) -> tuple:
+    """The small model's test mode at the Sintel size (440x1024, B = 1):
+    each kernel configuration against the plain one at 4 iterations in
+    fp32 (1e-3 px), then 32 iterations in fp32 and bf16 (ms/pair, device
+    busy and idle share, peak memory) with exact launch counts; the
+    on-demand configuration's first fp32 run is its main path."""
+    from raft_tpu_torch.ops.pad import InputPadder
+
+    dev = torch.device("cuda")
+    img1, img2 = _frames(dev)
+    img1, img2 = InputPadder(img1.shape).pad(img1, img2)
+    out, main = {}, {}
+    with torch.no_grad():
+        plain = _small_model(sd, SMALL_PLAIN_CFG, "float32", dev)
+        _, up_p = plain(img1, img2, iters=SMALL_CHECK_ITERS, test_mode=True)
+        del plain
+        for label, extra in (("ondemand", SMALL_ODM_CFG),
+                             ("fused", SMALL_FUSED_CFG)):
+            model = _small_model(sd, extra, "float32", dev)
+            _reset_counts()
+            _, up_k = model(img1, img2, iters=SMALL_CHECK_ITERS,
+                            test_mode=True)
+            torch.cuda.synchronize()
+            _expect({k: v * SMALL_CHECK_ITERS
+                     for k, v in SMALL_INFER_LAUNCHES[label].items()},
+                    f"small {label} iters={SMALL_CHECK_ITERS}")
+            err = float((up_k - up_p).abs().max())
+            print(f"[small] 440x1024 iters={SMALL_CHECK_ITERS}: {label} vs "
+                  f"plain config max|dflow_up| {err:.3e} px (tol 1e-3); "
+                  f"|flow_up| max {float(up_p.abs().max()):.3f}", flush=True)
+            if not (torch.isfinite(up_k).all() and err <= 1e-3):
+                raise AssertionError(f"small {label} vs plain: {err}")
+            out[f"{label}_vs_plain_iters4_px"] = err
+            del model, up_k
+        for dtype in ("float32", "bfloat16"):
+            for label, extra in (("ondemand", SMALL_ODM_CFG),
+                                 ("fused", SMALL_FUSED_CFG)):
+                model = _small_model(sd, extra, dtype, dev)
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                model(img1, img2, iters=SMALL_ITERS, test_mode=True)
+                torch.cuda.synchronize()
+                times = []
+                for i in range(5):
+                    _reset_counts()
+                    t0 = time.perf_counter()
+                    lo, up = model(img1, img2, iters=SMALL_ITERS,
+                                   test_mode=True)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    counts = _expect(
+                        {k: v * SMALL_ITERS for k, v in
+                         SMALL_INFER_LAUNCHES[label].items()},
+                        f"small {label} {dtype} iters={SMALL_ITERS} run {i}")
+                    if i == 0 and dtype == "float32":
+                        main[label] = counts
+                peak = torch.cuda.max_memory_allocated()
+                if not (torch.isfinite(up).all()
+                        and up.shape == img1.shape[:3] + (2,)):
+                    raise AssertionError(f"small {label} {dtype}: bad flow")
+                prof = _profile(lambda: model(img1, img2, iters=SMALL_ITERS,
+                                              test_mode=True), reps=2)
+                wall = statistics.median(times)
+                key = f"{label}/{dtype}"
+                out[key] = dict(ms_per_pair=wall, ms_all=times,
+                                peak_mem_mb=peak / 2 ** 20,
+                                device_busy_ms=prof["busy_ms"],
+                                idle_share=prof["idle_share"],
+                                by_kind=prof["by_kind"])
+                print(f"[small] 440x1024 iters={SMALL_ITERS} {key}: "
+                      f"{wall:.2f} ms/pair (runs "
+                      f"{', '.join(f'{t:.2f}' for t in times)}), device busy "
+                      f"{prof['busy_ms']} ms/pair of {prof['wall_ms']:.2f} "
+                      f"profiled (idle {prof['idle_share']}), by kind "
+                      f"{prof['by_kind']}, peak {peak / 2 ** 20:.1f} MiB",
+                      flush=True)
+                del model, lo, up
+    torch.cuda.empty_cache()
+    return out, main
+
+
+SMALL_TRAIN = (("kernel", dict(corr_impl="allpairs_pallas",
+                               upsample_loss_kernel="pallas"),
+                ("float32", "bfloat16")),
+               ("ondemand", dict(SMALL_ODM_CFG, upsample_loss_kernel="pallas"),
+                ("float32",)))
+
+
+def _small_train(sd) -> tuple:
+    """The small model's chairs-stage train step (368x496, B = 8, 12
+    iterations): each kernel configuration against its plain one for one
+    step (phase train's bounds), then 2 warm-up and 5 timed steps with
+    exact launch counts (ms/step, pairs/s, peak memory, idle share)."""
+    from raft_tpu_torch.config import RAFTConfig, TrainConfig
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    dev = torch.device("cuda")
+    batch = _chairs_batch(dev)
+    cfg = TrainConfig(lr=2.5e-4, num_steps=120000, batch_size=CHAIRS_B,
+                      image_size=CHAIRS_HW, iters=CHAIRS_ITERS, wdecay=1e-4)
+    step_fn = make_train_step(cfg)
+    out, main = {}, {}
+    for label, extra, dtypes in SMALL_TRAIN:
+        for dtype in dtypes:
+            out[f"{label}_vs_plain/{dtype}"] = compare_train_step(
+                sd, batch, cfg, dtype, label, mk=RAFTConfig.small_model)
+            state = init_state(RAFTConfig.small_model(compute_dtype=dtype,
+                                                      **extra), cfg,
+                               state_dict=sd)
+            for _ in range(2):
+                step_fn(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            times, losses = [], []
+            per_step = {k: v * CHAIRS_ITERS
+                        for k, v in SMALL_TRAIN_LAUNCHES[label].items()}
+            for i in range(5):
+                _reset_counts()
+                t0 = time.perf_counter()
+                _, met = step_fn(state, batch)
+                losses.append(met["loss"])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                counts = _expect(per_step, f"small train {label} {dtype} "
+                                           f"step {i}")
+                if i == 0 and dtype == "float32":
+                    main[label] = counts
+            peak = torch.cuda.max_memory_allocated()
+            losses = [float(x) for x in losses]
+            if not (np.isfinite(losses).all() and state.nonfinite_steps == 0):
+                raise AssertionError(f"small train {label} {dtype}: {losses}")
+            prof = _profile(lambda: step_fn(state, batch), reps=2)
+            wall = statistics.median(times)
+            key = f"{label}/{dtype}"
+            out[key] = dict(ms_per_step=wall, ms_all=times,
+                            pairs_per_s=CHAIRS_B / wall * 1e3,
+                            peak_mem_mb=peak / 2 ** 20,
+                            device_busy_ms=prof["busy_ms"],
+                            idle_share=prof["idle_share"],
+                            by_kind=prof["by_kind"], losses=losses)
+            print(f"[small] chairs train {key}: {wall:.2f} ms/step "
+                  f"({CHAIRS_B / wall * 1e3:.2f} pairs/s; steps "
+                  f"{', '.join(f'{t:.1f}' for t in times)}), device busy "
+                  f"{prof['busy_ms']} ms/step (idle {prof['idle_share']}), "
+                  f"peak {peak / 2 ** 20:.1f} MiB, losses {losses[0]:.4f} .. "
+                  f"{losses[-1]:.4f}", flush=True)
+            del state
+            torch.cuda.empty_cache()
+    return out, main
+
+
+def _remat_sweep(sd) -> dict:
+    """The full model's shipped kernel configuration (``allpairs_pallas`` +
+    the upsample-loss kernel) in bf16 under each remat policy at the
+    chairs (368x496, B = 8) and things (400x720, B = 5) stages: peak
+    memory, ms/step and launch counts per step; then fp32 with TF32 off,
+    one chairs step's gradients under each policy against none."""
+    from raft_tpu_torch.config import RAFTConfig, TrainConfig
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    stages = {"chairs": (CHAIRS_B, CHAIRS_HW), "things": (5, (400, 720))}
+    out = {}
+    for stage, (B, (H, W)) in stages.items():
+        if stage == "chairs":
+            batch = _chairs_batch(dev)
+        else:
+            batch = {"image1": rng.uniform(0, 255, (B, H, W, 3)),
+                     "image2": rng.uniform(0, 255, (B, H, W, 3)),
+                     "flow": 8.0 * rng.standard_normal((B, H, W, 2)),
+                     "valid": np.ones((B, H, W))}
+            batch = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+                     for k, v in batch.items()}
+        cfg = TrainConfig(lr=2.5e-4, num_steps=120000, batch_size=B,
+                          image_size=(H, W), iters=CHAIRS_ITERS)
+        step_fn = make_train_step(cfg)
+        for label, remat, policy, up in REMAT_POLICIES:
+            mcfg = RAFTConfig.full(compute_dtype="bfloat16", remat=remat,
+                                   remat_policy=policy, remat_upsample=up,
+                                   **KERNEL_CFG)
+            torch.cuda.empty_cache()
+            state = init_state(mcfg, cfg, state_dict=sd)
+            for _ in range(REMAT_STEPS[0]):
+                step_fn(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            times = []
+            for i in range(REMAT_STEPS[1]):
+                _reset_counts()
+                t0 = time.perf_counter()
+                _, met = step_fn(state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                # the lookup once an iteration, again in backward when the
+                # step's region holds it (full, dots); the upsample-loss
+                # forward again in backward under remat_upsample
+                it = CHAIRS_ITERS * (2 if policy in ("full", "dots") and remat
+                                     else 1)
+                counts = _expect({"pyramid_lookup_fwd": it,
+                                  "pyramid_lookup_bwd": CHAIRS_ITERS,
+                                  "upsample_loss_fwd": 2 if up else 1,
+                                  "upsample_loss_bwd": 1},
+                                 f"remat {stage} {label} step {i}")
+            peak = torch.cuda.max_memory_allocated()
+            if not (np.isfinite(float(met["loss"]))
+                    and state.nonfinite_steps == 0):
+                raise AssertionError(f"remat {stage} {label}: "
+                                     f"{met['loss']}")
+            wall = statistics.median(times)
+            out[f"{stage}/{label}"] = dict(
+                peak_mem_mb=peak / 2 ** 20, resident_mb=resident / 2 ** 20,
+                ms_per_step=wall, ms_all=times, launches=counts,
+                pairs_per_s=B / wall * 1e3)
+            print(f"[remat] {stage} bf16 {label}: peak {peak / 2 ** 20:.1f} "
+                  f"MiB (resident {resident / 2 ** 20:.1f}), {wall:.2f} "
+                  f"ms/step ({B / wall * 1e3:.2f} pairs/s; steps "
+                  f"{', '.join(f'{t:.1f}' for t in times)}), launches "
+                  f"{counts}", flush=True)
+            del state
+    torch.cuda.empty_cache()
+    # fp32, TF32 off: each policy's unclipped gradients against none
+    batch = _chairs_batch(dev)
+    cfg = TrainConfig(lr=2.5e-4, num_steps=120000, batch_size=CHAIRS_B,
+                      image_size=CHAIRS_HW, iters=CHAIRS_ITERS, clip=1e9)
+    ref = None
+    for label, remat, policy, up in REMAT_POLICIES:
+        met, grads = _step_grads(sd, batch, cfg, RAFTConfig.full(
+            remat=remat, remat_policy=policy, remat_upsample=up,
+            **KERNEL_CFG))
+        if ref is None:
+            ref = (met, grads)
+            continue
+        loss_rel = abs(float(met["loss"]) - float(ref[0]["loss"])) / abs(
+            float(ref[0]["loss"]))
+        gmax = max(float(g.abs().max()) for g in ref[1].values())
+        worst = max(float((grads[n] - g).abs().max()) / (
+            REMAT_GRAD_REL * float(g.abs().max()) + FP32_GRAD_FLOOR * gmax)
+            for n, g in ref[1].items())
+        bit_equal = all(torch.equal(grads[n], g) for n, g in ref[1].items())
+        out[f"fp32_grads/{label}"] = dict(loss_rel=loss_rel,
+                                          entry_ratio=worst,
+                                          bit_equal=bit_equal)
+        print(f"[remat] chairs fp32 {label} vs none: loss rel "
+              f"{loss_rel:.3e}, worst gradient {worst:.4f} of its bound "
+              f"({REMAT_GRAD_REL} of the parameter's largest entry + "
+              f"{FP32_GRAD_FLOOR} of the model's), bit-equal {bit_equal}",
+              flush=True)
+        if not (loss_rel <= 1e-5 and worst <= 1.0):
+            raise AssertionError(f"remat {label}: gradients off none")
+        del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _small_clis(tree: dict, work: str, sd) -> dict:
+    """``python -m raft_tpu_torch curriculum`` on two small stages of a few
+    steps over phase train_cli's chairs tree, killed by ``stage_kill``
+    between them and resumed; then ``lk-compare --small`` on the demo
+    frames."""
+    from raft_tpu_torch.train.checkpoint import CheckpointManager
+
+    res = {}
+    manifest = os.path.join(work, "manifest.json")
+    with open(manifest, "w") as f:
+        json.dump({"base": {"num_steps": 3, "val_freq": 3},
+                   "stages": [{"name": "s1", "stage": "chairs",
+                               "overrides": {}},
+                              {"name": "s2", "stage": "chairs",
+                               "overrides": {"lr": 1e-4}}]}, f)
+    wd = os.path.join(work, "curriculum")
+    args = ["curriculum", "--workdir", wd, "--manifest", manifest,
+            "--small", "--precision", "bf16", "--batch_size", str(CHAIRS_B),
+            "--image_size", *map(str, CHAIRS_HW), "--iters",
+            str(CHAIRS_ITERS), "--data_root", tree["data_root"],
+            "--chairs_split", tree["split"]]
+    from raft_tpu_torch import chaos
+
+    os.environ[chaos.ENV_SPEC] = "stage_kill@step=1"
+    try:
+        t0 = time.perf_counter()
+        rc1, lines1 = _run_cli(*args)
+    finally:
+        os.environ.pop(chaos.ENV_SPEC, None)
+    with open(os.path.join(wd, "curriculum_ledger.json")) as f:
+        led1 = json.load(f)
+    stages1 = {n: e["status"] for n, e in led1["stages"].items()}
+    print(f"[small] curriculum under stage_kill@step=1: rc {rc1}, stages "
+          f"{stages1} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if rc1 != 143 or stages1 != {"s1": "complete", "s2": "pending"}:
+        raise AssertionError(f"curriculum stage_kill: rc {rc1}, {stages1}: "
+                             + "\n".join(lines1[-20:]))
+    t0 = time.perf_counter()
+    rc2, lines2 = _run_cli(*args)
+    with open(os.path.join(wd, "curriculum_ledger.json")) as f:
+        led2 = json.load(f)
+    stages2 = {n: (e["status"], e.get("final_step"), e["runs"])
+               for n, e in led2["stages"].items()}
+    seeded = any(ln.startswith("restored weights from")
+                 and ln.rstrip().endswith(os.path.join("checkpoints", "s1"))
+                 for ln in lines2)
+    s2_steps = CheckpointManager(os.path.join(wd, "checkpoints",
+                                              "s2")).all_steps()
+    print(f"[small] curriculum rerun: rc {rc2}, stages {stages2}, s2 seeded "
+          f"from s1 {seeded}, s2 steps {s2_steps} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if (rc2 != 0 or stages2 != {"s1": ("complete", 3, 1),
+                                "s2": ("complete", 3, 1)}
+            or not seeded or s2_steps != [3]):
+        raise AssertionError(f"curriculum rerun: rc {rc2}, {stages2}: "
+                             + "\n".join(lines2[-20:]))
+    res["curriculum"] = dict(kill_rc=rc1, kill_stages=stages1, rerun_rc=rc2,
+                             rerun_stages=stages2, seeded=seeded)
+
+    weights = os.path.join(work, "small.pth")
+    torch.save(sd, weights)
+    frames = [os.path.join(REPO, "demo-frames", f"frame_000{i}.png")
+              for i in (0, 1)]
+    out_png = os.path.join(work, "lk_vs_raft.png")
+    t0 = time.perf_counter()
+    rc, lines = _run_cli("lk-compare", "--small", "--model", weights,
+                         "--image1", frames[0], "--image2", frames[1],
+                         "--out", out_png)
+    from PIL import Image
+
+    h, w = np.asarray(Image.open(frames[0])).shape[:2]
+    shape = (np.asarray(Image.open(out_png)).shape
+             if os.path.isfile(out_png) else None)
+    median = [float(m.group(1)) for ln in lines
+              for m in [re.search(r"median \|LK - RAFT\| = ([\d.]+)px", ln)]
+              if m]
+    print(f"[small] lk-compare --small: rc {rc}, image {shape} (frame "
+          f"{h}x{w}), median |LK - RAFT| {median} px "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if rc != 0 or shape != (h, 2 * w, 3) or len(median) != 1:
+        raise AssertionError(f"lk-compare: rc {rc}, {shape}: "
+                             + "\n".join(lines[-20:]))
+    res["lk_compare"] = dict(rc=rc, shape=shape, median_px=median[0])
+    return res
+
+
+def phase_small(sd_full, tree):
+    """The small model at full width (see the module docstring, phase 9;
+    its kernels are phase small_kernels').  ``sd_full``: the full model's
+    seed-0 weights (the remat sweep); ``tree``: phase train_cli's
+    synthetic chairs tree."""
+    import shutil
+
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models.raft import RAFT
+
+    work = os.path.join(WORK, "small")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    sd = RAFT(RAFTConfig.small_model(), seed=0).state_dict()
+    res, secs = {}, {}
+
+    def part(name, fn, *a):
+        t = time.perf_counter()
+        res[name] = fn(*a)
+        secs[name] = time.perf_counter() - t
+        print(f"[time] small {name}: {secs[name]:.1f} s", flush=True)
+
+    part("inference", _small_inference, sd)
+    part("train", _small_train, sd)
+    part("remat", _remat_sweep, sd_full)
+    part("clis", _small_clis, tree, work, sd)
+    res["inference"], infer_main = res["inference"]
+    res["train"], train_main = res["train"]
+    res["main_counts"] = {"inference": infer_main, "train": train_main}
+    res["phase_s"] = secs
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--report", default=None,
@@ -2945,11 +3637,14 @@ def main(argv=None) -> int:
             **timed_phase(phase_train_kernels, peaks),
             **timed_phase(phase_bwd_kernels, peaks),
             **timed_phase(phase_slice4_kernels, peaks)}
+    small_kern = timed_phase(phase_small_kernels, peaks)
     path, main_counts, sd = timed_phase(phase_path)
     demo_res = timed_phase(phase_demo, sd)
     eval_res = timed_phase(phase_eval, sd)
     train, train_counts = timed_phase(phase_train, sd)
     train_cli = timed_phase(phase_train_cli, sd, train)
+    small = {"kernels": small_kern,
+             **timed_phase(phase_small, sd, train_cli["tree"])}
     secs["total"] = time.perf_counter() - t0
 
     sources = {
@@ -2992,14 +3687,34 @@ def main(argv=None) -> int:
             counts = train_counts["ondemand"]
         else:
             counts = main_counts
+        # the small model's main paths: the on-demand and the fused-encoder
+        # test-mode forward, the allpairs_pallas and the on-demand train
+        # step (the quantized lookup is checked at its shapes only, and
+        # the small model never reaches the upsample-loss kernel)
+        sm = small["main_counts"]
+        small_counts = {}
+        for d in (sm["inference"]["fused"], sm["inference"]["ondemand"],
+                  sm["train"]["kernel"], sm["train"]["ondemand"]):
+            for k, v in d.items():
+                if v:
+                    small_counts.setdefault(k, v)
+        rs = small["kernels"].get(kname)
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            "small": {"launches": small_counts.get(kname, 0), **(
+                {k: rs[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")} if rs else {})}})
         if kernels[-1]["launches"] < 1:
             raise AssertionError(f"{kname}: no launch on its main path")
+        if (kname.startswith("upsample_loss")
+                != (kernels[-1]["small"]["launches"] == 0)
+                and kname != "pyramid_lookup_quantized"):
+            raise AssertionError(f"{kname}: small-model launches "
+                                 f"{kernels[-1]['small']['launches']}")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)
@@ -3009,7 +3724,8 @@ def main(argv=None) -> int:
                        "build": build_res, "phase_s": secs,
                        "kernels": kern, "path": path,
                        "demo": demo_res, "eval": eval_res,
-                       "train": train, "train_cli": train_cli}, f, indent=1)
+                       "train": train, "train_cli": train_cli,
+                       "small": small}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,12 @@
 the subcommands the port has::
 
     python -m raft_tpu_torch train --name raft-chairs --stage chairs
+    python -m raft_tpu_torch curriculum --workdir runs/standard
     python -m raft_tpu_torch verify-ckpt checkpoints/raft-chairs
     python -m raft_tpu_torch evaluate --model weights.pth --dataset sintel
     python -m raft_tpu_torch demo --model weights.pth --path demo-frames
+    python -m raft_tpu_torch lk-compare --model weights.pth \
+        --image1 a.png --image2 b.png
 """
 
 from __future__ import annotations
@@ -14,11 +17,15 @@ import sys
 
 _SUBCOMMANDS = {
     "train": ("raft_tpu_torch.cli.train", "train one curriculum stage"),
+    "curriculum": ("raft_tpu_torch.cli.curriculum",
+                   "the multi-stage schedule as one resumable job"),
     "verify-ckpt": ("raft_tpu_torch.cli.verify_ckpt",
                     "check a run directory's checkpoints restore"),
     "evaluate": ("raft_tpu_torch.cli.evaluate",
                  "validation on Sintel / KITTI / FlyingChairs"),
     "demo": ("raft_tpu_torch.cli.demo", "flow visualization over a frame dir"),
+    "lk-compare": ("raft_tpu_torch.cli.lk_compare",
+                   "RAFT against Lucas-Kanade, side by side"),
 }
 
 

@@ -29,6 +29,10 @@ fault              seam (point)            what happens
 ``restore_err``    ``ckpt.restore``        ``InjectedCheckpointCorruption``
 ``preempt``        ``train.preempt``       the cooperative preemption flag
                                            (exit 143 at the step boundary)
+``stage_kill``     ``curriculum.stage_     ``SystemExit(143)`` before stage
+                   boundary``              index N (step context = the
+                                           stage index), after the
+                                           previous stage's ledger commit
 =================  ======================  ================================
 
 The JAX package's other faults belong to parts of the system the port
@@ -49,14 +53,13 @@ ENV_SPEC = "RAFT_CHAOS_SPEC"
 ENV_SEED = "RAFT_CHAOS_SEED"
 
 FAULTS = ("corrupt_image", "worker_err", "producer_err", "torn_ckpt",
-          "restore_err", "preempt")
+          "restore_err", "preempt", "stage_kill")
 # Faults of the JAX package whose seams the port does not have yet.
 LATER_FAULTS = {
     "device_err": "A7 (serving)", "replica_kill": "A7 (serving)",
     "replica_hang": "A7 (serving)", "replica_slow": "A7 (serving)",
     "net_refuse": "A7 (serving)", "net_slow": "A7 (serving)",
-    "net_drop": "A7 (serving)", "net_partition": "A7 (serving)",
-    "stage_kill": "A3 (curriculum)"}
+    "net_drop": "A7 (serving)", "net_partition": "A7 (serving)"}
 
 _FAULT_RE = re.compile(r"^[a-z][a-z0-9_]*$")
 

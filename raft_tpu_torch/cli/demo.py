@@ -6,7 +6,8 @@ flow image.
     python -m raft_tpu_torch.cli.demo --model weights.pth --path demo-frames
 
 ``--model`` is a ``.pth`` holding the port's own ``state_dict`` or a
-reference-format one.  ``--alternate_corr`` runs the kernel configuration:
+reference-format one; ``--small`` reads the small model's.
+``--alternate_corr`` runs the kernel configuration:
 the on-demand correlation lookup (the CUDA kernel on the card) and the
 fused GRU gates.  The demo runs on the card unless ``--device cpu``.
 """
@@ -26,6 +27,7 @@ def parse_args(argv=None):
     p.add_argument("--path", default="demo-frames",
                    help="directory of frames (sorted, consecutive pairs)")
     p.add_argument("--out", default="demo-out", help="output directory")
+    p.add_argument("--small", action="store_true")
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--alternate_corr", action="store_true")
     p.add_argument("--iters", type=int, default=20)
@@ -49,12 +51,12 @@ def main(argv=None):
     from raft_tpu_torch.utils.flow_viz import flow_to_image
 
     compute_dtype = "bfloat16" if args.precision == "bf16" else "float32"
+    mk = RAFTConfig.small_model if args.small else RAFTConfig.full
     if args.alternate_corr:
-        model_cfg = RAFTConfig.full(
-            compute_dtype=compute_dtype, fused_gru=True,
-            corr_impl=default_alternate_corr_impl(args.device))
+        model_cfg = mk(compute_dtype=compute_dtype, fused_gru=True,
+                       corr_impl=default_alternate_corr_impl(args.device))
     else:
-        model_cfg = RAFTConfig.full(compute_dtype=compute_dtype)
+        model_cfg = mk(compute_dtype=compute_dtype)
     eval_fn = make_eval_fn(model_cfg, args.iters, device=args.device)
     state_dict = load_state_dict_file(args.model, model_cfg)
 

@@ -49,8 +49,7 @@ def parse_args(argv=None):
                         "or a training run directory")
     p.add_argument("--dataset", required=True,
                    choices=["chairs", "sintel", "kitti"])
-    p.add_argument("--small", action="store_true",
-                   help="the small model (a later slice of the port)")
+    p.add_argument("--small", action="store_true", help="the small model")
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--corr_dtype", default="auto", type=_corr_dtype_arg,
                    help="storage dtype of the materialized correlation "

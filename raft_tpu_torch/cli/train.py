@@ -11,13 +11,19 @@ the card and ``allpairs`` on the CPU.  The run directory is
 ``<ckpt_dir>/<name>``: a run that finds checkpoints there resumes from the
 newest restorable step, and SIGTERM makes it save the last completed step
 and exit with code 143.  ``--restore_ckpt`` takes such a run directory and
-seeds the weights only.
+seeds the weights only.  ``--small`` trains the small model.
+
+``--remat {none,full,dots,save_corr,save_corr_upsample}`` and
+``--remat_upsample {0,1}`` take the JAX CLI's values.  Their defaults
+here are ``none`` and ``0``, chosen on the H100 (PERF.md, the remat
+table): the activations fit in the card's memory at every stage's crop,
+and recomputing them costs step time.  The JAX package defaults to
+``save_corr`` and ``1``, chosen on a TPU.  The CLI prints one line naming
+the policy in force.
 
 A JAX flag that the port cannot honour yet raises ``SystemExit`` naming
 its ROADMAP item whenever it is set away from its default; never a silent
-ignore.  The JAX package rematerializes the refinement step by default
-(``--remat save_corr``, ``--remat_upsample 1``) and the port does not yet
-(ROADMAP A3): at those defaults the CLI says so in one line.
+ignore.
 """
 
 from __future__ import annotations
@@ -33,14 +39,11 @@ from raft_tpu_torch.config import (QUANTIZED_CORR_DTYPES,
 
 # flag -> (the JAX default, the ROADMAP item that ports what it does)
 UNPORTED = {
-    "small": (False, "A5 (the small model)"),
     "distributed": (False, "A6 (multi-GPU)"),
     "shard_spatial": (1, "A6 (multi-GPU; spatial sharding)"),
     "corr_precision": ("auto", "A4 (the TF32 decision)"),
     "scan_unroll": (None, "A4 (CUDA graphs; the eager loop has no scan "
                           "to unroll)"),
-    "remat": ("save_corr", "A3 (remat through torch.utils.checkpoint)"),
-    "remat_upsample": (1, "A3 (remat through torch.utils.checkpoint)"),
     "profile_dir": (None, "A8 (observability)"),
     "telemetry_dir": (None, "A8 (observability)"),
     "trace_sample_rate": (None, "A8 (observability)"),
@@ -87,10 +90,15 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--val_freq", type=int, default=5000,
                    help="checkpoint + validation cadence in steps")
-    p.add_argument("--remat", default="save_corr",
+    p.add_argument("--remat", default="none",
                    choices=["save_corr", "save_corr_upsample", "full",
-                            "dots", "none"])
-    p.add_argument("--remat_upsample", type=int, default=1, choices=[0, 1])
+                            "dots", "none"],
+                   help="backward rematerialization of the refinement step "
+                        "(default none: the activations fit on the card; "
+                        "PERF.md)")
+    p.add_argument("--remat_upsample", type=int, default=0, choices=[0, 1],
+                   help="rematerialize the mask head and upsample (+ loss) "
+                        "in backward")
     p.add_argument("--corr_levels", type=int, default=None)
     p.add_argument("--corr_radius", type=int, default=None)
     p.add_argument("--scan_unroll", type=int, default=None)
@@ -154,17 +162,28 @@ def parse_args(argv=None):
 
 def check_unported(args) -> None:
     """``SystemExit`` naming the ROADMAP item for a flag set away from its
-    JAX default that the port cannot honour yet; the one line about remat
-    at its defaults."""
+    JAX default that the port cannot honour yet."""
     for flag, (default, item) in UNPORTED.items():
         value = getattr(args, flag)
         if value != default:
             raise SystemExit(
                 f"--{flag} {value!r}: not in the PyTorch port yet "
                 f"(ROADMAP {item}); leave it at its default {default!r}")
-    print("remat: the port runs without rematerialization (the JAX "
-          "defaults --remat save_corr --remat_upsample 1 wait for ROADMAP "
-          "A3)", flush=True)
+
+
+def remat_kwargs(args) -> dict:
+    """The ``RAFTConfig`` remat fields of ``--remat`` and
+    ``--remat_upsample`` (the JAX CLI's map), after one line naming the
+    policy in force."""
+    print(f"remat: --remat {args.remat} --remat_upsample "
+          f"{args.remat_upsample}"
+          + (" (the port's defaults, chosen on the H100)"
+             if (args.remat, args.remat_upsample) == ("none", 0) else ""),
+          flush=True)
+    return dict(remat=args.remat != "none",
+                remat_policy=(args.remat if args.remat != "none"
+                              else "save_corr"),
+                remat_upsample=bool(args.remat_upsample))
 
 
 def run(argv=None):
@@ -203,9 +222,11 @@ def run(argv=None):
             f"correlation pyramid (--corr_impl allpairs or "
             f"allpairs_pallas); the on-demand {corr_impl!r} path never "
             "stores the volume, so there is nothing to quantize")
-    model_cfg = RAFTConfig.full(
+    mk = RAFTConfig.small_model if args.small else RAFTConfig.full
+    model_cfg = mk(
         dropout=args.dropout, corr_impl=corr_impl,
         compute_dtype=compute_dtype, corr_dtype=args.corr_dtype,
+        **remat_kwargs(args),
         **{k: v for k, v in (("corr_levels", args.corr_levels),
                              ("corr_radius", args.corr_radius))
            if v is not None})

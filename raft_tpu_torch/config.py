@@ -24,10 +24,13 @@ A materialized pyramid may be stored quantized (``corr_dtype`` ``'int8'``,
 ``'float8_e4m3fn'``, ``'float8_e5m2'``): codes plus one fp32 scale per
 (batch element, level), ``ops/corr.py``.
 
-TPU-tuned knobs of the JAX package (``scan_unroll``, ``upsample_group``,
-``remat*``, ``lookup_block_q``, ``corr_precision``) have no counterpart.
-Nothing here asks a backend anything: the device is an explicit argument
-of the entry points.
+Rematerialization (``remat``, ``remat_policy``, ``remat_upsample``) takes
+the JAX package's vocabulary and runs through ``torch.utils.checkpoint``
+(``models/raft.py``); its default here is off, the choice measured on the
+H100 (PERF.md).  TPU-tuned knobs of the JAX package (``scan_unroll``,
+``upsample_group``, ``lookup_block_q``, ``corr_precision``) have no
+counterpart.  Nothing here asks a backend anything: the device is an
+explicit argument of the entry points.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ CORR_DTYPES = ("auto", "float32", "bfloat16", "int8", "float8_e4m3fn",
                "float8_e5m2")
 QUANTIZED_CORR_DTYPES = ("int8", "float8_e4m3fn", "float8_e5m2")
 UPSAMPLE_LOSS_KERNELS = ("xla", "pallas")
+REMAT_POLICIES = ("full", "dots", "save_corr", "save_corr_upsample")
 
 
 def validate_corr_dtype(value: str, flag: str = "corr_dtype") -> str:
@@ -96,6 +100,18 @@ class RAFTConfig:
     # CUDA kernel (ops/lookup_encode.py): the tap tensor never reaches
     # device memory.  Only with corr_impl='allpairs_pallas'.
     fused_lookup_encoder: bool = False
+    # Recompute the refinement step in backward instead of keeping its
+    # activations (torch.utils.checkpoint).  Policies, as in JAX:
+    # 'save_corr' keeps the lookup taps (or the fused lookup + convc1
+    # output) and the motion encoder's output and recomputes the rest of
+    # the step; 'full' recomputes the lookup too; 'dots' keeps every conv
+    # output; 'save_corr_upsample' keeps what 'save_corr' keeps (the mask
+    # head never runs inside the step here).
+    remat: bool = False
+    remat_policy: str = "save_corr"
+    # Recompute the mask head (and the upsample-loss forward) over the
+    # folded iterations in backward: only the stacked GRU states stay.
+    remat_upsample: bool = False
 
     def __post_init__(self):
         for name, value, allowed in (
@@ -107,6 +123,10 @@ class RAFTConfig:
             if value not in allowed:
                 raise ValueError(f"unknown {name} {value!r}; "
                                  f"allowed: {', '.join(allowed)}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy: {self.remat_policy!r} "
+                             "(expected 'full', 'dots', 'save_corr' or "
+                             "'save_corr_upsample')")
         if self.corr_dtype_is_quantized and self.corr_impl in ("chunked",
                                                                "pallas"):
             raise ValueError(

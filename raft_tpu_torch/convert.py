@@ -14,9 +14,11 @@
   the key map of ``raft_tpu/convert.py:58-125``, including the merge of
   the separate z/r gate convs into ``convzr*`` (z first).
 
-Every conversion is checked against the model's own parameter shapes:
-each entry is written exactly once, with its shape, and nothing is left
-over.
+Every function takes the model configuration (the full preset by
+default, or ``RAFTConfig.small_model()``, whose reference ``ConvGRU``
+gates ``convz`` / ``convr`` merge into ``convzr``), and every conversion
+is checked against that model's own parameter shapes: each entry is
+written exactly once, with its shape, and nothing is left over.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""Building blocks: conv, norm, residual block (NCHW inside the model).
+"""Building blocks: conv, norm, residual and bottleneck blocks (NCHW
+inside the model).
 
-The port of ``raft_tpu/models/layers.py:51-137``.  Parameters are fp32;
+The port of ``raft_tpu/models/layers.py:51-137`` and ``:405-443``.  Parameters are fp32;
 a conv casts its weights to the dtype of its input, so under bf16 compute
 the convs run in bf16 with fp32 parameters, as flax does.  Norms compute
 in fp32 and return the input's dtype.  The JAX package's ``Folded*``
@@ -19,7 +20,7 @@ weights on every device.
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -79,10 +80,12 @@ class Norm(nn.Module):
     - 'none': identity.
 
     Statistics and normalization are fp32; the result has the input's
-    dtype.
+    dtype.  ``num_groups`` is the JAX module's argument of its ``'group'``
+    mode; these three modes ignore it.
     """
 
-    def __init__(self, kind: str, channels: int):
+    def __init__(self, kind: str, channels: int,
+                 num_groups: Optional[int] = None):
         super().__init__()
         if kind not in NORM_KINDS:
             raise ValueError(f"unknown norm kind: {kind!r}")
@@ -159,4 +162,35 @@ class ResidualBlock(nn.Module):
         y = torch.relu(self.norm2(self.conv2(y), freeze_bn))
         if self.stride != 1:
             x = self.norm3(self.downsample_conv(x), freeze_bn)
+        return torch.relu(x + y)
+
+
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 (strided) -> 1x1 with a skip; a strided block adds a 1x1
+    downsample conv and its norm (``norm4``).  The group count is
+    ``planes // 8`` even for the ``planes // 4``-channel inner norms, the
+    reference's quirk the JAX package keeps (it matters only to a
+    ``'group'`` norm)."""
+
+    def __init__(self, cin: int, planes: int, norm: str, stride: int = 1):
+        super().__init__()
+        p4, groups = planes // 4, planes // 8
+        self.conv1 = Conv(cin, p4, 1, 1, "kaiming_out")
+        self.norm1 = Norm(norm, p4, groups)
+        self.conv2 = Conv(p4, p4, 3, stride, "kaiming_out")
+        self.norm2 = Norm(norm, p4, groups)
+        self.conv3 = Conv(p4, planes, 1, 1, "kaiming_out")
+        self.norm3 = Norm(norm, planes, groups)
+        self.stride = stride
+        if stride != 1:
+            self.downsample_conv = Conv(cin, planes, 1, stride, "kaiming_out")
+            self.norm4 = Norm(norm, planes, groups)
+
+    def forward(self, x: torch.Tensor, freeze_bn: bool = False
+                ) -> torch.Tensor:
+        y = torch.relu(self.norm1(self.conv1(x), freeze_bn))
+        y = torch.relu(self.norm2(self.conv2(y), freeze_bn))
+        y = torch.relu(self.norm3(self.conv3(y), freeze_bn))
+        if self.stride != 1:
+            x = self.norm4(self.downsample_conv(x), freeze_bn)
         return torch.relu(x + y)

@@ -1,17 +1,22 @@
 """The RAFT model (the port of ``raft_tpu/models/raft.py``:
-``RefinementStep`` 96-191, ``UpsampleStep`` 194-210, ``UpsampleLossStep``
-213-289, the encode half 292-372 and ``RAFT`` 375-510), full model.
+``_remat_wrap`` 63-93, ``RefinementStep`` 96-191, ``UpsampleStep``
+194-210, ``UpsampleLossStep`` 213-289, the encode half 292-372 and
+``RAFT`` 375-576), full and small model.
 
 normalize -> shared-weight ``fnet`` on both frames + ``cnet`` on the
 first -> correlation state -> ``iters`` refinement steps (a Python loop;
 ``coords1`` is detached at the start of each) -> mask head + convex 8x
-upsample.  Three outputs, as in the JAX package:
+upsample (full model) or the parameter-free bilinear ``upflow8`` (small
+model, which has no mask head and never reaches the upsample-loss
+kernel).  Three outputs, as in the JAX package:
 
 - ``test_mode=True``: ``(flow_low, flow_up)`` of the last iteration only;
 - ``loss_targets=(flow_gt, valid, max_flow)``: ``(per_iter (iters,),
   metrics)``, the sequence-loss terms from the flat upsample + loss chain
   (``upsample_loss_kernel``: the plain chain or the CUDA kernel) applied
-  to every iteration, all iterations folded into one batch;
+  to every iteration, all iterations folded into one batch (small model:
+  ``upflow8`` of every iteration and the plain L1, metrics without
+  gradient);
 - otherwise the stacked upsampled flows ``(iters, B, H, W, 2)``.
 
 Train mode is ``model.train()``: batch norm uses batch statistics unless
@@ -28,6 +33,21 @@ the compute dtype;
 the flow update returns to fp32; the mask stays in the compute dtype for
 the loss chain and is fp32 for the returned flows.
 
+Rematerialization (``remat``, when gradients are recorded) wraps each
+refinement step in ``torch.utils.checkpoint`` (non-reentrant):
+
+- ``'save_corr'`` / ``'save_corr_upsample'``: the lookup runs outside any
+  checkpoint and its taps (on the fused path, the fused lookup +
+  ``convc1`` output) stay; the rest of the motion encoder is one
+  checkpointed region (its output stays) and the GRU and flow head
+  another, so backward recomputes those two and never the lookup;
+- ``'full'``: the whole step, lookup included, is one region;
+- ``'dots'``: the whole step, keeping every convolution's output.
+
+``remat_upsample`` checkpoints the mask head together with the upsample
+(+ loss) over the folded iterations: backward keeps the stacked GRU
+states and recomputes the two mask convs and the upsample's forward.
+
 Images are NHWC float in [0, 255]; flows are ``(B, H, W, 2)``, ``(x, y)``
 last.  Parameter names follow the flax paths (``fnet.layer1_0.conv1.
 weight``, ``refine.update_block.gru.convzr1.weight``, ``upsampler.
@@ -36,46 +56,78 @@ mask_head.mask_conv1.weight``) so ``convert.py`` maps them mechanically.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from raft_tpu_torch.config import RAFTConfig
-from raft_tpu_torch.models.extractor import BasicEncoder
+from raft_tpu_torch.models.extractor import BasicEncoder, SmallEncoder
 from raft_tpu_torch.models.layers import Conv, Norm
 from raft_tpu_torch.models.update import (BasicUpdateBlock, FusedCorrLookup,
-                                          MaskHead)
+                                          MaskHead, SmallUpdateBlock)
 from raft_tpu_torch.ops.corr import (build_corr_pyramid, chunked_corr_lookup,
                                      corr_lookup, pool_fmap_pyramid)
 from raft_tpu_torch.ops.corr_kernels import corr_lookup_ondemand_nchw
 from raft_tpu_torch.ops.pyramid_kernels import (pyramid_lookup_nchw,
                                                 pyramid_lookup_quantized_nchw)
-from raft_tpu_torch.ops.sampler import coords_grid
+from raft_tpu_torch.ops.sampler import coords_grid, upflow8
 from raft_tpu_torch.ops.upsample import convex_upsample_nchw
 from raft_tpu_torch.ops.upsample_loss import (upsample_loss_sums,
                                               upsample_loss_sums_plain)
-from raft_tpu_torch.train.loss import combined_valid
+from raft_tpu_torch.train.loss import combined_valid, sequence_terms
+
+
+def _checkpoint(fn, *args, context_fn=None):
+    """``fn(*args)`` under non-reentrant ``torch.utils.checkpoint``: its
+    tensor arguments are kept, everything else it saves is recomputed in
+    backward (no random op runs inside, so no RNG state is kept)."""
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def _dots_context():
+    """Selective checkpoint contexts that keep the output of every
+    convolution and matrix product (JAX's ``dots_saveable``)."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    aten = torch.ops.aten
+    saved = {aten.convolution.default, aten.mm.default, aten.addmm.default,
+             aten.bmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return create_selective_checkpoint_contexts(policy)
 
 
 class RAFT(nn.Module):
-    """Full RAFT on the CPU; ``.to(device)`` moves it.  Weights are drawn
-    from ``seed`` at construction, except when it is built under
+    """Full or small RAFT on the CPU; ``.to(device)`` moves it.  Weights are
+    drawn from ``seed`` at construction, except when it is built under
     ``torch.device("meta")``, which only describes shapes."""
 
     def __init__(self, config: RAFTConfig = RAFTConfig(), seed: int = 0):
         super().__init__()
-        if config.small:
-            raise NotImplementedError(
-                "the small model (SmallEncoder, ConvGRU, upflow8) is a later "
-                "slice of the port")
         self.config = config
         hdim, cdim = config.hidden_dim, config.context_dim
-        self.fnet = BasicEncoder(256, "instance", config.dropout)
-        self.cnet = BasicEncoder(hdim + cdim, "batch", config.dropout)
-        self.refine = nn.ModuleDict({"update_block": BasicUpdateBlock(
-            config.corr_planes, hdim, cdim, config.fused_gru)})
-        self.upsampler = nn.ModuleDict({"mask_head": MaskHead(hdim)})
+        if config.small:
+            self.fnet = SmallEncoder(128, "instance", config.dropout)
+            self.cnet = SmallEncoder(hdim + cdim, "none", config.dropout)
+            block = SmallUpdateBlock(config.corr_planes, hdim, cdim,
+                                     config.fused_gru)
+        else:
+            self.fnet = BasicEncoder(256, "instance", config.dropout)
+            self.cnet = BasicEncoder(hdim + cdim, "batch", config.dropout)
+            block = BasicUpdateBlock(config.corr_planes, hdim, cdim,
+                                     config.fused_gru)
+        self.refine = nn.ModuleDict({"update_block": block})
+        if not config.small:
+            self.upsampler = nn.ModuleDict({"mask_head": MaskHead(hdim)})
         if not self.fnet.conv1.weight.is_meta:
             self.init_weights(seed)
 
@@ -153,20 +205,17 @@ class RAFT(nn.Module):
 
         coords0 = coords_grid(B, H8, W8, device=x1.device)
         coords1 = coords0 if flow_init is None else coords0 + flow_init
-        update_block = self.refine["update_block"]
         nets, flows = [], []
         for _ in range(iters):
-            coords1 = coords1.detach()
-            corr = lookup(coords1)
-            if not isinstance(corr, FusedCorrLookup):
-                corr = corr.to(dt)
-            flow = (coords1 - coords0).permute(0, 3, 1, 2).contiguous().to(dt)
-            net, delta_flow = update_block(net, inp, corr, flow)
-            coords1 = coords1 + delta_flow.float().permute(0, 2, 3, 1)
+            net, coords1 = self._refine(lookup, net, inp, coords0,
+                                        coords1.detach())
             if not test_mode:
                 nets.append(net)
                 flows.append(coords1 - coords0)
 
+        if cfg.small:
+            return self._small_outputs(flows, coords1 - coords0, test_mode,
+                                       loss_targets)
         mask_head = self.upsampler["mask_head"]
         if test_mode:
             flow_low = coords1 - coords0
@@ -176,27 +225,90 @@ class RAFT(nn.Module):
 
         # every iteration folded into one batch, iteration-major
         flows = torch.stack(flows, dim=0).reshape(iters * B, H8, W8, 2)
-        mask = mask_head(torch.cat(nets, dim=0))
+        nets = torch.cat(nets, dim=0)
+        remat_up = cfg.remat_upsample and torch.is_grad_enabled()
         if loss_targets is not None:
-            return self._loss_outputs(flows, mask.contiguous(), loss_targets,
-                                      iters, B)
-        up = convex_upsample_nchw(flows.permute(0, 3, 1, 2), mask.float())
+            flow_gt, valid, max_flow = loss_targets
+            vmask = combined_valid(flow_gt, valid, max_flow)
+            gt = flow_gt.float().contiguous()
+            sums = (_checkpoint(self._upsample_loss_sums, nets, flows, gt,
+                                vmask) if remat_up
+                    else self._upsample_loss_sums(nets, flows, gt, vmask))
+            return self._loss_outputs(sums, gt, vmask, iters, B)
+
+        def upsample(nets, flows):
+            mask = mask_head(nets)
+            return convex_upsample_nchw(flows.permute(0, 3, 1, 2),
+                                        mask.float())
+
+        up = (_checkpoint(upsample, nets, flows) if remat_up
+              else upsample(nets, flows))
         return up.permute(0, 2, 3, 1).reshape(iters, B, 8 * H8, 8 * W8, 2)
 
-    def _loss_outputs(self, flows, mask, loss_targets, iters, B):
+    def _refine(self, lookup: Callable, net, inp, coords0, coords1):
+        """One refinement iteration -> ``(net, coords1)``, under the remat
+        policy when gradients are recorded (see the module docstring)."""
+        cfg = self.config
+        dt = cfg.dtype
+        block = self.refine["update_block"]
+
+        def taps(c):
+            corr = lookup(c)
+            return corr if isinstance(corr, FusedCorrLookup) else corr.to(dt)
+
+        def flow_of(coords0, coords1):
+            return (coords1 - coords0).permute(0, 3, 1, 2).contiguous().to(dt)
+
+        def step(net, inp, coords0, coords1):
+            return block(net, inp, taps(coords1), flow_of(coords0, coords1))
+
+        if not (cfg.remat and torch.is_grad_enabled()):
+            net, delta = step(net, inp, coords0, coords1)
+        elif cfg.remat_policy in ("save_corr", "save_corr_upsample"):
+            corr = taps(coords1)
+            motion = _checkpoint(
+                functools.partial(block.encoder.motion,
+                                  encoded=isinstance(corr, FusedCorrLookup)),
+                flow_of(coords0, coords1), block.encoder.corr_input(corr))
+            net, delta = _checkpoint(block.gru_head, net, inp, motion)
+        else:
+            net, delta = _checkpoint(
+                step, net, inp, coords0, coords1,
+                context_fn=_dots_context if cfg.remat_policy == "dots"
+                else None)
+        return net, coords1 + delta.float().permute(0, 2, 3, 1)
+
+    def _upsample_loss_sums(self, nets, flows, gt, vmask):
+        """Mask head on the folded GRU states, then the flat upsample +
+        loss sums ``(iters * B, 5)``."""
+        cfg = self.config
+        mask = self.upsampler["mask_head"](nets).contiguous()
+        if cfg.upsample_loss_kernel == "pallas":
+            return upsample_loss_sums(flows, mask, gt, vmask)
+        return upsample_loss_sums_plain(flows, mask, gt, vmask, cfg.dtype)
+
+    def _small_outputs(self, flows, flow_low, test_mode, loss_targets):
+        """Small-model upsampling: ``upflow8`` of the last flow (test
+        mode) or of every iteration's, and with ``loss_targets`` the
+        sequence-loss terms on them (``raft_tpu/models/raft.py:548-576``)."""
+        if test_mode:
+            return flow_low, upflow8(flow_low)
+        iters = len(flows)
+        B, H8, W8, _ = flow_low.shape
+        up = upflow8(torch.cat(flows, dim=0)).reshape(
+            iters, B, 8 * H8, 8 * W8, 2)
+        if loss_targets is None:
+            return up
+        flow_gt, valid, max_flow = loss_targets
+        return sequence_terms(up, flow_gt.float(),
+                              combined_valid(flow_gt, valid, max_flow))
+
+    @staticmethod
+    def _loss_outputs(sums, gt, vmask, iters, B):
         """Per-iteration mean L1 (over all ``B*H*W*2`` elements, invalid
         ones zeroed) and final-iteration metrics over the valid pixels,
         plus the per-iteration ``epe_iter`` (``raft_tpu/models/raft.py:
         452-510``)."""
-        cfg = self.config
-        flow_gt, valid, max_flow = loss_targets
-        vmask = combined_valid(flow_gt, valid, max_flow)
-        gt = flow_gt.float().contiguous()
-        if cfg.upsample_loss_kernel == "pallas":
-            sums = upsample_loss_sums(flows, mask, gt, vmask)
-        else:
-            sums = upsample_loss_sums_plain(flows, mask, gt, vmask,
-                                            cfg.dtype)
         sums = sums.reshape(iters, B, 5).sum(dim=1)        # (iters, 5)
         n_all = gt.numel()
         n_valid = torch.clamp(vmask.sum(), min=1.0)

@@ -53,18 +53,27 @@ def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
     gradient.
     """
     n = flow_preds.shape[0]
-    valid = combined_valid(flow_gt, valid, max_flow)
-    vmask = valid[None, ..., None]
+    per_iter, metrics = sequence_terms(
+        flow_preds, flow_gt, combined_valid(flow_gt, valid, max_flow))
     i = torch.arange(n, dtype=torch.float32, device=flow_preds.device)
     weights = gamma ** (n - i - 1.0)
-    per_iter = torch.mean(vmask * abs_pos0(flow_preds - flow_gt[None]),
-                          dim=(1, 2, 3, 4))
     loss = torch.sum(weights * per_iter)
+    return loss, dict(metrics, loss_iter=per_iter.detach())
+
+
+def sequence_terms(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
+                   vmask: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The unweighted terms of :func:`sequence_loss` under the combined
+    mask ``vmask``: the per-iteration mean L1 ``(iters,)`` and the final
+    iteration's metrics plus ``epe_iter``, which carry no gradient."""
+    per_iter = torch.mean(vmask[None, ..., None]
+                          * abs_pos0(flow_preds - flow_gt[None]),
+                          dim=(1, 2, 3, 4))
     with torch.no_grad():
         diff = flow_preds - flow_gt[None]
         epe_all = torch.sqrt(torch.sum(diff ** 2, dim=-1))
-        n_valid = torch.clamp(valid.sum(), min=1.0)
-        epe_iter = torch.sum(valid[None] * epe_all, dim=(1, 2, 3)) / n_valid
-        metrics = flow_metrics(flow_preds[-1], flow_gt, valid)
-    metrics = dict(metrics, loss_iter=per_iter.detach(), epe_iter=epe_iter)
-    return loss, metrics
+        n_valid = torch.clamp(vmask.sum(), min=1.0)
+        epe_iter = torch.sum(vmask[None] * epe_all, dim=(1, 2, 3)) / n_valid
+        metrics = flow_metrics(flow_preds[-1], flow_gt, vmask)
+    return per_iter, dict(metrics, epe_iter=epe_iter)

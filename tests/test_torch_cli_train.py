@@ -4,7 +4,9 @@ tests/test_chaos.py::test_verify_ckpt_cli): ``python -m raft_tpu_torch
 train`` on a synthetic FlyingChairs tree (the full model at 64x96, 2
 iterations, batch 2), preempted and resumed, its run directory verified
 and read by the evaluate CLI; every JAX flag the port cannot honour yet
-raises ``SystemExit`` naming its ROADMAP item when it is set."""
+raises ``SystemExit`` naming its ROADMAP item when it is set; ``--remat``
+and ``--remat_upsample`` map onto the model configuration as JAX's CLI
+maps them."""
 
 import json
 import os
@@ -87,7 +89,8 @@ def test_train_cli_few_steps(chairs_tree, capsys):
     run_dir = chairs_tree / "ckpts" / "smoke"
     assert CheckpointManager(str(run_dir)).all_steps() == [1]
     out = capsys.readouterr().out
-    assert "remat: the port runs without rematerialization" in out
+    assert ("remat: --remat none --remat_upsample 0 (the port's defaults, "
+            "chosen on the H100)") in out
     assert "preempted at step 1; checkpointing" in out
 
     assert main(_train_args(chairs_tree)) == 0
@@ -138,9 +141,9 @@ def test_verify_ckpt_cli(tmp_path, capsys):
 
 
 UNPORTED_VALUES = {
-    "small": [], "distributed": [], "shard_spatial": ["2"],
-    "corr_precision": ["highest"], "scan_unroll": ["1"], "remat": ["none"],
-    "remat_upsample": ["0"], "profile_dir": ["p"], "telemetry_dir": ["t"],
+    "distributed": [], "shard_spatial": ["2"],
+    "corr_precision": ["highest"], "scan_unroll": ["1"],
+    "profile_dir": ["p"], "telemetry_dir": ["t"],
     "trace_sample_rate": ["0.5"], "watchdog_timeout": ["30"],
     "watchdog_exit": [], "profile_steps": ["1:2"], "forensic_keep": ["0"]}
 
@@ -163,3 +166,25 @@ def test_train_cli_refuses_quantized_ondemand_and_runs_on_the_card(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.run([])
+
+
+@pytest.mark.parametrize("upsample", ["0", "1"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots", "save_corr",
+                                   "save_corr_upsample"])
+def test_remat_flags_map_as_jax(remat, upsample, capsys):
+    """Every value of the JAX CLI's ``--remat`` / ``--remat_upsample``,
+    mapped as ``raft_tpu/cli/train.py`` maps them, with one line naming
+    the policy in force."""
+    args = train_cli.parse_args(["--remat", remat,
+                                 "--remat_upsample", upsample])
+    kw = train_cli.remat_kwargs(args)
+    assert kw == dict(remat=remat != "none",
+                      remat_policy=remat if remat != "none" else "save_corr",
+                      remat_upsample=upsample == "1")
+    cfg = RAFTConfig.small_model(**kw)
+    assert (cfg.remat, cfg.remat_policy, cfg.remat_upsample) == (
+        kw["remat"], kw["remat_policy"], kw["remat_upsample"])
+    assert capsys.readouterr().out.startswith(
+        f"remat: --remat {remat} --remat_upsample {upsample}")
+    defaults = train_cli.parse_args([])
+    assert (defaults.remat, defaults.remat_upsample) == ("none", 0)

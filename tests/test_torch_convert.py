@@ -14,7 +14,7 @@ from raft_tpu_torch.convert import (flax_from_state_dict, load_reference_pth,
                                     load_state_dict_file,
                                     state_dict_from_flax, template_shapes)
 
-from test_torch_fixtures import full_raft_variables
+from test_torch_fixtures import full_raft_variables, small_raft_variables
 
 
 def _leaves(tree):
@@ -132,3 +132,48 @@ def test_reference_keys_map_back_in_both_packages(tmp_path):
     for p in (path, own):
         loaded = load_state_dict_file(str(p), RAFTConfig.full())
         assert all(torch.equal(loaded[k], sd[k]) for k in sd)
+
+
+def test_small_preset_roundtrip_and_reference_keys(tmp_path):
+    """The small model through every function of the bridge: the flax
+    round trip bit for bit, the template's shapes (ConvGRU's ``convzr``
+    double-width 3x3, ``convc1`` on 196 taps), the reference key map of
+    both packages (``convz``/``convr`` with no digit suffix merged into
+    ``convzr``), and the loader on either format."""
+    small = RAFTConfig.small_model()
+    variables, sd = small_raft_variables(0)
+    shapes = template_shapes(small)
+    assert set(sd) == set(shapes) and len(shapes) == 104
+    assert shapes["refine.update_block.gru.convzr.weight"] == (192, 242, 3, 3)
+    assert shapes["refine.update_block.encoder.convc1.weight"] == (96, 196,
+                                                                   1, 1)
+    assert not any(k.startswith("upsampler") for k in shapes)
+    back = _leaves(flax_from_state_dict(sd))
+    want = _leaves(variables)
+    assert set(back) == set(want)
+    for k, v in want.items():
+        assert back[k].dtype == v.dtype and np.array_equal(back[k], v), k
+
+    ref = _reference_state_dict(variables)
+    assert "module.update_block.gru.convz.weight" in ref
+    assert "module.update_block.gru.convr.bias" in ref
+    jax_tree = convert_state_dict(ref, {"params": variables["params"],
+                                        "batch_stats": {}})
+    got = _leaves(jax_tree)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    path = tmp_path / "reference_small.pth"
+    torch.save(ref, path)
+    port = load_reference_pth(str(path), small)
+    assert set(port) == set(sd)
+    assert all(torch.equal(port[k], sd[k]) for k in sd)
+    own = tmp_path / "own_small.pth"
+    torch.save(sd, own)
+    for p in (path, own):
+        loaded = load_state_dict_file(str(p), small)
+        assert all(torch.equal(loaded[k], sd[k]) for k in sd)
+    # a full model's file is refused for the small preset, not half-read
+    _, full_sd = full_raft_variables(0)
+    torch.save(full_sd, tmp_path / "full.pth")
+    with pytest.raises(ValueError, match="missing|unexpected"):
+        load_state_dict_file(str(tmp_path / "full.pth"), small)

@@ -519,10 +519,12 @@ ONDEMAND_PLAIN_KW = dict(corr_impl="chunked", fused_gru=False,
                          upsample_loss_kernel="xla")
 
 
-def _train_step_both(dev, dtype, kernel_kw=KERNEL_KW, plain_kw=None):
-    """One train step of the kernel and the plain configuration from the
-    same weights, the clip out of reach: metrics, launch counts and the
-    unclipped gradients the optimizer saw."""
+def _train_step_both(dev, dtype, kernel_kw=KERNEL_KW, plain_kw=None,
+                     mk=RAFTConfig.full):
+    """One train step of the kernel and the plain configuration (of the
+    model preset ``mk``) from the same weights, the clip out of reach:
+    metrics, launch counts and the unclipped gradients the optimizer
+    saw."""
     from raft_tpu_torch.config import TrainConfig
     from raft_tpu_torch.train.step import init_state, make_train_step
 
@@ -534,13 +536,13 @@ def _train_step_both(dev, dtype, kernel_kw=KERNEL_KW, plain_kw=None):
              "valid": np.ones((B, H, W), np.float32)}
     cfg = TrainConfig(lr=1e-4, num_steps=10, batch_size=B,
                       image_size=(H, W), iters=3, clip=1e9)
-    sd = RAFT(RAFTConfig.full()).state_dict()
+    sd = RAFT(mk()).state_dict()
     counters = (corr_kernels.LAUNCHES, gru_gates.LAUNCHES,
                 pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES,
                 lookup_encode.LAUNCHES)
     out = {}
     for name, kw in (("kernel", kernel_kw), ("plain", plain_kw or {})):
-        state = init_state(RAFTConfig.full(compute_dtype=dtype, **kw), cfg,
+        state = init_state(mk(compute_dtype=dtype, **kw), cfg,
                            device=dev, state_dict=sd)
         grads = {}
         opt_step = state.optimizer.step
@@ -896,3 +898,177 @@ def test_checkpoint_snapshot_of_cuda_state_restores_bit_for_bit(dev,
     assert torch.equal(fresh.generator.get_state(), want[2])
     assert not torch.equal(state.generator.get_state(), want[2])
     mgr.close()
+
+
+# --- the small model's shapes: radius 3 (K = 196 taps), C = 128 features,
+# F = 96 outputs of the fused lookup + convc1, 96-channel GRU gates ---
+
+SMALL_ENCODE_CASES = [(torch.float32, torch.float32, *CHAIRS),
+                      (torch.bfloat16, torch.bfloat16, *CHAIRS),
+                      (torch.int8, torch.float32, *CHAIRS),
+                      (torch.float32, torch.float32, 2, (7, 13))]
+
+
+@pytest.mark.parametrize("dtype,out_dtype,B,hw", SMALL_ENCODE_CASES)
+def test_lookup_encode_small_shapes_match_plain(dev, dtype, out_dtype, B,
+                                                 hw):
+    """The fused lookup + convc1 at radius 3 with F = 96 (the kernel's
+    fixed 256-column pass computes zeros past F): exactly F channels,
+    forward and backward against the plain versions, one launch."""
+    pyr, coords = _pyramid_case(21, dev, dtype, B=B, hw=hw)
+    coords = coords.nan_to_num(3.5)
+    quantized = isinstance(pyr[0], corr_ops.QuantizedLevel)
+    F, K = 96, 4 * 49
+    assert lookup_encode._kpad(4, 3) == 200
+    g = torch.Generator().manual_seed(22)
+    w = (torch.randn(F, K, 1, 1, generator=g) / 14).to(dev)
+    b = (torch.randn(F, generator=g) * 0.1).to(dev)
+    w.requires_grad_(True)
+    b.requires_grad_(True)
+    leaves = [w, b] + ([] if quantized else list(pyr))
+    cot = torch.randn((B, F, *hw), generator=g).to(dev, out_dtype)
+    before = lookup_encode.LAUNCHES["lookup_encode"]
+    got = lookup_encode.pyramid_lookup_encode(pyr, coords, 3, w, b,
+                                              out_dtype)
+    with torch.no_grad():
+        want = lookup_encode.pyramid_lookup_encode_plain(pyr, coords, 3, w,
+                                                         b, out_dtype)
+    dgot = torch.autograd.grad(got, leaves, cot)
+    dw, db, dl = lookup_encode.pyramid_lookup_encode_bwd_plain(
+        pyr, coords, 3, w, got.detach(), cot)
+    torch.cuda.synchronize()
+    assert lookup_encode.LAUNCHES["lookup_encode"] == before + 1
+    assert got.shape == (B, F, *hw) and got.is_contiguous()
+    _close(got, want)
+    assert float(got.float().max()) > 0
+    for a, d in zip(dgot, [dw, db] + (dl or [])):
+        _close(a, d)
+
+
+@pytest.mark.parametrize("hw,B,dist", [((46, 62), 8, "smooth"),
+                                       ((46, 62), 8, "near"),
+                                       ((46, 62), 8, "spread"),
+                                       ((55, 128), 1, "mixed")])
+def test_corr_kernels_small_shapes_match_plain(dev, hw, B, dist):
+    """The on-demand forward and backward at C = 128, radius 3 (a 7 x 7
+    window): the chairs grid under three center distributions and the
+    Sintel grid, against the plain versions; the shared-memory plan is
+    sized for these shapes."""
+    C, r = 128, 3
+    f1, f2, _ = _corr_case(31, B, *hw, C, dev)
+    coords = _centers(dist, B, *hw, 32, dev)
+    f1.requires_grad_(True)
+    pyr = [lv.contiguous().requires_grad_(True)
+           for lv in pool_fmap_pyramid(f2, 4)]
+    got = corr_kernels.corr_lookup_ondemand_nchw(f1, pyr, coords, r)
+    with torch.no_grad():
+        want = corr_kernels._plain(f1, pyr, coords, r)
+    _close(got.permute(0, 2, 3, 1), want)
+    gt = torch.randn(got.shape, generator=torch.Generator().manual_seed(33)
+                     ).to(dev)
+    dk = torch.autograd.grad(got, [f1, *pyr], gt)
+    df1, df2 = corr_kernels.corr_lookup_ondemand_bwd_plain(
+        f1, pyr, coords, r, gt.permute(0, 2, 3, 1))
+    for a, d in zip(dk, [df1, *df2]):
+        _close(a, d)
+    _check_paths(dist, corr_kernels.kernel_path_counts(
+        f1.detach(), [p.detach() for p in pyr], coords, r)["fwd"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gate_kernels_96_channels_match_plain(dev, dtype):
+    """The four gate kernels on the small model's 96-channel halves of one
+    (8, 192, 46, 62) conv output: r = zr[:, 96:] starts 96 * H * W values
+    in, 16-byte aligned, so the reset-gate backward takes its vector
+    path."""
+    B, C, H, W = 8, 96, 46, 62
+    g = torch.Generator().manual_seed(41)
+    zr = (torch.randn(B, 2 * C, H, W, generator=g) * 3).to(dev, dtype)
+    q = (torch.randn(B, C, H, W, generator=g) * 3).to(dev, dtype)
+    h = torch.randn(B, C, H, W, generator=g).to(dev, dtype)
+    g_cat = torch.randn(B, 2 * C + 146, H, W, generator=g).to(dev, dtype)
+    g_rh, g_bl = g_cat[:, :C], g_cat[:, C:2 * C]
+    for t in (zr, q, h):
+        t.requires_grad_(True)
+    z, r = torch.split(zr, C, dim=1)
+    strides = [gru_gates._batch_strided(t)[1] for t in (r, h, g_rh)]
+    vec, _ = gru_gates.rh_bwd_plan(
+        [r.data_ptr(), h.data_ptr(), g_rh.data_ptr()], strides, C * H * W,
+        B, h.element_size(), 132)
+    assert vec * h.element_size() == 16
+    before = dict(gru_gates.LAUNCHES)
+    rh, bl = gru_gates.gru_gate_rh(r, h), gru_gates.gru_gate_blend(z, q, h)
+    with torch.no_grad():
+        _close(rh, gru_gates.gru_gate_rh_plain(r, h))
+        _close(bl, gru_gates.gru_gate_blend_plain(z, q, h))
+    d_rh = torch.autograd.grad(rh, (zr, h), g_rh)
+    d_bl = torch.autograd.grad(bl, (zr, q, h), g_bl)
+    torch.cuda.synchronize()
+    assert gru_gates.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    want = list(gru_gates.gru_gate_rh_bwd_plain(r, h, g_rh)) + list(
+        gru_gates.gru_gate_blend_bwd_plain(z, q, h, g_bl))
+    got = [d_rh[0][:, C:], d_rh[1], d_bl[0][:, :C], d_bl[1], d_bl[2]]
+    for a, b_ in zip(got, want):
+        _close(a, b_)
+
+
+def _reset_all():
+    for d in (corr_kernels.LAUNCHES, gru_gates.LAUNCHES,
+              pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES,
+              lookup_encode.LAUNCHES):
+        for key in d:
+            d[key] = 0
+
+
+def _all_counts():
+    return {k: v for d in (corr_kernels.LAUNCHES, gru_gates.LAUNCHES,
+                           pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES,
+                           lookup_encode.LAUNCHES) for k, v in d.items() if v}
+
+
+def test_small_model_kernel_configs_match_plain_on_the_card(dev):
+    """The small model in test mode at 64x96, 3 iterations, in both kernel
+    configurations against the plain one: the on-demand lookup + fused
+    gates (one ConvGRU pass an iteration: 3 + 3 gate launches) and the
+    pyramid lookup + fused convc1 (F = 96); no upsample-loss launch."""
+    sd = RAFT(RAFTConfig.small_model()).state_dict()
+    rng = np.random.default_rng(3)
+    i1, i2 = (torch.from_numpy(rng.uniform(0, 255, (2, 64, 96, 3)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    outs = {}
+    for name, kw, launches in (
+            ("plain", dict(corr_impl="chunked"), {}),
+            ("ondemand", dict(corr_impl="pallas", fused_gru=True),
+             {"corr_ondemand": 3, "gru_gate_rh": 3, "gru_gate_blend": 3}),
+            ("fused", dict(corr_impl="allpairs_pallas",
+                           fused_lookup_encoder=True,
+                           upsample_loss_kernel="pallas"),
+             {"lookup_encode": 3})):
+        model = RAFT(RAFTConfig.small_model(**kw))
+        model.load_state_dict(sd)
+        model = model.to(dev).eval()
+        _reset_all()
+        with torch.no_grad():
+            outs[name] = model(i1, i2, iters=3, test_mode=True)[1]
+        torch.cuda.synchronize()
+        assert _all_counts() == launches, name
+    for name in ("ondemand", "fused"):
+        assert float((outs[name] - outs["plain"]).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel_kw,plain_kw,launches", [
+    (KERNEL_KW, {}, {"pyramid_lookup_fwd": 3, "pyramid_lookup_bwd": 3}),
+    (ONDEMAND_KW, ONDEMAND_PLAIN_KW,
+     {"corr_ondemand": 3, "corr_ondemand_bwd": 3, "gru_gate_rh": 3,
+      "gru_gate_rh_bwd": 3, "gru_gate_blend": 3, "gru_gate_blend_bwd": 3})],
+    ids=["kernel", "ondemand"])
+def test_small_train_step_kernel_configs_match_plain(dev, dtype, kernel_kw,
+                                                     plain_kw, launches):
+    """One small-model train step of each kernel configuration against
+    its plain one, under the bounds of the full model's; no upsample-loss
+    launch (the small model has no mask head)."""
+    (mk, lk, gk), (mp, lp, gp) = _train_step_both(
+        dev, dtype, kernel_kw, plain_kw, mk=RAFTConfig.small_model)
+    assert lk == launches and lp == {}
+    (_check_fp32 if dtype == "float32" else _check_bf16)(mk, gk, mp, gp)

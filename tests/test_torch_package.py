@@ -55,8 +55,9 @@ def test_import_loads_no_jax_and_no_raft_tpu():
             "raft_tpu_torch.data.prefetch", "raft_tpu_torch.chaos",
             "raft_tpu_torch.chaos.errors", "raft_tpu_torch.chaos.plan",
             "raft_tpu_torch.train.checkpoint", "raft_tpu_torch.train.logger",
-            "raft_tpu_torch.cli.train", "raft_tpu_torch.cli.verify_ckpt"
-            } <= set(MODULES)
+            "raft_tpu_torch.cli.train", "raft_tpu_torch.cli.verify_ckpt",
+            "raft_tpu_torch.curriculum", "raft_tpu_torch.cli.curriculum",
+            "raft_tpu_torch.cli.lk_compare"} <= set(MODULES)
     for name in ("png_filters.c", "aug_ops.c"):
         assert (PKG / "native" / name).is_file()
 
@@ -132,8 +133,11 @@ def test_unported_paths_name_their_slice():
             RAFTConfig.full(corr_dtype=name, corr_impl="pallas")
     with pytest.raises(ValueError, match="allpairs_pallas"):
         RAFTConfig.full(fused_lookup_encoder=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        RAFT(RAFTConfig.small_model())
+    # the small model builds, trains and infers; no mask head
+    small = RAFT(RAFTConfig.small_model(corr_impl="allpairs_pallas"))
+    assert not hasattr(small, "upsampler")
+    flows = small(img, img, iters=1)
+    assert flows.shape == (1, 1, 16, 16, 2) and flows.requires_grad
     with pytest.raises(ValueError, match="corr_impl"):
         RAFTConfig.full(corr_impl="nope")
     with pytest.raises(ValueError, match="upsample_loss_kernel"):

@@ -5,6 +5,19 @@ GPU (written for the H100).
     python3 chip_smoke.py                      # from the repository root
     python3 chip_smoke.py --report out.json    # also write every number
 
+The phases drive the port's entry points as a user does: on the card,
+``make_eval_fn`` and ``make_train_step`` (and the CLIs and the loop on
+them) run each key as a captured CUDA graph after one eager call, so a
+timed window follows an eager call and the capture (``_warm``: the peak
+memory that follows covers the capture, the graph's working set).  The
+one exception is phase small's test mode, which calls the model itself,
+eagerly: no entry point runs the fused-encoder configuration at
+inference (``make_inference_model`` maps it to ``allpairs``).  The
+entry points set cuDNN TF32 for each call from ``config.CONV_TF32``;
+this script turns it off for its checks and timings, except where a
+phase names the shipped setting (the CLIs' subprocesses, their in-process
+twins, the TF32 measurement of phase graphs).
+
 Phases, each raising on failure (so the script exits nonzero):
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device;
@@ -60,8 +73,23 @@ Phases, each raising on failure (so the script exits nonzero):
    fp32 and bf16 for the default ``allpairs`` and the kernel
    configuration (ms/pair, device busy time, peak memory) with launch
    counts;
-5. demo: the demo CLI on ``demo-frames`` with ``--alternate_corr``;
-6. eval: the evaluation path on synthetic dataset trees written with the
+5. graphs: the same entry points eagerly (``graphs=False``) against their
+   captured graphs: the 32-iteration Sintel forward (440x1024, B = 1) in
+   ``allpairs`` and the kernel configuration, fp32 and bf16, and the
+   small model's bf16 forward (on-demand configuration): outputs bit for
+   bit, one capture over every call, eager launch counts per replay; the
+   chairs step (B = 8, 12 iterations) of the shipped ``allpairs_pallas``
+   and the on-demand configuration, fp32 and bf16, over 3 steps from the
+   same weights: losses and parameters within phase train's bounds, one
+   capture, eager launch counts; each with ms/pair or ms/step, device busy
+   and idle share and peak memory; a NaN batch through the shipped bf16
+   graph under ``torch.cuda.set_sync_debug_mode("error")`` leaves the
+   state bit for bit and counts 1; ``validate_sintel`` on a synthetic tree
+   eager and graphed (EPE within 1e-4 px, ms/pair); cuDNN TF32 on against
+   off for the fp32 Sintel forward and chairs step (ms, the flow and
+   metric differences);
+6. demo: the demo CLI on ``demo-frames`` with ``--alternate_corr``;
+7. eval: the evaluation path on synthetic dataset trees written with the
    port's writers (Sintel: two scenes of 3 and 5 frames at 436x1024,
    clean and final; KITTI: a pair at each of four real resolutions, one
    376x1248 bucket, sparse ground truth; FlyingChairs: 4 pairs at
@@ -79,7 +107,7 @@ Phases, each raising on failure (so the script exits nonzero):
    a KITTI ground truth (as written, and every row Paeth-filtered) and a
    ``forward_interpolate``, and the peak memory of ``validate_kitti`` at
    batch 4 in bf16;
-7. train: ``make_train_step`` with each kernel configuration against
+8. train: ``make_train_step`` with each kernel configuration against
    its plain one from the same seeded weights on one synthetic
    FlyingChairs-shaped batch, TF32 off, in fp32 and bf16 (loss, metrics,
    every parameter's unclipped gradient): ``allpairs_pallas`` +
@@ -100,7 +128,7 @@ Phases, each raising on failure (so the script exits nonzero):
    of a bf16 step at the things stage (400x720, batch 5, 12 iterations)
    for the on-demand, the ``allpairs_pallas`` and the int8 + fused
    configurations;
-8. train_cli: the training entry point on a synthetic FlyingChairs tree
+9. train_cli: the training entry point on a synthetic FlyingChairs tree
    (24 training and 4 validation ``.ppm`` pairs at 384x512 with ``.flo``
    files and a split file): the native host library must load on this
    host (its build time, and whether cv2 is importable); the loader alone
@@ -121,7 +149,7 @@ Phases, each raising on failure (so the script exits nonzero):
    ``device_prefetch`` 0 and 2 (ms/step, pairs/s, queue wait, prep and
    copy times, idle share, exact launch counts) beside phase train's
    reused batch;
-9. small: the small model at full width (hidden 96, context 64, radius
+10. small: the small model at full width (hidden 96, context 64, radius
    3, C = 128): each kernel of its paths at its shapes against the plain
    version, timed beside its bound (run as phase small_kernels right
    after phase kernels, early in the process; the on-demand forward at the Sintel
@@ -145,7 +173,7 @@ Phases, each raising on failure (so the script exits nonzero):
    ``none``; ``python -m raft_tpu_torch curriculum`` in a subprocess on
    two small stages, killed between them by ``stage_kill`` (exit 143)
    and resumed, and ``lk-compare --small`` on the demo frames;
-10. report: one JSON line ``{"kernels": [...]}`` (each kernel with its
+11. report: one JSON line ``{"kernels": [...]}`` (each kernel with its
    small-model launches and, where phase small timed it, its times
    there), the nvidia-smi line, and last ``{"ok": true, "device":
    {...}}``.
@@ -297,11 +325,18 @@ def _profile(fn, reps: int = 2) -> dict:
 
 def _timed(fn, match, reps: int = 30) -> dict:
     """The profiler's device time of one call's kernels (``ms``) beside
-    its CUDA-event time (host launch gaps included); raises when the
-    profiler reports no device time, so that no event time stands in for
-    a kernel's."""
+    its CUDA-event time (host launch gaps included); raises when three
+    traces report no device time, so that no event time stands in for a
+    kernel's."""
     event_ms = _time_ms(fn, reps=reps)
-    dev_ms = _device_ms(fn, match=match)
+    for _ in range(3):
+        # a trace that lost every launch (seen once, for the plain gate
+        # forward: a few microseconds of work) is traced again
+        dev_ms = _device_ms(fn, match=match)
+        if dev_ms is not None:
+            break
+        print(f"[profile] no device time for {match or 'a plain version'}"
+              "; tracing again", flush=True)
     if dev_ms is None:
         raise AssertionError(f"the profiler reported no device time for "
                              f"{match or 'a plain version'}")
@@ -1487,12 +1522,9 @@ def _frames(dev):
 
 
 def _counters():
-    from raft_tpu_torch.ops import (corr_kernels, gru_gates, lookup_encode,
-                                    pyramid_kernels, upsample_loss)
+    from raft_tpu_torch.ops import launch_counters
 
-    return (corr_kernels.LAUNCHES, gru_gates.LAUNCHES,
-            pyramid_kernels.LAUNCHES, upsample_loss.LAUNCHES,
-            lookup_encode.LAUNCHES)
+    return launch_counters()
 
 
 def _counts():
@@ -1606,9 +1638,7 @@ def phase_path():
             eval_fn = make_eval_fn(cfg, 32)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            eval_fn(sd, img1, img2)                      # warm-up
-            torch.cuda.synchronize()
+            _warm(lambda: eval_fn(sd, img1, img2))       # eager, capture
             times = []
             for i in range(5):
                 if i == 0 and label == "kernel" and dtype == "float32":
@@ -1639,6 +1669,395 @@ def phase_path():
             del eval_fn, lo, up
     results["iters32"] = runs
     return results, main_counts, sd
+
+
+def _warm(fn, calls: int = 2):
+    """An entry point's first calls before a timed window: an eager call
+    (a key's warm-up), then the capture and first replay; the peak
+    statistics are reset between them, so the peak that follows covers the
+    capture, whose allocations are the graph's working set (a replay
+    allocates only its outputs' copies).  Eagerly both calls are eager."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(calls - 1):
+        fn()
+    torch.cuda.synchronize()
+
+
+GRAPH_FWD_REPS = 6          # timed forwards per arm of phase graphs
+GRAPH_STEPS = 3             # steps compared eager against graph
+# The graph's parameter change may differ from eager's by this many times
+# eager's own run-to-run difference (beyond the norm bound): were the two
+# the same computation, both differences would be draws of one noise.
+EAGER_SPREAD_FACTOR = 2.0
+GRAPH_STEP_REPS = 3         # timed steps per arm
+
+
+def _graph_forward(sd, cfg, img1, img2, iters: int, label: str) -> dict:
+    """The test-mode forward eagerly and as a graph from the same weights
+    on the same frames: the replay's outputs equal eager's bit for bit
+    (no forward kernel adds with atomics), one capture over every call,
+    the eager launch counts per replay; ms/pair, device busy and idle
+    share and peak memory of each."""
+    from raft_tpu_torch.evaluate import make_eval_fn
+
+    res, outs = {}, {}
+    for graphs in (False, True):
+        mode = "graph" if graphs else "eager"
+        fn = make_eval_fn(cfg, iters, graphs=graphs)
+        call = lambda: fn(sd, img1, img2)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        _warm(call)
+        _reset_counts()
+        outs[mode] = call()
+        torch.cuda.synchronize()
+        counts = _counts()
+        times = []
+        for _ in range(GRAPH_FWD_REPS):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        prof = _profile(call, reps=2)
+        wall = statistics.median(times) / img1.shape[0]
+        res[mode] = dict(ms_per_pair=wall, ms_all=times,
+                         peak_mem_mb=peak / 2 ** 20,
+                         device_busy_ms=prof["busy_ms"],
+                         idle_share=prof["idle_share"],
+                         by_kind=prof["by_kind"], launches=counts,
+                         captures=sorted(fn.captures.counts().values()))
+        print(f"[graphs] {label} {mode}: {wall:.2f} ms/pair (runs "
+              f"{', '.join(f'{t:.2f}' for t in times)}), device busy "
+              f"{prof['busy_ms']} ms of {prof['wall_ms']:.2f} profiled "
+              f"(idle {prof['idle_share']}), peak {peak / 2 ** 20:.1f} MiB, "
+              f"launches {counts}, captures {res[mode]['captures']}",
+              flush=True)
+        del fn, call
+    same = all(torch.equal(a, b) for a, b in zip(outs["eager"],
+                                                  outs["graph"]))
+    res["bit_equal"] = same
+    res["speedup"] = res["eager"]["ms_per_pair"] / res["graph"]["ms_per_pair"]
+    print(f"[graphs] {label}: outputs bit-equal {same}; eager / graph "
+          f"{res['speedup']:.3f}", flush=True)
+    if not (same and res["graph"]["captures"] == [1]
+            and res["eager"]["captures"] == []
+            and res["graph"]["launches"] == res["eager"]["launches"]
+            and torch.isfinite(outs["graph"][1]).all()):
+        raise AssertionError(f"graphs {label}: bit-equal {same}, "
+                             f"{res['graph']}, {res['eager']}")
+    return res
+
+
+def _graph_step(sd, batch, cfg, mcfg, label: str, guard: bool = False
+                ) -> dict:
+    """``GRAPH_STEPS`` train steps eagerly and as a graph from the same
+    weights on the same batch: every step's loss within 1e-4 relative
+    (fp32) or ``BF16_LOSS_TOL`` (bf16); each parameter's change over the
+    steps (``p3 - p0``) against eager's change within
+    ``_grad_agreement``'s norm bound widened by ``EAGER_SPREAD_FACTOR``
+    times eager's own spread, the norm of a second eager run's parameters
+    less the first's (each
+    tensor; its entry bound reported: Adam turns a gradient entry within
+    noise of zero into a step of up to lr either way, and a bias ahead of
+    an instance or batch norm, whose loss gradient is zero in exact
+    arithmetic, moves by rounding noise, which the on-demand backward's
+    atomics make differ from run to run), with two controls that the
+    bound must reject, the graph's change with its last step left out and
+    the graph's change doubled (the update at twice the learning rate);
+    one capture and the eager launch counts per step.  The last step's
+    gradients against eager's are
+    reported, not held: cuDNN may pick another weight-gradient algorithm
+    under capture, the on-demand backward adds with atomics, and a filter
+    gradient summed over a batch of full-size images in another order
+    moves by more than fp32 noise where its terms cancel.  Then ms/step,
+    device busy and idle share and peak memory of each.
+    ``guard``: after the timed steps, a NaN batch through the graph under
+    ``torch.cuda.set_sync_debug_mode("error")`` must leave the state bit
+    for bit and count 1, with no synchronization."""
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    res, got = {}, {}
+    fp32 = mcfg.compute_dtype == "float32"
+    for mode in ("eager", "graph", "eager_again"):
+        graphs = mode == "graph"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        state = init_state(mcfg, cfg, state_dict=sd)
+        p0 = {k: v.clone() for k, v in state.model.state_dict().items()}
+        grads = {}
+        opt_step = state.optimizer.step
+
+        def hooked(*a, _grads=grads, _model=state.model, _step=opt_step,
+                   **kw):
+            # at capture this records the copies the replays refresh
+            _grads.update({n: p.grad.detach().clone()
+                           for n, p in _model.named_parameters()})
+            return _step(*a, **kw)
+
+        state.optimizer.step = hooked
+        step_fn = make_train_step(cfg, graphs=graphs)
+        losses, counts = [], []
+        for i in range(GRAPH_STEPS):
+            if i == 1:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            _, met = step_fn(state, batch)
+            torch.cuda.synchronize()
+            counts.append(_counts())
+            losses.append(float(met["loss"]))
+            if i == GRAPH_STEPS - 2:
+                before_last = {k: v.clone() for k, v in
+                               state.model.state_dict().items()}
+        got[mode] = (losses, {n: g.clone() for n, g in grads.items()},
+                     {k: v.clone() for k, v in
+                      state.model.state_dict().items()}, counts,
+                     before_last)
+        if mode != "eager_again":      # (its steps only: the spread)
+            times = []
+            for _ in range(GRAPH_STEP_REPS):
+                t0 = time.perf_counter()
+                step_fn(state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+            prof = _profile(lambda: step_fn(state, batch), reps=1)
+            wall = statistics.median(times)
+            res[mode] = dict(ms_per_step=wall, ms_all=times,
+                             pairs_per_s=batch["image1"].shape[0] / wall
+                             * 1e3, peak_mem_mb=peak / 2 ** 20,
+                             device_busy_ms=prof["busy_ms"],
+                             idle_share=prof["idle_share"],
+                             by_kind=prof["by_kind"], losses=losses,
+                             captures=state.programs.counter.total())
+            print(f"[graphs] {label} {mode}: {wall:.2f} ms/step (steps "
+                  f"{', '.join(f'{t:.1f}' for t in times)}), device busy "
+                  f"{prof['busy_ms']} ms of {prof['wall_ms']:.1f} profiled "
+                  f"(idle {prof['idle_share']}), peak "
+                  f"{peak / 2 ** 20:.1f} MiB, losses {losses}, captures "
+                  f"{res[mode]['captures']}", flush=True)
+            if guard and graphs:
+                res["guard"] = _sync_free_guard(state, step_fn, batch)
+        del state.optimizer.step          # (the cycle of _step_grads)
+        del state, step_fn, hooked
+    (le, ge, pe, ce, _), (lg, gg, pg, cg, pg2) = got["eager"], got["graph"]
+    pe_again = got["eager_again"][2]
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(lg, le))
+    params = [k for k in pe if "running" not in k]
+    want = {k: pe[k] - p0[k] for k in params}
+    change = {k: pg[k] - p0[k] for k in params}
+    own = {k: float((pe_again[k] - pe[k]).norm()) for k in params}
+    spread = {k: EAGER_SPREAD_FACTOR * v for k, v in own.items()}
+    agree = _grad_agreement(change, want, spread)
+    skipped = _grad_agreement({k: pg2[k] - p0[k] for k in params}, want,
+                              spread)
+    doubled = _grad_agreement({k: 2 * v for k, v in change.items()}, want,
+                              spread)
+    worst_spread = max(own, key=own.get)
+    grads = _grad_agreement(gg, ge)
+    res.update(loss_rel=rel, parameter_change=agree,
+               eager_spread=dict(param=worst_spread,
+                                 norm=own[worst_spread],
+                                 change_norm=float(want[worst_spread].norm())),
+               control_last_step_left_out=skipped["leaf_ratio"],
+               control_doubled=doubled["leaf_ratio"],
+               last_gradients=grads,
+               speedup=res["eager"]["ms_per_step"]
+               / res["graph"]["ms_per_step"])
+    print(f"[graphs] {label}: graph vs eager over {GRAPH_STEPS} steps: "
+          f"loss rel {rel:.3e}, parameter change {agree}, eager's own "
+          f"spread {res['eager_spread']} (x{EAGER_SPREAD_FACTOR} in the "
+          f"bound), controls (must exceed 1): last step left out "
+          f"{skipped['leaf_ratio']:.3f}, doubled "
+          f"{doubled['leaf_ratio']:.3f}; last-step gradients {grads}; "
+          f"eager / graph {res['speedup']:.3f}", flush=True)
+    ok = (rel <= (1e-4 if fp32 else BF16_LOSS_TOL)
+          and agree["leaf_ratio"] <= 1.0
+          and skipped["leaf_ratio"] > 1.0 and doubled["leaf_ratio"] > 1.0
+          and cg == ce and res["graph"]["captures"] == 1
+          and res["eager"]["captures"] == 0)
+    if not ok:
+        raise AssertionError(f"graphs {label}: {res}, counts {cg} vs {ce}")
+    return res
+
+
+def _sync_free_guard(state, step_fn, batch) -> dict:
+    """A NaN batch through the captured step under sync-debug mode
+    ``"error"``: the state stays bit for bit, ``nonfinite_steps`` reads
+    one more, and no operation synchronized."""
+    bad = {k: v.clone() for k, v in batch.items()}
+    bad["image1"][0, 7, 11, 0] = float("nan")
+    torch.cuda.synchronize()
+    params = {k: v.clone() for k, v in state.model.state_dict().items()}
+    opt = [{k: v.clone() for k, v in s.items()}
+           for s in state.optimizer.state.values()]
+    count0 = int(state.nonfinite_steps)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, met = step_fn(state, bad)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    same = (all(torch.equal(v, params[k])
+                for k, v in state.model.state_dict().items())
+            and all(torch.equal(now[k], v) for now, was in
+                    zip(state.optimizer.state.values(), opt)
+                    for k, v in was.items()))
+    count = int(state.nonfinite_steps) - count0
+    print(f"[graphs] guard: a NaN batch under sync-debug 'error' left the "
+          f"state bit-identical {same}, nonfinite_steps +{count}, metric "
+          f"{float(met['nonfinite'])}", flush=True)
+    if not (same and count == 1 and float(met["nonfinite"]) == 1.0):
+        raise AssertionError("graphs guard: the NaN step changed the state "
+                             f"({same}) or counted {count}")
+    return dict(state_bit_identical=same, counted=count)
+
+
+def _graph_validator(sd, trees, dev) -> dict:
+    """``validate_sintel`` (kernel configuration, bf16, 32 iterations) on
+    the synthetic tree through an eager and a graph ``make_eval_fn``: the
+    EPEs within 1e-4 px, ms/pair of each (one warm-up call first)."""
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.evaluate import make_eval_fn
+
+    cfg = RAFTConfig.full(compute_dtype="bfloat16", **EVAL_KERNEL_CFG)
+    iters, pairs = EVAL_ITERS["sintel"], trees["pairs"]["sintel"]
+    res = {}
+    for graphs in (False, True):
+        mode = "graph" if graphs else "eager"
+        fn = make_eval_fn(cfg, iters, device=dev, graphs=graphs)
+        _validate("sintel", sd, cfg, iters, trees, eval_fn=fn, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epe = _validate("sintel", sd, cfg, iters, trees, eval_fn=fn,
+                        device=dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        res[mode] = dict(epe=epe, ms_per_pair=wall / pairs,
+                         captures=fn.captures.total())
+        del fn
+    diff = max(abs(res["graph"]["epe"][k] - v)
+               for k, v in res["eager"]["epe"].items())
+    res["max_epe_diff"] = diff
+    print(f"[graphs] validate_sintel kernel bf16: eager {res['eager']}, "
+          f"graph {res['graph']}; max|dEPE| {diff:.3e} px (tol 1e-4)",
+          flush=True)
+    if not (diff <= 1e-4 and res["graph"]["captures"] == 1):
+        raise AssertionError(f"graphs validator: {res}")
+    return res
+
+
+def _tf32_measure(sd, img1, img2, batch, cfg) -> dict:
+    """cuDNN TF32 (``config.CONV_TF32``) on against off for the fp32
+    kernel-configuration Sintel forward (32 iterations) and the fp32
+    shipped chairs step, both as graphs: ms of each, the largest flow
+    difference of the forward and the first step's metric differences."""
+    from raft_tpu_torch import config
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.evaluate import make_eval_fn
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    saved = config.CONV_TF32
+    res = {}
+    try:
+        fwd, step = {}, {}
+        for on in (False, True):
+            config.CONV_TF32 = on
+            fn = make_eval_fn(RAFTConfig.full(corr_impl="pallas",
+                                              fused_gru=True), 32)
+            call = lambda: fn(sd, img1, img2)
+            _warm(call)
+            _, up = call()
+            ms = _time_ms(call, reps=GRAPH_FWD_REPS, warmup=0)
+            fwd[on] = (up.clone(), ms)
+            del fn, call
+            state = init_state(RAFTConfig.full(**KERNEL_CFG), cfg,
+                               state_dict=sd)
+            step_fn = make_train_step(cfg)
+            _, met = step_fn(state, batch)
+            first = {k: float(met[k]) for k in ("loss", "epe", "grad_norm")}
+            _warm(lambda: step_fn(state, batch))
+            ms = _time_ms(lambda: step_fn(state, batch),
+                          reps=GRAPH_STEP_REPS, warmup=0)
+            step[on] = (first, ms)
+            del state, step_fn
+            torch.cuda.empty_cache()
+    finally:
+        config.CONV_TF32 = saved
+    px = float((fwd[True][0] - fwd[False][0]).abs().max())
+    res = dict(
+        forward_ms={"off": fwd[False][1], "on": fwd[True][1]},
+        forward_max_flow_diff_px=px,
+        forward_max_flow_px=float(fwd[False][0].abs().max()),
+        step_ms={"off": step[False][1], "on": step[True][1]},
+        step_rel_diff={k: abs(step[True][0][k] - v) / max(abs(v), 1e-12)
+                       for k, v in step[False][0].items()})
+    print(f"[graphs] TF32 (cuDNN) fp32: Sintel forward {fwd[False][1]:.2f} "
+          f"ms off, {fwd[True][1]:.2f} ms on, max|dflow_up| {px:.3e} px "
+          f"against off (|flow_up| max {res['forward_max_flow_px']:.2f}); "
+          f"chairs step {step[False][1]:.2f} ms off, {step[True][1]:.2f} ms "
+          f"on, first-step relative differences {res['step_rel_diff']}",
+          flush=True)
+    return res
+
+
+def phase_graphs(sd):
+    """Captured graphs against eager execution: the full model's Sintel
+    forward (440x1024, B = 1, 32 iterations) in ``allpairs`` and the
+    kernel configuration, fp32 and bf16; the small model's bf16 forward
+    (on-demand kernel configuration); the chairs step (B = 8, 12
+    iterations) of the shipped ``allpairs_pallas`` configuration and of
+    the on-demand one, fp32 and bf16, with the guard's sync-free NaN step
+    on the shipped bf16 graph; ``validate_sintel`` on a synthetic tree;
+    TF32 on and off."""
+    import tempfile
+
+    from raft_tpu_torch.config import RAFTConfig, TrainConfig
+    from raft_tpu_torch.models.raft import RAFT
+    from raft_tpu_torch.ops.pad import InputPadder
+
+    dev = torch.device("cuda")
+    img1, img2 = _frames(dev)
+    img1, img2 = InputPadder(img1.shape).pad(img1, img2)
+    out = {"forward": {}, "step": {}}
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        for label, extra in (("allpairs", {}),
+                             ("kernel", dict(corr_impl="pallas",
+                                             fused_gru=True))):
+            key = f"{label}/{dtype}"
+            out["forward"][key] = _graph_forward(
+                sd, RAFTConfig.full(compute_dtype=dtype, **extra), img1,
+                img2, 32, f"Sintel 440x1024 iters=32 {key}")
+    sd_small = RAFT(RAFTConfig.small_model(), seed=0).state_dict()
+    out["forward"]["small/ondemand/bfloat16"] = _graph_forward(
+        sd_small, RAFTConfig.small_model(compute_dtype="bfloat16",
+                                         **SMALL_ODM_CFG), img1, img2, 32,
+        "small Sintel 440x1024 iters=32 ondemand/bfloat16")
+    print(f"[time] graphs forwards: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    batch = _chairs_batch(dev)
+    cfg = TrainConfig(lr=2.5e-4, num_steps=120000, batch_size=CHAIRS_B,
+                      image_size=CHAIRS_HW, iters=CHAIRS_ITERS, wdecay=1e-4)
+    for label, extra in (("kernel", KERNEL_CFG), ("ondemand", ONDEMAND_CFG)):
+        for dtype in ("float32", "bfloat16"):
+            key = f"{label}/{dtype}"
+            out["step"][key] = _graph_step(
+                sd, batch, cfg, RAFTConfig.full(compute_dtype=dtype, **extra),
+                f"chairs step {key}",
+                guard=(label, dtype) == ("kernel", "bfloat16"))
+    print(f"[time] graphs steps: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    out["tf32"] = _tf32_measure(sd, img1, img2, batch, cfg)
+    os.makedirs(WORK, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=WORK) as root:
+        out["validator"] = _graph_validator(sd, _eval_trees(root), dev)
+    print(f"[time] graphs TF32 + validator: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
 
 
 def phase_demo(sd):
@@ -1851,19 +2270,23 @@ def _kernel_vs_plain(sd, trees, dev) -> dict:
     return out
 
 
+# the port's shipped cuDNN TF32 choice (config.CONV_TF32), read before
+# main() turns it off for the checks
+SHIPPED_CONV_TF32 = None
+
+
 @contextlib.contextmanager
 def _default_tf32():
-    """PyTorch's default TF32 settings (cuDNN on, matmul off), as a fresh
-    process such as the CLI's has them."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = True
+    """The entry points' shipped TF32 choice, as a fresh process such as
+    the CLI's has it."""
+    from raft_tpu_torch import config
+
+    saved = config.CONV_TF32
+    config.CONV_TF32 = SHIPPED_CONV_TF32
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
+        config.CONV_TF32 = saved
 
 
 def _cli_vs_inprocess(weights, sd, trees, dev) -> dict:
@@ -2194,16 +2617,20 @@ def _step_grads(sd, batch, cfg, model_cfg):
     state.optimizer.step = hooked
     _, met = make_train_step(cfg)(state, batch)
     met = {k: v.detach().cpu().numpy() for k, v in met.items()}
+    # the hook and the optimizer refer to each other: without this the
+    # state would stay allocated until the garbage collector runs
+    del state.optimizer.step
     del state
     torch.cuda.empty_cache()
     return met, grads
 
 
-def _grad_agreement(gk: dict, gp: dict) -> dict:
+def _grad_agreement(gk: dict, gp: dict, spread: dict = None) -> dict:
     """Per parameter: max|dg| against 1e-3 of max|g| plus the fp32 floor
     on the model's largest entry, and |dg| against the bf16 share of |g|
-    plus the bf16 floor on the global norm, each as a ratio (<= 1 passes);
-    the worst parameter of each."""
+    plus the bf16 floor on the global norm (plus ``spread[name]``, the
+    reference's own run-to-run difference, where given), each as a ratio
+    (<= 1 passes); the worst parameter of each."""
     if set(gk) != set(gp) or not gp:
         raise AssertionError("train step: the two configurations' "
                              "parameters differ")
@@ -2216,7 +2643,8 @@ def _grad_agreement(gk: dict, gp: dict) -> dict:
         entry[n] = float(d.abs().max()) / (
             FP32_GRAD_REL * float(g.abs().max()) + FP32_GRAD_FLOOR * gmax)
         leaf[n] = float(d.norm()) / (BF16_GRAD_REL * float(g.norm())
-                                     + BF16_GRAD_FLOOR * gnorm)
+                                     + BF16_GRAD_FLOOR * gnorm
+                                     + (spread or {}).get(n, 0.0))
     we, wl = max(entry, key=entry.get), max(leaf, key=leaf.get)
     return dict(entry_ratio=entry[we], entry_param=we, leaf_ratio=leaf[wl],
                 leaf_param=wl, max_entry=gmax, global_norm=gnorm)
@@ -2314,16 +2742,13 @@ def phase_train(sd):
                 ("ondemand", ONDEMAND_CFG, (2, 5, 2)),
                 ("int8_fused", INT8_FUSED_CFG, (3, 10, 3)),
                 ("auto_fused", AUTO_FUSED_CFG, (3, 10, 3)),
-                ("int8", INT8_CFG, (1, 3, 1))):
+                ("int8", INT8_CFG, (2, 3, 1))):
             t_cfg = time.perf_counter()
             key = f"{label}/{dtype}"
             mcfg = RAFTConfig.full(compute_dtype=dtype, **extra)
             torch.cuda.empty_cache()
             state = init_state(mcfg, cfg, state_dict=sd)
-            for _ in range(n_warm):                           # warm-up
-                step_fn(state, batch)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            _warm(lambda: step_fn(state, batch), n_warm)  # eager, capture
             _reset_counts()
             times, losses = [], []
             for i in range(n_timed):
@@ -2407,9 +2832,7 @@ def _things_memory(sd) -> dict:
         torch.cuda.empty_cache()
         state = init_state(RAFTConfig.full(compute_dtype="bfloat16",
                                            **extra), cfg, state_dict=sd)
-        step_fn(state, batch)                                 # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        _warm(lambda: step_fn(state, batch))              # eager, capture
         base = torch.cuda.memory_allocated()
         _reset_counts()
         times = []
@@ -2786,8 +3209,9 @@ def _resume_check(tree: dict, ckpt_dir: str, sd) -> dict:
     from raft_tpu_torch.train.checkpoint import CheckpointManager
     from raft_tpu_torch.train.step import init_state
 
-    if torch.backends.cuda.matmul.allow_tf32 or \
-            torch.backends.cudnn.allow_tf32:
+    from raft_tpu_torch import config
+
+    if config.CONV_TF32:
         raise AssertionError("the resume check runs with TF32 off")
     ds = fetch_dataset("chairs", CHAIRS_HW, root=tree["data_root"],
                        split_file=tree["split"])
@@ -3007,7 +3431,7 @@ REMAT_POLICIES = (("none", False, "save_corr", False),
                   ("full", True, "full", False),
                   ("dots", True, "dots", False),
                   ("save_corr+up", True, "save_corr", True))
-REMAT_STEPS = (1, 5)                       # warm-up, timed
+REMAT_STEPS = (2, 5)          # warm-up (eager, capture), timed
 # fp32 gradients of a remat policy against none: the recompute runs the
 # same cuDNN calls on the same inputs, but cuDNN may pick other
 # algorithms in another memory state; the bound of phase train_cli's
@@ -3340,11 +3764,7 @@ def _small_train(sd) -> tuple:
             state = init_state(RAFTConfig.small_model(compute_dtype=dtype,
                                                       **extra), cfg,
                                state_dict=sd)
-            for _ in range(2):
-                step_fn(state, batch)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
+            _warm(lambda: step_fn(state, batch))          # eager, capture
             times, losses = [], []
             per_step = {k: v * CHAIRS_ITERS
                         for k, v in SMALL_TRAIN_LAUNCHES[label].items()}
@@ -3415,10 +3835,7 @@ def _remat_sweep(sd) -> dict:
                                    **KERNEL_CFG)
             torch.cuda.empty_cache()
             state = init_state(mcfg, cfg, state_dict=sd)
-            for _ in range(REMAT_STEPS[0]):
-                step_fn(state, batch)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            _warm(lambda: step_fn(state, batch), REMAT_STEPS[0])
             resident = torch.cuda.memory_allocated()
             times = []
             for i in range(REMAT_STEPS[1]):
@@ -3616,10 +4033,14 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; it needs one NVIDIA GPU",
               file=sys.stderr)
         return 2
-    import raft_tpu_torch  # noqa: F401  (fails without the repository)
+    from raft_tpu_torch import config  # fails without the repository
 
+    global SHIPPED_CONV_TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # every entry point sets cuDNN TF32 for its calls from this: off for
+    # the fp32 checks and timings, the shipped value where a phase says so
+    SHIPPED_CONV_TF32, config.CONV_TF32 = config.CONV_TF32, False
     t0 = time.perf_counter()
     secs = {}
 
@@ -3639,6 +4060,7 @@ def main(argv=None) -> int:
             **timed_phase(phase_slice4_kernels, peaks)}
     small_kern = timed_phase(phase_small_kernels, peaks)
     path, main_counts, sd = timed_phase(phase_path)
+    graphs = timed_phase(phase_graphs, sd)
     demo_res = timed_phase(phase_demo, sd)
     eval_res = timed_phase(phase_eval, sd)
     train, train_counts = timed_phase(phase_train, sd)
@@ -3723,7 +4145,8 @@ def main(argv=None) -> int:
                        "torch": torch.__version__, "cuda": torch.version.cuda,
                        "build": build_res, "phase_s": secs,
                        "kernels": kern, "path": path,
-                       "demo": demo_res, "eval": eval_res,
+                       "graphs": graphs, "demo": demo_res,
+                       "eval": eval_res,
                        "train": train, "train_cli": train_cli,
                        "small": small}, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,10 @@ of the train CLI), whose newest restorable step gives the weights.
 ``--alternate_corr`` runs the kernel configuration: the on-demand
 correlation lookup (the CUDA kernel on the card) and the fused GRU gates.
 ``--epe_delta float32,int8`` runs the validator once per correlation
-storage dtype and prints the deltas against the first.  It runs on the
+storage dtype and prints the deltas against the first.
+``--corr_precision`` takes the JAX CLI's values (``auto`` / ``default`` /
+``high`` / ``highest``): the precision of the correlation's matrix
+products, TF32 on the card for ``high`` and ``default``.  It runs on the
 card unless ``--device cpu``; without CUDA it raises.
 """
 
@@ -18,7 +21,8 @@ from __future__ import annotations
 
 import argparse
 
-from raft_tpu_torch.config import validate_corr_dtype
+from raft_tpu_torch.config import (validate_corr_dtype,
+                                   validate_corr_precision)
 
 DEFAULT_ITERS = {"chairs": 24, "sintel": 32, "kitti": 24}
 
@@ -26,6 +30,13 @@ DEFAULT_ITERS = {"chairs": 24, "sintel": 32, "kitti": 24}
 def _corr_dtype_arg(value: str) -> str:
     try:
         return validate_corr_dtype(value)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+
+
+def _corr_precision_arg(value: str) -> str:
+    try:
+        return validate_corr_precision(value)
     except ValueError as e:
         raise argparse.ArgumentTypeError(str(e))
 
@@ -55,6 +66,10 @@ def parse_args(argv=None):
                    help="storage dtype of the materialized correlation "
                         "pyramid (auto / float32 / bfloat16 / int8 / "
                         "float8_e4m3fn / float8_e5m2)")
+    p.add_argument("--corr_precision", default="auto",
+                   type=_corr_precision_arg,
+                   help="precision of the correlation's matrix products "
+                        "(auto / default / high / highest)")
     p.add_argument("--epe_delta", default=None, type=_epe_delta_arg,
                    metavar="DTYPE,DTYPE[,...]",
                    help="run the validator under each corr storage dtype "
@@ -107,14 +122,14 @@ def main(argv=None):
     evaluate.resolve_device(args.device)
     compute_dtype = "bfloat16" if args.precision == "bf16" else "float32"
     mk = RAFTConfig.small_model if args.small else RAFTConfig.full
+    common = dict(compute_dtype=compute_dtype, corr_dtype=args.corr_dtype,
+                  corr_precision=args.corr_precision)
     if args.alternate_corr:
-        model_cfg = mk(compute_dtype=compute_dtype,
-                       corr_dtype=args.corr_dtype, fused_gru=True,
+        model_cfg = mk(fused_gru=True,
                        corr_impl=evaluate.default_alternate_corr_impl(
-                           args.device))
+                           args.device), **common)
     else:
-        model_cfg = mk(compute_dtype=compute_dtype,
-                       corr_dtype=args.corr_dtype)
+        model_cfg = mk(**common)
     state_dict = load_model_state_dict(args.model, model_cfg)
     iters = args.iters or DEFAULT_ITERS[args.dataset]
 

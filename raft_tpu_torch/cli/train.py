@@ -21,9 +21,16 @@ and recomputing them costs step time.  The JAX package defaults to
 ``save_corr`` and ``1``, chosen on a TPU.  The CLI prints one line naming
 the policy in force.
 
+``--corr_precision`` takes the JAX CLI's values (``auto`` / ``default`` /
+``high`` / ``highest``): the precision of the correlation's matrix
+products, TF32 on the card for ``high`` and ``default``.  The step runs as
+one captured CUDA graph per batch shape on the card and eagerly on the
+CPU; there is no flag for it.
+
 A JAX flag that the port cannot honour yet raises ``SystemExit`` naming
 its ROADMAP item whenever it is set away from its default; never a silent
-ignore.
+ignore.  ``--scan_unroll`` has no counterpart and is refused with its
+reason: the captured graph already holds every iteration.
 """
 
 from __future__ import annotations
@@ -35,15 +42,13 @@ import os.path as osp
 import signal
 
 from raft_tpu_torch.config import (QUANTIZED_CORR_DTYPES,
-                                   validate_corr_dtype)
+                                   validate_corr_dtype,
+                                   validate_corr_precision)
 
 # flag -> (the JAX default, the ROADMAP item that ports what it does)
 UNPORTED = {
     "distributed": (False, "A6 (multi-GPU)"),
     "shard_spatial": (1, "A6 (multi-GPU; spatial sharding)"),
-    "corr_precision": ("auto", "A4 (the TF32 decision)"),
-    "scan_unroll": (None, "A4 (CUDA graphs; the eager loop has no scan "
-                          "to unroll)"),
     "profile_dir": (None, "A8 (observability)"),
     "telemetry_dir": (None, "A8 (observability)"),
     "trace_sample_rate": (None, "A8 (observability)"),
@@ -57,6 +62,13 @@ UNPORTED = {
 def _corr_dtype_arg(value: str) -> str:
     try:
         return validate_corr_dtype(value)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+
+
+def _corr_precision_arg(value: str) -> str:
+    try:
+        return validate_corr_precision(value)
     except ValueError as e:
         raise argparse.ArgumentTypeError(str(e))
 
@@ -106,7 +118,10 @@ def parse_args(argv=None):
                    help="storage dtype of the materialized correlation "
                         "pyramid (auto / float32 / bfloat16 / int8 / "
                         "float8_e4m3fn / float8_e5m2)")
-    p.add_argument("--corr_precision", default="auto")
+    p.add_argument("--corr_precision", default="auto",
+                   type=_corr_precision_arg,
+                   help="precision of the correlation's matrix products "
+                        "(auto / default / high / highest)")
     p.add_argument("--corr_impl", default="auto",
                    choices=["auto", "allpairs", "allpairs_pallas",
                             "chunked", "pallas"],
@@ -162,7 +177,14 @@ def parse_args(argv=None):
 
 def check_unported(args) -> None:
     """``SystemExit`` naming the ROADMAP item for a flag set away from its
-    JAX default that the port cannot honour yet."""
+    JAX default that the port cannot honour yet, or the reason a flag has
+    no counterpart."""
+    if args.scan_unroll is not None:
+        raise SystemExit(
+            f"--scan_unroll {args.scan_unroll!r}: no counterpart in the "
+            "PyTorch port: the train step runs as one captured CUDA graph "
+            "that already holds every iteration, so there is no scan to "
+            "unroll; leave it unset")
     for flag, (default, item) in UNPORTED.items():
         value = getattr(args, flag)
         if value != default:
@@ -226,6 +248,7 @@ def run(argv=None):
     model_cfg = mk(
         dropout=args.dropout, corr_impl=corr_impl,
         compute_dtype=compute_dtype, corr_dtype=args.corr_dtype,
+        corr_precision=args.corr_precision,
         **remat_kwargs(args),
         **{k: v for k, v in (("corr_levels", args.corr_levels),
                              ("corr_radius", args.corr_radius))

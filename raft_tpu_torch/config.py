@@ -28,19 +28,30 @@ Rematerialization (``remat``, ``remat_policy``, ``remat_upsample``) takes
 the JAX package's vocabulary and runs through ``torch.utils.checkpoint``
 (``models/raft.py``); its default here is off, the choice measured on the
 H100 (PERF.md).  TPU-tuned knobs of the JAX package (``scan_unroll``,
-``upsample_group``, ``lookup_block_q``, ``corr_precision``) have no
-counterpart.  Nothing here asks a backend anything: the device is an
+``upsample_group``, ``lookup_block_q``) have no counterpart: a captured
+graph (``utils/graphs.py``) already holds every iteration, so there is no
+scan to unroll.  Nothing here asks a backend anything: the device is an
 explicit argument of the entry points.
+
+Precision.  ``corr_precision`` takes the JAX vocabulary (``'auto'`` is
+``'highest'``) and sets the precision of the correlation's matrix
+products (``ops/corr.py``) as XLA runs them on a GPU: ``'highest'`` is
+full fp32, ``'high'`` and ``'default'`` are TF32.  The convolutions'
+precision is not a configuration field: :func:`entry_precision` sets it
+for every entry point's call from :data:`CONV_TF32`, so that no entry
+point inherits it from the process.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
 import torch
 
-from raft_tpu_torch.ops.corr import corr_quant_spec
+from raft_tpu_torch.ops.corr import (CORR_PRECISIONS, corr_quant_spec,
+                                     validate_corr_precision)
 
 CORR_IMPLS = ("allpairs", "chunked", "pallas", "allpairs_pallas")
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -51,6 +62,11 @@ QUANTIZED_CORR_DTYPES = ("int8", "float8_e4m3fn", "float8_e5m2")
 UPSAMPLE_LOSS_KERNELS = ("xla", "pallas")
 REMAT_POLICIES = ("full", "dots", "save_corr", "save_corr_upsample")
 
+# TF32 for the fp32 convolutions of every entry point (cuDNN), the choice
+# measured on the H100 (PERF.md, the TF32 measurement): XLA's default on a
+# GPU, and what JAX runs.  The kernels compute in fp32 whatever it is.
+CONV_TF32 = True
+
 
 def validate_corr_dtype(value: str, flag: str = "corr_dtype") -> str:
     """``value`` if it names a correlation storage dtype, else a
@@ -59,6 +75,33 @@ def validate_corr_dtype(value: str, flag: str = "corr_dtype") -> str:
         raise ValueError(
             f"invalid {flag}={value!r}; allowed: {', '.join(CORR_DTYPES)}")
     return value
+
+
+def backend_flags() -> Tuple[bool, bool, bool, bool]:
+    """``(cuDNN TF32, cuBLAS TF32, cuDNN deterministic, cuDNN benchmark)``
+    as the process has them now: part of a captured graph's key, since a
+    capture bakes in the kernels they choose."""
+    return (bool(torch.backends.cudnn.allow_tf32),
+            bool(torch.backends.cuda.matmul.allow_tf32),
+            bool(torch.backends.cudnn.deterministic),
+            bool(torch.backends.cudnn.benchmark))
+
+
+@contextlib.contextmanager
+def entry_precision():
+    """The TF32 state of one entry-point call, restored on exit: cuDNN
+    TF32 is :data:`CONV_TF32` (read at each call) and cuBLAS TF32 is off,
+    so that a matrix product runs TF32 only where ``corr_precision`` asks
+    for it (``ops/corr.py``)."""
+    before = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = CONV_TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = before
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +127,12 @@ class RAFTConfig:
     # computed in fp32 and the lookups accumulate in fp32; only the
     # stored levels round.
     corr_dtype: str = "auto"
+    # Precision of the correlation's matrix products (the all-pairs
+    # volume and the plain window sampling), JAX's vocabulary: 'highest'
+    # (and 'auto') full fp32, 'high' and 'default' TF32 on the card, as
+    # XLA runs them on a GPU; fp32 on the CPU.  The CUDA kernels compute
+    # in fp32 whatever it is.
+    corr_precision: str = "auto"
     # Encoders and update block compute in this dtype; parameters stay
     # fp32 and are cast at each conv.  Correlation and coordinates stay
     # fp32.
@@ -123,6 +172,7 @@ class RAFTConfig:
             if value not in allowed:
                 raise ValueError(f"unknown {name} {value!r}; "
                                  f"allowed: {', '.join(allowed)}")
+        validate_corr_precision(self.corr_precision)
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy: {self.remat_policy!r} "
                              "(expected 'full', 'dots', 'save_corr' or "
@@ -167,6 +217,12 @@ class RAFTConfig:
         if self.corr_dtype == "auto":
             return self.compute_dtype
         return self.corr_dtype
+
+    @property
+    def resolved_corr_precision(self) -> str:
+        """JAX's ``'auto'`` rule: ``'highest'``."""
+        return ("highest" if self.corr_precision == "auto"
+                else self.corr_precision)
 
     @property
     def corr_dtype_is_quantized(self) -> bool:

@@ -35,10 +35,12 @@ from typing import Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from raft_tpu_torch.config import RAFTConfig, validate_corr_dtype
+from raft_tpu_torch.config import (RAFTConfig, backend_flags,
+                                   entry_precision, validate_corr_dtype)
 from raft_tpu_torch.data import datasets, frame_utils
 from raft_tpu_torch.models.raft import RAFT
 from raft_tpu_torch.ops.pad import InputPadder, max_bucket_hw
+from raft_tpu_torch.utils.graphs import GraphCache
 from raft_tpu_torch.utils.warp import forward_interpolate
 
 DeviceLike = Union[str, torch.device]
@@ -77,33 +79,51 @@ def make_inference_model(model_cfg: RAFTConfig,
 
 
 def make_eval_fn(model_cfg: RAFTConfig, iters: int,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", graphs: Optional[bool] = None):
     """``eval_fn(state_dict, image1, image2, flow_init=None) -> (flow_low,
-    flow_up)``: the test-mode forward under ``torch.inference_mode()``.
+    flow_up)``: the test-mode forward under ``torch.inference_mode()`` and
+    :func:`entry_precision`.
 
     Images are ``(B, H, W, 3)`` in [0, 255] (tensors or arrays, moved to
     the device); ``flow_init`` is ``(B, H/8, W/8, 2)``.  Outputs are fp32
     on the device.  The weights are loaded when ``state_dict`` is a
     different object from the previous call's, so a caller that mutates
     one dict in place passes a new dict to reload it.
+
+    On the card (``graphs`` default) each key (the images' and
+    ``flow_init``'s shapes, with or without ``flow_init``, the cuDNN and
+    cuBLAS flags)
+    runs as one captured CUDA graph, the counterpart of the JAX package's
+    two ``jax.jit`` entries; weights load in place, so a reload reaches
+    the graphs.  ``eval_fn.captures`` is the :class:`CaptureCounter` of
+    its captures (the JAX ``make_eval_fn``'s compiled keys).
+    ``graphs=False`` runs eagerly (for comparisons); the CPU always does.
     """
     dev = resolve_device(device)
+    graphs = dev.type == "cuda" if graphs is None else graphs
+    if graphs and dev.type != "cuda":
+        raise ValueError("graphs=True needs a CUDA device")
     model = make_inference_model(model_cfg, device=dev)
     loaded = {"sd": None}
+    programs = GraphCache()
+
+    def forward(image1, image2, flow_init=None):
+        return model(image1, image2, iters=iters, flow_init=flow_init,
+                     test_mode=True)
 
     def eval_fn(state_dict, image1, image2, flow_init=None):
         if state_dict is not loaded["sd"]:
             model.load_state_dict(state_dict)
             loaded["sd"] = state_dict
-        with torch.inference_mode():
-            image1 = torch.as_tensor(image1, dtype=torch.float32, device=dev)
-            image2 = torch.as_tensor(image2, dtype=torch.float32, device=dev)
-            if flow_init is not None:
-                flow_init = torch.as_tensor(flow_init, dtype=torch.float32,
-                                            device=dev)
-            return model(image1, image2, iters=iters, flow_init=flow_init,
-                         test_mode=True)
+        with torch.inference_mode(), entry_precision():
+            args = [torch.as_tensor(x, dtype=torch.float32, device=dev)
+                    for x in (image1, image2, flow_init) if x is not None]
+            if not graphs:
+                return forward(*args)
+            return programs(("test_mode", iters, len(args) == 3,
+                             backend_flags()), forward, args)
 
+    eval_fn.captures = programs.counter
     return eval_fn
 
 

@@ -143,12 +143,15 @@ class RAFT(nn.Module):
                    fmap2: torch.Tensor) -> Callable:
         """Correlation state for one pair -> ``coords -> (B, P, H, W)``
         taps, dispatched on ``corr_impl`` (a :class:`FusedCorrLookup` for
-        the motion encoder with ``fused_lookup_encoder``)."""
+        the motion encoder with ``fused_lookup_encoder``).  The volume and
+        the plain lookups run at ``corr_precision``; the kernels compute
+        in fp32."""
         cfg = self.config
         r, L = cfg.corr_radius, cfg.corr_levels
+        prec = cfg.resolved_corr_precision
         if cfg.corr_impl in ("allpairs", "allpairs_pallas"):
             pyramid = build_corr_pyramid(fmap1, fmap2, L,
-                                         cfg.corr_torch_dtype)
+                                         cfg.corr_torch_dtype, prec)
             if cfg.fused_lookup_encoder:
                 return lambda c: FusedCorrLookup(pyramid, c.contiguous(), r,
                                                  cfg.dtype)
@@ -158,12 +161,12 @@ class RAFT(nn.Module):
                           if cfg.corr_dtype_is_quantized
                           else pyramid_lookup_nchw)
                 return lambda c: lookup(pyramid, c, r, cfg.dtype)
-            return lambda c: corr_lookup(pyramid, c, r).permute(
+            return lambda c: corr_lookup(pyramid, c, r, prec).permute(
                 0, 3, 1, 2).contiguous()
         f2_pyramid = pool_fmap_pyramid(fmap2, L)
         if cfg.corr_impl == "chunked":
             return lambda c: chunked_corr_lookup(
-                fmap1, f2_pyramid, c, r, cfg.corr_block_size
+                fmap1, f2_pyramid, c, r, cfg.corr_block_size, prec
             ).permute(0, 3, 1, 2).contiguous()
         # 'pallas': the on-demand kernels; their backward reaches fmap2
         # through the pooling by autograd

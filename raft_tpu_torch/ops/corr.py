@@ -39,6 +39,17 @@ the scale; no dequantized volume is made.  The quantize step is detached:
 codes have no tangent space, so no gradient flows through the volume to
 the feature encoder (as in the JAX package, which stop-gradients it).
 
+Precision (``corr_precision``, JAX's vocabulary).  The volume's matrix
+product and the two products of the window sampling run at the
+precision asked for, in forward and in backward, as XLA runs them on a
+GPU: ``'highest'`` (and ``'auto'``) full fp32, ``'high'`` and
+``'default'`` TF32.  ``'highest'`` is the plain product, fp32 because
+every entry point turns cuBLAS TF32 off (``config.entry_precision``).
+On the CPU every value computes fp32, as XLA:CPU does.  The CUDA
+kernels (``ops/corr_kernels.py``, ``ops/pyramid_kernels.py``,
+``ops/lookup_encode.py``) compute in fp32 whatever the value; only the
+materialized pyramid's volume, built here, follows it on their paths.
+
 Tap-order contract: the output channel is ``l * k^2 + i * k + j`` with
 ``k = 2r+1``, where ``i`` walks x (displacement ``i - r``) and ``j`` walks
 y.  Public functions take and return the JAX layout: NHWC feature maps,
@@ -47,19 +58,77 @@ y.  Public functions take and return the JAX layout: NHWC feature maps,
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 
-def all_pairs_correlation(fmap1: torch.Tensor,
-                          fmap2: torch.Tensor) -> torch.Tensor:
+CORR_PRECISIONS = ("auto", "default", "high", "highest")
+
+
+def validate_corr_precision(value: str,
+                            flag: str = "corr_precision") -> str:
+    """``value`` if it names a correlation precision, else a
+    ``ValueError`` naming the allowed set (JAX's message)."""
+    if value not in CORR_PRECISIONS:
+        raise ValueError(
+            f"invalid {flag}={value!r}; allowed: "
+            f"{', '.join(CORR_PRECISIONS)}")
+    return value
+
+
+@contextlib.contextmanager
+def _matmul_tf32():
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+class _TF32Matmul(torch.autograd.Function):
+    """``a @ b`` (same batch dims) on the card with cuBLAS TF32 on for the
+    forward and the backward products alike."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with _matmul_tf32():
+            return torch.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        with _matmul_tf32():
+            if ctx.needs_input_grad[0]:
+                ga = torch.matmul(g, b.transpose(-1, -2))
+            if ctx.needs_input_grad[1]:
+                gb = torch.matmul(a.transpose(-1, -2), g)
+        return ga, gb
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           precision: str = "highest") -> torch.Tensor:
+    """``a @ b`` at ``precision``: TF32 on the card for ``'high'`` and
+    ``'default'``; otherwise (and on the CPU) the plain product, fp32
+    under the entry points' cuBLAS setting (``config.entry_precision``)."""
+    if (validate_corr_precision(precision) in ("default", "high")
+            and a.device.type == "cuda"):
+        return _TF32Matmul.apply(a, b)
+    return torch.matmul(a, b)
+
+
+def all_pairs_correlation(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                          precision: str = "highest") -> torch.Tensor:
     """``(B, H, W, C) x (B, H, W, C) -> (B, H1*W1, H2, W2)`` fp32 volume."""
     B, H, W, C = fmap1.shape
     f1 = fmap1.reshape(B, H * W, C).float()
     f2 = fmap2.reshape(B, H * W, C).float()
-    corr = torch.matmul(f1, f2.transpose(1, 2)) * (1.0 / math.sqrt(C))
+    corr = matmul(f1, f2.transpose(1, 2), precision) * (1.0 / math.sqrt(C))
     return corr.reshape(B, H * W, H, W)
 
 
@@ -142,14 +211,15 @@ def _store_level(corr: torch.Tensor, out_dtype) -> CorrLevel:
 
 def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
                        num_levels: int = 4,
-                       out_dtype: Union[str, torch.dtype] = torch.float32
-                       ) -> List[CorrLevel]:
+                       out_dtype: Union[str, torch.dtype] = torch.float32,
+                       precision: str = "highest") -> List[CorrLevel]:
     """Materialized pyramid: level l is ``(B, H1*W1, H/2^l, W/2^l)``,
     pooled in fp32 and stored in ``out_dtype``: fp32 or bf16, or a
     quantized dtype (``torch.int8``, ``torch.float8_e4m3fn``,
     ``torch.float8_e5m2`` or their names), which gives
-    :class:`QuantizedLevel` levels."""
-    corr = all_pairs_correlation(fmap1, fmap2)
+    :class:`QuantizedLevel` levels.  The volume's product runs at
+    ``precision``."""
+    corr = all_pairs_correlation(fmap1, fmap2, precision)
     pyramid = [_store_level(corr, out_dtype)]
     for _ in range(num_levels - 1):
         corr = _avg_pool_2x2(corr)
@@ -170,7 +240,7 @@ def _interp_weights_1d(c: torch.Tensor, n: int,
 
 
 def _sample_windows(corr: torch.Tensor, coords: torch.Tensor,
-                    radius: int) -> torch.Tensor:
+                    radius: int, precision: str = "highest") -> torch.Tensor:
     """Bilinear window sampling of one level.
 
     Args:
@@ -185,13 +255,13 @@ def _sample_windows(corr: torch.Tensor, coords: torch.Tensor,
     c = coords.float()
     wx = _interp_weights_1d(c[..., 0], W, radius)       # (B, N, k, W)
     wy = _interp_weights_1d(c[..., 1], H, radius)       # (B, N, k, H)
-    a = torch.matmul(wy, corr.float())                  # (B, N, k_j, W)
-    taps = torch.matmul(wx, a.transpose(-1, -2))        # (B, N, k_i, k_j)
+    a = matmul(wy, corr.float(), precision)             # (B, N, k_j, W)
+    taps = matmul(wx, a.transpose(-1, -2), precision)   # (B, N, k_i, k_j)
     return taps.reshape(B, N, k * k)
 
 
 def corr_lookup(pyramid: Sequence[CorrLevel], coords: torch.Tensor,
-                radius: int) -> torch.Tensor:
+                radius: int, precision: str = "highest") -> torch.Tensor:
     """Sample the materialized pyramid at ``(B, H1, W1, 2)`` level-0
     coords -> ``(B, H1, W1, levels * (2r+1)^2)`` fp32.  A quantized level's
     codes are sampled in fp32 and its taps multiplied by its scale."""
@@ -200,10 +270,12 @@ def corr_lookup(pyramid: Sequence[CorrLevel], coords: torch.Tensor,
     outs = []
     for lvl, corr in enumerate(pyramid):
         if isinstance(corr, QuantizedLevel):
-            taps = _sample_windows(corr.values, c / (2.0 ** lvl), radius)
+            taps = _sample_windows(corr.values, c / (2.0 ** lvl), radius,
+                                   precision)
             outs.append(taps * corr.scale.reshape(B, 1, 1))
         else:
-            outs.append(_sample_windows(corr, c / (2.0 ** lvl), radius))
+            outs.append(_sample_windows(corr, c / (2.0 ** lvl), radius,
+                                        precision))
     return torch.cat(outs, dim=-1).reshape(B, H1, W1, -1)
 
 
@@ -225,7 +297,8 @@ def pool_fmap_pyramid(fmap2: torch.Tensor,
 def chunked_corr_lookup(fmap1: torch.Tensor,
                         fmap2_pyramid: Sequence[torch.Tensor],
                         coords: torch.Tensor, radius: int,
-                        block_size: int = 256) -> torch.Tensor:
+                        block_size: int = 256,
+                        precision: str = "highest") -> torch.Tensor:
     """On-demand blockwise correlation lookup.
 
     For each block of ``block_size`` query pixels: correlate against each
@@ -252,9 +325,9 @@ def chunked_corr_lookup(fmap1: torch.Tensor,
         outs = []
         for lvl, (f2, f2t) in enumerate(zip(fmap2_pyramid, f2_flat)):
             _, Hl, Wl, _ = f2.shape
-            rows = torch.matmul(f1_b, f2t) * scale      # (B, bs, Hl*Wl)
+            rows = matmul(f1_b, f2t, precision) * scale  # (B, bs, Hl*Wl)
             outs.append(_sample_windows(
                 rows.reshape(B, f1_b.shape[1], Hl, Wl), c_b / (2.0 ** lvl),
-                radius))
+                radius, precision))
         blocks.append(torch.cat(outs, dim=-1))
     return torch.cat(blocks, dim=1).reshape(B, H1, W1, -1)

@@ -3,9 +3,6 @@ of ``raft_tpu/ops/sampler.py:26-33`` and ``:143-181``)."""
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
 
@@ -18,20 +15,19 @@ def coords_grid(batch: int, ht: int, wd: int, device=None) -> torch.Tensor:
     return grid[None].expand(batch, ht, wd, 2).contiguous()
 
 
-@functools.lru_cache(maxsize=64)
-def _interp_matrix(src: int, dst: int) -> np.ndarray:
+def _interp_matrix(src: int, dst: int, device) -> torch.Tensor:
     """Dense ``(dst, src)`` ``align_corners=True`` bilinear interpolation
-    matrix (host constant)."""
+    matrix, fp32, made on ``device`` (no host-to-device copy, so that a
+    captured graph may build it)."""
     if src == 1:
-        return np.ones((dst, 1), dtype=np.float32)
-    pos = np.arange(dst, dtype=np.float64) * (src - 1) / max(dst - 1, 1)
-    lo = np.clip(np.floor(pos), 0, src - 2).astype(np.int64)
-    frac = (pos - lo).astype(np.float32)
-    rows = np.arange(dst)
-    m = np.zeros((dst, src), dtype=np.float32)
-    m[rows, lo] += 1.0 - frac
-    m[rows, lo + 1] += frac
-    return m
+        return torch.ones((dst, 1), dtype=torch.float32, device=device)
+    pos = (torch.arange(dst, dtype=torch.float64, device=device)
+           * (src - 1) / max(dst - 1, 1))
+    lo = torch.clamp(torch.floor(pos), 0, src - 2).long()
+    frac = (pos - lo).float()
+    m = torch.zeros((dst, src), dtype=torch.float32, device=device)
+    m.scatter_(1, lo[:, None], (1.0 - frac)[:, None])
+    return m.scatter_add_(1, lo[:, None] + 1, frac[:, None])
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, new_hw) -> torch.Tensor:
@@ -40,8 +36,8 @@ def resize_bilinear_align_corners(x: torch.Tensor, new_hw) -> torch.Tensor:
     order of the JAX package (rows, then columns)."""
     _, H, W, _ = x.shape
     nh, nw = new_hw
-    mh = torch.from_numpy(_interp_matrix(H, nh)).to(x.device, x.dtype)
-    mw = torch.from_numpy(_interp_matrix(W, nw)).to(x.device, x.dtype)
+    mh = _interp_matrix(H, nh, x.device).to(x.dtype)
+    mw = _interp_matrix(W, nw, x.device).to(x.dtype)
     out = torch.einsum("ih,bhwc->biwc", mh, x)
     return torch.einsum("jw,biwc->bijc", mw, out)
 

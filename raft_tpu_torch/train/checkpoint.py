@@ -41,6 +41,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from raft_tpu_torch import chaos
+from raft_tpu_torch.train.optim import load_optimizer_state_
 from raft_tpu_torch.train.state import TrainState
 
 TOPOLOGY_FILE = "topology.json"
@@ -150,12 +151,16 @@ def check_structure(saved: Dict[str, Any], template: TrainState) -> None:
 
 def apply_state(saved: Dict[str, Any], template: TrainState) -> TrainState:
     """Load ``saved`` into ``template`` in place (after
-    :func:`check_structure`)."""
+    :func:`check_structure`): every value is copied into the tensor the
+    template holds (parameters, buffers, optimizer state, the learning
+    rate and the non-finite counter) and the generator's state is set, so
+    the train step's captured graphs, which read and write those tensors,
+    stay valid."""
     template.model.load_state_dict(saved["model"])
-    template.optimizer.load_state_dict(saved["optimizer"])
+    load_optimizer_state_(template.optimizer, saved["optimizer"])
     template.generator.set_state(saved["generator"])
     template.step = int(saved["step"])
-    template.nonfinite_steps = int(saved["nonfinite_steps"])
+    template.nonfinite_steps.fill_(int(saved["nonfinite_steps"]))
     return template
 
 

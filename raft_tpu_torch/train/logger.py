@@ -23,7 +23,7 @@ def _host(v) -> np.ndarray:
 
 class Logger:
     def __init__(self, log_freq: int = 100,
-                 lr_fn: Optional[Callable[[int], float]] = None,
+                 lr_fn: Optional[Callable] = None,
                  tensorboard_dir: Optional[str] = None,
                  log: Optional[Callable[[str], None]] = None):
         self.log_freq = log_freq
@@ -66,7 +66,7 @@ class Logger:
             for k, v in m.items():
                 sums[k] = sums.get(k, 0.0) + np.asarray(v, np.float64)
         means = {k: s / count for k, s in sums.items()}
-        lr = self.lr_fn(step) if self.lr_fn else float("nan")
+        lr = float(self.lr_fn(step)) if self.lr_fn else float("nan")
         body = ", ".join(f"{k} {float(v):10.4f}"
                          for k, v in sorted(means.items())
                          if np.ndim(v) == 0)

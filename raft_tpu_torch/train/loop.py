@@ -12,6 +12,10 @@
   SIGTERM handler, or the ``preempt`` chaos fault) makes the loop save the
   last completed step and exit with ``SystemExit(143)`` at the next step
   boundary, or at once while it waits for input.
+- The step reads nothing back, so the host may run ahead of the card: the
+  loop waits for step N-1 to finish on the device after it issues step
+  N, which keeps at most two steps (and their batches) in flight and the
+  card fed.
 - The image noise's generator is ``SeedSequence([seed + 1, start_step])``,
   as in the JAX package: a resumed run does not replay the noise of step
   0, and a run started at step k draws what the JAX package draws.
@@ -29,6 +33,7 @@ import time
 from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
+import torch
 
 from raft_tpu_torch import chaos
 from raft_tpu_torch.config import RAFTConfig, TrainConfig
@@ -89,7 +94,8 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
     ``log``: where the logger's lines go (default: printed).
     ``timings``: a list that gets one dict per step: ``loss`` (a device
     tensor, not read back), ``queue_wait_s`` (time blocked on the
-    pipeline), ``step_s`` (queue wait + step, which ends in one host sync),
+    pipeline), ``step_s`` (queue wait + step, which ends when the previous
+    step has finished on the device),
     and the producer's ``prep_s`` and ``h2d_s``.
     """
     if (batches is None) == (loader is None):
@@ -128,6 +134,7 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
                               prep_fn=prep_fn, depth=depth,
                               interrupt=_PREEMPT.is_set)
     t0, steps_t0 = time.time(), step
+    in_flight = []          # the previous step's completion event
     try:
         while True:
             t_iter = time.perf_counter()
@@ -146,6 +153,11 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
             if _PREEMPT.is_set():
                 raise SystemExit(143)  # step boundary: state consistent
             state, metrics = step_fn(state, batch)
+            if dev.type == "cuda":
+                in_flight.append(torch.cuda.Event())
+                in_flight[-1].record()
+                if len(in_flight) > 1:
+                    in_flight.pop(0).synchronize()
             step += 1
             logger.push(step - 1, metrics)
             if timings is not None:

@@ -11,11 +11,27 @@ clip + AdamW/OneCycle update, on one device.
 - A parameter that the loss does not reach (``fnet`` under a quantized
   pyramid, whose codes carry no gradient) takes a zero gradient, so AdamW
   still decays its weights and moments, as optax does.
-- ``cfg.nonfinite_guard``: a step whose loss or gradient norm is not
-  finite leaves the parameters, the optimizer state and the batch-norm
-  statistics as they were (bit for bit), bumps ``nonfinite_steps``, and
-  still advances ``step`` and with it the schedule.  The check reads one
-  flag back to the host per step.
+- ``cfg.nonfinite_guard``: on the device, as JAX's (``raft_tpu/train/
+  step.py:202-214``): a step whose loss or gradient norm is not finite
+  leaves the parameters, the optimizer state (moments and update count,
+  so the schedule stands still too) and the batch-norm statistics as they
+  were, bit for bit, and adds one to the device counter
+  ``nonfinite_steps``; ``step`` still advances.  Nothing is read back: the
+  flag is the fused AdamW's ``found_inf`` (its kernel then returns before
+  writing anything and its count is taken back) and the statistics are
+  selected with ``torch.where``.  ``found_inf`` is the attribute
+  ``GradScaler`` sets on an optimizer whose ``_step_supports_amp_scaling``
+  is true, which ``Adam``/``AdamW.step`` pass to the fused kernel: a
+  protocol torch does not document (relied on as torch 2.11 and 2.13 have
+  it).  ``tests/test_torch_train.py::
+  test_nonfinite_guard_leaves_state_bit_identical`` reads the update count
+  after a NaN step, so a torch that drops it fails there.
+- On the card the whole step (forward, backward, global norm, clip,
+  learning rate, AdamW, statistics, guard; every microbatch) is one
+  captured CUDA graph per batch shape, held by ``state.programs``
+  (``utils/graphs.py``); the batch is copied into its static buffers and
+  the dropout generator is registered with it.  ``graphs=False`` runs the
+  same step eagerly, for comparisons; the CPU always runs eagerly.
 """
 
 from __future__ import annotations
@@ -24,12 +40,13 @@ from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 
-from raft_tpu_torch.config import RAFTConfig, TrainConfig
+from raft_tpu_torch.config import (RAFTConfig, TrainConfig, backend_flags,
+                                   entry_precision)
 from raft_tpu_torch.evaluate import DeviceLike, resolve_device
 from raft_tpu_torch.models.raft import RAFT
 from raft_tpu_torch.train.loss import sequence_loss
 from raft_tpu_torch.train.optim import (clip_by_global_norm_, global_norm,
-                                        make_optimizer)
+                                        make_optimizer, set_scheduled_lr_)
 from raft_tpu_torch.train.state import TrainState
 
 BATCH_KEYS = ("image1", "image2", "flow", "valid")
@@ -40,8 +57,8 @@ def init_state(model_cfg: RAFTConfig, cfg: TrainConfig,
                state_dict: Optional[Mapping] = None) -> TrainState:
     """A fresh state on ``device``: the model seeded from ``cfg.seed`` (or
     holding ``state_dict``) in train mode, AdamW + OneCycle from
-    :func:`make_optimizer`, and a dropout generator seeded from
-    ``cfg.seed``."""
+    :func:`make_optimizer`, a dropout generator seeded from ``cfg.seed``
+    and no captured graph yet."""
     dev = resolve_device(device)
     model = RAFT(model_cfg, seed=cfg.seed)
     if state_dict is not None:
@@ -51,7 +68,9 @@ def init_state(model_cfg: RAFTConfig, cfg: TrainConfig,
                                 cfg.wdecay, cfg.epsilon)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     return TrainState(model=model, optimizer=opt, schedule=sched,
-                      generator=gen)
+                      generator=gen,
+                      nonfinite_steps=torch.zeros((), dtype=torch.int64,
+                                                  device=dev))
 
 
 def make_loss_fn(cfg: TrainConfig) -> Callable:
@@ -94,71 +113,97 @@ def _to_device(batch: Mapping, dev: torch.device) -> Dict[str, torch.Tensor]:
             for k in BATCH_KEYS}
 
 
-def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda"
-                    ) -> Callable:
+def _step_body(state: TrainState, cfg: TrainConfig, loss_fn: Callable,
+               accum: int, batch: Dict[str, torch.Tensor]) -> Dict:
+    """The device work of one step on ``batch`` (device tensors): updates
+    ``state``'s tensors in place and returns the metrics.  Reads nothing
+    back to the host and changes no host state, so it can be captured."""
+    model = state.model
+    B = batch["image1"].shape[0]
+    params = list(model.parameters())
+    stats = ([(b, b.clone()) for b in model.buffers()]
+             if cfg.nonfinite_guard else [])
+    model.train()
+    model.zero_grad(set_to_none=True)
+    if accum == 1:
+        loss, metrics = loss_fn(model, batch, state.generator)
+        loss.backward()
+        grads = _grads(params)
+    else:
+        m = B // accum
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        losses, parts = [], []
+        for i in range(accum):
+            micro = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+            model.zero_grad(set_to_none=True)
+            loss_i, metrics_i = loss_fn(model, micro, state.generator)
+            loss_i.backward()
+            torch._foreach_add_(acc, [g.float() for g in _grads(params)])
+            losses.append(loss_i.detach())
+            parts.append(metrics_i)
+        grads = [a / accum for a in acc]
+        loss = torch.stack(losses).mean()
+        metrics = {k: torch.stack([p[k] for p in parts]).mean(dim=0)
+                   for k in parts[0]}
+    gnorm = global_norm(grads)
+    clip_by_global_norm_(grads, cfg.clip, gnorm)
+    for p, g in zip(params, grads):
+        p.grad = g.to(p.dtype)
+    opt = state.optimizer
+    opt.found_inf = None
+    if cfg.nonfinite_guard:
+        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+        bad = (~ok).float()
+        opt.found_inf = bad
+    set_scheduled_lr_(opt, state.schedule)
+    opt.step()
+    if cfg.nonfinite_guard:
+        with torch.no_grad():
+            for buf, old in stats:
+                buf.copy_(torch.where(ok, buf, old))
+            state.nonfinite_steps.add_(bad.long())
+    else:
+        bad = torch.zeros((), device=loss.device)
+    model.zero_grad(set_to_none=True)
+    return dict(metrics, loss=loss.detach(), grad_norm=gnorm, nonfinite=bad)
+
+
+def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
+                    graphs: Optional[bool] = None) -> Callable:
     """``step_fn(state, batch) -> (state, metrics)``: one update of
     ``state`` in place.  ``batch`` holds ``image1``/``image2``
     ``(B, H, W, 3)`` in [0, 255], ``flow`` ``(B, H, W, 2)`` and ``valid``
     ``(B, H, W)`` as arrays or tensors (moved to ``device``).  Metrics are
     device tensors: ``loss``, ``epe``, ``1px``, ``3px``, ``5px``,
-    ``loss_iter``, ``epe_iter``, ``grad_norm`` and ``nonfinite``."""
+    ``loss_iter``, ``epe_iter``, ``grad_norm`` and ``nonfinite``.
+
+    ``graphs`` (default: on the card) runs the step as a captured graph
+    per batch shape; ``False`` runs it eagerly (for comparisons).  Each
+    call runs under :func:`entry_precision`."""
     dev = resolve_device(device)
+    graphs = dev.type == "cuda" if graphs is None else graphs
+    if graphs and dev.type != "cuda":
+        raise ValueError("graphs=True needs a CUDA device")
     loss_fn = make_loss_fn(cfg)
     accum = max(int(cfg.accum_steps), 1)
 
     def step_fn(state: TrainState, batch: Mapping):
-        model = state.model
         batch = _to_device(batch, dev)
         B = batch["image1"].shape[0]
         if B % accum:
             raise ValueError(
                 f"accum_steps={accum} must divide the batch size {B} evenly "
                 f"(remainder {B % accum})")
-        params = list(model.parameters())
-        stats = ({k: v.clone() for k, v in model.named_buffers()}
-                 if cfg.nonfinite_guard else None)
-        model.train()
-        model.zero_grad(set_to_none=True)
-        if accum == 1:
-            loss, metrics = loss_fn(model, batch, state.generator)
-            loss.backward()
-            grads = _grads(params)
-        else:
-            m = B // accum
-            acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-            losses, parts = [], []
-            for i in range(accum):
-                micro = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-                model.zero_grad(set_to_none=True)
-                loss_i, metrics_i = loss_fn(model, micro, state.generator)
-                loss_i.backward()
-                torch._foreach_add_(acc, [g.float() for g in _grads(params)])
-                losses.append(loss_i.detach())
-                parts.append(metrics_i)
-            grads = [a / accum for a in acc]
-            loss = torch.stack(losses).mean()
-            metrics = {k: torch.stack([p[k] for p in parts]).mean(dim=0)
-                       for k in parts[0]}
-        gnorm = global_norm(grads)
-        ok = True
-        if cfg.nonfinite_guard:
-            ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
-        if ok:
-            clip_by_global_norm_(grads, cfg.clip, gnorm)
-            for p, g in zip(params, grads):
-                p.grad = g.to(p.dtype)
-            for group in state.optimizer.param_groups:
-                group["lr"] = state.schedule(state.step)
-            state.optimizer.step()
-        else:
-            with torch.no_grad():
-                for k, v in model.named_buffers():
-                    v.copy_(stats[k])
-            state.nonfinite_steps += 1
+        with entry_precision():
+            if graphs:
+                metrics = state.programs(
+                    ("train_step", cfg, backend_flags()),
+                    lambda *ts: _step_body(state, cfg, loss_fn, accum,
+                                           dict(zip(BATCH_KEYS, ts))),
+                    [batch[k] for k in BATCH_KEYS], [state.generator])
+            else:
+                metrics = _step_body(state, cfg, loss_fn, accum, batch)
         state.step += 1
-        model.zero_grad(set_to_none=True)
-        metrics = dict(metrics, loss=loss.detach(), grad_norm=gnorm,
-                       nonfinite=torch.tensor(0.0 if ok else 1.0))
         return state, metrics
 
     return step_fn

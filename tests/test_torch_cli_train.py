@@ -4,9 +4,11 @@ tests/test_chaos.py::test_verify_ckpt_cli): ``python -m raft_tpu_torch
 train`` on a synthetic FlyingChairs tree (the full model at 64x96, 2
 iterations, batch 2), preempted and resumed, its run directory verified
 and read by the evaluate CLI; every JAX flag the port cannot honour yet
-raises ``SystemExit`` naming its ROADMAP item when it is set; ``--remat``
-and ``--remat_upsample`` map onto the model configuration as JAX's CLI
-maps them."""
+raises ``SystemExit`` naming its ROADMAP item when it is set, and
+``--scan_unroll``, which has no counterpart, names its reason;
+``--corr_precision`` validates as JAX's; ``--remat`` and
+``--remat_upsample`` map onto the model configuration as JAX's CLI maps
+them."""
 
 import json
 import os
@@ -142,7 +144,6 @@ def test_verify_ckpt_cli(tmp_path, capsys):
 
 UNPORTED_VALUES = {
     "distributed": [], "shard_spatial": ["2"],
-    "corr_precision": ["highest"], "scan_unroll": ["1"],
     "profile_dir": ["p"], "telemetry_dir": ["t"],
     "trace_sample_rate": ["0.5"], "watchdog_timeout": ["30"],
     "watchdog_exit": [], "profile_steps": ["1:2"], "forensic_keep": ["0"]}
@@ -156,6 +157,38 @@ def test_unported_flags_name_their_roadmap_item(flag, capsys):
     # a chaos fault of a part the port does not have yet names its item
     with pytest.raises(SystemExit, match="ROADMAP A7"):
         train_cli.run(["--chaos", "device_err@step=1", "--device", "cpu"])
+
+
+def test_scan_unroll_is_refused_with_its_reason():
+    """``--scan_unroll`` has no counterpart: the captured graph already
+    holds every iteration."""
+    with pytest.raises(SystemExit, match="no scan to unroll"):
+        train_cli.run(["--scan_unroll", "1", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("value", ["auto", "default", "high", "highest",
+                                   "fp32"])
+def test_corr_precision_flag_validates_as_jax(value, capsys):
+    """``--corr_precision`` takes JAX's vocabulary on the train and the
+    evaluate CLI, reaches the model configuration, and a bad value fails
+    at parsing with JAX's message."""
+    from raft_tpu.config import validate_corr_precision as jax_validate
+    from raft_tpu_torch.cli import evaluate as eval_cli
+
+    parsers = (train_cli.parse_args,
+               lambda a: eval_cli.parse_args(["--model", "m.pth",
+                                              "--dataset", "sintel", *a]))
+    for parse in parsers:
+        if value == "fp32":
+            with pytest.raises(ValueError) as want:
+                jax_validate(value)
+            with pytest.raises(SystemExit):
+                parse(["--corr_precision", value])
+            assert str(want.value) in capsys.readouterr().err
+        else:
+            assert parse(["--corr_precision", value]).corr_precision == value
+    if value != "fp32":
+        assert RAFTConfig.full(corr_precision=value).corr_precision == value
 
 
 def test_train_cli_refuses_quantized_ondemand_and_runs_on_the_card(

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from raft_tpu_torch import config
 from raft_tpu_torch.config import RAFTConfig
 from raft_tpu_torch.evaluate import make_eval_fn
 from raft_tpu_torch.models.raft import RAFT
@@ -32,6 +33,9 @@ def dev():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the entry points set cuDNN TF32 from this for each call: off, so
+    # that fp32 kernel and plain configurations compare at fp32
+    config.CONV_TF32 = False
     return torch.device("cuda")
 
 
@@ -1072,3 +1076,248 @@ def test_small_train_step_kernel_configs_match_plain(dev, dtype, kernel_kw,
         dev, dtype, kernel_kw, plain_kw, mk=RAFTConfig.small_model)
     assert lk == launches and lp == {}
     (_check_fp32 if dtype == "float32" else _check_bf16)(mk, gk, mp, gp)
+
+
+# ---------------------------------------------------------------------
+# captured CUDA graphs (utils/graphs.py): the test-mode forward and the
+# train step, against the same calls run eagerly
+# ---------------------------------------------------------------------
+
+def _frames(seed, B=2, H=48, W=64):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.uniform(0, 255, (B, H, W, 3)).astype(
+        np.float32)).cuda() for _ in range(2)]
+
+
+def test_graph_forward_matches_eager_bit_for_bit(dev):
+    """The kernel configuration's test-mode forward with and without
+    ``flow_init``, three calls each: graph outputs equal eager's bit for
+    bit, one capture per key, the eager launch counts per call, results
+    that survive the next call, and a weight reload that reaches the
+    graph."""
+    cfg = RAFTConfig.full(corr_impl="pallas", fused_gru=True)
+    sd = RAFT(cfg, seed=0).state_dict()
+    graph = make_eval_fn(cfg, 3)
+    eager = make_eval_fn(cfg, 3, graphs=False)
+    inputs = [_frames(s) for s in (1, 2, 3)]
+    init = torch.randn(2, 6, 8, 2, generator=torch.Generator().manual_seed(
+        4)).cuda()
+    kept = []
+    for im1, im2 in inputs:
+        for flow_init in (None, init):
+            _reset_all()
+            got = graph(sd, im1, im2, flow_init)
+            assert _all_counts() == {"corr_ondemand": 3, "gru_gate_rh": 6,
+                                     "gru_gate_blend": 6}
+            want = eager(sd, im1, im2, flow_init)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            kept.append((got, want))
+    assert all(torch.equal(g, w) for got, want in kept
+               for g, w in zip(got, want))
+    counts = graph.captures.counts()
+    assert len(counts) == 2 and set(counts.values()) == {1}
+    assert eager.captures.total() == 0
+    sd2 = RAFT(cfg, seed=1).state_dict()
+    got = graph(sd2, *inputs[0])
+    assert not torch.equal(got[1], kept[0][0][1])
+    assert torch.equal(got[1], eager(sd2, *inputs[0])[1])
+    assert graph.captures.total() == 2
+
+
+def _graph_train_cfgs():
+    from raft_tpu_torch.config import TrainConfig
+
+    return TrainConfig(lr=1e-4, num_steps=10, batch_size=2,
+                       image_size=(64, 96), iters=3)
+
+
+def test_graph_train_step_matches_eager(dev):
+    """Three steps of the kernel configuration captured and eager from the
+    same weights (cuDNN deterministic): equal losses and parameters, one
+    capture, and the eager launch counts per step."""
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    cfg = _graph_train_cfgs()
+    mcfg = RAFTConfig.full(**KERNEL_KW)
+    sd = RAFT(mcfg, seed=0).state_dict()
+    batches = list(_host_batches(3))
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for graphs in (True, False):
+            state = init_state(mcfg, cfg, device=dev, state_dict=sd)
+            step_fn = make_train_step(cfg, device=dev, graphs=graphs)
+            losses = []
+            for b in batches:
+                _reset_all()
+                state, met = step_fn(state, b)
+                assert _all_counts() == TRAIN_LAUNCHES
+                losses.append(float(met["loss"]))
+            out[graphs] = (losses, state.model.state_dict(),
+                           state.programs.counter.total())
+        assert out[True][0] == out[False][0]
+        assert all(torch.equal(v, out[False][1][k])
+                   for k, v in out[True][1].items())
+        assert (out[True][2], out[False][2]) == (1, 0)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.parametrize("graphs", [True, False])
+def test_guard_reads_nothing_back_on_the_card(dev, graphs):
+    """A poisoned batch under ``torch.cuda.set_sync_debug_mode("error")``
+    (after the warm-up and the capture): the state stays bit for bit, the
+    counter reads 1, and nothing synchronized; the next good step
+    trains."""
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    cfg = _graph_train_cfgs()
+    state = init_state(RAFTConfig.full(**KERNEL_KW), cfg, device=dev)
+    step_fn = make_train_step(cfg, device=dev, graphs=graphs)
+    good = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+            for b in _host_batches(3)]
+    bad = {k: v.clone() for k, v in good[2].items()}
+    bad["image1"][1, 4, 4, 1] = float("nan")
+    for b in good[:2]:
+        state, _ = step_fn(state, b)
+    torch.cuda.synchronize()
+    params = {k: v.clone() for k, v in state.model.state_dict().items()}
+    opt = [{k: v.clone() for k, v in s.items()}
+           for s in state.optimizer.state.values()]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, met = step_fn(state, bad)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(met["nonfinite"]) == 1.0 and int(state.nonfinite_steps) == 1
+    assert all(torch.equal(v, params[k])
+               for k, v in state.model.state_dict().items())
+    for now, was in zip(state.optimizer.state.values(), opt):
+        assert all(torch.equal(now[k], v) for k, v in was.items())
+    state, met = step_fn(state, good[2])
+    assert float(met["nonfinite"]) == 0.0 and state.step == 4
+    assert not torch.equal(state.model.state_dict()["fnet.conv1.weight"],
+                           params["fnet.conv1.weight"])
+
+
+def test_resume_into_a_captured_step(dev, tmp_path):
+    """Checkpoint restores into a state whose step is captured (dropout on,
+    so the registered generator is restored too), past a torn newest
+    step: the next replay equals the step taken from the saved state the
+    first time, bit for bit."""
+    from raft_tpu_torch import chaos
+    from raft_tpu_torch.train.checkpoint import CheckpointManager
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    cfg = _graph_train_cfgs()
+    mcfg = RAFTConfig.full(dropout=0.1, **KERNEL_KW)
+    batches = list(_host_batches(4))
+    torch.backends.cudnn.deterministic = True
+    try:
+        state = init_state(mcfg, cfg, device=dev)
+        step_fn = make_train_step(cfg, device=dev)
+        mgr = CheckpointManager(str(tmp_path / "run"))
+        for b in batches[:2]:
+            state, _ = step_fn(state, b)
+        mgr.save(2, state)
+        losses = []
+        for b in batches[2:]:
+            state, met = step_fn(state, b)
+            losses.append(float(met["loss"]))
+        want = {k: v.clone() for k, v in state.model.state_dict().items()}
+        mgr.save(4, state)
+        chaos.tear_files(str(tmp_path / "run" / "4"))
+        mgr.restore_latest(state)
+        assert state.step == 2 and state.programs.counter.total() == 1
+        again = []
+        for b in batches[2:]:
+            state, met = step_fn(state, b)
+            again.append(float(met["loss"]))
+        assert again == losses
+        assert all(torch.equal(v, want[k])
+                   for k, v in state.model.state_dict().items())
+        assert state.programs.counter.total() == 1
+        mgr.close()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def test_capture_with_the_prefetch_thread_running(dev):
+    """The step captured while ``DevicePipeline``'s producer thread copies
+    the next batches on its own stream (depth 2): one capture, and the
+    losses of four steps equal the eager serial run's."""
+    from raft_tpu_torch.data.prefetch import CudaBatchPut, DevicePipeline
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    cfg = _graph_train_cfgs()
+    mcfg = RAFTConfig.full(**KERNEL_KW)
+    sd = RAFT(mcfg, seed=0).state_dict()
+    host = list(_host_batches(4))
+    torch.backends.cudnn.deterministic = True
+    try:
+        losses = {}
+        for graphs, depth in ((True, 2), (False, 0)):
+            put = CudaBatchPut(dev, depth + 1)
+            pipe = DevicePipeline(iter(host), put_fn=put.put,
+                                  ready_fn=put.ready, depth=depth)
+            state = init_state(mcfg, cfg, device=dev, state_dict=sd)
+            step_fn = make_train_step(cfg, device=dev, graphs=graphs)
+            out = []
+            for _ in host:
+                state, met = step_fn(state, next(pipe))
+                out.append(met["loss"])
+            pipe.close()
+            losses[graphs] = [float(x) for x in out]
+            assert state.programs.counter.total() == int(graphs)
+        assert losses[True] == losses[False], losses
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_corr_precision_runs_tf32_on_the_card(dev, precision):
+    """``corr_precision`` 'high' / 'default' run the all-pairs product and
+    its backward in TF32: close to 'highest' (TF32's 10-bit mantissa),
+    not equal to it, and the process's cuBLAS TF32 flag is as it was."""
+    g = torch.Generator().manual_seed(5)
+    f1, f2 = (torch.randn(2, 12, 16, 256, generator=g).to(dev)
+              .requires_grad_(True) for _ in range(2))
+    out = {}
+    for prec in ("highest", precision):
+        corr = corr_ops.all_pairs_correlation(f1, f2, prec)
+        g1, g2 = torch.autograd.grad(corr.square().sum(), (f1, f2))
+        out[prec] = (corr.detach(), g1, g2)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    for want, got in zip(out["highest"], out[precision]):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        assert 0 < err <= 1e-2 * scale, (err, scale)
+
+
+def test_graph_caches_do_not_grow_memory(dev):
+    """Three train states and three ``allpairs`` eval functions, each
+    through its graph and then dropped: the allocated memory after each is
+    the same.  (cuBLAS keeps a workspace for every stream it ran on, so
+    the caches share one side stream per device.)"""
+    import gc
+
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    cfg = _graph_train_cfgs()
+    batch = next(_host_batches(1))
+    sd = RAFT(RAFTConfig.full(), seed=0).state_dict()
+    frames = _frames(9, H=64, W=96)
+    after = []
+    for _ in range(3):
+        state = init_state(RAFTConfig.full(**KERNEL_KW), cfg, device=dev)
+        step_fn = make_train_step(cfg, device=dev)
+        fn = make_eval_fn(RAFTConfig.full(), 2)
+        for _ in range(3):
+            step_fn(state, batch)
+            fn(sd, *frames)
+        assert state.programs.counter.total() == fn.captures.total() == 1
+        del state, step_fn, fn
+        gc.collect()
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated())
+    assert after[0] == after[1] == after[2], after

@@ -413,7 +413,7 @@ def test_small_train_step_matches_jax(remat):
     # there the step turns on differences in g that the gradient bound
     # above allows (about 18% of the entries at this seed; the 15% whose
     # gradient is exactly 0 on both sides are held).
-    lr0 = optim.onecycle_lr(cfg.lr, cfg.num_steps + 100)(0)
+    lr0 = float(optim.onecycle_lr(cfg.lr, cfg.num_steps + 100)(0))
     after = state.model.state_dict()
     n_out = n_all = 0
     for k, w in want["after"].items():

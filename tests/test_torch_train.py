@@ -13,7 +13,12 @@
   lookup + ``convc1`` (JAX's CPU step resolves it to its unfused
   ``allpairs`` reference, the same function in exact arithmetic) and the
   on-demand kernel configurations (``corr_impl='pallas'`` + fused gates);
-- the non-finite guard, ``accum_steps`` and the reduced loop.
+- the non-finite guard, ``accum_steps`` and the reduced loop;
+- the guard against JAX's guarded ``make_train_step`` (one jit of it, the
+  plain full model): a NaN batch leaves both states bit for bit and counts
+  1, and the next good step, which both take at update count 0 (the
+  schedule and the bias correction stood still), agrees within the bounds
+  below; the device learning rate against the host schedule and optax's.
 
 Tolerances of the full step: loss and metrics rtol 1e-4; each parameter's
 gradient within rtol 1e-3 plus atol 1e-4 of the largest gradient entry of
@@ -43,7 +48,9 @@ from raft_tpu.config import TrainConfig as JaxTrainConfig
 from raft_tpu.models.raft import RAFT as JaxRAFT
 from raft_tpu.train import loss as jloss
 from raft_tpu.train import optim as joptim
+from raft_tpu.train.state import TrainState as JaxTrainState
 from raft_tpu.train.step import make_loss_fn as jax_make_loss_fn
+from raft_tpu.train.step import make_train_step as jax_make_train_step
 from raft_tpu_torch.config import RAFTConfig, TrainConfig
 from raft_tpu_torch.convert import flax_from_state_dict, state_dict_from_flax
 from raft_tpu_torch.models.layers import Norm, channel_dropout
@@ -122,7 +129,7 @@ def test_onecycle_matches_jax_and_torch():
     peak, steps = 4e-4, 400
     ours = optim.onecycle_lr(peak, steps, pct_start=0.05)
     jsched = joptim.onecycle_lr(peak, steps, pct_start=0.05)
-    got = np.array([ours(i) for i in range(steps + 5)])
+    got = np.array([float(ours(i)) for i in range(steps + 5)])
     want = np.array([float(jsched(i)) for i in range(steps + 5)])
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-12)
 
@@ -289,7 +296,7 @@ def check_step_matches_jax(jax_step, model_kw, train_kw=KW):
                                    jax_step["grads"][k].numpy(), rtol=1e-3,
                                    atol=1e-4 * gmax, err_msg=k)
 
-    lr0 = optim.onecycle_lr(cfg.lr, cfg.num_steps + 100)(0)
+    lr0 = float(optim.onecycle_lr(cfg.lr, cfg.num_steps + 100)(0))
     after = state.model.state_dict()
     for k, want in jax_step["after"].items():
         tol = 1e-5 if "running" in k else 2 * lr0 + 1e-6
@@ -365,6 +372,8 @@ def test_nonfinite_guard_leaves_state_bit_identical():
     state, met = step_fn(state, bad)
     assert float(met["nonfinite"]) == 1.0
     assert state.step == 2 and state.nonfinite_steps == 1
+    # the skip rests on fused AdamW reading ``found_inf``
+    assert float(optim.update_count(state.optimizer)) == 1.0
     after = state.model.state_dict()
     assert all(torch.equal(after[k], v) for k, v in params.items())
     opt_after = {k: v for s in state.optimizer.state.values()
@@ -372,6 +381,7 @@ def test_nonfinite_guard_leaves_state_bit_identical():
     assert all(torch.equal(opt_after[k], v) for k, v in opt.items())
     state, met = step_fn(state, _batch(6))        # and it trains on
     assert float(met["nonfinite"]) == 0.0 and state.step == 3
+    assert float(optim.update_count(state.optimizer)) == 2.0
     assert not torch.equal(state.model.state_dict()["fnet.conv1.weight"],
                            params["fnet.conv1.weight"])
 
@@ -443,3 +453,99 @@ def test_channel_dropout_is_channelwise_and_seeded():
     state = init_state(RAFTConfig.full(dropout=0.2), cfg, device="cpu")
     _, met = make_train_step(cfg, device="cpu")(state, _batch(8, h=32, w=48))
     assert np.isfinite(float(met["loss"]))
+
+
+def test_device_schedule_matches_host_and_optax():
+    """The learning rate the step computes from the optimizer's fp32
+    update count and writes into its fp32 rate: the schedule at the
+    host's integer step to fp32 rounding, and optax's (fp32 arithmetic)
+    at ``test_onecycle_matches_jax_and_torch``'s rtol, at every count."""
+    sched = optim.onecycle_lr(3e-4, 200)
+    want = joptim.onecycle_lr(3e-4, 200)
+    for count in (0, 1, 5, 8, 9, 10, 57, 198, 199, 250):
+        got = float(sched(torch.tensor(float(count))).float())
+        np.testing.assert_allclose(got, float(sched(count)), rtol=1.2e-7,
+                                   err_msg=count)
+        np.testing.assert_allclose(got, float(want(count)), rtol=1e-5,
+                                   err_msg=count)
+
+
+def _jax_tree_equal(a, b) -> bool:
+    return all(jax.tree_util.tree_leaves(jax.tree_util.tree_map(
+        lambda x, y: bool(jnp.array_equal(x, y)), a, b)))
+
+
+def test_guard_matches_jax_guarded_step(monkeypatch):
+    """A NaN batch, then a good one, through the port's guarded step and
+    JAX's guarded ``make_train_step`` from the same weights.  The NaN step
+    leaves each side's parameters, optimizer state and batch statistics
+    bit for bit, counts 1 and advances ``step``; the good step is then
+    each side's first update (AdamW at count 0) and agrees with JAX's as
+    one step does in :func:`check_step_matches_jax`."""
+    monkeypatch.setenv("RAFT_TUNING", "0")
+    variables, sd = full_raft_variables(0)
+    bad = _batch(5)
+    bad["image1"][0, 3, 3, 0] = np.nan
+    good = _batch(0)
+
+    jcfg = JaxTrainConfig(**KW)
+    tx = joptim.make_optimizer(jcfg.lr, jcfg.num_steps, jcfg.wdecay,
+                               jcfg.epsilon, jcfg.clip)
+    j0 = JaxTrainState(step=jnp.zeros((), jnp.int32),
+                       params=variables["params"],
+                       batch_stats=variables["batch_stats"],
+                       opt_state=tx.init(variables["params"]),
+                       nonfinite_steps=jnp.zeros((), jnp.int32))
+    jstep = jax_make_train_step(
+        JaxRAFT(JaxRAFTConfig.full(remat=False, remat_upsample=False)), tx,
+        jcfg, donate=False)
+    key = jax.random.PRNGKey(0)
+    j1, jm1 = jstep(j0, {k: jnp.asarray(v) for k, v in bad.items()}, key)
+    j2, jm2 = jstep(j1, {k: jnp.asarray(v) for k, v in good.items()}, key)
+    assert float(jm1["nonfinite"]) == 1.0 and float(jm2["nonfinite"]) == 0
+    assert (int(j1.nonfinite_steps), int(j1.step)) == (1, 1)
+    assert _jax_tree_equal((j0.params, j0.batch_stats, j0.opt_state),
+                           (j1.params, j1.batch_stats, j1.opt_state))
+
+    cfg = TrainConfig(**KW)
+    state = init_state(RAFTConfig.full(), cfg, device="cpu", state_dict=sd)
+    step_fn = make_train_step(cfg, device="cpu")
+    before = _params(state)
+    opt_before = [{k: v.clone() for k, v in s.items()}
+                  for s in state.optimizer.state.values()]
+    state, m1 = step_fn(state, bad)
+    assert float(m1["nonfinite"]) == 1.0
+    assert (int(state.nonfinite_steps), state.step) == (1, 1)
+    after = state.model.state_dict()
+    assert all(torch.equal(after[k], v) for k, v in before.items())
+    for s_now, s_was in zip(state.optimizer.state.values(), opt_before):
+        assert all(torch.equal(s_now[k], v) for k, v in s_was.items())
+
+    seen = _capture_grads(state)
+    state, m2 = step_fn(state, good)
+    assert float(m2["nonfinite"]) == 0.0
+    assert (int(state.nonfinite_steps), state.step) == (1, 2)
+    assert int(optim.update_count(state.optimizer)) == 1
+    np.testing.assert_allclose(float(m2["loss"]), float(jm2["loss"]),
+                               rtol=1e-4)
+    np.testing.assert_allclose(float(m2["grad_norm"]),
+                               float(jm2["grad_norm"]), rtol=1e-4)
+    for k in ("epe", "1px", "3px", "5px", "loss_iter", "epe_iter"):
+        np.testing.assert_allclose(m2[k].numpy(), np.asarray(jm2[k]),
+                                   rtol=1e-4, err_msg=k)
+    want = state_dict_from_flax({"params": j2.params,
+                                 "batch_stats": j2.batch_stats})
+    lr0 = float(optim.onecycle_lr(cfg.lr, cfg.num_steps + 100)(0))
+    gmax = max(float(g.abs().max()) for g in seen.values())
+    after = state.model.state_dict()
+    for k, w in want.items():
+        tol = 1e-5 if "running" in k else 2 * lr0 + 1e-6
+        np.testing.assert_allclose(after[k].numpy(), w.numpy(), rtol=0,
+                                   atol=tol, err_msg=k)
+        if "running" not in k:
+            big = seen[k].abs().numpy() >= 1e-4 * gmax
+            wb = w.numpy()[big]
+            np.testing.assert_allclose(
+                after[k].numpy()[big], wb, rtol=0,
+                atol=1e-3 * lr0 + 2 * float(np.spacing(np.abs(wb)).max(
+                    initial=0.0)), err_msg=k)

@@ -95,7 +95,7 @@ def test_param_without_gradient_decays_as_optax():
     assert not torch.equal(p.detach(), p0)
     np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp),
                                rtol=5e-7, atol=0)
-    lrs = [optim.onecycle_lr(cfg.lr, cfg.num_steps + 100)(i)
+    lrs = [float(optim.onecycle_lr(cfg.lr, cfg.num_steps + 100)(i))
            for i in range(2)]
     decay = (1 - lrs[0] * cfg.wdecay) * (1 - lrs[1] * cfg.wdecay)
     np.testing.assert_allclose(p.detach().numpy(), p0.numpy() * decay,

@@ -73,7 +73,39 @@ Phases, each raising on failure (so the script exits nonzero):
    fp32 and bf16 for the default ``allpairs`` and the kernel
    configuration (ms/pair, device busy time, peak memory) with launch
    counts;
-5. graphs: the same entry points eagerly (``graphs=False``) against their
+5. serve: the serving engine (``raft_tpu_torch.serve``) at the Sintel
+   bucket (436x1024 frames of seeded textures moving by (2, 1) px, 440x1024
+   bucket), 32 iterations, 8 slots, ``max_batch`` 8: the three kernels of
+   its path (the on-demand lookup and both gate forwards) at the slot
+   shape (S = 8) against their plain versions, timed beside their bounds;
+   ``forward_warp_flow`` twice bit for bit and against the CPU; in fp32
+   with TF32 off, for ``allpairs`` and the kernel configuration, request
+   mode against ``make_eval_fn`` (rtol 1e-4, atol 1e-3), slot mode with
+   staggered arrivals bit for bit request mode, exact launches per
+   replay of each program and one capture per ``(bucket, lanes,
+   program)``, an injected ``device_err`` mid-iteration retried to the
+   same bits, an 8-frame stream at a session budget of 4 iterations (its
+   first pair bit for bit a stateless request of that budget; 8 frames,
+   7 pairs, 6 warm), the early-exit sweep of the
+   offline runner (iterations never above the budget nor rising with the
+   threshold; threshold 0 bit for bit request mode), and the kernel
+   configuration against the plain one within 1e-3 px at 4 iterations;
+   in bf16, request mode's batch of 8 pairs against ``make_eval_fn`` in
+   bf16 (rtol and atol 2e-2), a closed loop of 8 clients x 16 requests
+   in request mode, slot mode and slot mode with budgets from
+   {8, 16, 32} (pairs/s, p50 and p99 ms, batch fill or mean active
+   lanes, resident, peak and reserved memory; device busy and idle share
+   over a traced loop of 8 x 2 requests), a stream's cold and warm frame
+   ms, and the copy kernels of one ``iter`` replay under ``allpairs``;
+   request mode's memory over the Sintel, KITTI and FlyingChairs buckets
+   (``allpairs``, bf16, batch sizes 1/2/4/8: the serve CLI's defaults),
+   with the default budget and with a budget of one bucket's memory
+   (evictions, every bucket answered); then
+   ``python -m raft_tpu_torch serve --random-init`` in a subprocess:
+   flows bit for bit the in-process engine's, a stream session,
+   ``/metrics`` and ``/v1/healthz``, a flood past ``--max-queue``
+   answered by structured 429s, SIGINT ending it with its stats line;
+6. graphs: the same entry points eagerly (``graphs=False``) against their
    captured graphs: the 32-iteration Sintel forward (440x1024, B = 1) in
    ``allpairs`` and the kernel configuration, fp32 and bf16, and the
    small model's bf16 forward (on-demand configuration): outputs bit for
@@ -88,8 +120,8 @@ Phases, each raising on failure (so the script exits nonzero):
    eager and graphed (EPE within 1e-4 px, ms/pair); cuDNN TF32 on against
    off for the fp32 Sintel forward and chairs step (ms, the flow and
    metric differences);
-6. demo: the demo CLI on ``demo-frames`` with ``--alternate_corr``;
-7. eval: the evaluation path on synthetic dataset trees written with the
+7. demo: the demo CLI on ``demo-frames`` with ``--alternate_corr``;
+8. eval: the evaluation path on synthetic dataset trees written with the
    port's writers (Sintel: two scenes of 3 and 5 frames at 436x1024,
    clean and final; KITTI: a pair at each of four real resolutions, one
    376x1248 bucket, sparse ground truth; FlyingChairs: 4 pairs at
@@ -107,7 +139,7 @@ Phases, each raising on failure (so the script exits nonzero):
    a KITTI ground truth (as written, and every row Paeth-filtered) and a
    ``forward_interpolate``, and the peak memory of ``validate_kitti`` at
    batch 4 in bf16;
-8. train: ``make_train_step`` with each kernel configuration against
+9. train: ``make_train_step`` with each kernel configuration against
    its plain one from the same seeded weights on one synthetic
    FlyingChairs-shaped batch, TF32 off, in fp32 and bf16 (loss, metrics,
    every parameter's unclipped gradient): ``allpairs_pallas`` +
@@ -128,7 +160,7 @@ Phases, each raising on failure (so the script exits nonzero):
    of a bf16 step at the things stage (400x720, batch 5, 12 iterations)
    for the on-demand, the ``allpairs_pallas`` and the int8 + fused
    configurations;
-9. train_cli: the training entry point on a synthetic FlyingChairs tree
+10. train_cli: the training entry point on a synthetic FlyingChairs tree
    (24 training and 4 validation ``.ppm`` pairs at 384x512 with ``.flo``
    files and a split file): the native host library must load on this
    host (its build time, and whether cv2 is importable); the loader alone
@@ -149,7 +181,7 @@ Phases, each raising on failure (so the script exits nonzero):
    ``device_prefetch`` 0 and 2 (ms/step, pairs/s, queue wait, prep and
    copy times, idle share, exact launch counts) beside phase train's
    reused batch;
-10. small: the small model at full width (hidden 96, context 64, radius
+11. small: the small model at full width (hidden 96, context 64, radius
    3, C = 128): each kernel of its paths at its shapes against the plain
    version, timed beside its bound (run as phase small_kernels right
    after phase kernels, early in the process; the on-demand forward at the Sintel
@@ -173,10 +205,11 @@ Phases, each raising on failure (so the script exits nonzero):
    ``none``; ``python -m raft_tpu_torch curriculum`` in a subprocess on
    two small stages, killed between them by ``stage_kill`` (exit 143)
    and resumed, and ``lk-compare --small`` on the demo frames;
-11. report: one JSON line ``{"kernels": [...]}`` (each kernel with its
+12. report: one JSON line ``{"kernels": [...]}`` (each kernel with its
    small-model launches and, where phase small timed it, its times
-   there), the nvidia-smi line, and last ``{"ok": true, "device":
-   {...}}``.
+   there, and its launches per serving ``iter`` replay with, where phase
+   serve timed it, its times at the slot shape), the nvidia-smi line,
+   and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without CUDA it exits nonzero before any
 result.
@@ -269,9 +302,9 @@ def _device_ms(fn, reps: int = 20, match: str = None):
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
-def _profile(fn, reps: int = 2) -> dict:
+def _profile(fn, reps: int = 2, warm: bool = True) -> dict:
     """Device activity of ``reps`` calls from ``torch.profiler`` (CUDA
-    activity only): ``busy_ms`` per call is the union of the device
+    activity only), after one untraced call when ``warm``: ``busy_ms`` per call is the union of the device
     intervals (kernels, copies and sets never counted twice), ``wall_ms``
     per call the host clock over the same window, ``idle_share`` the
     rest, and ``by_kind`` the summed kernel time per call by kind (each
@@ -280,7 +313,8 @@ def _profile(fn, reps: int = 2) -> dict:
     no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -4024,6 +4058,712 @@ def phase_small(sd_full, tree):
     return res
 
 
+# --- phase serve: the serving engine on the card ---------------------------
+
+SERVE_HW = SINTEL_HW                 # 436 x 1024 -> bucket 440 x 1024
+SERVE_BUCKET = (440, 1024)
+SERVE_ITERS, SERVE_SLOTS, SERVE_CHECK_ITERS = 32, 8, 4
+SERVE_CONFIGS = {"allpairs": {}, "kernel": dict(corr_impl="pallas",
+                                                fused_gru=True)}
+SERVE_PLAIN_CFG = dict(corr_impl="chunked", fused_gru=False)
+SERVE_PAIRS = 8                      # distinct pairs of the checks
+# closed loop: 8 x 16 = 128 requests (p99 over 128 samples), then 8 x 2
+# traced for the busy and idle share (~4 request-mode batches at the
+# 3.9 of 8 they fill, ~16 admissions in slot mode)
+SERVE_LOOP_CLIENTS, SERVE_LOOP_REQS, SERVE_TRACED_REQS = 8, 16, 2
+# request mode's memory: Sintel, KITTI and FlyingChairs frames
+SERVE_MEMORY_SHAPES = (SINTEL_HW, (375, 1242), (384, 512))
+SERVE_BUDGETS = (8, 16, 32)
+# one serving replay of each program: the kernels it launches (the full
+# model's separable ConvGRU runs its gates twice an iteration)
+SERVE_REPLAY_LAUNCHES = {
+    "allpairs": {"enc": {}, "iter": {}, "up": {}},
+    "kernel": {"enc": {}, "iter": {"corr_ondemand": 1, "gru_gate_rh": 2,
+                                   "gru_gate_blend": 2}, "up": {}}}
+
+
+def _serve_pairs(n: int = SERVE_PAIRS):
+    """``n`` frame pairs, each a seeded texture and the texture moved by
+    (2, 1) px, as float32 (436, 1024, 3) arrays."""
+    out = []
+    for j in range(n):
+        base = _texture(40 + j, *SERVE_HW)
+        out.append(tuple(_shifted(base, SERVE_HW, k, (2, 1)).astype(
+            np.float32) for k in (0, 1)))
+    return out
+
+
+def _serve_clip(n: int = 8, seed: int = 60):
+    """An ``n``-frame clip of one texture moving by (2, 1) px a frame."""
+    base = _texture(seed, *SERVE_HW)
+    return [_shifted(base, SERVE_HW, k, (2, 1)).astype(np.float32)
+            for k in range(n)]
+
+
+def _serve_engine(sd, cfg_kw: dict, dtype: str, budget=None, **serve_kw):
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.serve import InferenceEngine, ServeConfig
+
+    cfg = RAFTConfig.full(compute_dtype=dtype, **cfg_kw)
+    serve_kw.setdefault("iters", SERVE_ITERS)
+    return InferenceEngine(sd, cfg, ServeConfig(**serve_kw),
+                           resident_budget_bytes=budget).start()
+
+
+def _free():
+    """Give the memory of dropped engines and graphs back (an engine holds
+    reference cycles, so only a collection frees its graphs): call it after
+    the caller's last reference is gone."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _one_batch(eng, pairs, **kw):
+    """Submit ``pairs`` while the device worker is held, so that request
+    mode coalesces them into one batch; their flows in order."""
+    import threading
+
+    gate = threading.Event()
+    eng._device_pool.submit(gate.wait)
+    futs = [eng.submit(a, b, **kw) for a, b in pairs]
+    time.sleep(0.2)
+    gate.set()
+    return [f.result(timeout=600) for f in futs]
+
+
+def _wait(pred, what: str, timeout: float = 300):
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"serve: timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def _one_capture_per_key(eng, label: str, programs, once=()) -> dict:
+    """One capture of each program of ``programs`` over every call, and at
+    most one of each of ``once`` (programs a run calls once: their one
+    call is the key's eager warm-up, nothing is captured)."""
+    counts = eng.capture_counter.counts()
+    want = {(SERVE_BUCKET, lanes, p): 1 for lanes, p in programs}
+    print(f"[serve] {label} captures {counts}", flush=True)
+    rest = {k: v for k, v in counts.items() if k not in want}
+    if ({k: counts.get(k) for k in want} != want or set(rest.values()) - {1}
+            or {k[2] for k in rest} - set(once)):
+        raise AssertionError(f"serve {label}: captures {counts} != {want}")
+    return {f"{k[0][0]}x{k[0][1]}/b{k[1]}/{k[2]}": v
+            for k, v in counts.items()}
+
+
+def _replay_launches(eng, label: str, lanes: int) -> dict:
+    """Launch counts of one replay of each program of ``(bucket, lanes)``
+    (run with no lane admitted, so the state stays as it is): exactly the
+    kernels of ``SERVE_REPLAY_LAUNCHES``."""
+    progs = eng._get_programs(SERVE_BUCKET, lanes)
+    H, W = SERVE_BUCKET
+    zeros = np.zeros((lanes, H, W, 3), np.float32)
+    budgets = np.zeros((lanes,), np.int32)
+    got = {}
+
+    def run():
+        for prog, fn in (("enc", lambda: progs.encode(
+                zeros, zeros, progs.admit_none, budgets)),
+                ("iter", lambda: progs.iterate(0.0)),
+                ("up", progs.upsample)):
+            _reset_counts()
+            fn()
+            torch.cuda.synchronize()
+            got[prog] = {k: v for k, v in _counts().items() if v}
+
+    eng._device_pool.submit(run).result()
+    want = SERVE_REPLAY_LAUNCHES[label]
+    print(f"[serve] {label} launches per replay {got}", flush=True)
+    if got != want:
+        raise AssertionError(f"serve {label}: launches per replay {got} != "
+                             f"{want}")
+    return got
+
+
+def _serve_checks(sd, label: str, pairs, clip) -> dict:
+    """fp32 checks of one configuration: request mode against
+    ``make_eval_fn``; slot mode (staggered arrivals) bit for bit against
+    request mode; launches and captures; early exit; an injected
+    ``device_err``; an 8-frame stream."""
+    from raft_tpu_torch import chaos
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.evaluate import make_eval_fn
+    from raft_tpu_torch.ops.pad import InputPadder
+    from raft_tpu_torch.serve import EarlyExitRunner
+    from raft_tpu_torch.serve.engine import _device_worker
+
+    cfg_kw = SERVE_CONFIGS[label]
+    res, t_last = {}, [time.perf_counter()]
+
+    def tick(what):
+        now = time.perf_counter()
+        print(f"[time] serve {label} {what}: {now - t_last[0]:.1f} s",
+              flush=True)
+        t_last[0] = now
+    # request mode: every batch at 8 lanes, one batch of the 8 pairs
+    eng = _serve_engine(sd, cfg_kw, "float32", max_batch=SERVE_SLOTS,
+                        batch_sizes=(SERVE_SLOTS,), max_wait_ms=20)
+    eng.warmup([SERVE_HW])
+    tick("request engine and captures")
+    _reset_counts()
+    req = _one_batch(eng, pairs)
+    tick("request batch")
+    _expect({k: SERVE_ITERS * n for k, n in
+             SERVE_REPLAY_LAUNCHES[label]["iter"].items()},
+            f"serve {label} request")
+    res["replay_launches"] = _replay_launches(eng, label, SERVE_SLOTS)
+    res["request_captures"] = _one_capture_per_key(
+        eng, f"{label} request", [(SERVE_SLOTS, p)
+                                  for p in ("enc", "iter", "up")])
+    eng.stop()
+    del eng
+    _free()
+    # against the offline path on the same padded batch
+    pad = InputPadder(SERVE_HW, target=SERVE_BUCKET)
+    im1 = np.stack([pad.pad_np(a) for a, _ in pairs])
+    im2 = np.stack([pad.pad_np(b) for _, b in pairs])
+    eval_fn = make_eval_fn(RAFTConfig.full(**cfg_kw), SERVE_ITERS)
+    # on the engines' device-worker thread: cuDNN caches its plans per
+    # thread, and this thread has searched them for these shapes already
+    _, up = _device_worker(torch.device("cuda")).submit(
+        eval_fn, sd, im1, im2).result()
+    up = up.cpu().numpy()
+    del eval_fn
+    _free()
+    tick("make_eval_fn")
+    err = max(float(np.abs(pad.unpad(up[j]) - req[j]).max())
+              for j in range(len(pairs)))
+    ok = all(np.allclose(req[j], pad.unpad(up[j]), rtol=1e-4, atol=1e-3)
+             for j in range(len(pairs)))
+    print(f"[serve] {label} fp32 request mode vs make_eval_fn: max|diff| "
+          f"{err:.3e} px (rtol 1e-4, atol 1e-3)", flush=True)
+    if not ok:
+        raise AssertionError(f"serve {label}: request mode vs make_eval_fn "
+                             f"{err}")
+    res["vs_eval_max_px"] = err
+
+    # slot mode: staggered arrivals (join and leave), then a device_err
+    # retried, then a session
+    eng = _serve_engine(sd, cfg_kw, "float32", batching="slot",
+                        slots=SERVE_SLOTS, device_retries=1,
+                        retry_backoff_s=0.0, retry_jitter=0.0)
+    eng.warmup([SERVE_HW])
+    tick("slot engine and captures")
+    _reset_counts()
+    steps0 = eng.stats()["slot_steps"]
+    f0 = eng.submit(*pairs[0])
+    _wait(lambda: eng.stats()["slot_steps"] - steps0 >= 10, "10 steps")
+    mid = [eng.submit(*p) for p in pairs[1:4]]        # join mid-flight
+    f0.result(timeout=600)                            # lane 0 leaves
+    late = [eng.submit(*p) for p in pairs[4:]]        # join after it
+    slot = [f.result(timeout=600) for f in [f0] + mid + late]
+    steps = eng.stats()["slot_steps"] - steps0
+    _expect({k: steps * n for k, n in
+             SERVE_REPLAY_LAUNCHES[label]["iter"].items()},
+            f"serve {label} slot")
+    same = [bool(np.array_equal(a, b)) for a, b in zip(slot, req)]
+    print(f"[serve] {label} fp32 slot (staggered, {steps} steps) bit-equal "
+          f"to request mode: {same}", flush=True)
+    if not all(same):
+        raise AssertionError(f"serve {label}: slot != request {same}")
+    tick("staggered slot run")
+    # a stateless request of SERVE_CHECK_ITERS iterations, then the same
+    # with a device_err injected at its third iteration: retried, the
+    # same bits
+    ref = eng.infer(clip[0], clip[1], timeout=600, iters=SERVE_CHECK_ITERS)
+    seq = eng._batch_seq
+    chaos.install(chaos.FaultPlan.parse(f"device_err@batch={seq + 3}"))
+    try:
+        faulted = eng.infer(clip[0], clip[1], timeout=600,
+                            iters=SERVE_CHECK_ITERS)
+    finally:
+        chaos.uninstall()
+    retries = eng.stats()["retries"]
+    print(f"[serve] {label} device_err at iteration 3 retried ({retries}): "
+          f"bit-equal {np.array_equal(faulted, ref)}", flush=True)
+    if retries != 1 or not np.array_equal(faulted, ref):
+        raise AssertionError(f"serve {label}: device_err retry")
+    tick("device_err run")
+    # streaming (a session budget of SERVE_CHECK_ITERS): frame 1 bit for
+    # bit the stateless request
+    eng.stream_open("cam", clip[0], iters=SERVE_CHECK_ITERS)
+    outs = [eng.stream_ingest("cam", f, timeout=600) for f in clip[1:]]
+    summary = eng.stream_close("cam")
+    warm = [o["warm"] for o in outs]
+    finite = all(np.isfinite(o["flow"]).all() for o in outs)
+    print(f"[serve] {label} stream: {summary}, warm {warm}, finite "
+          f"{finite}, frame 1 bit-equal to stateless "
+          f"{np.array_equal(outs[0]['flow'], ref)}", flush=True)
+    if (summary["frames"], summary["pairs"], summary["warm_pairs"]) != (
+            8, 7, 6) or warm != [False] + [True] * 6 or not finite \
+            or not np.array_equal(outs[0]["flow"], ref):
+        raise AssertionError(f"serve {label}: stream {summary} {warm}")
+    res["slot_captures"] = _one_capture_per_key(
+        eng, f"{label} slot", [(SERVE_SLOTS, p) for p in
+                               ("enc", "iter", "up", "wenc")], ("stash",))
+    res["stream"] = summary
+    eng.stop()
+    del eng
+    _free()
+    tick("stream")
+
+    # early exit: the offline runner, one capture a program over every
+    # threshold; threshold 0 reproduces request mode bit for bit
+    runner = EarlyExitRunner(RAFTConfig.full(**cfg_kw))
+    base, used, resid = runner.run(sd, im1, im2, SERVE_ITERS, 0.0,
+                                   return_residuals=True)
+    if not all(np.array_equal(pad.unpad(base[j]), req[j])
+               for j in range(len(pairs))):
+        raise AssertionError(f"serve {label}: EarlyExitRunner != request")
+    med = float(np.median(resid))
+    sweep, prev = {}, used
+    for thr in (2.0 * med, 1e9):
+        _, u = runner.run(sd, im1, im2, SERVE_ITERS, thr)
+        if (u > SERVE_ITERS).any() or (u < 1).any() or (u > prev).any():
+            raise AssertionError(f"serve {label}: early exit {thr}: {u} "
+                                 f"after {prev}")
+        sweep[f"{thr:.4g}"] = u.tolist()
+        prev = u
+    if prev.tolist() != [1] * len(pairs):
+        raise AssertionError(f"serve {label}: threshold 1e9 {prev}")
+    counts = runner.programs.counter.counts()
+    if set(counts.values()) != {1} or len(counts) != 3:
+        raise AssertionError(f"serve {label}: runner captures {counts}")
+    print(f"[serve] {label} early exit: residual median {med:.4g}, "
+          f"iters_used by threshold {sweep}", flush=True)
+    res["early_exit"] = dict(residual_median=med, iters_used=sweep)
+    del runner
+    _free()
+    tick("early exit")
+    return res
+
+
+def _serve_kernel_vs_plain(sd, pairs) -> dict:
+    """The kernel configuration's engine against the plain one's
+    (``chunked`` + unfused gates), fp32, 4 iterations: within 1e-3 px."""
+    flows = {}
+    for label, cfg_kw in (("kernel", SERVE_CONFIGS["kernel"]),
+                          ("plain", SERVE_PLAIN_CFG)):
+        eng = _serve_engine(sd, cfg_kw, "float32", iters=SERVE_CHECK_ITERS,
+                            max_batch=SERVE_SLOTS, batch_sizes=(SERVE_SLOTS,),
+                            max_wait_ms=20)
+        flows[label] = _one_batch(eng, pairs)
+        eng.stop()
+        del eng
+        _free()
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(flows["kernel"], flows["plain"]))
+    print(f"[serve] kernel vs plain configuration, fp32, "
+          f"{SERVE_CHECK_ITERS} iterations: max|diff| {err:.3e} px "
+          "(1e-3)", flush=True)
+    if not err <= 1e-3:
+        raise AssertionError(f"serve: kernel vs plain {err}")
+    return {"max_px": err}
+
+
+def _serve_forward_warp() -> dict:
+    """``forward_warp_flow`` at the slot shape: two runs bit for bit, and
+    within 1e-5 of the CPU's."""
+    from raft_tpu_torch.ops.sampler import forward_warp_flow
+
+    rng = np.random.default_rng(7)
+    flow = torch.from_numpy((rng.standard_normal(
+        (SERVE_SLOTS, 55, 128, 2)) * 6).astype(np.float32))
+    cpu = forward_warp_flow(flow)
+    a = forward_warp_flow(flow.cuda())
+    b = forward_warp_flow(flow.cuda())
+    err = float((a.cpu() - cpu).abs().max())
+    same = bool(torch.equal(a, b))
+    print(f"[serve] forward_warp_flow {tuple(flow.shape)}: two runs "
+          f"bit-equal {same}, max|card - cpu| {err:.3e} (1e-5)", flush=True)
+    if not same or not err <= 1e-5:
+        raise AssertionError(f"serve: forward_warp_flow {same} {err}")
+    return {"repeat_bit_equal": same, "vs_cpu": err}
+
+
+def _serve_kernels(peaks) -> dict:
+    """The three kernels of the serving path at the slot shape (S = 8,
+    the Sintel grid) against their plain versions, timed beside their
+    bounds."""
+    from raft_tpu_torch.ops.corr import chunked_corr_lookup, pool_fmap_pyramid
+    from raft_tpu_torch.ops.corr_kernels import (_plain,
+                                                 corr_lookup_ondemand_nchw)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    k = 2 * R + 1
+    out = {}
+    with torch.inference_mode():
+        f1, f2, coords = _corr_inputs(rng, SERVE_SLOTS, 55, 128, dev, "b")
+        pyr = pool_fmap_pyramid(f2, LEVELS)
+        got = corr_lookup_ondemand_nchw(f1, pyr, coords, R)
+        want = _plain(f1, pyr, coords, R).permute(0, 3, 1, 2)
+        err = _check(f"[serve] corr_ondemand S={SERVE_SLOTS} (b)", got, want)
+        tk = _timed(lambda: corr_lookup_ondemand_nchw(f1, pyr, coords, R),
+                    "corr_ondemand_kernel")
+        tp = _timed(lambda: chunked_corr_lookup(f1, pyr, coords, R), None,
+                    reps=10)
+        nbytes = 4 * (f1.numel() + coords.numel() + want.numel()
+                      + sum(p.numel() for p in pyr))
+        ops = _corr_ops(coords.cpu().numpy(),
+                        [tuple(p.shape[1:3]) for p in pyr], k)
+        _record(out, "corr_ondemand", err, tk, tp, nbytes, ops, peaks,
+                tag=f"[serve] S={SERVE_SLOTS}")
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "fp32" if dtype == torch.float32 else "bf16"
+            for name, rec in _gate_fwd_case(rng, SERVE_SLOTS, 128, 55, 128,
+                                            dtype, peaks, "[serve]").items():
+                out[f"{name}/{dt}"] = rec
+                if dtype == torch.float32:
+                    out[name] = rec
+    return out
+
+
+def _closed_loop(eng, pairs, budgets=None, clients=SERVE_LOOP_CLIENTS,
+                 reqs=SERVE_LOOP_REQS) -> dict:
+    """``clients`` threads, each sending ``reqs`` requests one after
+    another: pairs/s over the window, client-side p50 / p99 ms."""
+    import threading
+
+    lats, errs = [], []
+    rng = np.random.default_rng(9)
+    plan = [[(pairs[(c + i) % len(pairs)],
+              None if budgets is None else int(rng.choice(budgets)))
+             for i in range(reqs)] for c in range(clients)]
+
+    def client(c):
+        for (a, b), it in plan[c]:
+            t = time.perf_counter()
+            try:
+                eng.infer(a, b, iters=it, timeout=600)
+            except Exception as e:        # noqa: BLE001 (reported below)
+                errs.append(repr(e))
+            lats.append((time.perf_counter() - t) * 1e3)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errs:
+        raise AssertionError(f"serve closed loop: {errs[:3]}")
+    return {"pairs_per_s": clients * reqs / wall,
+            "p50_ms": float(np.percentile(lats, 50)),
+            "p99_ms": float(np.percentile(lats, 99)), "wall_s": wall}
+
+
+def _stream_times(eng, clip) -> dict:
+    """ms a frame of a session's cold first pair and of its warm frames."""
+    eng.stream_open("timed", clip[0])
+    ms = []
+    for f in clip[1:]:
+        t = time.perf_counter()
+        eng.stream_frame("timed", f, timeout=600)
+        ms.append((time.perf_counter() - t) * 1e3)
+    eng.stream_close("timed")
+    return {"cold_ms": ms[0], "warm_ms": float(np.median(ms[1:]))}
+
+
+def _copy_kernels_per_replay(eng) -> dict:
+    """The kernels of one ``iter`` replay of the slot set, and those of
+    them that copy: a replay must not copy the correlation state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    progs = eng._get_programs(SERVE_BUCKET, SERVE_SLOTS)
+
+    def run():
+        progs.iterate(0.0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)
+            progs.iterate(0.0)
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+        copies, total = {}, 0.0
+        for e in prof.events():
+            tr = e.time_range
+            if getattr(e.device_type, "name", "") != "CUDA":
+                continue
+            total += tr.end - tr.start
+            if "copy" in e.name.lower() or "memcpy" in e.name.lower():
+                copies[e.name[:80]] = copies.get(e.name[:80], 0.0) + (
+                    tr.end - tr.start) / 1e3
+        return {"replay_kernel_ms": total / 1e3, "copy_ms": copies,
+                "copy_total_ms": sum(copies.values())}
+
+    return eng._device_pool.submit(run).result()
+
+
+def _serve_bf16_vs_eval(eng, sd, label: str, pairs) -> dict:
+    """The bf16 request-mode engine's batch of ``pairs`` against bf16
+    ``make_eval_fn`` on the same padded batch, within the repo's bf16
+    bound (rtol and atol 2e-2)."""
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.evaluate import make_eval_fn
+    from raft_tpu_torch.ops.pad import InputPadder
+
+    req = _one_batch(eng, pairs)
+    pad = InputPadder(SERVE_HW, target=SERVE_BUCKET)
+    im1 = np.stack([pad.pad_np(a) for a, _ in pairs])
+    im2 = np.stack([pad.pad_np(b) for _, b in pairs])
+    eval_fn = make_eval_fn(RAFTConfig.full(compute_dtype="bfloat16",
+                                           **SERVE_CONFIGS[label]),
+                           SERVE_ITERS)
+    # on the engine's device-worker thread, as in _serve_checks
+    _, up = eng._device_pool.submit(eval_fn, sd, im1, im2).result()
+    up = up.float().cpu().numpy()
+    del eval_fn
+    err = max(float(np.abs(pad.unpad(up[j]) - req[j]).max())
+              for j in range(len(pairs)))
+    same = all(np.array_equal(pad.unpad(up[j]), req[j])
+               for j in range(len(pairs)))
+    ok = all(np.allclose(req[j], pad.unpad(up[j]), rtol=2e-2, atol=2e-2)
+             for j in range(len(pairs)))
+    print(f"[serve] {label} bf16 request mode vs make_eval_fn: max|diff| "
+          f"{err:.3e} px, bit-equal {same} (rtol, atol 2e-2)", flush=True)
+    if not ok:
+        raise AssertionError(f"serve {label}: bf16 request mode vs "
+                             f"make_eval_fn {err}")
+    return {"max_px": err, "bit_equal": same}
+
+
+def _serve_timings(sd, label: str, pairs, clip, peaks) -> dict:
+    """bf16 timings of one configuration: the closed loop in request and
+    slot mode, slot mode under budgets drawn from {8, 16, 32}, the
+    stream's warm and cold frames, device busy and idle share, memory;
+    and request mode against ``make_eval_fn`` in bf16."""
+    cfg_kw = SERVE_CONFIGS[label]
+    out = {}
+    for mode, kw, budgets in (
+            ("request", dict(max_batch=SERVE_SLOTS), None),
+            ("slot", dict(batching="slot", slots=SERVE_SLOTS), None),
+            ("slot_budgets", dict(batching="slot", slots=SERVE_SLOTS),
+             SERVE_BUDGETS)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        base_reserved = torch.cuda.memory_reserved()
+        eng = _serve_engine(sd, cfg_kw, "bfloat16", **kw)
+        eng.warmup([SERVE_HW])
+        resident = torch.cuda.memory_allocated() - base
+        _closed_loop(eng, pairs, budgets, clients=2, reqs=1)   # settle
+        active = eng.registry.counter("raft_serve_slot_lanes_active_total")
+        steps = eng.registry.counter("raft_serve_slot_steps_total")
+        a0, s0 = active.value(), steps.value()
+        rec = _closed_loop(eng, pairs, budgets)
+        rec["requests"] = SERVE_LOOP_CLIENTS * SERVE_LOOP_REQS
+        st = eng.stats()
+        if mode == "request":
+            rec["mean_batch_fill"] = st["mean_batch_fill"]
+        else:
+            rec["mean_active_lanes"] = ((active.value() - a0)
+                                        / max(steps.value() - s0, 1))
+        # busy and idle over a traced loop of 8 x 2 requests (the timed
+        # loop has just warmed the engine)
+        prof = _profile(lambda: _closed_loop(
+            eng, pairs, budgets, reqs=SERVE_TRACED_REQS), reps=1, warm=False)
+        rec.update(busy_share=(None if prof["busy_ms"] is None
+                               else prof["busy_ms"] / prof["wall_ms"]),
+                   idle_share=prof["idle_share"], by_kind=prof["by_kind"])
+        if mode == "slot":
+            rec["stream"] = _stream_times(eng, clip)
+            if label == "allpairs":
+                rec["replay_copies"] = _copy_kernels_per_replay(eng)
+        rec["captures"] = {k: v for k, v in st["compiles"].items()}
+        if set(rec["captures"].values()) != {1}:
+            raise AssertionError(f"serve {label} {mode}: captures "
+                                 f"{rec['captures']}")
+        rec["resident_gib"] = resident / 2 ** 30
+        rec["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        # the graphs' private pools hold their temporaries: reserved, not
+        # allocated, between replays
+        rec["reserved_gib"] = (torch.cuda.max_memory_reserved()
+                               - base_reserved) / 2 ** 30
+        if mode == "request":      # after the peak: eval_fn's graph adds
+            rec["vs_eval_bf16"] = _serve_bf16_vs_eval(eng, sd, label, pairs)
+        print(f"[serve] {label} bf16 {mode}: " + ", ".join(
+            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in rec.items()), flush=True)
+        out[mode] = rec
+        eng.stop()
+        del eng
+        _free()
+    return out
+
+
+def _serve_memory(sd) -> dict:
+    """Request mode (``allpairs``, bf16, batch sizes 1/2/4/8: the serve
+    CLI's defaults) warmed up at the Sintel, KITTI and FlyingChairs
+    buckets one after another: the memory reserved after each (cached
+    free blocks returned) and the peak, under the default budget and
+    under a budget of what the first bucket took (the least recently
+    used keys freed, every bucket still answered with the default
+    budget's flow)."""
+    rng = np.random.default_rng(10)
+    frames = {hw: tuple((rng.uniform(0, 255, hw + (3,))).astype(np.float32)
+                        for _ in range(2)) for hw in SERVE_MEMORY_SHAPES}
+    out, flows, budget = {}, {}, None
+    for arm in ("default", "one_bucket"):
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_reserved()
+        eng = _serve_engine(sd, {}, "bfloat16", budget=(
+            None if arm == "default" else base + budget))
+        after = []
+        for hw in SERVE_MEMORY_SHAPES:
+            eng.warmup([hw])
+            torch.cuda.empty_cache()     # what the states and graphs hold
+            after.append((torch.cuda.memory_reserved() - base) / 2 ** 30)
+        if arm == "default":
+            budget = int(after[0] * 2 ** 30)
+        got = {hw: eng.infer(*frames[hw], timeout=600)
+               for hw in SERVE_MEMORY_SHAPES}
+        rec = {"reserved_gib_after_each": after,
+               "peak_reserved_gib": (torch.cuda.max_memory_reserved() - base)
+               / 2 ** 30,
+               "budget_gib": (eng.resident_budget_bytes - base) / 2 ** 30,
+               "evictions": int(eng.registry.counter(
+                   "raft_serve_state_evictions_total").value())}
+        if arm == "default":
+            flows = got
+        else:
+            rec["flows_bit_equal"] = [bool(np.array_equal(got[hw], flows[hw]))
+                                      for hw in SERVE_MEMORY_SHAPES]
+        bad = [hw for hw, f in got.items()
+               if f.shape != hw + (2,) or not np.isfinite(f).all()]
+        print(f"[serve] memory, request mode allpairs bf16, {arm} budget: "
+              + ", ".join(f"{k} {v}" for k, v in rec.items()), flush=True)
+        eng.stop()
+        del eng
+        if bad or (arm == "one_bucket" and not rec["evictions"]):
+            raise AssertionError(f"serve memory {arm}: {bad} {rec}")
+        out[arm] = rec
+    _free()
+    return out
+
+
+def _serve_cli(sd, pairs, clip) -> dict:
+    """``python -m raft_tpu_torch serve --random-init`` in a subprocess
+    (slot mode, the CLI's bf16): flows of single requests equal to the
+    in-process engine's, a stream session, /metrics and /v1/healthz, a
+    flood past --max-queue answered by structured 429s, and SIGINT ending
+    it with its stats line."""
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+
+    def post(url, **arrays):
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        r = urllib.request.urlopen(urllib.request.Request(
+            url, data=buf.getvalue(), method="POST"), timeout=600)
+        return np.load(io.BytesIO(r.read()))
+
+    child = _Child(["serve", "--random-init", "--port", "0", "--batching",
+                    "slot", "--max-queue", "4", "--warmup", "436x1024"])
+    try:
+        line = child.wait_for(r"listening on http://", timeout=600)
+        base = re.search(r"http://(\S+)", line).group(1)
+        got = [post(f"http://{base}/v1/flow", image1=a, image2=b)["flow"]
+               for a, b in pairs[:3]]
+        stream = [post(f"http://{base}/v1/stream/s1", image=f)
+                  for f in clip[:3]]
+        summary = json.loads(urllib.request.urlopen(urllib.request.Request(
+            f"http://{base}/v1/stream/s1", method="DELETE")).read())
+        metrics = urllib.request.urlopen(f"http://{base}/metrics").read()
+        health = urllib.request.urlopen(f"http://{base}/v1/healthz").read()
+        codes, bodies = [], []
+
+        def flood():
+            try:
+                post(f"http://{base}/v1/flow", image1=pairs[0][0],
+                     image2=pairs[0][1])
+                codes.append(200)
+            except urllib.error.HTTPError as e:
+                codes.append(e.code)
+                bodies.append((e.headers.get("Retry-After"),
+                               json.loads(e.read())))
+
+        threads = [threading.Thread(target=flood) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        child.proc.send_signal(signal.SIGINT)
+        rc = child.finish(timeout=300)
+    finally:
+        child.kill()
+    stats = json.loads(next(ln for ln in reversed(child.lines)
+                            if ln.startswith("{")))
+    with _default_tf32():
+        eng = _serve_engine(sd, {}, "bfloat16", batching="slot",
+                            slots=SERVE_SLOTS)
+        want = [eng.infer(a, b, timeout=600) for a, b in pairs[:3]]
+        eng.stop()
+        del eng
+        _free()
+    same = [bool(np.array_equal(g, w)) for g, w in zip(got, want)]
+    n429 = codes.count(429)
+    print(f"[serve] CLI: flows bit-equal to the in-process engine {same}; "
+          f"stream {summary}; /metrics {len(metrics)} B, healthz {health!r};"
+          f" flood codes {sorted(codes)}, a 429 body {bodies[:1]}; SIGINT "
+          f"rc {rc}, stats completed {stats.get('completed')}", flush=True)
+    if not all(same):
+        raise AssertionError(f"serve CLI flows != in-process {same}")
+    if (summary != {"session": "s1", "frames": 3, "pairs": 2,
+                    "warm_pairs": 1}
+            or int(stream[0]["frame"]) != 0 or not bool(stream[2]["warm"])):
+        raise AssertionError(f"serve CLI stream {summary}")
+    if b"raft_serve_compiles_total" not in metrics or health != b"ok":
+        raise AssertionError("serve CLI: /metrics or /v1/healthz")
+    if not n429 or any(
+            ra is None or set(b) != {"error", "queue_depth", "retry_after_s"}
+            for ra, b in bodies):
+        raise AssertionError(f"serve CLI flood: {codes} {bodies[:2]}")
+    if rc != 0 or "completed" not in stats:
+        raise AssertionError(f"serve CLI exit {rc}: {child.lines[-3:]}")
+    return {"flows_bit_equal": same, "flood_codes": sorted(codes),
+            "stats_completed": stats["completed"], "stream": summary}
+
+
+def phase_serve(sd, peaks):
+    """The serving engine on the card (see the module docstring)."""
+    pairs, clip = _serve_pairs(), _serve_clip()
+    res, secs = {}, {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        res[name] = fn(*args)
+        secs[name] = time.perf_counter() - t
+        print(f"[time] serve {name}: {secs[name]:.1f} s", flush=True)
+
+    part("kernels", _serve_kernels, peaks)
+    part("forward_warp", _serve_forward_warp)
+    for label in SERVE_CONFIGS:
+        part(f"checks/{label}", _serve_checks, sd, label, pairs, clip)
+    part("kernel_vs_plain", _serve_kernel_vs_plain, sd, pairs)
+    for label in SERVE_CONFIGS:
+        part(f"timings/{label}", _serve_timings, sd, label, pairs, clip,
+             peaks)
+    part("memory", _serve_memory, sd)
+    part("cli", _serve_cli, sd, pairs, clip)
+    res["seconds"] = secs
+    res["replay_launches"] = {
+        label: res[f"checks/{label}"]["replay_launches"]
+        for label in SERVE_CONFIGS}
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--report", default=None,
@@ -4060,6 +4800,7 @@ def main(argv=None) -> int:
             **timed_phase(phase_slice4_kernels, peaks)}
     small_kern = timed_phase(phase_small_kernels, peaks)
     path, main_counts, sd = timed_phase(phase_path)
+    serve = timed_phase(phase_serve, sd, peaks)
     graphs = timed_phase(phase_graphs, sd)
     demo_res = timed_phase(phase_demo, sd)
     eval_res = timed_phase(phase_eval, sd)
@@ -4121,6 +4862,13 @@ def main(argv=None) -> int:
                 if v:
                     small_counts.setdefault(k, v)
         rs = small["kernels"].get(kname)
+        # the serving path (kernel configuration): launches of one iter
+        # replay over the slots, and the kernel at the slot shape
+        sv = serve["kernels"].get(kname)
+        serve_rec = {"launches_per_replay": serve["replay_launches"][
+            "kernel"]["iter"].get(kname, 0), **(
+            {k: sv[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by")} if sv else {})}
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[kname],
@@ -4129,7 +4877,8 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             "small": {"launches": small_counts.get(kname, 0), **(
                 {k: rs[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by")} if rs else {})}})
+                                    "bound_ms", "bound_by")} if rs else {})},
+            "serve": serve_rec})
         if kernels[-1]["launches"] < 1:
             raise AssertionError(f"{kname}: no launch on its main path")
         if (kname.startswith("upsample_loss")
@@ -4144,7 +4893,7 @@ def main(argv=None) -> int:
             json.dump({"nvidia_smi": smi, "device": name,
                        "torch": torch.__version__, "cuda": torch.version.cuda,
                        "build": build_res, "phase_s": secs,
-                       "kernels": kern, "path": path,
+                       "kernels": kern, "path": path, "serve": serve,
                        "graphs": graphs, "demo": demo_res,
                        "eval": eval_res,
                        "train": train, "train_cli": train_cli,

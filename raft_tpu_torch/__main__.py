@@ -8,6 +8,7 @@ the subcommands the port has::
     python -m raft_tpu_torch demo --model weights.pth --path demo-frames
     python -m raft_tpu_torch lk-compare --model weights.pth \
         --image1 a.png --image2 b.png
+    python -m raft_tpu_torch serve --random-init --port 8080
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ _SUBCOMMANDS = {
     "demo": ("raft_tpu_torch.cli.demo", "flow visualization over a frame dir"),
     "lk-compare": ("raft_tpu_torch.cli.lk_compare",
                    "RAFT against Lucas-Kanade, side by side"),
+    "serve": ("raft_tpu_torch.cli.serve", "HTTP inference server"),
 }
 
 

@@ -1,20 +1,24 @@
 """Deterministic fault injection (the port's copy of the parts of
-``raft_tpu/chaos/`` that the training input side, the checkpoints and the
-curriculum driver use).
+``raft_tpu/chaos/`` that the training input side, the checkpoints, the
+curriculum driver and the serving engine use).
 
 ``RAFT_CHAOS_SPEC='corrupt_image@step=7;torn_ckpt@step=50'`` installs a
 seeded :class:`FaultPlan`; the named injection points of the loader, the
 device pipeline, the checkpoints, the train loop and the curriculum
 driver then fire those faults deterministically, so the self-healing
-paths (sample quarantine, checkpoint fallback, preemption, stage resume)
-run on purpose.  With no plan installed
+paths (sample quarantine, checkpoint fallback, preemption, stage resume,
+the serving engine's retries) run on purpose.  With no plan installed
 each point is one ``None`` check.
 """
 
 from raft_tpu_torch.chaos.errors import (
     InjectedCheckpointCorruption,
+    InjectedDeviceError,
     InjectedProducerCrash,
+    InjectedReplicaKill,
     InjectedWorkerCrash,
+    ReplicaWedgedInterrupt,
+    is_transient_error,
     tear_files,
 )
 from raft_tpu_torch.chaos.plan import (
@@ -36,10 +40,14 @@ __all__ = [
     "FAULTS",
     "FaultPlan",
     "InjectedCheckpointCorruption",
+    "InjectedDeviceError",
     "InjectedProducerCrash",
+    "InjectedReplicaKill",
     "InjectedWorkerCrash",
+    "ReplicaWedgedInterrupt",
     "install",
     "install_from_env",
+    "is_transient_error",
     "should_inject",
     "tear_files",
     "uninstall",

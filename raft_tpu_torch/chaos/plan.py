@@ -1,6 +1,6 @@
 """Deterministic, seeded fault plans (the port's copy of
-``raft_tpu/chaos/plan.py``, with the faults of the training input side
-and the checkpoints).
+``raft_tpu/chaos/plan.py``, with the faults of the training input side,
+the checkpoints and the serving engine).
 
 Spec grammar (``RAFT_CHAOS_SPEC`` / the train CLI's chaos flag)::
 
@@ -33,6 +33,17 @@ fault              seam (point)            what happens
                    boundary``              index N (step context = the
                                            stage index), after the
                                            previous stage's ledger commit
+``device_err``     ``serve.device``        ``InjectedDeviceError`` before a
+                                           device call (step context = the
+                                           engine's batch ordinal); the
+                                           engine retries it
+``replica_slow``   ``serve.replica``       the batch sleeps
+                                           ``chaos_slow_s``
+``replica_hang``   ``serve.replica``       the device worker wedges until
+                                           the engine stops, then
+                                           ``ReplicaWedgedInterrupt``
+``replica_kill``   ``serve.replica``       the engine marks itself crashed;
+                                           ``InjectedReplicaKill``
 =================  ======================  ================================
 
 The JAX package's other faults belong to parts of the system the port
@@ -53,13 +64,15 @@ ENV_SPEC = "RAFT_CHAOS_SPEC"
 ENV_SEED = "RAFT_CHAOS_SEED"
 
 FAULTS = ("corrupt_image", "worker_err", "producer_err", "torn_ckpt",
-          "restore_err", "preempt", "stage_kill")
-# Faults of the JAX package whose seams the port does not have yet.
+          "restore_err", "preempt", "stage_kill", "device_err",
+          "replica_slow", "replica_hang", "replica_kill")
+# Faults of the JAX package whose seams the port does not have yet: the
+# remote serving fabric's.
 LATER_FAULTS = {
-    "device_err": "A7 (serving)", "replica_kill": "A7 (serving)",
-    "replica_hang": "A7 (serving)", "replica_slow": "A7 (serving)",
-    "net_refuse": "A7 (serving)", "net_slow": "A7 (serving)",
-    "net_drop": "A7 (serving)", "net_partition": "A7 (serving)"}
+    "net_refuse": "A7 (the remote fabric)",
+    "net_slow": "A7 (the remote fabric)",
+    "net_drop": "A7 (the remote fabric)",
+    "net_partition": "A7 (the remote fabric)"}
 
 _FAULT_RE = re.compile(r"^[a-z][a-z0-9_]*$")
 

@@ -11,6 +11,9 @@ of the train CLI), whose newest restorable step gives the weights.
 correlation lookup (the CUDA kernel on the card) and the fused GRU gates.
 ``--epe_delta float32,int8`` runs the validator once per correlation
 storage dtype and prints the deltas against the first.
+``--early_exit_threshold 0.05,0.2`` sweeps early-exit thresholds
+against the full-iteration baseline through the serving engine's slot
+programs and prints the record as one JSON line.
 ``--corr_precision`` takes the JAX CLI's values (``auto`` / ``default`` /
 ``high`` / ``highest``): the precision of the correlation's matrix
 products, TF32 on the card for ``high`` and ``default``.  It runs on the
@@ -53,6 +56,24 @@ def _epe_delta_arg(value: str):
         raise argparse.ArgumentTypeError(str(e))
 
 
+def _early_exit_arg(value: str):
+    parts = [t.strip() for t in value.split(",") if t.strip()]
+    if not parts:
+        raise argparse.ArgumentTypeError(
+            f"--early_exit_threshold needs a comma list of >= 1 "
+            f"float, got {value!r}")
+    try:
+        thrs = [float(t) for t in parts]
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--early_exit_threshold values must be floats, "
+            f"got {value!r}")
+    if any(t < 0 for t in thrs):
+        raise argparse.ArgumentTypeError(
+            f"--early_exit_threshold values must be >= 0, got {value!r}")
+    return thrs
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="RAFT evaluation (PyTorch port)")
     p.add_argument("--model", required=True,
@@ -75,6 +96,14 @@ def parse_args(argv=None):
                    help="run the validator under each corr storage dtype "
                         "and print per-metric deltas against the first; "
                         "overrides --corr_dtype")
+    p.add_argument("--early_exit_threshold", default=None,
+                   type=_early_exit_arg, metavar="T[,T...]",
+                   help="accuracy gate of adaptive early exit: each "
+                        "convergence threshold against the full-iteration "
+                        "baseline (threshold 0) on the same weights, per "
+                        "arm the EPE delta and iters_used p50/p95 (the "
+                        "serving knob it gates is "
+                        "ServeConfig.early_exit_threshold)")
     p.add_argument("--alternate_corr", action="store_true",
                    help="on-demand correlation lookup and fused GRU gates "
                         "(the CUDA kernels on the card)")
@@ -141,6 +170,22 @@ def main(argv=None):
         "kitti": dict(root=osp.join(args.data_root, "KITTI"),
                       bucket=not args.no_bucket),
     }[args.dataset]
+    if args.early_exit_threshold:
+        import json
+
+        result = evaluate.evaluate_early_exit_delta(
+            state_dict, model_cfg, args.early_exit_threshold,
+            dataset=args.dataset, iters=iters, batch_size=args.eval_batch,
+            device=args.device, **kwargs)
+        # the JAX CLI's bench-format record of the sweep
+        print(json.dumps({
+            "metric": f"eval_early_exit_{args.dataset}_iters{iters}",
+            "value": 1.0, "unit": "pass", "vs_baseline": 0.0,
+            "config": {
+                "early_exit_delta_vs_full": result["delta_vs_full"],
+                "thresholds": result["thresholds"],
+                "per_threshold": result["per_threshold"]}}))
+        return result
     if args.epe_delta:
         return evaluate.evaluate_epe_delta(
             state_dict, model_cfg, args.epe_delta, dataset=args.dataset,

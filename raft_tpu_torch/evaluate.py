@@ -9,7 +9,9 @@ of ``raft_tpu/evaluate.py``).
   an optional warm start (the previous frame's 1/8 flow forward-warped
   along itself into the next frame's ``flow_init``);
 - ``create_kitti_submission``: 16-bit PNG flow of the test split;
-- ``evaluate_epe_delta``: one validator under several ``corr_dtype``s.
+- ``evaluate_epe_delta``: one validator under several ``corr_dtype``s;
+- ``evaluate_early_exit_delta``: early-exit thresholds against the full
+  iteration count, through the serving engine's slot programs.
 
 Images stream through the test-mode forward in batches of one shape:
 each batch is decoded and padded on the host, moved to the device by the
@@ -39,6 +41,7 @@ from raft_tpu_torch.config import (RAFTConfig, backend_flags,
                                    entry_precision, validate_corr_dtype)
 from raft_tpu_torch.data import datasets, frame_utils
 from raft_tpu_torch.models.raft import RAFT
+from raft_tpu_torch.obs import default_sink, span
 from raft_tpu_torch.ops.pad import InputPadder, max_bucket_hw
 from raft_tpu_torch.utils.graphs import GraphCache
 from raft_tpu_torch.utils.warp import forward_interpolate
@@ -386,3 +389,119 @@ def evaluate_epe_delta(state_dict, model_cfg: RAFTConfig, dtypes,
         print(f"EPE delta {dt} - {base} [{dataset}]: {line}", flush=True)
     return {"dataset": dataset, "dtypes": list(dtypes),
             "per_dtype": per_dtype, f"delta_vs_{base}": deltas}
+
+
+# The datasets the early-exit sweep can stream (a seam tests patch, like
+# VALIDATORS): name -> constructor.
+EARLY_EXIT_DATASETS = {
+    "chairs": lambda **kw: datasets.FlyingChairs(split="validation", **kw),
+    "sintel": lambda **kw: datasets.MpiSintel(split="training",
+                                              dstype="clean", **kw),
+    "kitti": lambda **kw: datasets.KITTI(split="training", **kw),
+}
+
+
+def _early_exit_flows(state_dict, runner, ds, mode: str, batch_size: int,
+                      iters: int, threshold: float, target=None):
+    """Stream ``ds`` through an
+    :class:`~raft_tpu_torch.serve.slots.EarlyExitRunner` in batches of
+    one shape; yields ``(sample, flow (H, W, 2) unpadded, iters_used,
+    residual)`` per image (the early-exit counterpart of
+    :func:`_batched_flows`; ``residual`` is the lane's ``delta_max`` at
+    its retirement)."""
+    n = len(ds)
+    for start in range(0, n, batch_size):
+        idxs = list(range(start, min(start + batch_size, n)))
+        samples = [ds.load(i) for i in idxs]
+        padders = [InputPadder(s["image1"].shape, mode=mode, target=target)
+                   for s in samples]
+        im1 = [p.pad_np(s["image1"]) for p, s in zip(padders, samples)]
+        im2 = [p.pad_np(s["image2"]) for p, s in zip(padders, samples)]
+        pad_n = batch_size - len(idxs)
+        if pad_n:  # keep the batch shape on the final chunk
+            im1 += [im1[-1]] * pad_n
+            im2 += [im2[-1]] * pad_n
+        with span("raft_eval_forward", dataset=mode, emit=True):
+            flow_up, used, resid = runner.run(
+                state_dict, np.stack(im1), np.stack(im2), iters, threshold,
+                return_residuals=True)
+        for j, (s, p) in enumerate(zip(samples, padders)):
+            yield s, p.unpad(flow_up[j]), int(used[j]), float(resid[j])
+
+
+def evaluate_early_exit_delta(state_dict, model_cfg: RAFTConfig,
+                              thresholds, dataset: str = "chairs",
+                              iters: int = 24, batch_size: int = 4,
+                              bucket: bool = True,
+                              device: DeviceLike = "cuda",
+                              **dataset_kwargs) -> Dict:
+    """One checkpoint, one dataset, N early-exit thresholds against the
+    full-iteration baseline: the accuracy gate of the serving engine's
+    ``early_exit_threshold``.
+
+    Arm 0 is always the baseline (threshold 0: every lane runs all
+    ``iters``); each requested threshold re-streams the same samples
+    through the same :class:`~raft_tpu_torch.serve.slots.EarlyExitRunner`
+    (the serving engine's slot programs).  Per arm: the EPE, its delta
+    against the baseline, ``iters_used`` mean / p50 / p95 and the
+    retirement residual's mean and p50.
+
+    Returns ``{"dataset", "iters", "thresholds", "per_threshold": {thr:
+    {...}}, "delta_vs_full": {thr: epe_delta}}`` with the thresholds as
+    strings, and emits an ``eval_early_exit_delta`` event."""
+    from raft_tpu_torch.serve.slots import EarlyExitRunner
+
+    thrs = [float(t) for t in thresholds]
+    if not thrs:
+        raise ValueError("--early_exit_threshold needs >= 1 threshold")
+    if any(t < 0 for t in thrs):
+        raise ValueError(f"thresholds must be >= 0: {thrs}")
+    try:
+        make_ds = EARLY_EXIT_DATASETS[dataset]
+    except KeyError:
+        raise ValueError(f"unknown dataset {dataset!r}; choose from "
+                         f"{sorted(EARLY_EXIT_DATASETS)}")
+    arms, seen = [], set()
+    for t in [0.0] + thrs:          # baseline first, dedup after
+        if t not in seen:
+            seen.add(t)
+            arms.append(t)
+    runner = EarlyExitRunner(model_cfg, device=device)
+    ds = make_ds(**dataset_kwargs)
+    target = _bucket_hw(ds) if bucket else None
+    per: Dict[str, Dict[str, float]] = {}
+    base_epe = None
+    for t in arms:
+        epes, used_all, resid_all = [], [], []
+        print(f"--- early_exit_threshold={t:g} ---", flush=True)
+        for sample, flow, used, resid in _early_exit_flows(
+                state_dict, runner, ds, dataset, batch_size, iters, t,
+                target=target):
+            epes.append(_epe(flow, sample["flow"]).reshape(-1))
+            used_all.append(used)
+            resid_all.append(resid)
+        epe = float(np.mean(np.concatenate(epes)))
+        used_np = np.asarray(used_all, np.float64)
+        resid_np = np.asarray(resid_all, np.float64)
+        if base_epe is None:
+            base_epe = epe
+        per[f"{t:g}"] = {
+            "epe": round(epe, 6),
+            "epe_delta": round(epe - base_epe, 6),
+            "iters_mean": round(float(used_np.mean()), 3),
+            "iters_p50": float(np.percentile(used_np, 50)),
+            "iters_p95": float(np.percentile(used_np, 95)),
+            "residual_mean": round(float(resid_np.mean()), 6),
+            "residual_p50": round(float(np.percentile(resid_np, 50)), 6),
+        }
+        print(f"early-exit thr={t:g} [{dataset}]: EPE {epe:.4f} "
+              f"(delta {epe - base_epe:+.4f}), iters p50 "
+              f"{per[f'{t:g}']['iters_p50']:g} p95 "
+              f"{per[f'{t:g}']['iters_p95']:g}", flush=True)
+    deltas = {k: v["epe_delta"] for k, v in per.items() if k != "0"}
+    default_sink().emit("eval_early_exit_delta", dataset=dataset,
+                        iters=iters, thresholds=[f"{t:g}" for t in arms],
+                        deltas=deltas)
+    return {"dataset": dataset, "iters": iters,
+            "thresholds": [f"{t:g}" for t in arms],
+            "per_threshold": per, "delta_vs_full": deltas}

@@ -57,7 +57,7 @@ mask_head.mask_conv1.weight``) so ``convert.py`` maps them mechanically.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -68,8 +68,9 @@ from raft_tpu_torch.models.extractor import BasicEncoder, SmallEncoder
 from raft_tpu_torch.models.layers import Conv, Norm
 from raft_tpu_torch.models.update import (BasicUpdateBlock, FusedCorrLookup,
                                           MaskHead, SmallUpdateBlock)
-from raft_tpu_torch.ops.corr import (build_corr_pyramid, chunked_corr_lookup,
-                                     corr_lookup, pool_fmap_pyramid)
+from raft_tpu_torch.ops.corr import (QuantizedLevel, build_corr_pyramid,
+                                     chunked_corr_lookup, corr_lookup,
+                                     pool_fmap_pyramid)
 from raft_tpu_torch.ops.corr_kernels import corr_lookup_ondemand_nchw
 from raft_tpu_torch.ops.pyramid_kernels import (pyramid_lookup_nchw,
                                                 pyramid_lookup_quantized_nchw)
@@ -139,40 +140,152 @@ class RAFT(nn.Module):
             if isinstance(m, (Conv, Norm)):
                 m.init_(gen)
 
-    def _lookup_fn(self, fmap1: torch.Tensor,
-                   fmap2: torch.Tensor) -> Callable:
-        """Correlation state for one pair -> ``coords -> (B, P, H, W)``
-        taps, dispatched on ``corr_impl`` (a :class:`FusedCorrLookup` for
-        the motion encoder with ``fused_lookup_encoder``).  The volume and
-        the plain lookups run at ``corr_precision``; the kernels compute
-        in fp32."""
+    def corr_state(self, fmap1: torch.Tensor,
+                   fmap2: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The correlation state of a pair of fp32 NHWC feature maps as a
+        flat tuple of tensors (the counterpart of JAX's
+        ``_build_corr_state``), what :meth:`corr_lookup` reads:
+
+        - ``allpairs`` / ``allpairs_pallas``: the pyramid levels, each a
+          ``(B, H*W, Hl, Wl)`` tensor in ``corr_dtype``, or for a
+          quantized dtype each level's codes and ``(B, 1, 1, 1)`` scale;
+        - ``chunked`` / ``pallas``: ``fmap1`` and the pooled ``fmap2``
+          levels.
+
+        Every tensor has the batch first, so a serving slot keeps one
+        lane's state in row ``i`` of each."""
         cfg = self.config
-        r, L = cfg.corr_radius, cfg.corr_levels
-        prec = cfg.resolved_corr_precision
+        L = cfg.corr_levels
         if cfg.corr_impl in ("allpairs", "allpairs_pallas"):
             pyramid = build_corr_pyramid(fmap1, fmap2, L,
-                                         cfg.corr_torch_dtype, prec)
+                                         cfg.corr_torch_dtype,
+                                         cfg.resolved_corr_precision)
+            return tuple(t for lv in pyramid for t in (
+                lv if isinstance(lv, QuantizedLevel) else (lv,)))
+        f2_pyramid = pool_fmap_pyramid(fmap2, L)
+        if cfg.corr_impl == "pallas":
+            # the on-demand kernels read contiguous levels; their backward
+            # reaches fmap2 through the pooling by autograd
+            f2_pyramid = [f2.contiguous() for f2 in f2_pyramid]
+        return (fmap1, *f2_pyramid)
+
+    def corr_lookup(self, state: Sequence[torch.Tensor],
+                    coords: torch.Tensor):
+        """``coords -> (B, P, H, W)`` taps from a :meth:`corr_state`,
+        dispatched on ``corr_impl`` (a :class:`FusedCorrLookup` for the
+        motion encoder with ``fused_lookup_encoder``).  The plain lookups
+        run at ``corr_precision``; the kernels compute in fp32."""
+        cfg = self.config
+        r = cfg.corr_radius
+        prec = cfg.resolved_corr_precision
+        if cfg.corr_impl in ("allpairs", "allpairs_pallas"):
+            pyramid = ([QuantizedLevel(state[i], state[i + 1])
+                        for i in range(0, len(state), 2)]
+                       if cfg.corr_dtype_is_quantized else list(state))
             if cfg.fused_lookup_encoder:
-                return lambda c: FusedCorrLookup(pyramid, c.contiguous(), r,
-                                                 cfg.dtype)
+                return FusedCorrLookup(pyramid, coords.contiguous(), r,
+                                       cfg.dtype)
             if cfg.corr_impl == "allpairs_pallas":
                 # the kernels emit the taps in the compute dtype directly
                 lookup = (pyramid_lookup_quantized_nchw
                           if cfg.corr_dtype_is_quantized
                           else pyramid_lookup_nchw)
-                return lambda c: lookup(pyramid, c, r, cfg.dtype)
-            return lambda c: corr_lookup(pyramid, c, r, prec).permute(
+                return lookup(pyramid, coords, r, cfg.dtype)
+            return corr_lookup(pyramid, coords, r, prec).permute(
                 0, 3, 1, 2).contiguous()
-        f2_pyramid = pool_fmap_pyramid(fmap2, L)
+        fmap1, f2_pyramid = state[0], list(state[1:])
         if cfg.corr_impl == "chunked":
-            return lambda c: chunked_corr_lookup(
-                fmap1, f2_pyramid, c, r, cfg.corr_block_size, prec
+            return chunked_corr_lookup(
+                fmap1, f2_pyramid, coords, r, cfg.corr_block_size, prec
             ).permute(0, 3, 1, 2).contiguous()
-        # 'pallas': the on-demand kernels; their backward reaches fmap2
-        # through the pooling by autograd
-        f2_pyramid = [f2.contiguous() for f2 in f2_pyramid]
-        return lambda c: corr_lookup_ondemand_nchw(
-            fmap1, f2_pyramid, c.contiguous(), r)
+        return corr_lookup_ondemand_nchw(fmap1, f2_pyramid,
+                                         coords.contiguous(), r)
+
+    @staticmethod
+    def _nchw(image: torch.Tensor) -> torch.Tensor:
+        """NHWC frames in [0, 255] -> NCHW-contiguous fp32 in [-1, 1] (a
+        permuted NHWC view would make the convs emit channels-last
+        outputs)."""
+        image = 2.0 * (image.float() / 255.0) - 1.0
+        return image.permute(0, 3, 1, 2).contiguous()
+
+    def _split_context(self, ctx: torch.Tensor):
+        """``cnet``'s output -> ``(net, inp)``: tanh of the first
+        ``hidden_dim`` channels, relu of the rest."""
+        hdim = self.config.hidden_dim
+        return torch.tanh(ctx[:, :hdim]), torch.relu(ctx[:, hdim:])
+
+    def encode(self, image1: torch.Tensor, image2: torch.Tensor,
+               flow_init: Optional[torch.Tensor] = None,
+               freeze_bn: bool = False,
+               generator: Optional[torch.Generator] = None):
+        """The half of the forward before the refinement loop (JAX's
+        ``_encode_state``, and as a serving program ``RAFTEncode``):
+        ``(B, H, W, 3)`` frames -> ``(net, inp, coords0, coords1,
+        corr_state)``; ``net`` and ``inp`` are NCHW in the compute dtype,
+        the coordinates ``(B, H/8, W/8, 2)`` fp32.  Per sample
+        independent in eval mode (instance norm; batch norm on stored
+        statistics), so serving lanes encode together."""
+        dt = self.config.dtype
+        x1, x2 = self._nchw(image1), self._nchw(image2)
+        B = x1.shape[0]
+        fmaps = self.fnet(torch.cat([x1, x2], dim=0).to(dt), freeze_bn,
+                          generator)
+        fmaps = fmaps.float().permute(0, 2, 3, 1).contiguous()   # NHWC
+        _, H8, W8, _ = fmaps.shape
+        corr = self.corr_state(fmaps[:B], fmaps[B:])
+        # From here the correlation state alone holds the features: a
+        # quantized pyramid holds no graph, so fnet's saved activations
+        # are freed now rather than when the forward returns
+        del fmaps
+        net, inp = self._split_context(self.cnet(x1.to(dt), freeze_bn,
+                                                 generator))
+        coords0 = coords_grid(B, H8, W8, device=x1.device)
+        coords1 = coords0 if flow_init is None else coords0 + flow_init
+        return net, inp, coords0, coords1, corr
+
+    def frame_features(self, image: torch.Tensor):
+        """One frame's features for a streaming session (JAX's
+        ``RAFTFrameFeatures``): ``(B, H, W, 3) -> (fmap (B, H/8, W/8, C)
+        fp32, ctx (B, hidden + context, H/8, W/8) compute dtype)``, eval
+        mode, normalized as :meth:`encode` normalizes."""
+        x = self._nchw(image).to(self.config.dtype)
+        fmap = self.fnet(x, False, None).float().permute(0, 2, 3, 1)
+        return fmap.contiguous(), self.cnet(x, False, None)
+
+    def encode_warm(self, image2: torch.Tensor, fmap1: torch.Tensor,
+                    ctx1: torch.Tensor, flow_init: torch.Tensor):
+        """The warm encode of streamed frame N+1 (JAX's
+        ``RAFTEncodeWarm``): only the new frame runs through the
+        encoders; the carried ``fmap1`` / ``ctx1`` of the previous frame
+        stand in for frame 1, and ``flow_init`` (the previous flow warped
+        forward) starts ``coords1``.  Returns ``(net, inp, coords0,
+        coords1, corr_state, fmap2, ctx2)``, the last two the next
+        carry."""
+        fmap2, ctx2 = self.frame_features(image2)
+        corr = self.corr_state(fmap1, fmap2)
+        net, inp = self._split_context(ctx1)
+        B, H8, W8, _ = fmap1.shape
+        coords0 = coords_grid(B, H8, W8, device=fmap1.device)
+        return net, inp, coords0, coords0 + flow_init, corr, fmap2, ctx2
+
+    def iter_step(self, net, coords1, inp, coords0, corr):
+        """One refinement iteration from a correlation state (JAX's
+        ``RAFTIterStep``): the loop body of :meth:`forward`, under the
+        same remat policy -> ``(net, coords1)``."""
+        return self._refine(functools.partial(self.corr_lookup, corr), net,
+                            inp, coords0, coords1)
+
+    def upsample(self, net: torch.Tensor,
+                 flow_low: torch.Tensor) -> torch.Tensor:
+        """``(net, flow_low (B, H/8, W/8, 2)) -> flow_up (B, H, W, 2)``
+        (JAX's ``RAFTUpsample``): the mask head and the convex upsample,
+        or the small model's ``upflow8``."""
+        if self.config.small:
+            return upflow8(flow_low)
+        mask = self.upsampler["mask_head"](net).float()
+        flow_up = convex_upsample_nchw(flow_low.permute(0, 3, 1, 2), mask)
+        return flow_up.permute(0, 2, 3, 1)
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 iters: int = 12, flow_init: Optional[torch.Tensor] = None,
@@ -182,32 +295,10 @@ class RAFT(nn.Module):
         """``(B, H, W, 3)`` frames -> one of the three outputs of the
         module docstring; ``flow_init`` is ``(B, H/8, W/8, 2)``."""
         cfg = self.config
-        dt = cfg.dtype
-        hdim = cfg.hidden_dim
-        image1 = 2.0 * (image1.float() / 255.0) - 1.0
-        image2 = 2.0 * (image2.float() / 255.0) - 1.0
-        # NCHW-contiguous throughout: a permuted NHWC view would make the
-        # convs emit channels-last outputs
-        x1 = image1.permute(0, 3, 1, 2).contiguous()
-        x2 = image2.permute(0, 3, 1, 2).contiguous()
-        B = x1.shape[0]
-
-        fmaps = self.fnet(torch.cat([x1, x2], dim=0).to(dt), freeze_bn,
-                          generator)
-        fmaps = fmaps.float().permute(0, 2, 3, 1).contiguous()   # NHWC
-        _, H8, W8, _ = fmaps.shape
-        lookup = self._lookup_fn(fmaps[:B], fmaps[B:])
-        # From here the lookup state alone holds the features: a quantized
-        # pyramid holds no graph, so fnet's saved activations are freed now
-        # rather than when the forward returns
-        del fmaps
-
-        ctx = self.cnet(x1.to(dt), freeze_bn, generator)
-        net = torch.tanh(ctx[:, :hdim])
-        inp = torch.relu(ctx[:, hdim:])
-
-        coords0 = coords_grid(B, H8, W8, device=x1.device)
-        coords1 = coords0 if flow_init is None else coords0 + flow_init
+        net, inp, coords0, coords1, corr = self.encode(
+            image1, image2, flow_init, freeze_bn, generator)
+        lookup = functools.partial(self.corr_lookup, corr)
+        B, H8, W8, _ = coords0.shape
         nets, flows = [], []
         for _ in range(iters):
             net, coords1 = self._refine(lookup, net, inp, coords0,
@@ -216,16 +307,13 @@ class RAFT(nn.Module):
                 nets.append(net)
                 flows.append(coords1 - coords0)
 
-        if cfg.small:
-            return self._small_outputs(flows, coords1 - coords0, test_mode,
-                                       loss_targets)
-        mask_head = self.upsampler["mask_head"]
         if test_mode:
             flow_low = coords1 - coords0
-            mask = mask_head(net).float()
-            flow_up = convex_upsample_nchw(flow_low.permute(0, 3, 1, 2), mask)
-            return flow_low, flow_up.permute(0, 2, 3, 1)
-
+            return flow_low, self.upsample(net, flow_low)
+        if cfg.small:
+            return self._small_outputs(flows, coords1 - coords0,
+                                       loss_targets)
+        mask_head = self.upsampler["mask_head"]
         # every iteration folded into one batch, iteration-major
         flows = torch.stack(flows, dim=0).reshape(iters * B, H8, W8, 2)
         nets = torch.cat(nets, dim=0)
@@ -290,12 +378,10 @@ class RAFT(nn.Module):
             return upsample_loss_sums(flows, mask, gt, vmask)
         return upsample_loss_sums_plain(flows, mask, gt, vmask, cfg.dtype)
 
-    def _small_outputs(self, flows, flow_low, test_mode, loss_targets):
-        """Small-model upsampling: ``upflow8`` of the last flow (test
-        mode) or of every iteration's, and with ``loss_targets`` the
-        sequence-loss terms on them (``raft_tpu/models/raft.py:548-576``)."""
-        if test_mode:
-            return flow_low, upflow8(flow_low)
+    def _small_outputs(self, flows, flow_low, loss_targets):
+        """Small-model upsampling of every iteration's flow (``upflow8``),
+        and with ``loss_targets`` the sequence-loss terms on them
+        (``raft_tpu/models/raft.py:548-576``)."""
         iters = len(flows)
         B, H8, W8, _ = flow_low.shape
         up = upflow8(torch.cat(flows, dim=0)).reshape(

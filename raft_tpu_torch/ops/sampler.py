@@ -1,5 +1,6 @@
-"""Coordinate grids and the small model's bilinear 8x upsample (the port
-of ``raft_tpu/ops/sampler.py:26-33`` and ``:143-181``)."""
+"""Coordinate grids, the forward warp of a flow field and the small
+model's bilinear 8x upsample (the port of ``raft_tpu/ops/sampler.py:
+26-33``, ``:86-140`` and ``:143-181``)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,57 @@ def coords_grid(batch: int, ht: int, wd: int, device=None) -> torch.Tensor:
         torch.arange(wd, dtype=torch.float32, device=device), indexing="ij")
     grid = torch.stack([x, y], dim=-1)
     return grid[None].expand(batch, ht, wd, 2).contiguous()
+
+
+def forward_warp_flow(flow: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """Forward-warp (bilinear splat) a ``(B, H, W, 2)`` flow field onto the
+    next frame: the warm start of a streamed frame.
+
+    The pixel at ``x`` with flow ``f(x)`` lands at ``x + f(x)`` and splats
+    ``f(x)`` into the four integer neighbours of its landing site with
+    bilinear weights; the splats and the weights are summed and the sum
+    is divided by the weight.  A target that nobody lands on (weight at
+    most ``eps``) gets zero flow, the cold start.
+
+    The sums are one ``index_put_(accumulate=True)``: in element order on
+    the CPU, and through a stable sort of the indices on the card, so a
+    target's contributions are added in the same order on every run (an
+    ``index_add_`` adds with atomics, in a different order each run).
+    The splats are ordered corner by corner, as in the JAX package."""
+    B, H, W, C = flow.shape
+    base = coords_grid(B, H, W, device=flow.device).to(flow.dtype)
+    tgt = base + flow
+    x = tgt[..., 0].reshape(B, -1)
+    y = tgt[..., 1].reshape(B, -1)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    wx = x - x0
+    wy = y - y0
+    vals = flow.reshape(B, -1, C)
+    idxs, payloads = [], []
+    for dx, dy, w in ((0, 0, (1 - wx) * (1 - wy)),
+                      (1, 0, wx * (1 - wy)),
+                      (0, 1, (1 - wx) * wy),
+                      (1, 1, wx * wy)):
+        ix = x0 + dx
+        iy = y0 + dy
+        valid = ((ix >= 0) & (ix <= W - 1) & (iy >= 0)
+                 & (iy <= H - 1)).to(flow.dtype)
+        w = w * valid
+        idxs.append((torch.clamp(iy, 0, H - 1) * W
+                     + torch.clamp(ix, 0, W - 1)).long())
+        payloads.append(torch.cat([vals * w[..., None], w[..., None]], -1))
+    idx = torch.cat(idxs, dim=1)                       # (B, 4*H*W)
+    idx = idx + torch.arange(B, device=flow.device)[:, None] * (H * W)
+    val = torch.cat(payloads, dim=1)                   # (B, 4*H*W, C+1)
+    acc = torch.zeros(B * H * W, C + 1, dtype=flow.dtype, device=flow.device)
+    acc.index_put_((idx.reshape(-1),), val.reshape(-1, C + 1),
+                   accumulate=True)
+    acc = acc.reshape(B, H * W, C + 1)
+    den = acc[..., C:]
+    out = torch.where(den > eps, acc[..., :C] / torch.clamp(den, min=eps),
+                      torch.zeros((), dtype=flow.dtype, device=flow.device))
+    return out.reshape(B, H, W, C)
 
 
 def _interp_matrix(src: int, dst: int, device) -> torch.Tensor:

@@ -27,6 +27,13 @@ like a jit cache:
   are returned as clones, so that a result outlives the next replay
   (metrics kept for a logging window, a ``flow_low`` fed back as the
   next call's ``flow_init``).
+- **Resident arguments.**  A program that owns large state (the
+  serving engine's slot state: a correlation pyramid per lane) passes
+  it as ``resident`` tensors: they are neither copied in nor cloned
+  out; the graph reads and writes them in place at the addresses it
+  captured, so their addresses are part of the key, and the caller
+  keeps them alive and in place (a reset zeroes them, it does not
+  reallocate).
 - **Launch counters.** A kernel wrapper adds to its ``LAUNCHES`` count in
   Python, which runs only while the graph is captured.  The capture's
   increase is taken back (nothing ran) and added again on every replay,
@@ -40,7 +47,7 @@ registered with the graph so that each replay draws fresh values.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Hashable, List, Sequence
+from typing import Callable, Dict, Hashable, List, Optional, Sequence
 
 import torch
 
@@ -81,12 +88,24 @@ def _flatten(tree, leaves: List):
     return lambda xs: tree
 
 
+def cache_key(key: Hashable, args: Sequence[torch.Tensor],
+              resident: Sequence[torch.Tensor] = ()) -> tuple:
+    """A graph's full key: the caller's key, each argument's shape, dtype
+    and device, and each resident tensor's address besides (the graph
+    reads and writes it there)."""
+    return (key, tuple((tuple(a.shape), a.dtype, a.device) for a in args),
+            tuple((r.data_ptr(), tuple(r.shape), r.dtype, r.device)
+                  for r in resident))
+
+
 class CapturedProgram:
-    """One CUDA graph of ``fn`` on static copies of ``args``."""
+    """One CUDA graph of ``fn`` on static copies of ``args`` and on the
+    ``resident`` tensors themselves."""
 
     def __init__(self, fn: Callable, args: Sequence[torch.Tensor],
                  generators: Sequence[torch.Generator],
-                 stream: torch.cuda.Stream):
+                 stream: torch.cuda.Stream,
+                 resident: Sequence[torch.Tensor] = ()):
         self.static_in = [a.clone() for a in args]
         self.graph = torch.cuda.CUDAGraph()
         for gen in generators:
@@ -94,7 +113,7 @@ class CapturedProgram:
         before = launch_counts()
         with torch.cuda.graph(self.graph, stream=stream,
                               capture_error_mode="thread_local"):
-            out = fn(*self.static_in)
+            out = fn(*self.static_in, *resident)
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}
@@ -112,33 +131,48 @@ class CapturedProgram:
 
 class GraphCache:
     """The captured programs of one function, one per key (see the module
-    docstring); ``counter`` holds the capture events by key."""
+    docstring); ``counter`` holds the capture events by key (a caller's
+    own :class:`CaptureCounter` may be passed in)."""
 
-    def __init__(self):
-        self.counter = CaptureCounter()
+    def __init__(self, counter: Optional[CaptureCounter] = None):
+        self.counter = CaptureCounter() if counter is None else counter
         self._programs: Dict[Hashable, CapturedProgram] = {}
         self._eager: Dict[Hashable, int] = {}
 
     def __call__(self, key: Hashable, fn: Callable,
                  args: Sequence[torch.Tensor],
-                 generators: Sequence[torch.Generator] = ()):
-        """``fn(*args)``: eagerly for the key's first calls, then through
-        its graph.  Every argument is a CUDA tensor."""
-        key = (key, tuple((tuple(a.shape), a.dtype, a.device)
-                          for a in args))
+                 generators: Sequence[torch.Generator] = (),
+                 resident: Sequence[torch.Tensor] = (),
+                 ledger_key: Optional[Hashable] = None):
+        """``fn(*args, *resident)``: eagerly for the key's first calls,
+        then through its graph.  Every tensor is a CUDA tensor.  The
+        capture is recorded under ``ledger_key`` when one is given, else
+        under the full key."""
+        key = cache_key(key, args, resident)
         prog = self._programs.get(key)
         if prog is None:
-            dev = args[0].device
+            dev = (list(args) + list(resident))[0].device
             side = _side_stream(dev)
             current = torch.cuda.current_stream(dev)
             side.wait_stream(current)
             if self._eager.get(key, 0) < WARMUP_CALLS:
                 self._eager[key] = self._eager.get(key, 0) + 1
                 with torch.cuda.stream(side):
-                    out = fn(*args)
+                    out = fn(*args, *resident)
                 current.wait_stream(side)
                 return out
-            prog = CapturedProgram(fn, args, generators, side)
+            prog = CapturedProgram(fn, args, generators, side, resident)
             self._programs[key] = prog
-            self.counter.record(key)
+            self.counter.record(key if ledger_key is None else ledger_key)
         return prog(args)
+
+    def drop(self, match: Callable[[Hashable], bool]) -> int:
+        """Forget the programs (and eager-call counts) whose caller key
+        ``match``es; their graphs, static buffers and private pools go
+        with the last reference.  Returns how many graphs went."""
+        gone = [k for k in self._programs if match(k[0])]
+        for k in gone:
+            del self._programs[k]
+        for k in [k for k in self._eager if match(k[0])]:
+            del self._eager[k]
+        return len(gone)

@@ -156,7 +156,7 @@ def test_unported_flags_name_their_roadmap_item(flag, capsys):
         train_cli.run([f"--{flag}", *UNPORTED_VALUES[flag]])
     # a chaos fault of a part the port does not have yet names its item
     with pytest.raises(SystemExit, match="ROADMAP A7"):
-        train_cli.run(["--chaos", "device_err@step=1", "--device", "cpu"])
+        train_cli.run(["--chaos", "net_refuse@step=1", "--device", "cpu"])
 
 
 def test_scan_unroll_is_refused_with_its_reason():

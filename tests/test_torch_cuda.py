@@ -1321,3 +1321,104 @@ def test_graph_caches_do_not_grow_memory(dev):
         torch.cuda.synchronize()
         after.append(torch.cuda.memory_allocated())
     assert after[0] == after[1] == after[2], after
+
+
+# --- the serving engine on the card ------------------------------------
+
+
+def _serve_pairs(n, hw=(60, 92), seed=0):
+    rng = np.random.default_rng(seed)
+    return [tuple(rng.uniform(0, 255, hw + (3,)).astype(np.float32)
+                  for _ in range(2)) for _ in range(n)]
+
+
+@pytest.mark.parametrize("cfg_kw,launches", [
+    ({}, {}),
+    ({"corr_impl": "pallas", "fused_gru": True},
+     {"corr_ondemand": 1, "gru_gate_rh": 2, "gru_gate_blend": 2})])
+def test_serve_slot_matches_request_on_the_card(dev, cfg_kw, launches):
+    """fp32, 4 lanes, 6 iterations: request mode within the fp32 bound of
+    ``make_eval_fn``; slot mode with staggered arrivals bit for bit
+    request mode; one capture a program; an ``iter`` replay launches
+    exactly the configuration's kernels, ``enc`` and ``up`` none."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.ops.pad import InputPadder
+    from raft_tpu_torch.serve import InferenceEngine, ServeConfig
+
+    cfg = RAFTConfig.full(**cfg_kw)
+    sd = RAFT(RAFTConfig.full(), seed=0).state_dict()
+    pairs = _serve_pairs(4)
+    req = InferenceEngine(sd, cfg, ServeConfig(
+        iters=6, max_batch=4, batch_sizes=(4,), max_wait_ms=200)).start()
+    req.warmup([(60, 92)])
+    want = [f.result(120) for f in [req.submit(a, b) for a, b in pairs]]
+    progs = req._get_programs((64, 96), 4)
+    zeros = np.zeros((4, 64, 96, 3), np.float32)
+    for name, fn in (("enc", lambda: progs.encode(
+            zeros, zeros, progs.admit_none, np.zeros(4, np.int32))),
+            ("iter", lambda: progs.iterate(0.0)),
+            ("up", progs.upsample)):
+        before = ops.launch_counts()
+        req._device_pool.submit(fn).result()
+        after = ops.launch_counts()
+        got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        assert got == (launches if name == "iter" else {}), (name, got)
+    assert set(req.capture_counter.counts().values()) == {1}
+    req.stop()
+    pad = InputPadder((60, 92), target=(64, 96))
+    _, up = make_eval_fn(cfg, 6)(sd, np.stack([pad.pad_np(a) for a, _ in
+                                               pairs]),
+                                 np.stack([pad.pad_np(b) for _, b in pairs]))
+    for j, w in enumerate(want):
+        np.testing.assert_allclose(w, pad.unpad(up[j].cpu().numpy()),
+                                   rtol=1e-4, atol=1e-3)
+    slot = InferenceEngine(sd, cfg, ServeConfig(
+        iters=6, batching="slot", slots=4)).start()
+    first = slot.submit(*pairs[0])
+    rest = [slot.submit(*p) for p in pairs[1:]]
+    got = [first.result(120)] + [f.result(120) for f in rest]
+    assert set(slot.capture_counter.counts().values()) == {1}
+    slot.stop()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_serve_stream_and_retry_on_the_card(dev):
+    """An 8-frame session: the first pair bit for bit a stateless request,
+    the rest warm and finite, 8 / 7 / 6; an injected ``device_err``
+    retried to the same bits; ``forward_warp_flow`` repeats bit for bit
+    and matches the CPU's."""
+    from raft_tpu_torch import chaos
+    from raft_tpu_torch.ops.sampler import forward_warp_flow
+    from raft_tpu_torch.serve import InferenceEngine, ServeConfig
+
+    flow = torch.randn(2, 8, 12, 2, generator=torch.Generator(
+        ).manual_seed(0)) * 4
+    a, b = forward_warp_flow(flow.to(dev)), forward_warp_flow(flow.to(dev))
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.cpu(), forward_warp_flow(flow),
+                               rtol=0, atol=1e-5)
+    sd = RAFT(RAFTConfig.small_model(), seed=0).state_dict()
+    frames = [f for p in _serve_pairs(4, seed=3) for f in p]
+    eng = InferenceEngine(sd, RAFTConfig.small_model(), ServeConfig(
+        iters=4, batching="slot", slots=2, retry_backoff_s=0.0,
+        retry_jitter=0.0)).start()
+    try:
+        ref = eng.infer(frames[0], frames[1], timeout=120)
+        chaos.install(chaos.FaultPlan.parse(
+            f"device_err@batch={eng._batch_seq + 3}"))
+        try:
+            assert np.array_equal(eng.infer(frames[0], frames[1],
+                                            timeout=120), ref)
+        finally:
+            chaos.uninstall()
+        assert eng.stats()["retries"] == 1
+        eng.stream_open("s", frames[0])
+        outs = [eng.stream_ingest("s", f, timeout=120) for f in frames[1:]]
+        assert eng.stream_close("s") == {"session": "s", "frames": 8,
+                                         "pairs": 7, "warm_pairs": 6}
+    finally:
+        eng.stop()
+    np.testing.assert_array_equal(outs[0]["flow"], ref)
+    assert [o["warm"] for o in outs] == [False] + [True] * 6
+    assert all(np.isfinite(o["flow"]).all() for o in outs)

@@ -10,14 +10,16 @@ from pathlib import Path
 import pytest
 import torch
 
+from raft_tpu_torch.cli import serve as serve_cli
 from raft_tpu_torch.cli import train as train_cli
 from raft_tpu_torch.config import RAFTConfig, TrainConfig
-from raft_tpu_torch.evaluate import (VALIDATORS, make_eval_fn,
-                                     make_inference_model)
+from raft_tpu_torch.evaluate import (VALIDATORS, evaluate_early_exit_delta,
+                                     make_eval_fn, make_inference_model)
 from raft_tpu_torch.models.raft import RAFT
 from raft_tpu_torch.ops import (build, corr_kernels, gru_gates, lookup_encode,
                                 pyramid_kernels, upsample_loss)
 from raft_tpu_torch.ops.corr import QuantizedLevel, pool_fmap_pyramid
+from raft_tpu_torch.serve import EarlyExitRunner, InferenceEngine
 from raft_tpu_torch.train.loop import train
 from raft_tpu_torch.train.step import init_state, make_train_step
 
@@ -57,7 +59,12 @@ def test_import_loads_no_jax_and_no_raft_tpu():
             "raft_tpu_torch.train.checkpoint", "raft_tpu_torch.train.logger",
             "raft_tpu_torch.cli.train", "raft_tpu_torch.cli.verify_ckpt",
             "raft_tpu_torch.curriculum", "raft_tpu_torch.cli.curriculum",
-            "raft_tpu_torch.cli.lk_compare"} <= set(MODULES)
+            "raft_tpu_torch.cli.lk_compare", "raft_tpu_torch.serve",
+            "raft_tpu_torch.serve.engine", "raft_tpu_torch.serve.slots",
+            "raft_tpu_torch.serve.stats", "raft_tpu_torch.cli.serve",
+            "raft_tpu_torch.obs", "raft_tpu_torch.obs.registry",
+            "raft_tpu_torch.obs.events",
+            "raft_tpu_torch.obs.exposition"} <= set(MODULES)
     for name in ("png_filters.c", "aug_ops.c"):
         assert (PKG / "native" / name).is_file()
 
@@ -96,6 +103,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         train(RAFTConfig.full(), cfg, iter([]))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.run(["--num_steps", "1"])
+    sd = RAFT(RAFTConfig.small_model()).state_dict()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngine(sd, RAFTConfig.small_model())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cli.main(["--random-init", "--small"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EarlyExitRunner(RAFTConfig.small_model())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_early_exit_delta(sd, RAFTConfig.small_model(), [0.1])
+    assert InferenceEngine(sd, RAFTConfig.small_model(),
+                           device="cpu").device.type == "cpu"
     assert make_eval_fn(RAFTConfig.full(), 2, device="cpu") is not None
     assert make_train_step(cfg, device="cpu") is not None
 
@@ -149,6 +167,22 @@ def test_unported_paths_name_their_slice():
     assert flows.shape == (2, 1, 16, 16, 2) and flows.requires_grad
     with torch.device("meta"):               # shapes only, no init
         assert RAFT(RAFTConfig.full()).fnet.conv1.weight.is_meta
+
+
+def test_serving_faults_accepted_net_faults_named():
+    """The serving engine's faults parse and fire at its seams; the remote
+    fabric's ``net_*`` faults are refused with their ROADMAP item."""
+    from raft_tpu_torch import chaos
+
+    for fault in ("device_err", "replica_slow", "replica_hang",
+                  "replica_kill"):
+        plan = chaos.FaultPlan.parse(f"{fault}@batch=2")
+        assert [plan.fires(fault, step=s) for s in (1, 2, 2)] == \
+            [False, True, False]
+    for fault in ("net_refuse", "net_slow", "net_drop", "net_partition"):
+        with pytest.raises(chaos.ChaosSpecError,
+                           match="ROADMAP A7 .the remote fabric"):
+            chaos.FaultPlan.parse(f"{fault}@step=1")
 
 
 def test_kernel_wrappers_refuse_meta_tensors():

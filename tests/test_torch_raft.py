@@ -134,8 +134,9 @@ def test_bf16_default_config_matches_jax_default_bf16():
         _build_corr_state(jcfg, f1, f2), coords, 4)).transpose(0, 3, 1, 2)
     model = RAFT(cfg)
     with torch.no_grad():
-        got = model._lookup_fn(torch.from_numpy(f1), torch.from_numpy(f2))(
-            torch.from_numpy(coords)).float().numpy()
+        state = model.corr_state(torch.from_numpy(f1), torch.from_numpy(f2))
+        got = model.corr_lookup(state, torch.from_numpy(coords)).float(
+        ).numpy()
     diff = np.abs(got - want)
     assert diff.mean() < 1e-6, diff.mean()
     assert diff.max() <= 2.0 ** -7 * np.abs(want).max()

@@ -105,7 +105,36 @@ Phases, each raising on failure (so the script exits nonzero):
    flows bit for bit the in-process engine's, a stream session,
    ``/metrics`` and ``/v1/healthz``, a flood past ``--max-queue``
    answered by structured 429s, SIGINT ending it with its stats line;
-6. graphs: the same entry points eagerly (``graphs=False``) against their
+6. fleet: the self-healing fleet (``ReplicaFleet`` + ``FlowRouter``) of
+   the kernel configuration at the Sintel bucket, 32 iterations, two
+   replicas sharing the card.  In fp32 with TF32 off, one pair a batch:
+   replica 0 captures and writes the warm-start manifest, replica 1
+   replays it (start time, what each engine holds, the reserved memory)
+   and neither captures on its first request; the router's flows bit
+   for bit a single engine's, with the launches of its path counted; a
+   rolling update to seed-1 weights from a port checkpoint while 4
+   clients loop through a least-loaded router until it returns (each
+   replica's flip finds requests in flight on its old engine, requests
+   span each flip, none fails or fails over; flows bit for bit a fresh
+   engine's; the update's seconds and peak reserved memory), a torn copy
+   refused at verify, NaN
+   weights at the canary and weights x25 at the proxy gate (its score
+   ratio); the fabric: a loopback server in this process fronting a
+   second engine, its flows bit for bit over the wire, the ms a pair the
+   wire adds, ``net_partition`` with ``heal=`` under load (no drop, the
+   remote rejoins).  In bf16 at batch sizes 1 and 8: ``replica_kill``
+   under a closed loop of 8 clients twice (no drop, a generation bump,
+   the restart seconds, no capture on the restarted engine's first
+   request), a ``replica_hang`` wedge (only the wedged replica restarts;
+   detection time, the sibling's p99 meanwhile), reserved memory after
+   these three restarts within 10%, ``replica_slow`` with a hedge (one
+   hedge, which wins) and without (none), and the router's pairs/s and
+   p50 / p99 over 8 x 16 requests against one engine, with the batches
+   each loop ran (count, fill, ms); in slot mode, one autoscaler grow
+   from 1 to 2 under load (the new replica capturing nothing on its
+   request path) and one scale-down after idle migrating an open
+   session (the fleet's CLI is phase clis');
+7. graphs: the same entry points eagerly (``graphs=False``) against their
    captured graphs: the 32-iteration Sintel forward (440x1024, B = 1) in
    ``allpairs`` and the kernel configuration, fp32 and bf16, and the
    small model's bf16 forward (on-demand configuration): outputs bit for
@@ -120,8 +149,8 @@ Phases, each raising on failure (so the script exits nonzero):
    eager and graphed (EPE within 1e-4 px, ms/pair); cuDNN TF32 on against
    off for the fp32 Sintel forward and chairs step (ms, the flow and
    metric differences);
-7. demo: the demo CLI on ``demo-frames`` with ``--alternate_corr``;
-8. eval: the evaluation path on synthetic dataset trees written with the
+8. demo: the demo CLI on ``demo-frames`` with ``--alternate_corr``;
+9. eval: the evaluation path on synthetic dataset trees written with the
    port's writers (Sintel: two scenes of 3 and 5 frames at 436x1024,
    clean and final; KITTI: a pair at each of four real resolutions, one
    376x1248 bucket, sparse ground truth; FlyingChairs: 4 pairs at
@@ -139,7 +168,7 @@ Phases, each raising on failure (so the script exits nonzero):
    a KITTI ground truth (as written, and every row Paeth-filtered) and a
    ``forward_interpolate``, and the peak memory of ``validate_kitti`` at
    batch 4 in bf16;
-9. train: ``make_train_step`` with each kernel configuration against
+10. train: ``make_train_step`` with each kernel configuration against
    its plain one from the same seeded weights on one synthetic
    FlyingChairs-shaped batch, TF32 off, in fp32 and bf16 (loss, metrics,
    every parameter's unclipped gradient): ``allpairs_pallas`` +
@@ -160,7 +189,7 @@ Phases, each raising on failure (so the script exits nonzero):
    of a bf16 step at the things stage (400x720, batch 5, 12 iterations)
    for the on-demand, the ``allpairs_pallas`` and the int8 + fused
    configurations;
-10. train_cli: the training entry point on a synthetic FlyingChairs tree
+11. train_cli: the training entry point on a synthetic FlyingChairs tree
    (24 training and 4 validation ``.ppm`` pairs at 384x512 with ``.flo``
    files and a split file): the native host library must load on this
    host (its build time, and whether cv2 is importable); the loader alone
@@ -181,7 +210,7 @@ Phases, each raising on failure (so the script exits nonzero):
    ``device_prefetch`` 0 and 2 (ms/step, pairs/s, queue wait, prep and
    copy times, idle share, exact launch counts) beside phase train's
    reused batch;
-11. small: the small model at full width (hidden 96, context 64, radius
+12. small: the small model at full width (hidden 96, context 64, radius
    3, C = 128): each kernel of its paths at its shapes against the plain
    version, timed beside its bound (run as phase small_kernels right
    after phase kernels, early in the process; the on-demand forward at the Sintel
@@ -202,13 +231,18 @@ Phases, each raising on failure (so the script exits nonzero):
    chairs and things stages under ``none``, ``save_corr``, ``full``,
    ``dots`` and ``save_corr`` + ``remat_upsample`` (peak memory, ms/step,
    launch counts a step), and each policy's fp32 gradients against
-   ``none``; ``python -m raft_tpu_torch curriculum`` in a subprocess on
-   two small stages, killed between them by ``stage_kill`` (exit 143)
-   and resumed, and ``lk-compare --small`` on the demo frames;
-12. report: one JSON line ``{"kernels": [...]}`` (each kernel with its
+   ``none``;
+13. clis: subprocesses that are checked, not timed, side by side:
+   ``python -m raft_tpu_torch curriculum`` on two small stages, killed
+   between them by ``stage_kill`` (exit 143) and resumed;
+   ``lk-compare --small`` on the demo frames; and ``python -m
+   raft_tpu_torch serve --random-init --replicas 2`` at the Sintel
+   bucket (two flows, ``/metrics`` of both replicas, SIGINT);
+14. report: one JSON line ``{"kernels": [...]}`` (each kernel with its
    small-model launches and, where phase small timed it, its times
    there, and its launches per serving ``iter`` replay with, where phase
-   serve timed it, its times at the slot shape), the nvidia-smi line,
+   serve timed it, its times at the slot shape, and its launches
+   through the fleet's router), the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without CUDA it exits nonzero before any
@@ -3942,11 +3976,46 @@ def _remat_sweep(sd) -> dict:
 def _small_clis(tree: dict, work: str, sd) -> dict:
     """``python -m raft_tpu_torch curriculum`` on two small stages of a few
     steps over phase train_cli's chairs tree, killed by ``stage_kill``
-    between them and resumed; then ``lk-compare --small`` on the demo
-    frames."""
-    from raft_tpu_torch.train.checkpoint import CheckpointManager
+    between them and resumed; ``lk-compare --small`` on the demo frames
+    runs beside it."""
+    from PIL import Image
 
     res = {}
+    weights = os.path.join(work, "small.pth")
+    torch.save(sd, weights)
+    frames = [os.path.join(REPO, "demo-frames", f"frame_000{i}.png")
+              for i in (0, 1)]
+    out_png = os.path.join(work, "lk_vs_raft.png")
+    t0 = time.perf_counter()
+    lk = _Child(["lk-compare", "--small", "--model", weights, "--image1",
+                 frames[0], "--image2", frames[1], "--out", out_png])
+    try:
+        res["curriculum"] = _curriculum(tree, work)
+        rc = lk.finish(600)
+    finally:
+        lk.kill()
+    lines = lk.lines
+    h, w = np.asarray(Image.open(frames[0])).shape[:2]
+    shape = (np.asarray(Image.open(out_png)).shape
+             if os.path.isfile(out_png) else None)
+    median = [float(m.group(1)) for ln in lines
+              for m in [re.search(r"median \|LK - RAFT\| = ([\d.]+)px", ln)]
+              if m]
+    print(f"[clis] lk-compare --small: rc {rc}, image {shape} (frame "
+          f"{h}x{w}), median |LK - RAFT| {median} px "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if rc != 0 or shape != (h, 2 * w, 3) or len(median) != 1:
+        raise AssertionError(f"lk-compare: rc {rc}, {shape}: "
+                             + "\n".join(lines[-20:]))
+    res["lk_compare"] = dict(rc=rc, shape=shape, median_px=median[0])
+    return res
+
+
+def _curriculum(tree: dict, work: str) -> dict:
+    """The curriculum CLI on two small stages, killed by ``stage_kill``
+    between them and resumed."""
+    from raft_tpu_torch.train.checkpoint import CheckpointManager
+
     manifest = os.path.join(work, "manifest.json")
     with open(manifest, "w") as f:
         json.dump({"base": {"num_steps": 3, "val_freq": 3},
@@ -3971,7 +4040,7 @@ def _small_clis(tree: dict, work: str, sd) -> dict:
     with open(os.path.join(wd, "curriculum_ledger.json")) as f:
         led1 = json.load(f)
     stages1 = {n: e["status"] for n, e in led1["stages"].items()}
-    print(f"[small] curriculum under stage_kill@step=1: rc {rc1}, stages "
+    print(f"[clis] curriculum under stage_kill@step=1: rc {rc1}, stages "
           f"{stages1} ({time.perf_counter() - t0:.1f} s)", flush=True)
     if rc1 != 143 or stages1 != {"s1": "complete", "s2": "pending"}:
         raise AssertionError(f"curriculum stage_kill: rc {rc1}, {stages1}: "
@@ -3987,7 +4056,7 @@ def _small_clis(tree: dict, work: str, sd) -> dict:
                  for ln in lines2)
     s2_steps = CheckpointManager(os.path.join(wd, "checkpoints",
                                               "s2")).all_steps()
-    print(f"[small] curriculum rerun: rc {rc2}, stages {stages2}, s2 seeded "
+    print(f"[clis] curriculum rerun: rc {rc2}, stages {stages2}, s2 seeded "
           f"from s1 {seeded}, s2 steps {s2_steps} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     if (rc2 != 0 or stages2 != {"s1": ("complete", 3, 1),
@@ -3995,38 +4064,12 @@ def _small_clis(tree: dict, work: str, sd) -> dict:
             or not seeded or s2_steps != [3]):
         raise AssertionError(f"curriculum rerun: rc {rc2}, {stages2}: "
                              + "\n".join(lines2[-20:]))
-    res["curriculum"] = dict(kill_rc=rc1, kill_stages=stages1, rerun_rc=rc2,
-                             rerun_stages=stages2, seeded=seeded)
-
-    weights = os.path.join(work, "small.pth")
-    torch.save(sd, weights)
-    frames = [os.path.join(REPO, "demo-frames", f"frame_000{i}.png")
-              for i in (0, 1)]
-    out_png = os.path.join(work, "lk_vs_raft.png")
-    t0 = time.perf_counter()
-    rc, lines = _run_cli("lk-compare", "--small", "--model", weights,
-                         "--image1", frames[0], "--image2", frames[1],
-                         "--out", out_png)
-    from PIL import Image
-
-    h, w = np.asarray(Image.open(frames[0])).shape[:2]
-    shape = (np.asarray(Image.open(out_png)).shape
-             if os.path.isfile(out_png) else None)
-    median = [float(m.group(1)) for ln in lines
-              for m in [re.search(r"median \|LK - RAFT\| = ([\d.]+)px", ln)]
-              if m]
-    print(f"[small] lk-compare --small: rc {rc}, image {shape} (frame "
-          f"{h}x{w}), median |LK - RAFT| {median} px "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    if rc != 0 or shape != (h, 2 * w, 3) or len(median) != 1:
-        raise AssertionError(f"lk-compare: rc {rc}, {shape}: "
-                             + "\n".join(lines[-20:]))
-    res["lk_compare"] = dict(rc=rc, shape=shape, median_px=median[0])
-    return res
+    return dict(kill_rc=rc1, kill_stages=stages1, rerun_rc=rc2,
+                rerun_stages=stages2, seeded=seeded)
 
 
 def phase_small(sd_full, tree):
-    """The small model at full width (see the module docstring, phase 9;
+    """The small model at full width (see the module docstring, phase 12;
     its kernels are phase small_kernels').  ``sd_full``: the full model's
     seed-0 weights (the remat sweep); ``tree``: phase train_cli's
     synthetic chairs tree."""
@@ -4050,7 +4093,6 @@ def phase_small(sd_full, tree):
     part("inference", _small_inference, sd)
     part("train", _small_train, sd)
     part("remat", _remat_sweep, sd_full)
-    part("clis", _small_clis, tree, work, sd)
     res["inference"], infer_main = res["inference"]
     res["train"], train_main = res["train"]
     res["main_counts"] = {"inference": infer_main, "train": train_main}
@@ -4604,10 +4646,11 @@ def _serve_memory(sd) -> dict:
     """Request mode (``allpairs``, bf16, batch sizes 1/2/4/8: the serve
     CLI's defaults) warmed up at the Sintel, KITTI and FlyingChairs
     buckets one after another: the memory reserved after each (cached
-    free blocks returned) and the peak, under the default budget and
-    under a budget of what the first bucket took (the least recently
-    used keys freed, every bucket still answered with the default
-    budget's flow)."""
+    free blocks returned), what the engine's sets hold (the budget's
+    measure) and the peak, under the default budget and under a budget
+    of what the first bucket's sets held (the least recently used keys
+    freed, every bucket still answered with the default budget's
+    flow)."""
     rng = np.random.default_rng(10)
     frames = {hw: tuple((rng.uniform(0, 255, hw + (3,))).astype(np.float32)
                         for _ in range(2)) for hw in SERVE_MEMORY_SHAPES}
@@ -4617,20 +4660,22 @@ def _serve_memory(sd) -> dict:
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_reserved()
         eng = _serve_engine(sd, {}, "bfloat16", budget=(
-            None if arm == "default" else base + budget))
-        after = []
+            None if arm == "default" else budget))
+        after, held = [], []
         for hw in SERVE_MEMORY_SHAPES:
             eng.warmup([hw])
             torch.cuda.empty_cache()     # what the states and graphs hold
             after.append((torch.cuda.memory_reserved() - base) / 2 ** 30)
+            held.append(eng.resident_bytes() / 2 ** 30)
         if arm == "default":
-            budget = int(after[0] * 2 ** 30)
+            budget = int(held[0] * 2 ** 30)
         got = {hw: eng.infer(*frames[hw], timeout=600)
                for hw in SERVE_MEMORY_SHAPES}
         rec = {"reserved_gib_after_each": after,
+               "held_gib_after_each": held,
                "peak_reserved_gib": (torch.cuda.max_memory_reserved() - base)
                / 2 ** 30,
-               "budget_gib": (eng.resident_budget_bytes - base) / 2 ** 30,
+               "budget_gib": eng.resident_budget_bytes / 2 ** 30,
                "evictions": int(eng.registry.counter(
                    "raft_serve_state_evictions_total").value())}
         if arm == "default":
@@ -4764,6 +4809,727 @@ def phase_serve(sd, peaks):
     return res
 
 
+# --- phase fleet: the self-healing serving fleet on the card ---------------
+
+# the kernel configuration at the Sintel bucket, 32 iterations; the fp32
+# checks batch one pair at a time, the bf16 drills at the batch sizes
+# (1, 8)
+FLEET_CFG = SERVE_CONFIGS["kernel"]
+FLEET_SIZES = (1, 8)
+FLEET_CLIENTS, FLEET_REQS = 8, 16    # the throughput loop (p99 over 128)
+FLEET_DRILL_REQS = 2                 # per client in the kill / wedge loops
+FLEET_UPDATE_CLIENTS = 4             # loop across the rolling update
+FLEET_SLOW_S, FLEET_HEDGE_S = 1.5, 0.3
+FLEET_STALL_S = 3.0      # above the straggler: a slow batch is no stall
+FLEET_DEVICE = "cuda"
+
+
+class _Events:
+    """An event sink that keeps ``(perf_counter, event, fields)``."""
+
+    def __init__(self):
+        import threading
+
+        self.records = []
+        self._lock = threading.Lock()
+
+    def emit(self, event, step=None, **fields):
+        with self._lock:
+            self.records.append((time.perf_counter(), event, fields))
+
+    def of(self, name: str) -> list:
+        with self._lock:
+            return [(t, f) for t, e, f in self.records if e == name]
+
+
+def _fleet_cfg(dtype: str):
+    from raft_tpu_torch.config import RAFTConfig
+
+    return RAFTConfig.full(compute_dtype=dtype, **FLEET_CFG)
+
+
+def _fleet_serve_cfg(sizes=(1,), **kw):
+    from raft_tpu_torch.serve import ServeConfig
+
+    kw = {"iters": SERVE_ITERS, "max_batch": max(sizes),
+          "batch_sizes": tuple(sizes), "max_wait_ms": 5.0, **kw}
+    return ServeConfig(**kw)
+
+
+def _fleet(sd, dtype: str, sink, aot_dir: str, serve_kw=None, **fleet_kw):
+    """A started two-replica fleet of the kernel configuration, warmed up
+    at the Sintel bucket, with short backoffs and polls."""
+    from raft_tpu_torch.serve import FleetConfig, ReplicaFleet
+
+    fkw = {"replicas": 2, "aot_dir": aot_dir, "warmup_shapes": (SERVE_HW,),
+           "restart_backoff_s": 0.05, "restart_backoff_max_s": 0.2,
+           "health_poll_s": 0.02, **fleet_kw}
+    return ReplicaFleet(sd, _fleet_cfg(dtype),
+                        _fleet_serve_cfg(**(serve_kw or {})),
+                        FleetConfig(**fkw), sink=sink,
+                        device=FLEET_DEVICE).start()
+
+
+def _reserved_gib() -> float:
+    """The card's reserved memory after the cached free blocks went back
+    (on the engines' device worker, where no capture can be in flight)."""
+    import gc
+
+    from raft_tpu_torch.serve.engine import on_device
+
+    def run():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved() / 2 ** 30
+
+    return on_device("cuda", run)
+
+
+def _fleet_loop(router, pairs, clients=FLEET_CLIENTS, reqs=FLEET_REQS) -> dict:
+    """A closed loop through ``router``: ``clients`` threads, ``reqs``
+    requests each; latencies with their completion times (no error
+    allowed)."""
+    import threading
+
+    recs, errs = [], []
+
+    def client(c):
+        for i in range(reqs):
+            a, b = pairs[(c + i) % len(pairs)]
+            t = time.perf_counter()
+            try:
+                flow = router.infer(a, b, timeout=600)
+                if flow.shape != SERVE_HW + (2,) or not np.isfinite(
+                        flow).all():
+                    errs.append(f"bad flow {flow.shape}")
+            except Exception as e:        # noqa: BLE001 (reported below)
+                errs.append(repr(e))
+            recs.append((t, time.perf_counter()))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errs:
+        raise AssertionError(f"fleet loop: {len(errs)} failed: {errs[:3]}")
+    lats = [(e - s) * 1e3 for s, e in recs]
+    return {"pairs_per_s": clients * reqs / wall, "wall_s": wall,
+            "p50_ms": float(np.percentile(lats, 50)),
+            "p99_ms": float(np.percentile(lats, 99)), "errors": len(errs),
+            "recs": recs}
+
+
+def _loop_batches(sink, rec) -> dict:
+    """The request-mode batches that ran during one :func:`_fleet_loop`
+    (the ``serve_batch`` events between its first submission and its
+    last answer): how many, how full, how long."""
+    t0, t1 = min(s for s, _ in rec["recs"]), max(e for _, e in rec["recs"])
+    fills = [f["real"] for t, f in sink.of("serve_batch") if t0 <= t <= t1]
+    secs = [f["seconds"] for t, f in sink.of("serve_batch")
+            if t0 <= t <= t1]
+    return {"batches": len(fills), "mean_fill": float(np.mean(fills)),
+            "fill_counts": {str(n): fills.count(n) for n in sorted(
+                set(fills))},
+            "batch_ms_p50": float(np.percentile(secs, 50)) * 1e3}
+
+
+def _no_capture_first_request(eng, pair, where: str) -> dict:
+    before = eng.capture_counter.counts()
+    flow = eng.infer(*pair, timeout=600)
+    after = eng.capture_counter.counts()
+    if after != before or not np.isfinite(flow).all():
+        raise AssertionError(f"fleet {where}: captures on the first "
+                             f"request {before} -> {after}")
+    return {"captures_at_start": sum(before.values()),
+            "captures_on_request": 0}
+
+
+def _warm_start(fleet, pairs, label: str) -> dict:
+    """Step 1: replica 0 captured and wrote the manifest, replica 1
+    replayed it; neither captures on its first request."""
+    out = {"reserved_gib": _reserved_gib()}
+    for r in fleet.replicas:
+        eng = r.engine
+        rec = {"start_s": r.start_s, "aot": dict(eng.aot_info),
+               "held_gib": eng.resident_bytes() / 2 ** 30,
+               **_no_capture_first_request(eng, pairs[0],
+                                           f"{label} {r.name}")}
+        out[r.name] = rec
+    if not (out["r1"]["aot"]["ok"] and out["r1"]["aot"]["replayed"]):
+        raise AssertionError(f"fleet {label}: r1 did not replay the "
+                             f"manifest: {out['r1']['aot']}")
+    print(f"[fleet] {label} warm start: " + json.dumps(out), flush=True)
+    return out
+
+
+def _checkpoint(sd, path: str) -> str:
+    """A port training-run directory holding ``sd`` as its step 1 (made
+    on the CPU)."""
+    from raft_tpu_torch.config import RAFTConfig, TrainConfig
+    from raft_tpu_torch.train.checkpoint import CheckpointManager
+    from raft_tpu_torch.train.step import init_state
+
+    state = init_state(RAFTConfig.full(), TrainConfig(), device="cpu",
+                       state_dict=sd)
+    mgr = CheckpointManager(path)
+    mgr.save(1, state)
+    mgr.close()
+    return path
+
+
+def _engine_flows(sd, dtype: str, pairs, sizes=(1,)) -> list:
+    """Flows of a fresh single engine (not a fleet member) on ``pairs``."""
+    from raft_tpu_torch.serve import InferenceEngine
+
+    eng = InferenceEngine(sd, _fleet_cfg(dtype), _fleet_serve_cfg(sizes),
+                          device=FLEET_DEVICE)
+    eng.start()
+    try:
+        eng.warmup([SERVE_HW])
+        return [eng.infer(a, b, timeout=600) for a, b in pairs]
+    finally:
+        eng.stop()
+        del eng
+
+
+def _fleet_checks(sd, pairs, work: str) -> dict:
+    """fp32 (TF32 off) checks: steps 1, 2, 6 and 7."""
+    import shutil
+    import threading
+
+    from raft_tpu_torch import chaos
+    from raft_tpu_torch.cli.serve import make_server
+    from raft_tpu_torch.models.raft import RAFT
+    from raft_tpu_torch.serve import (FlowRouter, InferenceEngine,
+                                      RemoteConfig, RouterConfig,
+                                      WeightUpdateError)
+
+    res = {}
+    aot = os.path.join(work, "aot_fp32")
+    sink = _Events()
+    fleet = _fleet(sd, "float32", sink, aot)
+    try:
+        res["warm_start"] = _warm_start(fleet, pairs, "fp32")
+        router = FlowRouter(fleet, RouterConfig(), sink=sink)
+        # step 2: the router's flows against a single engine's, and the
+        # kernels of the path launched through the router
+        _reset_counts()
+        got = [router.infer(a, b, timeout=600) for a, b in pairs[:3]]
+        res["launches"] = _expect_counts(3 * SERVE_ITERS,
+                                         "fleet fp32 router")
+        want = _engine_flows(sd, "float32", pairs[:3])
+        same = [bool(np.array_equal(g, w)) for g, w in zip(got, want)]
+        print(f"[fleet] fp32 router flows bit-equal to a single engine's: "
+              f"{same}", flush=True)
+        if not all(same):
+            raise AssertionError(f"fleet: router != single engine {same}")
+        res["same_bits"] = same
+
+        # step 6: a rolling update to seed-1 weights from a checkpoint,
+        # under load; a torn copy, NaN and scrambled weights refused
+        sd1 = RAFT(_fleet_cfg("float32"), seed=1).state_dict()
+        run = _checkpoint(sd1, os.path.join(work, "run_seed1"))
+        torn = os.path.join(work, "run_torn")
+        shutil.rmtree(torn, ignore_errors=True)
+        shutil.copytree(run, torn)
+        chaos.tear_files(os.path.join(torn, "1"))
+        refused = {}
+        try:
+            fleet.update_weights(torn)
+            raise AssertionError("fleet: a torn checkpoint rolled out")
+        except WeightUpdateError as e:
+            refused["torn"] = str(e)[:160]
+        # clients loop until the update returns; least-loaded placement
+        # keeps both replicas busy, so each flip finds requests in flight
+        # on the old engine, which drain
+        spread = FlowRouter(fleet, RouterConfig(affinity_spill=0.0),
+                            sink=sink)
+        done, recs, errs = threading.Event(), [], []
+
+        def client(c):
+            i = c
+            while not done.is_set():
+                t = time.perf_counter()
+                try:
+                    spread.infer(*pairs[i % len(pairs)], timeout=600)
+                except Exception as e:    # noqa: BLE001 (reported below)
+                    errs.append(repr(e))
+                recs.append((t, time.perf_counter()))
+                i += 1
+
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(FLEET_UPDATE_CLIENTS)]
+        torch.cuda.reset_peak_memory_stats()
+        t_up = time.perf_counter()
+        for t in clients:
+            t.start()
+        try:
+            report = fleet.update_weights(run)
+        finally:
+            done.set()
+            for t in clients:
+                t.join()
+        peak = torch.cuda.max_memory_reserved() / 2 ** 30
+        flips = [{"replica": f["replica"], "in_flight": f["in_flight"],
+                  "at_s": t - t_up,
+                  "spanning": sum(s < t < e for s, e in recs)}
+                 for t, f in sink.of("fleet_replica_flip") if t > t_up]
+        sstats = spread.router_stats()
+        if (sorted(report["flipped"]) != ["r0", "r1"] or errs
+                or sorted(f["replica"] for f in flips) != ["r0", "r1"]
+                or not all(f["in_flight"] and f["spanning"] for f in flips)
+                or sstats["failovers_total"] or sstats["dropped_total"]):
+            raise AssertionError(f"fleet update under load: {report} "
+                                 f"{flips} {sstats} {errs[:3]}")
+        after = [router.infer(a, b, timeout=600) for a, b in pairs[:2]]
+        fresh = _engine_flows(sd1, "float32", pairs[:2])
+        same_new = [bool(np.array_equal(a, b)) for a, b in zip(after, fresh)]
+        for name, bad in (("nan", {k: torch.full_like(v, float("nan"))
+                                   if v.is_floating_point() else v
+                                   for k, v in sd1.items()}),
+                          ("scrambled", {k: v * 25.0 if v.is_floating_point()
+                                         else v for k, v in sd1.items()})):
+            try:
+                fleet.update_weights(bad)
+                raise AssertionError(f"fleet: {name} weights rolled out")
+            except WeightUpdateError as e:
+                refused[name] = str(e)[:200]
+        proxy = [f for _, f in sink.of("fleet_canary_proxy")]
+        res["update"] = {
+            "seconds": report["seconds"], "peak_reserved_gib": peak,
+            "loop_errors": len(errs), "loop_requests": len(recs),
+            "flips": flips, "failovers": sstats["failovers_total"],
+            "flows_bit_equal_fresh": same_new,
+            "canary": report["canary"], "refused": refused,
+            "proxy": proxy, "version": fleet.weights_version}
+        print(f"[fleet] fp32 rolling update: {json.dumps(res['update'])}",
+              flush=True)
+        if (not all(same_new) or fleet.weights_version != 2
+                or "verify-ckpt" not in refused["torn"]
+                or "canary" not in refused["nan"]
+                or "proxy" not in refused["scrambled"]):
+            raise AssertionError(f"fleet update gates: {res['update']}")
+    finally:
+        chaos.uninstall()
+        fleet.stop()
+        del fleet
+    _reserved_gib()
+
+    # step 7: the fabric: a loopback server in this process fronts a
+    # second engine; a one-local fleet joins it as a remote replica
+    server_eng = InferenceEngine(sd1, _fleet_cfg("float32"),
+                                 _fleet_serve_cfg(), device=FLEET_DEVICE)
+    server_eng.start()
+    server_eng.warmup([SERVE_HW])
+    server = make_server(server_eng, "127.0.0.1", 0)
+    addr = f"127.0.0.1:{server.server_address[1]}"
+    serve_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    serve_thread.start()
+    sink = _Events()
+    fleet = _fleet(sd1, "float32", sink, aot, replicas=1, remote=(addr,),
+                   remote_cfg=RemoteConfig(connect_timeout_s=1.0,
+                                           health_timeout_s=1.0,
+                                           health_cache_s=0.1))
+    try:
+        local, remote = fleet.replicas
+        wire = [remote.engine.infer(a, b, timeout=600) for a, b in pairs[:2]]
+        direct = [server_eng.infer(a, b, timeout=600) for a, b in pairs[:2]]
+        mine = [local.engine.infer(a, b, timeout=600) for a, b in pairs[:2]]
+        same_wire = [bool(np.array_equal(a, b)) for a, b in zip(wire, direct)]
+        same_local = [bool(np.array_equal(a, b)) for a, b in zip(wire, mine)]
+        ms = {}
+        for name, fn in (("wire", remote.engine.infer),
+                         ("direct", server_eng.infer)):
+            t = time.perf_counter()
+            for a, b in pairs[:4]:
+                fn(a, b, timeout=600)
+            ms[name] = (time.perf_counter() - t) / 4 * 1e3
+        router = FlowRouter(fleet, RouterConfig(breaker_threshold=1,
+                                                breaker_cooldown_s=0.5),
+                            sink=sink)
+        gen0 = remote.generation
+        chaos.install(chaos.FaultPlan.parse(
+            "net_partition@step=0,heal=12"))
+        part = _fleet_loop(router, pairs, clients=2, reqs=FLEET_DRILL_REQS)
+        _wait(lambda: remote.generation > gen0, "the remote to rejoin", 60)
+        chaos.uninstall()
+        _wait(remote.eligible, "the rejoined remote to be eligible", 60)
+        rstats = router.router_stats()
+        res["fabric"] = {
+            "remote_bit_equal_direct": same_wire,
+            "remote_bit_equal_local": same_local,
+            "ms_per_pair": ms, "added_ms_per_pair": ms["wire"] - ms["direct"],
+            "partition_errors": part["errors"],
+            "failovers": rstats["failovers_total"],
+            "dropped": rstats["dropped_total"],
+            "net_retries": len(sink.of("net_retry")),
+            "rejoins": len(sink.of("fleet_remote_rejoin"))}
+        print(f"[fleet] fp32 fabric: {json.dumps(res['fabric'])}", flush=True)
+        if (not all(same_wire) or not all(same_local)
+                or rstats["dropped_total"] or part["errors"]
+                or not res["fabric"]["rejoins"]):
+            raise AssertionError(f"fleet fabric: {res['fabric']}")
+    finally:
+        chaos.uninstall()
+        fleet.stop()
+        server.shutdown()
+        server_eng.stop()
+        del fleet, server_eng
+    _reserved_gib()
+    return res
+
+
+def _kill_and_restart(fleet, router, sink, pairs, what: str) -> dict:
+    """A ``replica_kill`` on the affine replica's next batch under a
+    closed loop; every request answered, the victim restarted with a
+    generation bump and no capture on its first request."""
+    from raft_tpu_torch import chaos
+
+    affine = router._pick(SERVE_BUCKET, set())
+    gen = affine.generation
+    t0 = time.perf_counter()
+    chaos.install(chaos.FaultPlan.parse(
+        f"replica_kill@batch={affine.engine._batch_seq + 2}"))
+    try:
+        loop = _fleet_loop(router, pairs, reqs=FLEET_DRILL_REQS)
+    finally:
+        chaos.uninstall()
+
+    def back():
+        return [t for t, f in sink.of("fleet_restart")
+                if f["replica"] == affine.name and t > t0]
+
+    _wait(lambda: back() and affine.state == "ready", f"{what}: the restart",
+          120)
+    t_kill = [t for t, f in sink.of("chaos_inject") if t > t0][0]
+    t_back = back()[0]
+    first = _no_capture_first_request(affine.engine, pairs[0], what)
+    out = {"replica": affine.name, "generation": [gen, affine.generation],
+           "restart_s": t_back - t_kill, "start_s": affine.start_s,
+           "loop": {k: v for k, v in loop.items() if k != "recs"},
+           "dropped": router.router_stats()["dropped_total"], **first,
+           "reserved_gib": _reserved_gib()}
+    if affine.generation <= gen or out["dropped"] or loop["errors"]:
+        raise AssertionError(f"fleet {what}: {out}")
+    return out
+
+
+def _fleet_drills(sd, pairs, work: str) -> dict:
+    """bf16 drills at batch sizes (1, 8): steps 1, 3, 4, 5, 9 and 10."""
+    from raft_tpu_torch import chaos
+    from raft_tpu_torch.serve import FlowRouter, RouterConfig
+
+    res = {}
+    sink = _Events()
+    fleet = _fleet(sd, "bfloat16", sink, os.path.join(work, "aot_bf16"),
+                   serve_kw={"sizes": FLEET_SIZES,
+                             "stall_timeout_s": FLEET_STALL_S,
+                             "chaos_slow_s": FLEET_SLOW_S,
+                             "chaos_hang_max_s": 60.0})
+    try:
+        res["warm_start"] = _warm_start(fleet, pairs, "bf16")
+        router = FlowRouter(fleet, RouterConfig(), sink=sink)
+        _fleet_loop(router, pairs, clients=2, reqs=1)           # settle
+        # step 3: two kills; the wedge's restart below is step 10's third
+        kills = [_kill_and_restart(fleet, router, sink, pairs,
+                                   f"kill {i + 1}") for i in range(2)]
+        res["kill"] = kills[0]
+        print(f"[fleet] bf16 kill: {json.dumps(kills)}", flush=True)
+
+        # step 4: a wedge on the affine replica; only it restarts, the
+        # sibling serves throughout
+        import threading
+
+        wedged = router._pick(SERVE_BUCKET, set())
+        sibling = next(r for r in fleet.replicas if r is not wedged)
+        others = {r.name: r.restarts for r in fleet.replicas
+                  if r is not wedged}
+        probe, probing = [], threading.Event()
+
+        def probe_sibling():
+            # the sibling's own latency while its neighbour is wedged
+            while not probing.is_set():
+                t = time.perf_counter()
+                sibling.engine.infer(*pairs[2], timeout=600)
+                probe.append((t, time.perf_counter()))
+
+        t0 = time.perf_counter()
+        chaos.install(chaos.FaultPlan.parse(
+            f"replica_hang@batch={wedged.engine._batch_seq + 1}"))
+        prober = threading.Thread(target=probe_sibling)
+        prober.start()
+        try:
+            loop = _fleet_loop(router, pairs, reqs=FLEET_DRILL_REQS)
+        finally:
+            chaos.uninstall()
+
+        def after(name):
+            return [t for t, f in sink.of(name)
+                    if f.get("replica") == wedged.name and t > t0]
+
+        _wait(lambda: after("fleet_restart") and wedged.state == "ready",
+              "the wedged replica's restart", 120)
+        probing.set()
+        prober.join()
+        t_hang = after("chaos_inject")[0]
+        t_detect = after("fleet_restart_begin")[0]
+        t_back = after("fleet_restart")[0]
+        during = [(e - s) * 1e3 for s, e in probe
+                  if t_hang <= s and e <= t_detect]
+        res["wedge"] = {
+            "replica": wedged.name, "detect_s": t_detect - t_hang,
+            "restart_s": t_back - t_hang, "stall_timeout_s": FLEET_STALL_S,
+            "sibling": sibling.name,
+            "sibling_p99_ms_during": (float(np.percentile(during, 99))
+                                      if during else None),
+            "sibling_served_during": len(during),
+            "loop": {k: v for k, v in loop.items() if k != "recs"},
+            "others_restarts": {r.name: r.restarts for r in fleet.replicas
+                                if r is not wedged}}
+        print(f"[fleet] bf16 wedge: {json.dumps(res['wedge'])}", flush=True)
+        if (loop["errors"] or res["wedge"]["others_restarts"] != others
+                or not during or router.router_stats()["dropped_total"]):
+            raise AssertionError(f"fleet wedge: {res['wedge']}")
+        # step 10: reserved memory after restarts 1-3 (two kills, a wedge)
+        mem = [k["reserved_gib"] for k in kills] + [_reserved_gib()]
+        res["memory_after_restarts_gib"] = mem
+        print(f"[fleet] bf16 reserved after restarts 1-3: {mem} GiB",
+              flush=True)
+        if mem[2] > 1.1 * mem[0]:
+            raise AssertionError(f"fleet: memory grew across restarts {mem}")
+
+        # step 5: a straggler, hedged and not
+        hedged = {}
+        for label, hedge_s in (("on", FLEET_HEDGE_S), ("off", 0.0)):
+            rt = FlowRouter(fleet, RouterConfig(hedge_timeout_s=hedge_s),
+                            sink=sink)
+            slow = rt._pick(SERVE_BUCKET, set())
+            # the hedge counters live in the fleet's registry, which every
+            # router of the fleet shares: each arm reads its own deltas
+            h0 = {k: rt.router_stats()[k]
+                  for k in ("hedges_total", "hedge_wins_total")}
+            chaos.install(chaos.FaultPlan.parse(
+                f"replica_slow@batch={slow.engine._batch_seq + 1}"))
+            try:
+                t = time.perf_counter()
+                rt.infer(*pairs[1], timeout=600)
+                ms = (time.perf_counter() - t) * 1e3
+            finally:
+                chaos.uninstall()
+            h1 = rt.router_stats()
+            hedged[label] = {
+                "ms": ms, "hedges": h1["hedges_total"] - h0["hedges_total"],
+                "hedge_wins": h1["hedge_wins_total"]
+                - h0["hedge_wins_total"]}
+            # the straggler's own batch ends before the next arm
+            _wait(lambda s=slow: s.engine.health()["pending"] == 0,
+                  "the straggler's batch", 60)
+        res["straggler"] = {"slow_s": FLEET_SLOW_S,
+                            "hedge_timeout_s": FLEET_HEDGE_S, **hedged}
+        print(f"[fleet] bf16 straggler: {json.dumps(res['straggler'])}",
+              flush=True)
+        if (hedged["on"]["hedges"] != 1 or hedged["on"]["hedge_wins"] != 1
+                or hedged["on"]["ms"] >= FLEET_SLOW_S * 1e3
+                or hedged["off"]["hedges"] or hedged["off"]["hedge_wins"]
+                or hedged["off"]["ms"] < FLEET_SLOW_S * 1e3):
+            raise AssertionError(f"fleet straggler: {res['straggler']}")
+
+        # step 9: throughput through the router against one engine
+        by0 = router.router_stats()["requests_by_replica"]
+        rec = _fleet_loop(router, pairs)
+        by1 = router.router_stats()["requests_by_replica"]
+        res["throughput"] = {"fleet": {
+            **{k: v for k, v in rec.items() if k != "recs"},
+            **_loop_batches(sink, rec)},
+            "by_replica": {k: v - by0.get(k, 0) for k, v in by1.items()}}
+    finally:
+        chaos.uninstall()
+        fleet.stop()
+        del fleet
+    _reserved_gib()
+    from raft_tpu_torch.serve import InferenceEngine
+
+    sink = _Events()
+    eng = InferenceEngine(sd, _fleet_cfg("bfloat16"),
+                          _fleet_serve_cfg(FLEET_SIZES), sink=sink,
+                          device=FLEET_DEVICE).start()
+    try:
+        eng.warmup([SERVE_HW])
+        rec = _fleet_loop(eng, pairs)
+        res["throughput"]["one_engine"] = {
+            **{k: v for k, v in rec.items() if k != "recs"},
+            **_loop_batches(sink, rec)}
+    finally:
+        eng.stop()
+        del eng
+    _reserved_gib()
+    print(f"[fleet] bf16 throughput: {json.dumps(res['throughput'])}",
+          flush=True)
+    return res
+
+
+def _fleet_autoscale(sd, pairs, clip, work: str) -> dict:
+    """Step 8 (bf16, slot mode, 8 slots): one grow from 1 to 2 under
+    load, the new replica capturing nothing on its request path; then one
+    scale-down after idle, with an open session migrated."""
+    import threading
+
+    from raft_tpu_torch.serve import FlowRouter, QueueFullError, RouterConfig
+
+    sink = _Events()
+    fleet = _fleet(sd, "bfloat16", sink, os.path.join(work, "aot_slot"),
+                   serve_kw={"batching": "slot", "slots": SERVE_SLOTS,
+                             "max_queue": 16},
+                   replicas=1, autoscale_min=1, autoscale_max=2,
+                   autoscale_interval_s=0.2, autoscale_up_queue_frac=0.25,
+                   autoscale_down_queue_frac=0.02,
+                   autoscale_up_consecutive=2, autoscale_down_consecutive=5,
+                   autoscale_cooldown_s=3.0)
+    try:
+        router = FlowRouter(fleet, RouterConfig(), sink=sink)
+        futs, deadline = [], time.monotonic() + 120
+        while fleet.stats()["fleet"]["autoscale"]["ups"] < 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("fleet: no scale-up under load")
+            if sum(not f.done() for f in futs) < 12:
+                try:
+                    futs.append(router.submit(*pairs[len(futs) % len(pairs)]))
+                except QueueFullError:
+                    pass
+            time.sleep(0.01)
+        flows = [f.result(timeout=600) for f in futs]
+        grown = fleet.replicas[-1]
+        up = sink.of("fleet_scale")[-1][1]
+        new_req = _no_capture_first_request(grown.engine, pairs[0],
+                                            "scale-up replica")
+        # a session on the grown replica (the bucket's affine one of two)
+        router.stream_ingest("cam", clip[0], timeout=600)
+        owner = router._streams["cam"].replica
+        out1 = router.stream_ingest("cam", clip[1], timeout=600)
+        _wait(lambda: fleet.stats()["fleet"]["autoscale"]["downs"] >= 1,
+              "the idle scale-down", 120)
+        down = sink.of("fleet_scale")[-1][1]
+        out2 = router.stream_ingest("cam", clip[2], timeout=600)
+        summary = router.stream_close("cam")
+        rstats = router.router_stats()
+        res = {"requests_under_load": len(futs), "up": {
+            k: up[k] for k in ("replica", "replicas", "seconds")},
+            "grown_start_s": grown.start_s, **new_req,
+            "session_owner": owner, "down": {
+                k: down[k] for k in ("replica", "replicas", "seconds",
+                                     "moved")},
+            "stream_frames": [out1["frame"], out2["frame"]],
+            "stream_restarts": summary["restarts"],
+            "dropped": rstats["dropped_total"],
+            "restart_reasons": [f["reason"] for _, f in
+                                sink.of("stream_restart")]}
+        print(f"[fleet] bf16 autoscale: {json.dumps(res)}", flush=True)
+        if (rstats["dropped_total"] or owner != grown.name
+                or down["replica"] != grown.name or down["moved"] != 1
+                or out2["flow"] is None or not all(
+                    np.isfinite(f).all() for f in flows)):
+            raise AssertionError(f"fleet autoscale: {res}")
+        return res
+    finally:
+        fleet.stop()
+        del fleet
+        _reserved_gib()
+
+
+def _fleet_cli_start():
+    """``python -m raft_tpu_torch serve --random-init --replicas 2`` in a
+    subprocess (the CLI's bf16 and model)."""
+    return _Child(["serve", "--random-init", "--port", "0", "--replicas",
+                   "2", "--batch-sizes", "1", "--max-batch", "1",
+                   "--hedge-timeout-s", "5", "--warmup", "436x1024"])
+
+
+def _fleet_cli(pairs, child) -> dict:
+    """The CLI's fleet started by :func:`_fleet_cli_start`: two flows,
+    ``/metrics`` with both replicas' samples, ``/v1/healthz``, SIGINT
+    ending it with its stats line."""
+    import io
+    import urllib.request
+
+    try:
+        line = child.wait_for(r"listening on http://", timeout=600)
+        base = re.search(r"http://(\S+)", line).group(1)
+        flows = []
+        for a, b in pairs[:2]:
+            buf = io.BytesIO()
+            np.savez(buf, image1=a, image2=b)
+            r = urllib.request.urlopen(urllib.request.Request(
+                f"http://{base}/v1/flow", data=buf.getvalue(),
+                method="POST"), timeout=600)
+            flows.append(np.load(io.BytesIO(r.read()))["flow"])
+        metrics = urllib.request.urlopen(f"http://{base}/metrics").read()
+        health = urllib.request.urlopen(f"http://{base}/v1/healthz").read()
+        child.proc.send_signal(signal.SIGINT)
+        rc = child.finish(timeout=300)
+    finally:
+        child.kill()
+    stats = json.loads(next(ln for ln in reversed(child.lines)
+                            if ln.startswith("{")))
+    out = {"rc": rc, "health": health.decode(),
+           "flows_finite": [bool(np.isfinite(f).all()) for f in flows],
+           "metrics_replicas": sorted({m.decode() for m in re.findall(
+               rb'replica="(r\d+)"', metrics)}),
+           "requests": stats.get("router", {}).get("requests_total")}
+    print(f"[fleet] CLI --replicas 2: {json.dumps(out)}", flush=True)
+    if (rc != 0 or health != b"ok" or not all(out["flows_finite"])
+            or out["metrics_replicas"] != ["r0", "r1"]
+            or out["requests"] != 2):
+        raise AssertionError(f"fleet CLI: {out} {child.lines[-5:]}")
+    return out
+
+
+def phase_fleet(sd):
+    """The self-healing fleet on the card (see the module docstring)."""
+    import shutil
+
+    work = os.path.join(WORK, "fleet")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    pairs, clip = _serve_pairs(), _serve_clip(4)
+    res, secs = {}, {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        res[name] = fn(*args)
+        secs[name] = time.perf_counter() - t
+        print(f"[time] fleet {name}: {secs[name]:.1f} s", flush=True)
+
+    part("checks", _fleet_checks, sd, pairs, work)
+    part("drills", _fleet_drills, sd, pairs, work)
+    part("autoscale", _fleet_autoscale, sd, pairs, clip, work)
+    res["seconds"] = secs
+    res["launches"] = res["checks"]["launches"]
+    return res
+
+
+# --- phase clis: subprocesses checked side by side, timing nothing --------
+
+def phase_clis(tree):
+    """Phase small's curriculum and lk-compare CLIs and phase fleet's
+    ``serve --replicas 2``, run at once: each is checked, none timed, and
+    together they take the time of the slowest."""
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models.raft import RAFT
+
+    sd = RAFT(RAFTConfig.small_model(), seed=0).state_dict()
+    child = _fleet_cli_start()
+    try:
+        small = _small_clis(tree, os.path.join(WORK, "small"), sd)
+        fleet = _fleet_cli(_serve_pairs(2), child)
+    finally:
+        child.kill()
+    return {"small": small, "fleet": fleet}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--report", default=None,
@@ -4801,6 +5567,7 @@ def main(argv=None) -> int:
     small_kern = timed_phase(phase_small_kernels, peaks)
     path, main_counts, sd = timed_phase(phase_path)
     serve = timed_phase(phase_serve, sd, peaks)
+    fleet = timed_phase(phase_fleet, sd)
     graphs = timed_phase(phase_graphs, sd)
     demo_res = timed_phase(phase_demo, sd)
     eval_res = timed_phase(phase_eval, sd)
@@ -4808,6 +5575,8 @@ def main(argv=None) -> int:
     train_cli = timed_phase(phase_train_cli, sd, train)
     small = {"kernels": small_kern,
              **timed_phase(phase_small, sd, train_cli["tree"])}
+    clis = timed_phase(phase_clis, train_cli["tree"])
+    small["clis"], fleet["cli"] = clis["small"], clis["fleet"]
     secs["total"] = time.perf_counter() - t0
 
     sources = {
@@ -4863,10 +5632,12 @@ def main(argv=None) -> int:
                     small_counts.setdefault(k, v)
         rs = small["kernels"].get(kname)
         # the serving path (kernel configuration): launches of one iter
-        # replay over the slots, and the kernel at the slot shape
+        # replay over the slots, through the fleet's router (3 requests of
+        # 32 iterations), and the kernel at the slot shape
         sv = serve["kernels"].get(kname)
         serve_rec = {"launches_per_replay": serve["replay_launches"][
-            "kernel"]["iter"].get(kname, 0), **(
+            "kernel"]["iter"].get(kname, 0),
+            "fleet_launches": fleet["launches"].get(kname, 0), **(
             {k: sv[k] for k in ("max_abs_err", "ms", "plain_ms",
                                 "bound_ms", "bound_by")} if sv else {})}
         kernels.append({
@@ -4894,6 +5665,7 @@ def main(argv=None) -> int:
                        "torch": torch.__version__, "cuda": torch.version.cuda,
                        "build": build_res, "phase_s": secs,
                        "kernels": kern, "path": path, "serve": serve,
+                       "fleet": fleet,
                        "graphs": graphs, "demo": demo_res,
                        "eval": eval_res,
                        "train": train, "train_cli": train_cli,

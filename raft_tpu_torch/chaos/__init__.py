@@ -1,13 +1,14 @@
 """Deterministic fault injection (the port's copy of the parts of
 ``raft_tpu/chaos/`` that the training input side, the checkpoints, the
-curriculum driver and the serving engine use).
+curriculum driver, the serving engine and the remote fabric use).
 
 ``RAFT_CHAOS_SPEC='corrupt_image@step=7;torn_ckpt@step=50'`` installs a
 seeded :class:`FaultPlan`; the named injection points of the loader, the
 device pipeline, the checkpoints, the train loop and the curriculum
-driver then fire those faults deterministically, so the self-healing
-paths (sample quarantine, checkpoint fallback, preemption, stage resume,
-the serving engine's retries) run on purpose.  With no plan installed
+driver, the serving engine and the remote client then fire those faults
+deterministically, so the self-healing paths (sample quarantine,
+checkpoint fallback, preemption, stage resume, the serving engine's
+retries, the fleet's failover and restarts) run on purpose.  With no plan installed
 each point is one ``None`` check.
 """
 
@@ -27,6 +28,7 @@ from raft_tpu_torch.chaos.plan import (
     ENV_SEED,
     ENV_SPEC,
     FaultPlan,
+    enabled,
     install,
     install_from_env,
     should_inject,
@@ -45,6 +47,7 @@ __all__ = [
     "InjectedReplicaKill",
     "InjectedWorkerCrash",
     "ReplicaWedgedInterrupt",
+    "enabled",
     "install",
     "install_from_env",
     "is_transient_error",

@@ -44,10 +44,18 @@ fault              seam (point)            what happens
                                            ``ReplicaWedgedInterrupt``
 ``replica_kill``   ``serve.replica``       the engine marks itself crashed;
                                            ``InjectedReplicaKill``
+``net_refuse``     ``serve.remote``        ``RemoteRefusedError`` before a
+                                           wire operation
+``net_slow``       ``serve.remote``        the wire operation sleeps
+                                           ``RemoteConfig.chaos_slow_s``
+``net_drop``       ``serve.remote``        the request goes out, the
+                                           response never arrives
+                                           (``RemoteDisconnectedError``)
+``net_partition``  ``serve.remote``        ``RemoteTimeoutError`` on every
+                                           wire operation in ``[step,
+                                           heal)`` (step context: the
+                                           rule's own check ordinal)
 =================  ======================  ================================
-
-The JAX package's other faults belong to parts of the system the port
-does not have yet; a spec naming one is refused with the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -65,14 +73,11 @@ ENV_SEED = "RAFT_CHAOS_SEED"
 
 FAULTS = ("corrupt_image", "worker_err", "producer_err", "torn_ckpt",
           "restore_err", "preempt", "stage_kill", "device_err",
-          "replica_slow", "replica_hang", "replica_kill")
-# Faults of the JAX package whose seams the port does not have yet: the
-# remote serving fabric's.
-LATER_FAULTS = {
-    "net_refuse": "A7 (the remote fabric)",
-    "net_slow": "A7 (the remote fabric)",
-    "net_drop": "A7 (the remote fabric)",
-    "net_partition": "A7 (the remote fabric)"}
+          "replica_slow", "replica_hang", "replica_kill", "net_refuse",
+          "net_slow", "net_drop", "net_partition")
+# Faults of the JAX package whose seams the port does not have yet, by
+# the ROADMAP item that brings them (none left).
+LATER_FAULTS: Dict[str, str] = {}
 
 _FAULT_RE = re.compile(r"^[a-z][a-z0-9_]*$")
 
@@ -217,6 +222,12 @@ class FaultPlan:
             # check
             return any([r.check(step) for r in rules])
 
+    def counts(self) -> Dict[str, int]:
+        """``{fault: fires so far}``, faults that never fired included."""
+        with self._lock:
+            return {fault: sum(r.fired for r in rules)
+                    for fault, rules in sorted(self._by_fault.items())}
+
 
 # ---------------------------------------------------------------------------
 # the process-wide plan
@@ -235,6 +246,11 @@ def install(plan: FaultPlan) -> FaultPlan:
 def uninstall() -> None:
     global _active
     _active = None
+
+
+def enabled() -> bool:
+    """Whether a plan is installed (the remote seam's one check)."""
+    return _active is not None
 
 
 def install_from_env() -> Optional[FaultPlan]:

@@ -1,8 +1,11 @@
 """Serving CLI: an HTTP front end over one
-:class:`raft_tpu_torch.serve.InferenceEngine` (the port of
-``raft_tpu/cli/serve.py`` in single-engine mode).
+:class:`raft_tpu_torch.serve.InferenceEngine`, or over a supervised
+replica fleet behind a :class:`raft_tpu_torch.serve.FlowRouter` (the
+port of ``raft_tpu/cli/serve.py``).
 
     python -m raft_tpu_torch serve --random-init --port 8080
+    python -m raft_tpu_torch serve --random-init --replicas 2 \
+        --hedge-timeout-s 2 --remote otherhost:8080 --autoscale 1:3
 
 It runs on the card unless ``--device cpu``; without CUDA it raises.
 The wire protocol is the JAX server's (numpy ``npz`` bodies):
@@ -27,12 +30,21 @@ The wire protocol is the JAX server's (numpy ``npz`` bodies):
   when requests are pending and no batch has completed within the stall
   timeout.
 
-Every flag of the JAX CLI parses.  Those of parts the port does not
-have yet stop the CLI with their ROADMAP item at any value but the
-default (:data:`UNPORTED`): the replica fleet, the router, the remote
-fabric and AOT artifacts (A7), traces and flow quality (A8); so does
-``POST /debug/profile`` (A8).  SIGINT stops the server, drains the
-engine and prints its stats as one JSON line.
+With ``--replicas N`` (N > 1), ``--remote HOST:PORT`` (repeatable) or
+``--autoscale MIN:MAX``, the same endpoints front a
+:class:`~raft_tpu_torch.serve.ReplicaFleet`: requests route through a
+health-gated router with failover and, with ``--hedge-timeout-s``,
+hedging; ``/v1/healthz`` reports the fleet's readiness (200 while any
+replica serves) and ``/metrics`` aggregates every replica's registry
+with a ``replica`` label on each sample.  ``--aot-dir`` is the
+warm-start manifest directory (``serve/aot.py``): replica 0 writes it,
+every later engine replays it before it serves.
+
+Every flag of the JAX CLI parses.  Distributed tracing does not exist in
+the port yet: ``--trace-sample-rate`` stops the CLI with its ROADMAP item
+at any value but the default (:data:`UNPORTED`), and ``POST
+/debug/profile`` answers 501 with it.  SIGINT stops the server, drains
+the engine (or the fleet) and prints its stats as one JSON line.
 """
 
 from __future__ import annotations
@@ -44,14 +56,7 @@ import math
 
 # flag -> (default, ROADMAP item); any other value stops the CLI
 UNPORTED = {
-    "replicas": (1, "A7 (serve/fleet.py, the replica fleet)"),
-    "remote": (None, "A7 (serve/remote.py, the remote fabric)"),
-    "autoscale": (None, "A7 (serve/fleet.py, the autoscaler)"),
-    "aot_dir": (None, "A7 (serve/aot.py)"),
-    "hedge_timeout_s": (0.0, "A7 (serve/router.py, hedging)"),
     "trace_sample_rate": (None, "A8 (obs/trace.py)"),
-    "quality_sample_rate": (0.0, "A8 (obs/quality.py)"),
-    "quality_cycle": (False, "A8 (obs/quality.py)"),
 }
 PROFILE_ITEM = "A8 (on-demand device profiling)"
 
@@ -131,28 +136,38 @@ def parse_args(argv=None):
                    help="seed of probabilistic chaos rules (default "
                         "$RAFT_CHAOS_SEED or 0)")
     p.add_argument("--replicas", type=int, default=1,
-                   help="engine replicas behind a router (not ported "
-                        "yet: 1 only)")
+                   help="engine replicas behind a health-gated router "
+                        "with failover; 1 = a single engine, no fleet")
     p.add_argument("--remote", action="append", default=None,
                    metavar="HOST:PORT",
-                   help="a remote serving host as a replica (not ported "
-                        "yet)")
+                   help="join a remote serving host to the fleet as a "
+                        "replica behind the same router (repeatable); "
+                        "implies fleet mode")
     p.add_argument("--autoscale", default=None, metavar="MIN:MAX",
-                   help="autoscaling bounds on local replicas (not ported "
-                        "yet)")
+                   help="autoscaling bounds on local replicas (queue "
+                        "pressure grows, idle shrinks); implies fleet "
+                        "mode")
     p.add_argument("--aot-dir", default=None,
-                   help="AOT executable artifact directory (not ported "
-                        "yet)")
+                   help="warm-start manifest directory: replica 0 writes "
+                        "the captured (bucket, lanes, program) keys, "
+                        "every later engine captures them before it "
+                        "serves; default: a fresh temp dir per fleet")
     p.add_argument("--hedge-timeout-s", type=float, default=0.0,
-                   help="fleet hedging delay (not ported yet: 0 only)")
+                   help="fleet mode: duplicate a still-unresolved request "
+                        "onto a second replica after this many seconds "
+                        "(0 disables)")
     p.add_argument("--trace-sample-rate", type=float, default=None,
                    help="distributed-tracing sample rate (not ported "
                         "yet)")
     p.add_argument("--quality-sample-rate", type=float, default=0.0,
-                   help="flow-quality scoring rate (not ported yet: 0 "
-                        "only)")
+                   help="fraction of retiring slot-mode requests scored "
+                        "with the label-free photometric quality proxy "
+                        "(quality_score events, raft_quality_* metrics, "
+                        "drift detection); 0 disables")
     p.add_argument("--quality-cycle", action="store_true",
-                   help="cycle-consistency quality pass (not ported yet)")
+                   help="with --quality-sample-rate > 0: also run a "
+                        "forward-backward cycle-consistency pass per "
+                        "scored request")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -325,21 +340,22 @@ def _make_handler(engine):
 
 def make_server(engine, host: str, port: int):
     """A ``ThreadingHTTPServer`` on ``host:port`` (port 0 picks a free
-    one) serving ``engine``, one handler thread per connection; the
-    caller owns its lifecycle.  Handler threads never touch the device:
-    they hand requests to the engine."""
+    one) serving ``engine`` (or a fleet's router: both expose ``infer``,
+    the streaming calls, ``health``, ``stats`` and ``metrics_text``),
+    one handler thread per connection; the caller owns its lifecycle.
+    Handler threads never touch the device: they hand requests on."""
     from http.server import ThreadingHTTPServer
 
     return ThreadingHTTPServer((host, port), _make_handler(engine))
 
 
-def build_engine(args):
-    """The engine of parsed ``args`` (not started)."""
+def _model_and_config(args):
+    """``(state_dict, model_cfg, serve_cfg, sink)`` of parsed ``args``."""
     import os
 
     from raft_tpu_torch.config import RAFTConfig
     from raft_tpu_torch.evaluate import resolve_device
-    from raft_tpu_torch.serve import InferenceEngine, ServeConfig
+    from raft_tpu_torch.serve import ServeConfig
 
     resolve_device(args.device)
     mk = RAFTConfig.small_model if args.small else RAFTConfig.full
@@ -368,15 +384,83 @@ def build_engine(args):
         device_retries=max(args.device_retries, 0),
         retry_backoff_s=max(args.retry_backoff_s, 0.0),
         retry_backoff_max_s=max(ServeConfig.retry_backoff_max_s,
-                                args.retry_backoff_s))
+                                args.retry_backoff_s),
+        quality_sample_rate=min(max(args.quality_sample_rate, 0.0), 1.0),
+        quality_cycle=args.quality_cycle,
+        # a fleet passes its own manifest directory to every engine
+        aot_dir=args.aot_dir)
     sink = None
     if args.telemetry_dir:
         from raft_tpu_torch.obs import EventSink
 
         os.environ.setdefault("RAFT_TELEMETRY_DIR", args.telemetry_dir)
         sink = EventSink(args.telemetry_dir)
+    return state_dict, model_cfg, serve_cfg, sink
+
+
+def fleet_mode(args) -> bool:
+    return bool(args.replicas > 1 or args.remote or args.autoscale)
+
+
+def build_engine(args):
+    """The single engine of parsed ``args`` (not started)."""
+    from raft_tpu_torch.serve import InferenceEngine
+
+    state_dict, model_cfg, serve_cfg, sink = _model_and_config(args)
     return InferenceEngine(state_dict, model_cfg, serve_cfg, sink=sink,
                            device=args.device)
+
+
+def build_fleet(args):
+    """``(fleet, sink)`` of parsed ``args`` in fleet mode: the fleet not
+    started yet (``fleet.start()`` brings the replicas up) and the event
+    sink its router shares."""
+    from raft_tpu_torch.serve import FleetConfig, ReplicaFleet
+
+    autoscale = (0, 0)
+    if args.autoscale:
+        lo, sep, hi = args.autoscale.partition(":")
+        if not sep or not lo.isdigit() or not hi.isdigit():
+            raise SystemExit(
+                f"--autoscale {args.autoscale!r}: expected MIN:MAX")
+        autoscale = (int(lo), int(hi))
+    state_dict, model_cfg, serve_cfg, sink = _model_and_config(args)
+    warmup = _parse_hw_list(args.warmup) if args.warmup else ()
+    fleet = ReplicaFleet(
+        state_dict, model_cfg, serve_cfg,
+        FleetConfig(replicas=args.replicas, aot_dir=args.aot_dir,
+                    warmup_shapes=warmup,
+                    remote=tuple(args.remote or ()),
+                    autoscale_min=autoscale[0],
+                    autoscale_max=autoscale[1]),
+        sink=sink, device=args.device)
+    return fleet, sink
+
+
+def start_service(args):
+    """Build and start what ``args`` serve: ``(service, fleet)``, the
+    engine and None, or the fleet's router and the fleet."""
+    if not fleet_mode(args):
+        engine = build_engine(args)
+        engine.start()
+        if args.warmup:
+            shapes = _parse_hw_list(args.warmup)
+            print(f"warmup: capturing {len(shapes)} shape(s)...",
+                  flush=True)
+            engine.warmup(shapes)
+        return engine, None
+    from raft_tpu_torch.serve import FlowRouter, RouterConfig
+
+    fleet, sink = build_fleet(args)
+    if args.warmup:
+        print(f"fleet warmup: capturing {len(fleet.fleet_cfg.warmup_shapes)}"
+              " shape(s) on replica 0, replaying its manifest on the "
+              "rest...", flush=True)
+    fleet.start()
+    router = FlowRouter(
+        fleet, RouterConfig(hedge_timeout_s=max(args.hedge_timeout_s, 0.0)),
+        sink=sink)
+    return router, fleet
 
 
 def main(argv=None):
@@ -398,26 +482,28 @@ def main(argv=None):
     except chaos.ChaosSpecError as e:
         raise SystemExit(f"--chaos: {e}")
 
-    engine = build_engine(args)
-    engine.start()
-    if args.warmup:
-        shapes = _parse_hw_list(args.warmup)
-        print(f"warmup: capturing {len(shapes)} shape(s)...", flush=True)
-        engine.warmup(shapes)
-    server = make_server(engine, args.host, args.port)
+    service, fleet = start_service(args)
+    extra = ""
+    if fleet is not None:
+        extra = (f", replicas={args.replicas}, aot_dir={fleet.aot_dir}"
+                 + (f", remote={','.join(args.remote)}" if args.remote
+                    else "")
+                 + (f", autoscale={args.autoscale}" if args.autoscale
+                    else ""))
+    server = make_server(service, args.host, args.port)
     host, port = server.server_address[:2]
     print(f"raft_tpu_torch serve: listening on http://{host}:{port} "
-          f"(device={engine.device}, batching={args.batching}, "
+          f"(device={args.device}, batching={args.batching}, "
           f"max_batch={args.max_batch}, max_wait_ms={args.max_wait_ms}, "
-          f"max_queue={args.max_queue})", flush=True)
+          f"max_queue={args.max_queue}{extra})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
-        engine.stop()
-        print(json.dumps(engine.stats()), flush=True)
+        (fleet or service).stop()
+        print(json.dumps(service.stats()), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Telemetry (the port's copy of the parts of ``raft_tpu/obs/`` that the
-serving engine uses):
+serving engine and its fleet use):
 
 - :class:`MetricRegistry`: thread-safe counters, gauges and histograms
   (bounded reservoirs), rendered as Prometheus text at the serving CLI's
@@ -10,8 +10,10 @@ serving engine uses):
   ``RAFT_TELEMETRY_DIR`` (or the serve CLI's telemetry directory).
 
 Recording is lock-cheap, never reads a device tensor, and the layer is a
-no-op when disabled.  Traces, SLOs, incidents, flow quality and the cost
-model are not ported yet (ROADMAP A8).
+no-op when disabled.  Flow quality (``obs/quality.py``) and SLO burn
+rates (``obs/slo.py``) are imported from their modules, as in the JAX
+package; traces, incidents and the cost model are not ported yet
+(ROADMAP A8).
 """
 
 from raft_tpu_torch.obs.events import (

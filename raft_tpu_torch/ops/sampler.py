@@ -1,6 +1,6 @@
-"""Coordinate grids, the forward warp of a flow field and the small
-model's bilinear 8x upsample (the port of ``raft_tpu/ops/sampler.py:
-26-33``, ``:86-140`` and ``:143-181``)."""
+"""Coordinate grids, bilinear sampling with zero padding, the forward warp
+of a flow field and the small model's bilinear 8x upsample (the port of
+``raft_tpu/ops/sampler.py:26-83``, ``:86-140`` and ``:143-181``)."""
 
 from __future__ import annotations
 
@@ -14,6 +14,43 @@ def coords_grid(batch: int, ht: int, wd: int, device=None) -> torch.Tensor:
         torch.arange(wd, dtype=torch.float32, device=device), indexing="ij")
     grid = torch.stack([x, y], dim=-1)
     return grid[None].expand(batch, ht, wd, 2).contiguous()
+
+
+def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor,
+                     mask: bool = False):
+    """Sample ``img`` ``(B, H, W, C)`` at pixel coordinates ``coords``
+    ``(B, ..., 2)`` (last axis ``(x, y)``) with zero padding: a corner
+    outside the image contributes 0.  With ``mask`` also returns the
+    in-bounds indicator ``(B, ...)`` in ``img``'s dtype, with strict
+    inequalities (``0 < x < W - 1``, ``0 < y < H - 1``), as the JAX
+    package's."""
+    B, H, W, C = img.shape
+    x = coords[..., 0]
+    y = coords[..., 1]
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    wx = (x - x0)[..., None].to(img.dtype)
+    wy = (y - y0)[..., None].to(img.dtype)
+    flat = img.reshape(B, H * W, C)
+
+    def gather(ix, iy):
+        valid = (ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)
+        idx = (torch.clamp(iy, 0, H - 1) * W
+               + torch.clamp(ix, 0, W - 1)).long().reshape(B, -1)
+        out = torch.gather(flat, 1, idx[..., None].expand(B, idx.shape[1],
+                                                           C))
+        return out.reshape(*ix.shape, C) * valid[..., None].to(img.dtype)
+
+    v00 = gather(x0, y0)
+    v01 = gather(x0 + 1, y0)
+    v10 = gather(x0, y0 + 1)
+    v11 = gather(x0 + 1, y0 + 1)
+    out = ((1 - wy) * ((1 - wx) * v00 + wx * v01)
+           + wy * ((1 - wx) * v10 + wx * v11))
+    if mask:
+        inb = (x > 0) & (x < W - 1) & (y > 0) & (y < H - 1)
+        return out, inb.to(img.dtype)
+    return out
 
 
 def forward_warp_flow(flow: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:

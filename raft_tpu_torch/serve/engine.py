@@ -46,22 +46,33 @@ A server sees concurrent requests of unknown resolution.  The engine:
 
 Threads: callers ``submit()`` (bucket lookup, backpressure, handoff to
 the engine's asyncio loop); the loop thread's per-bucket dispatchers
-coalesce batches and never touch the device; one device-worker thread
-pads and stacks, runs the programs (and captures them) and unpads.  The
-device-worker thread is one per device for all engines of the process
-(the JAX engine has one per engine): cuDNN's convolution plans are
-chosen per thread, under the memory free when a shape is first run, so
-engines on threads of their own could replay different kernels, and
-give different bits, for the same model.
+coalesce batches and never touch the device; the engine's own host
+thread runs each batch or slot cycle (the chaos seam, padding and
+stacking, waiting, unpadding, quality scoring) and hands every CUDA call
+(launches, copies, captures, replays, allocations) to the device-worker
+thread.  The device worker is one per device for all engines of the
+process (the JAX engine has one per engine): cuDNN's convolution plans
+are chosen per thread, under the memory free when a shape is first run,
+so engines on threads of their own could replay different kernels, and
+give different bits, for the same model; and while the worker captures
+a graph, a CUDA call from any other thread would fail ("operation not
+permitted when stream is capturing").  A straggling or wedged engine
+holds only its own host thread, so its siblings keep serving (the
+fleet's hedges and failovers depend on it).
 Backpressure: at most ``max_queue`` requests in flight; beyond it
 ``submit()`` raises :class:`QueueFullError` (HTTP 429).
 
+Warm start (``ServeConfig.aot_dir``, ``serve/aot.py``): an engine built
+with a manifest directory captures every ``(bucket, lanes, program)``
+the manifest lists during :meth:`InferenceEngine.start`, before it
+reports ready, so its first request captures nothing.  Flow quality
+(``quality_*``, ``obs/quality.py``) and SLOs (``slo_*``, ``obs/slo.py``)
+are built only when their knobs are set.
+
 The engine runs on the card unless it is given ``device="cpu"``; without
-CUDA it raises.  It serves one model on one device; the JAX package's
-replica fleet, router, remote fabric and AOT artifacts are not ported
-yet (ROADMAP A7), nor are traces, the cost model, flow quality, SLOs and
-incidents (ROADMAP A8): their ``ServeConfig`` knobs raise at any value
-but the default.
+CUDA it raises.  The JAX package's traces, cost model (and the MFU-floor
+SLO) and incidents are not ported yet (ROADMAP A8): their ``ServeConfig``
+knobs raise at any value but the default.
 """
 
 from __future__ import annotations
@@ -89,17 +100,7 @@ from raft_tpu_torch.utils.profiling import CaptureCounter
 # ServeConfig knobs of parts the port does not have yet -> the ROADMAP
 # item that brings them.  Each raises at any value but its default.
 UNPORTED_KNOBS = {
-    "aot_dir": "A7 (serve/aot.py)",
-    "quality_sample_rate": "A8 (obs/quality.py)",
-    "quality_cycle": "A8 (obs/quality.py)",
-    "quality_drift_reference": "A8 (obs/quality.py)",
-    "quality_drift_window": "A8 (obs/quality.py)",
-    "quality_drift_threshold": "A8 (obs/quality.py)",
-    "slo_availability_target": "A8 (obs/slo.py)",
-    "slo_latency_target_ms": "A8 (obs/slo.py)",
-    "slo_quality_bound": "A8 (obs/slo.py)",
-    "slo_mfu_floor": "A8 (obs/slo.py)",
-    "slo_window_s": "A8 (obs/slo.py)",
+    "slo_mfu_floor": "A8 (obs/cost.py, the MFU the floor reads)",
     "incidents": "A8 (obs/incident.py)",
     "incident_window_s": "A8 (obs/incident.py)",
     "incident_quiet_s": "A8 (obs/incident.py)",
@@ -107,6 +108,7 @@ UNPORTED_KNOBS = {
 }
 
 # the default resident budget on the card: this share of its memory
+# (a fleet splits it among its engines)
 RESIDENT_FRACTION = 0.75
 
 
@@ -131,12 +133,24 @@ _DEVICE_WORKERS_LOCK = threading.Lock()
 
 
 def _device_worker(device) -> ThreadPoolExecutor:
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     with _DEVICE_WORKERS_LOCK:
-        pool = _DEVICE_WORKERS.get(str(device))
+        pool = _DEVICE_WORKERS.get(str(dev))
         if pool is None:
-            pool = _DEVICE_WORKERS[str(device)] = ThreadPoolExecutor(
+            pool = _DEVICE_WORKERS[str(dev)] = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="raft-serve-device")
         return pool
+
+
+def on_device(device, fn):
+    """Run ``fn()`` on ``device``'s device worker and return its result:
+    how code outside an engine (the fleet dropping a replaced engine's
+    memory) makes a CUDA call without racing an engine's capture."""
+    return _device_worker(device).submit(fn).result()
 
 
 class QueueFullError(RuntimeError):
@@ -176,9 +190,21 @@ class ServeConfig:
     ``iters``); request mode runs every lane to ``iters``.  Streaming
     (slot mode): ``stream_ttl_s`` evicts a quiet session,
     ``stream_warm_iters`` budgets warm frames (None: the session's
-    budget), ``max_sessions`` bounds open sessions.  The AOT, quality,
-    SLO and incident knobs (:data:`UNPORTED_KNOBS`) raise at any value
-    but the default.
+    budget), ``max_sessions`` bounds open sessions.  ``aot_dir``: a
+    warm-start manifest directory (``serve/aot.py``) whose keys
+    :meth:`InferenceEngine.start` captures; a missing, torn or
+    mismatched manifest is a warm-start miss (``aot_import_error``) and
+    the engine captures lazily.  ``quality_sample_rate``: the fraction of
+    retiring slot-mode requests scored with the photometric proxy
+    (``obs/quality.py``; 0 builds no monitor), ``quality_cycle`` adds a
+    backward pass per scored request, ``quality_drift_*`` size the drift
+    detector.  ``slo_availability_target`` / ``slo_latency_target_ms``
+    (99% of requests under it) / ``slo_quality_bound`` (needs
+    ``quality_sample_rate``), 0 each disabling it, and ``slo_window_s``
+    (the burn policy's 1 h window rescaled) build an
+    :class:`~raft_tpu_torch.obs.slo.SLOTracker`.  The MFU-floor SLO and
+    the incident knobs (:data:`UNPORTED_KNOBS`) raise at any value but
+    the default.
 
     Memory: each ``(bucket, lanes)`` holds a resident slot state and its
     graphs (``allpairs`` in bf16 at 440x1024: 131 MB of state a lane).
@@ -257,6 +283,17 @@ class ServeConfig:
         if self.early_exit_threshold < 0:
             raise ValueError("early_exit_threshold must be >= 0 "
                              "(0 disables early exit)")
+        if not 0.0 <= self.quality_sample_rate <= 1.0:
+            raise ValueError(
+                f"quality_sample_rate must be in [0, 1] (0 disables "
+                f"quality scoring), got {self.quality_sample_rate}")
+        if (self.quality_drift_reference < 4
+                or self.quality_drift_window < 2
+                or self.quality_drift_threshold <= 0):
+            raise ValueError(
+                "need quality_drift_reference >= 4, "
+                "quality_drift_window >= 2 and "
+                "quality_drift_threshold > 0")
         if self.max_wait_ms < 0:
             raise ValueError("max_wait_ms must be >= 0")
         if self.stall_timeout_s < 0:
@@ -270,6 +307,16 @@ class ServeConfig:
             raise ValueError(
                 "need retry_backoff_max_s >= retry_backoff_s, "
                 "retry_deadline_s > 0 and 0 <= retry_jitter < 1")
+        if not 0.0 <= self.slo_availability_target < 1.0:
+            raise ValueError(
+                "slo_availability_target must be in [0, 1) — 0 "
+                f"disables, 1.0 leaves no error budget; got "
+                f"{self.slo_availability_target}")
+        if (self.slo_latency_target_ms < 0 or self.slo_quality_bound < 0
+                or self.slo_window_s <= 0):
+            raise ValueError(
+                "need slo_latency_target_ms >= 0, slo_quality_bound "
+                ">= 0 and slo_window_s > 0")
         m = self.bucket_multiple
         for hw in self.buckets or ():
             if hw[0] % m or hw[1] % m:
@@ -394,20 +441,33 @@ class InferenceEngine:
     ``state_dict`` is the port's (``convert.py`` makes one from JAX
     variables).  ``device`` defaults to the card.
     ``resident_budget_bytes``: request mode's memory budget (see
-    :class:`ServeConfig`); None is :data:`RESIDENT_FRACTION` of the card,
-    and no budget on the CPU (where the sets' state bytes are counted)."""
+    :class:`ServeConfig`), held against :meth:`resident_bytes` (what this
+    engine's sets hold); None is :data:`RESIDENT_FRACTION` of the card
+    (a :class:`~raft_tpu_torch.serve.fleet.ReplicaFleet` passes each
+    engine its share), and no budget on the CPU."""
 
     def __init__(self, state_dict: Mapping, model_cfg: RAFTConfig,
                  cfg: ServeConfig = ServeConfig(), *,
                  registry: Optional[MetricRegistry] = None,
                  sink: Optional[EventSink] = None, device="cuda",
                  resident_budget_bytes: Optional[int] = None):
+        import torch
+
         from raft_tpu_torch.evaluate import make_inference_model
         from raft_tpu_torch.serve.slots import SlotPrograms
 
         self.cfg = cfg
-        # weights resident on the device; every program reads them in place
-        model = make_inference_model(model_cfg, state_dict, device=device)
+
+        def build():
+            return make_inference_model(model_cfg, state_dict, device=device)
+
+        # weights resident on the device (copied there on the device
+        # worker, so no copy races another engine's capture); every
+        # program reads them in place
+        if torch.device(device).type == "cuda" and torch.cuda.is_available():
+            model = on_device(device, build)
+        else:
+            model = build()
         self.device = next(model.parameters()).device
         self._model_cfg = model.config
         self._batch_sizes = cfg.resolved_batch_sizes()
@@ -428,9 +488,12 @@ class InferenceEngine:
         # (bucket, lanes) -> SlotSet, least recently used first
         self._sets: "OrderedDict[tuple, object]" = OrderedDict()
         self._sets_lock = threading.Lock()
+        # (bucket, lanes) -> bytes the card's reserved memory grew by
+        # during this engine's device calls for it (the state, the
+        # graphs' private pools): what the resident budget is held
+        # against on the card
+        self._held: Dict[tuple, int] = {}
         if resident_budget_bytes is None and self.device.type == "cuda":
-            import torch
-
             resident_budget_bytes = int(
                 RESIDENT_FRACTION
                 * torch.cuda.get_device_properties(self.device).total_memory)
@@ -456,6 +519,45 @@ class InferenceEngine:
                  "(stateless pairs and session first pairs)",
             scale=1.0, suffix="")
         self._counters = Counters(registry=self.registry)
+        # flow quality (obs/quality.py): built only when sampled, so the
+        # default hot path carries no monitor
+        self._quality = None
+        if cfg.quality_sample_rate > 0:
+            from raft_tpu_torch.obs import quality as quality_mod
+
+            self._quality = quality_mod.QualityMonitor(
+                registry=self.registry, sink=self._sink,
+                sample_rate=cfg.quality_sample_rate,
+                cycle=cfg.quality_cycle,
+                drift_reference=cfg.quality_drift_reference,
+                drift_window=cfg.quality_drift_window,
+                drift_threshold=cfg.quality_drift_threshold,
+                reservoir=cfg.latency_window)
+        # SLOs (obs/slo.py): a tracker only for the objectives set
+        self._slo = None
+        slo_specs = []
+        if (cfg.slo_availability_target > 0 or cfg.slo_latency_target_ms
+                > 0 or cfg.slo_quality_bound > 0):
+            from raft_tpu_torch.obs import slo as slo_mod
+
+            policy = slo_mod.scaled_policy(cfg.slo_window_s)
+            if cfg.slo_availability_target > 0:
+                slo_specs.append(slo_mod.SLOSpec(
+                    "availability", cfg.slo_availability_target,
+                    "non-error request fraction", windows=policy))
+            if cfg.slo_latency_target_ms > 0:
+                slo_specs.append(slo_mod.SLOSpec(
+                    "latency", 0.99,
+                    f"requests under {cfg.slo_latency_target_ms}ms",
+                    windows=policy))
+            if cfg.slo_quality_bound > 0 and cfg.quality_sample_rate > 0:
+                slo_specs.append(slo_mod.SLOSpec(
+                    "quality", 0.99,
+                    f"sampled photometric proxy <= "
+                    f"{cfg.slo_quality_bound}", windows=policy))
+            if slo_specs:
+                self._slo = slo_mod.SLOTracker(
+                    slo_specs, registry=self.registry, sink=self._sink)
         self._sessions: Dict[str, _StreamSession] = {}
         self._sessions_lock = threading.Lock()
         self._sessions_gauge = self.registry.gauge(
@@ -477,10 +579,15 @@ class InferenceEngine:
         self._pending = 0
         self._pending_lock = threading.Lock()
         # the stall signal: when the last device batch completed, when the
-        # pending backlog started (0 -> nonzero), and start()
+        # pending backlog started (0 -> nonzero), and start(); and the
+        # shared device worker: device calls of this engine waiting in
+        # line behind other engines' work (not a stall), and when its
+        # running device call reached the worker
         self._last_batch_done: Optional[float] = None
         self._pending_since: Optional[float] = None
         self._t_started: Optional[float] = None
+        self._in_line = 0
+        self._device_since: Optional[float] = None
         self._stale_gauge = self.registry.gauge(
             "raft_serve_seconds_since_last_batch",
             "seconds since the last completed device batch (refreshed "
@@ -493,7 +600,72 @@ class InferenceEngine:
         self._queues: Dict[tuple, asyncio.Queue] = {}
         self._dispatchers: Dict[tuple, asyncio.Task] = {}
         self._device_pool = _device_worker(self.device)
+        # this engine's own host thread: batches and slot cycles run
+        # here, their device calls on the shared worker
+        self._host_pool = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="raft-serve-host")
         self._accepting = False
+
+        # warm start (serve/aot.py): the manifest's fingerprint of this
+        # engine, and what start() replayed
+        from raft_tpu_torch.serve import aot as aot_mod
+
+        self._aot_fingerprint = aot_mod.model_fingerprint(
+            self._model_cfg, state_dict, cfg.iters, self.device)
+        self.aot_info: dict = {"dir": cfg.aot_dir, "replayed": 0,
+                               "ok": None}
+
+    # ------------------------------------------------------------------
+    # warm-start manifests
+    # ------------------------------------------------------------------
+
+    def _replay_manifest(self, directory: str) -> None:
+        """Capture every key of the manifest in ``directory`` (on the
+        device worker, before the engine reports ready).  Any refusal is
+        a warm-start miss: the event, then lazy capture."""
+        from raft_tpu_torch.serve import aot as aot_mod
+
+        t0 = time.perf_counter()
+        try:
+            keys = aot_mod.read_manifest(directory,
+                                         fingerprint=self._aot_fingerprint)
+        except aot_mod.AOTImportError as e:
+            self.aot_info.update(ok=False, error=str(e))
+            self._sink.emit("aot_import_error", dir=directory,
+                            error=str(e)[:300])
+            return
+        by_set: Dict[tuple, list] = {}
+        for bucket, lanes, prog in keys:
+            by_set.setdefault((bucket, lanes), []).append(prog)
+        for (bucket, lanes), progs in by_set.items():
+            self._device(lambda b=bucket, n=lanes, p=tuple(progs):
+                         self._get_programs(b, n).warm(p), (bucket, lanes))
+        secs = time.perf_counter() - t0
+        self.aot_info.update(ok=True, replayed=len(keys),
+                             seconds=round(secs, 3))
+        self._sink.emit("aot_import", dir=directory, keys=len(keys),
+                        seconds=round(secs, 3))
+
+    def compiled_keys(self) -> List[tuple]:
+        """``(bucket, lanes, program)`` keys this engine has captured (on
+        the CPU: run) and still holds: what :meth:`export_aot` lists."""
+        with self._sets_lock:
+            held = set(self._sets)
+        return sorted(k for k in self.capture_counter.counts()
+                      if (k[0], k[1]) in held)
+
+    def export_aot(self, directory: str) -> dict:
+        """Write the warm-start manifest of :meth:`compiled_keys` into
+        ``directory`` (atomically); returns it.  Raises when nothing was
+        captured (warm up first)."""
+        from raft_tpu_torch.serve import aot as aot_mod
+
+        manifest = aot_mod.write_manifest(
+            directory, self.compiled_keys(),
+            fingerprint=self._aot_fingerprint)
+        self._sink.emit("aot_export", dir=directory,
+                        keys=len(manifest["keys"]))
+        return manifest
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -518,6 +690,8 @@ class InferenceEngine:
                                         daemon=True)
         self._thread.start()
         started.wait()
+        if self.cfg.aot_dir:
+            self._replay_manifest(self.cfg.aot_dir)
         self._counters.mark_started()
         self._t_started = time.perf_counter()
         self._accepting = True
@@ -552,14 +726,35 @@ class InferenceEngine:
 
         asyncio.run_coroutine_threadsafe(
             _cancel_all(), self._loop).result(timeout=10)
-        # the worker is shared: wait for this engine's device work only
-        self._device_pool.submit(lambda: None).result()
+        # this engine's batches end (a wedge ends once it stops
+        # accepting); then its states and graphs go, on the device worker
+        self._host_pool.shutdown(wait=True)
+        try:
+            self._device(self._release_device_state)
+        except Exception as e:   # an unusable device: nothing to give back
+            self._sink.emit("serve_release_error",
+                            error=f"{type(e).__name__}: {e}"[:300])
         self._loop.call_soon_threadsafe(self._loop.stop)
         self._thread.join(timeout=10)
         self._loop.close()
         self._thread = None
         self._dispatchers.clear()
         self._queues.clear()
+
+    def _release_device_state(self) -> None:
+        """Drop every set and graph of this engine (device worker): a
+        stopped engine holds no card memory but its weights, whatever
+        still refers to it."""
+        with self._sets_lock:
+            for bucket, lanes in list(self._sets):
+                self._programs.forget(bucket, lanes)
+            self._sets.clear()
+            self._held.clear()
+        if self.device.type == "cuda":
+            import torch
+
+            gc.collect()
+            torch.cuda.empty_cache()
 
     def __enter__(self) -> "InferenceEngine":
         return self.start()
@@ -827,11 +1022,9 @@ class InferenceEngine:
                      else (batch_sizes or self._batch_sizes))
             keys += [(bucket, int(bs)) for bs in sizes]
 
-        def run():
-            for bucket, bs in keys:
-                self._get_programs(bucket, bs).warm()
-
-        self._device_pool.submit(run).result()
+        for bucket, bs in keys:
+            self._device(lambda b=bucket, n=bs: self._get_programs(b, n)
+                         .warm(), (bucket, bs))
         return keys
 
     def _collect_pending(self, _reg) -> None:
@@ -846,17 +1039,22 @@ class InferenceEngine:
         """Readiness (``GET /v1/healthz``): not ready when not accepting,
         crashed, or when requests are pending and no device batch has
         completed within ``stall_timeout_s`` of the newest of {last
-        completed batch, start of the pending backlog, start()}."""
+        completed batch, start of the pending backlog, start(), the
+        moment its running device call reached the shared device
+        worker}.  An engine whose device call waits in line behind
+        another engine's work is not stalled."""
         now = time.perf_counter()
         with self._pending_lock:
             pending = self._pending
             last = self._last_batch_done
             pending_since = self._pending_since
+            in_line = self._in_line
+            device_since = self._device_since
         since = None if last is None else now - last
         stalled = False
-        if self.cfg.stall_timeout_s and pending > 0:
-            refs = [t for t in (last, pending_since, self._t_started)
-                    if t is not None]
+        if self.cfg.stall_timeout_s and pending > 0 and not in_line:
+            refs = [t for t in (last, pending_since, self._t_started,
+                                device_since) if t is not None]
             stalled = (bool(refs)
                        and now - max(refs) > self.cfg.stall_timeout_s)
         return {
@@ -875,6 +1073,44 @@ class InferenceEngine:
         """Prometheus text of the engine registry (what ``stats()``
         reads)."""
         return self.registry.render_prometheus()
+
+    def queue_capacity(self) -> int:
+        """This engine's admission bound (the router's spill math and
+        the autoscaler read it through the replica)."""
+        return self.cfg.max_queue
+
+    def load_signals(self) -> dict:
+        """The autoscaler's inputs, from host counters only: ``pending``
+        / ``max_queue`` / ``queue_frac``, ``occupancy`` (slot lanes or
+        batch fill), ``burn_rate`` (the worst SLO burn, 0 without SLOs),
+        ``mfu`` (None: the cost model is not ported yet) and
+        ``latency_p95_ms`` over the recent window."""
+        with self._pending_lock:
+            pending = self._pending
+        cap = max(int(self.cfg.max_queue), 1)
+        burn = 0.0
+        if self._slo is not None:
+            for snap in self._slo.snapshot().values():
+                if isinstance(snap, dict):
+                    burn = max(burn, float(snap.get("burn_rate") or 0.0))
+        counters = self._counters.snapshot(1)
+        lat = self._latency.snapshot()
+        return {
+            "pending": pending,
+            "max_queue": self.cfg.max_queue,
+            "queue_frac": round(pending / cap, 4),
+            "occupancy": float(counters.get("occupancy") or 0.0),
+            "burn_rate": round(burn, 4),
+            "mfu": None,
+            "latency_p95_ms": float(lat.get("p95_ms") or 0.0),
+        }
+
+    def quality_drift(self) -> Optional[dict]:
+        """Per-proxy drift-detector state (None when quality scoring is
+        off): the fleet's supervisor forwards new firings."""
+        if self._quality is None:
+            return None
+        return self._quality.drift_snapshot()
 
     def stats(self) -> dict:
         """One JSON-able snapshot: counters, latency percentiles over the
@@ -904,6 +1140,12 @@ class InferenceEngine:
         out["compiles"] = {f"{hw[0]}x{hw[1]}/b{bs}/{prog}": n
                            for (hw, bs, prog), n in sorted(counts.items())}
         out["num_buckets"] = len({k[0] for k in counts})
+        out["aot"] = dict(self.aot_info)
+        out["quality"] = (self._quality.snapshot()
+                          if self._quality is not None
+                          else {"enabled": False})
+        out["slo"] = (self._slo.snapshot() if self._slo is not None
+                      else {"enabled": False})
         return out
 
     # ------------------------------------------------------------------
@@ -929,8 +1171,8 @@ class InferenceEngine:
                 self._pending -= len(leftovers)
 
     async def _dispatcher(self, bucket: tuple, q: asyncio.Queue) -> None:
-        """Coalesce one bucket's requests into micro-batches.  The device
-        call is not awaited: the single worker serializes device work,
+        """Coalesce one bucket's requests into micro-batches.  The batch
+        is not awaited: the engine's host thread serializes its batches,
         and the next batch fills while the previous one runs."""
         batch: List[_Request] = []
         try:
@@ -947,7 +1189,7 @@ class InferenceEngine:
                     except asyncio.TimeoutError:
                         break
                 fut = self._loop.run_in_executor(
-                    self._device_pool, self._run_batch, bucket, batch)
+                    self._host_pool, self._run_batch, bucket, batch)
                 batch = []
                 fut.add_done_callback(lambda f: f.exception())
         except asyncio.CancelledError:
@@ -986,7 +1228,7 @@ class InferenceEngine:
                     except asyncio.QueueEmpty:
                         break
                 await self._loop.run_in_executor(
-                    self._device_pool, self._slot_cycle, bucket, pool,
+                    self._host_pool, self._slot_cycle, bucket, pool,
                     waiting)
         except asyncio.CancelledError:
             leftovers = list(waiting) + pool.live()
@@ -1006,15 +1248,47 @@ class InferenceEngine:
         return float(min(max(nxt - now, 0.05), 1.0))
 
     # ------------------------------------------------------------------
-    # internals: device-worker thread
+    # internals: the engine's host thread, and its device calls
     # ------------------------------------------------------------------
+
+    def _device(self, fn, key: Optional[tuple] = None):
+        """Run ``fn()`` on the shared device worker and wait for it (every
+        CUDA call of the engine goes through here).  The time it waits in
+        line is not a stall (:meth:`health`).  With ``key`` (a ``(bucket,
+        lanes)``), the growth of the card's reserved memory during the
+        call is charged to that set (:meth:`resident_bytes`)."""
+        with self._pending_lock:
+            self._in_line += 1
+
+        def run():
+            with self._pending_lock:
+                self._in_line -= 1
+                self._device_since = time.perf_counter()
+            try:
+                if key is None or self.device.type != "cuda":
+                    return fn()
+                import torch
+
+                before = torch.cuda.memory_reserved(self.device)
+                try:
+                    return fn()
+                finally:
+                    grown = torch.cuda.memory_reserved(self.device) - before
+                    if grown > 0 and key in self._sets:
+                        self._held[key] = self._held.get(key, 0) + grown
+            finally:
+                with self._pending_lock:
+                    self._device_since = None
+
+        return self._device_pool.submit(run).result()
 
     def _get_programs(self, bucket: tuple, lanes: int):
         """The :class:`~raft_tpu_torch.serve.slots.SlotSet` of ``(bucket,
         lanes)``: one resident state and one program set per key; both
-        batching modes run through here.  In request mode a new key first
-        frees least recently used ones while the resident memory is past
-        the budget (slot mode's pools hold their sets for good)."""
+        batching modes run through here (on the device worker).  In
+        request mode a new key first frees least recently used ones while
+        the resident memory is past the budget (slot mode's pools hold
+        their sets for good)."""
         from raft_tpu_torch.serve.slots import SlotSet
 
         key = (tuple(bucket), int(lanes))
@@ -1029,44 +1303,44 @@ class InferenceEngine:
             return progs
 
     def resident_bytes(self) -> int:
-        """What the resident budget is held against: the card's reserved
-        memory (states, graph pools, weights, workspaces), or on the CPU
-        the bytes of the sets' states."""
+        """What the resident budget is held against: on the card, the
+        reserved memory this engine's sets grew it by (their states and
+        their graphs' private pools; all device calls of the process run
+        one at a time on the device worker, so a call's growth is its
+        own), on the CPU the bytes of the sets' states."""
         if self.device.type == "cuda":
-            import torch
-
-            return torch.cuda.memory_reserved(self.device)
+            return sum(self._held.values())
         return sum(s.nbytes() for s in self._sets.values())
 
     def _evict_past_budget(self) -> None:
-        """While the resident memory is past the budget, give the cached
-        free blocks back to the card, then free the least recently used
-        set and its graphs (until none is left); caller holds
-        ``_sets_lock`` on the device worker, so no set is in use."""
+        """While the resident memory is past the budget, free the least
+        recently used set and its graphs (until none is left), then give
+        the freed blocks back to the card; caller holds ``_sets_lock`` on
+        the device worker, so no set is in use."""
         budget = self.resident_budget_bytes
         if budget is None:
             return
-        while self.resident_bytes() > budget:
-            if self.device.type == "cuda":
-                import torch
-
-                gc.collect()     # a graph's memory goes with its last ref
-                torch.cuda.empty_cache()
-                resident = self.resident_bytes()
-                if resident <= budget:
-                    return
-            if not self._sets:
-                return
+        evicted = False
+        while self._sets and self.resident_bytes() > budget:
             (bucket, lanes), _ = self._sets.popitem(last=False)
             self._programs.forget(bucket, lanes)
+            self._held.pop((bucket, lanes), None)
+            evicted = True
             self._state_evictions.inc()
             self._sink.emit("serve_state_evict",
                             bucket=f"{bucket[0]}x{bucket[1]}", lanes=lanes,
                             resident_bytes=self.resident_bytes(),
                             budget_bytes=budget)
+        if evicted and self.device.type == "cuda":
+            import torch
 
-    def _retry_call(self, bucket: tuple, seq: int, thunk):
-        """Run one device call (``thunk``) with transient-error retry:
+            gc.collect()     # a graph's memory goes with its last ref
+            torch.cuda.empty_cache()
+
+    def _retry_call(self, bucket: tuple, seq: int, thunk,
+                    key: Optional[tuple] = None):
+        """Run one device call (``thunk``, on the device worker; ``key``
+        as :meth:`_device`) with transient-error retry:
         up to ``cfg.device_retries`` re-runs with exponential, jittered
         backoff under ``retry_deadline_s``, each counted and logged
         (``serve_retry`` with the backoff slept).  The ``device_err``
@@ -1082,7 +1356,7 @@ class InferenceEngine:
                     raise InjectedDeviceError(
                         f"chaos-injected transient device error "
                         f"(batch {seq})")
-                return thunk()
+                return self._device(thunk, key)
             except Exception as e:
                 if attempt >= self.cfg.device_retries \
                         or not is_transient_error(e):
@@ -1116,12 +1390,16 @@ class InferenceEngine:
         self._sink.emit("replica_crash", reason=reason[:300])
 
     def _chaos_replica_faults(self, seq: int) -> None:
-        """The ``serve.replica`` seam (step context: the batch ordinal)."""
+        """The ``serve.replica`` seam (step context: the batch ordinal),
+        on the engine's host thread: a straggler or a wedge holds this
+        engine only."""
         if chaos.should_inject("replica_slow", step=seq,
                                point="serve.replica"):
+            self._sink.emit("chaos_inject", fault="replica_slow", step=seq)
             time.sleep(self.cfg.chaos_slow_s)
         if chaos.should_inject("replica_hang", step=seq,
                                point="serve.replica"):
+            self._sink.emit("chaos_inject", fault="replica_hang", step=seq)
             t0 = time.perf_counter()
             while (self._accepting
                    and time.perf_counter() - t0 < self.cfg.chaos_hang_max_s):
@@ -1131,14 +1409,26 @@ class InferenceEngine:
                 f"{time.perf_counter() - t0:.2f}s (batch {seq})")
         if chaos.should_inject("replica_kill", step=seq,
                                point="serve.replica"):
+            self._sink.emit("chaos_inject", fault="replica_kill", step=seq)
             self._crash(f"chaos-injected replica kill (batch {seq})")
             raise InjectedReplicaKill(
                 f"chaos-injected replica kill (batch {seq})")
 
+    def _slo_request(self, ok: bool, latency_s: Optional[float] = None,
+                     n: int = 1) -> None:
+        """``n`` request outcomes into the SLO tracker (callers check
+        ``self._slo``); the latency SLO observes successes only."""
+        self._slo.record("availability", ok, n=n)
+        if ok and latency_s is not None:
+            self._slo.record(
+                "latency",
+                latency_s * 1000.0 <= self.cfg.slo_latency_target_ms, n=n)
+
     def _run_batch(self, bucket: tuple, reqs: List[_Request]) -> None:
         """Request mode: one micro-batch through the slot programs in
         lockstep (admit all, ``iters`` iterations, one upsample), read
-        back once at the end."""
+        back once at the end; padding here, the programs on the device
+        worker."""
         n = len(reqs)
         bs = next((s for s in self._batch_sizes if s >= n), n)
         t_start = time.perf_counter()
@@ -1148,7 +1438,6 @@ class InferenceEngine:
             return
         try:
             self._chaos_replica_faults(self._batch_seq)
-            progs = self._get_programs(bucket, bs)
             im1 = [r.padder.pad_np(r.image1) for r in reqs]
             im2 = [r.padder.pad_np(r.image2) for r in reqs]
             if bs > n:  # ballast lanes keep the batch shape
@@ -1158,17 +1447,21 @@ class InferenceEngine:
             budgets = np.full((bs,), self.cfg.iters, np.int32)
 
             def thunk():
+                progs = self._get_programs(bucket, bs)
                 progs.encode(a1, a2, progs.admit_all, budgets)
                 for _ in range(self.cfg.iters):
                     progs.iterate(0.0)
                 return progs.upsample().cpu().numpy()
 
-            flow_up = self._retry_call(bucket, self._batch_seq, thunk)
+            flow_up = self._retry_call(bucket, self._batch_seq, thunk,
+                                       (tuple(bucket), bs))
             t_done = time.perf_counter()
             for j, r in enumerate(reqs):
                 r.future.set_result(
                     np.asarray(r.padder.unpad(flow_up[j:j + 1])[0]))
                 self._latency.record(t_done - r.t_submit)
+                if self._slo is not None:
+                    self._slo_request(True, t_done - r.t_submit)
             self._counters.add_batch(real=n, padded=bs - n, failed=False)
             self._sink.emit("serve_batch",
                             bucket=f"{bucket[0]}x{bucket[1]}", real=n,
@@ -1179,6 +1472,8 @@ class InferenceEngine:
                 if not r.future.done():
                     r.future.set_exception(e)
             self._counters.add_batch(real=n, padded=bs - n, failed=True)
+            if self._slo is not None:
+                self._slo_request(False, n=n)
             self._sink.emit("serve_batch_error",
                             bucket=f"{bucket[0]}x{bucket[1]}", real=n,
                             error=f"{type(e).__name__}: {e}")
@@ -1190,7 +1485,7 @@ class InferenceEngine:
                 self._last_batch_done = time.perf_counter()
 
     # ------------------------------------------------------------------
-    # internals: device-worker thread, slot mode
+    # internals: the engine's host thread, slot mode
     # ------------------------------------------------------------------
 
     def _fail_lanes(self, reqs: List[_Request], e: Exception, event: str,
@@ -1199,6 +1494,8 @@ class InferenceEngine:
             if not r.future.done():
                 r.future.set_exception(e)
         self._counters.add_failed_lanes(len(reqs))
+        if self._slo is not None and reqs:
+            self._slo_request(False, n=len(reqs))
         self._sink.emit(event, bucket=f"{bucket[0]}x{bucket[1]}",
                         error=f"{type(e).__name__}: {e}", **fields)
         with self._pending_lock:
@@ -1228,7 +1525,7 @@ class InferenceEngine:
         self._fail_lanes(live, e, event, bucket, lanes=len(live))
         if not _device_unusable(e):
             try:
-                pool.reset()
+                self._device(pool.reset)
                 return
             except Exception as reset_err:   # the zeroing failed too
                 e = reset_err
@@ -1250,7 +1547,9 @@ class InferenceEngine:
         try:
             self._chaos_replica_faults(seq)
             if pool.progs is None:
-                pool.progs = self._get_programs(bucket, self.cfg.slots)
+                key = (tuple(bucket), self.cfg.slots)
+                pool.progs = self._device(
+                    lambda: self._get_programs(*key), key)
             self._sweep_pins(bucket, pool)
             if waiting:
                 self._admit_cycle(bucket, pool, waiting, seq)
@@ -1384,7 +1683,7 @@ class InferenceEngine:
         a1, a2, admit, budgets = self._lane_inputs(pool, admits, True)
         try:
             self._retry_call(bucket, seq, lambda: pool.progs.encode(
-                a1, a2, admit, budgets))
+                a1, a2, admit, budgets), self._set_key(pool))
         except Exception as e:
             self._fail_lanes([r for _, r in admits], e, "serve_admit_error",
                              bucket, admits=len(admits), warm=False)
@@ -1406,7 +1705,8 @@ class InferenceEngine:
         _, a2, admit, _ = self._lane_inputs(pool, admits, False)
         try:
             self._retry_call(bucket, seq,
-                             lambda: pool.progs.stash(a2, admit))
+                             lambda: pool.progs.stash(a2, admit),
+                             self._set_key(pool))
         except Exception as e:
             for _, r in admits:
                 r.session.carry_ok = False
@@ -1430,7 +1730,7 @@ class InferenceEngine:
         _, a2, admit, budgets = self._lane_inputs(pool, admits, False)
         try:
             self._retry_call(bucket, seq, lambda: pool.progs.encode_warm(
-                a2, admit, budgets))
+                a2, admit, budgets), self._set_key(pool))
         except Exception as e:
             for _, r in admits:
                 r.session.carry_ok = False
@@ -1457,7 +1757,8 @@ class InferenceEngine:
             return pool.progs.iterate(thr).cpu().numpy()
 
         try:
-            status = self._retry_call(bucket, seq, thunk)
+            status = self._retry_call(bucket, seq, thunk,
+                                      self._set_key(pool))
         except Exception as e:
             self._pool_failed(bucket, pool, waiting, e, "serve_iter_error")
             return
@@ -1468,7 +1769,7 @@ class InferenceEngine:
         newly = prev_active & ~active
         if not newly.any():
             return
-        flow_np = pool.progs.upsample().cpu().numpy()
+        flow_np = self._device(lambda: pool.progs.upsample().cpu().numpy())
         bk = f"{bucket[0]}x{bucket[1]}"
         for i in np.nonzero(newly)[0]:
             i = int(i)
@@ -1476,15 +1777,17 @@ class InferenceEngine:
             pool.reqs[i] = None
             if r is None:
                 continue
+            out = np.asarray(r.padder.unpad(flow_np[i:i + 1])[0])
             if not r.future.done():
-                r.future.set_result(
-                    np.asarray(r.padder.unpad(flow_np[i:i + 1])[0]))
+                r.future.set_result(out)
             used = int(status[1][i])
             self._latency.record(t_done - r.t_submit)
             self._iters_used.record(used)
             (self._iters_used_warm if r.warm
              else self._iters_used_cold).record(used)
             self._counters.add_completed()
+            if self._slo is not None:
+                self._slo_request(True, t_done - r.t_submit)
             if r.session is not None:
                 r.session.pairs += 1
                 if r.warm:
@@ -1493,5 +1796,30 @@ class InferenceEngine:
                             warm=bool(r.warm),
                             converged=bool(status[2][i] > 0),
                             seconds=round(t_done - r.t_submit, 6))
+            if self._quality is not None:
+                self._note_quality(r, out, bk, float(status[3][i]),
+                                   bool(status[2][i] > 0), used)
             with self._pending_lock:
                 self._pending -= 1
+
+    def _set_key(self, pool: _SlotPool) -> tuple:
+        return (pool.progs.bucket, pool.progs.lanes)
+
+    def _note_quality(self, r: _Request, out: np.ndarray, bk: str,
+                      residual: float, converged: bool, used: int) -> None:
+        """One retirement into the quality monitor (and the quality SLO);
+        a sampled request with ``quality_cycle`` submits its backward
+        pass, best effort (backpressure or a stopping engine skips it)."""
+        qattrs = self._quality.note_retirement(
+            future=r.future, image1=r.image1, image2=r.image2, flow=out,
+            bucket=bk, residual=residual, converged=converged, iters=used)
+        if (self._slo is not None and qattrs is not None
+                and "quality_photometric" in qattrs):
+            self._slo.record("quality", qattrs["quality_photometric"]
+                             <= self.cfg.slo_quality_bound)
+        if qattrs is not None and self.cfg.quality_cycle:
+            try:
+                bfut = self.submit(r.image2, r.image1, iters=r.iters)
+            except Exception:
+                return
+            self._quality.begin_cycle(bfut, out, bk)

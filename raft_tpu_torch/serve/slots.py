@@ -435,17 +435,29 @@ class SlotSet:
              self.tensor(budgets, torch.int32)],
             [self.carry["ctx"], self.carry["fmap"], *self._leaves])
 
-    def warm(self) -> None:
-        """Run ``enc``, ``iter`` and ``up`` with no lane admitted, twice
-        each, which leaves the state as it was: on the card the second
-        call captures each program (the engine's ``warmup``)."""
+    def warm(self, programs: Sequence[str] = ("enc", "iter", "up")) -> None:
+        """Run each of ``programs`` (``enc``, ``iter``, ``up``, ``stash``,
+        ``wenc``) with no lane admitted, twice, which leaves the state
+        (and carry) as it was: on the card the second call captures each
+        program (the engine's ``warmup`` and warm-start replay)."""
         H, W = self.bucket
         zeros = np.zeros((self.lanes, H, W, 3), np.float32)
         budgets = np.zeros((self.lanes,), np.int32)
+        runs = {"enc": lambda: self.encode(zeros, zeros, self.admit_none,
+                                           budgets),
+                "iter": lambda: self.iterate(0.0),
+                "up": self.upsample,
+                "stash": lambda: self.stash(zeros, self.admit_none),
+                "wenc": lambda: self.encode_warm(zeros, self.admit_none,
+                                                 budgets)}
+        order = [p for p in ("enc", "iter", "up", "stash", "wenc")
+                 if p in programs]
+        unknown = set(programs) - set(runs)
+        if unknown:
+            raise ValueError(f"unknown slot programs {sorted(unknown)}")
         for _ in range(2):
-            self.encode(zeros, zeros, self.admit_none, budgets)
-            self.iterate(0.0)
-            self.upsample()
+            for p in order:
+                runs[p]()
 
 
 class EarlyExitRunner:

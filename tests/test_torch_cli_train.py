@@ -154,9 +154,11 @@ def test_unported_flags_name_their_roadmap_item(flag, capsys):
     item = train_cli.UNPORTED[flag][1]
     with pytest.raises(SystemExit, match=f"ROADMAP {item.split()[0]}"):
         train_cli.run([f"--{flag}", *UNPORTED_VALUES[flag]])
-    # a chaos fault of a part the port does not have yet names its item
-    with pytest.raises(SystemExit, match="ROADMAP A7"):
-        train_cli.run(["--chaos", "net_refuse@step=1", "--device", "cpu"])
+    # every fault of the JAX package is known to the port's plans now: an
+    # unknown one is refused with the list, the remote fabric's included
+    with pytest.raises(SystemExit, match="unknown fault 'net_nope'.*"
+                                         "net_refuse.*net_partition"):
+        train_cli.run(["--chaos", "net_nope@step=1", "--device", "cpu"])
 
 
 def test_scan_unroll_is_refused_with_its_reason():

@@ -1422,3 +1422,77 @@ def test_serve_stream_and_retry_on_the_card(dev):
     np.testing.assert_array_equal(outs[0]["flow"], ref)
     assert [o["warm"] for o in outs] == [False] + [True] * 6
     assert all(np.isfinite(o["flow"]).all() for o in outs)
+
+
+# --- the serving fleet's engines on the card -------------------------------
+
+
+def test_serve_manifest_replay_on_the_card(dev, tmp_path):
+    """An engine built with a warm-start manifest captures its keys in
+    ``start()``: its first request captures nothing, and its flows are
+    the writer's bits (both on the shared device worker)."""
+    from raft_tpu_torch.serve import InferenceEngine, ServeConfig
+
+    cfg = RAFTConfig.full(corr_impl="pallas", fused_gru=True)
+    sd = RAFT(RAFTConfig.full(), seed=0).state_dict()
+    pairs = _serve_pairs(2)
+    scfg = ServeConfig(iters=4, max_batch=2, batch_sizes=(2,),
+                       max_wait_ms=5)
+    writer = InferenceEngine(sd, cfg, scfg).start()
+    try:
+        writer.warmup([(60, 92)])
+        writer.export_aot(str(tmp_path))
+        want = [writer.infer(a, b, timeout=120) for a, b in pairs]
+    finally:
+        writer.stop()
+    reader = InferenceEngine(sd, cfg, dataclasses.replace(
+        scfg, aot_dir=str(tmp_path))).start()
+    try:
+        assert reader.aot_info["ok"] and reader.aot_info["replayed"] == 3
+        at_start = reader.capture_counter.counts()
+        assert set(at_start.values()) == {1} and len(at_start) == 3
+        got = [reader.infer(a, b, timeout=120) for a, b in pairs]
+        assert reader.capture_counter.counts() == at_start
+    finally:
+        reader.stop()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_serve_slow_engine_spares_its_sibling_on_the_card(dev):
+    """Two engines share the card's device worker; ``replica_slow`` on one
+    sleeps on its own host thread, so the other's requests finish well
+    inside the slow time and its ``health()`` stays ready."""
+    import time
+
+    from raft_tpu_torch import chaos
+    from raft_tpu_torch.serve import InferenceEngine, ServeConfig
+
+    cfg = RAFTConfig.small_model()
+    sd = RAFT(cfg, seed=0).state_dict()
+    scfg = ServeConfig(iters=4, max_batch=1, batch_sizes=(1,),
+                       max_wait_ms=1, chaos_slow_s=2.0, stall_timeout_s=1.0)
+    slow = InferenceEngine(sd, cfg, scfg).start()
+    fast = InferenceEngine(sd, cfg, scfg).start()
+    pairs = _serve_pairs(4, seed=5)
+    try:
+        for eng in (slow, fast):
+            eng.warmup([(60, 92)])
+        chaos.install(chaos.FaultPlan.parse(
+            f"replica_slow@batch={slow._batch_seq + 1}"))
+        t0 = time.perf_counter()
+        held = slow.submit(*pairs[0])
+        time.sleep(0.1)
+        futs = [fast.submit(a, b) for a, b in pairs]
+        ready = []
+        while not all(f.done() for f in futs):
+            ready.append(fast.health()["ready"])
+            time.sleep(0.005)
+        dt = time.perf_counter() - t0
+        assert all(np.isfinite(f.result()).all() for f in futs)
+        assert dt < 1.0 and all(ready) and not held.done(), dt
+        assert np.isfinite(held.result(timeout=60)).all()
+    finally:
+        chaos.uninstall()
+        slow.stop()
+        fast.stop()

@@ -170,9 +170,12 @@ def test_unported_paths_name_their_slice():
 
 
 def test_serving_faults_accepted_net_faults_named():
-    """The serving engine's faults parse and fire at its seams; the remote
-    fabric's ``net_*`` faults are refused with their ROADMAP item."""
+    """The serving engine's faults and the remote fabric's ``net_*``
+    faults parse and fire at their seams (the fabric's by the rule's own
+    check ordinal, ``heal=`` closing the window); no fault is left for a
+    later slice."""
     from raft_tpu_torch import chaos
+    from raft_tpu_torch.chaos.plan import LATER_FAULTS
 
     for fault in ("device_err", "replica_slow", "replica_hang",
                   "replica_kill"):
@@ -180,9 +183,11 @@ def test_serving_faults_accepted_net_faults_named():
         assert [plan.fires(fault, step=s) for s in (1, 2, 2)] == \
             [False, True, False]
     for fault in ("net_refuse", "net_slow", "net_drop", "net_partition"):
-        with pytest.raises(chaos.ChaosSpecError,
-                           match="ROADMAP A7 .the remote fabric"):
-            chaos.FaultPlan.parse(f"{fault}@step=1")
+        assert fault in chaos.FAULTS
+        plan = chaos.FaultPlan.parse(f"{fault}@step=1,heal=3")
+        assert [plan.fires(fault) for _ in range(4)] == \
+            [False, True, True, False]
+    assert LATER_FAULTS == {}
 
 
 def test_kernel_wrappers_refuse_meta_tensors():

@@ -485,7 +485,9 @@ def test_serve_config_checks_match_jax():
            dict(early_exit_threshold=-1), dict(max_wait_ms=-1),
            dict(stall_timeout_s=-1), dict(device_retries=-1),
            dict(retry_backoff_max_s=0.01), dict(retry_deadline_s=0),
-           dict(retry_jitter=1.0), dict(buckets=((44, 50),))]
+           dict(retry_jitter=1.0), dict(buckets=((44, 50),)),
+           dict(quality_sample_rate=1.5), dict(quality_drift_window=1),
+           dict(slo_availability_target=1.0), dict(slo_window_s=0)]
     for kw in bad:
         with pytest.raises(ValueError):
             JaxServeConfig(**kw)
@@ -504,15 +506,16 @@ def test_serve_config_checks_match_jax():
 
 def test_serve_cli_flags(tmp_path):
     """Every flag of the JAX serve CLI parses; each of a part not ported
-    stops the CLI with its ROADMAP item; the rest build a ServeConfig."""
+    stops the CLI with its ROADMAP item; the rest build a ServeConfig,
+    and the fleet flags (``--replicas``, ``--remote``, ``--autoscale``,
+    ``--aot-dir``, ``--hedge-timeout-s``) a fleet and its router that
+    serve on the CPU."""
     from raft_tpu.cli import serve as jcli
+    from raft_tpu_torch.serve import FlowRouter, RemoteReplica
 
     jax_dests = set(vars(jcli.parse_args([])))
     assert jax_dests <= set(vars(serve_cli.parse_args([])))
-    values = {"replicas": ["2"], "remote": ["h:1"], "autoscale": ["1:2"],
-              "aot_dir": ["d"], "hedge_timeout_s": ["0.5"],
-              "trace_sample_rate": ["0.5"], "quality_sample_rate": ["0.5"],
-              "quality_cycle": []}
+    values = {"trace_sample_rate": ["0.5"]}
     assert set(values) == set(serve_cli.UNPORTED)
     for flag, rest in values.items():
         item = serve_cli.UNPORTED[flag][1].split()[0]
@@ -528,6 +531,40 @@ def test_serve_cli_flags(tmp_path):
     eng = serve_cli.build_engine(args)
     assert eng.cfg.slots == 2 and eng.cfg.buckets == ((40, 56),)
     assert eng.cfg.max_queue == 3 and eng.device.type == "cpu"
+    args = serve_cli.parse_args(
+        ["--random-init", "--small", "--device", "cpu", "--precision",
+         "fp32", "--iters", "2", "--quality-sample-rate", "0.5",
+         "--quality-cycle"])
+    eng = serve_cli.build_engine(args)
+    assert eng.cfg.quality_sample_rate == 0.5 and eng.cfg.quality_cycle
+    args = serve_cli.parse_args(
+        ["--random-init", "--small", "--device", "cpu", "--precision",
+         "fp32", "--iters", "2", "--batch-sizes", "1", "--max-batch", "1",
+         "--replicas", "2", "--remote", "127.0.0.1:1", "--autoscale",
+         "2:3", "--aot-dir", str(tmp_path / "aot"), "--hedge-timeout-s",
+         "0.5", "--warmup", "36x52"])
+    assert serve_cli.fleet_mode(args)
+    router, fleet = serve_cli.start_service(args)
+    try:
+        assert isinstance(router, FlowRouter)
+        assert router.cfg.hedge_timeout_s == 0.5
+        local = [r for r in fleet.replicas
+                 if not isinstance(r, RemoteReplica)]
+        assert [r.name for r in local] == ["r0", "r1"]
+        assert isinstance(fleet.replicas[-1], RemoteReplica)
+        assert fleet.replicas[-1].address == "127.0.0.1:1"
+        assert (fleet.fleet_cfg.autoscale_min,
+                fleet.fleet_cfg.autoscale_max) == (2, 3)
+        assert fleet.aot_dir == str(tmp_path / "aot")
+        assert local[1].engine.aot_info["ok"]
+        flow = local[0].engine.infer(*(np.zeros((36, 52, 3), np.float32)
+                                       for _ in range(2)), timeout=60)
+        assert flow.shape == (36, 52, 2)
+    finally:
+        fleet.stop()
+    with pytest.raises(SystemExit, match="MIN:MAX"):
+        serve_cli.build_fleet(serve_cli.parse_args(
+            ["--random-init", "--device", "cpu", "--autoscale", "2"]))
 
 
 def _post(url, body):

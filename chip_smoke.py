@@ -210,7 +210,27 @@ Phases, each raising on failure (so the script exits nonzero):
    ``device_prefetch`` 0 and 2 (ms/step, pairs/s, queue wait, prep and
    copy times, idle share, exact launch counts) beside phase train's
    reused batch;
-12. small: the small model at full width (hidden 96, context 64, radius
+12. ddp: data-parallel training (``raft_tpu_torch/parallel``), on phase
+   train_cli's tree: (a) world 1 over NCCL (the torchrun variables set
+   in this process), the chairs stage (B 8, 12 iterations, bf16, the
+   train CLI's defaults) through ``make_train_step(..., mesh=...)``
+   captured against the plain captured step, 3 steps from the same
+   weights with cuDNN deterministic: parameters, statistics and losses
+   bit for bit, one capture each, the gradient all-reduce called while
+   the stream was capturing, 12 + 12 lookups a step; then ms/step of
+   the two with their timed replays alternating, device busy and idle;
+   (b) two gloo ranks sharing the card (``chip_smoke.py --ddp-rank``
+   children, B 4 each, the kernel configuration with the fused gates,
+   eager, 2 steps) against the straight eager B 8 run: the ranks bit
+   for bit, the parameter change within the norm bound of phase graphs
+   widened by the straight run's own difference with its rows reversed
+   (the doubled change must fail it), losses within the bf16 bound,
+   every kernel of the configuration counted on each rank, eager ms per
+   step and the gloo all-reduce of the step's buffer (a host round
+   trip, not NCCL); (c) ``python -m raft_tpu_torch train --distributed``
+   with the variables of one rank: 2 steps, exit 0, a checkpoint
+   stamped world 1;
+13. small: the small model at full width (hidden 96, context 64, radius
    3, C = 128): each kernel of its paths at its shapes against the plain
    version, timed beside its bound (run as phase small_kernels right
    after phase kernels, early in the process; the on-demand forward at the Sintel
@@ -232,17 +252,20 @@ Phases, each raising on failure (so the script exits nonzero):
    ``dots`` and ``save_corr`` + ``remat_upsample`` (peak memory, ms/step,
    launch counts a step), and each policy's fp32 gradients against
    ``none``;
-13. clis: subprocesses that are checked, not timed, side by side:
+14. clis: subprocesses that are checked, not timed, side by side, on a
+   thread while phase train_cli's train CLI subprocesses run (nothing
+   is timed or counted in this process meanwhile):
    ``python -m raft_tpu_torch curriculum`` on two small stages, killed
    between them by ``stage_kill`` (exit 143) and resumed;
    ``lk-compare --small`` on the demo frames; and ``python -m
    raft_tpu_torch serve --random-init --replicas 2`` at the Sintel
    bucket (two flows, ``/metrics`` of both replicas, SIGINT);
-14. report: one JSON line ``{"kernels": [...]}`` (each kernel with its
+15. report: one JSON line ``{"kernels": [...]}`` (each kernel with its
    small-model launches and, where phase small timed it, its times
    there, and its launches per serving ``iter`` replay with, where phase
-   serve timed it, its times at the slot shape, and its launches
-   through the fleet's router), the nvidia-smi line,
+   serve timed it, its times at the slot shape, its launches through
+   the fleet's router, and its launches in phase ddp's world-1 step and
+   on each of its two ranks), the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without CUDA it exits nonzero before any
@@ -2641,10 +2664,10 @@ def phase_eval(sd, dev="cuda"):
     return out
 
 
-def _chairs_batch(dev):
+def _chairs_batch(dev, seed: int = 0):
     """One synthetic FlyingChairs-shaped batch, made on the host from a
     seed: uniform frames, flow 8 * N(0, 1), all pixels valid."""
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     B, (H, W) = CHAIRS_B, CHAIRS_HW
     batch = {"image1": rng.uniform(0, 255, (B, H, W, 3)),
              "image2": rng.uniform(0, 255, (B, H, W, 3)),
@@ -3073,7 +3096,7 @@ class _Child:
     """A subprocess whose output lines are read on a thread, so the caller
     can wait for a line with a deadline."""
 
-    def __init__(self, args):
+    def __init__(self, args, env=None):
         import queue
         import threading
 
@@ -3081,7 +3104,8 @@ class _Child:
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "raft_tpu_torch", *args], cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=dict(os.environ, PYTHONPATH=REPO, PYTHONUNBUFFERED="1"))
+            env=dict(os.environ, PYTHONPATH=REPO, PYTHONUNBUFFERED="1",
+                     **(env or {})))
         self._thread = threading.Thread(target=self._read, daemon=True)
         self._thread.start()
 
@@ -3126,8 +3150,8 @@ class _Child:
             self.proc.wait()
 
 
-def _run_cli(*args, timeout: float = 600) -> tuple:
-    child = _Child(list(args))
+def _run_cli(*args, timeout: float = 600, env=None) -> tuple:
+    child = _Child(list(args), env)
     try:
         rc = child.finish(timeout)
     finally:
@@ -3460,7 +3484,16 @@ def phase_train_cli(sd, train_res):
     tree = res["tree"]
     part("native", _native_status)
     part("loader", _loader_throughput, tree)
-    part("cli", _cli_run, tree, os.path.join(work, "cli"))
+    # phase clis' subprocesses run beside the CLI's: both are checked and
+    # neither is timed, and this process launches nothing meanwhile
+    clis = _Beside(phase_clis, tree)
+    try:
+        part("cli", _cli_run, tree, os.path.join(work, "cli"))
+    finally:
+        t = time.perf_counter()
+        clis.join()
+        secs["clis_after_cli"] = time.perf_counter() - t
+    res["clis"] = clis.result()
     part("cli_counts", _cli_config_counts, tree, os.path.join(work, "cnt"))
     part("resume", _resume_check, tree, os.path.join(work, "resume"), sd)
     part("timing", _loader_step_times, tree, os.path.join(work, "timing"),
@@ -4031,12 +4064,9 @@ def _curriculum(tree: dict, work: str) -> dict:
             "--chairs_split", tree["split"]]
     from raft_tpu_torch import chaos
 
-    os.environ[chaos.ENV_SPEC] = "stage_kill@step=1"
-    try:
-        t0 = time.perf_counter()
-        rc1, lines1 = _run_cli(*args)
-    finally:
-        os.environ.pop(chaos.ENV_SPEC, None)
+    t0 = time.perf_counter()
+    # the fault goes to this child alone: phase train_cli's CLIs run beside
+    rc1, lines1 = _run_cli(*args, env={chaos.ENV_SPEC: "stage_kill@step=1"})
     with open(os.path.join(wd, "curriculum_ledger.json")) as f:
         led1 = json.load(f)
     stages1 = {n: e["status"] for n, e in led1["stages"].items()}
@@ -4069,7 +4099,7 @@ def _curriculum(tree: dict, work: str) -> dict:
 
 
 def phase_small(sd_full, tree):
-    """The small model at full width (see the module docstring, phase 12;
+    """The small model at full width (see the module docstring, phase 13;
     its kernels are phase small_kernels').  ``sd_full``: the full model's
     seed-0 weights (the remat sweep); ``tree``: phase train_cli's
     synthetic chairs tree."""
@@ -5511,35 +5541,490 @@ def phase_fleet(sd):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase ddp: data-parallel training (raft_tpu_torch/parallel, the step's
+# all-reduce, the loop's agreement, train --distributed)
+# ---------------------------------------------------------------------------
+
+DDP_STEPS = 3            # world-1 steps, the DDP step against the plain one
+DDP_TIMED = 5            # timed steps of each world-1 arm
+DDP_SPLIT_STEPS = 2      # steps of the 2-rank run and its straight twin
+DDP_LR = 2.5e-4
+# the kernel configuration of the 2-rank run: the pyramid lookup, the
+# upsample-loss pair and the four gate kernels
+DDP_KERNEL_CFG = dict(corr_impl="allpairs_pallas",
+                      upsample_loss_kernel="pallas", fused_gru=True)
+DDP_AR_REPS = 5          # timed gloo all-reduces of the step's buffer
+
+
+def _ddp_cfgs(kernel: bool, batch: int):
+    from raft_tpu_torch.config import RAFTConfig, TrainConfig
+
+    cfg = TrainConfig(lr=DDP_LR, num_steps=120000, batch_size=batch,
+                      image_size=CHAIRS_HW, iters=CHAIRS_ITERS, wdecay=1e-4)
+    # the train CLI's defaults (corr_impl auto -> allpairs_pallas on the
+    # card), or the kernel configuration
+    extra = DDP_KERNEL_CFG if kernel else dict(corr_impl="allpairs_pallas")
+    return cfg, RAFTConfig.full(compute_dtype="bfloat16", **extra)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _rank_env(rank: int, world: int, port: int):
+    """The variables ``torchrun`` sets for one rank on this host."""
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _state_tensors(state) -> dict:
+    return {k: v.detach().clone() for k, v in
+            state.model.state_dict().items()}
+
+
+@contextlib.contextmanager
+def _all_reduce_calls(calls: list):
+    """Record each ``torch.distributed.all_reduce`` call while inside:
+    its element count and whether the current stream was capturing (the
+    proof that the step's all-reduce went into the captured graph: a
+    collective that refused capture would have raised)."""
+    import torch.distributed as dist
+
+    real = dist.all_reduce
+
+    def recording(tensor, *a, **kw):
+        calls.append({"numel": tensor.numel(),
+                      "capturing": torch.cuda.is_current_stream_capturing()})
+        return real(tensor, *a, **kw)
+
+    dist.all_reduce = recording
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = real
+
+
+def _ddp_world1(sd) -> dict:
+    """(a) World size 1 over NCCL: ``DDP_STEPS`` captured chairs steps of
+    ``make_train_step(..., mesh=...)`` against the plain captured step on
+    the same batches, cuDNN deterministic: parameters, batch-norm
+    statistics and losses bit for bit, one capture each, the gradient
+    all-reduce called inside the capture, the pyramid lookup 12 + 12 a
+    step; ms/step, device busy and idle share of both."""
+    from raft_tpu_torch.parallel import mesh as mesh_mod
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg, mcfg = _ddp_cfgs(False, CHAIRS_B)
+    batches = [_chairs_batch(dev, 100 + s) for s in range(DDP_STEPS)]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    res, arms, fns = {}, {}, {}
+    with _rank_env(0, 1, _free_port()):
+        mesh = mesh_mod.init_from_env("cuda")
+    try:
+        if (mesh.backend, mesh.world, mesh.distributed) != ("nccl", 1, True):
+            raise AssertionError(f"ddp: not an NCCL mesh: {mesh}")
+        for arm in ("plain", "ddp"):
+            t0 = time.perf_counter()
+            state = init_state(mcfg, cfg, state_dict=sd)
+            step_fn = make_train_step(
+                cfg, **({"mesh": mesh} if arm == "ddp" else {}))
+            _reset_counts()
+            losses, secs = [], [time.perf_counter() - t0]
+            with _all_reduce_calls([]) as calls:
+                for b in batches:      # eager, capture, replay
+                    t0 = time.perf_counter()
+                    losses.append(step_fn(state, b)[1]["loss"])
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+            print(f"[ddp] world 1 {arm}: init {secs[0]:.1f} s, steps "
+                  f"{', '.join(f'{t:.1f}' for t in secs[1:])} s (eager, "
+                  f"capture, replay)", flush=True)
+            arms[arm] = (_state_tensors(state), [float(x) for x in losses])
+            fns[arm] = (state, step_fn)
+            res[arm] = dict(losses=arms[arm][1], launches=_counts(),
+                            captures=state.programs.counter.total(),
+                            all_reduce_calls=calls)
+        # the timed replays alternate between the arms, so that both see
+        # the same card and host
+        times = {arm: [] for arm in fns}
+        for _ in range(DDP_TIMED):
+            for arm, (state, step_fn) in fns.items():
+                t0 = time.perf_counter()
+                step_fn(state, batches[0])
+                torch.cuda.synchronize()
+                times[arm].append((time.perf_counter() - t0) * 1e3)
+        for arm, (state, step_fn) in fns.items():
+            prof = _profile(lambda: step_fn(state, batches[0]), reps=2)
+            res[arm].update(ms_per_step=statistics.median(times[arm]),
+                            ms_all=times[arm],
+                            device_busy_ms=prof["busy_ms"],
+                            idle_share=prof["idle_share"],
+                            by_kind=prof["by_kind"])
+            print(f"[ddp] world 1 {arm}: {res[arm]['ms_per_step']:.2f} "
+                  f"ms/step (steps "
+                  f"{', '.join(f'{t:.1f}' for t in times[arm])}), device "
+                  f"busy {prof['busy_ms']} ms (idle {prof['idle_share']}), "
+                  f"by kind {prof['by_kind']}, losses {arms[arm][1]}, "
+                  f"captures {res[arm]['captures']}, all-reduce calls "
+                  f"{res[arm]['all_reduce_calls']}, launches "
+                  f"{res[arm]['launches']}", flush=True)
+        del fns, state, step_fn
+    finally:
+        mesh_mod.shutdown()
+        torch.backends.cudnn.deterministic = det
+        torch.cuda.empty_cache()
+    (pp, pl), (dp, dl) = arms["plain"], arms["ddp"]
+    differ = [k for k in pp if not torch.equal(pp[k], dp[k])]
+    want = {"pyramid_lookup_fwd": CHAIRS_ITERS * DDP_STEPS,
+            "pyramid_lookup_bwd": CHAIRS_ITERS * DDP_STEPS}
+    got = {k: v for k, v in res["ddp"]["launches"].items() if v}
+    res.update(bit_equal=not differ and pl == dl, differ=differ[:8],
+               overhead=res["ddp"]["ms_per_step"]
+               / res["plain"]["ms_per_step"] - 1.0)
+    print(f"[ddp] world 1 NCCL DDP against plain over {DDP_STEPS} captured "
+          f"steps: parameters and statistics bit for bit "
+          f"{not differ} ({len(differ)} tensors differ), losses equal "
+          f"{pl == dl}; step time {100 * res['overhead']:+.2f}% (cuDNN "
+          f"deterministic in both)", flush=True)
+    # one all-reduce a step: the eager warm-up's, then the capture's
+    captured = [c["capturing"] for c in res["ddp"]["all_reduce_calls"]]
+    if differ or pl != dl or got != want or res["ddp"]["captures"] != 1 \
+            or res["plain"]["captures"] != 1 or captured != [False, True] \
+            or res["plain"]["all_reduce_calls"]:
+        raise AssertionError(f"ddp world 1: {res}, launches {got} (want "
+                             f"{want})")
+    return res
+
+
+def _ddp_rank_main(rank: int, world: int, port: int, out: str) -> int:
+    """(b) one rank of the 2-rank gloo run (``chip_smoke.py --ddp-rank``):
+    ``DDP_SPLIT_STEPS`` eager chairs steps of the kernel configuration on
+    its rows of the global batches; writes its parameters, losses, launch
+    counts, ms/step and the gloo all-reduce's ms to ``out``."""
+    from raft_tpu_torch import config
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models.raft import RAFT
+    from raft_tpu_torch.parallel import mesh as mesh_mod
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config.CONV_TF32 = False
+    with _rank_env(rank, world, port):
+        mesh = mesh_mod.init_from_env("cuda", backend="gloo")
+    b = CHAIRS_B // world
+    cfg, mcfg = _ddp_cfgs(True, CHAIRS_B)
+    sd = RAFT(RAFTConfig.full(), seed=0).state_dict()
+    state = init_state(mcfg, cfg, state_dict=sd)
+    step_fn = make_train_step(cfg, mesh=mesh)
+    batches = [{k: v[rank * b:(rank + 1) * b] for k, v in
+                _chairs_batch(mesh.device, 110 + s).items()}
+               for s in range(DDP_SPLIT_STEPS)]
+    _reset_counts()
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        losses.append(float(step_fn(state, batch)[1]["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    counts = _counts()
+    n = sum(p.numel() for p in state.model.parameters())
+    buf = torch.zeros(n + 64, device=mesh.device)
+    ar = []
+    for _ in range(DDP_AR_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.distributed.all_reduce(buf, group=mesh.group)
+        torch.cuda.synchronize()
+        ar.append((time.perf_counter() - t0) * 1e3)
+    torch.save({"params": {k: v.cpu() for k, v in
+                           _state_tensors(state).items()},
+                "losses": losses, "launches": counts, "step_ms": times,
+                "allreduce_ms": ar, "allreduce_bytes": buf.numel() * 4,
+                "nonfinite": int(state.nonfinite_steps)},
+               os.path.join(out, f"rank{rank}.pt"))
+    mesh_mod.shutdown()
+    return 0
+
+
+def _ddp_rank_start(rank: int, world: int, port: int, out: str):
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(rank),
+         "--ddp-world", str(world), "--ddp-port", str(port), "--ddp-out",
+         out], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, PYTHONPATH=REPO,
+                            PYTHONUNBUFFERED="1"))
+
+
+def _wait_ranks(procs, timeout: float = 600) -> None:
+    """Wait for every rank; the first to fail (or the deadline) ends the
+    others at once, since its peers would wait on it in a collective."""
+    deadline = time.monotonic() + timeout
+    while any(p.poll() is None for p in procs):
+        bad = [p for p in procs if p.poll() not in (None, 0)]
+        if bad or time.monotonic() > deadline:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            outs = [p.communicate()[0][-3000:] for p in procs]
+            raise AssertionError(f"ddp ranks: exit codes "
+                                 f"{[p.returncode for p in procs]}: {outs}")
+        time.sleep(0.2)
+    for p in procs:
+        out = p.communicate()[0]
+        if p.returncode != 0:
+            raise AssertionError(f"ddp rank exited {p.returncode}: "
+                                 f"{out[-3000:]}")
+
+
+def _ddp_straight(sd) -> dict:
+    """The 2-rank run's straight twin: ``DDP_SPLIT_STEPS`` eager steps of
+    the kernel configuration on the whole global batches, then again with
+    each batch's rows in reverse order, the same computation summed in
+    another order: its difference is the floor of reduction-order noise
+    (a bias ahead of a norm has a zero gradient in exact arithmetic, and
+    Adam turns its rounding noise into steps of up to lr either way)."""
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg, mcfg = _ddp_cfgs(True, CHAIRS_B)
+    batches = [_chairs_batch(dev, 110 + s) for s in range(DDP_SPLIT_STEPS)]
+    runs = []
+    for flip in (False, True):
+        state = init_state(mcfg, cfg, state_dict=sd)
+        step_fn = make_train_step(cfg, graphs=False)
+        losses = [float(step_fn(state, {k: v.flip(0) if flip else v
+                                        for k, v in b.items()})[1]["loss"])
+                  for b in batches]
+        runs.append((_state_tensors(state), losses))
+        del state, step_fn
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _ddp_two_ranks_check(sd, procs, out, straight) -> dict:
+    """(b) Two gloo ranks sharing the card, eager, the kernel
+    configuration at B 4 a rank, against the straight run at B 8: the
+    ranks bit for bit each other; their parameter change within
+    ``_grad_agreement``'s norm bound of the straight run's, widened by
+    ``EAGER_SPREAD_FACTOR`` times the straight run's own spread under
+    reversed rows, with the change doubled rejected; losses within ``BF16_LOSS_TOL``; every kernel
+    of the configuration counted on each rank; the gloo all-reduce of the
+    step's buffer timed (a host round trip: it says nothing of NCCL)."""
+    _wait_ranks(procs)
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    p0 = {k: v.float() for k, v in sd.items()}
+    (s1, l1), (s2, _) = straight
+    params = [k for k in s1 if "running" not in k]
+    same = all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
+               for k in ranks[0]["params"])
+    want = {k: s1[k].cpu() - p0[k] for k in params}
+    change = {k: ranks[0]["params"][k] - p0[k] for k in params}
+    spread = {k: EAGER_SPREAD_FACTOR * float((s2[k] - s1[k]).norm())
+              for k in params}
+    agree = _grad_agreement(change, want, spread)
+    doubled = _grad_agreement({k: 2 * v for k, v in change.items()}, want,
+                              spread)
+    stats = max(float((ranks[0]["params"][k] - s1[k].cpu()).abs().max())
+                for k in s1 if "running" in k)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(ranks[0]["losses"], l1))
+    it = CHAIRS_ITERS * DDP_SPLIT_STEPS
+    want_counts = {"pyramid_lookup_fwd": it, "pyramid_lookup_bwd": it,
+                   "upsample_loss_fwd": DDP_SPLIT_STEPS,
+                   "upsample_loss_bwd": DDP_SPLIT_STEPS,
+                   "gru_gate_rh": 2 * it, "gru_gate_rh_bwd": 2 * it,
+                   "gru_gate_blend": 2 * it, "gru_gate_blend_bwd": 2 * it}
+    counts = [{k: v for k, v in r["launches"].items() if v} for r in ranks]
+    res = dict(ranks_bit_equal=same, parameter_change=agree,
+               control_doubled=doubled["leaf_ratio"], stats_max_abs=stats,
+               loss_rel=loss_rel, losses=[r["losses"] for r in ranks],
+               straight_losses=l1, launches=counts,
+               step_ms=[r["step_ms"] for r in ranks],
+               allreduce_ms=[r["allreduce_ms"] for r in ranks],
+               allreduce_bytes=ranks[0]["allreduce_bytes"])
+    print(f"[ddp] 2 gloo ranks on one card, B {CHAIRS_B // 2} a rank, "
+          f"against the straight B {CHAIRS_B} run over {DDP_SPLIT_STEPS} "
+          f"eager steps: ranks bit for bit {same}, parameter change "
+          f"{agree}, control doubled {doubled['leaf_ratio']:.3f} (must "
+          f"exceed 1), statistics max |d| {stats:.3e}, loss rel "
+          f"{loss_rel:.3e}, launches per rank {counts}; eager ms/step "
+          f"{res['step_ms']}; gloo all-reduce of "
+          f"{res['allreduce_bytes'] / 2 ** 20:.1f} MiB (a host round trip "
+          f"through gloo, not NCCL): {res['allreduce_ms']} ms", flush=True)
+    if not same or agree["leaf_ratio"] > 1.0 or doubled["leaf_ratio"] <= 1.0 \
+            or loss_rel > BF16_LOSS_TOL or counts != [want_counts] * 2 \
+            or any(r["nonfinite"] for r in ranks):
+        raise AssertionError(f"ddp 2 ranks: {res}, want launches "
+                             f"{want_counts}")
+    return res
+
+
+def _ddp_cli_start(tree: dict, ckpt_dir: str):
+    """(c) ``train --distributed`` under the variables ``torchrun`` sets
+    for one rank: 2 steps of the chairs stage on phase train_cli's
+    tree."""
+    port = _free_port()
+    with _rank_env(0, 1, port):
+        return _Child(["train", "--distributed", "--name", "ddp", "--stage",
+                       "chairs", "--precision", "bf16", "--batch_size",
+                       str(CHAIRS_B), "--image_size", *map(str, CHAIRS_HW),
+                       "--iters", str(CHAIRS_ITERS), "--num_steps", "2",
+                       "--val_freq", "2", "--lr", "0.00025",
+                       "--num_workers", "2",
+                       "--data_root", tree["data_root"], "--chairs_split",
+                       tree["split"], "--ckpt_dir", ckpt_dir])
+
+
+def _ddp_cli_check(child, ckpt_dir: str) -> dict:
+    from raft_tpu_torch.train.checkpoint import CheckpointManager
+
+    try:
+        rc = child.finish(600)
+    finally:
+        child.kill()
+    mgr = CheckpointManager(os.path.join(ckpt_dir, "ddp"))
+    topo = mgr.saved_topology(2) or {}
+    res = dict(rc=rc, steps=mgr.all_steps(), topology=topo,
+               out=child.lines[-12:])
+    print(f"[ddp] train --distributed (world 1 from the torchrun "
+          f"variables): rc {rc}, saved steps {res['steps']}, topology "
+          f"{topo}", flush=True)
+    if rc != 0 or res["steps"] != [2] or topo.get("world_size") != 1 \
+            or topo.get("mesh") != {"data": 1, "spatial": 1}:
+        raise AssertionError(f"train --distributed: {res}")
+    return res
+
+
+def phase_ddp(sd, tree) -> dict:
+    """Data-parallel training on the card (see the module docstring,
+    phase 12)."""
+    import shutil
+
+    work = os.path.join(WORK, "ddp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    res, secs = {}, {}
+    t = time.perf_counter()
+    res["world1"] = _ddp_world1(sd)
+    secs["world1"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out = os.path.join(work, "ranks")
+    os.makedirs(out)
+    port = _free_port()
+    procs = [_ddp_rank_start(r, 2, port, out) for r in range(2)]
+    cli = _ddp_cli_start(tree, os.path.join(work, "cli"))
+    try:
+        straight = _ddp_straight(sd)
+        res["two_ranks"] = _ddp_two_ranks_check(sd, procs, out, straight)
+        res["cli"] = _ddp_cli_check(cli, os.path.join(work, "cli"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        cli.kill()
+    secs["two_ranks_and_cli"] = time.perf_counter() - t
+    res["phase_s"] = secs
+    for k, v in secs.items():
+        print(f"[time] ddp {k}: {v:.1f} s", flush=True)
+    return res
+
+
 # --- phase clis: subprocesses checked side by side, timing nothing --------
 
 def phase_clis(tree):
     """Phase small's curriculum and lk-compare CLIs and phase fleet's
     ``serve --replicas 2``, run at once: each is checked, none timed, and
-    together they take the time of the slowest."""
+    together they take the time of the slowest.  Phase train_cli runs
+    this on a thread beside its own CLI's subprocesses."""
+    import shutil
+
     from raft_tpu_torch.config import RAFTConfig
     from raft_tpu_torch.models.raft import RAFT
 
+    work = os.path.join(WORK, "clis")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
     sd = RAFT(RAFTConfig.small_model(), seed=0).state_dict()
     child = _fleet_cli_start()
     try:
-        small = _small_clis(tree, os.path.join(WORK, "small"), sd)
+        small = _small_clis(tree, work, sd)
         fleet = _fleet_cli(_serve_pairs(2), child)
     finally:
         child.kill()
     return {"small": small, "fleet": fleet}
 
 
+class _Beside:
+    """``fn(*args)`` on a thread beside the caller's own work: ``join``
+    waits for it, ``result`` gives its value or raises its exception."""
+
+    def __init__(self, fn, *args):
+        import threading
+
+        self._out = {}
+
+        def run():
+            try:
+                self._out["value"] = fn(*args)
+            except BaseException as e:      # raised again in result()
+                self._out["error"] = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def join(self) -> None:
+        self._thread.join()
+
+    def result(self):
+        self.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--report", default=None,
                    help="also write every number to this JSON file")
+    # one rank of phase ddp's 2-rank run (the phase starts these itself)
+    p.add_argument("--ddp-rank", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--ddp-world", type=int, default=2,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--ddp-port", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--ddp-out", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; it needs one NVIDIA GPU",
               file=sys.stderr)
         return 2
     from raft_tpu_torch import config  # fails without the repository
+
+    if args.ddp_rank is not None:
+        return _ddp_rank_main(args.ddp_rank, args.ddp_world, args.ddp_port,
+                              args.ddp_out)
 
     global SHIPPED_CONV_TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5573,9 +6058,10 @@ def main(argv=None) -> int:
     eval_res = timed_phase(phase_eval, sd)
     train, train_counts = timed_phase(phase_train, sd)
     train_cli = timed_phase(phase_train_cli, sd, train)
+    clis = train_cli.pop("clis")
+    ddp = timed_phase(phase_ddp, sd, train_cli["tree"])
     small = {"kernels": small_kern,
              **timed_phase(phase_small, sd, train_cli["tree"])}
-    clis = timed_phase(phase_clis, train_cli["tree"])
     small["clis"], fleet["cli"] = clis["small"], clis["fleet"]
     secs["total"] = time.perf_counter() - t0
 
@@ -5649,7 +6135,15 @@ def main(argv=None) -> int:
             "small": {"launches": small_counts.get(kname, 0), **(
                 {k: rs[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by")} if rs else {})},
-            "serve": serve_rec})
+            "serve": serve_rec,
+            # data parallel: launches of the world-1 NCCL step (the train
+            # CLI's configuration) and of each of 2 gloo ranks (the
+            # kernel configuration), each over its own steps
+            "ddp": {"world1_launches": ddp["world1"]["ddp"]["launches"]
+                    .get(kname, 0), "world1_steps": DDP_STEPS,
+                    "per_rank_launches": [c.get(kname, 0) for c in
+                                          ddp["two_ranks"]["launches"]],
+                    "per_rank_steps": DDP_SPLIT_STEPS}})
         if kernels[-1]["launches"] < 1:
             raise AssertionError(f"{kname}: no launch on its main path")
         if (kname.startswith("upsample_loss")
@@ -5669,6 +6163,7 @@ def main(argv=None) -> int:
                        "graphs": graphs, "demo": demo_res,
                        "eval": eval_res,
                        "train": train, "train_cli": train_cli,
+                       "ddp": ddp,
                        "small": small}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

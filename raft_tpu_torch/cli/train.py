@@ -27,6 +27,19 @@ products, TF32 on the card for ``high`` and ``default``.  The step runs as
 one captured CUDA graph per batch shape on the card and eagerly on the
 CPU; there is no flag for it.
 
+``--distributed`` trains data-parallel over the ranks ``torchrun``
+describes (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``), one GPU a rank (NCCL; gloo with ``--device cpu``)::
+
+    torchrun --nproc_per_node 4 -m raft_tpu_torch train --distributed \
+        --name raft-chairs --stage chairs --batch_size 8 ...
+
+``--batch_size`` is the global batch, rounded up to a multiple of the
+world size with the learning rate scaled alike (the JAX CLI's rule);
+``--batch_per_chip`` is a rank's.  Each rank reads its own stride of the
+shuffle; rank 0 writes the checkpoints, validates and logs; SIGTERM on
+any rank stops every rank after the same step.
+
 A JAX flag that the port cannot honour yet raises ``SystemExit`` naming
 its ROADMAP item whenever it is set away from its default; never a silent
 ignore.  ``--scan_unroll`` has no counterpart and is refused with its
@@ -47,8 +60,7 @@ from raft_tpu_torch.config import (QUANTIZED_CORR_DTYPES,
 
 # flag -> (the JAX default, the ROADMAP item that ports what it does)
 UNPORTED = {
-    "distributed": (False, "A6 (multi-GPU)"),
-    "shard_spatial": (1, "A6 (multi-GPU; spatial sharding)"),
+    "shard_spatial": (1, "A6 (spatial sharding)"),
     "profile_dir": (None, "A8 (observability)"),
     "telemetry_dir": (None, "A8 (observability)"),
     "trace_sample_rate": (None, "A8 (observability)"),
@@ -87,7 +99,7 @@ def parse_args(argv=None):
     p.add_argument("--num_steps", type=int, default=100000)
     p.add_argument("--batch_size", type=int, default=6)
     p.add_argument("--batch_per_chip", type=int, default=None,
-                   help="the batch on the one device; overrides "
+                   help="the batch of one rank (one GPU); overrides "
                         "--batch_size")
     p.add_argument("--image_size", type=int, nargs=2, default=[384, 512])
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
@@ -163,7 +175,10 @@ def parse_args(argv=None):
     p.add_argument("--profile_steps", "--profile-steps", default=None,
                    metavar="A:B")
     p.add_argument("--shard_spatial", type=int, default=1, metavar="N")
-    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--distributed", action="store_true",
+                   help="data parallel over the ranks torchrun starts "
+                        "(rank, world size and rendezvous from the "
+                        "environment)")
     p.add_argument("--chaos", default=None,
                    help="fault-injection spec, e.g. "
                         "'corrupt_image@step=7;torn_ckpt@step=50'; "
@@ -193,19 +208,37 @@ def check_unported(args) -> None:
                 f"(ROADMAP {item}); leave it at its default {default!r}")
 
 
-def remat_kwargs(args) -> dict:
+def remat_kwargs(args, say=print) -> dict:
     """The ``RAFTConfig`` remat fields of ``--remat`` and
     ``--remat_upsample`` (the JAX CLI's map), after one line naming the
-    policy in force."""
-    print(f"remat: --remat {args.remat} --remat_upsample "
-          f"{args.remat_upsample}"
-          + (" (the port's defaults, chosen on the H100)"
-             if (args.remat, args.remat_upsample) == ("none", 0) else ""),
-          flush=True)
+    policy in force (through ``say``)."""
+    say(f"remat: --remat {args.remat} --remat_upsample "
+        f"{args.remat_upsample}"
+        + (" (the port's defaults, chosen on the H100)"
+           if (args.remat, args.remat_upsample) == ("none", 0) else ""),
+        flush=True)
     return dict(remat=args.remat != "none",
                 remat_policy=(args.remat if args.remat != "none"
                               else "save_corr"),
                 remat_upsample=bool(args.remat_upsample))
+
+
+def resolve_batch(batch_size, batch_per_chip, num_devices, lr):
+    """``(global batch, lr)`` on ``num_devices`` ranks (the JAX CLI's
+    rule): ``batch_per_chip`` pins a rank's batch; otherwise a global
+    ``batch_size`` that the ranks do not divide is rounded up to the
+    next multiple and the learning rate scaled with the batch."""
+    if batch_per_chip is not None:
+        if batch_per_chip <= 0:
+            raise SystemExit(f"--batch_per_chip must be > 0, got "
+                             f"{batch_per_chip}")
+        return batch_per_chip * num_devices, lr
+    if batch_size <= 0:
+        raise SystemExit(f"--batch_size must be > 0, got {batch_size}")
+    rounded = -(-batch_size // num_devices) * num_devices
+    if rounded != batch_size:
+        lr = lr * (rounded / batch_size)
+    return rounded, lr
 
 
 def run(argv=None):
@@ -213,7 +246,22 @@ def run(argv=None):
     ``TrainState``."""
     args = parse_args(argv)
     check_unported(args)
+    from raft_tpu_torch.parallel import mesh as mesh_mod
 
+    mesh = None
+    if args.distributed:
+        try:
+            mesh = mesh_mod.init_from_env(args.device)
+        except RuntimeError as e:
+            raise SystemExit(f"--distributed: {e}")
+    try:
+        return _run(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh_mod.shutdown()
+
+
+def _run(args, mesh):
     from raft_tpu_torch import chaos
 
     if args.chaos:
@@ -231,7 +279,10 @@ def run(argv=None):
     from raft_tpu_torch.train.checkpoint import CheckpointManager
     from raft_tpu_torch.train.loop import request_preemption, train
 
-    device = evaluate.resolve_device(args.device)
+    device = mesh.device if mesh is not None else \
+        evaluate.resolve_device(args.device)
+    world = 1 if mesh is None else mesh.world
+    rank = 0 if mesh is None else mesh.rank
     compute_dtype = "bfloat16" if args.precision == "bf16" else "float32"
     corr_impl = args.corr_impl
     if corr_impl == "auto":
@@ -249,16 +300,27 @@ def run(argv=None):
         dropout=args.dropout, corr_impl=corr_impl,
         compute_dtype=compute_dtype, corr_dtype=args.corr_dtype,
         corr_precision=args.corr_precision,
-        **remat_kwargs(args),
+        **remat_kwargs(args, print if rank == 0 else lambda *a, **k: None),
         **{k: v for k, v in (("corr_levels", args.corr_levels),
                              ("corr_radius", args.corr_radius))
            if v is not None})
-    batch_size = args.batch_per_chip or args.batch_size
-    if batch_size <= 0:
-        raise SystemExit(f"--batch_size must be > 0, got {batch_size}")
-    if args.accum_steps < 1 or batch_size % args.accum_steps:
-        raise SystemExit(f"--accum_steps {args.accum_steps} must be >= 1 "
-                         f"and divide the batch size {batch_size}")
+    batch_size, lr = resolve_batch(args.batch_size, args.batch_per_chip,
+                                   world, args.lr)
+    if (batch_size, lr) != (args.batch_size, args.lr) and rank == 0:
+        print(f"batch {args.batch_size} -> {batch_size} over {world} "
+              f"rank(s)" + (f", lr {args.lr:g} -> {lr:g} (linear "
+                            f"scaling)" if lr != args.lr else ""),
+              flush=True)
+    if args.accum_steps < 1:
+        raise SystemExit(f"--accum_steps must be >= 1, got "
+                         f"{args.accum_steps}")
+    per_rank_batch = batch_size // world
+    if per_rank_batch % args.accum_steps:
+        raise SystemExit(
+            f"--accum_steps {args.accum_steps} must divide the per-rank "
+            f"batch size {per_rank_batch} (global {batch_size} over "
+            f"{world} rank(s)) evenly — pick a batch size that is a "
+            f"multiple of accum_steps * ranks")
     if args.prefetch_batches < 0 or args.device_prefetch < 0:
         raise SystemExit("--prefetch_batches / --device_prefetch must "
                          "be >= 0")
@@ -267,7 +329,7 @@ def run(argv=None):
                          f"{args.num_workers}")
     cfg = TrainConfig(
         name=args.name, stage=args.stage, restore_ckpt=args.restore_ckpt,
-        validation=tuple(args.validation), lr=args.lr,
+        validation=tuple(args.validation), lr=lr,
         num_steps=args.num_steps, batch_size=batch_size,
         image_size=tuple(args.image_size), iters=args.iters,
         wdecay=args.wdecay, epsilon=args.epsilon, clip=args.clip,
@@ -284,7 +346,8 @@ def run(argv=None):
                             root=args.data_root,
                             split_file=args.chairs_split)
     num_workers = args.num_workers or min(16, len(os.sched_getaffinity(0)))
-    loader = ShardedLoader(dataset, batch_size, seed=args.seed,
+    loader = ShardedLoader(dataset, per_rank_batch, seed=args.seed,
+                           num_hosts=world, host_id=rank,
                            num_workers=num_workers,
                            prefetch_batches=args.prefetch_batches)
 
@@ -311,17 +374,19 @@ def run(argv=None):
             eval_fn=evaluate.make_eval_fn(model_cfg, val_iters[name],
                                           device=device),
             device=device, **roots[name])
-        for name in args.validation
+        for name in (args.validation if rank == 0 else ())
     }
 
     # SIGTERM -> the cooperative flag: the loop exits at the next step
-    # boundary with a checkpoint of the last completed step
+    # boundary (across ranks: the first one any rank's flag reaches) with
+    # a checkpoint of the last completed step
     previous = signal.signal(signal.SIGTERM,
                              lambda signum, frame: request_preemption())
     try:
         return train(model_cfg, cfg, loader=loader,
                      validators=validators or None, restore_params=restore,
-                     tensorboard_dir=args.tensorboard_dir, device=device)
+                     tensorboard_dir=args.tensorboard_dir, device=device,
+                     mesh=mesh)
     finally:
         signal.signal(signal.SIGTERM, previous)
 

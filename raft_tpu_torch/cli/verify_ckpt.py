@@ -1,7 +1,7 @@
 """Checkpoint verifier (the port of ``raft_tpu/cli/verify_ckpt.py``): the
 checks that ``restore_latest``'s fallback applies at resume, run offline
 on every saved step, so an operator can see whether a run will resume and
-from which step::
+from which step, and on how many ranks each step was saved::
 
     python -m raft_tpu_torch verify-ckpt checkpoints/raft-chairs
     python -m raft_tpu_torch verify-ckpt checkpoints/raft-chairs --json
@@ -48,7 +48,8 @@ def main(argv=None) -> int:
         topo = topology.get(str(r["step"]))
         if topo:
             r["topology"] = {k: topo[k] for k in
-                             ("platform", "device", "device_count")
+                             ("platform", "device", "device_count",
+                              "world_size", "mesh")
                              if k in topo}
     report = {
         "dir": args.ckpt_dir,
@@ -66,7 +67,8 @@ def main(argv=None) -> int:
             topo = r.get("topology")
             if topo:
                 status += (f"  [saved on {topo.get('device_count')} x "
-                           f"{topo.get('device')}]")
+                           f"{topo.get('device')}, world "
+                           f"{topo.get('world_size', 1)}]")
             print(f"step {r['step']}: {status}")
         if latest_valid is not None:
             print(f"resume would restore step {latest_valid}")

@@ -12,6 +12,11 @@ Train mode (``module.train()``) switches batch norm to batch statistics
 unless the caller passes ``freeze_bn``, as the JAX modules' ``train`` and
 ``freeze_bn`` arguments do.
 
+Across data-parallel ranks (a mesh active for the train step,
+``parallel/mesh.py``), train-mode batch norm takes its statistics over
+the global batch and channel dropout draws the global batch's mask and
+keeps the rank's rows, as the JAX package's ``data``-sharded batch does.
+
 Initialization is explicit: :meth:`Conv.init_` and :meth:`Norm.init_`
 draw from a ``torch.Generator`` on the CPU, so one seed gives the same
 weights on every device.
@@ -25,6 +30,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from raft_tpu_torch.parallel import mesh as mesh_mod
 
 NORM_KINDS = ("batch", "instance", "none")
 
@@ -75,7 +82,12 @@ class Norm(nn.Module):
       running ones with momentum 0.9 (torch's 0.1), the *biased* batch
       variance in both places (``F.batch_norm(training=True)`` would put
       the unbiased one into ``running_var``); otherwise it uses the
-      running statistics;
+      running statistics.  Under an active mesh of more than one rank
+      the batch statistics are the global batch's: the per-channel sum
+      is all-reduced for the mean, then the sum of squared deviations
+      for the variance (two passes, as exact as ``torch.var_mean``), with
+      gradients through both reductions, so the running statistics stay
+      the same on every rank;
     - 'instance': per-sample, per-channel spatial norm, no affine;
     - 'none': identity.
 
@@ -112,7 +124,11 @@ class Norm(nn.Module):
             y = F.instance_norm(x.float(), eps=1e-5)
         elif self.training and not freeze_bn:
             xf = x.float()
-            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+            mesh = mesh_mod.active()
+            if mesh is None:
+                var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+            else:
+                mean, var = _global_moments(xf, mesh)
             with torch.no_grad():
                 self.running_mean.mul_(0.9).add_(0.1 * mean)
                 self.running_var.mul_(0.9).add_(0.1 * var)
@@ -126,18 +142,37 @@ class Norm(nn.Module):
         return y.to(x.dtype)
 
 
+def _global_moments(xf: torch.Tensor, mesh) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """Per-channel mean and biased variance of ``xf`` ``(B, C, H, W)``
+    over the batches of every rank of ``mesh`` (equal shapes)."""
+    n = xf.shape[0] * xf.shape[2] * xf.shape[3] * mesh.world
+    mean = mesh_mod.all_reduce_sum(xf.sum(dim=(0, 2, 3)), mesh) / n
+    d = xf - mean[:, None, None]
+    var = mesh_mod.all_reduce_sum((d * d).sum(dim=(0, 2, 3)), mesh) / n
+    return mean, var
+
+
 def channel_dropout(x: torch.Tensor, rate: float,
                     generator: torch.Generator) -> torch.Tensor:
     """Channel-wise dropout of ``(B, C, H, W)`` (flax ``Dropout`` with
     ``broadcast_dims=(1, 2)`` on NHWC): each (sample, channel) is kept with
     probability ``1 - rate`` and scaled by ``1 / (1 - rate)``.  The draw
-    comes from ``generator``, which must live on ``x``'s device."""
+    comes from ``generator``, which must live on ``x``'s device.  Under an
+    active mesh the mask is drawn for the global batch (``B * world``
+    rows) and the rank keeps its rows, ``rank::world`` (the global row
+    order of ``parallel/mesh.py``), so a split run drops what the
+    straight run over the same samples drops."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
-                      device=x.device) < 1.0 - rate
+    mesh = mesh_mod.active()
+    world = 1 if mesh is None else mesh.world
+    keep = torch.rand((x.shape[0] * world, x.shape[1], 1, 1),
+                      generator=generator, device=x.device) < 1.0 - rate
+    if mesh is not None:
+        keep = keep[mesh.rank::world]
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 

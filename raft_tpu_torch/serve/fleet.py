@@ -1013,17 +1013,31 @@ class ReplicaFleet:
                         error=f"{type(exc).__name__}: {str(exc)[:300]}")
 
     def _load_verified(self, source):
-        """Load + integrity-gate new weights.  Never let a torn write
-        through: the newest step of a run directory is read and checked
-        (size, checksum, unpickling, the saved keys: ``verify-ckpt``'s
-        check) BEFORE the model load; there is deliberately NO fallback
-        to an older step — a silent version downgrade is worse than a
-        refused update."""
+        """Load + integrity-gate new weights: a ``state_dict``, a weight
+        file (the port's own ``.pth`` or a reference-format one, read by
+        the loader ``serve --model`` uses) or a run directory.  Never let
+        a torn write through: the newest step of a run directory is read
+        and checked (size, checksum, unpickling, the saved keys:
+        ``verify-ckpt``'s check) BEFORE the model load, and a weight file
+        that does not load whole is refused; there is deliberately NO
+        fallback to an older step or the old weights — a silent version
+        downgrade is worse than a refused update."""
         if isinstance(source, Mapping):
             return dict(source), {"kind": "state_dict"}
         path = os.path.abspath(str(source))
+        if not os.path.exists(path):
+            raise WeightUpdateError(
+                f"checkpoint dir or weight file not found: {path}")
         if not os.path.isdir(path):
-            raise WeightUpdateError(f"checkpoint dir not found: {path}")
+            from raft_tpu_torch.convert import load_state_dict_file
+
+            try:
+                new_sd = load_state_dict_file(path, self.model_cfg)
+            except Exception as e:
+                raise WeightUpdateError(
+                    f"failed to load weights from {path}: "
+                    f"{type(e).__name__}: {e}") from e
+            return new_sd, {"kind": "file", "path": path}
         from raft_tpu_torch.train.checkpoint import CheckpointManager
 
         mgr = CheckpointManager(path)

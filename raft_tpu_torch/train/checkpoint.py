@@ -9,7 +9,15 @@ state) and ``manifest.json`` (each file's byte size and SHA-256).  A
 commit writes into ``<dir>/<step>.tmp-<pid>``, fsyncs, and renames it into
 place, so a listed step is a whole one unless something truncated it
 afterwards.  A run-level ``topology.json`` records which device (name and
-count) saved each step.  The newest ``max_to_keep`` steps are kept.
+count) and which world (``world_size``, ``mesh`` ``{"data": W, "spatial":
+1}``) saved each step.  The newest ``max_to_keep`` steps are kept.
+
+Across data-parallel ranks (``mesh``) the state is the same on every
+rank: rank 0 alone writes (the others' saves only record the step), and
+on restore rank 0 picks the step and broadcasts it, so that a torn write
+cannot split the ranks.  A checkpoint saved at one world size restores
+at any other: it holds no per-rank state, and the loader continues the
+same global sample stream from its step (``parallel/mesh.py``).
 
 :meth:`CheckpointManager.save_async` copies the state to host memory
 (every device tensor into pinned memory, one synchronize) before it
@@ -92,13 +100,15 @@ def snapshot(state: TrainState) -> Dict[str, Any]:
     return snap
 
 
-def _current_topology(device: torch.device) -> dict:
+def _current_topology(device: torch.device, mesh=None) -> dict:
+    world = 1 if mesh is None else mesh.world
+    topo = {"world_size": world, "mesh": {"data": world, "spatial": 1}}
     if device.type == "cuda":
-        return {"platform": "cuda",
-                "device": torch.cuda.get_device_name(device),
-                "device_count": torch.cuda.device_count()}
-    return {"platform": device.type, "device": device.type,
-            "device_count": 1}
+        return dict(topo, platform="cuda",
+                    device=torch.cuda.get_device_name(device),
+                    device_count=torch.cuda.device_count())
+    return dict(topo, platform=device.type, device=device.type,
+                device_count=1)
 
 
 def _fsync_dir(path: str) -> None:
@@ -170,12 +180,17 @@ _SHUTDOWN = object()
 class CheckpointManager:
     """Save, verify and restore the train state under ``directory``
     (``ckpt_dir/name``).  ``commit_window`` bounds the background commits
-    in flight; ``commit_s`` lists each commit's seconds (write and fsync)."""
+    in flight; ``commit_s`` lists each commit's seconds (write and fsync).
+    ``mesh``: the run's data-parallel ranks (rank 0 writes; restore is
+    collective)."""
 
     def __init__(self, directory: str, max_to_keep: int = 5,
-                 commit_window: int = 2):
+                 commit_window: int = 2, mesh=None):
         self._dir = os.path.abspath(directory)
-        os.makedirs(self._dir, exist_ok=True)
+        self._mesh = mesh
+        self._writer = mesh is None or mesh.rank == 0
+        if self._writer:
+            os.makedirs(self._dir, exist_ok=True)
         self.max_to_keep = int(max_to_keep)
         self._commit_window = max(int(commit_window), 1)
         self._commit_q: Optional[queue.Queue] = None
@@ -259,13 +274,18 @@ class CheckpointManager:
         self.wait()
         device = next(state.model.parameters()).device
         self._last_requested = int(step)
-        self._commit(step, snapshot(state), _current_topology(device))
+        if self._writer:
+            self._commit(step, snapshot(state),
+                         _current_topology(device, self._mesh))
 
     def save_async(self, step: int, state: TrainState) -> None:
         """Snapshot ``state`` to host memory and hand it to the committer.
         Blocks only while ``commit_window`` commits are in flight; a
         previous commit's failure re-raises here."""
         self._raise_commit_err()
+        self._last_requested = int(step)
+        if not self._writer:
+            return
         device = next(state.model.parameters()).device
         snap = snapshot(state)
         if self._commit_thread is None:
@@ -274,8 +294,8 @@ class CheckpointManager:
                 target=self._commit_loop, name="raft-ckpt-commit",
                 daemon=True)
             self._commit_thread.start()
-        self._last_requested = int(step)
-        self._commit_q.put((int(step), snap, _current_topology(device)))
+        self._commit_q.put((int(step), snap,
+                            _current_topology(device, self._mesh)))
 
     def _commit_loop(self) -> None:
         while True:
@@ -387,8 +407,34 @@ class CheckpointManager:
 
     def restore_latest(self, template: TrainState) -> Optional[TrainState]:
         """Load the newest restorable step into ``template`` (in place)
-        and return it; None when nothing was saved."""
-        found = self._walk(template)
+        and return it; None when nothing was saved.  Across ranks, rank 0
+        walks the steps and every rank loads the one it found."""
+        if self._mesh is None or self._mesh.world == 1:
+            found = self._walk(template)
+        else:
+            found, err = None, None
+            if self._mesh.rank == 0:
+                try:
+                    found = self._walk(template)
+                except CheckpointRestoreError as e:
+                    err = e
+            step, msg = self._mesh.broadcast_object(
+                (None if found is None else found[0],
+                 None if err is None else str(err)))
+            if err is not None:
+                raise err
+            if msg is not None:
+                raise CheckpointRestoreError(f"rank 0: {msg}")
+            if step is not None and found is None:
+                try:
+                    saved = self.read_step(step)
+                except (CheckpointCorruptError,
+                        chaos.InjectedCheckpointCorruption) as e:
+                    raise CheckpointRestoreError(
+                        f"rank {self._mesh.rank} cannot read step {step}, "
+                        f"which rank 0 restores: {e}") from e
+                check_structure(saved, template)
+                found = (step, saved)
         if found is None:
             return None
         return apply_state(found[1], template)

@@ -26,6 +26,23 @@ clip + AdamW/OneCycle update, on one device.
   it).  ``tests/test_torch_train.py::
   test_nonfinite_guard_leaves_state_bit_identical`` reads the update count
   after a NaN step, so a torch that drops it fails there.
+- ``mesh`` (``parallel/mesh.py``): data parallel over the mesh's ranks,
+  each feeding its own rows of the global batch.  Batch-norm statistics
+  and the dropout mask are the global batch's (``models/layers.py``);
+  after the microbatch accumulation the gradients and the metrics go
+  into one preallocated fp32 buffer, one all-reduce sums it over the
+  ranks, and the gradients and the loss terms are divided by the world
+  size (gloo has no average), the pixel metrics (``epe``, ``1px``,
+  ``3px``, ``5px``, ``epe_iter``) weighed by each rank's valid pixels:
+  they are the global batch's, as JAX's replicated outputs are.  So the
+  global norm, the clip, the guard (a non-finite gradient on one rank
+  skips the step on all) and the update are the same on every rank.  A
+  mesh backed by a process group all-reduces even at world 1 (exact: a
+  sum of one, a division by 1).  No ``DistributedDataParallel``: it
+  would reduce once per microbatch, need ``find_unused_parameters`` for
+  ``fnet`` under a quantized pyramid, and hook into the backward that is
+  captured.  Under NCCL the all-reduce is inside the captured graph; a
+  gloo mesh (ranks sharing one GPU, or the CPU) runs eagerly.
 - On the card the whole step (forward, backward, global norm, clip,
   learning rate, AdamW, statistics, guard; every microbatch) is one
   captured CUDA graph per batch shape, held by ``state.programs``
@@ -39,12 +56,15 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 from raft_tpu_torch.config import (RAFTConfig, TrainConfig, backend_flags,
                                    entry_precision)
 from raft_tpu_torch.evaluate import DeviceLike, resolve_device
 from raft_tpu_torch.models.raft import RAFT
-from raft_tpu_torch.train.loss import sequence_loss
+from raft_tpu_torch.parallel import mesh as mesh_mod
+from raft_tpu_torch.parallel.mesh import Mesh
+from raft_tpu_torch.train.loss import combined_valid, sequence_loss
 from raft_tpu_torch.train.optim import (clip_by_global_norm_, global_norm,
                                         make_optimizer, set_scheduled_lr_)
 from raft_tpu_torch.train.state import TrainState
@@ -113,11 +133,55 @@ def _to_device(batch: Mapping, dev: torch.device) -> Dict[str, torch.Tensor]:
             for k in BATCH_KEYS}
 
 
+# the metrics that are means over valid pixels, weighed by each rank's
+# valid-pixel count in the cross-rank mean; the others are plain means
+PIXEL_METRICS = ("epe", "1px", "3px", "5px", "epe_iter")
+
+
+def _reduce_over_ranks_(grads: List[torch.Tensor], loss: torch.Tensor,
+                        metrics: Dict[str, torch.Tensor],
+                        n_valid: torch.Tensor, mesh: Mesh,
+                        flat: torch.Tensor):
+    """The gradients' and metrics' means over ``mesh``'s global batch
+    through one all-reduce of ``flat`` (fp32, preallocated, as long as
+    all of them).  The gradients are copied back into ``grads`` (so the
+    norm and the update read tensors laid out as without a mesh: at
+    world 1 the step is bit for bit the plain one); returns ``(loss,
+    metrics)``, tensors of their own."""
+    plain = sorted(k for k in metrics if k not in PIXEL_METRICS)
+    pixel = sorted(k for k in metrics if k in PIXEL_METRICS)
+    parts = ([g.reshape(-1) for g in grads] + [loss.float().reshape(1)]
+             + [metrics[k].float().reshape(-1) for k in plain]
+             + [(metrics[k].float() * n_valid).reshape(-1) for k in pixel]
+             + [n_valid.reshape(1)])
+    torch.cat(parts, out=flat)
+    dist.all_reduce(flat, group=mesh.group)
+    views, at = [], 0
+    for part in parts:
+        views.append(flat[at:at + part.numel()])
+        at += part.numel()
+    n_mean = len(grads) + 1 + len(plain)   # parts averaged over the ranks
+    flat[:sum(p.numel() for p in parts[:n_mean])].div_(mesh.world)
+    n = views[-1].clamp(min=1.0)
+    for v in views[n_mean:-1]:
+        v.div_(n)
+    torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(views, grads)])
+    # copies: the next step reuses the buffer
+    out = dict(zip(plain + pixel, views[len(grads) + 1:-1]))
+    return (views[len(grads)].view(()).clone(),
+            {k: out[k].view_as(metrics[k]).clone() for k in metrics})
+
+
 def _step_body(state: TrainState, cfg: TrainConfig, loss_fn: Callable,
-               accum: int, batch: Dict[str, torch.Tensor]) -> Dict:
+               accum: int, batch: Dict[str, torch.Tensor],
+               mesh: Optional[Mesh] = None,
+               buffers: Optional[Dict] = None) -> Dict:
     """The device work of one step on ``batch`` (device tensors): updates
     ``state``'s tensors in place and returns the metrics.  Reads nothing
-    back to the host and changes no host state, so it can be captured."""
+    back to the host and changes no host state, so it can be captured.
+    With a ``mesh`` (distributed, and active for the norms and dropout:
+    ``parallel.use``) the gradients and metrics are reduced over its
+    ranks through a buffer kept in ``buffers``."""
     model = state.model
     B = batch["image1"].shape[0]
     params = list(model.parameters())
@@ -145,6 +209,17 @@ def _step_body(state: TrainState, cfg: TrainConfig, loss_fn: Callable,
         loss = torch.stack(losses).mean()
         metrics = {k: torch.stack([p[k] for p in parts]).mean(dim=0)
                    for k in parts[0]}
+    if mesh is not None:
+        n_valid = combined_valid(batch["flow"], batch["valid"],
+                                 cfg.max_flow).sum()
+        size = (sum(g.numel() for g in grads) + 2
+                + sum(v.numel() for v in metrics.values()))
+        flat = buffers.get(size)
+        if flat is None:
+            flat = buffers[size] = torch.empty(size, dtype=torch.float32,
+                                               device=loss.device)
+        loss, metrics = _reduce_over_ranks_(
+            grads, loss.detach(), metrics, n_valid, mesh, flat)
     gnorm = global_norm(grads)
     clip_by_global_norm_(grads, cfg.clip, gnorm)
     for p, g in zip(params, grads):
@@ -169,7 +244,8 @@ def _step_body(state: TrainState, cfg: TrainConfig, loss_fn: Callable,
 
 
 def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
-                    graphs: Optional[bool] = None) -> Callable:
+                    graphs: Optional[bool] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """``step_fn(state, batch) -> (state, metrics)``: one update of
     ``state`` in place.  ``batch`` holds ``image1``/``image2``
     ``(B, H, W, 3)`` in [0, 255], ``flow`` ``(B, H, W, 2)`` and ``valid``
@@ -179,13 +255,26 @@ def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
 
     ``graphs`` (default: on the card) runs the step as a captured graph
     per batch shape; ``False`` runs it eagerly (for comparisons).  Each
-    call runs under :func:`entry_precision`."""
+    call runs under :func:`entry_precision`.
+
+    ``mesh``: data parallel over its ranks (see the module docstring);
+    ``batch`` is then this rank's rows and the metrics the global
+    batch's.  A gloo mesh runs eagerly: gloo cannot be captured."""
     dev = resolve_device(device)
-    graphs = dev.type == "cuda" if graphs is None else graphs
+    if mesh is not None and not mesh.distributed:
+        mesh = None                     # one process, no group: plain
+    eager_mesh = mesh is not None and mesh.backend != "nccl"
+    if graphs is None:
+        graphs = dev.type == "cuda" and not eager_mesh
     if graphs and dev.type != "cuda":
         raise ValueError("graphs=True needs a CUDA device")
+    if graphs and eager_mesh:
+        raise ValueError(f"a {mesh.backend} mesh cannot run inside a "
+                         "captured graph; pass graphs=False")
     loss_fn = make_loss_fn(cfg)
     accum = max(int(cfg.accum_steps), 1)
+    buffers: Dict[int, torch.Tensor] = {}
+    ranks = None if mesh is None else (mesh.world, mesh.rank, mesh.backend)
 
     def step_fn(state: TrainState, batch: Mapping):
         batch = _to_device(batch, dev)
@@ -194,15 +283,17 @@ def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
             raise ValueError(
                 f"accum_steps={accum} must divide the batch size {B} evenly "
                 f"(remainder {B % accum})")
-        with entry_precision():
+        with entry_precision(), mesh_mod.use(mesh):
             if graphs:
                 metrics = state.programs(
-                    ("train_step", cfg, backend_flags()),
+                    ("train_step", cfg, backend_flags(), ranks),
                     lambda *ts: _step_body(state, cfg, loss_fn, accum,
-                                           dict(zip(BATCH_KEYS, ts))),
+                                           dict(zip(BATCH_KEYS, ts)), mesh,
+                                           buffers),
                     [batch[k] for k in BATCH_KEYS], [state.generator])
             else:
-                metrics = _step_body(state, cfg, loss_fn, accum, batch)
+                metrics = _step_body(state, cfg, loss_fn, accum, batch,
+                                     mesh, buffers)
         state.step += 1
         return state, metrics
 

@@ -125,7 +125,7 @@ def test_verify_ckpt_cli(tmp_path, capsys):
 
     assert verify_main([str(tmp_path / "ck")]) == 0
     out = capsys.readouterr().out
-    assert "step 3: ok  [saved on 1 x cpu]" in out
+    assert "step 3: ok  [saved on 1 x cpu, world 1]" in out
     assert "resume would restore step 3" in out
 
     chaos.tear_files(str(tmp_path / "ck" / "3"))
@@ -143,7 +143,7 @@ def test_verify_ckpt_cli(tmp_path, capsys):
 
 
 UNPORTED_VALUES = {
-    "distributed": [], "shard_spatial": ["2"],
+    "shard_spatial": ["2"],
     "profile_dir": ["p"], "telemetry_dir": ["t"],
     "trace_sample_rate": ["0.5"], "watchdog_timeout": ["30"],
     "watchdog_exit": [], "profile_steps": ["1:2"], "forensic_keep": ["0"]}

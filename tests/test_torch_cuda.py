@@ -1496,3 +1496,162 @@ def test_serve_slow_engine_spares_its_sibling_on_the_card(dev):
         chaos.uninstall()
         slow.stop()
         fast.stop()
+
+
+# --- data parallel (raft_tpu_torch/parallel, the train step's all-reduce) --
+
+def test_ddp_world_one_nccl_step_is_the_plain_captured_step(dev,
+                                                           monkeypatch):
+    """A mesh of one NCCL rank: three captured steps of the kernel
+    configuration, the all-reduce inside the graph, bit for bit the plain
+    captured step (cuDNN deterministic); one capture each and the eager
+    launch counts per step."""
+    import socket
+
+    from raft_tpu_torch.parallel import init_from_env, shutdown
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK=0, WORLD_SIZE=1, LOCAL_RANK=0,
+                     MASTER_ADDR="localhost", MASTER_PORT=port).items():
+        monkeypatch.setenv(k, str(v))
+    cfg = _graph_train_cfgs()
+    mcfg = RAFTConfig.full(**KERNEL_KW)
+    sd = RAFT(mcfg, seed=0).state_dict()
+    batches = list(_host_batches(3))
+    mesh = init_from_env("cuda")
+    torch.backends.cudnn.deterministic = True
+    try:
+        assert (mesh.backend, mesh.world) == ("nccl", 1)
+        out = {}
+        for m in (None, mesh):
+            state = init_state(mcfg, cfg, device=dev, state_dict=sd)
+            step_fn = make_train_step(cfg, device=dev, mesh=m)
+            losses = []
+            for b in batches:
+                _reset_all()
+                state, met = step_fn(state, b)
+                assert _all_counts() == TRAIN_LAUNCHES
+                losses.append(float(met["loss"]))
+            out[m is None] = (losses, state.model.state_dict(),
+                              state.programs.counter.total())
+        assert out[True][0] == out[False][0]
+        assert all(torch.equal(v, out[False][1][k])
+                   for k, v in out[True][1].items())
+        assert (out[True][2], out[False][2]) == (1, 1)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutdown()
+
+
+def test_ddp_two_gloo_ranks_share_the_card(dev, tmp_path):
+    """Two gloo ranks on the one card (``tests/_torch_ddp_child.py
+    ... cuda``), the kernel configuration (pyramid lookup, upsample loss,
+    fused gates), 2 pairs a rank at 32x48: the ranks bit for bit each
+    other, every kernel counted on each rank each step, and two steps
+    against the straight eager run on the global batch of 4 (fp32, TF32
+    off): loss and metrics rtol 1e-4, batch-norm statistics within 1e-5
+    plus 1e-4 relative; per parameter by norm
+    (``_torch_ddp_child.leaf_agreement``, the straight run's twin on the
+    reversed rows as the noise floor) the global gradient (Adam's first
+    moment after step 1) within rtol 1e-4 and 1e-5 of the global norm,
+    each step's change within rtol 1e-2 and 2e-3 of the global change,
+    and twice the change or none outside that bound."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    from raft_tpu_torch.config import TrainConfig
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(repo, "tests"))
+    import _torch_ddp_child as child
+
+    b, world = child.B, 2
+    sd = RAFT(RAFTConfig.full(), seed=0).state_dict()
+    weights = str(tmp_path / "w.pt")
+    torch.save(sd, weights)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(repo, "tests", "_torch_ddp_child.py"),
+         str(tmp_path), weights, str(r), str(world), str(port), "cuda"],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    try:
+        # a rank that fails leaves its peer waiting in a collective
+        deadline = time.monotonic() + 300
+        while any(p.poll() is None for p in procs):
+            assert all(p.poll() in (None, 0) for p in procs) and \
+                time.monotonic() < deadline, \
+                [p.poll() for p in procs]
+            time.sleep(0.2)
+        for p in procs:
+            out, _ = p.communicate()
+            assert p.returncode == 0, out[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = [torch.load(str(tmp_path / f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    (s0, m0, l0), (s1, _, l1) = ranks[0]["split"], ranks[1]["split"]
+    for a, c in zip(s0, s1):
+        assert all(torch.equal(a["model"][k], c["model"][k])
+                   for k in a["model"])
+    per_step = {"pyramid_lookup_fwd": 2, "pyramid_lookup_bwd": 2,
+                "upsample_loss_fwd": 1, "upsample_loss_bwd": 1,
+                "gru_gate_rh": 4, "gru_gate_rh_bwd": 4,
+                "gru_gate_blend": 4, "gru_gate_blend_bwd": 4}
+    assert l0 == l1 == [per_step] * 2
+
+    cfg = TrainConfig(batch_size=world * b, **child.TRAIN_KW)
+    straight = {}
+    for label, order in (("straight", slice(None)),
+                         ("reversed", slice(None, None, -1))):
+        state = init_state(RAFTConfig.full(**child.CUDA_KW), cfg,
+                           device=dev, state_dict=sd)
+        step_fn = make_train_step(cfg, device=dev, graphs=False)
+        snaps, mets = [], []
+        for seed in (0, 1):
+            batch = {k: v[order].copy() for k, v in
+                     child.global_batch(seed, world, b).items()}
+            state, met = step_fn(state, batch)
+            snaps.append(child.snapshot(state))
+            mets.append({k: v.cpu() for k, v in met.items()})
+        straight[label] = (snaps, mets)
+    (want, wmets), (twin, _) = straight["straight"], straight["reversed"]
+    names = child.param_names()
+    for i in range(2):
+        for k in ("loss", "epe", "1px", "3px", "5px", "loss_iter",
+                  "epe_iter"):
+            np.testing.assert_allclose(m0[i][k].numpy(), wmets[i][k].numpy(),
+                                       rtol=1e-4, atol=1e-7, err_msg=k)
+        for k, v in want[i]["model"].items():
+            if "running" in k:
+                np.testing.assert_allclose(
+                    s0[i]["model"][k].numpy(), v.numpy(), rtol=1e-4,
+                    atol=1e-5, err_msg=f"step {i}: {k}")
+    checks = [(child.first_moments(s0[0], names),
+               child.first_moments(want[0], names),
+               child.first_moments(twin[0], names), (1e-4, 1e-5))]
+    checks += [(child.changes(s0[i]["model"], sd, names),
+                child.changes(want[i]["model"], sd, names),
+                child.changes(twin[i]["model"], sd, names), (1e-2, 2e-3))
+               for i in range(2)]
+    for got, ref, other, tol in checks:
+        noise = child.noise_of(other, ref)
+        ratio, name = child.leaf_agreement(got, ref, *tol, noise=noise)
+        assert ratio <= 1.0, (name, ratio)
+        for wrong in (2.0, 0.0):
+            assert child.leaf_agreement(
+                {n: wrong * v for n, v in ref.items()}, ref, *tol,
+                noise=noise)[0] > 1.0

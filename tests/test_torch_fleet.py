@@ -416,6 +416,48 @@ def test_rolling_update_flips_and_gates(state_dict, aot_dir, tmp_path):
         fleet.stop()
 
 
+def test_update_weights_from_weight_file(state_dict, aot_dir, tmp_path):
+    """A ``.pth`` the port wrote (``torch.save`` of a ``state_dict``, the
+    file ``serve --model`` serves) flips every replica, and the fleet
+    then serves the bits of an engine built from that file; a torn copy
+    of it is refused before any flip, the version and the flows
+    unchanged."""
+    from raft_tpu_torch.convert import load_state_dict_file
+
+    new_sd = _seeded(11)
+    weights = tmp_path / "weights.pth"
+    torch.save(new_sd, weights)
+    torn = tmp_path / "torn.pth"
+    shutil.copy(weights, torn)
+    with open(torn, "r+b") as f:
+        f.truncate(os.path.getsize(torn) // 2)
+    fleet = _mk_fleet(state_dict, aot_dir).start()
+    try:
+        router = FlowRouter(fleet, RouterConfig())
+        im1, im2 = _images(np.random.default_rng(8))
+        before = router.infer(im1, im2, timeout=60)
+        with pytest.raises(WeightUpdateError, match="failed to load"):
+            fleet.update_weights(str(torn))
+        assert fleet.weights_version == 1
+        assert np.array_equal(router.infer(im1, im2, timeout=60), before)
+
+        report = fleet.update_weights(str(weights))
+        assert report["ok"] and sorted(report["flipped"]) == ["r0", "r1"]
+        assert report["provenance"] == {"kind": "file",
+                                        "path": str(weights)}
+        assert fleet.weights_version == 2
+        after = router.infer(im1, im2, timeout=60)
+        fresh = InferenceEngine(load_state_dict_file(str(weights), CFG),
+                                CFG, _serve_cfg(), device="cpu").start()
+        try:
+            assert np.array_equal(after, fresh.infer(im1, im2, timeout=60))
+        finally:
+            fresh.stop()
+        assert not np.allclose(after, before)
+    finally:
+        fleet.stop()
+
+
 def test_rolling_update_under_load_fails_nothing(state_dict, aot_dir):
     """Clients keep a closed loop running until ``update_weights``
     returns; least-loaded placement keeps both replicas busy, so each

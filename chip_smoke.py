@@ -677,14 +677,43 @@ def _record(results, key, err, tk, tp, nbytes, ops, peaks, tag="[small]",
           f"GFLOP), max|err| {err:.3e}", flush=True)
 
 
+def _gate_fwd_check(name: str, got, want) -> float:
+    """max |got - want| of a forward gate; raises unless within 1e-6 in
+    fp32, or in bf16 within one bf16 ulp of the plain value plus 1e-6
+    (where (1-s)h and s*tanh(q) cancel, an fp32 difference of 1e-7 is
+    several ulps of the tiny result)."""
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype == torch.float32:
+        ok, tol = err <= 1e-6, "1e-6"
+    else:
+        ok, tol = _bf16_close(got, want, 1e-6), "1 bf16 ulp + 1e-6"
+    print(f"{name}: max|err| {err:.3e} ({tol})", flush=True)
+    if got.dtype != want.dtype or not ok:
+        raise AssertionError(f"{name}: {got.dtype} against {want.dtype}, "
+                             f"max|err| {err}")
+    return err
+
+
+def _gate_vec(kernel: str, ins, outs) -> int:
+    """Values per access that ``gate_plan`` picks for ``kernel`` on
+    these inputs and outputs (``ins``: views as the wrapper reads them)."""
+    from raft_tpu_torch.ops import gru_gates
+
+    strides = [gru_gates._batch_strided(t)[1] for t in ins]
+    vec, _ = gru_gates.gate_plan(
+        kernel, [t.data_ptr() for t in (*ins, *outs)], strides,
+        ins[0][0].numel(), ins[0].shape[0], ins[0].element_size(),
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    return vec
+
+
 def _gate_fwd_case(rng, B, ch, h, w, dtype, peaks, tag: str,
                    time_it: bool = True) -> dict:
     """``gru_gate_rh`` and ``gru_gate_blend`` on the z/r halves of one
     (B, 2 ch, h, w) conv output (split views) against their plain
-    versions: within 1e-6 in fp32, and in bf16 within one bf16 ulp of the
-    plain value plus 1e-6 (where (1-s)h and s*tanh(q) cancel, an fp32
-    difference of 1e-7 is several ulps of the tiny result); timed beside
-    the bound when ``time_it``.  {name: record}"""
+    versions (``_gate_fwd_check``), each on the 16-byte path of
+    ``gate_plan`` (raises otherwise: these are the model's shapes); timed
+    beside the bound when ``time_it``.  {name: record}"""
     from raft_tpu_torch.ops.gru_gates import (gru_gate_blend,
                                               gru_gate_blend_plain,
                                               gru_gate_rh, gru_gate_rh_plain)
@@ -696,30 +725,29 @@ def _gate_fwd_case(rng, B, ch, h, w, dtype, peaks, tag: str,
         dev, dtype) for c, scale in ((2 * ch, 3.0), (ch, 3.0), (ch, 1.0)))
     z, r = torch.split(zr, ch, dim=1)               # split views
     out = {}
-    for name, kern, plain, n_in, flops, kname in (
+    for name, kern, plain, ins, flops, kname in (
             ("gru_gate_rh", lambda: gru_gate_rh(r, hh),
-             lambda: gru_gate_rh_plain(r, hh), 2, 4, "rh_kernel"),
+             lambda: gru_gate_rh_plain(r, hh), (r, hh), 4, "rh_kernel"),
             ("gru_gate_blend", lambda: gru_gate_blend(z, q, hh),
-             lambda: gru_gate_blend_plain(z, q, hh), 3, 8, "blend_kernel")):
+             lambda: gru_gate_blend_plain(z, q, hh), (z, q, hh), 8,
+             "blend_kernel")):
         with torch.no_grad():
             got, want = kern(), plain()
             torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            err = float(diff.max())
-            if dtype == torch.float32:
-                ok, tol = err <= 1e-6, "1e-6"
-            else:
-                ok, tol = _bf16_close(got, want, 1e-6), "1 bf16 ulp + 1e-6"
-            print(f"{tag} {name} {dt} {tuple(got.shape)}: max|err| "
-                  f"{err:.3e} ({tol})", flush=True)
-            if not ok:
+            vec = _gate_vec(name, ins, (got,))
+            err = _gate_fwd_check(
+                f"{tag} {name} {dt} {tuple(got.shape)} ({vec} values per "
+                "access)", got, want)
+            if vec * got.element_size() != 16:
                 raise AssertionError(f"{name} {dt} {tuple(got.shape)}: "
-                                     f"{err}")
+                                     f"{vec} values per access, not 16 "
+                                     "bytes")
             tk, tp = ((_timed(kern, kname), _timed(plain, None)) if time_it
                       else ({"ms": None}, {"ms": None}))
         n = got.numel()
-        _record(out, name, err, tk, tp, (n_in + 1) * n * got.element_size(),
-                flops * n, peaks, tag=f"{tag} {dt} {tuple(got.shape)}")
+        _record(out, name, err, tk, tp, (len(ins) + 1) * n
+                * got.element_size(), flops * n, peaks,
+                tag=f"{tag} {dt} {tuple(got.shape)}", vector_bytes=16)
     return out
 
 
@@ -729,7 +757,7 @@ def _gate_bwd_case(rng, B, ch, x_ch, h, w, dtype, peaks, tag: str) -> dict:
     channel slice of the gradient of cat([rh, x]) (x: ``x_ch`` channels),
     against their plain versions (``_check``), timed beside the bound; the
     reset-gate backward's record carries its access width
-    (``rh_bwd_vector_bytes``).  {name: record}"""
+    (``vector_bytes``).  {name: record}"""
     from raft_tpu_torch.ops import gru_gates
 
     dev = torch.device("cuda")
@@ -746,20 +774,16 @@ def _gate_bwd_case(rng, B, ch, x_ch, h, w, dtype, peaks, tag: str) -> dict:
         t.requires_grad_(True)
     z, r = torch.split(zr, ch, dim=1)           # views that carry grad
     n, es = hh.numel(), hh.element_size()
-    strides = [gru_gates._batch_strided(t)[1] for t in (r, hh, g_rh)]
-    vec, units = gru_gates.rh_bwd_plan(
-        [r.data_ptr(), hh.data_ptr(), g_rh.data_ptr()], strides,
-        ch * h * w, B, es,
-        torch.cuda.get_device_properties(0).multi_processor_count)
-    print(f"{tag} gru_gate_rh_bwd {dt} {(B, ch, h, w)}: rh_bwd_plan {vec} "
-          f"values ({vec * es} bytes) per access, {units} units", flush=True)
+    vec = _gate_vec("gru_gate_rh_bwd", (r, hh, g_rh), ())
+    print(f"{tag} gru_gate_rh_bwd {dt} {(B, ch, h, w)}: gate_plan {vec} "
+          f"values ({vec * es} bytes) per access", flush=True)
     rh, bl = gru_gates.gru_gate_rh(r, hh), gru_gates.gru_gate_blend(z, q, hh)
     out = {}
     for name, o, leaves, gg, pick, plain, n_io, flops, kname, extra in (
             ("gru_gate_rh_bwd", rh, (zr, hh), g_rh,
              lambda d: [d[0][:, ch:], d[1]],
              lambda: gru_gates.gru_gate_rh_bwd_plain(r, hh, g_rh), 5, 9,
-             "rh_bwd_kernel", {"rh_bwd_vector_bytes": vec * es}),
+             "rh_bwd_kernel", {"vector_bytes": vec * es}),
             ("gru_gate_blend_bwd", bl, (zr, q, hh), g_bl,
              lambda d: [d[0][:, :ch], d[1], d[2]],
              lambda: gru_gates.gru_gate_blend_bwd_plain(z, q, hh, g_bl), 7,
@@ -1492,26 +1516,27 @@ def _corr_bwd_case(rng, B, h, w, label, peaks, time_plain=True, dist="a",
     return res
 
 
-# Layouts of the reset-gate backward on each access path: the model's
-# (r a channel half, g a channel slice) on an odd grid (16-byte vectors),
-# 3 channels on that grid, and r one channel off with a gradient of one
-# more channel (so its batch stride is off too), at the chairs size (bf16
-# off 16 bytes; more units than one wave) and on the odd grid (both
-# types off).  (label, B, C, H, W, r channel offset, extra gradient
-# channels, values per access in fp32, in bf16)
-RH_RAGGED = (("45x63", 2, 128, 45, 63, 0, 0, 4, 8),
+# Layouts of the vectorized gates (the two forwards and the rh backward)
+# on each access path: the model's (z/r channel halves, rh's gradient g a
+# channel slice) on an odd grid (16-byte vectors), 3 channels on that
+# grid, and r one channel off (so z's batch stride is off too) with a
+# gradient of one more channel (so its batch stride is off too), at the
+# chairs size (bf16 off 16 bytes; more units than one wave) and on the
+# odd grid (both types off).  (label, B, C, H, W, r channel offset, extra
+# gradient channels, values per access in fp32, in bf16)
+GATE_RAGGED = (("45x63", 2, 128, 45, 63, 0, 0, 4, 8),
              ("3 channels 45x63", 2, 3, 45, 63, 0, 0, 1, 1),
              ("46x62 offset", 8, 128, 46, 62, 1, 1, 4, 1),
              ("45x63 offset", 2, 128, 45, 63, 1, 1, 1, 1))
 
 
-def _rh_ragged_cases(rng, dev):
-    """``gru_gate_rh``'s backward kernel against its plain version on
-    ``RH_RAGGED``, fp32 and bf16; raises unless each case takes its
-    access path."""
+def _gate_ragged_cases(rng, dev):
+    """The forward kernels of ``gru_gate_rh`` and ``gru_gate_blend`` and
+    the rh backward against their plain versions on ``GATE_RAGGED``, fp32
+    and bf16; raises unless each case takes its access path."""
     from raft_tpu_torch.ops import gru_gates
 
-    for label, B, C, H, W, r_off, g_pad, ve32, ve16 in RH_RAGGED:
+    for label, B, C, H, W, r_off, g_pad, ve32, ve16 in GATE_RAGGED:
         for dtype, want_ve in ((torch.float32, ve32), (torch.bfloat16, ve16)):
             dt = "fp32" if dtype == torch.float32 else "bf16"
 
@@ -1520,14 +1545,26 @@ def _rh_ragged_cases(rng, dev):
                                          .astype(np.float32)) * scale).to(
                     dev, dtype)
 
-            zr, hh, g_cat = mk(2 * C + r_off, 3.0), mk(C), mk(3 * C + g_pad)
+            zr, q, hh = mk(2 * C + r_off, 3.0), mk(C, 3.0), mk(C)
+            g_cat = mk(3 * C + g_pad)
             zr.requires_grad_(True)
             hh.requires_grad_(True)
-            r, g = zr[:, C + r_off:2 * C + r_off], g_cat[:, :C]
-            strides = [gru_gates._batch_strided(t)[1] for t in (r, hh, g)]
-            ve, _ = gru_gates.rh_bwd_plan(
-                [r.data_ptr(), hh.data_ptr(), g.data_ptr()], strides,
-                C * H * W, B, hh.element_size(), 132)
+            z, r = zr[:, :C], zr[:, C + r_off:2 * C + r_off]
+            g = g_cat[:, :C]
+            with torch.no_grad():
+                fwd = (("gru_gate_rh", (r, hh), gru_gates.gru_gate_rh,
+                        gru_gates.gru_gate_rh_plain),
+                       ("gru_gate_blend", (z, q, hh), gru_gates.gru_gate_blend,
+                        gru_gates.gru_gate_blend_plain))
+                for kernel, ins, fn, plain in fwd:
+                    got = fn(*ins)
+                    ve = _gate_vec(kernel, ins, (got,))
+                    name = (f"[kernels] {kernel} {dt} {label} "
+                            f"{(B, C, H, W)} ({ve} values per access)")
+                    if ve != want_ve:
+                        raise AssertionError(f"{name}: expected {want_ve}")
+                    _gate_fwd_check(name, got, plain(*ins))
+            ve = _gate_vec("gru_gate_rh_bwd", (r, hh, g), ())
             name = (f"gru_gate_rh_bwd {dt} {label} {(B, C, H, W)} ({ve} "
                     "values per access)")
             if ve != want_ve:
@@ -1539,7 +1576,7 @@ def _rh_ragged_cases(rng, dev):
             _check(f"{name} dh", dh, want[1])
             if dzr[:, :C + r_off].any():
                 raise AssertionError(f"{name}: dr outside r")
-            del zr, hh, g_cat, r, g, dzr, dh, want
+            del zr, q, hh, g_cat, z, r, g, dzr, dh, want
 
 
 def phase_bwd_kernels(peaks):
@@ -1559,7 +1596,7 @@ def phase_bwd_kernels(peaks):
         for name, rec in _gate_bwd_case(rng, B, 128, 256, h8, w8, dtype,
                                         peaks, "[kernels]").items():
             results[f"{name}/{dt}"] = rec
-    _rh_ragged_cases(np.random.default_rng(6), dev)
+    _gate_ragged_cases(np.random.default_rng(6), dev)
 
     # --- on-demand lookup backward: chairs, then 1088x1920 at B = 1, each
     # under the center distributions (a), (b), (c) ---
@@ -3732,9 +3769,9 @@ def phase_small_kernels(peaks) -> dict:
                                   peaks, "[small]")}
         for name, rec in cases.items():
             res[f"{name}/{dt}"] = rec
-        vec_bytes = cases["gru_gate_rh_bwd"]["rh_bwd_vector_bytes"]
+        vec_bytes = cases["gru_gate_rh_bwd"]["vector_bytes"]
         if vec_bytes != 16:
-            raise AssertionError(f"rh_bwd_plan: {vec_bytes}-byte accesses, "
+            raise AssertionError(f"gate_plan: {vec_bytes}-byte accesses, "
                                  "not the 16-byte path")
     for name in ("corr_ondemand", "corr_ondemand_bwd"):
         res[name] = res[f"{name}/a"]
@@ -6091,6 +6128,8 @@ def main(argv=None) -> int:
                                      ":871"),
         "lookup_encode": ("raft_tpu_torch/csrc/lookup_encode.cu",
                           "raft_tpu/ops/pallas_corr.py:1165")}
+    from raft_tpu_torch.ops import gru_gates
+
     kernels = []
     for kname, (src, replaces) in sources.items():
         r = kern[kname]
@@ -6144,6 +6183,16 @@ def main(argv=None) -> int:
                     "per_rank_launches": [c.get(kname, 0) for c in
                                           ddp["two_ranks"]["launches"]],
                     "per_rank_steps": DDP_SPLIT_STEPS}})
+        if kname in gru_gates.GATE_UNROLL:
+            # the vectorized gates' design (csrc/gru_gates.cu) and the
+            # access width its plan took at the timed shape
+            kernels[-1]["design"] = {
+                "access": "16-byte vectors, one value off 16 bytes",
+                "vectors_in_flight": gru_gates.GATE_UNROLL[kname],
+                "grid": f"one wave of {gru_gates.GATE_BLOCKS_PER_SM} x "
+                        f"{gru_gates.GATE_THREADS}-thread blocks an SM "
+                        "walking (sample, chunk) units",
+                "vector_bytes": r["vector_bytes"]}
         if kernels[-1]["launches"] < 1:
             raise AssertionError(f"{kname}: no launch on its main path")
         if (kname.startswith("upsample_loss")

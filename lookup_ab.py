@@ -6,11 +6,13 @@ one NVIDIA GPU, in one process.
 
 ``--kernel`` (default ``pyramid_lookup_fwd``) picks the kernel and the
 source that holds it: ``pyramid_lookup_fwd`` (``pyramid_lookup.cu``),
-``upsample_loss_fwd`` or ``upsample_loss_bwd`` (``upsample_loss.cu``) or
-``gru_gate_rh_bwd`` (``gru_gates.cu``).  The script builds that source as it is ("change"),
+``upsample_loss_fwd`` or ``upsample_loss_bwd`` (``upsample_loss.cu``),
+``gru_gate_rh_bwd`` or ``gru_gate_fwd`` (``gru_gates.cu``).  The script
+builds that source as it is ("change"),
 the same source from another checkout's ``csrc`` directory
 (``--parent``), and probes: copies of a source with one step of the
-kernel left out or changed (``PROBES``; those named ``parent_*`` are
+kernel left out or changed (``PROBES``, with the wrapper module's
+constants a probe changes; those named ``parent_*`` are
 copies of the parent's source and run only with ``--parent``).  Each
 goes through ``nvcc`` into its own library under ``build/lookup_ab/``,
 all ``nvcc`` started together.  Then it times each library through the
@@ -43,9 +45,18 @@ compute wrong results on purpose and are only timed.
 - ``gru_gate_rh_bwd``: (8, 128, 46, 62) in fp32 and bf16, r a channel
   half of a 256-channel tensor and the gradient a channel slice of a
   384-channel one, as in the model.
+- ``gru_gate_fwd``: the two forward gates, ``rh_kernel`` and
+  ``blend_kernel`` timed apart, at the Sintel (1, 128, 55, 128), chairs
+  (8, 128, 46, 62) and serving (8, 128, 55, 128) shapes in fp32 and
+  bf16, z and r the channel halves of one 256-channel tensor; the
+  parent's output is compared bit for bit with every variant's; as
+  yardsticks of the card's rate for the same bytes on the same views,
+  ``torch.mul(r, h)`` (rh's 2 reads and 1 write) and
+  ``torch.addcmul(h, z, q)`` (blend's 3 and 1); each time beside its
+  bound (the bytes over 3.35 TB/s).
 
-Prints each variant's ``ptxas`` lines for the kernel (registers, stack),
-the card's name and power limit, then one JSON line.
+Prints each variant's ``ptxas`` lines for the kernel (registers, stack,
+spills), the card's name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -74,7 +85,8 @@ KERNELS = {"pyramid_lookup_fwd": ("pyramid_lookup", "pyr_fwd_kernel"),
                                  ("ul_fwd_kernel", "ul_reduce_kernel")),
            "upsample_loss_bwd": ("upsample_loss",
                                  ("ul_bwd_kernel", "ul_dflow_kernel")),
-           "gru_gate_rh_bwd": ("gru_gates", "rh_bwd_kernel")}
+           "gru_gate_rh_bwd": ("gru_gates", "rh_bwd_kernel"),
+           "gru_gate_fwd": ("gru_gates", ("rh_kernel", "blend_kernel"))}
 
 # upsample_loss_fwd: the arithmetic of a pixel skipped (its values summed
 # so that the loads stay), and the stage copies dropped
@@ -98,7 +110,16 @@ _UL_NO_GT = [(
     "    for (int u = 0; u < P; ++u) {  // 4 columns a chunk",
     "    for (int u = 0; u < P * (s < 0); ++u) {  // none")]
 
-# kernel -> [(probe name, [(text it replaces, replacement), ...])]
+def _unroll(**kernels):
+    """``gru_gates.GATE_UNROLL`` with the named kernels' vectors in
+    flight changed (a probe's constants for the wrapper's plan)."""
+    from raft_tpu_torch.ops import gru_gates
+
+    return {**gru_gates.GATE_UNROLL, **kernels}
+
+
+# kernel -> [(probe name, [(text it replaces, replacement), ...][,
+# {constant of the wrapper module: the probe's value}])]
 PROBES = {
     "pyramid_lookup_fwd": [
         ("no_copies", [(
@@ -204,20 +225,35 @@ PROBES = {
     ],
     "gru_gate_rh_bwd": [
         # one vector of each operand in flight per thread
-        ("unroll1", [("#define RH_UNROLL 2 ", "#define RH_UNROLL 1 ")]),
+        ("unroll1", [("#define RH_BWD_UNROLL 2\n",
+                      "#define RH_BWD_UNROLL 1\n")],
+         {"GATE_UNROLL": _unroll(gru_gate_rh_bwd=1)}),
         # one value per access on the aligned operands
-        ("scalar", [
-            ("    if (vec == 1) RH_BWD(float, 1);\n"
-             "    else RH_BWD(float, 4);", "    RH_BWD(float, 1);"),
-            ("    if (vec == 1) RH_BWD(__nv_bfloat16, 1);\n"
-             "    else RH_BWD(__nv_bfloat16, 8);",
-             "    RH_BWD(__nv_bfloat16, 1);")]),
+        ("scalar", [("      else K<T, 4><<<", "      else K<T, 1><<<"),
+                    ("      else K<T, 8><<<", "      else K<T, 1><<<")]),
         # one block per unit instead of one wave of blocks
         ("block_per_unit", [(
-            "rh_bwd_kernel<T, VE><<<grid, RH_THREADS, 0, st>>>(",
-            "rh_bwd_kernel<T, VE><<<(int)(total / inner * ((inner / VE + "
-            "RH_UNROLL * RH_THREADS - 1) / (RH_UNROLL * RH_THREADS))), "
-            "RH_THREADS, 0, st>>>(")]),
+            "  GATE_LAUNCH(rh_bwd_kernel,",
+            "  grid = (int)(total / inner * ((inner / vec + RH_BWD_UNROLL * "
+            "GATE_THREADS - 1) / (RH_BWD_UNROLL * GATE_THREADS)));\n"
+            "  GATE_LAUNCH(rh_bwd_kernel,")]),
+    ],
+    "gru_gate_fwd": [
+        # the loads and stores kept, sigmoid and tanh dropped
+        ("no_math", [
+            ("    y[0] = sigmoid_f32(x[0]) * x[1];",
+             "    y[0] = x[0] * x[1];"),
+            ("    const float s = sigmoid_f32(x[0]);\n"
+             "    const float t = tanhf(x[1]);\n",
+             "    const float s = x[0];\n    const float t = x[1];\n")]),
+        # U vectors of every input in flight per thread (the change: rh
+        # 2, blend 1)
+        *[(f"rh_unroll{u}", [("#define RH_FWD_UNROLL 2",
+                              f"#define RH_FWD_UNROLL {u}")],
+           {"GATE_UNROLL": _unroll(gru_gate_rh=u)}) for u in (1, 3)],
+        ("blend_unroll2", [("#define BLEND_FWD_UNROLL 1",
+                            "#define BLEND_FWD_UNROLL 2")],
+         {"GATE_UNROLL": _unroll(gru_gate_blend=2)}),
     ],
 }
 # (label, level storage, tap dtype, channel-major taps)
@@ -388,12 +424,81 @@ def _time_forward(libs, first, order, build, mods):
     return result
 
 
-def _time_backward(kernel, libs, first, order, build, mods):
+GATE_SHAPES = (("sintel", (1, 128, 55, 128)), ("chairs", (8, 128, 46, 62)),
+               ("serving", (8, 128, 55, 128)))
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _time_gates(libs, first, order, use, mods):
+    """``gru_gate_fwd`` (the module docstring): per shape, dtype and gate,
+    each variant's device ms in ``order``, the yardstick's, the bound and
+    how many of each variant's output values differ from the parent's in
+    their bits."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    result = {}
+    for label, (B, C, H, W) in GATE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "fp32" if dtype == torch.float32 else "bf16"
+
+            def mk(c, scale):
+                return torch.from_numpy(rng.standard_normal(
+                    (B, c, H, W)).astype(np.float32) * scale).to(dev, dtype)
+
+            zr, q, hh = mk(2 * C, 3.0), mk(C, 3.0), mk(C, 1.0)
+            z, r = torch.split(zr, C, dim=1)            # split views
+            for name, match, ins, yard in (
+                    ("gru_gate_rh", "rh_kernel", (r, hh),
+                     lambda: torch.mul(r, hh)),
+                    ("gru_gate_blend", "blend_kernel", (z, q, hh),
+                     lambda: torch.addcmul(hh, z, q))):
+                tag = f"{name} {label} {dt} {(B, C, H, W)}"
+                with torch.no_grad():
+                    want = getattr(mods["change"], f"{name}_plain")(*ins)
+                    outs = {}
+                    for cur in libs:
+                        use(cur)
+                        outs[cur] = getattr(mods[cur], name)(*ins)
+                        if cur in first:
+                            cs._gate_fwd_check(f"[lookup_ab] {cur} {tag}",
+                                               outs[cur], want)
+                    rec = {}
+                    if "parent" in outs:
+                        rec["values_differing_from_parent"] = {
+                            cur: int((_bits(o) != _bits(outs["parent"]))
+                                     .sum()) for cur, o in outs.items()}
+                    rec["yardstick"] = [cs._device_ms(yard)
+                                        for _ in range(2)]
+                    rec["bound"] = ((len(ins) + 1) * hh.numel()
+                                    * hh.element_size() / 3.35e12 * 1e3)
+                    times = {n: [] for n in libs}
+                    for cur in order:
+                        use(cur)
+                        mod = mods[cur]
+                        times[cur].append(cs._timed(
+                            lambda: getattr(mod, name)(*ins), match)["ms"])
+                rec["ms"] = times
+                result[tag] = rec
+                print(f"[lookup_ab] {tag}: " + ", ".join(
+                    f"{n} {' '.join(f'{t:.4f}' for t in ts)} ms"
+                    for n, ts in times.items())
+                    + f"; yardstick {rec['yardstick']} ms, bound "
+                    f"{rec['bound']:.4f} ms, values differing from the "
+                    f"parent's {rec.get('values_differing_from_parent')}",
+                    flush=True)
+            del zr, q, hh, z, r, want, outs
+    return result
+
+
+def _time_backward(kernel, libs, first, order, use, mods):
     """``upsample_loss_bwd`` or ``gru_gate_rh_bwd`` at the chairs shapes
     (the module docstring), fp32 and bf16: each variant's backward through
     its checkout's wrapper (``mods``), held to the plain version for the
     parent and the change."""
-    source, match = KERNELS[kernel]
+    match = KERNELS[kernel][1]
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
     B, (H, W) = cs.CHAIRS_B, (cs.CHAIRS_HW[0] // 8, cs.CHAIRS_HW[1] // 8)
@@ -430,7 +535,7 @@ def _time_backward(kernel, libs, first, order, build, mods):
         del plain
         outs = {}
         for name in libs:
-            build._loaded[source] = libs[name]
+            use(name)
             outs[name] = forward(mods[name])
 
         def run():
@@ -438,7 +543,7 @@ def _time_backward(kernel, libs, first, order, build, mods):
                                        retain_graph=True)
 
         for cur in first:
-            build._loaded[source] = libs[cur]
+            use(cur)
             for i, (a, b) in enumerate(zip(run(), want)):
                 cs._check(f"lookup_ab {cur} {kernel} {dt} gradient {i}", a,
                           b)
@@ -454,7 +559,7 @@ def _time_backward(kernel, libs, first, order, build, mods):
         times = {n: [] for n in libs}
         gather = {n: [] for n in libs}
         for cur in order:
-            build._loaded[source] = libs[cur]
+            use(cur)
             times[cur].append(cs._timed(run, match)["ms"])
             if kernel == "upsample_loss_bwd":
                 gather[cur].append(cs._device_ms(run, match="ul_dflow_kernel"))
@@ -493,7 +598,9 @@ def main(argv=None) -> int:
     builds = {"change": _start_build("change", csrc, source)}
     if parent:
         builds["parent"] = _start_build("parent", parent, source)
-    for name, replace in PROBES[args.kernel]:
+    settings = {}   # probe -> the wrapper module's constants it changes
+    for name, replace, *consts in PROBES[args.kernel]:
+        settings[name] = consts[0] if consts else {}
         if name.startswith("parent_"):
             if parent:
                 builds[name] = _start_build(name, parent, source, replace)
@@ -510,10 +617,11 @@ def main(argv=None) -> int:
         lines = log.splitlines()
         for i, ln in enumerate(lines):   # "Compiling entry ..." + "Used"
             if "Compiling entry" in ln and any(m in ln for m in match):
-                used = [x for x in lines[i + 1:i + 6] if "Used" in x]
+                used = [x.split(":", 1)[-1].strip()
+                        for x in lines[i + 1:i + 6]
+                        if "Used" in x or "spill" in x]
                 print(f"[lookup_ab] {name}: {ln.split(chr(39))[1][:60]} "
-                      f"{used[0].split(':', 1)[1].strip() if used else ''}",
-                      flush=True)
+                      f"{' | '.join(used)}", flush=True)
     first = [n for n in ("parent", "change") if n in libs]
     probes = [n for n in libs if n not in first]
     order = first + probes + probes[::-1] + first[::-1]
@@ -525,7 +633,18 @@ def main(argv=None) -> int:
     ours = importlib.import_module(f"raft_tpu_torch.ops.{source}")
     theirs = _wrapper(parent, source) if parent else None
     mods = {n: theirs if n.startswith("parent") else ours for n in libs}
-    if args.kernel == "upsample_loss_fwd":
+    own = {k: getattr(ours, k) for c in settings.values() for k in c}
+
+    def use(name):
+        """Point the wrapper at variant ``name``'s library, with the
+        wrapper module's constants as that variant has them."""
+        build._loaded[source] = libs[name]
+        for k, v in {**own, **settings.get(name, {})}.items():
+            setattr(ours, k, v)
+
+    if args.kernel == "gru_gate_fwd":
+        result = _time_gates(libs, first, order, use, mods)
+    elif args.kernel == "upsample_loss_fwd":
         result = _time_forward(libs, first, order, build, mods)
         # parent: ul_fwd_kernel<T>; change: ul_fwd_kernel<T, VB> at the
         # chairs widths (16 bytes fp32, 8 bytes bf16)
@@ -540,7 +659,7 @@ def main(argv=None) -> int:
                 print(f"[lookup_ab] {name} SASS of the softmax loop: "
                       f"{result[f'{name} SASS']}", flush=True)
     else:
-        result = _time_backward(args.kernel, libs, first, order, build, mods)
+        result = _time_backward(args.kernel, libs, first, order, use, mods)
     print(smi)
     print(json.dumps({"kernel": args.kernel, "ab_ms": result,
                       "order": order}))

@@ -2,59 +2,61 @@
 //
 // Replaces the TPU kernels of raft_tpu/ops/pallas_gru.py (reached through
 // `gru_gate_rh` and `gru_gate_blend`):
-//   `_rh_fwd_kernel`     gru_gate_rh:    out = sigmoid(r) * h
-//   `_blend_fwd_kernel`  gru_gate_blend: out = (1 - sigmoid(z)) * h
-//                                              + sigmoid(z) * tanh(q)
-//   `_rh_bwd_kernel`     dr = g*h*s*(1-s), dh = g*s            (s = sigmoid r)
-//   `_blend_bwd_kernel`  dz = g*(tanh q - h)*s*(1-s),
-//                        dq = g*s*(1 - tanh^2 q), dh = g*(1-s) (s = sigmoid z)
+//   `_rh_fwd_kernel` (:84)     -> rh_kernel:    out = sigmoid(r) * h
+//   `_blend_fwd_kernel` (:99)  -> blend_kernel: out = (1 - sigmoid(z)) * h
+//                                                    + sigmoid(z) * tanh(q)
+//   `_rh_bwd_kernel` (:90)     -> rh_bwd_kernel: dr = g*h*s*(1-s),
+//                                                dh = g*s    (s = sigmoid r)
+//   `_blend_bwd_kernel` (:106) -> blend_bwd_kernel:
+//        dz = g*(tanh q - h)*s*(1-s), dq = g*s*(1 - tanh^2 q), dh = g*(1-s)
+//        (s = sigmoid z)
 // The backward recomputes sigmoid and tanh from the saved raw inputs, as
 // the JAX custom_vjp does, in the same operation order.  Math is fp32
-// whatever the storage type; each result is written in its operand's
-// type (fp32, or bf16 rounded to nearest even).
+// whatever the storage type, with expf / tanhf and an IEEE division (no
+// fast-math intrinsics, so fp32 results stay within 1e-6 of the plain
+// PyTorch version); each result is written in its operand's type (fp32,
+// or bf16 rounded to nearest even).
 //
-// What bounds it on an H100.  A few flops per element against 8-12 bytes
-// (fp32) or 4-8 bytes (bf16) per element: memory bound.  At the Sintel
-// shape (1 x 128 x 55 x 128 = 901,120 elements) rh moves 10.8 MB in fp32
-// (3.2 us at 3.35 TB/s) and blend 14.4 MB (4.3 us); at that size the
-// launch itself (a few us) is of the same order.  The backward moves 5
-// (rh) and 7 (blend) values per element.
+// What bounds them on an H100: bytes.  A few flops per value against 3
+// (rh) or 4 (blend) values moved forward and 5 (rh) or 7 (blend)
+// backward.  At the serving slot shape (8 x 128 x 55 x 128 = 7.2 M
+// values) the rh forward moves 43.3 MB in bf16 (12.9 us at 3.35 TB/s)
+// and blend 57.7 MB (17.2 us); at the chairs step (8 x 128 x 46 x 62)
+// the rh backward moves 29.2 MB in bf16 (8.7 us).  At the Sintel shape
+// with B = 1 a forward is a few microseconds, the order of a launch.
+// Each input is addressed as (B, inner) with its own batch stride, so
+// the z/r halves of the convzr output (a channel split, not contiguous
+// across the batch when B > 1) and rh's incoming gradient (a channel
+// slice of the gradient of cat([rh, x])) are read in place without a
+// copy.  Outputs are contiguous.
 //
-// Design.  One grid-stride elementwise loop per gate (grid y = sample, so
-// no per-element index division), fp32 math with
-// expf/tanhf (no fast-math intrinsics, so fp32 results stay within 1e-6
-// of the plain PyTorch version).  Each input is addressed as (B, inner)
-// with its own batch stride, so the z/r halves of the convzr output (a
-// channel split, not contiguous across the batch when B > 1) are read in
-// place without a copy; so is the incoming gradient of rh, itself a
-// channel slice of the gradient of the concatenation [rh, x].  Outputs
-// are contiguous.
-//
-// The reset-gate backward (`rh_bwd_kernel`, redesigned for Hopper; it
-// replaces `_rh_bwd_kernel`, raft_tpu/ops/pallas_gru.py:90, reached
-// through `_rh_core_bwd`).  At the
-// chairs step (8 x 128 x 46 x 62) it moves 29.2 MB in bf16 (8.7 us at
-// 3.35 TB/s) and 58.4 MB in fp32.  The one-value-per-thread loop above
-// moved 64 bytes per warp access in bf16, had three loads in flight per
-// thread, and turned over 11,408 short blocks a launch (`grid_for`,
-// which the other three gates keep).  Now:
+// The vectorized gates: rh_kernel, blend_kernel and rh_bwd_kernel share
+// one body (`gate_walk`).  One value per thread (the first design, which
+// blend_bwd_kernel keeps) moved 64 bytes a warp access in bf16, had one
+// load of each operand in flight per thread, and turned over up to
+// 2048 x B short blocks a launch with 64-bit index arithmetic per value
+// (`grid_for`); its rate in values per second barely rose from fp32 to
+// bf16, so the cost per value, not bytes, set its pace.  Now:
 //   - every access moves 16 bytes (8 bf16 or 4 fp32 values), and each
-//     thread loads RH_UNROLL = 2 vectors of each of r, h and g before it
-//     uses the first;
-//   - the grid is one wave of resident blocks (RH_BLOCKS_PER_SM per SM,
-//     the launch bounds' minimum, or fewer when there is less work),
-//     and the blocks walk the units (sample, chunk of 2 x 256 vectors)
-//     in a stride loop: one integer division per unit, none per value;
-//   - access width, checked per launch by the wrapper and again here: the
-//     vector path when every base address (r, h, g, dr, dh), every batch
-//     stride and the sample size are multiples of 16 bytes (at the
-//     model's shapes they always are: 128 channels a half); otherwise the
-//     same kernel with one value per access (an odd channel count times
-//     an odd H*W, or a view that starts off 16 bytes).  The last chunk of
-//     a sample is masked value by value (a vector never straddles two
-//     samples, since a sample is a whole number of vectors);
-//   - the arithmetic and its order are those of the loop above; bf16
-//     results are rounded to nearest even.
+//     thread loads U vectors of every input (RH_FWD_UNROLL,
+//     BLEND_FWD_UNROLL, RH_BWD_UNROLL) before it uses the first;
+//   - the grid is one wave of resident blocks (GATE_BLOCKS_PER_SM per SM,
+//     the launch bounds' minimum, or fewer when there is less work), and
+//     the blocks walk the units (sample, chunk of U x GATE_THREADS
+//     vectors) in a stride loop: one integer division per unit, none per
+//     value; the batch does not ride on blockIdx.y;
+//   - access width, checked per launch by the wrapper (`gate_plan`) and
+//     again here: the vector path when every base address (inputs and
+//     outputs), every input batch stride and the sample size are
+//     multiples of 16 bytes (at the model's shapes they always are: 128
+//     or 96 channels a half); otherwise the same kernel with one value
+//     per access (an odd channel count times an odd H*W, or a view that
+//     starts off 16 bytes).  The last chunk of a sample is masked vector
+//     by vector: a sample is a whole number of vectors, so no vector
+//     straddles two samples;
+//   - the arithmetic and its order are those of the one-value loop
+//     (blend's one fused multiply-add written out), so the results are
+//     the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,42 +74,14 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// blockIdx.y is the sample; x walks the sample's contiguous block.
-template <typename T>
-__global__ void rh_kernel(const T* __restrict__ r, long long sr,
-                          const T* __restrict__ h, long long sh,
-                          T* __restrict__ out, long long inner) {
-  const long long b = blockIdx.y;
-  r += b * sr;
-  h += b * sh;
-  out += b * inner;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < inner; i += (long long)gridDim.x * blockDim.x) {
-    store(out + i, sigmoid_f32(load(r + i)) * load(h + i));
-  }
-}
-
-template <typename T>
-__global__ void blend_kernel(const T* __restrict__ z, long long sz,
-                             const T* __restrict__ q, long long sq,
-                             const T* __restrict__ h, long long sh,
-                             T* __restrict__ out, long long inner) {
-  const long long b = blockIdx.y;
-  z += b * sz;
-  q += b * sq;
-  h += b * sh;
-  out += b * inner;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < inner; i += (long long)gridDim.x * blockDim.x) {
-    const float s = sigmoid_f32(load(z + i));
-    const float t = tanhf(load(q + i));
-    store(out + i, (1.0f - s) * load(h + i) + s * t);
-  }
-}
-
-#define RH_THREADS 256
-#define RH_UNROLL 2         // vectors of each operand in flight per thread
-#define RH_BLOCKS_PER_SM 4  // resident blocks per SM; the grid is one wave
+#define GATE_THREADS 256
+#define GATE_BLOCKS_PER_SM 4  // resident blocks per SM; the grid is one wave
+// vectors of each input in flight per thread (U), chosen on an H100: rh
+// reads fastest at 2; blend, whose three inputs put 48 bytes a thread in
+// flight at 1, reads 1-12% slower at 2 and spills at 3-4
+#define RH_FWD_UNROLL 2
+#define BLEND_FWD_UNROLL 1
+#define RH_BWD_UNROLL 2
 
 // VE values of T moved as one access, and their conversions to and from
 // fp32 (bf16 kept as bf16x2 words, so a 16-byte pack takes 4 registers).
@@ -146,60 +120,121 @@ __device__ __forceinline__ void pack(const float* f,
     p.x[e] = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
 }
 
-// u: a unit (sample b, chunk c) of RH_UNROLL * RH_THREADS vectors; VE
-// values a vector (16 bytes, or 1 value on the unaligned path).
-template <typename T, int VE>
-__global__ void __launch_bounds__(RH_THREADS, RH_BLOCKS_PER_SM)
-rh_bwd_kernel(const T* __restrict__ r, long long sr, const T* __restrict__ h,
-              long long sh, const T* __restrict__ g, long long sg,
-              T* __restrict__ dr, T* __restrict__ dh, long long inner,
-              long long batch) {
+// The gates' arithmetic on one value: NI fp32 inputs -> NO fp32 results
+// (T: the storage type).
+struct RhFwd {  // (r, h) -> sigmoid(r) * h
+  static constexpr int NI = 2, NO = 1;
+  template <typename T>
+  __device__ __forceinline__ static void apply(const float* x, float* y) {
+    y[0] = sigmoid_f32(x[0]) * x[1];
+  }
+};
+struct BlendFwd {  // (z, q, h) -> (1 - sigmoid(z)) * h + sigmoid(z) * tanh(q)
+  static constexpr int NI = 3, NO = 1;
+  template <typename T>
+  __device__ __forceinline__ static void apply(const float* x, float* y) {
+    const float s = sigmoid_f32(x[0]);
+    const float t = tanhf(x[1]);
+    // (1 - s) * h + s * t with one product fused, written out so that the
+    // bits do not hang on which product the compiler contracts: these are
+    // the bits of this gate's first CUDA design (one value per thread),
+    // which nvcc contracted one way in fp32 and the other in bf16
+    y[0] = sizeof(T) == 4 ? fmaf(1.0f - s, x[2], s * t)
+                          : fmaf(s, t, (1.0f - s) * x[2]);
+  }
+};
+struct RhBwd {  // (r, h, g) -> (g*h*s*(1-s), g*s)
+  static constexpr int NI = 3, NO = 2;
+  template <typename T>
+  __device__ __forceinline__ static void apply(const float* x, float* y) {
+    const float s = sigmoid_f32(x[0]);
+    y[0] = x[2] * x[1] * s * (1.0f - s);
+    y[1] = x[2] * s;
+  }
+};
+
+// The body of the vectorized gates: input j at in[j] with batch stride
+// sin[j], output o at out[o] (contiguous); VE values a vector (16 bytes,
+// or 1 value on the unaligned path); a unit (sample b, chunk c) is
+// U * GATE_THREADS vectors.
+template <class Op, int U, typename T, int VE>
+__device__ __forceinline__ void gate_walk(const T* const (&in)[Op::NI],
+                                          const long long (&sin)[Op::NI],
+                                          T* const (&out)[Op::NO],
+                                          long long inner, long long batch) {
   using P = Pack<T, VE>;
-  constexpr int CHUNK = RH_UNROLL * RH_THREADS;
+  constexpr int NI = Op::NI, NO = Op::NO, CHUNK = U * GATE_THREADS;
   const long long nvec = inner / VE;
   const long long per = (nvec + CHUNK - 1) / CHUNK;  // units per sample
   const long long units = batch * per;
   for (long long u = blockIdx.x; u < units; u += gridDim.x) {
     const long long b = u / per;
     const long long i0 = (u - b * per) * CHUNK + threadIdx.x;
-    const P* rb = reinterpret_cast<const P*>(r + b * sr);
-    const P* hb = reinterpret_cast<const P*>(h + b * sh);
-    const P* gb = reinterpret_cast<const P*>(g + b * sg);
-    P* drb = reinterpret_cast<P*>(dr + b * inner);
-    P* dhb = reinterpret_cast<P*>(dh + b * inner);
-    P rv[RH_UNROLL], hv[RH_UNROLL], gv[RH_UNROLL];
+    P v[U][NI];
 #pragma unroll
-    for (int k = 0; k < RH_UNROLL; ++k) {
-      const long long i = i0 + k * RH_THREADS;
+    for (int k = 0; k < U; ++k) {
+      const long long i = i0 + k * GATE_THREADS;
       if (i < nvec) {
-        rv[k] = rb[i];
-        hv[k] = hb[i];
-        gv[k] = gb[i];
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+          v[k][j] = reinterpret_cast<const P*>(in[j] + b * sin[j])[i];
       }
     }
 #pragma unroll
-    for (int k = 0; k < RH_UNROLL; ++k) {
-      const long long i = i0 + k * RH_THREADS;
+    for (int k = 0; k < U; ++k) {
+      const long long i = i0 + k * GATE_THREADS;
       if (i >= nvec) continue;
-      float rf[VE], hf[VE], gf[VE], drf[VE], dhf[VE];
-      unpack(rv[k], rf);
-      unpack(hv[k], hf);
-      unpack(gv[k], gf);
+      float x[NI][VE], y[NO][VE];
+#pragma unroll
+      for (int j = 0; j < NI; ++j) unpack(v[k][j], x[j]);
 #pragma unroll
       for (int e = 0; e < VE; ++e) {
-        const float s = sigmoid_f32(rf[e]);
-        drf[e] = gf[e] * hf[e] * s * (1.0f - s);
-        dhf[e] = gf[e] * s;
+        float xe[NI], ye[NO];
+#pragma unroll
+        for (int j = 0; j < NI; ++j) xe[j] = x[j][e];
+        Op::template apply<T>(xe, ye);
+#pragma unroll
+        for (int o = 0; o < NO; ++o) y[o][e] = ye[o];
       }
-      P drv, dhv;
-      pack(drf, drv);
-      pack(dhf, dhv);
-      drb[i] = drv;
-      dhb[i] = dhv;
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        P p;
+        pack(y[o], p);
+        reinterpret_cast<P*>(out[o] + b * inner)[i] = p;
+      }
     }
   }
 }
 
+template <typename T, int VE>
+__global__ void __launch_bounds__(GATE_THREADS, GATE_BLOCKS_PER_SM)
+rh_kernel(const T* __restrict__ r, long long sr, const T* __restrict__ h,
+          long long sh, T* __restrict__ out, long long inner,
+          long long batch) {
+  gate_walk<RhFwd, RH_FWD_UNROLL, T, VE>({r, h}, {sr, sh}, {out}, inner,
+                                        batch);
+}
+
+template <typename T, int VE>
+__global__ void __launch_bounds__(GATE_THREADS, GATE_BLOCKS_PER_SM)
+blend_kernel(const T* __restrict__ z, long long sz, const T* __restrict__ q,
+             long long sq, const T* __restrict__ h, long long sh,
+             T* __restrict__ out, long long inner, long long batch) {
+  gate_walk<BlendFwd, BLEND_FWD_UNROLL, T, VE>({z, q, h}, {sz, sq, sh},
+                                              {out}, inner, batch);
+}
+
+template <typename T, int VE>
+__global__ void __launch_bounds__(GATE_THREADS, GATE_BLOCKS_PER_SM)
+rh_bwd_kernel(const T* __restrict__ r, long long sr, const T* __restrict__ h,
+              long long sh, const T* __restrict__ g, long long sg,
+              T* __restrict__ dr, T* __restrict__ dh, long long inner,
+              long long batch) {
+  gate_walk<RhBwd, RH_BWD_UNROLL, T, VE>({r, h, g}, {sr, sh, sg}, {dr, dh},
+                                         inner, batch);
+}
+
+// blockIdx.y is the sample; x walks the sample's contiguous block.
 template <typename T>
 __global__ void blend_bwd_kernel(const T* __restrict__ z, long long sz,
                                  const T* __restrict__ q, long long sq,
@@ -231,90 +266,95 @@ static dim3 grid_for(long long inner, long long batch) {
   return dim3((unsigned)(blocks < 2048 ? blocks : 2048), (unsigned)batch);
 }
 
-// device: CUDA ordinal; dtype: 0 = float32, 1 = bfloat16.  Strides and sizes are in elements.
-// Returns a cudaError_t (0 = success).
-extern "C" int gru_gate_rh_fwd(int device, int dtype, const void* r, long long sr,
-                               const void* h, long long sh, void* out,
-                               long long inner, long long total,
-                               void* stream) {
-  if (total <= 0 || inner <= 0 || total % inner || total / inner > 65535)
-    return total == 0 ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    rh_kernel<float><<<grid_for(inner, total / inner), 256, 0, st>>>(
-        (const float*)r, sr, (const float*)h, sh, (float*)out, inner);
-  } else if (dtype == 1) {
-    rh_kernel<__nv_bfloat16><<<grid_for(inner, total / inner), 256, 0, st>>>(
-        (const __nv_bfloat16*)r, sr, (const __nv_bfloat16*)h, sh,
-        (__nv_bfloat16*)out, inner);
-  } else {
+// Checks a launch of a vectorized gate: sizes, dtype and the plan (vec:
+// values per access, 16 / element size on the vector path, where `bits`,
+// the OR of every address and of every batch stride in bytes, must be a
+// multiple of 16; or 1; grid: blocks, at least 1).  Returns a cudaError_t
+// to refuse the launch with, or -1 to go on.
+static int refuse(int dtype, long long inner, long long total, int vec,
+                  int grid, unsigned long long bits) {
+  if (total == 0) return (int)cudaSuccess;
+  if (total < 0 || inner <= 0 || total % inner || grid < 1 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (vec != 1 && (vec * (dtype == 0 ? 4 : 2) != 16 || bits % 16))
+    return (int)cudaErrorInvalidValue;
+  return -1;
 }
 
-extern "C" int gru_gate_blend_fwd(int device, int dtype, const void* z, long long sz,
-                                  const void* q, long long sq, const void* h,
-                                  long long sh, void* out, long long inner,
-                                  long long total, void* stream) {
-  if (total <= 0 || inner <= 0 || total % inner || total / inner > 65535)
-    return total == 0 ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    blend_kernel<float><<<grid_for(inner, total / inner), 256, 0, st>>>(
-        (const float*)z, sz, (const float*)q, sq, (const float*)h, sh,
-        (float*)out, inner);
-  } else if (dtype == 1) {
-    blend_kernel<__nv_bfloat16><<<grid_for(inner, total / inner), 256, 0, st>>>(
-        (const __nv_bfloat16*)z, sz, (const __nv_bfloat16*)q, sq,
-        (const __nv_bfloat16*)h, sh, (__nv_bfloat16*)out, inner);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+static unsigned long long addr(const void* p) {
+  return reinterpret_cast<unsigned long long>(p);
 }
 
-// vec: values per access, 16 / element size (the vector path; every
-// address, batch stride and `inner` must then be a multiple of 16 bytes)
-// or 1; grid: blocks (one wave, or fewer).  The wrapper picks both.
-extern "C" int gru_gate_rh_bwd(int device, int dtype, const void* r, long long sr,
-                               const void* h, long long sh, const void* g,
-                               long long sg, void* dr, void* dh,
-                               long long inner, long long total, int vec,
-                               int grid, void* stream) {
-  if (total <= 0 || inner <= 0 || total % inner || grid < 1)
-    return total == 0 ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+// The launch of kernel template K on the plan's path: fp32 or bf16, VE
+// values a vector or one.
+#define GATE_LAUNCH(K, ...)                                                  \
+  do {                                                                       \
+    cudaStream_t st_ = reinterpret_cast<cudaStream_t>(stream);               \
+    if (dtype == 0) {                                                        \
+      using T = float;                                                       \
+      if (vec == 1) K<T, 1><<<grid, GATE_THREADS, 0, st_>>>(__VA_ARGS__);    \
+      else K<T, 4><<<grid, GATE_THREADS, 0, st_>>>(__VA_ARGS__);             \
+    } else {                                                                 \
+      using T = __nv_bfloat16;                                               \
+      if (vec == 1) K<T, 1><<<grid, GATE_THREADS, 0, st_>>>(__VA_ARGS__);    \
+      else K<T, 8><<<grid, GATE_THREADS, 0, st_>>>(__VA_ARGS__);             \
+    }                                                                        \
+  } while (0)
+
+// device: CUDA ordinal; dtype: 0 = float32, 1 = bfloat16.  Strides and
+// sizes are in elements.  vec, grid: the plan the wrapper picked
+// (`gate_plan`), checked by `refuse`.  Returns a cudaError_t (0 =
+// success).
+extern "C" int gru_gate_rh_fwd(int device, int dtype, const void* r,
+                               long long sr, const void* h, long long sh,
+                               void* out, long long inner, long long total,
+                               int vec, int grid, void* stream) {
   const long long es = dtype == 0 ? 4 : 2;
-  if (vec != 1) {
-    const unsigned long long a =
-        reinterpret_cast<unsigned long long>(r) |
-        reinterpret_cast<unsigned long long>(h) |
-        reinterpret_cast<unsigned long long>(g) |
-        reinterpret_cast<unsigned long long>(dr) |
-        reinterpret_cast<unsigned long long>(dh) |
-        (unsigned long long)((sr | sh | sg | inner) * es);
-    if (vec * es != 16 || a % 16) return (int)cudaErrorInvalidValue;
-  }
+  const int rc = refuse(dtype, inner, total, vec, grid,
+                        addr(r) | addr(h) | addr(out) |
+                            (unsigned long long)((sr | sh | inner) * es));
+  if (rc >= 0) return rc;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define RH_BWD(T, VE)                                                      \
-  rh_bwd_kernel<T, VE><<<grid, RH_THREADS, 0, st>>>(                       \
-      (const T*)r, sr, (const T*)h, sh, (const T*)g, sg, (T*)dr, (T*)dh,   \
-      inner, total / inner)
-  if (dtype == 0) {
-    if (vec == 1) RH_BWD(float, 1);
-    else RH_BWD(float, 4);
-  } else {
-    if (vec == 1) RH_BWD(__nv_bfloat16, 1);
-    else RH_BWD(__nv_bfloat16, 8);
-  }
-#undef RH_BWD
+  GATE_LAUNCH(rh_kernel, (const T*)r, sr, (const T*)h, sh, (T*)out, inner,
+              total / inner);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gru_gate_blend_fwd(int device, int dtype, const void* z,
+                                  long long sz, const void* q, long long sq,
+                                  const void* h, long long sh, void* out,
+                                  long long inner, long long total, int vec,
+                                  int grid, void* stream) {
+  const long long es = dtype == 0 ? 4 : 2;
+  const int rc = refuse(
+      dtype, inner, total, vec, grid,
+      addr(z) | addr(q) | addr(h) | addr(out) |
+          (unsigned long long)((sz | sq | sh | inner) * es));
+  if (rc >= 0) return rc;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  GATE_LAUNCH(blend_kernel, (const T*)z, sz, (const T*)q, sq, (const T*)h,
+              sh, (T*)out, inner, total / inner);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gru_gate_rh_bwd(int device, int dtype, const void* r,
+                               long long sr, const void* h, long long sh,
+                               const void* g, long long sg, void* dr,
+                               void* dh, long long inner, long long total,
+                               int vec, int grid, void* stream) {
+  const long long es = dtype == 0 ? 4 : 2;
+  const int rc = refuse(
+      dtype, inner, total, vec, grid,
+      addr(r) | addr(h) | addr(g) | addr(dr) | addr(dh) |
+          (unsigned long long)((sr | sh | sg | inner) * es));
+  if (rc >= 0) return rc;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  GATE_LAUNCH(rh_bwd_kernel, (const T*)r, sr, (const T*)h, sh, (const T*)g,
+              sg, (T*)dr, (T*)dh, inner, total / inner);
   return (int)cudaGetLastError();
 }
 

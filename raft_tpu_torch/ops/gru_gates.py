@@ -15,11 +15,12 @@ JAX ``custom_vjp`` does.
 
 Launch: the operands are read in place as ``(B, inner)`` with a batch
 stride each (a channel half of the convzr output, a channel slice of a
-gradient).  The rh backward has its own geometry (:func:`rh_bwd_plan`):
-16-byte vectors when every address, batch stride and ``inner`` allow
-them (always at the model's 128-channel halves), one value per access
-otherwise, and a grid of one wave of resident blocks that walk (sample,
-chunk) units; the other three gates run one value per thread.
+gradient).  The two forwards and the rh backward share one design and
+one plan (:func:`gate_plan`): 16-byte vectors when every address, batch
+stride and ``inner`` allow them (always at the model's 128- and
+96-channel halves), one value per access otherwise, and a grid of one
+wave of resident blocks that walk (sample, chunk) units; the blend
+backward runs one value per thread.
 
 A wrapper takes the plain versions (forward and backward) only for
 tensors on the CPU.  For any other device it launches the kernel or
@@ -40,9 +41,12 @@ LAUNCHES = {"gru_gate_rh": 0, "gru_gate_blend": 0, "gru_gate_rh_bwd": 0,
             "gru_gate_blend_bwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the rh backward kernel's geometry (csrc/gru_gates.cu: RH_THREADS,
-# RH_UNROLL, RH_BLOCKS_PER_SM)
-RH_BWD_THREADS, RH_BWD_UNROLL, RH_BWD_BLOCKS_PER_SM = 256, 2, 4
+# the vectorized gates' geometry (csrc/gru_gates.cu): GATE_THREADS a
+# block, GATE_BLOCKS_PER_SM resident blocks an SM, and each kernel's
+# vectors of every input in flight a thread (RH_FWD_UNROLL,
+# BLEND_FWD_UNROLL, RH_BWD_UNROLL)
+GATE_THREADS, GATE_BLOCKS_PER_SM = 256, 4
+GATE_UNROLL = {"gru_gate_rh": 2, "gru_gate_blend": 1, "gru_gate_rh_bwd": 2}
 
 
 def gru_gate_rh_plain(r_raw: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -82,21 +86,22 @@ def gru_gate_blend_bwd_plain(z_raw: torch.Tensor, q_raw: torch.Tensor,
             (gf * (1.0 - sz)).to(h.dtype))
 
 
-def rh_bwd_plan(addresses, strides, inner: int, batch: int,
-                itemsize: int, sm_count: int):
-    """``(values per access, grid blocks)`` of the rh backward kernel:
-    16-byte vectors when every base address (inputs and outputs), every
-    input batch stride and ``inner`` (the outputs' batch stride), in
-    bytes, is a multiple of 16, else one value; the grid is one wave of
-    ``RH_BWD_BLOCKS_PER_SM`` blocks per SM, or one block per unit of
-    ``RH_BWD_UNROLL * RH_BWD_THREADS`` accesses when there are fewer."""
+def gate_plan(kernel: str, addresses, strides, inner: int, batch: int,
+              itemsize: int, sm_count: int):
+    """``(values per access, grid blocks)`` of a vectorized gate
+    (``GATE_UNROLL``'s keys): 16-byte vectors when every base address
+    (inputs and outputs), every input batch stride and ``inner`` (the
+    outputs' batch stride), in bytes, is a multiple of 16, else one
+    value; the grid is one wave of ``GATE_BLOCKS_PER_SM`` blocks per SM,
+    or one block per unit of ``GATE_UNROLL[kernel] * GATE_THREADS``
+    accesses when there are fewer."""
     vec = 16 // itemsize
     if any(a % 16 for a in addresses) or any(
             s * itemsize % 16 for s in (*strides, inner)):
         vec = 1
-    chunk = RH_BWD_UNROLL * RH_BWD_THREADS
+    chunk = GATE_UNROLL[kernel] * GATE_THREADS
     units = batch * -(-(inner // vec) // chunk)
-    return vec, min(units, sm_count * RH_BWD_BLOCKS_PER_SM)
+    return vec, min(units, sm_count * GATE_BLOCKS_PER_SM)
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,7 +113,7 @@ def _fn(symbol: str, n_inputs: int, n_outputs: int):
     fn = getattr(build.load("gru_gates"), symbol)
     if fn.argtypes is None:
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        plan = [ci, ci] if symbol == "gru_gate_rh_bwd" else []
+        plan = [] if symbol == "gru_gate_blend_bwd" else [ci, ci]
         fn.argtypes = ([ci, ci] + [vp, ll] * n_inputs + [vp] * n_outputs
                        + [ll, ll] + plan + [vp])
         fn.restype = ci
@@ -156,8 +161,9 @@ def _launch(name: str, inputs, h: torch.Tensor, n_outputs: int = 1):
     inner = total // h.shape[0]
     index = h.device.index or 0
     plan = []
-    if name == "gru_gate_rh_bwd":
-        plan = rh_bwd_plan(
+    if name in GATE_UNROLL:
+        plan = gate_plan(
+            name,
             [t.data_ptr() for t, _ in inputs] + [o.data_ptr() for o in outs],
             [s for _, s in inputs], inner, h.shape[0], h.element_size(),
             _sm_count(index))

@@ -21,7 +21,10 @@ like a jit cache:
   private memory pool (``capture_error_mode="thread_local"``, so that the
   training input pipeline's producer thread may go on copying batches on
   its own stream), records one :class:`CaptureCounter` event, and replays.
-  A failed capture raises: there is no eager fallback.
+  A failed capture raises: there is no eager fallback.  The garbage
+  collector is off during the capture: a dead reference cycle can hold
+  another program's graph, and destroying a graph while a stream
+  captures is refused and invalidates the capture.
 - **Replay.** The tensor arguments are copied into the graph's static
   input buffers, the graph replays on the current stream, and the outputs
   are returned as clones, so that a result outlives the next replay
@@ -47,6 +50,7 @@ registered with the graph so that each replay draws fresh values.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Hashable, List, Optional, Sequence
 
 import torch
@@ -111,9 +115,15 @@ class CapturedProgram:
         for gen in generators:
             self.graph.register_generator_state(gen)
         before = launch_counts()
-        with torch.cuda.graph(self.graph, stream=stream,
-                              capture_error_mode="thread_local"):
-            out = fn(*self.static_in, *resident)
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                out = fn(*self.static_in, *resident)
+        finally:
+            if enabled:
+                gc.enable()
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}

@@ -182,18 +182,57 @@ def test_corr_kernel_gradients_match_plain(dev, nchw, hw, spread, dist, C):
                 g)["bwd"])
 
 
+# Operand layouts of the vectorized gates (the two forwards and the rh
+# backward), each on one access path: "model" (z/r halves of one tensor,
+# rh's gradient a channel slice, as in the model: 16-byte vectors),
+# "chairs" (the chairs step's shape: more units than one wave of blocks,
+# so blocks walk several), "odd" (3 channels on a 5 x 7 grid: one value
+# per access) and "offset" (r one channel off, so z's batch stride is off
+# too, and a gradient whose batch stride is odd: one value per access).
+GATE_LAYOUTS = {"model": (3, 32, (5, 7), 0, 0, 16),
+                "chairs": (8, 128, (46, 62), 0, 0, 16),
+                "odd": (2, 3, (5, 7), 0, 0, 1),
+                "offset": (3, 32, (5, 7), 1, 1, 1)}
+
+
+def _gate_vec_bytes(kernel, ins, C, H, W, B):
+    """What an access of ``kernel`` moves on inputs ``ins`` (outputs are
+    fresh, so aligned), as ``gate_plan`` picks it: 16 (bytes, the vector
+    path) or 1 (value)."""
+    strides = [gru_gates._batch_strided(t)[1] for t in ins]
+    es = ins[0].element_size()
+    vec, _ = gru_gates.gate_plan(kernel, [t.data_ptr() for t in ins],
+                                 strides, C * H * W, B, es, 132)
+    return 1 if vec == 1 else vec * es
+
+
+@pytest.mark.parametrize("layout", list(GATE_LAYOUTS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gate_kernels_match_plain(dev, dtype):
+def test_gate_kernels_match_plain(dev, dtype, layout):
+    """The forward kernels of ``gru_gate_rh`` and ``gru_gate_blend``
+    against their plain versions on each layout of ``GATE_LAYOUTS`` (z/r
+    channel views of one tensor), each on the access path ``gate_plan``
+    predicts, one launch each: within 1e-6 in fp32, and in bf16 within
+    one bf16 ulp of the plain value plus 1e-6."""
+    B, C, (H, W), r_off, _, vec_bytes = GATE_LAYOUTS[layout]
     g = torch.Generator().manual_seed(1)
-    zr = (torch.randn(3, 64, 5, 7, generator=g) * 3).to(dev, dtype)
-    z, r = torch.split(zr, 32, dim=1)                 # non-contiguous views
-    q = (torch.randn(3, 32, 5, 7, generator=g) * 3).to(dev, dtype)
-    h = torch.randn(3, 32, 5, 7, generator=g).to(dev, dtype)
+    zr = (torch.randn(B, 2 * C + r_off, H, W, generator=g) * 3).to(dev, dtype)
+    z, r = zr[:, :C], zr[:, C + r_off:2 * C + r_off]   # non-contiguous views
+    q = (torch.randn(B, C, H, W, generator=g) * 3).to(dev, dtype)
+    h = torch.randn(B, C, H, W, generator=g).to(dev, dtype)
+    for kernel, ins in (("gru_gate_rh", (r, h)),
+                        ("gru_gate_blend", (z, q, h))):
+        assert _gate_vec_bytes(kernel, ins, C, H, W, B) == vec_bytes
+    before = dict(gru_gates.LAUNCHES)
     with torch.no_grad():
         pairs = [(gru_gates.gru_gate_rh(r, h),
                   gru_gates.gru_gate_rh_plain(r, h)),
                  (gru_gates.gru_gate_blend(z, q, h),
                   gru_gates.gru_gate_blend_plain(z, q, h))]
+    torch.cuda.synchronize()
+    assert gru_gates.LAUNCHES == {
+        k: v + (k in ("gru_gate_rh", "gru_gate_blend"))
+        for k, v in before.items()}
     for got, want in pairs:
         assert got.dtype == dtype and got.is_contiguous()
         diff = (got.float() - want.float()).abs()
@@ -205,18 +244,6 @@ def test_gate_kernels_match_plain(dev, dtype):
             mag = want.float().abs().clamp_min(2.0 ** -126)
             ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
             assert bool((diff <= ulp + 1e-6).all())
-
-
-# Operand layouts of the rh backward, each on one access path: "model"
-# (z/r halves of one tensor, rh's gradient a channel slice, as in the
-# model: 16-byte vectors), "chairs" (the chairs step's shape: more units
-# than one wave of blocks, so blocks walk several), "odd" (3 channels on
-# a 5 x 7 grid: one value per access) and "offset" (r one channel off and
-# a gradient whose batch stride is odd: one value per access).
-GATE_LAYOUTS = {"model": (3, 32, (5, 7), 0, 0, 16),
-                "chairs": (8, 128, (46, 62), 0, 0, 16),
-                "odd": (2, 3, (5, 7), 0, 0, 1),
-                "offset": (3, 32, (5, 7), 1, 1, 1)}
 
 
 @pytest.mark.parametrize("layout", list(GATE_LAYOUTS))
@@ -238,11 +265,8 @@ def test_gate_backward_kernels_match_plain(dev, dtype, layout):
     q.requires_grad_(True)
     h.requires_grad_(True)
     z, r = zr[:, :C], zr[:, C + r_off:2 * C + r_off]
-    ins = [gru_gates._batch_strided(t)[1] for t in (r, h, g_rh)]
-    vec, _ = gru_gates.rh_bwd_plan(
-        [r.data_ptr(), h.data_ptr(), g_rh.data_ptr()], ins, C * H * W, B,
-        h.element_size(), 132)
-    assert vec * h.element_size() == vec_bytes or vec == vec_bytes == 1
+    assert _gate_vec_bytes("gru_gate_rh_bwd", (r, h, g_rh), C, H, W,
+                           B) == vec_bytes
     before = dict(gru_gates.LAUNCHES)
     d_rh = torch.autograd.grad(gru_gates.gru_gate_rh(r, h), (zr, h), g_rh)
     d_bl = torch.autograd.grad(gru_gates.gru_gate_blend(z, q, h), (zr, q, h),
@@ -995,11 +1019,10 @@ def test_gate_kernels_96_channels_match_plain(dev, dtype):
     for t in (zr, q, h):
         t.requires_grad_(True)
     z, r = torch.split(zr, C, dim=1)
-    strides = [gru_gates._batch_strided(t)[1] for t in (r, h, g_rh)]
-    vec, _ = gru_gates.rh_bwd_plan(
-        [r.data_ptr(), h.data_ptr(), g_rh.data_ptr()], strides, C * H * W,
-        B, h.element_size(), 132)
-    assert vec * h.element_size() == 16
+    for kernel, ins in (("gru_gate_rh", (r, h)),
+                        ("gru_gate_blend", (z, q, h)),
+                        ("gru_gate_rh_bwd", (r, h, g_rh))):
+        assert _gate_vec_bytes(kernel, ins, C, H, W, B) == 16
     before = dict(gru_gates.LAUNCHES)
     rh, bl = gru_gates.gru_gate_rh(r, h), gru_gates.gru_gate_blend(z, q, h)
     with torch.no_grad():
@@ -1122,6 +1145,39 @@ def test_graph_forward_matches_eager_bit_for_bit(dev):
     assert not torch.equal(got[1], kept[0][0][1])
     assert torch.equal(got[1], eager(sd2, *inputs[0])[1])
     assert graph.captures.total() == 2
+
+
+def test_capture_survives_a_dead_graph_cycle(dev):
+    """A reference cycle that holds another program's CUDA graph dies
+    inside a capture, with the collector set to run at every allocation:
+    no collection runs before the capture ends (destroying a graph while
+    a stream captures is refused and invalidates the capture), and the
+    program replays."""
+    import gc
+
+    from raft_tpu_torch.utils import graphs
+
+    class Holder:
+        def __init__(self, a):
+            self.me = self
+            self.prog = graphs.CapturedProgram(lambda x: x * 2, [a], [],
+                                               side)
+
+    def fn(x):
+        keep.clear()                           # the cycle is dead now
+        junk = [[i] for i in range(100)]       # tracked allocations
+        return x * 3 + len(junk)
+
+    side = torch.cuda.Stream()
+    a = torch.arange(1024, dtype=torch.float32, device=dev)
+    keep = [Holder(a)]
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        prog = graphs.CapturedProgram(fn, [a], [], side)
+    finally:
+        gc.set_threshold(*threshold)
+    assert torch.equal(prog([a + 1]), (a + 1) * 3 + 100)
 
 
 def _graph_train_cfgs():

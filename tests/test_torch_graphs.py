@@ -18,6 +18,9 @@ graphs rest on, where the CPU can check it.
   step reads), so no graph goes stale; a state saved by a plain AdamW
   loads into the fused one and trains on.
 - **Graphs are the card's**: asking for them on the CPU raises.
+- **No collection inside a capture**: a reference cycle that dies inside
+  a capture, with the collector set to run at every allocation, is freed
+  only after it (stand-ins for the CUDA graph and its capture).
 
 The cases that need the card (capture, replay, launch counts per replay,
 the guard under sync-debug mode) are in ``tests/test_torch_cuda.py``.
@@ -298,3 +301,60 @@ def test_graphs_are_the_cards():
         make_eval_fn(RAFTConfig.full(), 2, device="cpu", graphs=True)
     with pytest.raises(ValueError, match="graphs=True needs a CUDA"):
         make_train_step(TrainConfig(**KW), device="cpu", graphs=True)
+
+
+def test_capture_keeps_the_collector_off(monkeypatch):
+    """``CapturedProgram`` keeps the garbage collector off during the
+    capture: a reference cycle that dies inside it, with the collector set
+    to run at every allocation, is freed only after the capture ends; the
+    collector is back on after, also when the captured function raises
+    (the CUDA graph and its capture are stand-ins)."""
+    import gc
+
+    from raft_tpu_torch.utils import graphs
+
+    events = []
+
+    class Cycle:
+        def __init__(self):
+            self.me = self
+
+        def __del__(self):
+            events.append("cycle freed")
+
+    class FakeGraph:
+        def register_generator_state(self, gen):
+            pass
+
+    @contextlib.contextmanager
+    def fake_capture(graph, stream=None, capture_error_mode=None):
+        events.append(("capture", capture_error_mode))
+        yield
+        events.append("capture end")
+
+    def fn(x, fail=False):
+        keep.clear()                           # the cycle is dead now
+        junk = [[i] for i in range(100)]       # tracked allocations
+        events.append(("collector on", gc.isenabled(), len(junk)))
+        if fail:
+            raise RuntimeError("inside the capture")
+        return x + 1
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", fake_capture)
+    keep = [Cycle()]
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        prog = graphs.CapturedProgram(fn, [torch.zeros(3)], [], None)
+        assert events[:3] == [("capture", "thread_local"),
+                              ("collector on", False, 100), "capture end"]
+        gc.collect()
+        assert events[3:] == ["cycle freed"] and gc.isenabled()
+        assert torch.equal(prog.static_out[0], torch.ones(3))
+        with pytest.raises(RuntimeError, match="inside the capture"):
+            graphs.CapturedProgram(lambda x: fn(x, fail=True),
+                                   [torch.zeros(3)], [], None)
+        assert gc.isenabled()
+    finally:
+        gc.set_threshold(*threshold)

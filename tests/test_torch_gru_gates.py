@@ -166,46 +166,67 @@ def test_plain_backward_is_autograd_of_plain_forward():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
-def _rh_bwd_plan(B, C, H, W, dtype, r_channel=None, sm_count=132):
-    """``rh_bwd_plan`` for the operands as the model passes them: r the
-    second channel half of a (B, 2C, H, W) convzr output, h contiguous,
-    g the first C channels of a (B, 3C, H, W) gradient, fresh outputs;
-    ``r_channel`` moves r to start at that channel of a (B, 2C + 1, H,
-    W) tensor instead."""
+def _gate_plan(kernel, B, C, H, W, dtype, r_channel=None, sm_count=132):
+    """``gate_plan`` of ``kernel`` for the operands as the model passes
+    them: z and r the channel halves of a (B, 2C, H, W) convzr output, q
+    and h contiguous, rh's gradient g the first C channels of a (B, 3C,
+    H, W) gradient, fresh outputs; ``r_channel`` moves r to start at that
+    channel of a (B, 2C + 1, H, W) tensor instead (z stays at channel 0,
+    its batch stride one channel plane longer)."""
     zr = torch.empty(B, 2 * C + (r_channel is not None), H, W, dtype=dtype)
     start = C if r_channel is None else r_channel
-    r = zr[:, start:start + C]
-    ins = [gru_gates._batch_strided(t) for t in (
-        r, torch.empty(B, C, H, W, dtype=dtype),
-        torch.empty(B, 3 * C, H, W, dtype=dtype)[:, :C])]
-    outs = [torch.empty(B, C, H, W, dtype=dtype) for _ in range(2)]
+    z, r = zr[:, :C], zr[:, start:start + C]
+    q, h = (torch.empty(B, C, H, W, dtype=dtype) for _ in range(2))
+    g = torch.empty(B, 3 * C, H, W, dtype=dtype)[:, :C]
+    ins, n_out = {"gru_gate_rh": ([r, h], 1),
+                  "gru_gate_blend": ([z, q, h], 1),
+                  "gru_gate_rh_bwd": ([r, h, g], 2)}[kernel]
+    ins = [gru_gates._batch_strided(t) for t in ins]
+    outs = [torch.empty(B, C, H, W, dtype=dtype) for _ in range(n_out)]
     assert all(t.data_ptr() % 16 == 0 for t in outs)
-    return gru_gates.rh_bwd_plan(
-        [t.data_ptr() for t, _ in ins] + [o.data_ptr() for o in outs],
+    return gru_gates.gate_plan(
+        kernel, [t.data_ptr() for t, _ in ins] + [o.data_ptr() for o in outs],
         [s for _, s in ins], C * H * W, B, zr.element_size(), sm_count)
 
 
 # (B, C, H, W) -> (values per access, grid) on a 132-SM H100 in fp32 and
-# bf16: the chairs, Sintel, things and KITTI training grids with the
-# model's 128-channel halves take 16-byte vectors at any H*W, and so does
-# an odd grid; 3 channels on the odd grid take one value per access, and
-# so does r starting one channel off where a channel plane is not a
-# multiple of 16 bytes (bf16 at chairs, both types on the odd grid).  The
-# grid is 528 blocks (one wave of 4 per SM) or one block per unit of
-# 2 x 256 accesses.
-@pytest.mark.parametrize("shape,r_channel,fp32,bf16", [
-    ((8, 128, 46, 62), None, (4, 528), (8, 528)),
-    ((1, 128, 55, 128), None, (4, 440), (8, 220)),
-    ((5, 128, 50, 90), None, (4, 528), (8, 528)),
-    ((1, 128, 47, 156), None, (4, 459), (8, 230)),
-    ((2, 128, 45, 63), None, (4, 356), (8, 178)),
-    ((2, 3, 45, 63), None, (1, 34), (1, 34)),
-    ((8, 128, 46, 62), 129, (4, 528), (1, 528)),
-    ((2, 128, 45, 63), 129, (1, 528), (1, 528)),
-])
-def test_rh_bwd_plan_per_shape(shape, r_channel, fp32, bf16):
-    assert _rh_bwd_plan(*shape, torch.float32, r_channel) == fp32
-    assert _rh_bwd_plan(*shape, torch.bfloat16, r_channel) == bf16
+# bf16, for the kernels with units of 2 x 256 accesses (the rh forward and
+# backward) and for the blend forward's 1 x 256: the chairs, Sintel,
+# things and KITTI training grids and the serving slots (S = 8 on the
+# Sintel grid) with the model's 128-channel halves take 16-byte vectors
+# at any H*W, and so does an odd grid; 3 channels on the odd grid take
+# one value per access, and so does r (or z's batch stride) one channel
+# off where a channel plane is not a multiple of 16 bytes (bf16 at
+# chairs, both types on the odd grid).  The grid is 528 blocks (one wave
+# of 4 per SM) or one block per unit when there are fewer units.
+PLAN_CASES = [  # shape, r channel, rh fp32, rh bf16, blend fp32, blend bf16
+    ((8, 128, 46, 62), None, (4, 528), (8, 528), (4, 528), (8, 528)),
+    ((1, 128, 55, 128), None, (4, 440), (8, 220), (4, 528), (8, 440)),
+    ((5, 128, 50, 90), None, (4, 528), (8, 528), (4, 528), (8, 528)),
+    ((1, 128, 47, 156), None, (4, 459), (8, 230), (4, 528), (8, 459)),
+    ((2, 128, 45, 63), None, (4, 356), (8, 178), (4, 528), (8, 356)),
+    ((2, 3, 45, 63), None, (1, 34), (1, 34), (1, 68), (1, 68)),
+    ((8, 128, 46, 62), 129, (4, 528), (1, 528), (4, 528), (1, 528)),
+    ((2, 128, 45, 63), 129, (1, 528), (1, 528), (1, 528), (1, 528)),
+]
+SERVING_CASE = ((8, 128, 55, 128), None, (4, 528), (8, 528), (4, 528),
+                (8, 528))
+
+
+def _plan_params(cases, kernels):
+    return [(kernel, shape, r_channel,
+             *(want[2:] if kernel == "gru_gate_blend" else want[:2]))
+            for kernel in kernels for shape, r_channel, *want in cases]
+
+
+@pytest.mark.parametrize("kernel,shape,r_channel,fp32,bf16", _plan_params(
+    PLAN_CASES, ("gru_gate_rh", "gru_gate_blend", "gru_gate_rh_bwd"))
+    + _plan_params([SERVING_CASE], ("gru_gate_rh", "gru_gate_blend")))
+def test_rh_bwd_plan_per_shape(kernel, shape, r_channel, fp32, bf16):
+    """``gate_plan`` of the two forwards and the rh backward."""
+    assert _gate_plan(kernel, *shape, torch.float32, r_channel) == fp32
+    assert _gate_plan(kernel, *shape, torch.bfloat16, r_channel) == bf16
     # fewer SMs: the grid stays one wave of 4 blocks per SM
-    vec, grid = _rh_bwd_plan(*shape, torch.bfloat16, r_channel, sm_count=2)
+    vec, grid = _gate_plan(kernel, *shape, torch.bfloat16, r_channel,
+                           sm_count=2)
     assert (vec, grid) == (bf16[0], min(bf16[1], 8))

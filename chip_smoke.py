@@ -46,7 +46,11 @@ Phases, each raising on failure (so the script exits nonzero):
      equal to the plain version's), and grids that take every access
      width of the upsample-loss forward and backward (an odd 45x63 at
      B = 1, 45x62, 40x64, and the chairs grid with the mask one value
-     into its allocation);
+     into its allocation); the row-halo form of the upsample-loss pair
+     (``halo=1``, the flow with a row of each neighbouring shard) at
+     phase spatial's shard shape (12 iterations x B 4, 23 (+2) x 62),
+     fp32 and bf16 mask, timed beside its bound, and the whole image as
+     one shard with zero halo rows bit for bit the unsharded kernels;
    - backward kernels of the on-demand configuration at the chairs
      shapes: the GRU gate backward (8, 128, 46, 62) in fp32 and bf16
      (z/r channel halves of one tensor, rh's gradient a channel slice;
@@ -91,7 +95,7 @@ Phases, each raising on failure (so the script exits nonzero):
    threshold; threshold 0 bit for bit request mode), and the kernel
    configuration against the plain one within 1e-3 px at 4 iterations;
    in bf16, request mode's batch of 8 pairs against ``make_eval_fn`` in
-   bf16 (rtol and atol 2e-2), a closed loop of 8 clients x 16 requests
+   bf16 (rtol and atol 2e-2), a closed loop of 8 clients x 8 requests
    in request mode, slot mode and slot mode with budgets from
    {8, 16, 32} (pairs/s, p50 and p99 ms, batch fill or mean active
    lanes, resident, peak and reserved memory; device busy and idle share
@@ -230,7 +234,23 @@ Phases, each raising on failure (so the script exits nonzero):
    trip, not NCCL); (c) ``python -m raft_tpu_torch train --distributed``
    with the variables of one rank: 2 steps, exit 0, a checkpoint
    stamped world 1;
-13. small: the small model at full width (hidden 96, context 64, radius
+13. spatial: each image's rows split over two gloo ranks sharing the
+   card (``chip_smoke.py --spatial-rank`` children, ``data 1 x spatial
+   2``), the chairs stage (368x496, global B 4, 12 iterations, bf16,
+   eager, 2 steps) in three arms: the kernel configuration
+   (``allpairs_pallas``, the upsample-loss kernels, fused gates),
+   ``allpairs`` with the upsample-loss kernels, and the on-demand kernels
+   with fused gates; each against the straight eager B 4 run (the ranks
+   bit for bit, the first moment after step 1 and each parameter's
+   change within phase ddp's bound widened by the straight kernel run's
+   spread under reversed rows, instance norm's sums over the row shards
+   and cuDNN off, the doubled change rejected, losses within the
+   bf16 bound), each kernel of the arm counted on each rank (the
+   lookups 12 + 12 a step, the upsample-loss pair once a step, each
+   call with ``halo=1``), each rank's peak memory against the straight
+   run's, and the spatial collectives' share of the kernel arm's last
+   step on rank 0 under the profiler;
+14. small: the small model at full width (hidden 96, context 64, radius
    3, C = 128): each kernel of its paths at its shapes against the plain
    version, timed beside its bound (run as phase small_kernels right
    after phase kernels, early in the process; the on-demand forward at the Sintel
@@ -252,7 +272,7 @@ Phases, each raising on failure (so the script exits nonzero):
    ``dots`` and ``save_corr`` + ``remat_upsample`` (peak memory, ms/step,
    launch counts a step), and each policy's fp32 gradients against
    ``none``;
-14. clis: subprocesses that are checked, not timed, side by side, on a
+15. clis: subprocesses that are checked, not timed, side by side, on a
    thread while phase train_cli's train CLI subprocesses run (nothing
    is timed or counted in this process meanwhile):
    ``python -m raft_tpu_torch curriculum`` on two small stages, killed
@@ -260,12 +280,14 @@ Phases, each raising on failure (so the script exits nonzero):
    ``lk-compare --small`` on the demo frames; and ``python -m
    raft_tpu_torch serve --random-init --replicas 2`` at the Sintel
    bucket (two flows, ``/metrics`` of both replicas, SIGINT);
-15. report: one JSON line ``{"kernels": [...]}`` (each kernel with its
+16. report: one JSON line ``{"kernels": [...]}`` (each kernel with its
    small-model launches and, where phase small timed it, its times
    there, and its launches per serving ``iter`` replay with, where phase
    serve timed it, its times at the slot shape, its launches through
-   the fleet's router, and its launches in phase ddp's world-1 step and
-   on each of its two ranks), the nvidia-smi line,
+   the fleet's router, its launches in phase ddp's world-1 step and
+   on each of its two ranks, its launches on each of phase spatial's two
+   ranks per arm, and for the upsample-loss pair the halo form's
+   times), the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without CUDA it exits nonzero before any
@@ -1201,6 +1223,7 @@ def phase_train_kernels(peaks):
                   f"{ops / 1e9:.3f} GFLOP)", flush=True)
         del outs, sk, sp, dflk, dflp, dmk, dmp, flk, flp, mk, mp, mask
         torch.cuda.empty_cache()
+    results.update(_ul_halo_cases(np.random.default_rng(6), dev, peaks))
     _ul_ragged_cases(np.random.default_rng(5), dev)
     # a ragged grid whose level 3 pools to nothing (rows of 91, 18 and 3
     # values, not multiples of 8) with a NaN x and a NaN y center: NaN taps
@@ -1236,6 +1259,109 @@ def phase_train_kernels(peaks):
     for name in ("pyramid_lookup_fwd", "pyramid_lookup_bwd",
                  "upsample_loss_fwd", "upsample_loss_bwd"):
         results[name] = results[f"{name}/fp32"]
+    return results
+
+
+# The row-halo form of the upsample-loss kernels at the shape a rank of
+# phase spatial gives them: 12 iterations x B 4 folded, one of two shards
+# of the chairs grid (23 of 46 rows x 62), the flow with a row of each
+# neighbouring shard.
+SPATIAL_B, SPATIAL_N = 4, 2
+
+
+def _ul_halo_cases(rng, dev, peaks) -> dict:
+    """The halo kernels (``halo=1``) against their plain version with the
+    same halo at the chairs shard shape, fp32 and bf16 mask, timed beside
+    the bound of the same work (the flow's two extra rows included); and
+    the whole image as one shard with zero halo rows, which must give the
+    unsharded kernels' results bit for bit."""
+    from raft_tpu_torch.ops.upsample_loss import (upsample_loss_sums,
+                                                  upsample_loss_sums_plain)
+
+    B = SPATIAL_B
+    gB = CHAIRS_ITERS * B
+    H, W = CHAIRS_HW[0] // 8 // SPATIAL_N, CHAIRS_HW[1] // 8
+    # residuals away from 0, as for the unsharded check
+    flow = torch.from_numpy(rng.uniform(-1, 1, (gB, H + 2, W, 2)).astype(
+        np.float32)).to(dev)
+    gt = (rng.uniform(8.5, 24, (B, 8 * H, 8 * W, 2))
+          * rng.choice([-1.0, 1.0], (B, 8 * H, 8 * W, 2)))
+    gt = torch.from_numpy(gt.astype(np.float32)).to(dev)
+    vm = torch.from_numpy((rng.random((B, 8 * H, 8 * W)) > 0.1).astype(
+        np.float32)).to(dev)
+    wsum = torch.from_numpy(rng.random((gB, 5)).astype(np.float32)).to(dev)
+    mask32 = torch.from_numpy(rng.standard_normal((gB, 576, H, W)).astype(
+        np.float32)).to(dev)
+
+    def run(fn, fl, m, halo):
+        fl = fl.clone().requires_grad_(True)
+        m = m.clone().requires_grad_(True)
+        sums = fn(fl, m, gt, vm, halo=halo)
+        dfl, dm = torch.autograd.grad(sums, (fl, m), wsum,
+                                      retain_graph=True)
+        return sums, dfl, dm, fl, m
+
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "fp32" if dtype == torch.float32 else "bf16"
+        mask = mask32.to(dtype)
+        (sk, dflk, dmk, flk, mk), (sp, dflp, dmp, flp, mp) = [
+            run(fn, flow, mask, 1)
+            for fn in (upsample_loss_sums, upsample_loss_sums_plain)]
+        err_f = _check_sums(f"upsample_loss_fwd halo {dt} sums "
+                            f"{tuple(sk.shape)}", sk, sp)
+        err_b = max(_check(f"upsample_loss_bwd halo {dt} dflow "
+                           f"{tuple(dflk.shape)}", dflk, dflp),
+                    _check(f"upsample_loss_bwd halo {dt} dmask", dmk, dmp))
+        # zero halo rows: the unsharded kernels' bits
+        z = flow.clone()
+        z[:, 0] = 0.0
+        z[:, -1] = 0.0
+        s1, f1, m1, _, _ = run(upsample_loss_sums, z, mask, 1)
+        s0, f0, m0, _, _ = run(upsample_loss_sums, z[:, 1:-1].contiguous(),
+                               mask, 0)
+        same = (torch.equal(s1, s0) and torch.equal(m1, m0)
+                and torch.equal(f1[:, 1:-1], f0))
+        print(f"[kernels] upsample_loss halo {dt}: zero halo rows give the "
+              f"unsharded kernels' sums, dmask and dflow bit for bit: "
+              f"{same}", flush=True)
+        if not same:
+            raise AssertionError(f"upsample_loss halo {dt}: a zero halo "
+                                 "differs from no halo")
+        del s1, f1, m1, s0, f0, m0, z
+        with torch.no_grad():
+            tk = _timed(lambda: upsample_loss_sums(flow, mask, gt, vm,
+                                                   halo=1),
+                        ("ul_fwd_kernel", "ul_reduce_kernel"), reps=10)
+            tp = _timed(lambda: upsample_loss_sums_plain(flow, mask, gt, vm,
+                                                         halo=1),
+                        None, reps=5)
+        tkb = _timed(lambda: torch.autograd.grad(sk, (flk, mk), wsum,
+                                                 retain_graph=True),
+                     ("ul_bwd_kernel", "ul_dflow_kernel"), reps=10)
+        tpb = _timed(lambda: torch.autograd.grad(sp, (flp, mp), wsum,
+                                                 retain_graph=True),
+                     None, reps=5)
+        es = mask.element_size()
+        small = (flow.numel() + gt.numel() + vm.numel()) * 4
+        nb_f = mask.numel() * es + small + gB * 5 * 4
+        ops_f = 100.0 * gB * H * W * 64
+        nb_b = 2 * mask.numel() * es + small + gB * 4 + flow.numel() * 4
+        ops_b = 170.0 * gB * H * W * 64
+        for name, err, t, tpl, nb, ops in (
+                ("upsample_loss_fwd", err_f, tk, tp, nb_f, ops_f),
+                ("upsample_loss_bwd", err_b, tkb, tpb, nb_b, ops_b)):
+            bound, by = _bound_ms(nb, ops, peaks)
+            results[f"{name}/halo/{dt}"] = dict(
+                max_abs_err=err, ms=t["ms"], plain_ms=tpl["ms"],
+                library_ms=None, bound_ms=bound, bound_by=by, bytes=nb,
+                ops=ops, shape=[gB, H, W], kernel_timing=t,
+                plain_timing=tpl)
+            print(f"[kernels] {name} halo {dt} {gB} x {H} (+2) x {W}: "
+                  f"kernel {t}, plain {tpl}, bound {bound:.4f} ms ({by}; "
+                  f"{nb / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)", flush=True)
+        del sk, sp, dflk, dflp, dmk, dmp, flk, flp, mk, mp, mask
+        torch.cuda.empty_cache()
     return results
 
 
@@ -4136,7 +4262,7 @@ def _curriculum(tree: dict, work: str) -> dict:
 
 
 def phase_small(sd_full, tree):
-    """The small model at full width (see the module docstring, phase 13;
+    """The small model at full width (see the module docstring, phase 14;
     its kernels are phase small_kernels').  ``sd_full``: the full model's
     seed-0 weights (the remat sweep); ``tree``: phase train_cli's
     synthetic chairs tree."""
@@ -5987,6 +6113,358 @@ def phase_ddp(sd, tree) -> dict:
     return res
 
 
+# --- phase spatial: each image's rows split over two gloo ranks ----------
+
+SPATIAL_STEPS = 2        # steps of each arm, sharded and straight
+SPATIAL_PROFILED_ARM = "kernel"   # the arm whose last step is traced
+# the arms: the kernel configuration (the pyramid lookup on local
+# queries, the halo form of the upsample-loss pair, the four gates), the
+# plain lookup with the loss kernels, and the on-demand kernels
+SPATIAL_ARMS = {"kernel": DDP_KERNEL_CFG,
+                "allpairs": dict(corr_impl="allpairs",
+                                 upsample_loss_kernel="pallas"),
+                "ondemand": ONDEMAND_CFG}
+
+
+def _spatial_launches(arm: str) -> dict:
+    """Each kernel's launches a rank makes over ``SPATIAL_STEPS`` steps of
+    ``arm`` (12 iterations; the separable GRU runs each gate twice an
+    iteration)."""
+    it = CHAIRS_ITERS * SPATIAL_STEPS
+    want = {"upsample_loss_fwd": SPATIAL_STEPS,
+            "upsample_loss_bwd": SPATIAL_STEPS}
+    if arm == "kernel":
+        want.update(pyramid_lookup_fwd=it, pyramid_lookup_bwd=it)
+    if arm == "ondemand":
+        want.update(corr_ondemand=it, corr_ondemand_bwd=it)
+    if arm != "allpairs":
+        want.update({g: 2 * it for g in (
+            "gru_gate_rh", "gru_gate_rh_bwd", "gru_gate_blend",
+            "gru_gate_blend_bwd")})
+    return want
+
+
+def _spatial_cfgs(arm: str):
+    from raft_tpu_torch.config import RAFTConfig, TrainConfig
+
+    cfg = TrainConfig(lr=DDP_LR, num_steps=120000, batch_size=SPATIAL_B,
+                      image_size=CHAIRS_HW, iters=CHAIRS_ITERS, wdecay=1e-4)
+    return cfg, RAFTConfig.full(compute_dtype="bfloat16",
+                                **SPATIAL_ARMS[arm])
+
+
+def _spatial_batches(dev, shard=None):
+    """The phase's ``SPATIAL_STEPS`` global batches (the first
+    ``SPATIAL_B`` pairs of phase train's chairs batches), or shard
+    ``shard``'s rows of them."""
+    h = CHAIRS_HW[0] // SPATIAL_N
+    rows = slice(None) if shard is None else slice(shard * h,
+                                                   (shard + 1) * h)
+    return [{k: v[:SPATIAL_B, rows].contiguous() for k, v in
+             _chairs_batch(dev, 120 + i).items()}
+            for i in range(SPATIAL_STEPS)]
+
+
+def _first_moments(state) -> dict:
+    """Adam's first moment of each parameter: ``1 - beta1`` times the
+    clipped global gradient after the first step."""
+    opt = state.optimizer.state_dict()["state"]
+    return {n: opt[i]["exp_avg"].detach().float().cpu()
+            for i, (n, _) in enumerate(state.model.named_parameters())}
+
+
+def _collective_ms(averages, label: str) -> float:
+    """Wall ms of the ``label`` ranges (host side) in a profiler's
+    ``key_averages()``."""
+    return sum(e.cpu_time_total for e in averages if e.key == label) / 1e3
+
+
+def _spatial_rank_main(rank: int, port: int, out: str) -> int:
+    """One rank of phase spatial (``chip_smoke.py --spatial-rank``): the
+    ``data 1 x spatial 2`` mesh over gloo on the shared card, then for
+    each arm ``SPATIAL_STEPS`` eager steps on this rank's rows of the
+    global batches; writes its parameters, first moments, losses, launch
+    counts, ms/step, peak memory and (rank 0, the kernel arm, from its
+    last step under the profiler) the spatial collectives' share of a
+    step to ``out``."""
+    from raft_tpu_torch import config
+    from raft_tpu_torch.config import RAFTConfig
+    from raft_tpu_torch.models.raft import RAFT
+    from raft_tpu_torch.parallel import mesh as mesh_mod
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config.CONV_TF32 = False
+    with _rank_env(rank, SPATIAL_N, port):
+        mesh = mesh_mod.init_from_env("cuda", backend="gloo",
+                                      spatial=SPATIAL_N)
+    sd = RAFT(RAFTConfig.full(), seed=0).state_dict()
+    batches = _spatial_batches(mesh.device, mesh.spatial_index)
+    # wall-clock stamps: when the rank was ready, when each arm ended
+    res = {"mesh": mesh.mesh_shape(), "stamps": {"ready": time.time()}}
+    # the halo argument of every upsample-loss kernel call: the model must
+    # take the halo form under the mesh
+    from raft_tpu_torch.ops import upsample_loss
+
+    halos, apply = [], upsample_loss.UpsampleLossSums.apply
+
+    def recording(flow, mask, gt, vmask, halo=0):
+        halos.append(halo)
+        return apply(flow, mask, gt, vmask, halo)
+
+    upsample_loss.UpsampleLossSums.apply = recording
+    for arm in SPATIAL_ARMS:
+        halos.clear()
+        cfg, mcfg = _spatial_cfgs(arm)
+        state = init_state(mcfg, cfg, state_dict=sd)
+        step_fn = make_train_step(cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        losses, times, mu = [], [], None
+        # the spatial collectives' share of a step: the kernel arm's last
+        # step under the profiler on rank 0 (the profiler's own cost, a
+        # few seconds an arm, is paid once)
+        from torch.profiler import ProfilerActivity, profile
+
+        for i, batch in enumerate(batches):
+            traced = (rank == 0 and arm == SPATIAL_PROFILED_ARM
+                      and i == len(batches) - 1)
+            with (profile(activities=[ProfilerActivity.CPU]) if traced
+                  else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                losses.append(float(step_fn(state, batch)[1]["loss"]))
+                times.append((time.perf_counter() - t0) * 1e3)
+            if mu is None:
+                mu = _first_moments(state)
+        torch.cuda.synchronize()
+        rec = dict(losses=losses, step_ms=times, launches=_counts(),
+                   first_moments=mu, loss_kernel_halos=list(halos),
+                   params={k: v.detach().float().cpu() for k, v in
+                           state.model.state_dict().items()},
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   nonfinite=int(state.nonfinite_steps))
+        if rank == 0 and arm == SPATIAL_PROFILED_ARM:
+            averages = prof.key_averages()
+            rec.update(profiled_step_ms=times[-1],
+                       halo_ms=_collective_ms(averages, mesh_mod.HALO_LABEL),
+                       gather_ms=_collective_ms(averages,
+                                                mesh_mod.GATHER_LABEL))
+        res[arm] = rec
+        res["stamps"][arm] = time.time()
+        del state, step_fn
+        torch.cuda.empty_cache()
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    mesh_mod.shutdown()
+    return 0
+
+
+def _spatial_rank_start(rank: int, port: int, out: str):
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--spatial-rank",
+         str(rank), "--spatial-port", str(port), "--spatial-out", out],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, PYTHONPATH=REPO,
+                            PYTHONUNBUFFERED="1"))
+
+
+@contextlib.contextmanager
+def instance_norm_over_row_shards(n: int = SPATIAL_N):
+    """Instance norm with its moments summed over ``n`` equal row shards
+    and then added, the sharded step's order (exact arithmetic gives the
+    same function): the straight run's twin whose difference from it is
+    fp32 rounding alone.  With the seeded init several gradients
+    (``fnet``'s, ``convc2``'s) are sums that cancel to a small part of
+    their terms, and this reordering alone moves them by up to ~1.3% of
+    their norm, as the sharded step does.  (The spatial tests take their
+    twin from here too.)"""
+    real = torch.nn.functional.instance_norm
+
+    def sharded(x, eps=1e-5, **kwargs):
+        cnt = x.shape[2] * x.shape[3]
+        mean = sum(p.sum(dim=(2, 3)) for p in x.chunk(n, dim=2)) / cnt
+        d = x - mean[..., None, None]
+        var = sum((q * q).sum(dim=(2, 3)) for q in d.chunk(n, dim=2)) / cnt
+        return d * torch.rsqrt(var + eps)[..., None, None]
+
+    torch.nn.functional.instance_norm = sharded
+    try:
+        yield
+    finally:
+        torch.nn.functional.instance_norm = real
+
+
+def _spatial_straight(sd) -> dict:
+    """Each arm's straight twin: ``SPATIAL_STEPS`` eager steps on the
+    whole global batches; then the reference's own rounding noise: again
+    with each batch's rows (samples) reversed, with instance norm's sums
+    taken over the row shards (the sharded order), and with cuDNN off
+    (other convolution algorithms, as the shards' shapes take others);
+    the peak memory of the first.  (The main process runs these while
+    the ranks run; the ranks take the longer.)"""
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    dev = torch.device("cuda")
+    batches = _spatial_batches(dev)
+    out = {}
+    for arm in SPATIAL_ARMS:
+        cfg, mcfg = _spatial_cfgs(arm)
+        runs = []
+        for flip, shards, cudnn in ((False, False, True),
+                                    (True, False, True),
+                                    (False, True, True),
+                                    (False, False, False)):
+            state = init_state(mcfg, cfg, state_dict=sd)
+            step_fn = make_train_step(cfg, graphs=False)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, mu = [], None
+            torch.backends.cudnn.enabled = cudnn
+            try:
+                with (instance_norm_over_row_shards() if shards
+                      else contextlib.nullcontext()):
+                    for b in batches:
+                        losses.append(float(step_fn(state, {
+                            k: v.flip(0) if flip else v for k, v in
+                            b.items()})[1]["loss"]))
+                        if mu is None:
+                            mu = _first_moments(state)
+            finally:
+                torch.backends.cudnn.enabled = True
+            runs.append(dict(params={k: v.detach().float().cpu() for k, v in
+                                     state.model.state_dict().items()},
+                             first_moments=mu, losses=losses,
+                             peak_gib=torch.cuda.max_memory_allocated()
+                             / 2 ** 30))
+            del state, step_fn
+            torch.cuda.empty_cache()
+        out[arm] = runs
+    return out
+
+
+def _spatial_check(sd, arm: str, ranks, straight) -> dict:
+    """One arm: the ranks bit for bit each other; against the straight
+    run, the first moment after step 1 and each parameter's change after
+    ``SPATIAL_STEPS`` steps within ``_grad_agreement``'s norm bound
+    widened by ``EAGER_SPREAD_FACTOR`` times the straight run's own
+    spread (the largest of its twins': reversed rows, instance norm's
+    sums over the row shards, cuDNN off; the doubled change must fail
+    it), losses
+    within ``BF16_LOSS_TOL``; every kernel of the arm counted on each rank,
+    no step skipped."""
+    ref, *twins = straight
+    p0 = {k: v.float() for k, v in sd.items()}
+    recs = [r[arm] for r in ranks]
+    params = [k for k in ref["params"] if "running" not in k]
+    same = all(torch.equal(recs[0]["params"][k], recs[1]["params"][k])
+               for k in recs[0]["params"])
+    res = {"ranks_bit_equal": same}
+    for what, got, want, others in (
+            ("first_moment", recs[0]["first_moments"],
+             ref["first_moments"], [t["first_moments"] for t in twins]),
+            ("change", {k: recs[0]["params"][k] - p0[k] for k in params},
+             {k: ref["params"][k] - p0[k] for k in params},
+             [{k: t["params"][k] - p0[k] for k in params} for t in twins])):
+        spread = {k: EAGER_SPREAD_FACTOR * max(
+            float((o[k] - want[k]).norm()) for o in others) for k in want}
+        res[what] = _grad_agreement(got, want, spread)
+        res[f"{what}_doubled"] = _grad_agreement(
+            {k: 2 * v for k, v in got.items()}, want, spread)["leaf_ratio"]
+    res["stats_max_abs"] = max(
+        float((recs[0]["params"][k] - ref["params"][k]).abs().max())
+        for k in ref["params"] if "running" in k)
+    res["loss_rel"] = max(abs(a - b) / abs(b) for a, b in
+                          zip(recs[0]["losses"], ref["losses"]))
+    want_counts = _spatial_launches(arm)
+    counts = [{k: v for k, v in r["launches"].items() if v} for r in recs]
+    res.update(losses=[r["losses"] for r in recs],
+               straight_losses=ref["losses"], launches=counts,
+               step_ms=[r["step_ms"] for r in recs],
+               peak_gib=[r["peak_gib"] for r in recs],
+               straight_peak_gib=ref["peak_gib"])
+    print(f"[spatial] {arm}: 2 gloo ranks on one card (data 1 x spatial 2, "
+          f"{CHAIRS_HW[0] // SPATIAL_N} of {CHAIRS_HW[0]} rows a rank, "
+          f"B {SPATIAL_B}) against the straight B {SPATIAL_B} run over "
+          f"{SPATIAL_STEPS} eager bf16 steps: ranks bit for bit {same}, "
+          f"first moment {res['first_moment']}, change {res['change']}, "
+          f"doubled controls {res['first_moment_doubled']:.3f} / "
+          f"{res['change_doubled']:.3f} (must exceed 1), statistics max |d| "
+          f"{res['stats_max_abs']:.3e}, loss rel {res['loss_rel']:.3e}, "
+          f"launches per rank {counts} (the loss kernels' halo "
+          f"{[r['loss_kernel_halos'] for r in recs]}); eager ms/step "
+          f"{res['step_ms']}",
+          flush=True)
+    print(f"[spatial] {arm}: peak memory per rank {res['peak_gib']} GiB "
+          f"against the straight run's {ref['peak_gib']:.2f} GiB",
+          flush=True)
+    if "profiled_step_ms" in recs[0]:
+        res.update({k: recs[0][k] for k in (
+            "profiled_step_ms", "halo_ms", "gather_ms")})
+        res["halo_share"] = res["halo_ms"] / res["profiled_step_ms"]
+        res["gather_share"] = res["gather_ms"] / res["profiled_step_ms"]
+        print(f"[spatial] {arm}: spatial collectives in rank 0's last "
+              f"step under the profiler ({res['profiled_step_ms']:.1f} "
+              f"ms): halo exchanges {res['halo_ms']:.1f} ms "
+              f"({100 * res['halo_share']:.1f}%), fmap2 gathers "
+              f"{res['gather_ms']:.1f} ms ({100 * res['gather_share']:.1f}"
+              f"%) (host time inside the collectives: gloo copies through "
+              f"the host, waiting for the card's queued work)", flush=True)
+    if not same or res["first_moment"]["leaf_ratio"] > 1.0 \
+            or res["change"]["leaf_ratio"] > 1.0 \
+            or res["first_moment_doubled"] <= 1.0 \
+            or res["change_doubled"] <= 1.0 \
+            or res["loss_rel"] > BF16_LOSS_TOL \
+            or counts != [want_counts] * SPATIAL_N \
+            or any(r["loss_kernel_halos"] != [1] * SPATIAL_STEPS
+                   for r in recs) \
+            or any(r["nonfinite"] for r in recs):
+        raise AssertionError(f"spatial {arm}: {res}, want launches "
+                             f"{want_counts}")
+    return res
+
+
+def phase_spatial(sd) -> dict:
+    """Spatially sharded training on the card (see the module docstring,
+    phase 13)."""
+    import shutil
+
+    work = os.path.join(WORK, "spatial")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t, t_wall = time.perf_counter(), time.time()
+    port = _free_port()
+    procs = [_spatial_rank_start(r, port, work) for r in range(SPATIAL_N)]
+    secs = {}
+    try:
+        straight = _spatial_straight(sd)
+        secs["straight"] = time.perf_counter() - t
+        _wait_ranks(procs)
+        secs["ranks"] = time.perf_counter() - t
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                        weights_only=False) for r in range(SPATIAL_N)]
+    if [r["mesh"] for r in ranks] != [{"data": 1, "spatial": 2}] * 2:
+        raise AssertionError(f"spatial: mesh {[r['mesh'] for r in ranks]}")
+    res = {arm: _spatial_check(sd, arm, ranks, straight[arm])
+           for arm in SPATIAL_ARMS}
+    res["phase_s"] = time.perf_counter() - t
+    for k, v in secs.items():       # from the phase's start
+        print(f"[time] spatial {k} done: {v:.1f} s", flush=True)
+    for r, rec in enumerate(ranks):
+        print(f"[time] spatial rank {r} from the phase's start: " + ", ".join(
+            f"{k} {v - t_wall:.1f} s" for k, v in rec["stamps"].items()),
+            flush=True)
+    res["rank_stamps_s"] = [{k: v - t_wall for k, v in r["stamps"].items()}
+                            for r in ranks]
+    print(f"[time] spatial: {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
 # --- phase clis: subprocesses checked side by side, timing nothing --------
 
 def phase_clis(tree):
@@ -6052,6 +6530,12 @@ def main(argv=None) -> int:
     p.add_argument("--ddp-port", type=int, default=None,
                    help=argparse.SUPPRESS)
     p.add_argument("--ddp-out", default=None, help=argparse.SUPPRESS)
+    # one rank of phase spatial's 2-rank run (the phase starts these)
+    p.add_argument("--spatial-rank", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--spatial-port", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--spatial-out", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; it needs one NVIDIA GPU",
@@ -6062,6 +6546,9 @@ def main(argv=None) -> int:
     if args.ddp_rank is not None:
         return _ddp_rank_main(args.ddp_rank, args.ddp_world, args.ddp_port,
                               args.ddp_out)
+    if args.spatial_rank is not None:
+        return _spatial_rank_main(args.spatial_rank, args.spatial_port,
+                                  args.spatial_out)
 
     global SHIPPED_CONV_TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6097,6 +6584,7 @@ def main(argv=None) -> int:
     train_cli = timed_phase(phase_train_cli, sd, train)
     clis = train_cli.pop("clis")
     ddp = timed_phase(phase_ddp, sd, train_cli["tree"])
+    spatial = timed_phase(phase_spatial, sd)
     small = {"kernels": small_kern,
              **timed_phase(phase_small, sd, train_cli["tree"])}
     small["clis"], fleet["cli"] = clis["small"], clis["fleet"]
@@ -6182,7 +6670,17 @@ def main(argv=None) -> int:
                     .get(kname, 0), "world1_steps": DDP_STEPS,
                     "per_rank_launches": [c.get(kname, 0) for c in
                                           ddp["two_ranks"]["launches"]],
-                    "per_rank_steps": DDP_SPLIT_STEPS}})
+                    "per_rank_steps": DDP_SPLIT_STEPS},
+            # spatial sharding: each of the 2 ranks' launches per arm
+            "spatial": {"per_rank_launches": {
+                arm: [c.get(kname, 0) for c in spatial[arm]["launches"]]
+                for arm in SPATIAL_ARMS}, "per_rank_steps": SPATIAL_STEPS}})
+        if kname.startswith("upsample_loss"):
+            # the row-halo form at phase spatial's shard shape
+            kernels[-1]["halo"] = {
+                dt: {k: kern[f"{kname}/halo/{dt}"][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "shape")} for dt in ("fp32", "bf16")}
         if kname in gru_gates.GATE_UNROLL:
             # the vectorized gates' design (csrc/gru_gates.cu) and the
             # access width its plan took at the timed shape
@@ -6212,7 +6710,7 @@ def main(argv=None) -> int:
                        "graphs": graphs, "demo": demo_res,
                        "eval": eval_res,
                        "train": train, "train_cli": train_cli,
-                       "ddp": ddp,
+                       "ddp": ddp, "spatial": spatial,
                        "small": small}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,6 +6,8 @@ one host: NCCL, the step captured as a CUDA graph with its all-reduces.
     python3 ddp_scale.py --out build/ddp_scale.json
     python3 ddp_scale.py --device cpu --worlds 1 4 --hw 32 48 --iters 2 \\
         --batch 4 --steps 4                     # gloo ranks on the CPU
+    python3 ddp_scale.py --spatial 2 --hw 448 1024 --batch 2
+                                                # rows split over 2 ranks
 
 For each world size W, W processes (one a GPU) join a process group at a
 free ``localhost`` port and train the chairs stage (368x496, 12
@@ -25,6 +27,14 @@ the step; every rank reports its parameters' checksum, which must agree
 (the ranks stay bit for bit one another), and the losses, which the
 strong setting holds against world 1 within 2e-3 relative (bf16).  One
 JSON line per (W, setting), then the card's name and power limit.
+
+``--spatial N`` splits each image's rows over N ranks as well
+(``train --shard_spatial``): a world of W > 1 ranks forms W / N data
+indices, and the batches above count a data index's pairs where they
+count a rank's (weak: ``--batch`` a data index; strong: ``--batch / (W /
+N)``); world 1 stays the unsharded step, so the strong setting's losses
+are held against the whole images.  The profile then also reports the
+NCCL share of the halo exchanges and gathers with the gradient's.
 
 On the CPU (``--device cpu``) the ranks use gloo and run eagerly: a
 rehearsal of the same code at a small size; its times say nothing of the
@@ -80,6 +90,8 @@ def _setting(args, mesh, global_b: int, per_rank: int) -> dict:
 
     dev = mesh.device
     cuda = dev.type == "cuda"
+    d, n = mesh.data_index, mesh.spatial
+    h = args.hw[0] // n
     cfg = TrainConfig(lr=2.5e-4, num_steps=120000, batch_size=global_b,
                       image_size=tuple(args.hw), iters=args.iters)
     mcfg = RAFTConfig.full(corr_impl="allpairs_pallas" if cuda
@@ -88,8 +100,9 @@ def _setting(args, mesh, global_b: int, per_rank: int) -> dict:
     sd = RAFT(RAFTConfig.full(), seed=0).state_dict()
     state = init_state(mcfg, cfg, device=dev, state_dict=sd)
     step_fn = make_train_step(cfg, device=dev, mesh=mesh)
-    r = mesh.rank
-    batches = [{k: v[r * per_rank:(r + 1) * per_rank] for k, v in
+    s0 = mesh.spatial_index * h
+    batches = [{k: v[d * per_rank:(d + 1) * per_rank, s0:s0 + h]
+                .contiguous() for k, v in
                 _batch(s, global_b, args.hw, dev).items()}
                for s in range(args.steps)]
     losses = []
@@ -144,12 +157,15 @@ def _rank(args, rank: int, world: int, port: int, out: str) -> None:
     if args.device == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     config.CONV_TF32 = False
-    mesh = init_from_env(args.device)
-    res = {"world": world, "rank": rank, "backend": mesh.backend}
-    res["weak"] = _setting(args, mesh, args.batch * world, args.batch)
+    spatial = args.spatial if world > 1 else 1
+    mesh = init_from_env(args.device, spatial=spatial)
+    data = world // spatial
+    res = {"world": world, "rank": rank, "backend": mesh.backend,
+           "mesh": mesh.mesh_shape()}
+    res["weak"] = _setting(args, mesh, args.batch * data, args.batch)
     if world > 1:
         res["strong"] = _setting(args, mesh, args.batch,
-                                 args.batch // world)
+                                 args.batch // data)
     shutdown()
     with open(os.path.join(out, f"w{world}_r{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -162,7 +178,8 @@ def _run_world(args, world: int, out: str) -> list:
          "--_world", str(world), "--_port", str(port), "--_out", out,
          "--device", args.device, "--hw", *map(str, args.hw), "--iters",
          str(args.iters), "--batch", str(args.batch), "--steps",
-         str(args.steps), "--timed", str(args.timed)],
+         str(args.steps), "--timed", str(args.timed), "--spatial",
+         str(args.spatial)],
         env=dict(os.environ, PYTHONPATH=os.path.dirname(
             os.path.abspath(__file__)))) for r in range(world)]
     deadline = time.monotonic() + args.timeout
@@ -197,6 +214,8 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--timed", type=int, default=10)
     p.add_argument("--timeout", type=float, default=600)
+    p.add_argument("--spatial", type=int, default=1,
+                   help="ranks that split each image's rows (worlds > 1)")
     p.add_argument("--out", default=None, help="also write the lines here")
     for name, kind in (("_rank", int), ("_world", int), ("_port", int),
                        ("_out", str)):
@@ -223,18 +242,23 @@ def main(argv=None) -> int:
     lines, base = [], None
     with tempfile.TemporaryDirectory() as out:
         for world in worlds:
-            if args.batch % world:
-                raise SystemExit(f"--batch {args.batch} must divide by "
+            data = world // args.spatial if world > 1 else 1
+            if world > 1 and world % args.spatial:
+                raise SystemExit(f"--spatial {args.spatial} must divide "
                                  f"world {world}")
+            if args.batch % data:
+                raise SystemExit(f"--batch {args.batch} must divide by "
+                                 f"{data} data indices")
             ranks = _run_world(args, world, out)
             for setting in ("weak", "strong"):
                 if setting not in ranks[0]:
                     continue
                 r0 = ranks[0][setting]
                 sums = {r[setting]["checksum"] for r in ranks}
-                glob = args.batch * (world if setting == "weak" else 1)
+                glob = args.batch * (data if setting == "weak" else 1)
                 line = dict(world=world, setting=setting,
                             backend=ranks[0]["backend"],
+                            mesh=ranks[0]["mesh"],
                             global_batch=glob,
                             ms_per_step=r0["ms_per_step"],
                             pairs_per_s=glob / r0["ms_per_step"] * 1e3,

@@ -33,7 +33,8 @@ compute wrong results on purpose and are only timed.
 - ``upsample_loss_fwd``: the same inputs; the time of ``ul_fwd_kernel``
   + ``ul_reduce_kernel`` (the loss sums, no gradient) and, as a yardstick
   of the card's read rate, of one ``mask.sum()`` (the kernel reads the
-  mask once and writes next to nothing); and the SASS instructions a
+  mask once and writes next to nothing); how many of each variant's sums
+  differ from the parent's in their bits; and the SASS instructions a
   subpixel of the parent's and the change's softmax loop at the chairs
   widths (``_sass_per_subpixel``).
 - ``upsample_loss_bwd``: 12 iterations x B = 8 folded, 46 x 62, fp32 and
@@ -41,7 +42,9 @@ compute wrong results on purpose and are only timed.
   ``ul_bwd_kernel`` + ``ul_dflow_kernel`` and, apart, of
   ``ul_dflow_kernel`` (the gather of dflow from the window-sum scratch),
   and as a yardstick of the card's rate the time of one ``copy_`` of the
-  mask (the kernel reads the mask and writes as many bytes).
+  mask (the kernel reads the mask and writes as many bytes); how many of
+  each variant's dflow and dmask values differ from the parent's in
+  their bits.
 - ``gru_gate_rh_bwd``: (8, 128, 46, 62) in fp32 and bf16, r a channel
   half of a 256-channel tensor and the gradient a channel slice of a
   384-channel one, as in the model.
@@ -54,6 +57,8 @@ compute wrong results on purpose and are only timed.
   ``torch.mul(r, h)`` (rh's 2 reads and 1 write) and
   ``torch.addcmul(h, z, q)`` (blend's 3 and 1); each time beside its
   bound (the bytes over 3.35 TB/s).
+
+``--no-probes`` builds and times the parent and the change alone.
 
 Prints each variant's ``ptxas`` lines for the kernel (registers, stack,
 spills), the card's name and power limit, then one JSON line.
@@ -160,18 +165,6 @@ PROBES = {
         ("regs128", [("  static constexpr int MIN_BLOCKS = es == 4 ? 3 : "
                       "P == 4 && NPC <= 2 ? 4 : 2;",
                       "  static constexpr int MIN_BLOCKS = 4;")]),
-        # the parent kernel without its ground-truth and valid-mask reads
-        ("parent_no_gt", [(
-            "        const float dx = accx * inv - gtb[gi * 2 + 0];\n"
-            "        const float dy = accy * inv - gtb[gi * 2 + 1];\n"
-            "        const float v = vmb[gi];",
-            "        const float dx = accx * inv - 0.5f;\n"
-            "        const float dy = accy * inv + 0.5f;\n"
-            "        const float v = 1.0f;\n        (void)gi;")]),
-        # the parent kernel with 2^x in place of the accurate expf
-        ("parent_ex2", [(
-            "e[k] = expf(v[k] - gmax);",
-            "e[k] = exp2f((v[k] - gmax) * 1.4426950408889634f);")]),
     ],
     "upsample_loss_bwd": [
         # the ground truth and valid mask never copied (the compute reads
@@ -204,24 +197,6 @@ PROBES = {
         ("no_compute", [(
             "    if (act) {\n      float gq[2 * CQ], vq[CQ];",
             "    if (act && ch < 0) {\n      float gq[2 * CQ], vq[CQ];")]),
-        # the parent kernel without its ground-truth reads
-        ("parent_no_gt", [(
-            "      const float v = vmb[gi];\n"
-            "      // d|d|/dd is +1 at exactly 0 (jnp.abs's VJP), not sign(0)"
-            " = 0\n"
-            "      const float gx = v * (outx >= gtb[gi * 2 + 0] ? 1.0f : "
-            "-1.0f) * dl1;\n"
-            "      const float gy = v * (outy >= gtb[gi * 2 + 1] ? 1.0f : "
-            "-1.0f) * dl1;",
-            "      const float v = 1.0f;\n      (void)gi;\n"
-            "      const float gx = v * (outx >= 0.5f ? 1.0f : -1.0f) * dl1;\n"
-            "      const float gy = v * (outy >= 0.5f ? 1.0f : -1.0f) * dl1;"
-        )]),
-        # the parent kernel with its subpixel column loop unrolled (the
-        # nine loads of several subpixels in flight)
-        ("parent_unroll_q", [(
-            "\n    for (int q = 0; q < 8; ++q) {",
-            "\n#pragma unroll\n    for (int q = 0; q < 8; ++q) {")]),
     ],
     "gru_gate_rh_bwd": [
         # one vector of each operand in flight per thread
@@ -297,6 +272,8 @@ def _wrapper(csrc: str, module: str):
     spec = importlib.util.spec_from_file_location(f"ab_parent_{module}",
                                                   path)
     mod = importlib.util.module_from_spec(spec)
+    # registered first: a dataclass looks its module up while it is made
+    sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
 
@@ -400,11 +377,21 @@ def _time_forward(libs, first, order, build, mods):
         mask = mask32.to(dtype)
         with torch.no_grad():
             want = mods["change"].upsample_loss_sums_plain(flow, mask, gt, vm)
-            for cur in first:
+            outs = {}
+            for cur in libs:
                 build._loaded[source] = libs[cur]
-                cs._check_sums(f"lookup_ab {cur} upsample_loss_fwd {dt}",
-                               mods[cur].upsample_loss_sums(flow, mask, gt,
-                                                            vm), want)
+                outs[cur] = mods[cur].upsample_loss_sums(flow, mask, gt, vm)
+                if cur in first:
+                    cs._check_sums(f"lookup_ab {cur} upsample_loss_fwd {dt}",
+                                   outs[cur], want)
+            if "parent" in outs:
+                result[f"{dt} values_differing_from_parent"] = {
+                    cur: int((_bits(o) != _bits(outs["parent"])).sum())
+                    for cur, o in outs.items()}
+                print(f"[lookup_ab] upsample_loss_fwd {dt}: sums differing "
+                      f"from the parent's in their bits "
+                      f"{result[f'{dt} values_differing_from_parent']}",
+                      flush=True)
             result[f"{dt} mask.sum"] = [cs._device_ms(mask.sum)
                                         for _ in range(2)]
             print(f"[lookup_ab] upsample_loss_fwd {dt}: mask.sum() "
@@ -542,11 +529,24 @@ def _time_backward(kernel, libs, first, order, use, mods):
             return torch.autograd.grad(outs[cur], leaves, cot,
                                        retain_graph=True)
 
-        for cur in first:
+        grads = {}
+        for cur in libs:
             use(cur)
-            for i, (a, b) in enumerate(zip(run(), want)):
-                cs._check(f"lookup_ab {cur} {kernel} {dt} gradient {i}", a,
-                          b)
+            grads[cur] = run()
+            if cur in first:
+                for i, (a, b) in enumerate(zip(grads[cur], want)):
+                    cs._check(f"lookup_ab {cur} {kernel} {dt} gradient {i}",
+                              a, b)
+        if "parent" in grads:
+            result[f"{dt} values_differing_from_parent"] = {
+                cur: [int((_bits(a) != _bits(b)).sum()) for a, b in
+                      zip(gs, grads["parent"])]
+                for cur, gs in grads.items()}
+            print(f"[lookup_ab] {kernel} {dt}: gradient values differing "
+                  f"from the parent's in their bits (per gradient) "
+                  f"{result[f'{dt} values_differing_from_parent']}",
+                  flush=True)
+        del grads
         if kernel == "upsample_loss_bwd":
             # the card's rate for these bytes: one contiguous copy of the
             # mask (the kernel reads it and writes dmask of its size)
@@ -584,6 +584,8 @@ def main(argv=None) -> int:
                    choices=list(KERNELS))
     p.add_argument("--parent", default=None,
                    help="another checkout's raft_tpu_torch/csrc directory")
+    p.add_argument("--no-probes", action="store_true",
+                   help="the parent and the change alone")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("lookup_ab: CUDA is not available; it needs one NVIDIA GPU",
@@ -599,7 +601,8 @@ def main(argv=None) -> int:
     if parent:
         builds["parent"] = _start_build("parent", parent, source)
     settings = {}   # probe -> the wrapper module's constants it changes
-    for name, replace, *consts in PROBES[args.kernel]:
+    for name, replace, *consts in ([] if args.no_probes
+                                   else PROBES[args.kernel]):
         settings[name] = consts[0] if consts else {}
         if name.startswith("parent_"):
             if parent:
@@ -646,12 +649,11 @@ def main(argv=None) -> int:
         result = _time_gates(libs, first, order, use, mods)
     elif args.kernel == "upsample_loss_fwd":
         result = _time_forward(libs, first, order, build, mods)
-        # parent: ul_fwd_kernel<T>; change: ul_fwd_kernel<T, VB> at the
-        # chairs widths (16 bytes fp32, 8 bytes bf16)
-        for name, kern in (("parent", ("_Z13ul_fwd_kernelIfE",
-                                       "_Z13ul_fwd_kernelI13__nv_bfloat16E")),
-                           ("change", ("_Z13ul_fwd_kernelIfLi16E",
-                                       "_Z13ul_fwd_kernelI13__nv_bfloat16Li8E"))):
+        # ul_fwd_kernel<T, VB> at the chairs widths (16 bytes fp32, 8
+        # bytes bf16)
+        kern = ("_Z13ul_fwd_kernelIfLi16E",
+                "_Z13ul_fwd_kernelI13__nv_bfloat16Li8E")
+        for name in ("parent", "change"):
             if name in libs:
                 result[f"{name} SASS"] = {
                     dt: _sass_per_subpixel(libs[name]._name, k)

@@ -35,10 +35,21 @@ describes (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
         --name raft-chairs --stage chairs --batch_size 8 ...
 
 ``--batch_size`` is the global batch, rounded up to a multiple of the
-world size with the learning rate scaled alike (the JAX CLI's rule);
-``--batch_per_chip`` is a rank's.  Each rank reads its own stride of the
-shuffle; rank 0 writes the checkpoints, validates and logs; SIGTERM on
-any rank stops every rank after the same step.
+data-parallel size with the learning rate scaled alike (the JAX CLI's
+rule); ``--batch_per_chip`` is a data index's.  Each data index reads its
+own stride of the shuffle; rank 0 writes the checkpoints, validates and
+logs; SIGTERM on any rank stops every rank after the same step.
+
+``--shard_spatial N`` (with ``--distributed``) also splits each image's
+rows over N ranks: the world forms ``world / N`` data indices of N ranks
+(rank ``d * N + s`` holds rows ``[s*H/N, (s+1)*H/N)`` of data index
+``d``'s samples), for frames whose activations do not fit one card.  The
+JAX CLI's two refusals stand: N must divide the world size, and the
+image height must be a multiple of ``8 * N`` (1/8-resolution rows split
+evenly)::
+
+    torchrun --nproc_per_node 4 -m raft_tpu_torch train --distributed \
+        --shard_spatial 2 --name raft-things --stage things ...
 
 A JAX flag that the port cannot honour yet raises ``SystemExit`` naming
 its ROADMAP item whenever it is set away from its default; never a silent
@@ -60,7 +71,6 @@ from raft_tpu_torch.config import (QUANTIZED_CORR_DTYPES,
 
 # flag -> (the JAX default, the ROADMAP item that ports what it does)
 UNPORTED = {
-    "shard_spatial": (1, "A6 (spatial sharding)"),
     "profile_dir": (None, "A8 (observability)"),
     "telemetry_dir": (None, "A8 (observability)"),
     "trace_sample_rate": (None, "A8 (observability)"),
@@ -174,7 +184,10 @@ def parse_args(argv=None):
                    type=float, default=None, metavar="RATE")
     p.add_argument("--profile_steps", "--profile-steps", default=None,
                    metavar="A:B")
-    p.add_argument("--shard_spatial", type=int, default=1, metavar="N")
+    p.add_argument("--shard_spatial", type=int, default=1, metavar="N",
+                   help="split each image's rows over N ranks in addition "
+                        "to data parallelism (needs --distributed; the "
+                        "world size must be divisible by N)")
     p.add_argument("--distributed", action="store_true",
                    help="data parallel over the ranks torchrun starts "
                         "(rank, world size and rendezvous from the "
@@ -206,6 +219,29 @@ def check_unported(args) -> None:
             raise SystemExit(
                 f"--{flag} {value!r}: not in the PyTorch port yet "
                 f"(ROADMAP {item}); leave it at its default {default!r}")
+
+
+def check_spatial(args, world) -> None:
+    """The JAX CLI's refusals of ``--shard_spatial`` (``raft_tpu/cli/
+    train.py:357-365``), and the port's own: it needs ``--distributed``.
+    ``world``: the world size (None when the environment does not name
+    it: joining the group then fails with its own message)."""
+    n = args.shard_spatial
+    if n == 1:
+        return
+    if n < 1:
+        raise SystemExit(f"--shard_spatial must be >= 1, got {n}")
+    if not args.distributed:
+        raise SystemExit(f"--shard_spatial {n} needs --distributed: the "
+                         "rows of an image are split over the ranks of a "
+                         "process group")
+    if world is not None and int(world) % n:
+        raise SystemExit(f"--shard_spatial {n} must divide the "
+                         f"{world}-rank world")
+    if args.image_size[0] % (8 * n):
+        raise SystemExit(
+            f"--shard_spatial {n} needs image height {args.image_size[0]} "
+            f"divisible by {8 * n} (1/8-res rows split evenly)")
 
 
 def remat_kwargs(args, say=print) -> dict:
@@ -248,10 +284,12 @@ def run(argv=None):
     check_unported(args)
     from raft_tpu_torch.parallel import mesh as mesh_mod
 
+    check_spatial(args, os.environ.get("WORLD_SIZE"))
     mesh = None
     if args.distributed:
         try:
-            mesh = mesh_mod.init_from_env(args.device)
+            mesh = mesh_mod.init_from_env(args.device,
+                                          spatial=args.shard_spatial)
         except RuntimeError as e:
             raise SystemExit(f"--distributed: {e}")
     try:
@@ -281,8 +319,11 @@ def _run(args, mesh):
 
     device = mesh.device if mesh is not None else \
         evaluate.resolve_device(args.device)
-    world = 1 if mesh is None else mesh.world
     rank = 0 if mesh is None else mesh.rank
+    # the data-parallel size and this rank's data index: the batch rule
+    # and the loader's stride are per data index
+    data = 1 if mesh is None else mesh.data_size
+    data_index = 0 if mesh is None else mesh.data_index
     compute_dtype = "bfloat16" if args.precision == "bf16" else "float32"
     corr_impl = args.corr_impl
     if corr_impl == "auto":
@@ -305,22 +346,22 @@ def _run(args, mesh):
                              ("corr_radius", args.corr_radius))
            if v is not None})
     batch_size, lr = resolve_batch(args.batch_size, args.batch_per_chip,
-                                   world, args.lr)
+                                   data, args.lr)
     if (batch_size, lr) != (args.batch_size, args.lr) and rank == 0:
-        print(f"batch {args.batch_size} -> {batch_size} over {world} "
-              f"rank(s)" + (f", lr {args.lr:g} -> {lr:g} (linear "
-                            f"scaling)" if lr != args.lr else ""),
+        print(f"batch {args.batch_size} -> {batch_size} over {data} "
+              f"data index(es)" + (f", lr {args.lr:g} -> {lr:g} (linear "
+                                   f"scaling)" if lr != args.lr else ""),
               flush=True)
     if args.accum_steps < 1:
         raise SystemExit(f"--accum_steps must be >= 1, got "
                          f"{args.accum_steps}")
-    per_rank_batch = batch_size // world
+    per_rank_batch = batch_size // data
     if per_rank_batch % args.accum_steps:
         raise SystemExit(
             f"--accum_steps {args.accum_steps} must divide the per-rank "
             f"batch size {per_rank_batch} (global {batch_size} over "
-            f"{world} rank(s)) evenly — pick a batch size that is a "
-            f"multiple of accum_steps * ranks")
+            f"{data} data index(es)) evenly — pick a batch size that is a "
+            f"multiple of accum_steps * data indices")
     if args.prefetch_batches < 0 or args.device_prefetch < 0:
         raise SystemExit("--prefetch_batches / --device_prefetch must "
                          "be >= 0")
@@ -347,7 +388,7 @@ def _run(args, mesh):
                             split_file=args.chairs_split)
     num_workers = args.num_workers or min(16, len(os.sched_getaffinity(0)))
     loader = ShardedLoader(dataset, per_rank_batch, seed=args.seed,
-                           num_hosts=world, host_id=rank,
+                           num_hosts=data, host_id=data_index,
                            num_workers=num_workers,
                            prefetch_batches=args.prefetch_batches)
 

@@ -1,7 +1,8 @@
 """Checkpoint verifier (the port of ``raft_tpu/cli/verify_ckpt.py``): the
 checks that ``restore_latest``'s fallback applies at resume, run offline
 on every saved step, so an operator can see whether a run will resume and
-from which step, and on how many ranks each step was saved::
+from which step, and on how many ranks (the data x spatial mesh) each
+step was saved::
 
     python -m raft_tpu_torch verify-ckpt checkpoints/raft-chairs
     python -m raft_tpu_torch verify-ckpt checkpoints/raft-chairs --json
@@ -69,6 +70,10 @@ def main(argv=None) -> int:
                 status += (f"  [saved on {topo.get('device_count')} x "
                            f"{topo.get('device')}, world "
                            f"{topo.get('world_size', 1)}]")
+                mesh = topo.get("mesh")
+                if mesh:
+                    status += (f" mesh data {mesh.get('data')} x spatial "
+                               f"{mesh.get('spatial')}")
             print(f"step {r['step']}: {status}")
         if latest_valid is not None:
             print(f"resume would restore step {latest_valid}")

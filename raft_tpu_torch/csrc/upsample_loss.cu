@@ -20,6 +20,17 @@
 // and dflow; the ground truth and valid mask are data.  All arithmetic is
 // fp32, whatever the mask's dtype.
 //
+// Row halo.  A shard of the image's rows (spatial sharding of the train
+// step) upsamples its rows from the flow of its own rows and one row of
+// each neighbouring shard: with `halo` = 1 the flow is (H + 2, W, 2) a
+// sample, row 0 and row H + 1 those neighbours' rows (zeros at the
+// image's edge), and the 3x3 windows read them where they read zeros at
+// halo = 0; the backward writes dflow for all H + 2 rows.  The mask,
+// the ground truth and the valid mask hold the shard's own rows.  At
+// halo = 0 the kernels compute what they computed before the halo
+// existed, bit for bit: the halo moves only the flow's addresses and
+// the bounds of its window reads.
+//
 // What bounds it on an H100.  The mask is the one large input: at the
 // chairs training shape (12 iterations x B = 8 folded, 46 x 62) it is
 // 630 MB fp32 (315 MB bf16) read by the forward, and read plus written
@@ -163,14 +174,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(v);
 }
 
-// The 3x3 window of 8 * flow around (h, w), zero outside the grid.
+// The 3x3 window of 8 * flow around (h, w), zero outside the grid; `fl`
+// points at row 0, and the rows -halo .. H - 1 + halo exist.
 __device__ __forceinline__ void flow_window(const float* __restrict__ fl,
                                             int h, int w, int H, int W,
-                                            float* fx, float* fy) {
+                                            int halo, float* fx, float* fy) {
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     const int hh = h + k / 3 - 1, ww = w + k % 3 - 1;
-    const bool in = hh >= 0 && hh < H && ww >= 0 && ww < W;
+    const bool in = hh >= -halo && hh < H + halo && ww >= 0 && ww < W;
     fx[k] = in ? 8.0f * fl[(hh * W + ww) * 2 + 0] : 0.0f;
     fy[k] = in ? 8.0f * fl[(hh * W + ww) * 2 + 1] : 0.0f;
   }
@@ -367,8 +379,8 @@ template <typename T, int VB>
 __global__ void __launch_bounds__(FWD_THREADS, Fwd<T, VB>::MIN_BLOCKS)
 ul_fwd_kernel(const float* __restrict__ flow, const T* __restrict__ mask,
               const float* __restrict__ gt, const float* __restrict__ vm,
-              int G, int B, int H, int W, int off, int NT, int RR,
-              float* __restrict__ partial) {
+              int G, int B, int H, int W, int halo, int off, int NT,
+              int RR, float* __restrict__ partial) {
   using F = Fwd<T, VB>;
   constexpr int P = F::P, NX = F::NX, NW = F::NW, NV = 3 * (P + 2);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -378,6 +390,8 @@ ul_fwd_kernel(const float* __restrict__ flow, const T* __restrict__ mask,
   unsigned char* stages = smem + (threadIdx.x >> 5) * F::SMEM;
   int* goff = reinterpret_cast<int*>(stages + 2 * F::STAGE);
   const int HW = H * W, W8 = 8 * W, kj = k % NT, kr = k / NT;
+  // the flow's rows: the sample's H, and `halo` above and below it
+  const int FHW = HW + 2 * halo * W, flo = -halo * W, fhi = HW + halo * W;
   const long long items = (long long)B * 16 * G;  // a tile's
   const long long i0 = kr * items / RR, i1 = (kr + 1) * items / RR;
   if (i0 >= i1) return;
@@ -417,7 +431,7 @@ ul_fwd_kernel(const float* __restrict__ flow, const T* __restrict__ mask,
 #pragma unroll
       for (int m = 0; m < P + 2; ++m) {
         const int f = x0 - 1 + m + (r - 1) * W;
-        const bool in = f >= 0 && f < HW && !(m == 0 && c0 == 0) &&
+        const bool in = f >= flo && f < fhi && !(m == 0 && c0 == 0) &&
                         !(m == P + 1 && cl == W - 1);
         vbits |= in ? 1u << (r * (P + 2) + m) : 0u;
       }
@@ -489,7 +503,7 @@ ul_fwd_kernel(const float* __restrict__ flow, const T* __restrict__ mask,
     float vx[NV], vy[NV];
     {
       const float2* fl = reinterpret_cast<const float2*>(flow) +
-                         (long long)n * HW + x0 - 1 - W;
+                         (long long)n * FHW + halo * W + x0 - 1 - W;
 #pragma unroll
       for (int r = 0; r < 3; ++r) {
 #pragma unroll
@@ -593,7 +607,7 @@ template <typename T, int VB>
 static cudaError_t launch_ul_fwd(cudaStream_t st, const float* f,
                                  const void* mask, const float* g,
                                  const float* v, int G, int B, int H, int W,
-                                 int off, int NT, float* part) {
+                                 int halo, int off, int NT, float* part) {
   using F = Fwd<T, VB>;
   auto kernel = ul_fwd_kernel<T, VB>;
   const int smem = FWD_WARPS * F::SMEM;
@@ -619,8 +633,8 @@ static cudaError_t launch_ul_fwd(cudaStream_t st, const float* f,
   RR = RR < 1 ? 1 : (RR > items ? items : RR);
   const long long warps = RR * NT;
   kernel<<<(int)((warps + FWD_WARPS - 1) / FWD_WARPS), FWD_THREADS, smem,
-           st>>>(f, reinterpret_cast<const T*>(mask), g, v, G, B, H, W, off,
-                 NT, (int)RR, part);
+           st>>>(f, reinterpret_cast<const T*>(mask), g, v, G, B, H, W, halo,
+                 off, NT, (int)RR, part);
   return cudaGetLastError();
 }
 
@@ -657,7 +671,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
 ul_bwd_kernel(const float* __restrict__ flow, const T* __restrict__ mask,
               const float* __restrict__ gt, const float* __restrict__ vm,
               const float* __restrict__ gl1, int G, int B, int H, int W,
-              T* __restrict__ dmask, float* __restrict__ scratch) {
+              int halo, T* __restrict__ dmask, float* __restrict__ scratch) {
   constexpr int es = (int)sizeof(T);
   constexpr int BPC = Bpc<T>::value;
   constexpr int RB = BwdStage<T>::RB;
@@ -767,8 +781,8 @@ ul_bwd_kernel(const float* __restrict__ flow, const T* __restrict__ mask,
   const bool act = j < lc;
   float fx[9], fy[9], sx[9], sy[9];
   if (act)
-    flow_window(flow + (long long)n * HW * 2, (pix0 + j) / W, (pix0 + j) % W,
-                H, W, fx, fy);
+    flow_window(flow + ((long long)n * (HW + 2 * halo * W) + halo * W) * 2,
+                (pix0 + j) / W, (pix0 + j) % W, H, W, halo, fx, fy);
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     if (!act) fx[k] = fy[k] = 0.0f;
@@ -857,29 +871,30 @@ static cudaError_t launch_ul_bwd(unsigned blocks, cudaStream_t st,
                                  const float* f, const void* mask,
                                  const float* g, const float* v,
                                  const float* d, int G, int B, int H, int W,
-                                 void* dmask, float* sc) {
+                                 int halo, void* dmask, float* sc) {
   const int smem = NSTAGE * (int)sizeof(BwdStage<T>);
   cudaError_t err = cudaFuncSetAttribute(
       ul_bwd_kernel<T, VB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   ul_bwd_kernel<T, VB><<<blocks, BWD_THREADS, smem, st>>>(
-      f, reinterpret_cast<const T*>(mask), g, v, d, G, B, H, W,
+      f, reinterpret_cast<const T*>(mask), g, v, d, G, B, H, W, halo,
       reinterpret_cast<T*>(dmask), sc);
   return cudaGetLastError();
 }
 
 // dflow[n, h', w'] = 8 * sum over the taps k = (di, dj) of the window
 // sums at (h' - di + 1, w' - dj + 1): the flow at (h', w') is tap k of
-// that pixel's 3x3 window.
+// that pixel's 3x3 window.  The flow's rows are -halo .. H - 1 + halo,
+// the windows' (the scratch's) 0 .. H - 1.
 __global__ void __launch_bounds__(THREADS)
-ul_dflow_kernel(const float* __restrict__ scratch, int H, int W,
+ul_dflow_kernel(const float* __restrict__ scratch, int H, int W, int halo,
                 float* __restrict__ dflow) {
   const int n = blockIdx.y;
-  const int HW = H * W;
+  const int HW = H * W, FHW = HW + 2 * halo * W;
   const int pix = blockIdx.x * THREADS + threadIdx.x;
-  if (pix >= HW) return;
-  const int h = pix / W, w = pix % W;
+  if (pix >= FHW) return;
+  const int h = pix / W - halo, w = pix % W;
   const float* sc = scratch + (long long)n * 18 * HW;
   float ax = 0.0f, ay = 0.0f;
 #pragma unroll
@@ -889,24 +904,25 @@ ul_dflow_kernel(const float* __restrict__ scratch, int H, int W,
     ax += sc[(long long)(2 * k) * HW + hh * W + ww];
     ay += sc[(long long)(2 * k + 1) * HW + hh * W + ww];
   }
-  dflow[((long long)n * HW + pix) * 2 + 0] = 8.0f * ax;
-  dflow[((long long)n * HW + pix) * 2 + 1] = 8.0f * ay;
+  dflow[((long long)n * FHW + pix) * 2 + 0] = 8.0f * ax;
+  dflow[((long long)n * FHW + pix) * 2 + 1] = 8.0f * ay;
 }
 
 // mask_dtype: 0 = float32, 1 = bfloat16.  vec_bytes: the access width of
 // the mask loads (the file's note); it must divide the mask's address and
 // H * W * element size.  `partial` holds `partial_floats` >= gB * NT * 80
 // floats, NT the tiles of a sample (the wrapper's `fwd_plan`); `flow` is
-// 8-byte and `gt` and `vm` are 16-byte aligned.  Returns a
-// cudaError_t (0 = success).
+// (gB, H + 2 halo, W, 2), 8-byte aligned, and `gt` and `vm` are 16-byte
+// aligned; halo is 0 or 1.  Returns a cudaError_t (0 = success).
 extern "C" int upsample_loss_fwd(int device, int mask_dtype, int vec_bytes,
                                  const void* flow, const void* mask,
                                  const void* gt, const void* vm, int gB,
-                                 int B, int H, int W, void* partial,
+                                 int B, int H, int W, int halo, void* partial,
                                  long long partial_floats, void* sums,
                                  void* stream) {
   if (gB < 1 || B < 1 || gB % B || H < 1 || W < 1 || mask_dtype < 0 ||
-      mask_dtype > 1 || (long long)H * W >= (1LL << 24))
+      mask_dtype > 1 || halo < 0 || halo > 1 ||
+      (long long)(H + 2 * halo) * W >= (1LL << 24))
     return (int)cudaErrorInvalidValue;
   const int es = mask_dtype == 0 ? 4 : 2, HW = H * W;
   const unsigned long long mp = reinterpret_cast<unsigned long long>(mask);
@@ -931,7 +947,8 @@ extern "C" int upsample_loss_fwd(int device, int mask_dtype, int vec_bytes,
   const float* v = reinterpret_cast<const float*>(vm);
   float* part = reinterpret_cast<float*>(partial);
 #define UL_FWD(T, VB) \
-  err = launch_ul_fwd<T, VB>(st, f, mask, g, v, G, B, H, W, off, NT, part)
+  err = launch_ul_fwd<T, VB>(st, f, mask, g, v, G, B, H, W, halo, off, NT, \
+                             part)
   if (mask_dtype == 0) {
     if (vec_bytes == 16) UL_FWD(float, 16);
     else if (vec_bytes == 8) UL_FWD(float, 8);
@@ -949,17 +966,18 @@ extern "C" int upsample_loss_fwd(int device, int mask_dtype, int vec_bytes,
   return (int)cudaGetLastError();
 }
 
-// `scratch` holds gB * 18 * H * W floats; dflow is (gB, H, W, 2) fp32.
+// `scratch` holds gB * 18 * H * W floats; flow and dflow are
+// (gB, H + 2 halo, W, 2) fp32, halo 0 or 1.
 // vec_bytes: the access width of the mask copies (the file's note); it
 // must divide both mask addresses and H * W * element size.
 extern "C" int upsample_loss_bwd(int device, int mask_dtype, int vec_bytes,
                                  const void* flow, const void* mask,
                                  const void* gt, const void* vm,
                                  const void* gl1, int gB, int B, int H, int W,
-                                 void* dmask, void* scratch, void* dflow,
-                                 void* stream) {
+                                 int halo, void* dmask, void* scratch,
+                                 void* dflow, void* stream) {
   if (gB < 1 || B < 1 || gB % B || H < 1 || W < 1 || mask_dtype < 0 ||
-      mask_dtype > 1)
+      mask_dtype > 1 || halo < 0 || halo > 1)
     return (int)cudaErrorInvalidValue;
   const long long es = mask_dtype == 0 ? 4 : 2;
   const unsigned long long align =
@@ -986,7 +1004,7 @@ extern "C" int upsample_loss_bwd(int device, int mask_dtype, int vec_bytes,
   float* sc = reinterpret_cast<float*>(scratch);
 #define UL_BWD(T, VB)                                             \
   err = launch_ul_bwd<T, VB>((unsigned)blocks, st, f, mask, g, v, d, G, B, \
-                             H, W, dmask, sc)
+                             H, W, halo, dmask, sc)
   if (mask_dtype == 0) {
     if (vec_bytes == 16) UL_BWD(float, 16);
     else if (vec_bytes == 8) UL_BWD(float, 8);
@@ -999,8 +1017,8 @@ extern "C" int upsample_loss_bwd(int device, int mask_dtype, int vec_bytes,
   }
 #undef UL_BWD
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H * W + THREADS - 1) / THREADS, gB);
-  ul_dflow_kernel<<<grid, THREADS, 0, st>>>(sc, H, W,
+  const dim3 grid(((H + 2 * halo) * W + THREADS - 1) / THREADS, gB);
+  ul_dflow_kernel<<<grid, THREADS, 0, st>>>(sc, H, W, halo,
                                             reinterpret_cast<float*>(dflow));
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,10 @@ Across data-parallel ranks (a mesh active for the train step,
 ``parallel/mesh.py``), train-mode batch norm takes its statistics over
 the global batch and channel dropout draws the global batch's mask and
 keeps the rank's rows, as the JAX package's ``data``-sharded batch does.
+Under a mesh that splits image rows (``spatial > 1``) a convolution reads
+the rows beyond its shard from the neighbouring shards and instance norm
+takes its moments over the whole image, as GSPMD's halo exchanges and
+cross-shard reductions do for the JAX package's ``shard_spatial``.
 
 Initialization is explicit: :meth:`Conv.init_` and :meth:`Norm.init_`
 draw from a ``torch.Generator`` on the CPU, so one seed gives the same
@@ -39,6 +43,19 @@ NORM_KINDS = ("batch", "instance", "none")
 class Conv(nn.Module):
     """Conv with torch-style symmetric ``(k-1)//2`` padding per axis
     (including the ``(1, 5)`` / ``(5, 1)`` GRU kernels).
+
+    Under a mesh that splits rows (``mesh.active_spatial``), a kernel
+    taller than one row takes ``(kh - 1) // 2`` rows from each
+    neighbouring shard (``mesh.halo_rows``: zeros beyond the image's
+    edge) and convolves with no vertical padding, which gives the rows
+    of the whole image's convolution that the shard owns.  A stride-2
+    conv stays aligned because a shard's full-resolution height is a
+    multiple of 8 (the train CLI's check), so every shard starts on an
+    even row of every level it strides from.  Its bottom halo may carry
+    one row that it never reads: output row j of a shard of h rows reads
+    halo'd rows 2j .. 2j + kh - 1, at most h + kh - 3 for j = h/2 - 1,
+    so the last of the h + kh - 1 halo'd rows is not read; exchanging it
+    keeps one rule for every conv.
 
     ``init='kaiming_out'`` is the encoders' kaiming-normal fan-out init;
     ``'torch_default'`` is torch's default Conv2d init.  Biases are
@@ -70,8 +87,13 @@ class Conv(nn.Module):
             self.bias.copy_(b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        padding = self.padding
+        mesh = mesh_mod.active_spatial()
+        if mesh is not None and padding[0]:
+            x = mesh_mod.halo_rows(x, padding[0], padding[0], mesh)
+            padding = (0, padding[1])
         return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        self.stride, self.padding)
+                        self.stride, padding)
 
 
 class Norm(nn.Module):
@@ -89,6 +111,9 @@ class Norm(nn.Module):
       gradients through both reductions, so the running statistics stay
       the same on every rank;
     - 'instance': per-sample, per-channel spatial norm, no affine;
+      under a mesh that splits rows the moments are the whole image's,
+      two passes through the spatial group's all-reduce (with its
+      gradient), as for batch norm;
     - 'none': identity.
 
     Statistics and normalization are fp32; the result has the input's
@@ -121,7 +146,14 @@ class Norm(nn.Module):
         if self.kind == "none":
             return x
         if self.kind == "instance":
-            y = F.instance_norm(x.float(), eps=1e-5)
+            mesh = mesh_mod.active_spatial()
+            if mesh is None:
+                y = F.instance_norm(x.float(), eps=1e-5)
+            else:
+                xf = x.float()
+                mean, var = _spatial_moments(xf, mesh)
+                y = (xf - mean[..., None, None]) * torch.rsqrt(
+                    var + 1e-5)[..., None, None]
         elif self.training and not freeze_bn:
             xf = x.float()
             mesh = mesh_mod.active()
@@ -145,11 +177,25 @@ class Norm(nn.Module):
 def _global_moments(xf: torch.Tensor, mesh) -> Tuple[torch.Tensor,
                                                       torch.Tensor]:
     """Per-channel mean and biased variance of ``xf`` ``(B, C, H, W)``
-    over the batches of every rank of ``mesh`` (equal shapes)."""
+    over the batches of every rank of ``mesh`` (equal shapes: under a
+    mesh that splits rows each rank holds an equal share of the rows of
+    its samples, so ``n`` is the global batch's count too)."""
     n = xf.shape[0] * xf.shape[2] * xf.shape[3] * mesh.world
     mean = mesh_mod.all_reduce_sum(xf.sum(dim=(0, 2, 3)), mesh) / n
     d = xf - mean[:, None, None]
     var = mesh_mod.all_reduce_sum((d * d).sum(dim=(0, 2, 3)), mesh) / n
+    return mean, var
+
+
+def _spatial_moments(xf: torch.Tensor, mesh) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """Per-sample, per-channel mean and biased variance ``(B, C)`` of
+    ``xf`` ``(B, C, h, W)`` over the whole image whose rows the spatial
+    group of ``mesh`` splits (equal shards)."""
+    n = xf.shape[2] * xf.shape[3] * mesh.spatial
+    mean = mesh_mod.all_reduce_sum(xf.sum(dim=(2, 3)), mesh, True) / n
+    d = xf - mean[..., None, None]
+    var = mesh_mod.all_reduce_sum((d * d).sum(dim=(2, 3)), mesh, True) / n
     return mean, var
 
 
@@ -159,20 +205,21 @@ def channel_dropout(x: torch.Tensor, rate: float,
     ``broadcast_dims=(1, 2)`` on NHWC): each (sample, channel) is kept with
     probability ``1 - rate`` and scaled by ``1 / (1 - rate)``.  The draw
     comes from ``generator``, which must live on ``x``'s device.  Under an
-    active mesh the mask is drawn for the global batch (``B * world``
-    rows) and the rank keeps its rows, ``rank::world`` (the global row
-    order of ``parallel/mesh.py``), so a split run drops what the
-    straight run over the same samples drops."""
+    active mesh the mask is drawn for the global batch (``B * D`` rows,
+    D data indices) and the rank keeps the rows of its data index ``d``,
+    ``d::D`` (the global row order of ``parallel/mesh.py``), so a split
+    run drops what the straight run over the same samples drops, and
+    the spatial ranks of a sample share its mask."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     mesh = mesh_mod.active()
-    world = 1 if mesh is None else mesh.world
-    keep = torch.rand((x.shape[0] * world, x.shape[1], 1, 1),
+    D = 1 if mesh is None else mesh.data_size
+    keep = torch.rand((x.shape[0] * D, x.shape[1], 1, 1),
                       generator=generator, device=x.device) < 1.0 - rate
     if mesh is not None:
-        keep = keep[mesh.rank::world]
+        keep = keep[mesh.data_index::D]
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 

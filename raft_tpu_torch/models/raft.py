@@ -48,6 +48,18 @@ refinement step in ``torch.utils.checkpoint`` (non-reentrant):
 (+ loss) over the folded iterations: backward keeps the stacked GRU
 states and recomputes the two mask convs and the upsample's forward.
 
+Spatial sharding (a mesh that splits rows active for the train step,
+``parallel/mesh.py``): each rank holds rows ``[s*H/N, (s+1)*H/N)`` of
+its samples.  The convolutions and instance norm read across shards
+(``models/layers.py``); :meth:`RAFT.corr_state` gathers ``fmap2``'s rows
+over the spatial group, so the shard's queries (local) look up the whole
+image's targets with the same kernels; the coordinate grid holds the
+image's own rows; the upsample + loss reads one row of flow from each
+neighbouring shard (a row halo of the flow, ``halo=1``); the small
+model's ``upflow8`` interpolates the shard's rows from the gathered
+flow.  The result is the unsharded model's on the same samples, each
+rank holding its rows' terms.
+
 Images are NHWC float in [0, 255]; flows are ``(B, H, W, 2)``, ``(x, y)``
 last.  Parameter names follow the flax paths (``fnet.layer1_0.conv1.
 weight``, ``refine.update_block.gru.convzr1.weight``, ``upsampler.
@@ -78,16 +90,27 @@ from raft_tpu_torch.ops.sampler import coords_grid, upflow8
 from raft_tpu_torch.ops.upsample import convex_upsample_nchw
 from raft_tpu_torch.ops.upsample_loss import (upsample_loss_sums,
                                               upsample_loss_sums_plain)
+from raft_tpu_torch.parallel import mesh as mesh_mod
 from raft_tpu_torch.train.loss import combined_valid, sequence_terms
 
 
 def _checkpoint(fn, *args, context_fn=None):
     """``fn(*args)`` under non-reentrant ``torch.utils.checkpoint``: its
     tensor arguments are kept, everything else it saves is recomputed in
-    backward (no random op runs inside, so no RNG state is kept)."""
+    backward (no random op runs inside, so no RNG state is kept).  The
+    recompute runs under the caller's mesh: autograd runs a CUDA
+    backward on a thread of its own, where no mesh is active, and there
+    the convolutions would pad the shard's edges with zeros."""
+    mesh = mesh_mod.active()
+
+    def under_mesh(*a):
+        with mesh_mod.use(mesh):
+            return fn(*a)
+
     kw = {} if context_fn is None else {"context_fn": context_fn}
     return torch.utils.checkpoint.checkpoint(
-        fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+        under_mesh, *args, use_reentrant=False, preserve_rng_state=False,
+        **kw)
 
 
 def _dots_context():
@@ -153,9 +176,15 @@ class RAFT(nn.Module):
           levels.
 
         Every tensor has the batch first, so a serving slot keeps one
-        lane's state in row ``i`` of each."""
+        lane's state in row ``i`` of each.  Under a mesh that splits rows
+        ``fmap1`` holds the shard's queries and ``fmap2``'s rows are
+        gathered over the spatial group first: the queries' targets are
+        the whole image's."""
         cfg = self.config
         L = cfg.corr_levels
+        mesh = mesh_mod.active_spatial()
+        if mesh is not None:
+            fmap2 = mesh_mod.all_gather_rows(fmap2, mesh, dim=1)
         if cfg.corr_impl in ("allpairs", "allpairs_pallas"):
             pyramid = build_corr_pyramid(fmap1, fmap2, L,
                                          cfg.corr_torch_dtype,
@@ -240,7 +269,11 @@ class RAFT(nn.Module):
         del fmaps
         net, inp = self._split_context(self.cnet(x1.to(dt), freeze_bn,
                                                  generator))
-        coords0 = coords_grid(B, H8, W8, device=x1.device)
+        # a shard's coordinates are the image's rows, which the lookups
+        # of the whole image's targets need
+        mesh = mesh_mod.active_spatial()
+        row0 = 0 if mesh is None else mesh.spatial_index * H8
+        coords0 = coords_grid(B, H8, W8, device=x1.device, row0=row0)
         coords1 = coords0 if flow_init is None else coords0 + flow_init
         return net, inp, coords0, coords1, corr
 
@@ -318,19 +351,25 @@ class RAFT(nn.Module):
         flows = torch.stack(flows, dim=0).reshape(iters * B, H8, W8, 2)
         nets = torch.cat(nets, dim=0)
         remat_up = cfg.remat_upsample and torch.is_grad_enabled()
+        # a shard's upsample reads a row of flow beyond each of its edges
+        mesh = mesh_mod.active_spatial()
+        halo = 0 if mesh is None else 1
+        if halo:
+            flows = mesh_mod.halo_rows(flows, 1, 1, mesh, dim=1)
         if loss_targets is not None:
             flow_gt, valid, max_flow = loss_targets
             vmask = combined_valid(flow_gt, valid, max_flow)
             gt = flow_gt.float().contiguous()
-            sums = (_checkpoint(self._upsample_loss_sums, nets, flows, gt,
-                                vmask) if remat_up
-                    else self._upsample_loss_sums(nets, flows, gt, vmask))
+            loss_sums = functools.partial(self._upsample_loss_sums,
+                                          halo=halo)
+            sums = (_checkpoint(loss_sums, nets, flows, gt, vmask)
+                    if remat_up else loss_sums(nets, flows, gt, vmask))
             return self._loss_outputs(sums, gt, vmask, iters, B)
 
         def upsample(nets, flows):
             mask = mask_head(nets)
             return convex_upsample_nchw(flows.permute(0, 3, 1, 2),
-                                        mask.float())
+                                        mask.float(), halo)
 
         up = (_checkpoint(upsample, nets, flows) if remat_up
               else upsample(nets, flows))
@@ -369,14 +408,15 @@ class RAFT(nn.Module):
                 else None)
         return net, coords1 + delta.float().permute(0, 2, 3, 1)
 
-    def _upsample_loss_sums(self, nets, flows, gt, vmask):
+    def _upsample_loss_sums(self, nets, flows, gt, vmask, halo=0):
         """Mask head on the folded GRU states, then the flat upsample +
-        loss sums ``(iters * B, 5)``."""
+        loss sums ``(iters * B, 5)``; ``halo``: the flow's extra rows."""
         cfg = self.config
         mask = self.upsampler["mask_head"](nets).contiguous()
         if cfg.upsample_loss_kernel == "pallas":
-            return upsample_loss_sums(flows, mask, gt, vmask)
-        return upsample_loss_sums_plain(flows, mask, gt, vmask, cfg.dtype)
+            return upsample_loss_sums(flows, mask, gt, vmask, halo)
+        return upsample_loss_sums_plain(flows, mask, gt, vmask, cfg.dtype,
+                                        halo)
 
     def _small_outputs(self, flows, flow_low, loss_targets):
         """Small-model upsampling of every iteration's flow (``upflow8``),
@@ -384,8 +424,13 @@ class RAFT(nn.Module):
         (``raft_tpu/models/raft.py:548-576``)."""
         iters = len(flows)
         B, H8, W8, _ = flow_low.shape
-        up = upflow8(torch.cat(flows, dim=0)).reshape(
-            iters, B, 8 * H8, 8 * W8, 2)
+        flows, rows = torch.cat(flows, dim=0), None
+        mesh = mesh_mod.active_spatial()
+        if mesh is not None:    # the shard's rows of the image's upflow8
+            flows = mesh_mod.all_gather_rows(flows, mesh, dim=1)
+            rows = (8 * H8 * mesh.spatial_index,
+                    8 * H8 * (mesh.spatial_index + 1))
+        up = upflow8(flows, rows).reshape(iters, B, 8 * H8, 8 * W8, 2)
         if loss_targets is None:
             return up
         flow_gt, valid, max_flow = loss_targets

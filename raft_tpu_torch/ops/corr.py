@@ -64,6 +64,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
+from raft_tpu_torch.parallel import mesh as mesh_mod
 
 CORR_PRECISIONS = ("auto", "default", "high", "highest")
 
@@ -124,12 +125,15 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
 
 def all_pairs_correlation(fmap1: torch.Tensor, fmap2: torch.Tensor,
                           precision: str = "highest") -> torch.Tensor:
-    """``(B, H, W, C) x (B, H, W, C) -> (B, H1*W1, H2, W2)`` fp32 volume."""
-    B, H, W, C = fmap1.shape
-    f1 = fmap1.reshape(B, H * W, C).float()
-    f2 = fmap2.reshape(B, H * W, C).float()
+    """``(B, H1, W1, C) x (B, H2, W2, C) -> (B, H1*W1, H2, W2)`` fp32
+    volume.  The two grids may differ: a shard of the image's rows
+    correlates its queries against the whole ``fmap2``."""
+    B, H1, W1, C = fmap1.shape
+    _, H2, W2, _ = fmap2.shape
+    f1 = fmap1.reshape(B, H1 * W1, C).float()
+    f2 = fmap2.reshape(B, H2 * W2, C).float()
     corr = matmul(f1, f2.transpose(1, 2), precision) * (1.0 / math.sqrt(C))
-    return corr.reshape(B, H * W, H, W)
+    return corr.reshape(B, H1 * W1, H2, W2)
 
 
 def _avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -178,7 +182,9 @@ def quantize_corr_level(corr: torch.Tensor,
     magnitude per batch element, ``scale = max(amax, 1e-12) / qmax``,
     ``q = corr / scale``, rounded half to even for int8 only (the fp8
     casts round themselves), clipped to +-qmax and cast.  An empty level
-    gives zeros with scale 1."""
+    gives zeros with scale 1.  Under a mesh that splits the queries' rows
+    the largest magnitude is the spatial group's, so every shard stores
+    the whole volume's codes."""
     dtype, qmax = spec
     c = corr.detach().float()
     if c.numel() == 0:
@@ -187,6 +193,9 @@ def quantize_corr_level(corr: torch.Tensor,
                               torch.ones(c.shape[0], 1, 1, 1,
                                          device=c.device))
     amax = c.abs().amax(dim=(1, 2, 3), keepdim=True)
+    mesh = mesh_mod.active_spatial()
+    if mesh is not None:    # the whole image's queries share one scale
+        mesh_mod.spatial_max_(amax, mesh)
     scale = torch.clamp(amax, min=1e-12) / qmax
     q = c / scale
     if not dtype.is_floating_point:

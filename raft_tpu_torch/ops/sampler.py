@@ -7,10 +7,13 @@ from __future__ import annotations
 import torch
 
 
-def coords_grid(batch: int, ht: int, wd: int, device=None) -> torch.Tensor:
-    """Pixel-coordinate grid ``(B, H, W, 2)`` fp32, last axis ``(x, y)``."""
+def coords_grid(batch: int, ht: int, wd: int, device=None,
+                row0: int = 0) -> torch.Tensor:
+    """Pixel-coordinate grid ``(B, H, W, 2)`` fp32, last axis ``(x, y)``;
+    its rows are ``row0 .. row0 + H - 1`` (a shard of a taller image's
+    rows keeps the image's own coordinates)."""
     y, x = torch.meshgrid(
-        torch.arange(ht, dtype=torch.float32, device=device),
+        torch.arange(row0, row0 + ht, dtype=torch.float32, device=device),
         torch.arange(wd, dtype=torch.float32, device=device), indexing="ij")
     grid = torch.stack([x, y], dim=-1)
     return grid[None].expand(batch, ht, wd, 2).contiguous()
@@ -119,19 +122,25 @@ def _interp_matrix(src: int, dst: int, device) -> torch.Tensor:
     return m.scatter_add_(1, lo[:, None] + 1, frac[:, None])
 
 
-def resize_bilinear_align_corners(x: torch.Tensor, new_hw) -> torch.Tensor:
+def resize_bilinear_align_corners(x: torch.Tensor, new_hw,
+                                  rows=None) -> torch.Tensor:
     """``align_corners=True`` bilinear resize of ``(B, H, W, C)``: two
     dense products with the separable interpolation matrices, in the
-    order of the JAX package (rows, then columns)."""
+    order of the JAX package (rows, then columns).  ``rows``: ``(start,
+    stop)``, only those rows of the result."""
     _, H, W, _ = x.shape
     nh, nw = new_hw
     mh = _interp_matrix(H, nh, x.device).to(x.dtype)
+    if rows is not None:
+        mh = mh[rows[0]:rows[1]]
     mw = _interp_matrix(W, nw, x.device).to(x.dtype)
     out = torch.einsum("ih,bhwc->biwc", mh, x)
     return torch.einsum("jw,biwc->bijc", mw, out)
 
 
-def upflow8(flow: torch.Tensor) -> torch.Tensor:
-    """8x upsample a flow field ``(B, H, W, 2)`` and scale it by 8."""
+def upflow8(flow: torch.Tensor, rows=None) -> torch.Tensor:
+    """8x upsample a flow field ``(B, H, W, 2)`` and scale it by 8;
+    ``rows``: only the rows ``(start, stop)`` of the result (a shard's,
+    from the whole image's flow)."""
     _, H, W, _ = flow.shape
-    return 8.0 * resize_bilinear_align_corners(flow, (8 * H, 8 * W))
+    return 8.0 * resize_bilinear_align_corners(flow, (8 * H, 8 * W), rows)

@@ -19,14 +19,17 @@ import torch
 import torch.nn.functional as F
 
 
-def convex_upsample_nchw(flow: torch.Tensor,
-                         mask: torch.Tensor) -> torch.Tensor:
+def convex_upsample_nchw(flow: torch.Tensor, mask: torch.Tensor,
+                         halo: int = 0) -> torch.Tensor:
     """``(B, 2, H, W)`` flow, ``(B, 576, H, W)`` mask -> ``(B, 2, 8H, 8W)``:
-    the model's internal layout."""
-    B, _, H, W = flow.shape
+    the model's internal layout.  ``halo=1``: ``flow`` carries ``H + 2``
+    rows, a row of the shards above and below (``parallel.halo_rows``)
+    in place of the zero padding."""
+    B, _, H, W = mask.shape
     f = 8
     m = torch.softmax(mask.view(B, 1, 9, f, f, H, W), dim=2)
-    patches = F.unfold(f * flow, [3, 3], padding=1).view(B, 2, 9, 1, 1, H, W)
+    patches = F.unfold(f * flow, [3, 3], padding=(1 - halo, 1)).view(
+        B, 2, 9, 1, 1, H, W)
     up = torch.sum(m * patches, dim=2)                 # (B, 2, f, f, H, W)
     return up.permute(0, 1, 4, 2, 5, 3).reshape(B, 2, f * H, f * W)
 
@@ -41,14 +44,15 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def convex_upsample_flat_nchw(flow: torch.Tensor, mask: torch.Tensor,
-                              compute_dtype: torch.dtype = torch.float32
-                              ) -> torch.Tensor:
+                              compute_dtype: torch.dtype = torch.float32,
+                              halo: int = 0) -> torch.Tensor:
     """``(B, 2, H, W)`` flow, ``(B, 576, H, W)`` mask -> ``(B, 128, H, W)``
     upsampled flow in ``(c, p, q)`` channel order, computed in
     ``compute_dtype`` with the JAX package's operation order: per-group
     max subtraction (a per-pixel max would underflow far-below-max
-    groups), nine multiply-adds, one reciprocal."""
-    _, _, H, W = flow.shape
+    groups), nine multiply-adds, one reciprocal.  ``halo=1``: ``flow``
+    carries ``H + 2`` rows, as for :func:`convex_upsample_nchw`."""
+    _, _, H, W = mask.shape
     m = mask.to(compute_dtype)
     taps = [m[:, k * 64:(k + 1) * 64] for k in range(9)]
     gmax = taps[0]
@@ -59,7 +63,7 @@ def convex_upsample_flat_nchw(flow: torch.Tensor, mask: torch.Tensor,
     denom = e[0]
     for t in e[1:]:
         denom = denom + t
-    f8 = F.pad(8 * flow.to(compute_dtype), (1, 1, 1, 1))
+    f8 = F.pad(8 * flow.to(compute_dtype), (1, 1, 1 - halo, 1 - halo))
     outx = outy = 0.0
     for k in range(9):
         di, dj = divmod(k, 3)              # unfold tap order (row-major)

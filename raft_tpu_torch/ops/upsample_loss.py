@@ -10,11 +10,21 @@ recomputing backward).  :class:`UpsampleLossSums` is the
 (gB, 5)`` fp32 sums ``[l1, epe, 1px, 3px, 5px]`` per folded sample, with
 gradients to ``flow`` and ``mask`` from the l1 sum only.
 
+Row halo.  With ``halo=1`` the flow carries ``H + 2`` rows: a row of the
+shards above and below (``parallel.halo_rows``, zeros at the image's
+edge) around the shard's own ``H``, which the convex upsample's 3x3
+neighbourhood reads in place of the zero padding; ``mask``, ``gt`` and
+``vmask`` carry the shard's own ``H`` / ``8H`` rows, and the backward
+gives ``dflow`` for all ``H + 2`` rows (the halo exchange's backward
+returns the two halo rows to their owners).  With ``halo=0`` the
+kernels compute what they computed before the halo existed, bit for
+bit.
+
 The plain version is the chain of the model's ``'xla'`` branch
 (``raft_tpu/models/raft.py:255-289``): :func:`convex_upsample_flat_nchw`,
 the fp32 compare against the space-to-depth ground truth, and the sums.
 
-Layouts: ``flow`` ``(gB, H, W, 2)`` fp32 (the model's coordinates);
+Layouts: ``flow`` ``(gB, H + 2 * halo, W, 2)`` fp32 (the model's coordinates);
 ``mask`` ``(gB, 576, H, W)``, fp32 or bf16, the mask head's NCHW output
 (the JAX layout ``(gB, H, W, 576)`` is its ``permute(0, 2, 3, 1)``);
 ``gt`` ``(B, 8H, 8W, 2)`` and ``vmask`` ``(B, 8H, 8W)`` fp32 at full
@@ -72,16 +82,17 @@ def abs_pos0(x: torch.Tensor) -> torch.Tensor:
 
 def upsample_loss_sums_plain(flow: torch.Tensor, mask: torch.Tensor,
                              gt: torch.Tensor, vmask: torch.Tensor,
-                             compute_dtype: torch.dtype = torch.float32
-                             ) -> torch.Tensor:
+                             compute_dtype: torch.dtype = torch.float32,
+                             halo: int = 0) -> torch.Tensor:
     """Plain version: the upsample chain in ``compute_dtype`` (the kernel
     computes fp32), the compare and the sums in fp32; the four metric
-    sums carry no gradient."""
-    gB, H, W, _ = flow.shape
+    sums carry no gradient.  ``halo``: the flow's extra rows (module
+    docstring)."""
+    gB, _, H, W = mask.shape
     B = gt.shape[0]
     g = gB // B
     out = convex_upsample_flat_nchw(flow.permute(0, 3, 1, 2), mask,
-                                    compute_dtype).float()
+                                    compute_dtype, halo).float()
     out = out.reshape(g, B, 128, H, W)
     gt128 = space_to_depth_flow(gt.float()).permute(0, 3, 1, 2)[None]
     vm = space_to_depth_flow(vmask.float()[..., None]).permute(0, 3, 1,
@@ -162,20 +173,23 @@ def _fn(symbol: str):
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         if symbol == "upsample_loss_fwd":
-            fn.argtypes = [ci, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp,
-                           ctypes.c_longlong, vp, vp]
+            fn.argtypes = [ci, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                           vp, ctypes.c_longlong, vp, vp]
         else:
             fn.argtypes = [ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                           vp, vp, vp, vp]
+                           ci, vp, vp, vp, vp]
         fn.restype = ci
     return fn
 
 
-def _check(name, flow, mask, gt, vmask):
+def _check(name, flow, mask, gt, vmask, halo):
     build.check_device(name, flow, mask, gt, vmask)
-    gB, H, W, _ = flow.shape
+    if halo not in (0, 1):
+        raise ValueError(f"{name}: halo {halo}, the kernels take 0 or 1")
+    gB, _, H, W = mask.shape
     B = gt.shape[0]
-    want = {"flow": (flow, (gB, H, W, 2)), "mask": (mask, (gB, 576, H, W)),
+    want = {"flow": (flow, (gB, H + 2 * halo, W, 2)),
+            "mask": (mask, (gB, 576, H, W)),
             "gt": (gt, (B, 8 * H, 8 * W, 2)), "vmask": (vmask,
                                                         (B, 8 * H, 8 * W))}
     for key, (t, shape) in want.items():
@@ -197,12 +211,12 @@ def _check(name, flow, mask, gt, vmask):
 
 
 class UpsampleLossSums(torch.autograd.Function):
-    """``(flow, mask, gt, vmask) -> (gB, 5)`` sums on the card."""
+    """``(flow, mask, gt, vmask, halo) -> (gB, 5)`` sums on the card."""
 
     @staticmethod
-    def forward(ctx, flow, mask, gt, vmask):
+    def forward(ctx, flow, mask, gt, vmask, halo=0):
         name = "upsample_loss"
-        gB, B, H, W = _check(name, flow, mask, gt, vmask)
+        gB, B, H, W = _check(name, flow, mask, gt, vmask, halo)
         plan = fwd_plan(mask.data_ptr(), H * W, mask.element_size())
         dev = flow.device
         partial = torch.empty(gB * plan.partial, dtype=torch.float32,
@@ -212,20 +226,21 @@ class UpsampleLossSums(torch.autograd.Function):
         rc = _fn("upsample_loss_fwd")(
             dev.index or 0, _DTYPE_CODES[mask.dtype], plan.vec_bytes,
             f16.data_ptr(), mask.data_ptr(), g16.data_ptr(),
-            v16.data_ptr(), gB, B, H, W, partial.data_ptr(), partial.numel(),
-            sums.data_ptr(), build.stream_handle(flow))
+            v16.data_ptr(), gB, B, H, W, halo, partial.data_ptr(),
+            partial.numel(), sums.data_ptr(), build.stream_handle(flow))
         build.check_status(name, rc)
         LAUNCHES["upsample_loss_fwd"] += 1
         ctx.save_for_backward(flow, mask, gt, vmask)
+        ctx.halo = halo
         return sums
 
     @staticmethod
     def backward(ctx, g):
         flow, mask, gt, vmask = ctx.saved_tensors
         if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
-            return None, None, None, None
+            return None, None, None, None, None
         name = "upsample_loss_bwd"
-        gB, H, W, _ = flow.shape
+        gB, _, H, W = mask.shape
         B = gt.shape[0]
         dev = flow.device
         gl1 = g[:, 0].float().contiguous()
@@ -239,19 +254,21 @@ class UpsampleLossSums(torch.autograd.Function):
         rc = _fn("upsample_loss_bwd")(
             dev.index or 0, _DTYPE_CODES[mask.dtype], vb, flow.data_ptr(),
             mask.data_ptr(), gt.data_ptr(), vmask.data_ptr(),
-            gl1.data_ptr(), gB, B, H, W, dmask.data_ptr(),
+            gl1.data_ptr(), gB, B, H, W, ctx.halo, dmask.data_ptr(),
             scratch.data_ptr(), dflow.data_ptr(), build.stream_handle(flow))
         build.check_status(name, rc)
         LAUNCHES["upsample_loss_bwd"] += 1
         return (dflow if ctx.needs_input_grad[0] else None,
-                dmask if ctx.needs_input_grad[1] else None, None, None)
+                dmask if ctx.needs_input_grad[1] else None, None, None, None)
 
 
 def upsample_loss_sums(flow: torch.Tensor, mask: torch.Tensor,
-                       gt: torch.Tensor, vmask: torch.Tensor) -> torch.Tensor:
+                       gt: torch.Tensor, vmask: torch.Tensor,
+                       halo: int = 0) -> torch.Tensor:
     """Fused flat convex upsample + masked L1/EPE sums (layouts in the
     module docstring): ``(gB, 5)`` fp32 ``[l1, epe, 1px, 3px, 5px]``;
-    sum over the B samples of an iteration for its totals."""
+    sum over the B samples of an iteration for its totals.  ``halo``:
+    the flow's extra rows above and below (module docstring)."""
     if flow.device.type == "cpu":
-        return upsample_loss_sums_plain(flow, mask, gt, vmask)
-    return UpsampleLossSums.apply(flow, mask, gt, vmask)
+        return upsample_loss_sums_plain(flow, mask, gt, vmask, halo=halo)
+    return UpsampleLossSums.apply(flow, mask, gt, vmask, halo)

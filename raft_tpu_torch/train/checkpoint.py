@@ -9,15 +9,17 @@ state) and ``manifest.json`` (each file's byte size and SHA-256).  A
 commit writes into ``<dir>/<step>.tmp-<pid>``, fsyncs, and renames it into
 place, so a listed step is a whole one unless something truncated it
 afterwards.  A run-level ``topology.json`` records which device (name and
-count) and which world (``world_size``, ``mesh`` ``{"data": W, "spatial":
-1}``) saved each step.  The newest ``max_to_keep`` steps are kept.
+count) and which world (``world_size``, ``mesh`` ``{"data": D, "spatial":
+N}``, ``world_size = D * N``) saved each step.  The newest
+``max_to_keep`` steps are kept.
 
 Across data-parallel ranks (``mesh``) the state is the same on every
 rank: rank 0 alone writes (the others' saves only record the step), and
 on restore rank 0 picks the step and broadcasts it, so that a torn write
 cannot split the ranks.  A checkpoint saved at one world size restores
-at any other: it holds no per-rank state, and the loader continues the
-same global sample stream from its step (``parallel/mesh.py``).
+at any other, spatially sharded or not: it holds no per-rank state, and
+the loader continues the same global sample stream from its step
+(``parallel/mesh.py``).
 
 :meth:`CheckpointManager.save_async` copies the state to host memory
 (every device tensor into pinned memory, one synchronize) before it
@@ -102,7 +104,9 @@ def snapshot(state: TrainState) -> Dict[str, Any]:
 
 def _current_topology(device: torch.device, mesh=None) -> dict:
     world = 1 if mesh is None else mesh.world
-    topo = {"world_size": world, "mesh": {"data": world, "spatial": 1}}
+    topo = {"world_size": world,
+            "mesh": ({"data": 1, "spatial": 1} if mesh is None
+                     else mesh.mesh_shape())}
     if device.type == "cuda":
         return dict(topo, platform="cuda",
                     device=torch.cuda.get_device_name(device),

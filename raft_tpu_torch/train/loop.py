@@ -16,6 +16,11 @@
   MAX of the flags over the ranks' host group at every step boundary,
   so every rank exits after the same step (the JAX package's agreed
   preemption step on more than one host).
+- Under a mesh that splits rows (``spatial = N > 1``) the N ranks of a
+  data index read the same samples (one ``ShardedLoader`` stride per
+  data index, so the same augmentation too); after the image noise,
+  which is drawn for the whole image, each keeps its rows
+  ``[s*H/N, (s+1)*H/N)`` (:func:`shard_rows`), on the producer thread.
 - Across ranks, rank 0 alone writes checkpoints, runs the validators and
   prints the logger's lines; every rank meets at a barrier after each
   ``val_freq`` step, so the others wait there while it validates.
@@ -79,6 +84,18 @@ def add_image_noise(rng: np.random.Generator, batch: Mapping) -> Dict:
     return out
 
 
+def shard_rows(batch: Mapping, index: int, count: int) -> Dict:
+    """Rows ``[index*H/count, (index+1)*H/count)`` of every array of a
+    host batch (``(B, H, ...)``); ``H`` must divide evenly."""
+    H = batch["image1"].shape[1]
+    if H % count:
+        raise ValueError(f"image height {H} does not split into {count} "
+                         "equal shards")
+    h = H // count
+    return {k: np.ascontiguousarray(v[:, index * h:(index + 1) * h])
+            for k, v in batch.items()}
+
+
 def noise_prep(seed: int, start_step: int) -> Callable[[Mapping], Dict]:
     """The pipeline's prep for ``add_noise``: :func:`add_image_noise` with
     one generator from ``SeedSequence([seed + 1, start_step])`` for the
@@ -111,9 +128,11 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
     pipeline), ``step_s`` (queue wait + step, which ends when the previous
     step has finished on the device),
     and the producer's ``prep_s`` and ``h2d_s``.
-    ``mesh``: data parallel over its ranks; each rank passes its own
-    stride of the stream (``ShardedLoader(num_hosts=world,
-    host_id=rank)``), and ``cfg.batch_size`` is the global batch.
+    ``mesh``: data (and spatial) parallel over its ranks; each data
+    index passes its own stride of the stream (``ShardedLoader(num_hosts=
+    mesh.data_size, host_id=mesh.data_index)``) of whole images, which
+    the loop cuts into the rank's rows when ``mesh.spatial > 1``, and
+    ``cfg.batch_size`` is the global batch.
     """
     if (batches is None) == (loader is None):
         raise ValueError("pass exactly one of batches= or loader=")
@@ -143,6 +162,12 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
     if loader is not None:
         batches = loader.batches_from_step(step)
     prep_fn = noise_prep(cfg.seed, step) if cfg.add_noise else None
+    if mesh is not None and mesh.spatial > 1:
+        noise = prep_fn
+
+        def prep_fn(batch, noise=noise):
+            return shard_rows(batch if noise is None else noise(batch),
+                              mesh.spatial_index, mesh.spatial)
     logger = Logger(cfg.log_freq, lr_fn=state.schedule,
                     tensorboard_dir=tensorboard_dir, log=log)
     depth = max(int(cfg.device_prefetch), 0)

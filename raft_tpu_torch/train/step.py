@@ -43,6 +43,18 @@ clip + AdamW/OneCycle update, on one device.
   ``fnet`` under a quantized pyramid, and hook into the backward that is
   captured.  Under NCCL the all-reduce is inside the captured graph; a
   gloo mesh (ranks sharing one GPU, or the CPU) runs eagerly.
+- a ``mesh`` with ``spatial = N > 1`` also splits each sample's rows over
+  the N ranks of a data index (``parallel/mesh.py``): ``batch`` is then
+  this rank's rows of its data index's samples, the model exchanges
+  what crosses the shards (``models/raft.py``), and the same one
+  all-reduce over the world ends the step.  Dividing by the world holds
+  for spatial ranks too: each rank's loss terms are means over its own
+  shard, and the shards are equal (the image height a multiple of
+  ``8 * N``), so the world's mean of the ranks' means is the global
+  batch's mean; the gradient of each rank's loss carries, through the
+  collectives' backwards, what its rows did to the other shards' loss,
+  so the sum over the ranks is the gradient of the sum.  The pixel
+  metrics stay weighed by each rank's valid pixels.
 - On the card the whole step (forward, backward, global norm, clip,
   learning rate, AdamW, statistics, guard; every microbatch) is one
   captured CUDA graph per batch shape, held by ``state.programs``
@@ -257,9 +269,10 @@ def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
     per batch shape; ``False`` runs it eagerly (for comparisons).  Each
     call runs under :func:`entry_precision`.
 
-    ``mesh``: data parallel over its ranks (see the module docstring);
-    ``batch`` is then this rank's rows and the metrics the global
-    batch's.  A gloo mesh runs eagerly: gloo cannot be captured."""
+    ``mesh``: data (and spatial) parallel over its ranks (see the module
+    docstring); ``batch`` is then this rank's samples (and rows) and the
+    metrics the global batch's.  A gloo mesh runs eagerly: gloo cannot
+    be captured."""
     dev = resolve_device(device)
     if mesh is not None and not mesh.distributed:
         mesh = None                     # one process, no group: plain
@@ -274,7 +287,8 @@ def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
     loss_fn = make_loss_fn(cfg)
     accum = max(int(cfg.accum_steps), 1)
     buffers: Dict[int, torch.Tensor] = {}
-    ranks = None if mesh is None else (mesh.world, mesh.rank, mesh.backend)
+    ranks = None if mesh is None else (mesh.world, mesh.rank, mesh.backend,
+                                       mesh.spatial)
 
     def step_fn(state: TrainState, batch: Mapping):
         batch = _to_device(batch, dev)

@@ -50,16 +50,17 @@ CUDA_KW = dict(corr_impl="allpairs_pallas", upsample_loss_kernel="pallas",
                fused_gru=True)
 
 
-def global_batch(seed, world=2, b=B):
-    """The global batch ``seed`` of ``world * b`` pairs; rank r takes rows
-    ``r*b:(r+1)*b`` (the JAX package's ``data`` shards)."""
-    n = world * b
+def global_batch(seed, world=2, b=B, hw=(H, W)):
+    """The global batch ``seed`` of ``world * b`` pairs of size ``hw``;
+    rank r takes rows ``r*b:(r+1)*b`` (the JAX package's ``data``
+    shards)."""
+    n, (h, w) = world * b, hw
     rng = np.random.default_rng(seed)
-    return {"image1": rng.uniform(0, 255, (n, H, W, 3)).astype(np.float32),
-            "image2": rng.uniform(0, 255, (n, H, W, 3)).astype(np.float32),
-            "flow": (3 * rng.standard_normal((n, H, W, 2))).astype(
+    return {"image1": rng.uniform(0, 255, (n, h, w, 3)).astype(np.float32),
+            "image2": rng.uniform(0, 255, (n, h, w, 3)).astype(np.float32),
+            "flow": (3 * rng.standard_normal((n, h, w, 2))).astype(
                 np.float32),
-            "valid": (rng.random((n, H, W)) > 0.1).astype(np.float32)}
+            "valid": (rng.random((n, h, w)) > 0.1).astype(np.float32)}
 
 
 def rows(batch, rank, b=B):

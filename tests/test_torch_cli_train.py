@@ -143,7 +143,6 @@ def test_verify_ckpt_cli(tmp_path, capsys):
 
 
 UNPORTED_VALUES = {
-    "shard_spatial": ["2"],
     "profile_dir": ["p"], "telemetry_dir": ["t"],
     "trace_sample_rate": ["0.5"], "watchdog_timeout": ["30"],
     "watchdog_exit": [], "profile_steps": ["1:2"], "forensic_keep": ["0"]}

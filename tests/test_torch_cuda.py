@@ -540,6 +540,97 @@ def test_upsample_loss_kernels_match_plain(dev, dtype, grid):
     assert 0 < counts[0] < counts[1] < counts[2] < float(vm.sum())
 
 
+# Row-halo grids (``halo=1``: the flow carries a row of each neighbouring
+# shard): (H, W) of a shard, the mask's offset in values into its
+# allocation.  "chairs" is one of two shards of the chairs grid (46 x 62);
+# "odd" an odd grid; "offset" a mask off 16 bytes.
+UL_HALO_GRIDS = {"chairs": ((23, 62), 0), "odd": ((13, 21), 0),
+                 "offset": ((12, 23), 1)}
+
+
+def _ul_halo_inputs(dev, dtype, H, W, offset, B=2, G=3, seed=7):
+    """A shard's inputs (residuals >= 0.5 from 0, as above), the flow with
+    ``H + 2`` rows; the mask ``offset`` values into its allocation."""
+    g = torch.Generator().manual_seed(seed)
+    flow = (torch.rand(G * B, H + 2, W, 2, generator=g) * 2 - 1).to(dev)
+    leaf = torch.zeros(G * B * 576 * H * W + offset, dtype=dtype)
+    leaf[offset:] = torch.randn(G * B * 576 * H * W, generator=g).to(dtype)
+    mask = leaf.to(dev)[offset:].view(G * B, 576, H, W)
+    gt = ((torch.rand(B, 8 * H, 8 * W, 2, generator=g) * 15.5 + 8.5) * (
+        torch.randint(0, 2, (B, 8 * H, 8 * W, 2), generator=g) * 2 - 1)
+    ).to(dev)
+    vm = (torch.rand(B, 8 * H, 8 * W, generator=g) > 0.2).float().to(dev)
+    w = torch.rand(G * B, 5, generator=g).to(dev)
+    return flow, mask, gt, vm, w
+
+
+def _ul_run(fn, flow, mask, gt, vm, w, halo):
+    """``fn``'s sums and its flow and mask gradients of the weighted
+    sums."""
+    f = flow.clone().requires_grad_(True)
+    m = mask.detach().requires_grad_(True)   # at the mask's address
+    sums = fn(f, m, gt, vm, halo=halo)
+    (sums * w).sum().backward()
+    torch.cuda.synchronize()
+    return sums.detach(), f.grad, m.grad
+
+
+@pytest.mark.parametrize("grid", list(UL_HALO_GRIDS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample_loss_halo_kernels_match_plain(dev, dtype, grid):
+    """The halo form of both kernels against the plain version with the
+    same halo: sums (each column on its own scale), dflow over all
+    ``H + 2`` rows and dmask, within the tolerances of the unsharded
+    check above; a wrong halo or a flow without its rows is refused."""
+    (H, W), offset = UL_HALO_GRIDS[grid]
+    flow, mask, gt, vm, w = _ul_halo_inputs(dev, dtype, H, W, offset)
+    before = dict(upsample_loss.LAUNCHES)
+    sk, *gk = _ul_run(upsample_loss.upsample_loss_sums, flow, mask, gt, vm,
+                      w, 1)
+    assert upsample_loss.LAUNCHES["upsample_loss_fwd"] == \
+        before["upsample_loss_fwd"] + 1
+    assert upsample_loss.LAUNCHES["upsample_loss_bwd"] == \
+        before["upsample_loss_bwd"] + 1
+    sp, *gp = _ul_run(upsample_loss.upsample_loss_sums_plain, flow, mask,
+                      gt, vm, w, 1)
+    tols = 1e-4 * sp.abs().amax(dim=0) + 1e-5
+    assert bool(((sk - sp).abs().amax(dim=0) <= tols).all())
+    assert gk[0].shape == (flow.shape[0], H + 2, W, 2)
+    # the halo rows take gradient (they feed the first and last rows)
+    assert float(gk[0][:, 0].abs().max()) > 0
+    assert float(gk[0][:, -1].abs().max()) > 0
+    for a, b in zip(gk, gp):
+        tol = 1e-4 * float(b.float().abs().max()) + 1e-5
+        if a.dtype == torch.bfloat16:
+            assert _bf16_close(a, b.to(a.dtype), tol)
+        else:
+            assert float((a - b).abs().max()) <= tol
+    with pytest.raises(ValueError, match="halo 2"):
+        upsample_loss.upsample_loss_sums(flow, mask, gt, vm, halo=2)
+    with pytest.raises(ValueError, match="flow"):
+        upsample_loss.upsample_loss_sums(flow[:, 1:-1].contiguous(), mask,
+                                         gt, vm, halo=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample_loss_zero_halo_is_the_unsharded_kernel(dev, dtype):
+    """The whole image as one shard, its halo rows zero: the halo
+    kernels give the unsharded kernels' sums, dmask and, on the image's
+    rows, dflow bit for bit (the edge rows read zeros either way)."""
+    (H, W), offset = UL_HALO_GRIDS["chairs"]
+    flow, mask, gt, vm, w = _ul_halo_inputs(dev, dtype, H, W, offset)
+    with torch.no_grad():
+        flow[:, 0] = 0.0
+        flow[:, -1] = 0.0
+    s1, f1, m1 = _ul_run(upsample_loss.upsample_loss_sums, flow, mask, gt,
+                         vm, w, 1)
+    s0, f0, m0 = _ul_run(upsample_loss.upsample_loss_sums,
+                         flow[:, 1:-1].contiguous(), mask, gt, vm, w, 0)
+    assert torch.equal(s1, s0)
+    assert torch.equal(m1, m0)
+    assert torch.equal(f1[:, 1:-1], f0)
+
+
 KERNEL_KW = dict(corr_impl="allpairs_pallas", upsample_loss_kernel="pallas")
 ONDEMAND_KW = dict(corr_impl="pallas", fused_gru=True,
                    upsample_loss_kernel="pallas")
@@ -1709,5 +1800,139 @@ def test_ddp_two_gloo_ranks_share_the_card(dev, tmp_path):
         assert ratio <= 1.0, (name, ratio)
         for wrong in (2.0, 0.0):
             assert child.leaf_agreement(
+                {n: wrong * v for n, v in ref.items()}, ref, *tol,
+                noise=noise)[0] > 1.0
+
+
+def test_spatial_two_gloo_ranks_share_the_card(dev, tmp_path):
+    """Two gloo ranks on the one card split each image's rows
+    (``tests/_torch_spatial_child.py ... cuda``: ``data 1 x spatial 2``),
+    the kernel configuration (pyramid lookup on local queries, the halo
+    form of the upsample-loss kernels, fused gates), 2 pairs at 32x48:
+    the ranks bit for bit each other, every kernel counted on each rank
+    each step, and two steps against the straight eager run on the same
+    2 pairs (fp32, TF32 off), with the bounds of the data-parallel test
+    above.  The noise floor of each parameter is the larger of the
+    straight run's differences from its twin on the reversed rows and
+    from its twin that sums instance norm's moments over the two row
+    shards (``chip_smoke.instance_norm_over_row_shards``, the
+    sharded step's order): with these weights several gradients are
+    sums that cancel to a small part of their terms, and that
+    reordering alone moves ``fnet``'s by ~1.2% (the CPU test holds the
+    sharded encoder to the whole image's in fp64,
+    ``tests/test_torch_spatial.py``).  The first step again with
+    ``remat`` (``full``) and ``remat_upsample``, whose recompute runs on
+    autograd's device thread, gives each rank the gradient of the step
+    without remat (rtol 1e-4, floor 1e-5 of the global norm)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    from raft_tpu_torch.config import TrainConfig
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    import contextlib
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(repo, "tests"))
+    import _torch_ddp_child as ddp
+    import _torch_spatial_child as child
+
+    sd = RAFT(RAFTConfig.full(), seed=0).state_dict()
+    weights = str(tmp_path / "w.pt")
+    torch.save(sd, weights)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(repo, "tests",
+                                      "_torch_spatial_child.py"),
+         str(tmp_path), weights, str(r), "2", str(port), "cuda"],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    try:
+        deadline = time.monotonic() + 300
+        while any(p.poll() is None for p in procs):
+            assert all(p.poll() in (None, 0) for p in procs) and \
+                time.monotonic() < deadline, \
+                [p.poll() for p in procs]
+            time.sleep(0.2)
+        for p in procs:
+            out, _ = p.communicate()
+            assert p.returncode == 0, out[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = [torch.load(str(tmp_path / f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    assert ranks[0]["mesh_shape"] == {"data": 1, "spatial": 2}
+    (s0, m0, l0), (s1, _, l1) = ranks[0]["split"], ranks[1]["split"]
+    for a, c in zip(s0, s1):
+        assert all(torch.equal(a["model"][k], c["model"][k])
+                   for k in a["model"])
+    per_step = {"pyramid_lookup_fwd": 2, "pyramid_lookup_bwd": 2,
+                "upsample_loss_fwd": 1, "upsample_loss_bwd": 1,
+                "gru_gate_rh": 4, "gru_gate_rh_bwd": 4,
+                "gru_gate_blend": 4, "gru_gate_blend_bwd": 4}
+    assert l0 == l1 == [per_step] * 2
+    # remat: the first step with every region recomputed in backward, on
+    # autograd's device thread, gives the same gradient as without
+    names = ddp.param_names()
+    for r in ranks:
+        ratio, name = ddp.leaf_agreement(
+            ddp.first_moments(r["split_remat"][0][0], names),
+            ddp.first_moments(r["split"][0][0], names), 1e-4, 1e-5)
+        assert ratio <= 1.0, ("remat", name, ratio)
+
+    cfg = TrainConfig(batch_size=child.B, **ddp.TRAIN_KW)
+    straight = {}
+    for label, order, shards in (("straight", slice(None), False),
+                                 ("reversed", slice(None, None, -1), False),
+                                 ("row_shards", slice(None), True)):
+        state = init_state(RAFTConfig.full(**child.CUDA_KW), cfg,
+                           device=dev, state_dict=sd)
+        step_fn = make_train_step(cfg, device=dev, graphs=False)
+        snaps, mets = [], []
+        with (child.instance_norm_over_row_shards() if shards
+              else contextlib.nullcontext()):
+            for seed in (0, 1):
+                batch = {k: v[order].copy() for k, v in
+                         ddp.global_batch(seed, 1).items()}
+                state, met = step_fn(state, batch)
+                snaps.append(ddp.snapshot(state))
+                mets.append({k: v.cpu() for k, v in met.items()})
+        straight[label] = (snaps, mets)
+    want, wmets = straight["straight"]
+    twins = [straight["reversed"][0], straight["row_shards"][0]]
+    for i in range(2):
+        for k in ("loss", "epe", "1px", "3px", "5px", "loss_iter",
+                  "epe_iter"):
+            np.testing.assert_allclose(m0[i][k].numpy(), wmets[i][k].numpy(),
+                                       rtol=1e-4, atol=1e-7, err_msg=k)
+        for k, v in want[i]["model"].items():
+            if "running" in k:
+                np.testing.assert_allclose(
+                    s0[i]["model"][k].numpy(), v.numpy(), rtol=1e-4,
+                    atol=1e-5, err_msg=f"step {i}: {k}")
+    checks = [(ddp.first_moments(s0[0], names),
+               ddp.first_moments(want[0], names),
+               [ddp.first_moments(t[0], names) for t in twins],
+               (1e-4, 1e-5))]
+    checks += [(ddp.changes(s0[i]["model"], sd, names),
+                ddp.changes(want[i]["model"], sd, names),
+                [ddp.changes(t[i]["model"], sd, names) for t in twins],
+                (1e-2, 2e-3)) for i in range(2)]
+    for got, ref, others, tol in checks:
+        noises = [ddp.noise_of(o, ref) for o in others]
+        noise = {n: max(x[n] for x in noises) for n in ref}
+        ratio, name = ddp.leaf_agreement(got, ref, *tol, noise=noise)
+        assert ratio <= 1.0, (name, ratio)
+        for wrong in (2.0, 0.0):
+            assert ddp.leaf_agreement(
                 {n: wrong * v for n, v in ref.items()}, ref, *tol,
                 noise=noise)[0] > 1.0

@@ -266,3 +266,62 @@ def test_bwd_buffers_keep_the_kernels_alignment(dtype, offset):
     g16 = upsample_loss.aligned16(gt)
     assert g16.data_ptr() % 16 == 0 and torch.equal(g16, gt)
     assert (g16 is gt) == (gt.data_ptr() % 16 == 0)
+
+
+def _halo_shards(flow, mask, gt, vm, n=2):
+    """Shard ``s`` of ``n`` of the inputs (rows of one image split evenly),
+    as the spatially sharded model hands them to the kernel: the flow with
+    a row of each neighbouring shard (zeros at the image's edge), the
+    mask, ground truth and valid mask of its own rows."""
+    h = flow.shape[1] // n
+    pad = np.pad(flow, ((0, 0), (1, 1), (0, 0), (0, 0)))
+    return [(pad[:, s * h:s * h + h + 2], mask[:, s * h:(s + 1) * h],
+             gt[:, 8 * s * h:8 * (s + 1) * h],
+             vm[:, 8 * s * h:8 * (s + 1) * h]) for s in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_halo_over_two_shards_matches_whole(jax_ref, dtype):
+    """The plain version with ``halo=1`` on two row shards (the wrapper on
+    the CPU): the shards' sums add to the whole image's, their mask
+    gradients are its rows, and their flow gradients, each halo row's
+    added to the row it copies, are the whole image's; all against the
+    unsharded plain version (rtol 1e-5) and JAX's interpreted TPU kernel
+    (the tolerances of the module docstring)."""
+    case = "bf16" if dtype == torch.bfloat16 else "random"
+    flow, mask, gt, vm = _inputs(2 if case == "bf16" else 1)
+    if case == "bf16":
+        mask = np.asarray(jnp.asarray(mask, jnp.bfloat16).astype(
+            jnp.float32))
+    sums, dflow, dmask, _ = _port(flow, mask, gt, vm, dtype)
+    h = H // 2
+    got_sums = np.zeros_like(sums)
+    got_dflow = np.zeros((GB, H + 2, W, 2), np.float32)
+    got_dmask = np.zeros_like(dmask)
+    for s, (f, m, g, v) in enumerate(_halo_shards(flow, mask, gt, vm)):
+        ft = torch.from_numpy(np.ascontiguousarray(f)).requires_grad_(True)
+        mt = torch.from_numpy(np.ascontiguousarray(m.transpose(0, 3, 1, 2))
+                              ).to(dtype).requires_grad_(True)
+        out = upsample_loss_sums(ft, mt, torch.from_numpy(
+            np.ascontiguousarray(g)), torch.from_numpy(
+            np.ascontiguousarray(v)), halo=1)
+        assert out.shape == (GB, 5)
+        torch.sum(out[:, 0] * torch.from_numpy(np.repeat(WEIGHTS, B))
+                  ).backward()
+        assert ft.grad.shape == (GB, h + 2, W, 2)
+        got_sums += out.detach().numpy()
+        # the padded image's rows s*h .. s*h + h + 1
+        got_dflow[:, s * h:s * h + h + 2] += ft.grad.numpy()
+        got_dmask[:, s * h:(s + 1) * h] = mt.grad.float().permute(
+            0, 2, 3, 1).numpy()
+    got_dflow = got_dflow[:, 1:H + 1]     # the edge rows pad nothing
+    mask_tol = (2 ** -7, 1e-7) if case == "bf16" else (1e-4, 1e-5)
+    np.testing.assert_allclose(got_sums, sums, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got_dflow, dflow, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_dmask, dmask, rtol=1e-5, atol=1e-7)
+    want_sums, (want_dflow, want_dmask) = jax_ref[case]
+    np.testing.assert_allclose(got_sums, want_sums, rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(got_dflow, want_dflow, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got_dmask, want_dmask, rtol=mask_tol[0],
+                               atol=mask_tol[1])
+

@@ -204,7 +204,13 @@ Phases, each raising on failure (so the script exits nonzero):
    after its second checkpoint (exit 143, the step saved), ``verify-ckpt
    --json`` on the run directory, its newest step torn with
    ``chaos.tear_files`` and flagged, the rerun falling back past it and
-   finishing, and ``evaluate --model <run dir>``; the CLI's configuration
+   finishing with every observability flag (``--telemetry_dir``,
+   ``--trace_sample_rate 1``, ``--watchdog_timeout 120``,
+   ``--profile_steps 7:8``, ``--forensic_keep 8``; its JSONL checked:
+   the JAX loop's events, the allocator's peak, the counted cost and its
+   MFU, the health record, the checkpoint events, a span tree a step,
+   the profiler's Chrome trace, no stall), and ``evaluate --model <run
+   dir>``; the CLI's configuration
    in this process with exact launch counts; the resume check in process
    (fp32, TF32 off, the shipped kernel configuration, device prefetch 2:
    4 steps against 2, a preemption and 2 more; the host batch stream
@@ -213,7 +219,9 @@ Phases, each raising on failure (so the script exits nonzero):
    commit time; and the bf16 shipped configuration on the real loader at
    ``device_prefetch`` 0 and 2 (ms/step, pairs/s, queue wait, prep and
    copy times, idle share, exact launch counts) beside phase train's
-   reused batch;
+   reused batch, and the prefetch-2 arm again with telemetry, health,
+   tracing at rate 1 and the watchdog on (ms/step and its spread beside
+   the off arm's; the stream's peak memory, FLOPs a pair and MFU);
 12. ddp: data-parallel training (``raft_tpu_torch/parallel``), on phase
    train_cli's tree: (a) world 1 over NCCL (the torchrun variables set
    in this process), the chairs stage (B 8, 12 iterations, bf16, the
@@ -299,6 +307,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import glob
 import hashlib
 import json
 import os
@@ -3380,8 +3389,16 @@ def _cli_run(tree: dict, ckpt_dir: str) -> dict:
             or rep["steps"][-1]["ok"]:
         raise AssertionError(f"verify-ckpt after tearing: {rep}")
 
+    # the rerun with every observability flag (phase train_cli checks its
+    # stream below); the profiler window is the last step
+    tel = os.path.join(ckpt_dir, "telemetry")
+    window = (TRAIN_CLI_STEPS - 1, TRAIN_CLI_STEPS)
     t0 = time.perf_counter()
-    rc, lines = _run_cli(*args)
+    rc, lines = _run_cli(*args, "--telemetry_dir", tel,
+                         "--trace_sample_rate", "1",
+                         "--watchdog_timeout", "120",
+                         "--profile_steps", "%d:%d" % window,
+                         "--forensic_keep", "8")
     out = "\n".join(lines)
     resumed = re.findall(r"^resumed from step (\d+)", out, re.M)
     res["rerun"] = dict(rc=rc, resumed=resumed, s=time.perf_counter() - t0,
@@ -3396,6 +3413,7 @@ def _cli_run(tree: dict, ckpt_dir: str) -> dict:
     if rc != 0 or resumed != [str(steps[-2])] or not res["rerun"]["fallback"] \
             or res["rerun"]["steps"][-1] != TRAIN_CLI_STEPS:
         raise AssertionError(f"train CLI rerun: {res['rerun']}")
+    res["telemetry"] = _telemetry_checks(tel, steps[-2], steps[-1], window)
 
     rc, lines = _run_cli("evaluate", "--model", run_dir, "--dataset",
                          "chairs", "--data_root", tree["data_root"],
@@ -3407,6 +3425,107 @@ def _cli_run(tree: dict, ckpt_dir: str) -> dict:
           f" EPE {epe}", flush=True)
     if rc != 0 or len(epe) != 1 or not np.isfinite(epe[0]):
         raise AssertionError(f"evaluate CLI on the run dir: {res['evaluate']}")
+    return res
+
+
+def _telemetry_checks(tel: str, resumed: int, torn: int, window) -> dict:
+    """The JSONL of the train CLI's rerun with every observability flag
+    (bf16, chairs B 8, 12 iterations): ``run_config`` the first record but
+    the resume's ``ckpt_fallback`` (emitted while restoring, before the
+    run starts, as in the JAX loop) and ``metrics_summary`` the last; one
+    ``compile``; ``hbm_usage`` with a peak above 0 and under the card's
+    memory; ``cost_report`` with FLOPs a pair above 0 and the summary's
+    ``raft_cost_mfu`` in (0, 1]; a ``train_step`` a step; a
+    ``train_health`` a Logger flush with ``param_norm``,
+    ``update_ratio`` and an ``epe_iter`` a refinement iteration;
+    ``ckpt_fallback`` for the torn step and ``ckpt_commit``; a span tree
+    a step with ``queue_wait``, ``prep``, ``h2d`` and ``step_dispatch``
+    children and ``ckpt_commit`` under the steps that saved; the
+    profiler's Chrome trace of the window; no ``stall``.  The MFU held to
+    (0, 1] is the cost record's FLOPs over the median ``step_time_s`` of
+    the replayed steps outside the window, against the record's peak:
+    the ``raft_cost_mfu`` gauge is the last step's alone (the JAX
+    package's meaning), and a step whose input wait hid the device time,
+    or the window's, reads far off it."""
+    recs = []
+    for name in sorted(glob.glob(os.path.join(tel, "telemetry-p*.jsonl"))):
+        with open(name) as f:
+            recs += [json.loads(line) for line in f if line.strip()]
+    events = [r["event"] for r in recs]
+    bad = []
+    head = [e for e in events if e != "ckpt_fallback"]
+    if not head or head[0] != "run_config" or events[-1] != "metrics_summary":
+        bad.append(f"first/last events {events[:3]} ... {events[-2:]}")
+    if events.count("compile") != 1:
+        bad.append(f"{events.count('compile')} compile events")
+    hbm = next((r for r in recs if r["event"] == "hbm_usage"), {})
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    if not 0 < hbm.get("peak_hbm_gb", 0) < card_gib:
+        bad.append(f"hbm_usage {hbm}")
+    cost = next((r for r in recs if r["event"] == "cost_report"), {})
+    summary = recs[-1].get("metrics", {}) if recs else {}
+    gauge = summary.get("raft_cost_mfu", {}).get("values", {}).get(
+        "program=train_step")
+    want_steps = list(range(resumed, TRAIN_CLI_STEPS))
+    step_recs = [r for r in recs if r["event"] == "train_step"]
+    got_steps = [r["step"] for r in step_recs]
+    if got_steps != want_steps:
+        bad.append(f"train_step steps {got_steps}, want {want_steps}")
+    steady = [r["step_time_s"] for r in step_recs
+              if resumed + 2 <= r["step"] < window[0]]
+    mfu = (cost.get("flops", 0) / statistics.median(steady)
+           / (cost.get("peak_tflops") or float("inf")) / 1e12
+           if steady else None)
+    if not cost.get("flops_per_pair", 0) > 0 or not (
+            mfu is not None and 0 < mfu <= 1) or not (gauge or 0) > 0:
+        bad.append(f"cost_report {cost}, mfu {mfu}, gauge {gauge}")
+    health = [r for r in recs if r["event"] == "train_health"]
+    # log_freq 100: one flush, at the end
+    if len(health) != 1 or not all(
+            np.isfinite(h.get("param_norm", np.nan))
+            and np.isfinite(h.get("update_ratio", np.nan))
+            and len(h.get("epe_iter", [])) == CHAIRS_ITERS for h in health):
+        bad.append(f"train_health {health}")
+    fb = [r["step"] for r in recs if r["event"] == "ckpt_fallback"]
+    commits = [r for r in recs if r["event"] == "ckpt_commit"]
+    if fb != [torn] or not commits or not all(c["ok"] for c in commits):
+        bad.append(f"ckpt_fallback {fb}, ckpt_commit {commits}")
+    spans = [r for r in recs if r["event"] == "trace_span"]
+    roots = {r["span_id"]: r["step"] for r in spans
+             if r["parent_id"] is None}
+    kids = {}
+    for r in spans:
+        if r["parent_id"] in roots:
+            kids.setdefault(roots[r["parent_id"]], set()).add(r["name"])
+    four = {"queue_wait", "prep", "h2d", "step_dispatch"}
+    saved = [s for s in want_steps if (s + 1) % TRAIN_CLI_VAL_FREQ == 0]
+    if sorted(roots.values()) != want_steps or not all(
+            four <= kids.get(s, set()) for s in want_steps) or not all(
+            "ckpt_commit" in kids.get(s, set()) for s in saved):
+        bad.append(f"span trees {kids}")
+    traces = glob.glob(os.path.join(tel, "profile",
+                                    "trace-%d-%d*.json" % window))
+    if len(traces) != 1 or os.path.getsize(traces[0]) == 0:
+        bad.append(f"profiler traces {traces}")
+    if "stall" in events:
+        bad.append("a stall event")
+    res = dict(events={e: events.count(e) for e in sorted(set(events))},
+               hbm=hbm, cost=cost, mfu=mfu, mfu_gauge=gauge,
+               steady_step_s=steady, health=health, fallback=fb,
+               commits=len(commits), span_children=sorted(
+                   set().union(*kids.values())) if kids else [],
+               profile_trace=traces, profile_trace_mb=(
+                   os.path.getsize(traces[0]) / 2 ** 20 if traces else None),
+               bad=bad)
+    print(f"[train_cli] rerun telemetry: events {res['events']}; peak "
+          f"{hbm.get('peak_hbm_gb')} GiB (reserved {hbm.get('reserved_gb')}),"
+          f" {cost.get('flops_per_pair', 0) / 1e9:.1f} GFLOP a pair "
+          f"({cost.get('source')}), MFU {mfu} at the median of steps "
+          f"{steady} s (last step's gauge {gauge}); spans "
+          f"{res['span_children']}; profiler trace "
+          f"{res['profile_trace_mb']} MiB", flush=True)
+    if bad:
+        raise AssertionError(f"train CLI telemetry: {bad}")
     return res
 
 
@@ -3623,7 +3742,78 @@ def _loader_step_times(tree: dict, ckpt_dir: str, sd, reused: dict) -> dict:
               f"{prof['busy_ms']} ms of {prof['wall_ms']:.1f} (idle "
               f"{prof['idle_share']}); reused batch (phase train): "
               f"{out['reused_batch']}", flush=True)
+    out["telemetry_on"] = _telemetry_arm(ds, workers, mcfg, ckpt_dir, sd, n,
+                                         out["prefetch_2"])
     return out
+
+
+def _telemetry_arm(ds, workers, mcfg, ckpt_dir, sd, n, off) -> dict:
+    """The prefetch-2 arm again with telemetry on (the JSONL, health and
+    its forensics ring, tracing at rate 1, the watchdog, the first step
+    counted): ms/step (median of the timed steps, and their spread)
+    beside the off arm's, and the stream's peak memory, FLOPs a pair and
+    MFU."""
+    from raft_tpu_torch.config import TrainConfig
+    from raft_tpu_torch.data.datasets import ShardedLoader
+    from raft_tpu_torch.obs import trace
+    from raft_tpu_torch.train import loop
+
+    tel = os.path.join(ckpt_dir, "telemetry_on")
+    cfg = TrainConfig(name="time2tel", lr=2.5e-4, num_steps=n,
+                      batch_size=CHAIRS_B, image_size=CHAIRS_HW,
+                      iters=CHAIRS_ITERS, val_freq=10 ** 6, log_freq=100,
+                      ckpt_dir=ckpt_dir, device_prefetch=2,
+                      trace_sample_rate=1.0, watchdog_timeout=120.0,
+                      forensic_keep=8)
+    timings = []
+    _reset_counts()
+    try:
+        loop.train(mcfg, cfg, loader=ShardedLoader(ds, CHAIRS_B, seed=1,
+                                                   num_workers=workers),
+                   restore_params=sd, timings=timings, telemetry_dir=tel)
+    finally:
+        trace.reset_default_tracer()
+    counts = _expect_train_counts("kernel", n, f"train_cli bf16 prefetch 2 "
+                                  f"telemetry on, {n} steps")
+    ms_on = [t["step_s"] * 1e3 for t in timings[TIMED_WARM:]]
+    ms_off = off["ms_all"][TIMED_WARM:]
+    recs = []
+    for name in glob.glob(os.path.join(tel, "telemetry-p*.jsonl")):
+        with open(name) as f:
+            recs += [json.loads(line) for line in f if line.strip()]
+    first = lambda ev: next((r for r in recs if r["event"] == ev), {})
+    gauge = first("metrics_summary").get("metrics", {}).get(
+        "raft_cost_mfu", {}).get("values", {}).get("program=train_step")
+    # the counted FLOPs over the median timed step, against the record's
+    # peak (the gauge is the last step's alone)
+    cost = first("cost_report")
+    mfu = (cost.get("flops", 0) / (statistics.median(ms_on) / 1e3)
+           / (cost.get("peak_tflops") or float("inf")) / 1e12)
+    res = dict(ms_per_step=statistics.median(ms_on),
+               ms_min=min(ms_on), ms_max=max(ms_on),
+               off_ms_per_step=statistics.median(ms_off),
+               off_ms_min=min(ms_off), off_ms_max=max(ms_off),
+               ms_all=[t["step_s"] * 1e3 for t in timings],
+               hbm=first("hbm_usage"), cost=cost, mfu=mfu, mfu_gauge=gauge,
+               compile_s=first("compile").get("seconds"), counts=counts,
+               spans=sum(1 for r in recs if r["event"] == "trace_span"))
+    res["overhead"] = res["ms_per_step"] / res["off_ms_per_step"] - 1
+    print(f"[train_cli] bf16 real loader, device_prefetch 2, telemetry on: "
+          f"{res['ms_per_step']:.2f} ms/step (timed steps "
+          f"{res['ms_min']:.2f}-{res['ms_max']:.2f}) against off "
+          f"{res['off_ms_per_step']:.2f} ({res['off_ms_min']:.2f}-"
+          f"{res['off_ms_max']:.2f}), {100 * res['overhead']:+.2f}%; peak "
+          f"{res['hbm'].get('peak_hbm_gb')} GiB, reserved "
+          f"{res['hbm'].get('reserved_gb')} GiB, args "
+          f"{res['hbm'].get('args_gb')} GiB; "
+          f"{res['cost'].get('flops_per_pair', 0) / 1e9:.2f} GFLOP a pair, "
+          f"{res['cost'].get('bytes', 0) / 2 ** 30:.2f} GiB moved a step "
+          f"(unfused bound), MFU {mfu:.4f} at the median step (last "
+          f"step's gauge {gauge}); first step {res['compile_s']} s "
+          f"(counted); {res['spans']} spans", flush=True)
+    if mfu is None or not 0 < mfu <= 1 or not res["hbm"].get("peak_hbm_gb"):
+        raise AssertionError(f"telemetry-on arm: {res}")
+    return res
 
 
 def phase_train_cli(sd, train_res):

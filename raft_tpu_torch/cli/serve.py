@@ -56,9 +56,10 @@ import math
 
 # flag -> (default, ROADMAP item); any other value stops the CLI
 UNPORTED = {
-    "trace_sample_rate": (None, "A8 (obs/trace.py)"),
+    "trace_sample_rate": (None, "A8b′ (serve spans; obs/trace.py is "
+                                "ported)"),
 }
-PROFILE_ITEM = "A8 (on-demand device profiling)"
+PROFILE_ITEM = "A8b′ (POST /debug/profile)"
 
 
 def parse_args(argv=None):

@@ -51,10 +51,27 @@ evenly)::
     torchrun --nproc_per_node 4 -m raft_tpu_torch train --distributed \
         --shard_spatial 2 --name raft-things --stage things ...
 
-A JAX flag that the port cannot honour yet raises ``SystemExit`` naming
-its ROADMAP item whenever it is set away from its default; never a silent
-ignore.  ``--scan_unroll`` has no counterpart and is refused with its
-reason: the captured graph already holds every iteration.
+Observability takes the JAX CLI's flags (each in both spellings,
+underscore and dash)::
+
+    python -m raft_tpu_torch train ... --telemetry_dir runs/tel \
+        --trace_sample_rate 0.1 --watchdog_timeout 600 \
+        --profile_steps 100:102 --forensic_keep 8
+
+``--telemetry_dir`` (default ``$RAFT_TELEMETRY_DIR``) gets the JSONL
+stream ``telemetry-p<rank>.jsonl``, the forensic bundles under
+``forensics/``, the watchdog's and SIGQUIT's stack dumps
+``stacks-p<rank>.txt`` and, without ``--profile_dir``, the profiler's
+Chrome trace under ``profile/`` (not the JAX package's ``xprof/``: it is a
+``torch.profiler`` trace, for Perfetto or ``chrome://tracing``).
+``--trace_sample_rate`` (default ``$RAFT_TRACE_SAMPLE_RATE``) must lie in
+[0, 1] and ``--profile_steps A:B`` be a non-empty window, as in the JAX
+CLI.  ``kill -QUIT <pid>`` appends an all-thread stack dump without
+stopping the run.
+
+Every JAX flag is accepted.  ``--scan_unroll`` has no counterpart and is
+refused with its reason: the captured graph already holds every
+iteration.
 """
 
 from __future__ import annotations
@@ -69,16 +86,9 @@ from raft_tpu_torch.config import (QUANTIZED_CORR_DTYPES,
                                    validate_corr_dtype,
                                    validate_corr_precision)
 
-# flag -> (the JAX default, the ROADMAP item that ports what it does)
-UNPORTED = {
-    "profile_dir": (None, "A8 (observability)"),
-    "telemetry_dir": (None, "A8 (observability)"),
-    "trace_sample_rate": (None, "A8 (observability)"),
-    "watchdog_timeout": (0.0, "A8 (observability)"),
-    "watchdog_exit": (False, "A8 (observability)"),
-    "profile_steps": (None, "A8 (observability)"),
-    "forensic_keep": (8, "A8 (observability; the forensics ring)"),
-}
+# flag -> (the JAX default, the ROADMAP item that ports what it does):
+# every JAX flag is ported, so the table is empty
+UNPORTED: dict = {}
 
 
 def _corr_dtype_arg(value: str) -> str:
@@ -153,8 +163,14 @@ def parse_args(argv=None):
     p.add_argument("--chairs_split", default="chairs_split.txt")
     p.add_argument("--ckpt_dir", default="checkpoints")
     p.add_argument("--tensorboard_dir", default=None)
-    p.add_argument("--profile_dir", default=None)
-    p.add_argument("--telemetry_dir", "--telemetry-dir", default=None)
+    p.add_argument("--profile_dir", "--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of a few "
+                        "steps (or of --profile_steps) into this directory "
+                        "(not the JAX package's xprof/ format)")
+    p.add_argument("--telemetry_dir", "--telemetry-dir", default=None,
+                   help="write per-step JSONL telemetry, forensic bundles "
+                        "and stack dumps into this directory; defaults to "
+                        "$RAFT_TELEMETRY_DIR, unset = disabled")
     p.add_argument("--num_workers", type=int, default=0,
                    help="loader threads; 0 = min(16, usable CPUs)")
     p.add_argument("--accum_steps", "--accum-steps", type=int, default=1,
@@ -175,15 +191,31 @@ def parse_args(argv=None):
                    help="skip the update of a step whose loss or gradients "
                         "are not finite")
     p.add_argument("--forensic_keep", "--forensic-keep", type=int,
-                   default=8)
+                   default=8,
+                   help="host batches kept in the forensics ring; a "
+                        "non-finite step whose batch is still ringed gets "
+                        "it in its bundle (log_freq <= this guarantees "
+                        "it); 0 keeps no batch")
     p.add_argument("--watchdog_timeout", "--watchdog-timeout",
-                   type=float, default=0.0, metavar="SECONDS")
+                   type=float, default=0.0, metavar="SECONDS",
+                   help="stall watchdog: seconds without a training-loop "
+                        "heartbeat before dumping all thread stacks and "
+                        "emitting a `stall` event (0 = off); paused "
+                        "across the first two steps and save/validate")
     p.add_argument("--watchdog_exit", "--watchdog-exit",
-                   action="store_true")
+                   action="store_true",
+                   help="hard-exit (code 42) when the watchdog fires")
     p.add_argument("--trace_sample_rate", "--trace-sample-rate",
-                   type=float, default=None, metavar="RATE")
+                   type=float, default=None, metavar="RATE",
+                   help="fraction of steps that emit a `train_step` trace "
+                        "tree (queue_wait/prep/h2d/step_dispatch/"
+                        "ckpt_commit spans); default "
+                        "$RAFT_TRACE_SAMPLE_RATE, unset = off")
     p.add_argument("--profile_steps", "--profile-steps", default=None,
-                   metavar="A:B")
+                   metavar="A:B",
+                   help="torch.profiler window over the absolute steps "
+                        "[A, B), written as a Chrome trace under "
+                        "<telemetry_dir>/profile/ (or --profile_dir)")
     p.add_argument("--shard_spatial", type=int, default=1, metavar="N",
                    help="split each image's rows over N ranks in addition "
                         "to data parallelism (needs --distributed; the "
@@ -205,8 +237,8 @@ def parse_args(argv=None):
 
 def check_unported(args) -> None:
     """``SystemExit`` naming the ROADMAP item for a flag set away from its
-    JAX default that the port cannot honour yet, or the reason a flag has
-    no counterpart."""
+    JAX default that the port cannot honour yet (none is left), or the
+    reason a flag has no counterpart."""
     if args.scan_unroll is not None:
         raise SystemExit(
             f"--scan_unroll {args.scan_unroll!r}: no counterpart in the "
@@ -242,6 +274,30 @@ def check_spatial(args, world) -> None:
         raise SystemExit(
             f"--shard_spatial {n} needs image height {args.image_size[0]} "
             f"divisible by {8 * n} (1/8-res rows split evenly)")
+
+
+def observability(args):
+    """``(trace_sample_rate, profile_steps)`` of the flags, with the JAX
+    CLI's refusals: a rate outside [0, 1] (``--trace_sample_rate``, else
+    ``$RAFT_TRACE_SAMPLE_RATE``) and a window that is not ``A:B`` with
+    ``A < B``."""
+    rate = (args.trace_sample_rate if args.trace_sample_rate is not None
+            else float(os.environ.get("RAFT_TRACE_SAMPLE_RATE", "0") or 0))
+    if not 0.0 <= rate <= 1.0:
+        raise SystemExit(f"--trace_sample_rate must be in [0, 1], got "
+                         f"{rate}")
+    window = None
+    if args.profile_steps:
+        try:
+            a, b = args.profile_steps.split(":")
+            window = (int(a), int(b))
+        except ValueError:
+            raise SystemExit(f"--profile_steps expects A:B (step "
+                             f"window), got {args.profile_steps!r}")
+        if window[1] <= window[0]:
+            raise SystemExit(f"--profile_steps window must be "
+                             f"non-empty, got {args.profile_steps!r}")
+    return rate, window
 
 
 def remat_kwargs(args, say=print) -> dict:
@@ -300,6 +356,10 @@ def run(argv=None):
 
 
 def _run(args, mesh):
+    # before anything builds a default sink: emitters without a sink of
+    # their own (chaos fires, the curriculum) land in the same directory
+    if args.telemetry_dir:
+        os.environ.setdefault("RAFT_TELEMETRY_DIR", args.telemetry_dir)
     from raft_tpu_torch import chaos
 
     if args.chaos:
@@ -368,6 +428,7 @@ def _run(args, mesh):
     if args.num_workers < 0:
         raise SystemExit(f"--num_workers must be >= 0, got "
                          f"{args.num_workers}")
+    trace_rate, profile_steps = observability(args)
     cfg = TrainConfig(
         name=args.name, stage=args.stage, restore_ckpt=args.restore_ckpt,
         validation=tuple(args.validation), lr=lr,
@@ -382,7 +443,11 @@ def _run(args, mesh):
         device_prefetch=args.device_prefetch,
         nonfinite_guard=bool(args.nonfinite_guard),
         ckpt_dir=args.ckpt_dir,
-        ckpt_commit_window=max(args.ckpt_commit_window, 1))
+        ckpt_commit_window=max(args.ckpt_commit_window, 1),
+        forensic_keep=max(args.forensic_keep, 0),
+        watchdog_timeout=max(args.watchdog_timeout, 0.0),
+        watchdog_exit=args.watchdog_exit,
+        trace_sample_rate=trace_rate, profile_steps=profile_steps)
     dataset = fetch_dataset(args.stage, tuple(args.image_size),
                             root=args.data_root,
                             split_file=args.chairs_split)
@@ -423,10 +488,20 @@ def _run(args, mesh):
     # a checkpoint of the last completed step
     previous = signal.signal(signal.SIGTERM,
                              lambda signum, frame: request_preemption())
+    # on-demand "where is it stuck": SIGQUIT appends an all-thread stack
+    # dump to the file the stall watchdog writes (stderr without
+    # telemetry), without stopping the run
+    from raft_tpu_torch.obs.watchdog import (install_sigquit_dump,
+                                             stack_dump_path)
+
+    install_sigquit_dump(stack_dump_path(
+        args.telemetry_dir or os.environ.get("RAFT_TELEMETRY_DIR")))
     try:
         return train(model_cfg, cfg, loader=loader,
                      validators=validators or None, restore_params=restore,
-                     tensorboard_dir=args.tensorboard_dir, device=device,
+                     tensorboard_dir=args.tensorboard_dir,
+                     profile_dir=args.profile_dir,
+                     telemetry_dir=args.telemetry_dir, device=device,
                      mesh=mesh)
     finally:
         signal.signal(signal.SIGTERM, previous)

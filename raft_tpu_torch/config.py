@@ -285,3 +285,15 @@ class TrainConfig:
     ckpt_dir: str = "checkpoints"
     # Background checkpoint commits in flight before save_async waits.
     ckpt_commit_window: int = 2
+    # Host batches kept in the forensics ring (obs/health.py); 0 keeps no
+    # batch in a non-finite step's bundle.
+    forensic_keep: int = 8
+    # Stall watchdog (obs/watchdog.py): seconds without a loop heartbeat
+    # before a stack dump and a `stall` event (0 = off); hard exit (code
+    # 42) when it fires.
+    watchdog_timeout: float = 0.0
+    watchdog_exit: bool = False
+    # Fraction of steps traced as a `train_step` tree (obs/trace.py).
+    trace_sample_rate: float = 0.0
+    # Absolute steps [A, B) of the torch.profiler window, or None.
+    profile_steps: Optional[Tuple[int, int]] = None

@@ -22,9 +22,10 @@ Chaos seam: the ``stage_kill`` fault (point ``curriculum.stage_boundary``,
 step context = stage index) kills the driver between stages, after the
 previous stage's ledger commit and before the next stage starts.
 
-Each stage transition prints one JSON line ``{"event":
-"curriculum_stage", ...}`` with the fields the JAX package sends to its
-event sink (the port has no event sink yet).
+Each stage transition emits one ``curriculum_stage`` event (the JAX
+package's fields) into the process-wide event sink
+(``obs.events.default_sink``: the JSONL stream under
+``$RAFT_TELEMETRY_DIR``, a no-op when it is unset).
 
 CLI::
 
@@ -240,12 +241,6 @@ class _Tee(io.TextIOBase):
         sys.__stdout__.flush()
 
 
-def _emit(**fields) -> None:
-    """One ``curriculum_stage`` event as a JSON line on stdout."""
-    print(json.dumps({"event": "curriculum_stage", **fields},
-                     sort_keys=True), flush=True)
-
-
 def run_curriculum(manifest: Manifest, workdir: str, *,
                    extra_argv: Sequence[str] = (),
                    train_runner: Optional[Callable] = None
@@ -261,6 +256,8 @@ def run_curriculum(manifest: Manifest, workdir: str, *,
     A :class:`SystemExit` out of a stage (cooperative preemption)
     propagates with the ledger still marking the stage ``running``;
     re-invoking resumes it."""
+    from raft_tpu_torch.obs.events import default_sink
+
     os.makedirs(workdir, exist_ok=True)
     if train_runner is None:
         from raft_tpu_torch.cli import train as train_cli
@@ -271,6 +268,7 @@ def run_curriculum(manifest: Manifest, workdir: str, *,
     ledger.begin(manifest)
     ckpt_root = manifest.base.get("ckpt_dir") or osp.join(workdir,
                                                           "checkpoints")
+    sink = default_sink()
     prev_ckpt: Optional[str] = None
     for idx, spec in enumerate(manifest.stages):
         stage_ckpt = osp.join(ckpt_root, spec.name)
@@ -303,8 +301,9 @@ def run_curriculum(manifest: Manifest, workdir: str, *,
                       stage=spec.stage, argv=argv,
                       runs=entry.get("runs", 0) + 1,
                       started_at=time.time())
-        _emit(step=idx, name=spec.name, stage=spec.stage,
-              status="running", attempt=entry.get("runs", 0))
+        sink.emit("curriculum_stage", step=idx, name=spec.name,
+                  stage=spec.stage, status="running",
+                  attempt=entry.get("runs", 0))
         print(f"=== curriculum stage {idx + 1}/{len(manifest.stages)} "
               f"[{spec.name}]: train {argv}", flush=True)
 
@@ -317,8 +316,9 @@ def run_curriculum(manifest: Manifest, workdir: str, *,
         ledger.update(spec.name, status="complete",
                       final_step=int(state.step),
                       validation=val_lines, completed_at=time.time())
-        _emit(step=idx, name=spec.name, stage=spec.stage,
-              status="complete", final_step=int(state.step))
+        sink.emit("curriculum_stage", step=idx, name=spec.name,
+                  stage=spec.stage, status="complete",
+                  final_step=int(state.step))
         prev_ckpt = stage_ckpt
     ledger.finish()
     print(f"curriculum complete: {len(manifest.stages)} stage(s); "

@@ -373,7 +373,10 @@ class ShardedLoader:
     in flight ahead of the consumer; 0 = ``max(2 * batch_size,
     2 * num_workers)`` samples.  A sample whose read fails
     (``ValueError`` / ``OSError``) is retried ``sample_retries`` times, then
-    quarantined (``quarantined_total`` counts it, one line is printed) and
+    quarantined (``quarantined_total`` counts it, one line is printed, a
+    ``sample_quarantine`` event goes to ``sink`` and the counter
+    ``raft_data_quarantined_total`` of ``registry`` grows by one; None =
+    the process-wide defaults, which the train loop points at its own) and
     replaced by an index drawn from ``SeedSequence([seed, epoch, index,
     _RESAMPLE_SALT, resample])``, up to ``sample_resamples`` times; any
     other error propagates.
@@ -389,6 +392,8 @@ class ShardedLoader:
     prefetch_batches: int = 0
     sample_retries: int = 1
     sample_resamples: int = 8
+    sink: Optional[object] = None
+    registry: Optional[object] = None
 
     #: Salt that separates replacement-index draws from the per-sample
     #: augmentation streams (the JAX package's constant).
@@ -446,12 +451,32 @@ class ShardedLoader:
 
     def _quarantine(self, epoch: int, index: int, idx: int,
                     resample: int, err: Exception) -> None:
+        from raft_tpu_torch.obs.events import default_sink
+        from raft_tpu_torch.obs.registry import default_registry
+
         with self._quarantine_lock:
             self.quarantined_total += 1
         print(f"sample quarantined: epoch {epoch} index {idx} (for "
               f"{index}, resample {resample}) after "
               f"{self.sample_retries + 1} attempt(s): "
               f"{type(err).__name__}: {err}", flush=True)
+        reg = self.registry if self.registry is not None \
+            else default_registry()
+        reg.counter(
+            "raft_data_quarantined_total",
+            "samples skipped after repeated read failures "
+            "(replaced by a deterministic resample)").inc()
+        sink = self.sink if self.sink is not None else default_sink()
+        sink.emit("sample_quarantine",
+                  dataset=getattr(err, "dataset_name", None)
+                  or getattr(self.dataset, "name",
+                             type(self.dataset).__name__),
+                  split=getattr(err, "split", None),
+                  path=getattr(err, "path", None),
+                  epoch=int(epoch), index=int(idx),
+                  original_index=int(index), resample=int(resample),
+                  retries=int(self.sample_retries),
+                  error=f"{type(err).__name__}: {err}")
 
     def steps_per_epoch(self) -> int:
         """Batches per epoch on this rank (the same every epoch)."""

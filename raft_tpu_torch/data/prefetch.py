@@ -18,6 +18,14 @@ with ``non_blocking`` copies on a side stream, and records an event.  The
 consumer's ``next()`` makes its current stream wait on that event and
 ``record_stream``-s each tensor on it, so the allocator does not hand the
 memory to the side stream again while the step may still read it.
+
+After each ``next()``, ``last_stamps`` holds the producer's
+``perf_counter`` stamps ``(t0, t1, t2)`` of that batch (pulled, prepared,
+put), which the train loop turns into ``prep`` / ``h2d`` trace spans,
+and, with ``keep_host``, ``last_host_batch`` holds the host batch after
+``prep_fn`` (after the noise and after ``shard_rows``: the rank's own
+rows), which the forensics ring keeps.  ``keep_host`` is off by default:
+the references keep up to ``depth`` more host batches alive.
 """
 
 from __future__ import annotations
@@ -131,14 +139,15 @@ class DevicePipeline:
     (also on leaving a ``with`` block) stops the producer, joins it and
     drops buffered batches so their device memory frees.
     ``last_prep_s`` / ``last_h2d_s``: the producer's prep and put time of
-    the batch ``next()`` returned last.
+    the batch ``next()`` returned last (``last_stamps``, ``keep_host``
+    and ``last_host_batch``: see the module docstring).
     """
 
     def __init__(self, batches: Iterable, *,
                  put_fn: Optional[Callable] = None,
                  ready_fn: Optional[Callable] = None,
                  prep_fn: Optional[Callable] = None,
-                 depth: int = 2,
+                 depth: int = 2, keep_host: bool = False,
                  interrupt: Optional[Callable[[], bool]] = None,
                  interrupt_poll_s: float = 0.1):
         if depth < 0:
@@ -149,10 +158,13 @@ class DevicePipeline:
         self._ready = ready_fn if ready_fn is not None else (lambda b: b)
         self._prep = prep_fn
         self.depth = int(depth)
+        self.keep_host = bool(keep_host)
         self._interrupt = interrupt
         self._interrupt_poll_s = max(float(interrupt_poll_s), 1e-3)
         self.last_prep_s = 0.0
         self.last_h2d_s = 0.0
+        self.last_stamps: Optional[tuple] = None
+        self.last_host_batch = None
         self.batches_out = 0
         self._closed = False
         if self.depth > 0:
@@ -181,25 +193,29 @@ class DevicePipeline:
                 try:
                     batch = next(self._src)
                 except StopIteration:
-                    self._q.put((_END, None, 0.0, 0.0))
+                    self._q.put((_END, None, None, None))
                     return
                 t0 = time.perf_counter()
                 if self._prep is not None:
                     batch = self._prep(batch)
                 t1 = time.perf_counter()
+                host = batch if self.keep_host else None
                 batch = self._put(batch)
                 t2 = time.perf_counter()
-                self._q.put((_ITEM, batch, t1 - t0, t2 - t1))
+                self._q.put((_ITEM, batch, host, (t0, t1, t2)))
         except BaseException as e:  # re-raised in the consumer
-            self._q.put((_ERROR, e, 0.0, 0.0))
+            self._q.put((_ERROR, e, None, None))
 
     # -- consumer --------------------------------------------------------
     def __iter__(self) -> "DevicePipeline":
         return self
 
-    def _account(self, prep_s: float, h2d_s: float) -> None:
-        self.last_prep_s = prep_s
-        self.last_h2d_s = h2d_s
+    def _account(self, host, stamps: tuple) -> None:
+        t0, t1, t2 = stamps
+        self.last_prep_s = t1 - t0
+        self.last_h2d_s = t2 - t1
+        self.last_stamps = stamps
+        self.last_host_batch = host
         self.batches_out += 1
 
     def __next__(self):
@@ -212,17 +228,18 @@ class DevicePipeline:
             if self._prep is not None:
                 batch = self._prep(batch)
             t1 = time.perf_counter()
+            host = batch if self.keep_host else None
             batch = self._put(batch)
             t2 = time.perf_counter()
-            self._account(t1 - t0, t2 - t1)
+            self._account(host, (t0, t1, t2))
             return self._ready(batch)
         if self._interrupt is None:
-            kind, payload, prep_s, h2d_s = self._q.get()
+            kind, payload, host, stamps = self._q.get()
         else:
             # a preemption request cannot interrupt queue.get: poll
             while True:
                 try:
-                    kind, payload, prep_s, h2d_s = self._q.get(
+                    kind, payload, host, stamps = self._q.get(
                         timeout=self._interrupt_poll_s)
                     break
                 except queue.Empty:
@@ -237,7 +254,7 @@ class DevicePipeline:
             self._closed = True
             raise payload
         self._slots.release()
-        self._account(prep_s, h2d_s)
+        self._account(host, stamps)
         return self._ready(payload)
 
     def buffered(self) -> int:

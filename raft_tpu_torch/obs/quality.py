@@ -378,7 +378,8 @@ class QualityMonitor:
     over the request's own images — off the device, costs nothing when
     unsampled).  Scored requests emit one ``quality_score`` event and
     return the scores as attributes (the JAX package hangs them on the
-    request's trace span; the port has no traces yet, ROADMAP A8).
+    request's trace span; the port's serving path opens no spans yet,
+    ROADMAP A8b′).
 
     Cycle scoring (``cycle=True``) rides the same machinery: a scored
     request enqueues a second inference on the swapped frame pair; when

@@ -35,6 +35,7 @@ import functools
 
 import torch
 
+from raft_tpu_torch.obs import cost
 from raft_tpu_torch.ops import build
 
 LAUNCHES = {"gru_gate_rh": 0, "gru_gate_blend": 0, "gru_gate_rh_bwd": 0,
@@ -172,6 +173,11 @@ def _launch(name: str, inputs, h: torch.Tensor, n_outputs: int = 1):
         inner, total, *plan, build.stream_handle(h))
     build.check_status(name, rc)
     LAUNCHES[name] += 1
+    if cost.counting_active() and name in ("gru_gate_rh", "gru_gate_blend"):
+        # the JAX package's formula for its fused gate forward (a cost
+        # count cannot see a ctypes launch; the backwards count zero)
+        cost.note_analytic(name, *cost.analytic_gru_gate_cost(
+            h.shape, name[len("gru_gate_"):], h.element_size()))
     return outs
 
 

@@ -48,6 +48,7 @@ from typing import Sequence
 
 import torch
 
+from raft_tpu_torch.obs import cost
 from raft_tpu_torch.ops import build
 from raft_tpu_torch.ops.corr import QuantizedLevel
 from raft_tpu_torch.ops.pyramid_kernels import (DTYPE_CODES,
@@ -158,6 +159,12 @@ def _launch(levels, scale, coords, radius, weight, bias, out_dtype):
                f4, out.data_ptr(), build.stream_handle(coords))
     build.check_status(name, rc)
     LAUNCHES[name] += 1
+    if cost.counting_active():
+        # the JAX package's formula for its fused lookup + convc1 (a cost
+        # count cannot see a ctypes launch)
+        cost.note_analytic(name, *cost.analytic_lookup_encode_cost(
+            B, [(lv.shape[2], lv.shape[3]) for lv in levels], N, radius, F,
+            pyramid_bytes=levels[0].element_size()))
     return out
 
 

@@ -70,9 +70,11 @@ reports ready, so its first request captures nothing.  Flow quality
 are built only when their knobs are set.
 
 The engine runs on the card unless it is given ``device="cpu"``; without
-CUDA it raises.  The JAX package's traces, cost model (and the MFU-floor
-SLO) and incidents are not ported yet (ROADMAP A8): their ``ServeConfig``
-knobs raise at any value but the default.
+CUDA it raises.  The JAX engine's request spans (ROADMAP A8b′), its
+MFU-floor SLO and incident knobs (A8c′) are not ported yet (the
+modules they use, ``obs/trace.py``, ``obs/cost.py`` and
+``obs/incident.py``, are): their ``ServeConfig`` knobs raise at any value
+but the default.
 """
 
 from __future__ import annotations
@@ -100,11 +102,13 @@ from raft_tpu_torch.utils.profiling import CaptureCounter
 # ServeConfig knobs of parts the port does not have yet -> the ROADMAP
 # item that brings them.  Each raises at any value but its default.
 UNPORTED_KNOBS = {
-    "slo_mfu_floor": "A8 (obs/cost.py, the MFU the floor reads)",
-    "incidents": "A8 (obs/incident.py)",
-    "incident_window_s": "A8 (obs/incident.py)",
-    "incident_quiet_s": "A8 (obs/incident.py)",
-    "incident_cooldown_s": "A8 (obs/incident.py)",
+    "slo_mfu_floor": "A8c′ (the serving MFU floor; obs/cost.py is "
+                     "ported)",
+    "incidents": "A8c′ (the engine's incident knobs; obs/incident.py "
+                 "is ported)",
+    "incident_window_s": "A8c′ (the engine's incident knobs)",
+    "incident_quiet_s": "A8c′ (the engine's incident knobs)",
+    "incident_cooldown_s": "A8c′ (the engine's incident knobs)",
 }
 
 # the default resident budget on the card: this share of its memory

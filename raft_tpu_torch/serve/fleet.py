@@ -64,7 +64,7 @@ The fleet does placement-free supervision only; request routing
 replica's registry into one exposition, each sample labeled
 ``replica="rK"``, with fleet-level counters (restarts, weight updates)
 on top — one scrape shows the whole fleet.  The JAX fleet's incident
-manager is not ported yet (ROADMAP A8): the engines run with
+manager is not ported yet (ROADMAP A8c′): the engines run with
 ``incidents=False``.
 """
 
@@ -411,7 +411,8 @@ class ReplicaFleet:
                  sink: Optional[EventSink] = None, device="cuda"):
         if serve_cfg.incidents:
             raise ValueError("ServeConfig.incidents: the fleet's incident "
-                             "manager is not ported yet (ROADMAP A8)")
+                             "manager is not ported yet (ROADMAP "
+                             "A8c′)")
         self.model_cfg = model_cfg
         self.serve_cfg = serve_cfg
         self.fleet_cfg = fleet_cfg

@@ -28,8 +28,9 @@ Design points:
   is deliberately NOT a failover signal — a server speaking garbage
   would speak the same garbage to the retry.
 - **No trace header yet** — the JAX client sends the submitting
-  thread's span as ``X-Raft-Trace``; the port has no traces (ROADMAP
-  A8), so it sends none (a JAX server then starts its own trace).
+  thread's span as ``X-Raft-Trace``; the port's serving path opens no
+  spans yet (ROADMAP A8b′), so it sends none (a JAX server then
+  starts its own trace).
 - **Connection pooling + per-request deadlines** — a small pool of
   keep-alive ``http.client`` connections; a connection that saw any
   network error is discarded, never reused.  Every request runs under

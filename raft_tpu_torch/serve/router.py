@@ -63,8 +63,8 @@ the stream continues, monotone frame numbering intact
 (``stream_restart`` event, ``raft_fleet_stream_restarts_total``).
 
 The JAX router opens a ``route`` trace span per request and an
-``attempt`` span per dispatch; the port has no traces yet (ROADMAP A8),
-so this router opens no span.
+``attempt`` span per dispatch; the port's serving path opens no spans
+yet (ROADMAP A8b′), so this router opens none.
 """
 
 from __future__ import annotations

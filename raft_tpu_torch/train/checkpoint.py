@@ -25,12 +25,19 @@ the loader continues the same global sample stream from its step
 (every device tensor into pinned memory, one synchronize) before it
 returns, so the next step may overwrite the parameters in place; a
 background thread writes it, with at most ``commit_window`` commits in
-flight.  A failed commit re-raises on the next call.
+flight.  A failed commit re-raises on the next call.  Each background
+commit emits one ``ckpt_commit`` event (``ok`` from a cheap probe of the
+written step: listed, and ``state.pt`` the size its manifest says;
+``commit_latency_s``, ``queue_wait_s``) and counts into
+``raft_ckpt_commits_total``; when the requesting thread was inside a
+trace (``obs/trace.py``), the commit is a ``ckpt_commit`` span of that
+trace, recorded on the committer thread.
 
 :meth:`CheckpointManager.restore_latest` walks the steps from the newest
 down: a torn or corrupt step (a missing file, a size or checksum
-mismatch, an unreadable pickle) prints a fallback line and the next one is
-tried; a structure mismatch (state keys or shapes that differ from the
+mismatch, an unreadable pickle) prints a fallback line, emits a
+``ckpt_fallback`` event, counts into ``raft_ckpt_fallback_total``, and the
+next one is tried; a structure mismatch (state keys or shapes that differ from the
 template) raises :class:`CheckpointRestoreError` at once, as does a
 directory where no step restores.  ``python -m raft_tpu_torch verify-ckpt
 <dir>`` runs the same checks offline.
@@ -186,12 +193,15 @@ class CheckpointManager:
     (``ckpt_dir/name``).  ``commit_window`` bounds the background commits
     in flight; ``commit_s`` lists each commit's seconds (write and fsync).
     ``mesh``: the run's data-parallel ranks (rank 0 writes; restore is
-    collective)."""
+    collective).  ``sink``: the :class:`raft_tpu_torch.obs.EventSink` of
+    the ``ckpt_fallback`` / ``ckpt_commit`` events (default: the
+    process-wide sink, a no-op unless ``RAFT_TELEMETRY_DIR`` is set)."""
 
     def __init__(self, directory: str, max_to_keep: int = 5,
-                 commit_window: int = 2, mesh=None):
+                 commit_window: int = 2, mesh=None, sink=None):
         self._dir = os.path.abspath(directory)
         self._mesh = mesh
+        self._sink = sink
         self._writer = mesh is None or mesh.rank == 0
         if self._writer:
             os.makedirs(self._dir, exist_ok=True)
@@ -207,6 +217,13 @@ class CheckpointManager:
     @property
     def directory(self) -> str:
         return self._dir
+
+    def _events(self):
+        if self._sink is not None:
+            return self._sink
+        from raft_tpu_torch.obs.events import default_sink
+
+        return default_sink()
 
     # -- topology --------------------------------------------------------
     def _topology_path(self) -> str:
@@ -270,7 +287,9 @@ class CheckpointManager:
         if chaos.should_inject("torn_ckpt", step=int(step),
                                point="ckpt.save"):
             # after the commit, as a host dying mid-flush would leave it
-            chaos.tear_files(final)
+            torn = chaos.tear_files(final)
+            self._events().emit("chaos_torn_ckpt", step=int(step),
+                                files=len(torn))
 
     def save(self, step: int, state: TrainState) -> None:
         """Snapshot and commit on the calling thread (the final and the
@@ -298,8 +317,13 @@ class CheckpointManager:
                 target=self._commit_loop, name="raft-ckpt-commit",
                 daemon=True)
             self._commit_thread.start()
+        # the caller's trace context rides along: the commit becomes a
+        # ckpt_commit span of the step's trace (None when not traced)
+        from raft_tpu_torch.obs import trace
+
         self._commit_q.put((int(step), snap,
-                            _current_topology(device, self._mesh)))
+                            _current_topology(device, self._mesh),
+                            time.perf_counter(), trace.current()))
 
     def _commit_loop(self) -> None:
         while True:
@@ -307,12 +331,61 @@ class CheckpointManager:
             try:
                 if item is _SHUTDOWN:
                     return
+                step, snap, topo, t_enq, ctx = item
+                t0 = time.perf_counter()
                 try:
-                    self._commit(*item)
+                    self._commit(step, snap, topo)
                 except BaseException as e:  # re-raised to the caller
                     self._commit_err = e
+                    ok, err = False, f"{type(e).__name__}: {str(e)[:200]}"
+                else:
+                    ok, err = self._probe_commit(step)
+                self._emit_commit(step, t0, t_enq, ctx, ok=ok, error=err)
             finally:
                 self._commit_q.task_done()
+
+    def _probe_commit(self, step: int):
+        """``(ok, error)``: the step is listed and its ``state.pt`` has the
+        size its manifest says (not a checksum: :meth:`verify` reads the
+        bytes).  It reports; it never deletes."""
+        d = os.path.join(self._dir, str(int(step)))
+        try:
+            if int(step) not in self.all_steps():
+                return False, "step not listed after commit"
+            with open(os.path.join(d, MANIFEST_FILE)) as f:
+                want = json.load(f)["files"][STATE_FILE]["bytes"]
+            got = os.path.getsize(os.path.join(d, STATE_FILE))
+            if got != want:
+                return False, (f"{STATE_FILE} has {got} bytes, the "
+                               f"manifest says {want}")
+            return True, None
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            return False, f"{type(e).__name__}: {str(e)[:200]}"
+
+    def _emit_commit(self, step, t0, t_enq, ctx, *, ok, error=None) -> None:
+        """The ``ckpt_commit`` event, counter and trace span of one
+        background commit; telemetry never fails a commit."""
+        from raft_tpu_torch.obs import trace
+        from raft_tpu_torch.obs.registry import default_registry
+
+        try:
+            now = time.perf_counter()
+            fields = dict(ok=bool(ok),
+                          commit_latency_s=round(now - t0, 6),
+                          queue_wait_s=round(t0 - t_enq, 6))
+            if error:
+                fields["error"] = error
+            self._events().emit("ckpt_commit", step=int(step), **fields)
+            default_registry().counter(
+                "raft_ckpt_commits_total",
+                "background checkpoint commits by probe outcome").inc(
+                    ok=str(bool(ok)).lower())
+            if ctx:
+                trace.record_span(ctx, "ckpt_commit", t0, now,
+                                  status="ok" if ok else "error",
+                                  step=int(step))
+        except Exception:
+            pass
 
     def _raise_commit_err(self) -> None:
         if self._commit_err is not None:
@@ -395,6 +468,8 @@ class CheckpointManager:
                 failures.append((step, e))
                 print(f"checkpoint fallback: step {step} unrestorable "
                       f"({e}); trying the next older step", flush=True)
+                self._note_fallback(step, e, tried=len(failures),
+                                    remaining=len(steps) - len(failures))
                 continue
             if template is not None:
                 check_structure(saved, template)
@@ -408,6 +483,18 @@ class CheckpointManager:
             "step(s) failed: " + "; ".join(
                 f"step {s}: {type(e).__name__}: {str(e)[:120]}"
                 for s, e in failures))
+
+    def _note_fallback(self, step: int, e: BaseException, *,
+                       tried: int, remaining: int) -> None:
+        from raft_tpu_torch.obs.registry import default_registry
+
+        default_registry().counter(
+            "raft_ckpt_fallback_total",
+            "saved checkpoint steps skipped as unrestorable during "
+            "resume").inc()
+        self._events().emit("ckpt_fallback", step=int(step),
+                            error=f"{type(e).__name__}: {str(e)[:200]}",
+                            tried=tried, remaining_steps=remaining)
 
     def restore_latest(self, template: TrainState) -> Optional[TrainState]:
         """Load the newest restorable step into ``template`` (in place)

@@ -5,6 +5,12 @@ learning rate, and mirrored to TensorBoard when it is asked for and can
 be imported (a warning once, else; printing goes on).  The step's metrics
 stay device tensors until the window's flush, which reads them back to
 the host in one go: no per-step sync for logging.
+
+The ``on_flush`` hook gets ``(first_step, means, per_step)`` from that
+same single transfer (``per_step[i]`` belongs to step
+``first_step + i``): the training-health layer (``obs/health.py``) feeds
+on it, so it adds no transfer of its own.  A failure inside the hook is
+printed as a warning and training goes on.
 """
 
 from __future__ import annotations
@@ -25,10 +31,13 @@ class Logger:
     def __init__(self, log_freq: int = 100,
                  lr_fn: Optional[Callable] = None,
                  tensorboard_dir: Optional[str] = None,
-                 log: Optional[Callable[[str], None]] = None):
+                 log: Optional[Callable[[str], None]] = None,
+                 on_flush: Optional[Callable[[int, Dict, List[Dict]],
+                                             None]] = None):
         self.log_freq = log_freq
         self.lr_fn = lr_fn
         self.log = log or (lambda line: print(line, flush=True))
+        self.on_flush = on_flush
         self._pending: List[Dict] = []
         self._last_step = 0
         self._writer = None
@@ -79,6 +88,12 @@ class Logger:
                 else:  # per-iteration curves: one series per element
                     for i, vi in enumerate(np.ravel(v)):
                         w.add_scalar(f"{k}/{i:02d}", float(vi), step + 1)
+        if self.on_flush is not None:
+            try:
+                self.on_flush(step - count + 1, means, per_step)
+            except Exception as e:  # health/forensics must never kill
+                print(f"WARNING: logger flush hook failed "
+                      f"({type(e).__name__}: {e})", flush=True)
         self._pending = []
 
     def write_dict(self, step: int, results: Dict[str, float]) -> None:

@@ -32,12 +32,43 @@
   as in the JAX package: a resumed run does not replay the noise of step
   0, and a run started at step k draws what the JAX package draws.
 
-The JAX loop's telemetry, tracing, health, watchdog and profiler hooks are
-not carried over (ROADMAP A8).
+Observability, at the JAX loop's places and with its events
+(``obs/train.py``), none of it adding a device sync to the step path:
+
+- ``telemetry_dir`` (default ``$RAFT_TELEMETRY_DIR``; unset = off): a
+  JSONL stream of ``run_config``, one ``train_step`` a step (host
+  ``perf_counter`` floats only), ``compile`` (the step key's first,
+  eager call), ``cost_report`` (that first call counted,
+  ``obs/cost.py``; at world 1 only: the counting modes are not run
+  around the ranks' collectives), ``hbm_usage`` (the allocator's peak,
+  reset before the first step and read after the capture),
+  ``train_health`` a Logger flush, and ``metrics_summary`` last; the
+  loader's ``sample_quarantine`` and the checkpoint manager's
+  ``ckpt_fallback`` / ``ckpt_commit`` events land in the same stream.
+- Health: every rank's Logger (silent but on rank 0) feeds its own
+  :class:`~raft_tpu_torch.obs.health.HealthMonitor` from its one
+  transfer per ``log_freq`` steps; a step the guard flagged gets a
+  forensic bundle of the rank's own rows under
+  ``<telemetry_dir>/forensics/`` (``cfg.forensic_keep`` host batches in
+  the ring).
+- ``cfg.trace_sample_rate``: each sampled step is a ``train_step`` trace
+  with ``queue_wait``, ``prep``, ``h2d``, ``step_dispatch`` (the host's
+  enqueue of the step; the device time shows in ``step_time_s``, since
+  the loop waits one step behind) and ``ckpt_commit`` (recorded on the
+  committer thread) children.
+- ``cfg.watchdog_timeout``: the stall watchdog, paused across the first
+  call of the step key (eager) and the second (the capture), and around
+  save and validate.
+- ``cfg.profile_steps = (A, B)``: a ``torch.profiler`` window over the
+  absolute steps ``[A, B)``, a Chrome trace under
+  ``<telemetry_dir>/profile/`` or ``profile_dir``; it waits for the card
+  once, at its end.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import os
 import threading
@@ -52,11 +83,18 @@ from raft_tpu_torch.config import RAFTConfig, TrainConfig
 from raft_tpu_torch.data.prefetch import (CudaBatchPut, DevicePipeline,
                                           PipelineInterrupted, host_put)
 from raft_tpu_torch.evaluate import DeviceLike, resolve_device
+from raft_tpu_torch.obs import cost as cost_mod
+from raft_tpu_torch.obs import trace
+from raft_tpu_torch.obs.health import HealthMonitor
+from raft_tpu_torch.obs.train import TrainTelemetry
+from raft_tpu_torch.obs.watchdog import StallWatchdog, stack_dump_path
 from raft_tpu_torch.parallel.mesh import Mesh
 from raft_tpu_torch.train.checkpoint import CheckpointManager
 from raft_tpu_torch.train.logger import Logger
 from raft_tpu_torch.train.state import TrainState
-from raft_tpu_torch.train.step import init_state, make_train_step
+from raft_tpu_torch.train.step import init_state, make_train_step, step_cost
+from raft_tpu_torch.utils.profiling import (StepProfiler, annotate_step,
+                                            hbm_usage, state_bytes)
 
 _PREEMPT = threading.Event()
 
@@ -110,6 +148,8 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
           validators: Optional[Dict[str, Callable]] = None,
           restore_params: Optional[Mapping] = None,
           tensorboard_dir: Optional[str] = None,
+          profile_dir: Optional[str] = None,
+          telemetry_dir: Optional[str] = None,
           device: DeviceLike = "cuda",
           log: Optional[Callable[[str], None]] = None,
           timings: Optional[list] = None,
@@ -133,12 +173,14 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
     mesh.data_size, host_id=mesh.data_index)``) of whole images, which
     the loop cuts into the rank's rows when ``mesh.spatial > 1``, and
     ``cfg.batch_size`` is the global batch.
+    ``telemetry_dir`` / ``profile_dir``: see the module docstring.
     """
     if (batches is None) == (loader is None):
         raise ValueError("pass exactly one of batches= or loader=")
     dev = resolve_device(device)
     _PREEMPT.clear()
     multi = mesh is not None and mesh.world > 1
+    world = 1 if mesh is None else mesh.world
     chief = mesh is None or mesh.rank == 0
     say = functools.partial(print, flush=True) if chief else _silent
     state = init_state(model_cfg, cfg, device=dev,
@@ -146,9 +188,18 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
     say(f"Parameter Count: "
         f"{sum(p.numel() for p in state.model.parameters())}")
 
+    # telemetry first: the checkpoint manager's ckpt_fallback events and
+    # the loader's sample_quarantine events land in the same stream as
+    # the steps, and a resume's fallback happens before the first step
+    telem = TrainTelemetry(telemetry_dir, batch_size=cfg.batch_size,
+                           num_devices=world, image_size=cfg.image_size)
+    if loader is not None and telem.enabled:
+        loader.sink = telem.sink
+        loader.registry = telem.registry
     mgr = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name),
                             commit_window=max(int(cfg.ckpt_commit_window),
-                                              1), mesh=mesh)
+                                              1), mesh=mesh,
+                            sink=telem.sink if telem.enabled else None)
     if mgr.restore_latest(state) is not None:
         saved_on = mgr.saved_topology(state.step) or {}
         say(f"resumed from step {state.step}"
@@ -158,7 +209,7 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
 
     step_fn = make_train_step(cfg, device=dev, **(
         {} if mesh is None else {"mesh": mesh}))
-    step = state.step
+    step = start = state.step
     if loader is not None:
         batches = loader.batches_from_step(step)
     prep_fn = noise_prep(cfg.seed, step) if cfg.add_noise else None
@@ -168,8 +219,38 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
         def prep_fn(batch, noise=noise):
             return shard_rows(batch if noise is None else noise(batch),
                               mesh.spatial_index, mesh.spatial)
+    # tracing: rate 0 leaves tracer None, one identity check a step
+    tracer = None
+    if float(cfg.trace_sample_rate or 0.0) > 0:
+        tracer = trace.configure(
+            sample_rate=float(cfg.trace_sample_rate), seed=cfg.seed,
+            sink=telem.sink if telem.enabled else None)
+    rank_tag = mesh.rank if multi else None
+    if cfg.profile_steps:
+        a, b = int(cfg.profile_steps[0]), int(cfg.profile_steps[1])
+        pdir = profile_dir or (os.path.join(telem.directory, "profile")
+                               if telem.enabled else "profile")
+        profiler = StepProfiler(pdir, start_step=a, num_steps=max(b - a, 1),
+                                absolute=True, rank=rank_tag)
+    else:
+        profiler = StepProfiler(profile_dir, rank=rank_tag)
+    telem.start(start_step=step, num_steps=cfg.num_steps)
+    health = None
+    if telem.enabled:
+        health = HealthMonitor(
+            telem, forensics_dir=os.path.join(telem.directory, "forensics"),
+            seed=cfg.seed, keep=max(int(cfg.forensic_keep), 0),
+            # one scalar read at startup (a resume carries the count)
+            initial_nonfinite=int(state.nonfinite_steps),
+            run_meta={"model_cfg": dataclasses.asdict(model_cfg),
+                      "train_cfg": dataclasses.asdict(cfg)},
+            rank=rank_tag)
+    keep_host = health is not None and cfg.forensic_keep > 0
+    # every rank's logger feeds its own monitor; only rank 0's prints
     logger = Logger(cfg.log_freq, lr_fn=state.schedule,
-                    tensorboard_dir=tensorboard_dir, log=log)
+                    tensorboard_dir=tensorboard_dir if chief else None,
+                    log=log if chief else _silent,
+                    on_flush=health.observe_flush if health else None)
     depth = max(int(cfg.device_prefetch), 0)
     if dev.type == "cuda":
         put = CudaBatchPut(dev, depth + 1)
@@ -180,12 +261,38 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
     # next step boundary
     pipeline = DevicePipeline(batches, put_fn=put_fn, ready_fn=ready_fn,
                               prep_fn=prep_fn, depth=depth,
+                              keep_host=keep_host,
                               interrupt=None if multi else _PREEMPT.is_set)
+    watchdog = None
+    if float(cfg.watchdog_timeout or 0.0) > 0:
+        watchdog = StallWatchdog(
+            float(cfg.watchdog_timeout), sink=telem.sink,
+            dump_path=stack_dump_path(telem.directory),
+            hard_exit=bool(cfg.watchdog_exit),
+            recent_records=telem.recent_records)
+        watchdog.start()
+    # the step's first call runs eagerly and, on the card, its second
+    # captures the graph: both are legitimately slow, and the capture
+    # ends the allocator peak that hbm_usage reads
+    warm_calls = 2 if getattr(step_fn, "graphs", False) else 1
+    hbm_pending = telem.hbm_enabled
+    if hbm_pending and dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+
+    def record_hbm():
+        telem.record_hbm(hbm_usage(dev, args_bytes=state_bytes(state)))
+
     t0, steps_t0 = time.time(), step
     in_flight = []          # the previous step's completion event
     try:
         while True:
+            if watchdog is not None:
+                watchdog.beat(step)
             t_iter = time.perf_counter()
+            st = (tracer.start_trace("train_step", step=step)
+                  if tracer is not None else None)
             try:
                 batch = next(pipeline)
             except StopIteration:
@@ -193,35 +300,96 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
             except PipelineInterrupted:
                 raise SystemExit(143)
             queue_wait_s = time.perf_counter() - t_iter
+            if st is not None:
+                trace.record_span(st, "queue_wait", t_iter,
+                                  t_iter + queue_wait_s)
+                if pipeline.last_stamps is not None:
+                    # the producer's stamps, attached on this thread
+                    p0, p1, p2 = pipeline.last_stamps
+                    trace.record_span(st, "prep", p0, p1)
+                    trace.record_span(st, "h2d", p1, p2)
             if step >= cfg.num_steps:
                 break
+            if keep_host:
+                # a reference append, and the dropout generator's state
+                # before this step (host memory, no device access)
+                health.note_batch(
+                    step, pipeline.last_host_batch,
+                    state.generator.get_state().numpy().tobytes())
             if chaos.should_inject("preempt", step=step,
                                    point="train.preempt"):
                 request_preemption()
             if (mesh.any_host(_PREEMPT.is_set()) if multi
                     else _PREEMPT.is_set()):
                 raise SystemExit(143)  # step boundary: state consistent
-            state, metrics = step_fn(state, batch)
+            profiler.maybe_start(step)
+            warming = step - start < warm_calls
+            if watchdog is not None and warming:
+                watchdog.pause()
+            count_cm = contextlib.nullcontext()
+            if step == start and telem.cost_enabled and world == 1:
+                count_cm = cost_mod.counting()
+            t_d0 = time.perf_counter()
+            try:
+                with annotate_step(step), count_cm as counted:
+                    state, metrics = step_fn(state, batch)
+            except BaseException as e:
+                if st is not None:
+                    trace.record_span(st, "step_dispatch", t_d0,
+                                      time.perf_counter(), status="error",
+                                      error=type(e).__name__)
+                    st.end(status="error", error=type(e).__name__)
+                raise
+            if st is not None:
+                trace.record_span(st, "step_dispatch", t_d0,
+                                  time.perf_counter())
             if dev.type == "cuda":
                 in_flight.append(torch.cuda.Event())
                 in_flight[-1].record()
                 if len(in_flight) > 1:
                     in_flight.pop(0).synchronize()
+            profiler.maybe_stop(step, sync_on=metrics["loss"])
             step += 1
-            if chief:
+            if chief or health is not None:
                 logger.push(step - 1, metrics)
+            step_time_s = time.perf_counter() - t_iter
+            if step - 1 == start:
+                telem.record_compile(
+                    step - 1, step_time_s,
+                    key=("train_step", tuple(cfg.image_size),
+                         cfg.batch_size))
+                if counted is not None:
+                    telem.record_cost(step_cost(counted, cfg.batch_size,
+                                                world, kind=kind))
+            if warming and step - start == warm_calls:
+                if hbm_pending:
+                    hbm_pending = False
+                    record_hbm()
+                if watchdog is not None:
+                    watchdog.resume()  # the warm-up calls are over
+            telem.record_step(step - 1, step_time_s, queue_wait_s,
+                              h2d_s=pipeline.last_h2d_s,
+                              prep_s=pipeline.last_prep_s)
             if timings is not None:
                 timings.append({
                     "step": step - 1, "loss": metrics["loss"],
-                    "queue_wait_s": queue_wait_s,
-                    "step_s": time.perf_counter() - t_iter,
+                    "queue_wait_s": queue_wait_s, "step_s": step_time_s,
                     "prep_s": pipeline.last_prep_s,
                     "h2d_s": pipeline.last_h2d_s})
+            if st is not None:
+                # the flush point: sampled traces emit now, the rest park
+                # in the dropped ring for a late verdict
+                st.end(step_time_s=round(step_time_s, 6))
             if not multi and _PREEMPT.is_set():
                 raise SystemExit(143)
 
             if step % cfg.val_freq == 0:
-                mgr.save_async(step, state)
+                if watchdog is not None:
+                    watchdog.pause()  # save + validate is legitimately slow
+                # the step's trace context rides along: the committer's
+                # ckpt_commit span lands in its tree (a late child)
+                with trace.use_context(st):
+                    mgr.save_async(step, state)
                 if validators and chief:
                     sd = dict(state.model.state_dict())
                     results = {}
@@ -235,6 +403,8 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
                 ips = (step - steps_t0) * cfg.batch_size / max(dt, 1e-9)
                 say(f"throughput: {ips:.2f} image-pairs/sec (host)")
                 t0, steps_t0 = time.time(), step
+                if watchdog is not None:
+                    watchdog.resume()
 
         if mgr.last_requested_step() != state.step:
             mgr.save(state.step, state)
@@ -250,8 +420,14 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
             mgr.save(state.step, state)
         raise
     finally:
+        if watchdog is not None:
+            watchdog.stop()  # first: the teardown below can be slow
         pipeline.close()
         mgr.wait()
         mgr.close()
+        profiler.close()
         logger.close()
+        if hbm_pending and step > start:
+            record_hbm()    # a run shorter than the warm-up calls
+        telem.close()
     return state

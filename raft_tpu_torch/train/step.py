@@ -55,6 +55,15 @@ clip + AdamW/OneCycle update, on one device.
   collectives' backwards, what its rows did to the other shards' loss,
   so the sum over the ranks is the gradient of the sum.  The pixel
   metrics stay weighed by each rank's valid pixels.
+- The health taps (JAX's optax update tap, ``raft_tpu/train/state.py:
+  41-51``): ``param_norm`` is the global L2 norm of the parameters before
+  the update, ``update_ratio`` the norm of (new - old) over
+  ``param_norm + 1e-12``, both from one device copy of the parameters
+  taken before the fused AdamW updates them in place, after the
+  reduction over ranks (every rank holds the same values).  On a step the
+  guard skips, JAX reports the norm of the rejected update, which is not
+  finite; the port's optimizer never forms that update (``found_inf``),
+  so the parameters do not move and ``update_ratio`` is 0.
 - On the card the whole step (forward, backward, global norm, clip,
   learning rate, AdamW, statistics, guard; every microbatch) is one
   captured CUDA graph per batch shape, held by ``state.programs``
@@ -243,7 +252,15 @@ def _step_body(state: TrainState, cfg: TrainConfig, loss_fn: Callable,
         bad = (~ok).float()
         opt.found_inf = bad
     set_scheduled_lr_(opt, state.schedule)
+    # the health taps: one device copy of the parameters before the update
+    with torch.no_grad():
+        delta = [p.detach().clone() for p in params]
+        param_norm = global_norm(delta)
     opt.step()
+    with torch.no_grad():
+        torch._foreach_sub_(delta, [p.detach() for p in params])
+        update_ratio = global_norm(delta) / (param_norm + 1e-12)
+    del delta
     if cfg.nonfinite_guard:
         with torch.no_grad():
             for buf, old in stats:
@@ -252,7 +269,8 @@ def _step_body(state: TrainState, cfg: TrainConfig, loss_fn: Callable,
     else:
         bad = torch.zeros((), device=loss.device)
     model.zero_grad(set_to_none=True)
-    return dict(metrics, loss=loss.detach(), grad_norm=gnorm, nonfinite=bad)
+    return dict(metrics, loss=loss.detach(), grad_norm=gnorm, nonfinite=bad,
+                param_norm=param_norm, update_ratio=update_ratio)
 
 
 def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
@@ -263,7 +281,9 @@ def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
     ``(B, H, W, 3)`` in [0, 255], ``flow`` ``(B, H, W, 2)`` and ``valid``
     ``(B, H, W)`` as arrays or tensors (moved to ``device``).  Metrics are
     device tensors: ``loss``, ``epe``, ``1px``, ``3px``, ``5px``,
-    ``loss_iter``, ``epe_iter``, ``grad_norm`` and ``nonfinite``.
+    ``loss_iter``, ``epe_iter``, ``grad_norm``, ``nonfinite``,
+    ``param_norm`` and ``update_ratio`` (see the module docstring).
+    ``step_fn.graphs`` says whether the step runs as captured graphs.
 
     ``graphs`` (default: on the card) runs the step as a captured graph
     per batch shape; ``False`` runs it eagerly (for comparisons).  Each
@@ -311,4 +331,19 @@ def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
         state.step += 1
         return state, metrics
 
+    step_fn.graphs = graphs
     return step_fn
+
+
+def step_cost(count, batch_size: int, num_devices: int, kind=None):
+    """The :class:`~raft_tpu_torch.obs.cost.ProgramCost` of a train step
+    counted by ``obs.cost.counting`` (its first call).  One call on one
+    device advances ``batch_size / num_devices`` pairs, which keeps
+    ``flops_per_pair`` the same at any world size, as in the JAX
+    package."""
+    from raft_tpu_torch.obs import cost as cost_mod
+
+    return cost_mod.counted_cost(
+        count, program="train_step",
+        pairs_per_call=float(batch_size) / max(int(num_devices), 1),
+        kind=kind)

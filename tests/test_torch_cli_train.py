@@ -3,9 +3,11 @@ tests/test_cli.py::test_train_cli_few_steps and
 tests/test_chaos.py::test_verify_ckpt_cli): ``python -m raft_tpu_torch
 train`` on a synthetic FlyingChairs tree (the full model at 64x96, 2
 iterations, batch 2), preempted and resumed, its run directory verified
-and read by the evaluate CLI; every JAX flag the port cannot honour yet
-raises ``SystemExit`` naming its ROADMAP item when it is set, and
-``--scan_unroll``, which has no counterpart, names its reason;
+and read by the evaluate CLI; every JAX flag is accepted (the seven
+observability flags reach ``TrainConfig`` or
+``train()``; a bad trace rate or profiler window is refused with the JAX
+CLI's message), and ``--scan_unroll``, which has no counterpart, names
+its reason;
 ``--corr_precision`` validates as JAX's; ``--remat`` and
 ``--remat_upsample`` map onto the model configuration as JAX's CLI maps
 them."""
@@ -142,22 +144,96 @@ def test_verify_ckpt_cli(tmp_path, capsys):
     assert not os.path.exists(tmp_path / "empty")
 
 
+# the seven observability flags the port once refused, each with a value
+# and where it lands: a TrainConfig field or a keyword of train()
 UNPORTED_VALUES = {
     "profile_dir": ["p"], "telemetry_dir": ["t"],
     "trace_sample_rate": ["0.5"], "watchdog_timeout": ["30"],
     "watchdog_exit": [], "profile_steps": ["1:2"], "forensic_keep": ["0"]}
+LANDS = {"profile_dir": ("kw", "p"), "telemetry_dir": ("kw", "t"),
+         "trace_sample_rate": ("cfg", 0.5),
+         "watchdog_timeout": ("cfg", 30.0), "watchdog_exit": ("cfg", True),
+         "profile_steps": ("cfg", (1, 2)), "forensic_keep": ("cfg", 0)}
 
 
-@pytest.mark.parametrize("flag", sorted(train_cli.UNPORTED))
-def test_unported_flags_name_their_roadmap_item(flag, capsys):
-    item = train_cli.UNPORTED[flag][1]
-    with pytest.raises(SystemExit, match=f"ROADMAP {item.split()[0]}"):
-        train_cli.run([f"--{flag}", *UNPORTED_VALUES[flag]])
+@pytest.fixture
+def stub_train(monkeypatch, tmp_path):
+    """The train CLI up to ``train()``, which records its arguments; the
+    CLI's exports (the telemetry directory, the SIGQUIT dump) are undone
+    afterwards."""
+    import faulthandler
+    import signal
+
+    from raft_tpu_torch.obs import events
+    from raft_tpu_torch.train import loop
+
+    seen = {}
+
+    def fake_train(model_cfg, cfg, **kw):
+        seen.update(cfg=cfg, **kw)
+        return None
+
+    monkeypatch.setattr(loop, "train", fake_train)
+    monkeypatch.chdir(tmp_path)
+    for name in ("RAFT_TELEMETRY_DIR", "RAFT_TRACE_SAMPLE_RATE"):
+        monkeypatch.setenv(name, "")         # restored to unset afterwards
+        monkeypatch.delenv(name)
+    yield seen
+    faulthandler.unregister(signal.SIGQUIT)
+    events.reset_default_sink()
+
+
+@pytest.mark.parametrize("flag", sorted(UNPORTED_VALUES))
+def test_unported_flags_name_their_roadmap_item(flag, chairs_tree,
+                                                stub_train, capsys):
+    """Every flag the port once refused (naming ROADMAP A8) is accepted
+    now, in both spellings, and reaches ``TrainConfig`` or ``train()``;
+    ``UNPORTED`` is empty."""
+    assert train_cli.UNPORTED == {}
+    where, want = LANDS[flag]
+    for spelling in (flag, flag.replace("_", "-")):
+        stub_train.clear()
+        argv = _train_args(chairs_tree, f"--{spelling}",
+                           *UNPORTED_VALUES[flag])[1:]
+        train_cli.run(argv)
+        got = (getattr(stub_train["cfg"], flag) if where == "cfg"
+               else stub_train[flag])
+        assert got == want, (spelling, got)
     # every fault of the JAX package is known to the port's plans now: an
     # unknown one is refused with the list, the remote fabric's included
     with pytest.raises(SystemExit, match="unknown fault 'net_nope'.*"
                                          "net_refuse.*net_partition"):
         train_cli.run(["--chaos", "net_nope@step=1", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--trace_sample_rate", "1.5"],
+     "--trace_sample_rate must be in [0, 1], got 1.5"),
+    (["--trace-sample-rate", "-0.1"],
+     "--trace_sample_rate must be in [0, 1], got -0.1"),
+    (["--profile_steps", "5"],
+     "--profile_steps expects A:B (step window), got '5'"),
+    (["--profile-steps", "a:b"],
+     "--profile_steps expects A:B (step window), got 'a:b'"),
+    (["--profile_steps", "7:7"],
+     "--profile_steps window must be non-empty, got '7:7'")])
+def test_bad_rate_and_window_refused_as_jax(argv, message, chairs_tree,
+                                            stub_train):
+    """The JAX CLI's refusals and messages (``raft_tpu/cli/train.py:
+    372-389``); the rate's default comes from ``$RAFT_TRACE_SAMPLE_RATE``
+    as there."""
+    with pytest.raises(SystemExit) as ex:
+        train_cli.run(_train_args(chairs_tree, *argv)[1:])
+    assert str(ex.value) == message
+    assert stub_train == {}
+
+
+def test_trace_rate_default_from_environment(chairs_tree, stub_train,
+                                             monkeypatch):
+    monkeypatch.setenv("RAFT_TRACE_SAMPLE_RATE", "0.25")
+    train_cli.run(_train_args(chairs_tree)[1:])
+    assert stub_train["cfg"].trace_sample_rate == 0.25
+    assert stub_train["cfg"].profile_steps is None
 
 
 def test_scan_unroll_is_refused_with_its_reason():

@@ -1347,6 +1347,93 @@ def test_guard_reads_nothing_back_on_the_card(dev, graphs):
                            params["fnet.conv1.weight"])
 
 
+def _telemetry_records(directory):
+    import json
+
+    (f,) = directory.glob("telemetry-p*.jsonl")
+    return [json.loads(line) for line in f.read_text().splitlines()]
+
+
+def test_telemetry_adds_no_sync_to_the_captured_steps(dev, tmp_path):
+    """``train()`` with telemetry, health, tracing at rate 1 and the
+    watchdog on, the serial pipeline and ``log_freq`` beyond the run:
+    the steady steps after the eager call and the capture (steps 2..5)
+    run under ``torch.cuda.set_sync_debug_mode("error")``, which the batch
+    iterator turns on before step 2's batch and off when asked for the
+    batch after the last step."""
+    from raft_tpu_torch.obs import trace
+    from raft_tpu_torch.train import loop
+
+    cfg = dataclasses.replace(_graph_train_cfgs(), num_steps=6,
+                              log_freq=100, val_freq=100, device_prefetch=0,
+                              trace_sample_rate=1.0, watchdog_timeout=120.0,
+                              ckpt_dir=str(tmp_path / "ck"))
+    seen = []
+
+    def batches():
+        for i, b in enumerate(_host_batches(cfg.num_steps)):
+            if i == 2:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            seen.append(i)
+            yield b
+        torch.cuda.set_sync_debug_mode("default")
+
+    try:
+        state = loop.train(RAFTConfig.full(**KERNEL_KW), cfg, batches(),
+                           device=dev, telemetry_dir=str(tmp_path / "tel"))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        trace.reset_default_tracer()
+    assert state.step == 6 and seen == list(range(6))
+    assert state.programs.counter.total() == 1
+    recs = _telemetry_records(tmp_path / "tel")
+    events = [r["event"] for r in recs]
+    assert events.count("train_step") == 6 and "stall" not in events
+    hbm = next(r for r in recs if r["event"] == "hbm_usage")
+    assert 0 < hbm["peak_hbm_gb"] < 80
+    rep = next(r for r in recs if r["event"] == "cost_report")
+    assert rep["flops_per_pair"] > 0 and rep["source"] == "counted"
+    roots = [r for r in recs if r["event"] == "trace_span"
+             and r["name"] == "train_step"]
+    assert len(roots) == 6
+
+
+def test_nonfinite_batch_bundle_on_the_card(dev, tmp_path):
+    """A NaN in step 3's flow on the card: its forensic bundle (the host
+    batch that step consumed) and a ``nonfinite_step`` event; the
+    parameters after step 3 are those after step 2, bit for bit."""
+    import numpy as np
+
+    from raft_tpu_torch.obs.health import load_forensic_bundle
+    from raft_tpu_torch.train import loop
+
+    batches = list(_host_batches(5))
+    batches[3]["flow"][1, 5, 7, 0] = np.nan
+    kept = []
+
+    def grab(sd):
+        kept.append({k: v.detach().clone() for k, v in sd.items()})
+        return {}
+
+    cfg = dataclasses.replace(_graph_train_cfgs(), num_steps=5, log_freq=5,
+                              val_freq=1, device_prefetch=2,
+                              forensic_keep=8, ckpt_dir=str(tmp_path / "ck"))
+    loop.train(RAFTConfig.full(**KERNEL_KW), cfg, iter(batches),
+               validators={"grab": grab}, device=dev,
+               telemetry_dir=str(tmp_path / "tel"))
+    assert all(torch.equal(kept[2][k], v) for k, v in kept[3].items())
+    assert not all(torch.equal(kept[3][k], v) for k, v in kept[4].items())
+    (path,) = (tmp_path / "tel" / "forensics").glob("*.npz")
+    got, meta = load_forensic_bundle(str(path))
+    assert meta["step"] == 3 and meta["batch_captured"]
+    np.testing.assert_array_equal(got["flow"], batches[3]["flow"])
+    assert meta["rng"]["generator_state"]
+    ev = [r for r in _telemetry_records(tmp_path / "tel")
+          if r["event"] == "nonfinite_step"]
+    assert len(ev) == 1 and ev[0]["step"] == 3
+
+
 def test_resume_into_a_captured_step(dev, tmp_path):
     """Checkpoint restores into a state whose step is captured (dropout on,
     so the registered generator is restored too), past a torn newest

@@ -162,7 +162,12 @@ def test_ledger_refuses_changed_manifest(tmp_path):
 # run_curriculum: fresh run, skip-complete, seeding, resume
 # ---------------------------------------------------------------------
 
-def test_run_curriculum_fresh_then_noop_rerun(tmp_path, capsys):
+def test_run_curriculum_fresh_then_noop_rerun(tmp_path, monkeypatch):
+    from raft_tpu_torch.obs import events as events_mod
+
+    tel = tmp_path / "tel"
+    monkeypatch.setenv("RAFT_TELEMETRY_DIR", str(tel))
+    events_mod.reset_default_sink()
     wd = str(tmp_path / "wd")
     log = []
     state = run_curriculum(_manifest(), wd, extra_argv=["--seed", "3"],
@@ -186,9 +191,12 @@ def test_run_curriculum_fresh_then_noop_rerun(tmp_path, capsys):
         assert e["status"] == "complete" and e["final_step"] == 7
         assert e["runs"] == 1
         assert e["validation"] == [f"Validation ({name}) epe: 0.5"]
-    # one JSON line a transition, the fields of JAX's curriculum_stage
-    events = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
-              if ln.startswith('{"')]
+    # one curriculum_stage event a transition in the process-wide sink's
+    # JSONL, the fields of JAX's
+    events_mod.default_sink().flush()
+    (f,) = tel.glob("telemetry-p*.jsonl")
+    events = [json.loads(ln) for ln in f.read_text().splitlines()]
+    events_mod.reset_default_sink()
     assert [(e["event"], e["name"], e["status"]) for e in events] == [
         ("curriculum_stage", "s1", "running"),
         ("curriculum_stage", "s1", "complete"),
@@ -197,6 +205,7 @@ def test_run_curriculum_fresh_then_noop_rerun(tmp_path, capsys):
     assert events[0]["attempt"] == 1 and events[1]["final_step"] == 7
 
     run_curriculum(_manifest(), wd, train_runner=_stub_runner(log))
+    events_mod.reset_default_sink()
     assert len(log) == 2
 
 

@@ -101,6 +101,14 @@ Phases, each raising on failure (so the script exits nonzero):
    lanes, resident, peak and reserved memory; device busy and idle share
    over a traced loop of 8 x 2 requests), a stream's cold and warm frame
    ms, and the copy kernels of one ``iter`` replay under ``allpairs``;
+   for the kernel configuration's slot mode, the same closed loop with
+   every request traced at rate 1 into a JSONL sink (pairs/s against the
+   untraced loop, one tree a request, an ``iter_step`` an iteration with
+   the cost book's MFU, its median in (0, 1)), the engine's MFU signal,
+   and ``POST /debug/profile?seconds=1`` to an HTTP front end over the
+   engine under 8 clients (the Chrome trace, under the sink's directory,
+   must hold ``corr_ondemand_kernel``, ``rh_kernel`` and
+   ``blend_kernel``);
    request mode's memory over the Sintel, KITTI and FlyingChairs buckets
    (``allpairs``, bf16, batch sizes 1/2/4/8: the serve CLI's defaults),
    with the default budget and with a budget of one bucket's memory
@@ -109,6 +117,11 @@ Phases, each raising on failure (so the script exits nonzero):
    flows bit for bit the in-process engine's, a stream session,
    ``/metrics`` and ``/v1/healthz``, a flood past ``--max-queue``
    answered by structured 429s, SIGINT ending it with its stats line;
+   with ``--trace-sample-rate 1 --telemetry-dir``: one ``serve_http``
+   tree a served request (``queue``, ``pad``, 32 ``iter_step`` with an
+   MFU in (0, 1), ``device``), a 429 a root of status ``full``, and a
+   request carrying an upstream ``X-Raft-Trace`` continued under the
+   caller's span, the reply carrying its id;
 6. fleet: the self-healing fleet (``ReplicaFleet`` + ``FlowRouter``) of
    the kernel configuration at the Sintel bucket, 32 iterations, two
    replicas sharing the card.  In fp32 with TF32 off, one pair a batch:
@@ -126,10 +139,15 @@ Phases, each raising on failure (so the script exits nonzero):
    ratio); the fabric: a loopback server in this process fronting a
    second engine, its flows bit for bit over the wire, the ms a pair the
    wire adds, ``net_partition`` with ``heal=`` under load (no drop, the
-   remote rejoins).  In bf16 at batch sizes 1 and 8: ``replica_kill``
+   remote rejoins), then one request traced at rate 1 through the
+   router to the remote: one tree (``route``, ``attempt`` on the remote,
+   the server's ``serve_http`` under it through the ``X-Raft-Trace``
+   header, the server engine's spans under that).  In bf16 at batch
+   sizes 1 and 8, the fleet's incident manager on: ``replica_kill``
    under a closed loop of 8 clients twice (no drop, a generation bump,
    the restart seconds, no capture on the restarted engine's first
-   request), a ``replica_hang`` wedge (only the wedged replica restarts;
+   request; the two kills' cascade ONE incident), a ``replica_hang``
+   wedge (only the wedged replica restarts;
    detection time, the sibling's p99 meanwhile), reserved memory after
    these three restarts within 10%, ``replica_slow`` with a hedge (one
    hedge, which wins) and without (none), and the router's pairs/s and
@@ -164,7 +182,10 @@ Phases, each raising on failure (so the script exits nonzero):
    at 4 iterations, the EPE within 1e-2 px at 32 / 24), with exact
    launch counts for every batch; the evaluate CLI for each dataset in a
    subprocess against the same validator in this process (the printed
-   EPE within 1.5e-3); the Sintel submission with a warm start at batch 2
+   EPE within 1.5e-3; the Sintel one with ``--telemetry_dir``: one
+   counted ``cost_report`` of its one forward shape, a
+   ``raft_eval_forward`` span a batch, the ``eval`` records of the
+   printed EPEs); the Sintel submission with a warm start at batch 2
    against batch 1 (every ``.flo`` within 1e-3 px) and the KITTI
    submission read back at each image's shape; ``validate_sintel``
    ms/pair (kernel configuration bf16 and fp32, ``allpairs`` bf16), its
@@ -287,7 +308,10 @@ Phases, each raising on failure (so the script exits nonzero):
    between them by ``stage_kill`` (exit 143) and resumed;
    ``lk-compare --small`` on the demo frames; and ``python -m
    raft_tpu_torch serve --random-init --replicas 2`` at the Sintel
-   bucket (two flows, ``/metrics`` of both replicas, SIGINT);
+   bucket (two flows, ``/metrics`` of both replicas, SIGINT); and
+   ``python -m raft_tpu_torch cost`` at the chairs shapes (its table
+   printed; the four programs counted and classified against the
+   card's peaks);
 16. report: one JSON line ``{"kernels": [...]}`` (each kernel with its
    small-model launches and, where phase small timed it, its times
    there, and its launches per serving ``iter`` replay with, where phase
@@ -2557,10 +2581,12 @@ def _cli_vs_inprocess(weights, sd, trees, dev) -> dict:
     the validators' iterations and batch 4) for each dataset in a
     subprocess, against the same validator in this process: the printed
     EPE within 1.5e-3 (3 printed decimals; cuDNN may choose other
-    algorithms in another process) and exit code 0."""
+    algorithms in another process) and exit code 0.  The Sintel run
+    writes its telemetry (``--telemetry_dir``): ``_eval_telemetry``."""
     from raft_tpu_torch.config import RAFTConfig
 
     procs = {}
+    tel = os.path.join(trees["root"], "eval_tel")
     try:
         for name in ("sintel", "kitti", "chairs"):
             cmd = [sys.executable, "-m", "raft_tpu_torch.cli.evaluate",
@@ -2568,6 +2594,8 @@ def _cli_vs_inprocess(weights, sd, trees, dev) -> dict:
                    "--iters", str(EVAL_ITERS[name]),
                    "--data_root", trees["root"], "--chairs_split",
                    trees["split"], "--device", str(dev)]
+            if name == "sintel":
+                cmd += ["--telemetry_dir", tel]
             procs[name] = subprocess.Popen(
                 cmd, cwd=REPO, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True,
@@ -2603,7 +2631,43 @@ def _cli_vs_inprocess(weights, sd, trees, dev) -> dict:
             raise AssertionError(f"eval CLI {name}: rc {p.returncode}, "
                                  f"{printed} vs {inproc}; "
                                  f"stderr {stderr[-2000:]}")
+    res["telemetry"] = _eval_telemetry(tel, res["sintel"]["printed"])
     return res
+
+
+def _eval_telemetry(tel: str, printed) -> dict:
+    """The Sintel validator CLI's stream: one ``cost_report`` (the
+    forward's one shape, ``inference_440x1024``, counted on its first
+    call: FLOPs and bytes above 0), a ``raft_eval_forward`` span event a
+    batch, and the ``eval`` records of both passes with the printed
+    EPEs."""
+    import glob
+
+    (path,) = glob.glob(os.path.join(tel, "*.jsonl"))
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    costs = [r for r in recs if r["event"] == "cost_report"]
+    fwd = [r for r in recs if r["event"] == "span"
+           and r.get("name") == "raft_eval_forward"]
+    evals = [r for r in recs if r["event"] == "eval"]
+    rec = {"cost_reports": [{k: c.get(k) for k in (
+        "program", "flops", "bytes", "flops_per_pair", "source",
+        "device_kind", "bound_by")} for c in costs],
+        "forward_spans": len(fwd),
+        "forward_ms_median": (float(np.median([r["seconds"] for r in fwd]))
+                              * 1e3 if fwd else None),
+        "evals": [{k: r.get(k) for k in ("dataset", "epe")} for r in evals]}
+    print(f"[eval] CLI --telemetry_dir (Sintel): {json.dumps(rec)}",
+          flush=True)
+    epes = [round(r.get("epe", -1), 3) for r in evals]
+    if (len(costs) != 1 or costs[0]["program"] != "inference_440x1024"
+            or not costs[0]["flops"] > 0 or not costs[0]["bytes"] > 0
+            or costs[0]["source"] != "counted" or not fwd
+            or [r["dataset"] for r in evals] != ["sintel-clean",
+                                                 "sintel-final"]
+            or epes != [round(x, 3) for x in printed]):
+        raise AssertionError(f"eval telemetry: {rec}")
+    return rec
 
 
 def _submissions(sd, trees, dev) -> dict:
@@ -4851,12 +4915,16 @@ def _serve_kernels(peaks) -> dict:
 
 
 def _closed_loop(eng, pairs, budgets=None, clients=SERVE_LOOP_CLIENTS,
-                 reqs=SERVE_LOOP_REQS) -> dict:
+                 reqs=SERVE_LOOP_REQS, traced: bool = False) -> dict:
     """``clients`` threads, each sending ``reqs`` requests one after
-    another: pairs/s over the window, client-side p50 / p99 ms."""
+    another: pairs/s over the window, client-side p50 / p99 ms.
+    ``traced``: each request under a root span of the default tracer
+    (``request``), as the HTTP front end opens ``serve_http``."""
     import threading
 
-    lats, errs = [], []
+    from raft_tpu_torch.obs import trace
+
+    lats, errs, ends = [], [], []
     rng = np.random.default_rng(9)
     plan = [[(pairs[(c + i) % len(pairs)],
               None if budgets is None else int(rng.choice(budgets)))
@@ -4865,10 +4933,17 @@ def _closed_loop(eng, pairs, budgets=None, clients=SERVE_LOOP_CLIENTS,
     def client(c):
         for (a, b), it in plan[c]:
             t = time.perf_counter()
+            root = (trace.default_tracer().start_trace("request")
+                    if traced else trace.NOOP_SPAN)
             try:
-                eng.infer(a, b, iters=it, timeout=600)
+                with trace.use_context(root):
+                    fut = eng.submit(a, b, iters=it)
+                fut.result(timeout=600)
             except Exception as e:        # noqa: BLE001 (reported below)
                 errs.append(repr(e))
+            t_end = time.perf_counter()
+            root.end()          # a sampled root emits its tree here
+            ends.append((time.perf_counter() - t_end) * 1e3)
             lats.append((time.perf_counter() - t) * 1e3)
 
     threads = [threading.Thread(target=client, args=(c,))
@@ -4881,9 +4956,141 @@ def _closed_loop(eng, pairs, budgets=None, clients=SERVE_LOOP_CLIENTS,
     wall = time.perf_counter() - t0
     if errs:
         raise AssertionError(f"serve closed loop: {errs[:3]}")
-    return {"pairs_per_s": clients * reqs / wall,
-            "p50_ms": float(np.percentile(lats, 50)),
-            "p99_ms": float(np.percentile(lats, 99)), "wall_s": wall}
+    out = {"pairs_per_s": clients * reqs / wall,
+           "p50_ms": float(np.percentile(lats, 50)),
+           "p99_ms": float(np.percentile(lats, 99)), "wall_s": wall}
+    if traced:
+        out["root_end_ms_mean"] = float(np.mean(ends))
+    return out
+
+
+def _serve_observability(eng, pairs, untraced: dict) -> dict:
+    """The kernel configuration's bf16 slot engine right after its timed
+    loop (``untraced``, tracing off): the same closed loop with every
+    request traced at rate 1 into a JSONL sink (its pairs/s against the
+    untraced loop's; one tree a request, an ``iter_step`` an iteration,
+    each with the MFU the cost book gives it: the median held to (0, 1));
+    the engine's ``load_signals()["mfu"]`` and the cost book's ``iter``
+    record; and one ``POST /debug/profile?seconds=1`` to an HTTP front
+    end over the engine while 8 clients load it: the Chrome trace must
+    hold the on-demand lookup and both gate kernels of the ``iter``
+    graph's replays."""
+    import glob
+    import shutil
+    import threading
+    import urllib.request
+
+    from raft_tpu_torch.cli.serve import make_server
+    from raft_tpu_torch.obs import EventSink, reset_default_sink, trace
+
+    class _Drop:
+        """A sink that drops every record: the traced arm without the
+        JSONL writes."""
+
+        def emit(self, event, **fields):
+            pass
+
+    work = os.path.join(WORK, "serve_obs")
+    shutil.rmtree(work, ignore_errors=True)
+    sink = EventSink(os.path.join(work, "trace"))
+    arms = {}
+    for arm, arm_sink, reqs in (("jsonl", sink, SERVE_LOOP_REQS),
+                                ("dropped", _Drop(), SERVE_LOOP_REQS // 2),
+                                ("untraced_after", None,
+                                 SERVE_LOOP_REQS // 2)):
+        if arm_sink is not None:
+            trace.configure(sample_rate=1.0, sink=arm_sink)
+        try:
+            arms[arm] = _closed_loop(eng, pairs, reqs=reqs,
+                                     traced=arm_sink is not None)
+        finally:
+            trace.reset_default_tracer()
+    sink.close()
+    loop = arms["jsonl"]
+    spans = _spans_of(os.path.join(work, "trace"))
+    roots = [s for s in spans if s["name"] == "request"]
+    iters = [s for s in spans if s["name"] == "iter_step"]
+    mfu = [s["mfu"] for s in iters if s.get("mfu") is not None]
+    signals, cost = eng.load_signals(), eng.stats()["cost"]
+    book = cost[f"{SERVE_BUCKET[0]}x{SERVE_BUCKET[1]}/b{SERVE_SLOTS}/iter"]
+    rec = {"traced_pairs_per_s": loop["pairs_per_s"],
+           "traced_p99_ms": loop["p99_ms"],
+           "untraced_pairs_per_s": untraced["pairs_per_s"],
+           "traced_over_untraced": loop["pairs_per_s"]
+           / untraced["pairs_per_s"],
+           # where a traced request's time goes: the root's emission of
+           # its tree (the client's, as an HTTP handler's before it
+           # replies), the same spans dropped instead of written, and
+           # the untraced loop again after both
+           "arms": {k: {kk: v[kk] for kk in ("pairs_per_s", "p50_ms",
+                                             "root_end_ms_mean")
+                        if kk in v} for k, v in arms.items()},
+           "trees": len(roots), "spans": len(spans),
+           "iter_steps": len(iters),
+           "iter_mfu_median": float(np.median(mfu)) if mfu else None,
+           "iter_mfu_p10_p90": ([float(np.percentile(mfu, 10)),
+                                 float(np.percentile(mfu, 90))]
+                                if mfu else None),
+           "signal_mfu": signals["mfu"],
+           "iter_gflop_per_pair": book["flops_per_pair"] / 1e9,
+           "iter_source": book["source"]}
+    want_trees = SERVE_LOOP_CLIENTS * SERVE_LOOP_REQS
+    if (len(roots) != want_trees or len(iters) != want_trees * SERVE_ITERS
+            or len(mfu) != len(iters) or not 0 < rec["iter_mfu_median"] < 1
+            or signals["mfu"] is None or not 0 < signals["mfu"] < 1
+            or book["source"] != "counted"):
+        raise AssertionError(f"serve traced loop: {rec}")
+
+    # the profile endpoint under load, its trace under the sink's
+    # directory (the process-default sink, pointed at the work dir)
+    saved = os.environ.get("RAFT_TELEMETRY_DIR")
+    os.environ["RAFT_TELEMETRY_DIR"] = os.path.join(work, "tel")
+    reset_default_sink()
+    server = make_server(eng, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    load = threading.Thread(target=_closed_loop, args=(eng, pairs),
+                            kwargs=dict(reqs=4))
+    try:
+        load.start()
+        time.sleep(0.3)
+        t0 = time.perf_counter()
+        out = json.loads(urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/debug/profile"
+            "?seconds=1", data=b"", method="POST"), timeout=600).read())
+        secs = time.perf_counter() - t0
+        load.join()
+    finally:
+        server.shutdown()
+        server.server_close()
+        if saved is None:
+            os.environ.pop("RAFT_TELEMETRY_DIR", None)
+        else:
+            os.environ["RAFT_TELEMETRY_DIR"] = saved
+        reset_default_sink()
+    with open(out["file"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {}
+    for e in kernels:
+        for k in ("corr_ondemand_kernel", "rh_kernel", "blend_kernel"):
+            if k in e.get("name", ""):
+                names[k] = names.get(k, 0) + 1
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    rec["profile"] = {
+        "dir_under_sink": out["dir"].startswith(os.path.join(work, "tel")),
+        "seconds": out["seconds"], "request_s": secs,
+        "file_mib": os.path.getsize(out["file"]) / 2 ** 20,
+        "events": len(events), "kernel_events": len(kernels),
+        "kernels": names, "cpu_ops": len(ops),
+        "cpu_op_threads": len({e.get("tid") for e in ops}),
+        "files": len(glob.glob(os.path.join(work, "tel", "xprof", "*",
+                                            "*.json")))}
+    print(f"[serve] kernel bf16 slot observability: {json.dumps(rec)}",
+          flush=True)
+    if (set(names) != {"corr_ondemand_kernel", "rh_kernel", "blend_kernel"}
+            or not rec["profile"]["dir_under_sink"]):
+        raise AssertionError(f"serve /debug/profile: {rec['profile']}")
+    return rec
 
 
 def _stream_times(eng, clip) -> dict:
@@ -5003,6 +5210,9 @@ def _serve_timings(sd, label: str, pairs, clip, peaks) -> dict:
             rec["stream"] = _stream_times(eng, clip)
             if label == "allpairs":
                 rec["replay_copies"] = _copy_kernels_per_replay(eng)
+            else:
+                rec["observability"] = _serve_observability(eng, pairs,
+                                                            rec)
         rec["captures"] = {k: v for k, v in st["compiles"].items()}
         if set(rec["captures"].values()) != {1}:
             raise AssertionError(f"serve {label} {mode}: captures "
@@ -5097,13 +5307,29 @@ def _serve_cli(sd, pairs, clip) -> dict:
             url, data=buf.getvalue(), method="POST"), timeout=600)
         return np.load(io.BytesIO(r.read()))
 
+    import shutil
+
+    tel = os.path.join(WORK, "serve_cli_tel")
+    shutil.rmtree(tel, ignore_errors=True)
     child = _Child(["serve", "--random-init", "--port", "0", "--batching",
-                    "slot", "--max-queue", "4", "--warmup", "436x1024"])
+                    "slot", "--max-queue", "4", "--warmup", "436x1024",
+                    "--trace-sample-rate", "1", "--telemetry-dir", tel])
+    upstream = ("5e2e2de0c0ffee01", "0123456789abcdef")
     try:
         line = child.wait_for(r"listening on http://", timeout=600)
         base = re.search(r"http://(\S+)", line).group(1)
         got = [post(f"http://{base}/v1/flow", image1=a, image2=b)["flow"]
                for a, b in pairs[:3]]
+        # a request that continues an upstream trace: the reply carries
+        # the header of the continued trace
+        buf = io.BytesIO()
+        np.savez(buf, image1=pairs[3][0], image2=pairs[3][1])
+        r = urllib.request.urlopen(urllib.request.Request(
+            f"http://{base}/v1/flow", data=buf.getvalue(), method="POST",
+            headers={"X-Raft-Trace": "-".join(upstream) + "-s"}),
+            timeout=600)
+        reply_header = r.headers.get("X-Raft-Trace")
+        r.read()
         stream = [post(f"http://{base}/v1/stream/s1", image=f)
                   for f in clip[:3]]
         summary = json.loads(urllib.request.urlopen(urllib.request.Request(
@@ -5160,8 +5386,64 @@ def _serve_cli(sd, pairs, clip) -> dict:
         raise AssertionError(f"serve CLI flood: {codes} {bodies[:2]}")
     if rc != 0 or "completed" not in stats:
         raise AssertionError(f"serve CLI exit {rc}: {child.lines[-3:]}")
+    traces = _serve_cli_trees(tel, upstream, reply_header,
+                              3 + 1 + codes.count(200))
     return {"flows_bit_equal": same, "flood_codes": sorted(codes),
-            "stats_completed": stats["completed"], "stream": summary}
+            "stats_completed": stats["completed"], "stream": summary,
+            "traces": traces}
+
+
+def _spans_of(directory: str) -> list:
+    """The ``trace_span`` records of the JSONL files under ``directory``."""
+    import glob
+
+    out = []
+    for path in sorted(glob.glob(os.path.join(directory, "*.jsonl"))):
+        with open(path) as f:
+            out += [r for r in map(json.loads, f)
+                    if r.get("event") == "trace_span"]
+    return out
+
+
+def _serve_cli_trees(tel: str, upstream, reply_header, flows: int) -> dict:
+    """The serve CLI's trace trees (``--trace-sample-rate 1``): one
+    ``serve_http`` root a ``/v1/flow`` request that reached the engine
+    (each 429 a root of status ``full``), the upstream trace continued
+    (its ``serve_http`` under the caller's span, the reply carrying its
+    id), and under each served root ``queue``, ``pad``, one ``iter_step``
+    an iteration and ``device``; the ``iter_step`` spans' MFU from the
+    engine's cost book in (0, 1)."""
+    spans = _spans_of(tel)
+    roots = [s for s in spans if s["name"] == "serve_http"]
+    served = [r for r in roots if r["status"] == "ok"]
+    by_parent = {}
+    for s in spans:
+        by_parent.setdefault(s["parent_id"], []).append(s)
+    kids = {}
+    for r in served:
+        names = sorted(c["name"] for c in by_parent.get(r["span_id"], []))
+        kids[tuple(names)] = kids.get(tuple(names), 0) + 1
+    want = tuple(sorted(["queue", "pad", "device"]
+                        + ["iter_step"] * SERVE_ITERS))
+    up = [r for r in roots if r["trace_id"] == upstream[0]]
+    mfu = [s["mfu"] for s in spans if s["name"] == "iter_step"
+           and s.get("mfu") is not None]
+    rec = {"roots": len(roots), "served": len(served),
+           "full": sum(r["status"] == "full" for r in roots),
+           "children": {",".join(sorted(set(k))): n for k, n in
+                        kids.items()},
+           "upstream_parent_ok": bool(up) and up[0]["parent_id"]
+           == upstream[1], "reply_header": reply_header,
+           "iter_mfu_median": float(np.median(mfu)) if mfu else None,
+           "iter_mfu_range": [min(mfu), max(mfu)] if mfu else None}
+    print(f"[serve] CLI traces: {json.dumps(rec)}", flush=True)
+    if (len(served) != flows or kids != {want: flows}
+            or not rec["upstream_parent_ok"]
+            or not (reply_header or "").startswith(upstream[0] + "-")
+            or len(mfu) != flows * SERVE_ITERS
+            or not all(0 < m < 1 for m in mfu)):
+        raise AssertionError(f"serve CLI trace trees: {rec}")
+    return rec
 
 
 def phase_serve(sd, peaks):
@@ -5208,17 +5490,31 @@ FLEET_DEVICE = "cuda"
 
 
 class _Events:
-    """An event sink that keeps ``(perf_counter, event, fields)``."""
+    """An event sink that keeps ``(perf_counter, event, fields)``; with
+    ``directory``, every event also goes through an ``EventSink`` there,
+    whose observers (an incident manager) see it and whose directory takes
+    the incident bundles."""
 
-    def __init__(self):
+    def __init__(self, directory=None):
         import threading
+
+        from raft_tpu_torch.obs import EventSink
 
         self.records = []
         self._lock = threading.Lock()
+        self._tee = EventSink(directory)
+
+    @property
+    def directory(self):
+        return self._tee.directory
+
+    def add_observer(self, fn) -> None:
+        self._tee.add_observer(fn)
 
     def emit(self, event, step=None, **fields):
         with self._lock:
             self.records.append((time.perf_counter(), event, fields))
+        self._tee.emit(event, step=step, **fields)
 
     def of(self, name: str) -> list:
         with self._lock:
@@ -5542,6 +5838,7 @@ def _fleet_checks(sd, pairs, work: str) -> dict:
         chaos.uninstall()
         _wait(remote.eligible, "the rejoined remote to be eligible", 60)
         rstats = router.router_stats()
+        res["trace"] = _traced_remote_request(router, remote, pairs[0])
         res["fabric"] = {
             "remote_bit_equal_direct": same_wire,
             "remote_bit_equal_local": same_local,
@@ -5564,6 +5861,46 @@ def _fleet_checks(sd, pairs, work: str) -> dict:
         del fleet, server_eng
     _reserved_gib()
     return res
+
+
+def _traced_remote_request(router, remote, pair) -> dict:
+    """One request traced at rate 1 through the router to the remote
+    replica (the Sintel bucket's affine replica): ONE tree across the
+    wire — ``route``, its ``attempt`` on the remote, the server's
+    ``serve_http`` under that attempt (the ``X-Raft-Trace`` header), and
+    the server engine's ``queue`` / ``pad`` / ``device`` under it."""
+    from raft_tpu_torch.obs import trace
+
+    spans = _Events()
+    trace.configure(sample_rate=1.0, sink=spans)
+    try:
+        flow = router.infer(*pair, timeout=600)
+        _wait(lambda: len(spans.of("trace_span")) >= 6, "the trace", 30)
+    finally:
+        trace.reset_default_tracer()
+    recs = [f for _, f in spans.of("trace_span")]
+    by_id = {r["span_id"]: r for r in recs}
+    names = sorted(r["name"] for r in recs)
+    (root,) = [r for r in recs if r["name"] == "route"]
+    att = [r for r in recs if r["name"] == "attempt"]
+    http = [r for r in recs if r["name"] == "serve_http"]
+    rec = {"names": names, "trace_ids": len({r["trace_id"] for r in recs}),
+           "attempt_replica": [a["replica"] for a in att],
+           "serve_http_under_attempt": len(http) == 1 and len(att) == 1
+           and http[0]["parent_id"] == att[0]["span_id"],
+           "engine_spans_under_serve_http": all(
+               by_id.get(r["parent_id"], {}).get("name") == "serve_http"
+               for r in recs if r["name"] in ("queue", "pad", "device"))}
+    print(f"[fleet] traced request through the router to the remote: "
+          f"{json.dumps(rec)}", flush=True)
+    if (rec["trace_ids"] != 1 or names != sorted(
+            ["route", "attempt", "serve_http", "queue", "pad", "device"])
+            or rec["attempt_replica"] != [remote.name]
+            or not rec["serve_http_under_attempt"]
+            or not rec["engine_spans_under_serve_http"]
+            or root["status"] != "ok" or not np.isfinite(flow).all()):
+        raise AssertionError(f"fleet traced remote request: {rec}")
+    return rec
 
 
 def _kill_and_restart(fleet, router, sink, pairs, what: str) -> dict:
@@ -5607,21 +5944,35 @@ def _fleet_drills(sd, pairs, work: str) -> dict:
     from raft_tpu_torch.serve import FlowRouter, RouterConfig
 
     res = {}
-    sink = _Events()
+    # the fleet's incident manager (one for the shared stream) on a
+    # sink with a directory for its bundles
+    sink = _Events(os.path.join(work, "tel_bf16"))
     fleet = _fleet(sd, "bfloat16", sink, os.path.join(work, "aot_bf16"),
                    serve_kw={"sizes": FLEET_SIZES,
                              "stall_timeout_s": FLEET_STALL_S,
                              "chaos_slow_s": FLEET_SLOW_S,
-                             "chaos_hang_max_s": 60.0})
+                             "chaos_hang_max_s": 60.0,
+                             "incidents": True})
     try:
         res["warm_start"] = _warm_start(fleet, pairs, "bf16")
         router = FlowRouter(fleet, RouterConfig(), sink=sink)
         _fleet_loop(router, pairs, clients=2, reqs=1)           # settle
+        opened0 = fleet.stats()["fleet"]["incidents"]["opened"]
         # step 3: two kills; the wedge's restart below is step 10's third
         kills = [_kill_and_restart(fleet, router, sink, pairs,
                                    f"kill {i + 1}") for i in range(2)]
         res["kill"] = kills[0]
         print(f"[fleet] bf16 kill: {json.dumps(kills)}", flush=True)
+        # the kill drill's cascade (crashes, failovers, restarts) is ONE
+        # incident of the fleet's manager
+        snap = fleet.stats()["fleet"]["incidents"]
+        res["incidents"] = {"opened": snap["opened"] - opened0,
+                            "open": snap["open"]}
+        print(f"[fleet] bf16 kill drill incidents: "
+              f"{json.dumps(res['incidents'])}", flush=True)
+        if (res["incidents"]["opened"] != 1 or snap["open"] is None
+                or "replica_crash" not in snap["open"]["signals"]):
+            raise AssertionError(f"fleet kill incidents: {snap}")
 
         # step 4: a wedge on the affine replica; only it restarts, the
         # sibling serves throughout
@@ -6672,12 +7023,48 @@ def phase_clis(tree):
     os.makedirs(work)
     sd = RAFT(RAFTConfig.small_model(), seed=0).state_dict()
     child = _fleet_cli_start()
+    cost = _Child(["cost"])
     try:
         small = _small_clis(tree, work, sd)
         fleet = _fleet_cli(_serve_pairs(2), child)
+        cost_rc = cost.finish(timeout=600)
     finally:
         child.kill()
-    return {"small": small, "fleet": fleet}
+        cost.kill()
+    return {"small": small, "fleet": fleet,
+            "cost": _cost_table(cost_rc, cost.lines)}
+
+
+def _cost_table(rc: int, lines) -> dict:
+    """``python -m raft_tpu_torch cost`` at the chairs shapes (the shipped
+    training configuration, bf16; train 368x496 B 8, 12 iterations; the
+    serving pair at 440x1024 x 4 lanes): the table printed as it is, each
+    of the four programs counted (GFLOPs and MB above 0, ``counted``) and
+    classified against the H100's peaks."""
+    for line in lines:
+        print(f"[clis] cost | {line}", flush=True)
+    rows = {}
+    for line in lines:
+        m = re.match(r"^(train_step|inference_\d+x\d+|serve_(?:enc|iter)_"
+                     r"\d+x\d+_b\d+)\s+([\d.]+)\s+([\d.]+)\s+(\S+)\s+"
+                     r"(\S+)\s+(\d+)\s+(\S+)$", line)
+        if m:
+            rows[m.group(1)] = {"gflops": float(m.group(2)),
+                                "mb": float(m.group(3)),
+                                "bound_by": m.group(5),
+                                "flops_per_pair": int(m.group(6)),
+                                "source": m.group(7)}
+    head = next((ln for ln in lines if ln.startswith("device_kind:")), "")
+    if (rc != 0 or set(rows) != {"train_step", "inference_368x496",
+                                 "serve_enc_440x1024_b4",
+                                 "serve_iter_440x1024_b4"}
+            or "989.400" not in head
+            or any(r["gflops"] <= 0 or r["mb"] <= 0 or r["source"]
+                   != "counted" or r["bound_by"] not in ("compute",
+                                                         "memory")
+                   for r in rows.values())):
+        raise AssertionError(f"cost CLI rc {rc}: {lines[-12:]}")
+    return {"device": head, "programs": rows}
 
 
 class _Beside:
@@ -6778,6 +7165,7 @@ def main(argv=None) -> int:
     small = {"kernels": small_kern,
              **timed_phase(phase_small, sd, train_cli["tree"])}
     small["clis"], fleet["cli"] = clis["small"], clis["fleet"]
+    cost_cli = clis["cost"]
     secs["total"] = time.perf_counter() - t0
 
     sources = {
@@ -6901,7 +7289,7 @@ def main(argv=None) -> int:
                        "eval": eval_res,
                        "train": train, "train_cli": train_cli,
                        "ddp": ddp, "spatial": spatial,
-                       "small": small}, f, indent=1)
+                       "small": small, "cost_cli": cost_cli}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

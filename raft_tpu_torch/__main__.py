@@ -9,6 +9,8 @@ the subcommands the port has::
     python -m raft_tpu_torch lk-compare --model weights.pth \
         --image1 a.png --image2 b.png
     python -m raft_tpu_torch serve --random-init --port 8080
+    python -m raft_tpu_torch cost --tiny --device cpu
+    python -m raft_tpu_torch incidents list --telemetry-dir runs/tel
 """
 
 from __future__ import annotations
@@ -28,6 +30,10 @@ _SUBCOMMANDS = {
     "lk-compare": ("raft_tpu_torch.cli.lk_compare",
                    "RAFT against Lucas-Kanade, side by side"),
     "serve": ("raft_tpu_torch.cli.serve", "HTTP inference server"),
+    "cost": ("raft_tpu_torch.cli.cost",
+             "per-program FLOPs/bytes/roofline table"),
+    "incidents": ("raft_tpu_torch.cli.incidents",
+                  "browse incident bundles (list/show/timeline)"),
 }
 
 

@@ -14,6 +14,11 @@ storage dtype and prints the deltas against the first.
 ``--early_exit_threshold 0.05,0.2`` sweeps early-exit thresholds
 against the full-iteration baseline through the serving engine's slot
 programs and prints the record as one JSON line.
+``--quality-proxies`` (with ``--quality-cycle``) scores every image with
+the label-free quality proxies of the serving path and prints each
+proxy's Spearman rank correlation with the true EPE as one JSON line.
+``--telemetry_dir`` writes the JSONL events (the per-batch forward
+spans, one ``cost_report`` a forward shape, the ``eval`` record) there.
 ``--corr_precision`` takes the JAX CLI's values (``auto`` / ``default`` /
 ``high`` / ``highest``): the precision of the correlation's matrix
 products, TF32 on the card for ``high`` and ``default``.  It runs on the
@@ -104,6 +109,19 @@ def parse_args(argv=None):
                         "arm the EPE delta and iters_used p50/p95 (the "
                         "serving knob it gates is "
                         "ServeConfig.early_exit_threshold)")
+    p.add_argument("--quality-proxies", "--quality_proxies",
+                   action="store_true", dest="quality_proxies",
+                   help="calibration of the unsupervised quality proxies "
+                        "(obs/quality.py): score every image with the "
+                        "label-free photometric and retirement-residual "
+                        "proxies the serving sampler records and report "
+                        "each proxy's Spearman rank correlation with the "
+                        "true EPE")
+    p.add_argument("--quality-cycle", "--quality_cycle",
+                   action="store_true", dest="quality_cycle",
+                   help="with --quality-proxies: also score "
+                        "forward-backward cycle consistency (a second "
+                        "pass on swapped frames, twice the forward cost)")
     p.add_argument("--alternate_corr", action="store_true",
                    help="on-demand correlation lookup and fused GRU gates "
                         "(the CUDA kernels on the card)")
@@ -117,6 +135,11 @@ def parse_args(argv=None):
     p.add_argument("--no_bucket", action="store_true",
                    help="KITTI: pad each image to its own /8 shape, one "
                         "image a batch, instead of one bucket shape")
+    p.add_argument("--telemetry_dir", "--telemetry-dir", default=None,
+                   help="write JSONL telemetry events (per-batch forward "
+                        "spans, one cost_report a forward shape, the eval "
+                        "record) into this directory; default "
+                        "$RAFT_TELEMETRY_DIR, unset = disabled")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -143,7 +166,16 @@ def load_model_state_dict(path: str, model_cfg):
 def main(argv=None):
     args = parse_args(argv)
 
+    import os
     import os.path as osp
+
+    if args.telemetry_dir:
+        # the eval spans write through the process-default sink, which
+        # binds to this variable on first use (obs/events.py)
+        os.environ["RAFT_TELEMETRY_DIR"] = args.telemetry_dir
+        from raft_tpu_torch.obs import reset_default_sink
+
+        reset_default_sink()
 
     from raft_tpu_torch import evaluate
     from raft_tpu_torch.config import RAFTConfig
@@ -185,6 +217,23 @@ def main(argv=None):
                 "early_exit_delta_vs_full": result["delta_vs_full"],
                 "thresholds": result["thresholds"],
                 "per_threshold": result["per_threshold"]}}))
+        return result
+    if args.quality_proxies:
+        import json
+
+        result = evaluate.evaluate_quality_proxies(
+            state_dict, model_cfg, dataset=args.dataset, iters=iters,
+            batch_size=args.eval_batch, cycle=args.quality_cycle,
+            device=args.device, **kwargs)
+        # the JAX CLI's bench-format record of the calibration
+        print(json.dumps({
+            "metric": f"eval_quality_proxies_{args.dataset}",
+            "value": 1.0, "unit": "pass", "vs_baseline": 0.0,
+            "config": {
+                "quality_spearman": result["spearman"],
+                "proxy_means": result["proxy_means"],
+                "epe_mean": result["epe_mean"],
+                "n": result["n"]}}))
         return result
     if args.epe_delta:
         return evaluate.evaluate_epe_delta(

@@ -29,6 +29,15 @@ The wire protocol is the JAX server's (numpy ``npz`` bodies):
   accepts and its device worker makes progress; 503 with the detail
   when requests are pending and no batch has completed within the stall
   timeout.
+- ``POST /debug/profile?seconds=S``: on-demand device profiling, a
+  ``torch.profiler`` window (CPU and CUDA activities) of S seconds
+  (clamped to [0.05, 60]; 400 when S is not a number; one at a time,
+  409 while one runs), written as a Chrome trace under
+  ``<telemetry_dir>/xprof/serve-<ts>/`` (a temp directory without a
+  telemetry directory); returns ``{"dir", "file", "seconds"}``.  The
+  window starts and stops on the device worker, between two device
+  calls (never inside a capture), and trace spans recorded meanwhile
+  carry its directory as their ``xprof`` attribute.
 
 With ``--replicas N`` (N > 1), ``--remote HOST:PORT`` (repeatable) or
 ``--autoscale MIN:MAX``, the same endpoints front a
@@ -40,11 +49,17 @@ with a ``replica`` label on each sample.  ``--aot-dir`` is the
 warm-start manifest directory (``serve/aot.py``): replica 0 writes it,
 every later engine replays it before it serves.
 
-Every flag of the JAX CLI parses.  Distributed tracing does not exist in
-the port yet: ``--trace-sample-rate`` stops the CLI with its ROADMAP item
-at any value but the default (:data:`UNPORTED`), and ``POST
-/debug/profile`` answers 501 with it.  SIGINT stops the server, drains
-the engine (or the fleet) and prints its stats as one JSON line.
+Distributed tracing: with ``--trace-sample-rate`` > 0 (default
+``$RAFT_TRACE_SAMPLE_RATE``), each ``POST /v1/flow`` opens (or, given an
+``X-Raft-Trace: <trace>-<span>-<s|d>`` request header, continues) a
+trace whose tree spans router placement, hedging, failover and the
+device batch; the reply carries the ``X-Raft-Trace`` header, and
+``scripts/trace_report.py`` rebuilds the trees from the telemetry
+directory.
+
+Every flag of the JAX CLI parses and works (:data:`UNPORTED` is empty).
+SIGINT stops the server, drains the engine (or the fleet) and prints its
+stats as one JSON line.
 """
 
 from __future__ import annotations
@@ -54,12 +69,9 @@ import io
 import json
 import math
 
-# flag -> (default, ROADMAP item); any other value stops the CLI
-UNPORTED = {
-    "trace_sample_rate": (None, "A8b′ (serve spans; obs/trace.py is "
-                                "ported)"),
-}
-PROFILE_ITEM = "A8b′ (POST /debug/profile)"
+# flag -> (the JAX default, the ROADMAP item that ports what it does):
+# every JAX flag is ported, so the table is empty
+UNPORTED: dict = {}
 
 
 def parse_args(argv=None):
@@ -158,8 +170,10 @@ def parse_args(argv=None):
                         "onto a second replica after this many seconds "
                         "(0 disables)")
     p.add_argument("--trace-sample-rate", type=float, default=None,
-                   help="distributed-tracing sample rate (not ported "
-                        "yet)")
+                   help="distributed-tracing head-sample rate in [0, 1] "
+                        "(0/unset = tracing off; errors, retries and "
+                        "hedges are tail-kept regardless once > 0); "
+                        "default $RAFT_TRACE_SAMPLE_RATE")
     p.add_argument("--quality-sample-rate", type=float, default=0.0,
                    help="fraction of retiring slot-mode requests scored "
                         "with the label-free photometric quality proxy "
@@ -193,14 +207,59 @@ def _parse_hw_list(spec):
     return tuple(out)
 
 
-def _make_handler(engine):
+def service_device(service):
+    """The device an engine, or a fleet's router, serves on."""
+    fleet = getattr(service, "fleet", None)
+    return getattr(fleet if fleet is not None else service, "device")
+
+
+def profile_window(device, seconds: float, outdir: str) -> str:
+    """One ``torch.profiler`` window of ``seconds`` over ``device``'s
+    work, written as a Chrome trace into ``outdir``; returns its path.
+
+    The profiler starts and stops on the device worker
+    (``serve.engine.on_device``): both are CUDA calls, and one made from
+    another thread while the worker captures a graph would fail, and the
+    worker's own operators are recorded from the thread that started it.
+    Trace spans recorded while it runs carry ``outdir`` as their
+    ``xprof`` attribute (``obs.trace.set_active_profile``)."""
+    import os
+    import time
+
+    import torch
+
+    from raft_tpu_torch.obs import trace
+    from raft_tpu_torch.serve.engine import on_device
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    on_device(device, prof.start)
+    trace.set_active_profile(outdir)
+    try:
+        time.sleep(seconds)
+    finally:
+        trace.set_active_profile(None)
+        on_device(device, prof.stop)
+    path = os.path.join(outdir, "trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+def _make_handler(engine, device):
+    import threading
+
     from http.server import BaseHTTPRequestHandler
 
-    from raft_tpu_torch.obs import PROMETHEUS_CONTENT_TYPE
+    from raft_tpu_torch.obs import PROMETHEUS_CONTENT_TYPE, trace
     from raft_tpu_torch.serve import QueueFullError
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
+        # one profiler window at a time (shared by every handler thread
+        # of this server)
+        _profile_lock = threading.Lock()
 
         def log_message(self, fmt, *args):  # stats() is the signal
             pass
@@ -218,7 +277,7 @@ def _make_handler(engine):
             self._reply(code, json.dumps(obj).encode(), "application/json",
                         extra)
 
-        def _reply_full(self, e):
+        def _reply_full(self, e, extra=()):
             """The structured 429: the backoff hint as the standard
             header (delta-seconds, so rounded up) and in the body."""
             retry_s = float(getattr(e, "retry_after_s", 1.0))
@@ -226,7 +285,8 @@ def _make_handler(engine):
                 429, {"error": str(e),
                       "queue_depth": int(getattr(e, "queue_depth", 0)),
                       "retry_after_s": retry_s},
-                extra=[("Retry-After", str(max(1, math.ceil(retry_s))))])
+                extra=[("Retry-After", str(max(1, math.ceil(retry_s))))]
+                + list(extra))
 
         def do_GET(self):
             if self.path in ("/healthz", "/v1/healthz"):
@@ -304,9 +364,7 @@ def _make_handler(engine):
             import numpy as np
 
             if self.path.startswith("/debug/profile"):
-                self._reply_json(501, {
-                    "error": "on-demand device profiling is not in the "
-                             f"PyTorch port yet (ROADMAP {PROFILE_ITEM})"})
+                self._profile()
                 return
             if self.path.startswith("/v1/stream/"):
                 self._stream()
@@ -321,20 +379,86 @@ def _make_handler(engine):
             except Exception as e:
                 self._reply_json(400, {"error": f"bad npz body: {e}"})
                 return
+            # Wire propagation: continue an upstream trace from the
+            # X-Raft-Trace header (its sampling verdict wins) or open a
+            # fresh root; the reply carries the header so the caller can
+            # correlate.  Tracing off: the no-op singleton.
+            tracer = trace.default_tracer()
+            root = trace.NOOP_SPAN
+            if tracer.enabled:
+                up = trace.parse_header(self.headers.get(trace.HEADER))
+                if up is not None:
+                    root = tracer.start_trace(
+                        "serve_http", trace_id=up[0], parent_id=up[1],
+                        sampled=up[2], path=self.path)
+                else:
+                    root = tracer.start_trace("serve_http",
+                                              path=self.path)
+            hdr = trace.format_header(root)
+            thdr = [(trace.HEADER, hdr)] if hdr else []
             try:
-                flow = engine.infer(im1, im2)
+                with trace.use_context(root):
+                    flow = engine.infer(im1, im2)
             except QueueFullError as e:
-                self._reply_full(e)
+                root.end(status="full", error="QueueFullError")
+                self._reply_full(e, thdr)
                 return
             except ValueError as e:
-                self._reply_json(400, {"error": str(e)})
+                root.end(status="error", error="ValueError")
+                self._reply_json(400, {"error": str(e)}, extra=thdr)
                 return
             except Exception as e:
-                self._reply_json(500, {"error": f"{type(e).__name__}: {e}"})
+                root.end(status="error", error=type(e).__name__)
+                self._reply_json(500, {"error": f"{type(e).__name__}: {e}"},
+                                 extra=thdr)
                 return
+            root.end(status="ok")
             buf = io.BytesIO()
             np.savez(buf, flow=flow)
-            self._reply(200, buf.getvalue(), "application/octet-stream")
+            self._reply(200, buf.getvalue(), "application/octet-stream",
+                        extra=thdr)
+
+        def _profile(self):
+            """``POST /debug/profile?seconds=S``: one profiler window
+            (:func:`profile_window`) under the sink's directory."""
+            import os
+            import tempfile
+            import time
+            from urllib.parse import parse_qs, urlparse
+
+            qs = parse_qs(urlparse(self.path).query)
+            try:
+                seconds = float(qs.get("seconds", ["2"])[0])
+            except ValueError:
+                self._reply_json(400, {"error": "seconds must be a number"})
+                return
+            if not math.isfinite(seconds):
+                self._reply_json(400, {"error": "seconds must be finite"})
+                return
+            seconds = min(max(seconds, 0.05), 60.0)
+            if not Handler._profile_lock.acquire(blocking=False):
+                self._reply_json(
+                    409, {"error": "a profile capture is already "
+                                   "running; retry when it finishes"})
+                return
+            try:
+                from raft_tpu_torch.obs import default_sink
+
+                sink = default_sink()
+                base = sink.directory if sink.enabled else \
+                    tempfile.mkdtemp(prefix="raft-xprof-")
+                outdir = os.path.join(
+                    base, "xprof", time.strftime("serve-%Y%m%d-%H%M%S"))
+                os.makedirs(outdir, exist_ok=True)
+                path = profile_window(device, seconds, outdir)
+                sink.emit("xprof_capture", source="serve", dir=outdir,
+                          seconds=seconds)
+                self._reply_json(200, {"dir": outdir, "file": path,
+                                       "seconds": seconds})
+            except Exception as e:
+                self._reply_json(500, {"error": f"{type(e).__name__}: {e}"})
+            finally:
+                Handler._profile_lock.release()
 
     return Handler
 
@@ -344,10 +468,13 @@ def make_server(engine, host: str, port: int):
     one) serving ``engine`` (or a fleet's router: both expose ``infer``,
     the streaming calls, ``health``, ``stats`` and ``metrics_text``),
     one handler thread per connection; the caller owns its lifecycle.
-    Handler threads never touch the device: they hand requests on."""
+    Handler threads never touch the device: they hand requests on, and
+    the profile endpoint's start and stop go to the device worker."""
     from http.server import ThreadingHTTPServer
 
-    return ThreadingHTTPServer((host, port), _make_handler(engine))
+    return ThreadingHTTPServer((host, port),
+                               _make_handler(engine,
+                                             service_device(engine)))
 
 
 def _model_and_config(args):
@@ -396,6 +523,14 @@ def _model_and_config(args):
 
         os.environ.setdefault("RAFT_TELEMETRY_DIR", args.telemetry_dir)
         sink = EventSink(args.telemetry_dir)
+    trace_rate = (args.trace_sample_rate
+                  if args.trace_sample_rate is not None
+                  else float(os.environ.get("RAFT_TRACE_SAMPLE_RATE",
+                                            "0") or 0))
+    if trace_rate > 0:
+        from raft_tpu_torch.obs import trace
+
+        trace.configure(sample_rate=trace_rate, sink=sink)
     return state_dict, model_cfg, serve_cfg, sink
 
 

@@ -60,6 +60,7 @@ CORR_DTYPES = ("auto", "float32", "bfloat16", "int8", "float8_e4m3fn",
                "float8_e5m2")
 QUANTIZED_CORR_DTYPES = ("int8", "float8_e4m3fn", "float8_e5m2")
 UPSAMPLE_LOSS_KERNELS = ("xla", "pallas")
+UPSAMPLE_DTYPES = ("auto", "float32", "bfloat16")
 REMAT_POLICIES = ("full", "dots", "save_corr", "save_corr_upsample")
 
 # TF32 for the fp32 convolutions of every entry point (cuDNN), the choice
@@ -138,10 +139,14 @@ class RAFTConfig:
     # fp32.
     compute_dtype: str = "float32"
     # Training upsample + loss chain: 'xla' is the plain PyTorch chain,
-    # computed in the compute dtype (the JAX package's default
-    # upsample_dtype='auto'); 'pallas' the fused CUDA kernel
+    # computed in upsample_dtype; 'pallas' the fused CUDA kernel
     # (ops/upsample_loss.py), fp32 inside whatever the compute dtype.
     upsample_loss_kernel: str = "xla"
+    # Dtype of the plain upsample chain of the fused-loss training path
+    # (the convex combination before the compare; evaluation always
+    # upsamples fp32, and the compare and the sums are fp32): 'auto' is
+    # bf16 under bf16 compute, fp32 otherwise, as in JAX.
+    upsample_dtype: str = "auto"
     # Fused GRU gate chains (ops/gru_gates.py): sigmoid(r)*h and the
     # blend each become one kernel launch on CUDA (forward only).
     fused_gru: bool = False
@@ -168,7 +173,8 @@ class RAFTConfig:
                 ("compute_dtype", self.compute_dtype, COMPUTE_DTYPES),
                 ("corr_dtype", self.corr_dtype, CORR_DTYPES),
                 ("upsample_loss_kernel", self.upsample_loss_kernel,
-                 UPSAMPLE_LOSS_KERNELS)):
+                 UPSAMPLE_LOSS_KERNELS),
+                ("upsample_dtype", self.upsample_dtype, UPSAMPLE_DTYPES)):
             if value not in allowed:
                 raise ValueError(f"unknown {name} {value!r}; "
                                  f"allowed: {', '.join(allowed)}")
@@ -217,6 +223,14 @@ class RAFTConfig:
         if self.corr_dtype == "auto":
             return self.compute_dtype
         return self.corr_dtype
+
+    @property
+    def resolved_upsample_dtype(self) -> str:
+        """JAX's ``'auto'`` rule: bf16 under bf16 compute, else fp32."""
+        if self.upsample_dtype == "auto":
+            return ("bfloat16" if self.compute_dtype == "bfloat16"
+                    else "float32")
+        return self.upsample_dtype
 
     @property
     def resolved_corr_precision(self) -> str:

@@ -11,7 +11,9 @@ of ``raft_tpu/evaluate.py``).
 - ``create_kitti_submission``: 16-bit PNG flow of the test split;
 - ``evaluate_epe_delta``: one validator under several ``corr_dtype``s;
 - ``evaluate_early_exit_delta``: early-exit thresholds against the full
-  iteration count, through the serving engine's slot programs.
+  iteration count, through the serving engine's slot programs;
+- ``evaluate_quality_proxies``: the label-free quality proxies' Spearman
+  rank correlation with the true EPE, through the same slot programs.
 
 Images stream through the test-mode forward in batches of one shape:
 each batch is decoded and padded on the host, moved to the device by the
@@ -20,12 +22,18 @@ forward, and its flows come back with ``.cpu()``; the metrics are NumPy.
 Every inference path goes through :func:`make_inference_model` /
 :func:`make_eval_fn`.  They run on the card (``device="cuda"``) unless the
 caller asks for the CPU; without CUDA and without an explicit CPU request
-they raise.  There is no tuning registry in the port: the configuration
-is used as given, apart from the one fixed inference override of the JAX
-package (the training-only ``allpairs_pallas`` lookup maps to
+they raise.  The configuration goes through the per-hardware tuning
+registry (``tuning.py``) first, then the one fixed inference override of
+the JAX package (the training-only ``allpairs_pallas`` lookup maps to
 ``allpairs``, and the fused lookup + ``convc1`` kernel, which needs it,
 is turned off with it; a quantized pyramid is then sampled by the plain
 ``corr_lookup``, as in JAX).
+
+Telemetry (``RAFT_TELEMETRY_DIR`` or the CLI's ``--telemetry_dir``): the
+spans ``raft_eval_pad``, ``raft_eval_forward`` (one event a batch) and
+``raft_eval_epe``, one ``eval`` event a validator, and one
+``cost_report`` a distinct forward shape (``RAFT_TELEMETRY_COST=0``
+turns it off), counted on the forward's first call of that shape.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from raft_tpu_torch.config import (RAFTConfig, backend_flags,
                                    entry_precision, validate_corr_dtype)
 from raft_tpu_torch.data import datasets, frame_utils
 from raft_tpu_torch.models.raft import RAFT
+from raft_tpu_torch.obs import cost as cost_mod
 from raft_tpu_torch.obs import default_sink, span
 from raft_tpu_torch.ops.pad import InputPadder, max_bucket_hw
 from raft_tpu_torch.utils.graphs import GraphCache
@@ -68,10 +77,23 @@ def default_alternate_corr_impl(device: DeviceLike = "cuda") -> str:
 
 def make_inference_model(model_cfg: RAFTConfig,
                          state_dict: Optional[Mapping] = None,
-                         device: DeviceLike = "cuda") -> RAFT:
+                         device: DeviceLike = "cuda", *,
+                         bucket_hw=None, batch=None,
+                         tuning_kind=("eval",)) -> RAFT:
     """The RAFT module with the inference override applied, in eval mode
-    on ``device``, holding ``state_dict`` when one is given."""
+    on ``device``, holding ``state_dict`` when one is given.
+
+    The per-hardware tuning registry (``tuning.py``) is consulted first
+    for ``tuning_kind`` (default 'eval'; the serving engine passes
+    ('serve', 'eval')): knobs left at their RAFTConfig defaults take the
+    tuned winner for ``(bucket_hw, batch)``, or the nearest /
+    most-recent entry when the shape is not known yet.  The inference
+    override is applied AFTER tuning, so it holds unconditionally."""
+    from raft_tpu_torch import tuning
+
     dev = resolve_device(device)
+    model_cfg, _ = tuning.resolve_config(model_cfg, tuning_kind,
+                                         bucket_hw, batch)
     if model_cfg.corr_impl == "allpairs_pallas":
         model_cfg = model_cfg.replace(corr_impl="allpairs",
                                       fused_lookup_encoder=False)
@@ -101,6 +123,14 @@ def make_eval_fn(model_cfg: RAFTConfig, iters: int,
     the graphs.  ``eval_fn.captures`` is the :class:`CaptureCounter` of
     its captures (the JAX ``make_eval_fn``'s compiled keys).
     ``graphs=False`` runs eagerly (for comparisons); the CPU always does.
+
+    ``eval_fn.capture_cost(state_dict, image1, image2)`` counts one
+    eager no-init forward (``obs/cost.py``) and returns its
+    ``ProgramCost``; with the event sink on, the first no-init call of
+    each shape is counted the same way and emits one ``cost_report``
+    (``RAFT_TELEMETRY_COST=0`` turns it off).  The hand-written kernels
+    count zero but where their wrappers add the JAX package's formula
+    (the fused gates), as in the JAX package's counts.
     """
     dev = resolve_device(device)
     graphs = dev.type == "cuda" if graphs is None else graphs
@@ -114,20 +144,68 @@ def make_eval_fn(model_cfg: RAFTConfig, iters: int,
         return model(image1, image2, iters=iters, flow_init=flow_init,
                      test_mode=True)
 
-    def eval_fn(state_dict, image1, image2, flow_init=None):
+    def load(state_dict):
         if state_dict is not loaded["sd"]:
             model.load_state_dict(state_dict)
             loaded["sd"] = state_dict
+
+    def run(args):
+        if not graphs:
+            return forward(*args)
+        return programs(("test_mode", iters, len(args) == 3,
+                         backend_flags()), forward, args)
+
+    def capture_cost(state_dict, image1, image2):
+        """The counted cost (``obs/cost.py``) of one eager no-init
+        forward at this shape, named ``inference_<H>x<W>`` (the cost CLI
+        calls this directly)."""
+        load(state_dict)
+        with torch.inference_mode(), entry_precision():
+            args = [torch.as_tensor(x, dtype=torch.float32, device=dev)
+                    for x in (image1, image2)]
+            with cost_mod.counting() as count:
+                forward(*args)
+        return _inference_cost(count, args[0].shape, dev)
+
+    # One cost_report per distinct forward shape when telemetry is on
+    # (the validators stream constant-shape batches, so this fires once
+    # a split), counted on the shape's first call, which runs eagerly
+    # (the graph cache's warm-up call on the card); RAFT_TELEMETRY_COST=0
+    # skips it.
+    cost_seen: set = set()
+    cost_on = os.environ.get("RAFT_TELEMETRY_COST", "1") == "1"
+
+    def eval_fn(state_dict, image1, image2, flow_init=None):
+        load(state_dict)
         with torch.inference_mode(), entry_precision():
             args = [torch.as_tensor(x, dtype=torch.float32, device=dev)
                     for x in (image1, image2, flow_init) if x is not None]
-            if not graphs:
-                return forward(*args)
-            return programs(("test_mode", iters, len(args) == 3,
-                             backend_flags()), forward, args)
+            shape = tuple(args[0].shape)
+            if not (cost_on and flow_init is None
+                    and shape not in cost_seen):
+                return run(args)
+            cost_seen.add(shape)
+            sink = default_sink()
+            if not sink.enabled:
+                return run(args)
+            with cost_mod.counting() as count:
+                out = run(args)
+        sink.emit("cost_report",
+                  **_inference_cost(count, shape, dev).as_record())
+        return out
 
     eval_fn.captures = programs.counter
+    eval_fn.capture_cost = capture_cost
     return eval_fn
+
+
+def _inference_cost(count, shape, dev: torch.device):
+    """The ``inference_<H>x<W>`` cost of a forward over images of
+    ``shape`` ``(B, H, W, 3)`` counted on ``dev``."""
+    return cost_mod.counted_cost(
+        count, program=f"inference_{shape[1]}x{shape[2]}",
+        pairs_per_call=shape[0],
+        kind="cpu" if dev.type == "cpu" else None)
 
 
 def _peek_hw(path: str):
@@ -174,16 +252,22 @@ def _batched_flows(state_dict, eval_fn, ds, mode: str, batch_size: int,
     for start in range(0, n, batch_size):
         idxs = list(range(start, min(start + batch_size, n)))
         samples = [ds.load(i) for i in idxs]
-        padders = [InputPadder(s["image1"].shape, mode=mode, target=target)
-                   for s in samples]
-        im1 = [p.pad_np(s["image1"]) for p, s in zip(padders, samples)]
-        im2 = [p.pad_np(s["image2"]) for p, s in zip(padders, samples)]
-        pad_n = batch_size - len(idxs)
-        if pad_n:
-            im1 += [im1[-1]] * pad_n
-            im2 += [im2[-1]] * pad_n
-        _, flow_up = eval_fn(state_dict, np.stack(im1), np.stack(im2))
-        flow_up = flow_up.cpu().numpy()
+        with span("raft_eval_pad", dataset=mode):
+            padders = [InputPadder(s["image1"].shape, mode=mode,
+                                   target=target) for s in samples]
+            im1 = [p.pad_np(s["image1"]) for p, s in zip(padders, samples)]
+            im2 = [p.pad_np(s["image2"]) for p, s in zip(padders, samples)]
+            pad_n = batch_size - len(idxs)
+            if pad_n:
+                im1 += [im1[-1]] * pad_n
+                im2 += [im2[-1]] * pad_n
+            batch1, batch2 = np.stack(im1), np.stack(im2)
+        # the forward span covers the launch AND the read back below, so
+        # it measures the device time of the batch (one event a batch
+        # when telemetry is on)
+        with span("raft_eval_forward", dataset=mode, emit=True):
+            _, flow_up = eval_fn(state_dict, batch1, batch2)
+            flow_up = flow_up.cpu().numpy()
         for j, (s, p) in enumerate(zip(samples, padders)):
             yield s, p.unpad(flow_up[j])
 
@@ -202,11 +286,14 @@ def validate_chairs(state_dict, model_cfg: RAFTConfig = RAFTConfig.full(),
     eval_fn = eval_fn or make_eval_fn(model_cfg, iters, device=device)
     ds = datasets.FlyingChairs(split="validation", root=root,
                                split_file=split_file)
-    epe_list = [_epe(flow, sample["flow"]).reshape(-1)
-                for sample, flow in _batched_flows(state_dict, eval_fn, ds,
-                                                   "chairs", batch_size)]
+    epe_list = []
+    for sample, flow in _batched_flows(state_dict, eval_fn, ds, "chairs",
+                                       batch_size):
+        with span("raft_eval_epe", dataset="chairs"):
+            epe_list.append(_epe(flow, sample["flow"]).reshape(-1))
     epe = float(np.mean(np.concatenate(epe_list)))
     print(f"Validation Chairs EPE: {epe:.3f}", flush=True)
+    default_sink().emit("eval", dataset="chairs", chairs=epe)
     return {"chairs": epe}
 
 
@@ -220,17 +307,21 @@ def validate_sintel(state_dict, model_cfg: RAFTConfig = RAFTConfig.full(),
     results = {}
     for dstype in ("clean", "final"):
         ds = datasets.MpiSintel(split="training", dstype=dstype, root=root)
-        epe_all = np.concatenate([
-            _epe(flow, sample["flow"]).reshape(-1)
-            for sample, flow in _batched_flows(state_dict, eval_fn, ds,
-                                               "sintel", batch_size,
-                                               target=_bucket_hw(ds))])
+        epe_list = []
+        for sample, flow in _batched_flows(state_dict, eval_fn, ds,
+                                           "sintel", batch_size,
+                                           target=_bucket_hw(ds)):
+            with span("raft_eval_epe", dataset="sintel"):
+                epe_list.append(_epe(flow, sample["flow"]).reshape(-1))
+        epe_all = np.concatenate(epe_list)
         epe = float(np.mean(epe_all))
         px1 = float(np.mean(epe_all < 1))
         px3 = float(np.mean(epe_all < 3))
         px5 = float(np.mean(epe_all < 5))
         print(f"Validation ({dstype}) EPE: {epe:.3f}, 1px: {px1:.3f}, "
               f"3px: {px3:.3f}, 5px: {px5:.3f}", flush=True)
+        default_sink().emit("eval", dataset=f"sintel-{dstype}", epe=epe,
+                            px1=px1, px3=px3, px5=px5)
         results[dstype] = epe
     return results
 
@@ -250,15 +341,17 @@ def validate_kitti(state_dict, model_cfg: RAFTConfig = RAFTConfig.full(),
     epe_list, out_list = [], []
     for sample, flow in _batched_flows(state_dict, eval_fn, ds, "kitti", bs,
                                        target=target):
-        epe = _epe(flow, sample["flow"])
-        mag = np.sqrt(np.sum(sample["flow"] ** 2, axis=-1))
-        val = sample["valid"] >= 0.5
-        out = (epe > 3.0) & ((epe / np.maximum(mag, 1e-12)) > 0.05)
-        epe_list.append(epe[val].mean())
-        out_list.append(out[val])
+        with span("raft_eval_epe", dataset="kitti"):
+            epe = _epe(flow, sample["flow"])
+            mag = np.sqrt(np.sum(sample["flow"] ** 2, axis=-1))
+            val = sample["valid"] >= 0.5
+            out = (epe > 3.0) & ((epe / np.maximum(mag, 1e-12)) > 0.05)
+            epe_list.append(epe[val].mean())
+            out_list.append(out[val])
     epe = float(np.mean(epe_list))
     f1 = 100.0 * float(np.mean(np.concatenate(out_list)))
     print(f"Validation KITTI: {epe:.3f}, {f1:.3f}", flush=True)
+    default_sink().emit("eval", dataset="kitti", epe=epe, f1=f1)
     return {"kitti-epe": epe, "kitti-f1": f1}
 
 
@@ -505,3 +598,103 @@ def evaluate_early_exit_delta(state_dict, model_cfg: RAFTConfig,
     return {"dataset": dataset, "iters": iters,
             "thresholds": [f"{t:g}" for t in arms],
             "per_threshold": per, "delta_vs_full": deltas}
+
+
+def evaluate_quality_proxies(state_dict, model_cfg: RAFTConfig,
+                             dataset: str = "chairs", iters: int = 24,
+                             batch_size: int = 4, bucket: bool = True,
+                             cycle: bool = False,
+                             device: DeviceLike = "cuda",
+                             **dataset_kwargs) -> Dict:
+    """Calibrate the unsupervised quality proxies
+    (:mod:`raft_tpu_torch.obs.quality`) against ground truth: stream a
+    labeled dataset through the serving engine's
+    :class:`~raft_tpu_torch.serve.slots.EarlyExitRunner`, score every
+    sample with the label-free proxies the serving path records, and
+    report the Spearman rank correlation of each proxy with the true
+    per-image EPE.
+
+    Serving scores live traffic with these proxies
+    (``ServeConfig.quality_sample_rate``) and the fleet gates weight
+    rollouts on them (``canary_proxy_budget``); neither ever sees a
+    label.  This is the check that the proxies RANK bad flow as bad.
+
+    Proxies scored per image:
+
+    - ``photometric``: occlusion-masked charbonnier warp error
+      (:func:`raft_tpu_torch.obs.quality.score_pair`), the statistic the
+      serving sampler records;
+    - ``residual``: the convergence ``delta_max`` at lane retirement;
+    - ``cycle`` (``cycle=True`` only, twice the forward cost): a second
+      pass on swapped frames, forward-backward consistency
+      (:func:`raft_tpu_torch.obs.quality.cycle_error`).
+
+    Returns ``{"dataset", "iters", "n", "epe_mean", "spearman": {proxy:
+    rho}, "proxy_means": {proxy: mean}}`` and emits an
+    ``eval_quality_proxies`` event with the same payload."""
+    try:
+        make_ds = EARLY_EXIT_DATASETS[dataset]
+    except KeyError:
+        raise ValueError(f"unknown dataset {dataset!r}; choose from "
+                         f"{sorted(EARLY_EXIT_DATASETS)}")
+    from raft_tpu_torch.obs import quality
+    from raft_tpu_torch.serve.slots import EarlyExitRunner
+
+    runner = EarlyExitRunner(model_cfg, device=device)
+    ds = make_ds(**dataset_kwargs)
+    target = _bucket_hw(ds) if bucket else None
+    epes, photo, resids, flows_fw = [], [], [], []
+    for sample, flow, _used, resid in _early_exit_flows(
+            state_dict, runner, ds, dataset, batch_size, iters, 0.0,
+            target=target):
+        epes.append(float(_epe(flow, sample["flow"]).mean()))
+        scores = quality.score_pair(sample["image1"], sample["image2"],
+                                    flow)
+        photo.append(scores["photometric"])
+        resids.append(resid)
+        if cycle:
+            flows_fw.append(flow)
+    proxies = {"photometric": photo, "residual": resids}
+    if cycle:
+        cyc = []
+        swapped = _SwappedPairs(ds)
+        for k, (_s, flow_bw, _u, _r) in enumerate(_early_exit_flows(
+                state_dict, runner, swapped, dataset, batch_size, iters,
+                0.0, target=target)):
+            err, _occ = quality.cycle_error(
+                torch.from_numpy(np.ascontiguousarray(flows_fw[k][None])),
+                torch.from_numpy(np.ascontiguousarray(flow_bw[None])))
+            cyc.append(float(err[0]))
+        proxies["cycle"] = cyc
+    spear = {k: round(quality.spearman(v, epes), 4)
+             for k, v in proxies.items()}
+    rec = {
+        "dataset": dataset, "iters": iters, "n": len(epes),
+        "epe_mean": round(float(np.mean(epes)), 6),
+        "spearman": spear,
+        "proxy_means": {k: round(float(np.mean(v)), 6)
+                        for k, v in proxies.items()},
+    }
+    default_sink().emit("eval_quality_proxies", **rec)
+    for k, rho in spear.items():
+        print(f"quality proxy [{dataset}] {k}: spearman(EPE) "
+              f"{rho:+.4f}", flush=True)
+    return rec
+
+
+class _SwappedPairs:
+    """Frame-swapped view of an eval dataset: ``image1`` and ``image2``
+    exchanged (flow passed through untouched), so a second
+    :func:`_early_exit_flows` pass yields the BACKWARD flow for the
+    cycle-consistency proxy."""
+
+    def __init__(self, ds):
+        self._ds = ds
+
+    def __len__(self):
+        return len(self._ds)
+
+    def load(self, i):
+        s = dict(self._ds.load(i))
+        s["image1"], s["image2"] = s["image2"], s["image1"]
+        return s

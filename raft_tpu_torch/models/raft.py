@@ -75,7 +75,7 @@ import torch
 import torch.nn as nn
 import torch.utils.checkpoint
 
-from raft_tpu_torch.config import RAFTConfig
+from raft_tpu_torch.config import COMPUTE_DTYPES, RAFTConfig
 from raft_tpu_torch.models.extractor import BasicEncoder, SmallEncoder
 from raft_tpu_torch.models.layers import Conv, Norm
 from raft_tpu_torch.models.update import (BasicUpdateBlock, FusedCorrLookup,
@@ -154,6 +154,23 @@ class RAFT(nn.Module):
             self.upsampler = nn.ModuleDict({"mask_head": MaskHead(hdim)})
         if not self.fnet.conv1.weight.is_meta:
             self.init_weights(seed)
+
+    # RAFTConfig fields that shape the module tree: reconfigure() keeps
+    # them, every other field is read at call time.
+    _ARCH_FIELDS = ("small", "hidden_dim", "context_dim", "corr_levels",
+                    "corr_radius", "dropout")
+
+    def reconfigure(self, config: RAFTConfig) -> None:
+        """Run with ``config`` from the next call on (the tuning
+        registry's performance knobs, ``tuning.py``): the parameters stay,
+        so only fields outside :attr:`_ARCH_FIELDS` may differ."""
+        changed = [f for f in self._ARCH_FIELDS
+                   if getattr(config, f) != getattr(self.config, f)]
+        if changed:
+            raise ValueError(f"reconfigure cannot change {changed}: they "
+                             "shape the parameters")
+        self.config = config
+        self.refine["update_block"].gru.fused = config.fused_gru
 
     def init_weights(self, seed: int) -> None:
         """Seeded init: kaiming-normal fan-out encoder convs, torch-default
@@ -415,8 +432,9 @@ class RAFT(nn.Module):
         mask = self.upsampler["mask_head"](nets).contiguous()
         if cfg.upsample_loss_kernel == "pallas":
             return upsample_loss_sums(flows, mask, gt, vmask, halo)
-        return upsample_loss_sums_plain(flows, mask, gt, vmask, cfg.dtype,
-                                        halo)
+        return upsample_loss_sums_plain(
+            flows, mask, gt, vmask,
+            COMPUTE_DTYPES[cfg.resolved_upsample_dtype], halo)
 
     def _small_outputs(self, flows, flow_low, loss_targets):
         """Small-model upsampling of every iteration's flow (``upflow8``),

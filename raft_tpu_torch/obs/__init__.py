@@ -18,8 +18,7 @@ live, as in the JAX package: flow quality (``obs/quality.py``), SLO burn
 rates (``obs/slo.py``), the cost model (``obs/cost.py``), incidents
 (``obs/incident.py``), training telemetry (``obs/train.py``), the health
 monitor and forensic bundles (``obs/health.py``) and the stall watchdog
-(``obs/watchdog.py``).  The serving path's spans, profile endpoint, MFU
-floor and incident knobs are not ported yet (ROADMAP A8b′, A8c′).
+(``obs/watchdog.py``).
 """
 
 from raft_tpu_torch.obs.events import (

@@ -377,9 +377,9 @@ class QualityMonitor:
     whether to additionally compute the photometric proxy (on the CPU,
     over the request's own images — off the device, costs nothing when
     unsampled).  Scored requests emit one ``quality_score`` event and
-    return the scores as attributes (the JAX package hangs them on the
-    request's trace span; the port's serving path opens no spans yet,
-    ROADMAP A8b′).
+    return the scores as attributes, which the engine hangs on the
+    request's ``device`` trace span, so slow AND bad requests show up in
+    one trace tree.
 
     Cycle scoring (``cycle=True``) rides the same machinery: a scored
     request enqueues a second inference on the swapped frame pair; when

@@ -14,9 +14,11 @@ of good/bad observations fed host-side into an :class:`SLOTracker`:
   composite proxy score breaches its calibrated bound (obs/quality.py);
 - **train goodput**: one observation per step — bad when the step was
   non-finite (or its samples quarantined);
-- **MFU floor**: the training telemetry's (``obs/train.py``, from
-  ``RAFT_SLO_MFU_FLOOR`` on a card whose peak ``obs/cost.py`` knows);
-  the serving engine's is ROADMAP A8c′.
+- **MFU floor**: one observation per measured step or iteration — bad
+  below the floor; the training telemetry's (``obs/train.py``, from
+  ``RAFT_SLO_MFU_FLOOR``) and the serving engine's
+  (``ServeConfig.slo_mfu_floor``), each only on a card whose peak
+  ``obs/cost.py`` knows.
 
 Burn rate is ``bad_frac(window) / error_budget`` where
 ``error_budget = 1 - objective``: rate 1.0 spends the budget exactly

@@ -65,9 +65,9 @@ class TrainTelemetry:
         self.batch_size = int(batch_size)
         self.num_devices = max(int(num_devices), 1)
         self.image_size = tuple(int(x) for x in image_size)
-        # Tuning provenance: rides the run_config event so a reader can
-        # say whether the run's knobs were autotuned or hand-set (the
-        # port has no tuning registry yet: {"tuned": False}).
+        # Tuning provenance (tuning.py): rides the run_config event so a
+        # reader can say whether the run's knobs were autotuned or
+        # hand-set.
         self.tuning_stamp = dict(tuning_stamp or {"tuned": False})
         if hbm is None:
             hbm = os.environ.get("RAFT_TELEMETRY_HBM", "1") == "1"

@@ -66,15 +66,34 @@ Warm start (``ServeConfig.aot_dir``, ``serve/aot.py``): an engine built
 with a manifest directory captures every ``(bucket, lanes, program)``
 the manifest lists during :meth:`InferenceEngine.start`, before it
 reports ready, so its first request captures nothing.  Flow quality
-(``quality_*``, ``obs/quality.py``) and SLOs (``slo_*``, ``obs/slo.py``)
-are built only when their knobs are set.
+(``quality_*``, ``obs/quality.py``), SLOs (``slo_*``, ``obs/slo.py``) and
+incidents (``incident*``, ``obs/incident.py``) are built only when their
+knobs are set.
+
+Observability, as in the JAX engine:
+
+- **Request spans** (``obs/trace.py``): a request captures the
+  submitting thread's span at :meth:`InferenceEngine.submit` (the
+  router's ``attempt``, the HTTP handler's ``serve_http``); request mode
+  records ``queue``, ``pad`` and ``device`` children under it, slot mode
+  ``queue`` and ``pad`` at admission, one ``iter_step`` a slot cycle and
+  ``device`` at retirement (with the quality scores when sampled).
+  Spans are host timestamps taken on the engine's host thread: no
+  synchronization and no device read is added for them, and an untraced
+  request (tracing off) costs one ``None`` check.
+- **Cost book** (``obs/cost.py``): each ``(bucket, lanes, program)``'s
+  first call is counted on the device worker and stamped as
+  ``serve_<prog>_<H>x<W>_b<lanes>`` (``serve/slots.SlotPrograms``);
+  every slot cycle observes its ``iter`` time against it, which feeds
+  the ``iter_step`` span's ``flops`` / ``bytes`` / ``mfu``,
+  ``load_signals()["mfu"]`` and the ``slo_mfu_floor`` SLO (built only
+  on a card whose peak ``obs/cost.peak_spec`` knows: never on the CPU).
+- **Tuning registry** (``tuning.py``): ``serve`` then ``eval`` entries
+  fill the knobs left at their defaults; ``stats()["tuning"]`` says what
+  moved.
 
 The engine runs on the card unless it is given ``device="cpu"``; without
-CUDA it raises.  The JAX engine's request spans (ROADMAP A8b′), its
-MFU-floor SLO and incident knobs (A8c′) are not ported yet (the
-modules they use, ``obs/trace.py``, ``obs/cost.py`` and
-``obs/incident.py``, are): their ``ServeConfig`` knobs raise at any value
-but the default.
+CUDA it raises.
 """
 
 from __future__ import annotations
@@ -95,21 +114,11 @@ from raft_tpu_torch.chaos import (InjectedDeviceError, InjectedReplicaKill,
                                   ReplicaWedgedInterrupt, is_transient_error)
 from raft_tpu_torch.config import RAFTConfig
 from raft_tpu_torch.obs import EventSink, MetricRegistry
+from raft_tpu_torch.obs import cost as cost_mod
+from raft_tpu_torch.obs import trace
 from raft_tpu_torch.ops.pad import InputPadder, bucket_hw
 from raft_tpu_torch.serve.stats import Counters, LatencyRecorder
 from raft_tpu_torch.utils.profiling import CaptureCounter
-
-# ServeConfig knobs of parts the port does not have yet -> the ROADMAP
-# item that brings them.  Each raises at any value but its default.
-UNPORTED_KNOBS = {
-    "slo_mfu_floor": "A8c′ (the serving MFU floor; obs/cost.py is "
-                     "ported)",
-    "incidents": "A8c′ (the engine's incident knobs; obs/incident.py "
-                 "is ported)",
-    "incident_window_s": "A8c′ (the engine's incident knobs)",
-    "incident_quiet_s": "A8c′ (the engine's incident knobs)",
-    "incident_cooldown_s": "A8c′ (the engine's incident knobs)",
-}
 
 # the default resident budget on the card: this share of its memory
 # (a fleet splits it among its engines)
@@ -206,9 +215,15 @@ class ServeConfig:
     (99% of requests under it) / ``slo_quality_bound`` (needs
     ``quality_sample_rate``), 0 each disabling it, and ``slo_window_s``
     (the burn policy's 1 h window rescaled) build an
-    :class:`~raft_tpu_torch.obs.slo.SLOTracker`.  The MFU-floor SLO and
-    the incident knobs (:data:`UNPORTED_KNOBS`) raise at any value but
-    the default.
+    :class:`~raft_tpu_torch.obs.slo.SLOTracker`; ``slo_mfu_floor`` (0
+    disables) marks an iteration bad below the floor, and is built only
+    when ``obs/cost.peak_spec`` knows the card's peak.  ``incidents``
+    builds an :class:`~raft_tpu_torch.obs.incident.IncidentManager` on
+    this engine's sink (leave False under a :class:`~raft_tpu_torch.serve.
+    fleet.ReplicaFleet`, which owns ONE manager for the shared stream);
+    the ``incident_*`` knobs size its correlation window, quiet-close
+    threshold and post-close cooldown.  All of it is host-side
+    arithmetic: no device work.
 
     Memory: each ``(bucket, lanes)`` holds a resident slot state and its
     graphs (``allpairs`` in bf16 at 440x1024: 131 MB of state a lane).
@@ -261,12 +276,6 @@ class ServeConfig:
     incident_cooldown_s: float = 60.0
 
     def __post_init__(self):
-        for name, item in UNPORTED_KNOBS.items():
-            default = type(self).__dataclass_fields__[name].default
-            if getattr(self, name) != default:
-                raise ValueError(
-                    f"ServeConfig.{name}={getattr(self, name)!r}: not "
-                    f"ported yet (ROADMAP {item}); leave it at {default!r}")
         if self.stream_ttl_s <= 0:
             raise ValueError("stream_ttl_s must be > 0")
         if self.stream_warm_iters is not None \
@@ -321,6 +330,14 @@ class ServeConfig:
             raise ValueError(
                 "need slo_latency_target_ms >= 0, slo_quality_bound "
                 ">= 0 and slo_window_s > 0")
+        if not 0.0 <= self.slo_mfu_floor < 1.0:
+            raise ValueError("slo_mfu_floor must be in [0, 1) "
+                             "(0 disables)")
+        if (self.incident_window_s <= 0 or self.incident_quiet_s <= 0
+                or self.incident_cooldown_s < 0):
+            raise ValueError(
+                "need incident_window_s > 0, incident_quiet_s > 0 and "
+                "incident_cooldown_s >= 0")
         m = self.bucket_multiple
         for hw in self.buckets or ():
             if hw[0] % m or hw[1] % m:
@@ -344,7 +361,7 @@ class ServeConfig:
 
 class _Request:
     __slots__ = ("image1", "image2", "bucket", "padder", "future",
-                 "t_submit", "iters", "session", "warm")
+                 "t_submit", "trace", "iters", "session", "warm")
 
     def __init__(self, image1, image2, bucket, padder, iters=None,
                  session=None, warm=False):
@@ -360,6 +377,11 @@ class _Request:
         self.warm = warm
         self.future: Future = Future()
         self.t_submit = time.perf_counter()
+        # the SUBMITTING thread's span (the router's attempt, the HTTP
+        # handler's serve_http), under which the engine's host thread
+        # records queue/pad/device children; None when tracing is off or
+        # the request is untraced, and then no span is recorded
+        self.trace = trace.current()
 
 
 class _StreamSession:
@@ -457,13 +479,25 @@ class InferenceEngine:
                  resident_budget_bytes: Optional[int] = None):
         import torch
 
+        from raft_tpu_torch import tuning
         from raft_tpu_torch.evaluate import make_inference_model
         from raft_tpu_torch.serve.slots import SlotPrograms
 
+        # Per-hardware tuning registry ('serve' entries first, 'eval' as
+        # fallback): one model serves every bucket, so the lookup is
+        # shape-agnostic (the most recent entry).  A 'serve' entry may
+        # also carry ServeConfig knobs (batching / slots /
+        # early_exit_threshold / iters), applied to whatever the caller
+        # left at its dataclass default; stats()["tuning"] says what
+        # moved.
+        cfg, self.serve_tuning_info = tuning.resolve_serve_config(cfg)
         self.cfg = cfg
+        _, self.tuning_info = tuning.resolve_config(model_cfg,
+                                                    ("serve", "eval"))
 
         def build():
-            return make_inference_model(model_cfg, state_dict, device=device)
+            return make_inference_model(model_cfg, state_dict, device=device,
+                                        tuning_kind=("serve", "eval"))
 
         # weights resident on the device (copied there on the device
         # worker, so no copy races another engine's capture); every
@@ -488,7 +522,13 @@ class InferenceEngine:
             registry=self.registry, metric="raft_serve_compiles_total",
             labeler=lambda key: {"bucket": f"{key[0][0]}x{key[0][1]}",
                                  "batch": str(key[1]), "program": key[2]})
-        self._programs = SlotPrograms(model, self.capture_counter)
+        # work accounting by (bucket, lanes, program), stamped at each
+        # key's first (counted) call and read back by spans, stats and
+        # load_signals with no device work (obs/cost.py)
+        self.cost_book = cost_mod.CostBook(registry=self.registry,
+                                           sink=self._sink)
+        self._programs = SlotPrograms(model, self.capture_counter,
+                                      cost_book=self.cost_book)
         # (bucket, lanes) -> SlotSet, least recently used first
         self._sets: "OrderedDict[tuple, object]" = OrderedDict()
         self._sets_lock = threading.Lock()
@@ -539,9 +579,16 @@ class InferenceEngine:
                 reservoir=cfg.latency_window)
         # SLOs (obs/slo.py): a tracker only for the objectives set
         self._slo = None
+        # the last measured iteration MFU (None until a cost-stamped
+        # call completes on a card of known peak): an autoscaler signal
+        self._last_mfu: Optional[float] = None
+        # retries the last _retry_call made (the engine's host thread):
+        # stamped onto traced requests' spans, and their tail-keep
+        self._last_retries = 0
         slo_specs = []
         if (cfg.slo_availability_target > 0 or cfg.slo_latency_target_ms
-                > 0 or cfg.slo_quality_bound > 0):
+                > 0 or cfg.slo_quality_bound > 0 or cfg.slo_mfu_floor
+                > 0):
             from raft_tpu_torch.obs import slo as slo_mod
 
             policy = slo_mod.scaled_policy(cfg.slo_window_s)
@@ -559,9 +606,36 @@ class InferenceEngine:
                     "quality", 0.99,
                     f"sampled photometric proxy <= "
                     f"{cfg.slo_quality_bound}", windows=policy))
+            if cfg.slo_mfu_floor > 0 and (
+                    cost_mod.peak_spec(self._device_kind()).tflops or 0):
+                # only where the peak table knows the card: on the CPU
+                # (or an unknown card) MFU is undefined and the spec is
+                # skipped
+                slo_specs.append(slo_mod.SLOSpec(
+                    "mfu", 0.9, f"iter MFU >= {cfg.slo_mfu_floor}",
+                    windows=policy))
             if slo_specs:
                 self._slo = slo_mod.SLOTracker(
                     slo_specs, registry=self.registry, sink=self._sink)
+        # Incident correlation (obs/incident.py): one manager per
+        # telemetry stream — a fleet builds its engines with
+        # incidents=False and owns the manager itself (the engines share
+        # its sink, and N observers would open N incidents for one
+        # cascade).
+        self._incidents = None
+        if cfg.incidents:
+            from raft_tpu_torch.obs import incident as incident_mod
+
+            self._incidents = incident_mod.IncidentManager(
+                registry=self.registry,
+                window_s=cfg.incident_window_s,
+                quiet_close_s=cfg.incident_quiet_s,
+                cooldown_s=cfg.incident_cooldown_s)
+            self._incidents.attach(self._sink)
+            self._incidents.recorder.add_provider("engine_stats",
+                                                  self.stats)
+            self._incidents.recorder.add_provider(
+                "serve_config", lambda: dataclasses.asdict(self.cfg))
         self._sessions: Dict[str, _StreamSession] = {}
         self._sessions_lock = threading.Lock()
         self._sessions_gauge = self.registry.gauge(
@@ -744,6 +818,19 @@ class InferenceEngine:
         self._thread = None
         self._dispatchers.clear()
         self._queues.clear()
+        if self._incidents is not None:
+            # an incident still open at shutdown closes with its bundle
+            # written (close_reason="finalized")
+            self._incidents.close()
+
+    def _device_kind(self) -> str:
+        """The engine's device kind for the peak table: ``cpu``, or the
+        card's name."""
+        if self.device.type != "cuda":
+            return "cpu"
+        import torch
+
+        return torch.cuda.get_device_name(self.device)
 
     def _release_device_state(self) -> None:
         """Drop every set and graph of this engine (device worker): a
@@ -1087,8 +1174,9 @@ class InferenceEngine:
         """The autoscaler's inputs, from host counters only: ``pending``
         / ``max_queue`` / ``queue_frac``, ``occupancy`` (slot lanes or
         batch fill), ``burn_rate`` (the worst SLO burn, 0 without SLOs),
-        ``mfu`` (None: the cost model is not ported yet) and
-        ``latency_p95_ms`` over the recent window."""
+        ``mfu`` (the last measured iteration MFU from the cost book; None
+        before a measurement, and always on the CPU, whose peak is
+        unknown) and ``latency_p95_ms`` over the recent window."""
         with self._pending_lock:
             pending = self._pending
         cap = max(int(self.cfg.max_queue), 1)
@@ -1105,7 +1193,7 @@ class InferenceEngine:
             "queue_frac": round(pending / cap, 4),
             "occupancy": float(counters.get("occupancy") or 0.0),
             "burn_rate": round(burn, 4),
-            "mfu": None,
+            "mfu": self._last_mfu,
             "latency_p95_ms": float(lat.get("p95_ms") or 0.0),
         }
 
@@ -1118,7 +1206,9 @@ class InferenceEngine:
 
     def stats(self) -> dict:
         """One JSON-able snapshot: counters, latency percentiles over the
-        recent window, captures per ``(bucket, lanes, program)``."""
+        recent window, captures and costs per ``(bucket, lanes,
+        program)``, the tuning provenance, and the quality, SLO and
+        incident snapshots."""
         out = self._counters.snapshot(1)
         with self._pending_lock:
             out["pending"] = self._pending
@@ -1144,12 +1234,27 @@ class InferenceEngine:
         out["compiles"] = {f"{hw[0]}x{hw[1]}/b{bs}/{prog}": n
                            for (hw, bs, prog), n in sorted(counts.items())}
         out["num_buckets"] = len({k[0] for k in counts})
+        # which knobs the tuning registry set (tuning.py)
+        out["tuning"] = dict(self.tuning_info.stamp(),
+                             applied=dict(self.tuning_info.applied),
+                             serve_applied=dict(
+                                 self.serve_tuning_info.applied))
         out["aot"] = dict(self.aot_info)
         out["quality"] = (self._quality.snapshot()
                           if self._quality is not None
                           else {"enabled": False})
+        # the work of each stamped program (obs/cost.py), the cost CLI's
+        # table
+        out["cost"] = {
+            f"{hw[0]}x{hw[1]}/b{bs}/{prog}": c.as_record()
+            for (hw, bs, prog), c in sorted(
+                self.cost_book.table().items())
+        }
         out["slo"] = (self._slo.snapshot() if self._slo is not None
                       else {"enabled": False})
+        out["incidents"] = (self._incidents.snapshot()
+                            if self._incidents is not None
+                            else {"enabled": False})
         return out
 
     # ------------------------------------------------------------------
@@ -1360,7 +1465,9 @@ class InferenceEngine:
                     raise InjectedDeviceError(
                         f"chaos-injected transient device error "
                         f"(batch {seq})")
-                return self._device(thunk, key)
+                out = self._device(thunk, key)
+                self._last_retries = attempt
+                return out
             except Exception as e:
                 if attempt >= self.cfg.device_retries \
                         or not is_transient_error(e):
@@ -1428,6 +1535,30 @@ class InferenceEngine:
                 "latency",
                 latency_s * 1000.0 <= self.cfg.slo_latency_target_ms, n=n)
 
+    def _pipeline_cost_attrs(self, bucket: tuple, lanes: int,
+                             iters: int, seconds: float) -> dict:
+        """Trace-span cost attrs of one request-mode batch (``enc`` +
+        ``iters`` x ``iter`` + ``up`` over the stamped entries):
+        ``flops`` / ``bytes`` always, ``mfu`` when the card's peak is
+        known.  ``{}`` before the programs are stamped."""
+        parts = [self.cost_book.get((bucket, lanes, p))
+                 for p in ("enc", "iter", "up")]
+        if any(c is None for c in parts):
+            return {}
+        enc, it, up = parts
+        total = cost_mod.ProgramCost(
+            program=f"serve_pipeline_{bucket[0]}x{bucket[1]}_b{lanes}",
+            flops=enc.flops + iters * it.flops + up.flops,
+            bytes=enc.bytes + iters * it.bytes + up.bytes,
+            pairs_per_call=lanes, source=enc.source,
+            device_kind=enc.device_kind)
+        attrs = {"flops": total.flops, "bytes": total.bytes}
+        m = total.mfu(seconds)
+        if m is not None:
+            attrs["mfu"] = round(m, 4)
+            self._last_mfu = attrs["mfu"]
+        return attrs
+
     def _run_batch(self, bucket: tuple, reqs: List[_Request]) -> None:
         """Request mode: one micro-batch through the slot programs in
         lockstep (admit all, ``iters`` iterations, one upsample), read
@@ -1437,11 +1568,15 @@ class InferenceEngine:
         bs = next((s for s in self._batch_sizes if s >= n), n)
         t_start = time.perf_counter()
         self._batch_seq += 1
+        # requests carrying a trace context get queue/pad/device child
+        # spans; a batch with no traced request pays this comprehension
+        traced = [r for r in reqs if r.trace is not None]
         if self.crashed:
             self._fail_waiting(list(reqs))
             return
         try:
             self._chaos_replica_faults(self._batch_seq)
+            t_pad0 = time.perf_counter()
             im1 = [r.padder.pad_np(r.image1) for r in reqs]
             im2 = [r.padder.pad_np(r.image2) for r in reqs]
             if bs > n:  # ballast lanes keep the batch shape
@@ -1449,6 +1584,7 @@ class InferenceEngine:
                 im2 += [im2[-1]] * (bs - n)
             a1, a2 = np.stack(im1), np.stack(im2)
             budgets = np.full((bs,), self.cfg.iters, np.int32)
+            t_pad1 = time.perf_counter()
 
             def thunk():
                 progs = self._get_programs(bucket, bs)
@@ -1471,6 +1607,21 @@ class InferenceEngine:
                             bucket=f"{bucket[0]}x{bucket[1]}", real=n,
                             ballast=bs - n,
                             seconds=round(t_done - t_start, 6))
+            if traced:
+                retries = self._last_retries
+                bk = f"{bucket[0]}x{bucket[1]}"
+                cost_attrs = self._pipeline_cost_attrs(
+                    bucket, bs, self.cfg.iters, t_done - t_pad1)
+                for r in traced:
+                    trace.record_span(r.trace, "queue", r.t_submit,
+                                      t_start, batch=self._batch_seq)
+                    trace.record_span(r.trace, "pad", t_pad0, t_pad1,
+                                      real=n, ballast=bs - n)
+                    trace.record_span(r.trace, "device", t_pad1, t_done,
+                                      bucket=bk, batch=self._batch_seq,
+                                      retries=retries, **cost_attrs)
+                    if retries:  # tail-keep: a retried batch is news
+                        r.trace.mark_keep()
         except Exception as e:
             for r in reqs:
                 if not r.future.done():
@@ -1481,6 +1632,15 @@ class InferenceEngine:
             self._sink.emit("serve_batch_error",
                             bucket=f"{bucket[0]}x{bucket[1]}", real=n,
                             error=f"{type(e).__name__}: {e}")
+            if traced:
+                t_err = time.perf_counter()
+                for r in traced:
+                    trace.record_span(r.trace, "queue", r.t_submit,
+                                      t_start, batch=self._batch_seq)
+                    trace.record_span(r.trace, "device", t_start, t_err,
+                                      status="error",
+                                      error=f"{type(e).__name__}",
+                                      batch=self._batch_seq)
             if _device_unusable(e) and not self.crashed:
                 self._crash(f"{type(e).__name__}: {e}")
         finally:
@@ -1670,13 +1830,20 @@ class InferenceEngine:
         return a1, a2, admit, budgets
 
     def _commit_admits(self, pool: _SlotPool, admits: List[tuple],
-                       admit: np.ndarray, budgets: np.ndarray) -> None:
+                       admit: np.ndarray, budgets: np.ndarray, seq: int,
+                       t0: float, t_pad: float) -> None:
+        """Give the admitted requests their lanes; a traced request gets
+        its ``queue`` (submit -> this cycle) and ``pad`` spans."""
         pool.active_np = pool.active_np | admit
         pool.budgets = budgets
         t_done = time.perf_counter()
         for i, r in admits:
             pool.reqs[i] = r
             pool.t_admit[i] = t_done
+            if r.trace is not None:
+                trace.record_span(r.trace, "queue", r.t_submit, t0,
+                                  batch=seq, slot=i)
+                trace.record_span(r.trace, "pad", t0, t_pad, slot=i)
 
     def _admit_slots(self, bucket: tuple, pool: _SlotPool,
                      admits: List[tuple], seq: int) -> bool:
@@ -1685,6 +1852,7 @@ class InferenceEngine:
         admitted requests."""
         t0 = time.perf_counter()
         a1, a2, admit, budgets = self._lane_inputs(pool, admits, True)
+        t_pad = time.perf_counter()
         try:
             self._retry_call(bucket, seq, lambda: pool.progs.encode(
                 a1, a2, admit, budgets), self._set_key(pool))
@@ -1694,7 +1862,7 @@ class InferenceEngine:
             if _device_unusable(e):
                 raise
             return False
-        self._commit_admits(pool, admits, admit, budgets)
+        self._commit_admits(pool, admits, admit, budgets, seq, t0, t_pad)
         self._sink.emit("serve_admit", bucket=f"{bucket[0]}x{bucket[1]}",
                         admits=len(admits), seq=seq, warm=False,
                         seconds=round(time.perf_counter() - t0, 6))
@@ -1732,6 +1900,7 @@ class InferenceEngine:
         frames and marks their sessions cold."""
         t0 = time.perf_counter()
         _, a2, admit, budgets = self._lane_inputs(pool, admits, False)
+        t_pad = time.perf_counter()
         try:
             self._retry_call(bucket, seq, lambda: pool.progs.encode_warm(
                 a2, admit, budgets), self._set_key(pool))
@@ -1743,7 +1912,7 @@ class InferenceEngine:
             if _device_unusable(e):
                 raise
             return
-        self._commit_admits(pool, admits, admit, budgets)
+        self._commit_admits(pool, admits, admit, budgets, seq, t0, t_pad)
         self._sink.emit("serve_admit", bucket=f"{bucket[0]}x{bucket[1]}",
                         admits=len(admits), seq=seq, warm=True,
                         seconds=round(time.perf_counter() - t0, 6))
@@ -1756,6 +1925,7 @@ class InferenceEngine:
         prev_active = pool.active_np.copy()
         n_active = int(prev_active.sum())
         thr = float(self.cfg.early_exit_threshold)
+        t0 = time.perf_counter()
 
         def thunk():
             return pool.progs.iterate(thr).cpu().numpy()
@@ -1766,15 +1936,36 @@ class InferenceEngine:
         except Exception as e:
             self._pool_failed(bucket, pool, waiting, e, "serve_iter_error")
             return
+        retries = self._last_retries
         t_done = time.perf_counter()
         active = status[0] > 0
         pool.active_np = active
         self._counters.add_slot_step(n_active, self.cfg.slots)
+        bk = f"{bucket[0]}x{bucket[1]}"
+        # Iteration-level attribution: the cost attrs (flops / bytes,
+        # mfu on a card of known peak) come from the stamped entry;
+        # observe() also refreshes the raft_cost_mfu /
+        # raft_cost_hbm_bw_util gauges, with no device work.  Every
+        # traced request active this cycle gets an iter_step span.
+        iter_attrs = self.cost_book.observe(
+            (tuple(bucket), self.cfg.slots, "iter"), t_done - t0)
+        if "mfu" in iter_attrs:
+            self._last_mfu = iter_attrs["mfu"]
+        if self._slo is not None and "mfu" in iter_attrs:
+            # the MFU-floor SLO (built only on known peaks): one
+            # observation a measured iteration
+            self._slo.record(
+                "mfu", iter_attrs["mfu"] >= self.cfg.slo_mfu_floor)
+        for i in np.nonzero(prev_active)[0]:
+            r = pool.reqs[int(i)]
+            if r is not None and r.trace is not None:
+                trace.record_span(r.trace, "iter_step", t0, t_done,
+                                  batch=seq, slot=int(i),
+                                  active=n_active, **iter_attrs)
         newly = prev_active & ~active
         if not newly.any():
             return
         flow_np = self._device(lambda: pool.progs.upsample().cpu().numpy())
-        bk = f"{bucket[0]}x{bucket[1]}"
         for i in np.nonzero(newly)[0]:
             i = int(i)
             r = pool.reqs[i]
@@ -1800,9 +1991,17 @@ class InferenceEngine:
                             warm=bool(r.warm),
                             converged=bool(status[2][i] > 0),
                             seconds=round(t_done - r.t_submit, 6))
+            qattrs = None
             if self._quality is not None:
-                self._note_quality(r, out, bk, float(status[3][i]),
-                                   bool(status[2][i] > 0), used)
+                qattrs = self._note_quality(r, out, bk, float(status[3][i]),
+                                            bool(status[2][i] > 0), used)
+            if r.trace is not None:
+                trace.record_span(r.trace, "device", pool.t_admit[i],
+                                  t_done, bucket=bk, iters=used,
+                                  warm=bool(r.warm), retries=retries,
+                                  **(qattrs or {}))
+                if retries:  # tail-keep: a retried request is news
+                    r.trace.mark_keep()
             with self._pending_lock:
                 self._pending -= 1
 
@@ -1810,10 +2009,12 @@ class InferenceEngine:
         return (pool.progs.bucket, pool.progs.lanes)
 
     def _note_quality(self, r: _Request, out: np.ndarray, bk: str,
-                      residual: float, converged: bool, used: int) -> None:
+                      residual: float, converged: bool,
+                      used: int) -> Optional[dict]:
         """One retirement into the quality monitor (and the quality SLO);
         a sampled request with ``quality_cycle`` submits its backward
-        pass, best effort (backpressure or a stopping engine skips it)."""
+        pass, best effort (backpressure or a stopping engine skips it).
+        Returns the scores as span attributes (None when unscored)."""
         qattrs = self._quality.note_retirement(
             future=r.future, image1=r.image1, image2=r.image2, flow=out,
             bucket=bk, residual=residual, converged=converged, iters=used)
@@ -1825,5 +2026,6 @@ class InferenceEngine:
             try:
                 bfut = self.submit(r.image2, r.image1, iters=r.iters)
             except Exception:
-                return
+                return qattrs
             self._quality.begin_cycle(bfut, out, bk)
+        return qattrs

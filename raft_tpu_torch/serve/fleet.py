@@ -63,8 +63,9 @@ The fleet does placement-free supervision only; request routing
 :class:`Replica` objects.  ``metrics_text()`` aggregates every
 replica's registry into one exposition, each sample labeled
 ``replica="rK"``, with fleet-level counters (restarts, weight updates)
-on top — one scrape shows the whole fleet.  The JAX fleet's incident
-manager is not ported yet (ROADMAP A8c′): the engines run with
+on top — one scrape shows the whole fleet.  With
+``ServeConfig.incidents`` the fleet owns ONE incident manager
+(``obs/incident.py``) over the shared sink and builds its engines with
 ``incidents=False``.
 """
 
@@ -409,10 +410,6 @@ class ReplicaFleet:
                  fleet_cfg: FleetConfig = FleetConfig(), *,
                  registry: Optional[MetricRegistry] = None,
                  sink: Optional[EventSink] = None, device="cuda"):
-        if serve_cfg.incidents:
-            raise ValueError("ServeConfig.incidents: the fleet's incident "
-                             "manager is not ported yet (ROADMAP "
-                             "A8c′)")
         self.model_cfg = model_cfg
         self.serve_cfg = serve_cfg
         self.fleet_cfg = fleet_cfg
@@ -493,6 +490,31 @@ class ReplicaFleet:
         self._version_gauge = self.registry.gauge(
             "raft_fleet_weights_version", "serving weights version")
         self.registry.add_collect_hook(self._collect)
+        # Incident correlation (obs/incident.py): the fleet owns ONE
+        # manager observing the SHARED sink — every engine's
+        # _LabeledSink writes through it, so a cross-replica cascade
+        # (kill on r0, retries on r1) correlates into one incident.
+        # _build_engine forces incidents=False on the engines for the
+        # same reason: N engine-level observers on one stream would
+        # open N incidents for one cascade.
+        self._incidents = None
+        if serve_cfg.incidents:
+            from raft_tpu_torch.obs import incident as incident_mod
+
+            self._incidents = incident_mod.IncidentManager(
+                registry=self.registry,
+                window_s=serve_cfg.incident_window_s,
+                quiet_close_s=serve_cfg.incident_quiet_s,
+                cooldown_s=serve_cfg.incident_cooldown_s)
+            self._incidents.attach(self._sink)
+            self._incidents.recorder.add_provider("fleet_stats",
+                                                  self.stats)
+            self._incidents.recorder.add_provider(
+                "serve_config",
+                lambda: dataclasses.asdict(self.serve_cfg))
+            self._incidents.recorder.add_provider(
+                "fleet_config",
+                lambda: dataclasses.asdict(self.fleet_cfg))
 
     def bind_router(self, router) -> None:
         """The router registers itself at construction
@@ -518,7 +540,8 @@ class ReplicaFleet:
                       replica: str = "?") -> InferenceEngine:
         with self._var_lock:
             v = self._variables if variables is None else variables
-        cfg = dataclasses.replace(self.serve_cfg, aot_dir=self.aot_dir)
+        cfg = dataclasses.replace(self.serve_cfg, aot_dir=self.aot_dir,
+                                  incidents=False)
         return InferenceEngine(v, self.model_cfg, cfg,
                                sink=_LabeledSink(self._sink,
                                                  replica=replica),
@@ -613,6 +636,8 @@ class ReplicaFleet:
             if eng is not None:
                 eng.stop(drain=drain, timeout=timeout)
         self._sink.emit("fleet_stop")
+        if self._incidents is not None:
+            self._incidents.close()
 
     def __enter__(self) -> "ReplicaFleet":
         return self.start()
@@ -670,6 +695,11 @@ class ReplicaFleet:
                     self._sink.emit(
                         "fleet_scale_error",
                         error=f"{type(e).__name__}: {str(e)[:300]}")
+            if self._incidents is not None:
+                # Quiet-close poll: an incident over a stream that went
+                # silent still closes (and writes its final bundle)
+                # without waiting for another event.
+                self._incidents.poll()
 
     def _note_quality_drift(self, r: Replica, eng) -> None:
         """Forward each NEW replica-local quality_drift firing
@@ -1198,7 +1228,9 @@ class ReplicaFleet:
                     v for _, v in self._restarts.items())),
                 "aot_dir": self.aot_dir,
                 "resident_budget_bytes": self.resident_budget_bytes,
-                "incidents": {"enabled": False},
+                "incidents": (self._incidents.snapshot()
+                              if self._incidents is not None
+                              else {"enabled": False}),
                 "autoscale": {
                     "enabled": bool(self.fleet_cfg.autoscale_max),
                     "min": self.fleet_cfg.autoscale_min,

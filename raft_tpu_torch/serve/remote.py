@@ -27,10 +27,12 @@ Design points:
   host.  Malformed responses raise :class:`RemoteProtocolError`, which
   is deliberately NOT a failover signal — a server speaking garbage
   would speak the same garbage to the retry.
-- **No trace header yet** — the JAX client sends the submitting
-  thread's span as ``X-Raft-Trace``; the port's serving path opens no
-  spans yet (ROADMAP A8b′), so it sends none (a JAX server then
-  starts its own trace).
+- **Trace propagation** — ``submit()`` captures the submitting
+  thread's current span (the router's ``attempt`` span under
+  ``use_context``) and sends it as the ``X-Raft-Trace`` header, so the
+  remote host's ``serve_http`` span (a port server's or a JAX
+  server's) lands in the SAME trace tree as the client-side
+  route/attempt spans (one tree in ``scripts/trace_report.py``).
 - **Connection pooling + per-request deadlines** — a small pool of
   keep-alive ``http.client`` connections; a connection that saw any
   network error is discarded, never reused.  Every request runs under
@@ -68,6 +70,7 @@ import numpy as np
 
 from raft_tpu_torch import chaos
 from raft_tpu_torch.obs import EventSink, MetricRegistry
+from raft_tpu_torch.obs import trace
 from raft_tpu_torch.obs.exposition import render as render_metrics
 from raft_tpu_torch.serve.engine import QueueFullError
 
@@ -427,7 +430,11 @@ class RemoteEngine:
                     "already in flight client-side",
                     queue_depth=self._pending, retry_after_s=1.0)
             self._pending += 1
-        fut = self._pool.submit(self._do_flow, im1, im2)
+        # Capture the SUBMITTING thread's span (the router's attempt
+        # span under use_context) — the worker thread serializes it
+        # into X-Raft-Trace so the hop stays in one trace tree.
+        hdr = trace.format_header(trace.current())
+        fut = self._pool.submit(self._do_flow, im1, im2, hdr)
 
         def _dec(_f):
             with self._pending_lock:
@@ -440,10 +447,12 @@ class RemoteEngine:
               timeout: Optional[float] = None) -> np.ndarray:
         return self.submit(image1, image2).result(timeout=timeout)
 
-    def _do_flow(self, im1, im2) -> np.ndarray:
+    def _do_flow(self, im1, im2, hdr: Optional[str]) -> np.ndarray:
         buf = io.BytesIO()
         np.savez(buf, image1=im1, image2=im2)
         headers = [("Content-Type", "application/octet-stream")]
+        if hdr:
+            headers.append((trace.HEADER, hdr))
         status, data = self._request("POST", "/v1/flow",
                                      body=buf.getvalue(),
                                      headers=tuple(headers))
@@ -481,6 +490,9 @@ class RemoteEngine:
         buf = io.BytesIO()
         np.savez(buf, image=im)
         headers = [("Content-Type", "application/octet-stream")]
+        hdr = trace.format_header(trace.current())
+        if hdr:
+            headers.append((trace.HEADER, hdr))
         status, data = self._request(
             "POST", f"/v1/stream/{session_id}{query}",
             body=buf.getvalue(), headers=tuple(headers),

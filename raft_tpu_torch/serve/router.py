@@ -61,10 +61,6 @@ fails over mid-frame, re-opens the session on an eligible replica by
 replaying that frame as the new frame 0 — the next pair runs cold and
 the stream continues, monotone frame numbering intact
 (``stream_restart`` event, ``raft_fleet_stream_restarts_total``).
-
-The JAX router opens a ``route`` trace span per request and an
-``attempt`` span per dispatch; the port's serving path opens no spans
-yet (ROADMAP A8b′), so this router opens none.
 """
 
 from __future__ import annotations
@@ -80,6 +76,7 @@ import numpy as np
 
 from raft_tpu_torch.chaos import is_transient_error
 from raft_tpu_torch.obs import EventSink, MetricRegistry
+from raft_tpu_torch.obs import trace
 from raft_tpu_torch.ops.pad import bucket_hw
 from raft_tpu_torch.serve.engine import QueueFullError
 from raft_tpu_torch.serve.stats import LatencyRecorder
@@ -143,7 +140,8 @@ class _RoutedRequest:
     the replicas tried, and first-wins settlement (primary vs hedge)."""
 
     __slots__ = ("image1", "image2", "bucket", "future", "tried",
-                 "lock", "hedged", "timer", "t_submit", "last_exc")
+                 "lock", "hedged", "timer", "t_submit", "last_exc",
+                 "trace")
 
     def __init__(self, image1, image2, bucket):
         self.image1 = image1
@@ -156,6 +154,10 @@ class _RoutedRequest:
         self.timer: Optional[threading.Timer] = None
         self.t_submit = time.perf_counter()
         self.last_exc: Optional[BaseException] = None
+        # The request's "route" span (None when untraced).  Settlement
+        # closes it — a hedged request's two attempt spans both hang
+        # off this one node, so the whole story is ONE tree.
+        self.trace = None
 
     def settle_result(self, value) -> bool:
         with self.lock:
@@ -163,6 +165,9 @@ class _RoutedRequest:
                 return False
             self._cancel_timer()
             self.future.set_result(value)
+            if self.trace is not None:
+                self.trace.end(status="ok", hedged=self.hedged,
+                               replicas_tried=len(self.tried))
             return True
 
     def settle_exception(self, exc: BaseException) -> bool:
@@ -171,6 +176,11 @@ class _RoutedRequest:
                 return False
             self._cancel_timer()
             self.future.set_exception(exc)
+            if self.trace is not None:
+                self.trace.end(status="error",
+                               error=type(exc).__name__,
+                               hedged=self.hedged,
+                               replicas_tried=len(self.tried))
             return True
 
     def _cancel_timer(self) -> None:
@@ -297,7 +307,18 @@ class FlowRouter:
         bucket = bucket_hw(im1.shape[0], im1.shape[1],
                            scfg.bucket_multiple, scfg.buckets)
         req = _RoutedRequest(im1, im2, bucket)
-        self._dispatch(req, initial=True)
+        # Root (or, under the HTTP handler's serve_http span, child) of
+        # the request's trace tree; the no-op singleton normalizes to
+        # None so untraced requests carry no span machinery at all.
+        span = trace.default_tracer().begin(
+            "route", bucket=f"{bucket[0]}x{bucket[1]}")
+        req.trace = span if span else None
+        try:
+            self._dispatch(req, initial=True)
+        except BaseException as e:
+            if req.trace is not None:
+                req.trace.end(status="error", error=type(e).__name__)
+            raise
         return req.future
 
     def infer(self, image1, image2,
@@ -523,15 +544,31 @@ class FlowRouter:
             if replica is None:
                 self._terminal(req, saw_full, initial)
                 return
+            # One "attempt" span per dispatch; the engine's submitting
+            # thread captures it (use_context) and the device worker
+            # records queue/pad/device under it — so the span crosses
+            # the dispatcher and device threads with the request.
+            att = (req.trace.child("attempt", replica=replica.name,
+                                   hedge=False)
+                   if req.trace is not None else None)
             try:
-                inner = replica.engine.submit(req.image1, req.image2)
+                if att is not None:
+                    with trace.use_context(att):
+                        inner = replica.engine.submit(req.image1,
+                                                      req.image2)
+                else:
+                    inner = replica.engine.submit(req.image1, req.image2)
             except QueueFullError as e:
+                if att is not None:  # recorded, but not keep-forcing
+                    att.end(status="full", queue_depth=e.queue_depth)
                 saw_full = e  # full ≠ dead: no breaker strike
                 continue
             except RuntimeError as e:
                 # Lost the race with a crash/stop between the health
                 # check and submit — treat exactly like a failed
                 # attempt on that replica.
+                if att is not None:
+                    att.end(status="error", error=type(e).__name__)
                 if not is_failover_error(e):
                     self._settle_or_raise(req, e, initial)
                     return
@@ -543,7 +580,8 @@ class FlowRouter:
                 self._maybe_arm_hedge(req)
             gen = replica.generation
             inner.add_done_callback(
-                lambda f, r=replica, g=gen: self._on_done(req, r, g, f))
+                lambda f, r=replica, g=gen, a=att:
+                    self._on_done(req, r, g, f, span=a))
             return
 
     def _strike(self, replica) -> None:
@@ -628,23 +666,44 @@ class FlowRouter:
             if replica is None:
                 return  # nowhere to hedge; primary still owns the request
             req.tried.add(replica.name)
+        att = (req.trace.child("attempt", replica=replica.name,
+                               hedge=True)
+               if req.trace is not None else None)
         try:
-            inner = replica.engine.submit(req.image1, req.image2)
-        except Exception:
+            if att is not None:
+                with trace.use_context(att):
+                    inner = replica.engine.submit(req.image1, req.image2)
+            else:
+                inner = replica.engine.submit(req.image1, req.image2)
+        except Exception as e:
+            if att is not None:
+                att.end(status="full"
+                        if isinstance(e, QueueFullError) else "error",
+                        error=type(e).__name__)
             return  # hedge is best-effort; the primary attempt stands
+        if req.trace is not None:
+            # Tail-keep: a fired hedge means a straggler — this trace
+            # is exactly the kind worth keeping regardless of sampling.
+            req.trace.mark_keep()
         self._hedges.inc()
         self._requests.inc(replica=replica.name)
         self._sink.emit("serve_hedge", replica=replica.name,
                         bucket=f"{req.bucket[0]}x{req.bucket[1]}")
         gen = replica.generation
         inner.add_done_callback(
-            lambda f, r=replica, g=gen: self._on_done(req, r, g, f,
-                                                      hedge=True))
+            lambda f, r=replica, g=gen, a=att:
+                self._on_done(req, r, g, f, hedge=True, span=a))
 
     def _on_done(self, req: _RoutedRequest, replica, generation: int,
-                 inner: Future, *, hedge: bool = False) -> None:
+                 inner: Future, *, hedge: bool = False,
+                 span=None) -> None:
         exc = inner.exception()
         if exc is None:
+            # End the attempt BEFORE settling so the root-span flush
+            # carries it; a hedge loser finishing after settlement
+            # still lands in the (kept) tree via the late-span path.
+            if span is not None:
+                span.end(status="ok", won=not req.future.done())
             replica.note_success()
             if req.settle_result(inner.result()):
                 lat = time.perf_counter() - req.t_submit
@@ -653,6 +712,8 @@ class FlowRouter:
                 if hedge:
                     self._hedge_wins.inc()
             return
+        if span is not None:  # error status tail-keeps the trace
+            span.end(status="error", error=type(exc).__name__)
         if is_failover_error(exc):
             # Strike the replica only if this failure came from the
             # engine generation we dispatched to (a restarted engine

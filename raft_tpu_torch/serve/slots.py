@@ -81,6 +81,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.config import RAFTConfig, backend_flags, entry_precision
+from raft_tpu_torch.obs import cost as cost_mod
 from raft_tpu_torch.ops.sampler import forward_warp_flow
 from raft_tpu_torch.utils.graphs import GraphCache, _flatten
 from raft_tpu_torch.utils.profiling import CaptureCounter
@@ -267,12 +268,25 @@ class SlotPrograms:
     bucket, lanes)`` as a captured graph (after the cache's one eager
     call) over the resident state of a :class:`SlotSet`, with no eager
     fallback.  ``counter`` records one event per ``(bucket, lanes,
-    program)``: its capture on the card, its first run on the CPU."""
+    program)``: its capture on the card, its first run on the CPU.
 
-    def __init__(self, model, counter: Optional[CaptureCounter] = None):
+    ``cost_book`` (an :class:`~raft_tpu_torch.obs.cost.CostBook`): each
+    ``(bucket, lanes, program)``'s first call, eager on either device
+    (the graph cache's warm-up call on the card, which a warm-start
+    replay makes too), runs under :func:`~raft_tpu_torch.obs.cost.
+    counting` on the thread that runs it (the engine's device worker)
+    and is stamped as ``serve_<prog>_<H>x<W>_b<lanes>``.  The
+    hand-written kernels are invisible to the count but where their
+    wrappers add the JAX package's formula (the fused GRU gates): the
+    on-demand lookup counts zero, as in the JAX package's serving
+    costs."""
+
+    def __init__(self, model, counter: Optional[CaptureCounter] = None,
+                 cost_book=None):
         self.model = model
         self.device = next(model.parameters()).device
         self.counter = CaptureCounter() if counter is None else counter
+        self.cost_book = cost_book
         self._graphs = (GraphCache(self.counter)
                         if self.device.type == "cuda" else None)
         self._seen = set()
@@ -297,17 +311,32 @@ class SlotPrograms:
         entry-point precision; outputs are fresh tensors."""
         ledger = (tuple(bucket), int(lanes), prog)
         with torch.inference_mode(), entry_precision():
-            if self._graphs is not None:
-                return self._graphs((prog, ledger, backend_flags()), fn,
-                                    args, resident=resident,
-                                    ledger_key=ledger)
-            if ledger not in self._seen:
-                self._seen.add(ledger)
-                self.counter.record(ledger)
-            out = fn(*args, *resident)
-            leaves: List[torch.Tensor] = []
-            rebuild = _flatten(out, leaves)
-            return rebuild([t.clone() for t in leaves])
+            key = (prog, ledger, backend_flags())
+            if (self.cost_book is not None
+                    and self.cost_book.get(ledger) is None
+                    and (self._graphs is None
+                         or self._graphs.warming(key, args, resident))):
+                with cost_mod.counting() as count:
+                    out = self._call(key, ledger, fn, args, resident)
+                H, W = ledger[0]
+                self.cost_book.stamp(ledger, cost_mod.counted_cost(
+                    count, program=f"serve_{prog}_{H}x{W}_b{lanes}",
+                    pairs_per_call=lanes,
+                    kind="cpu" if self.device.type == "cpu" else None))
+                return out
+            return self._call(key, ledger, fn, args, resident)
+
+    def _call(self, key, ledger, fn, args, resident):
+        if self._graphs is not None:
+            return self._graphs(key, fn, args, resident=resident,
+                                ledger_key=ledger)
+        if ledger not in self._seen:
+            self._seen.add(ledger)
+            self.counter.record(ledger)
+        out = fn(*args, *resident)
+        leaves: List[torch.Tensor] = []
+        rebuild = _flatten(out, leaves)
+        return rebuild([t.clone() for t in leaves])
 
 
 class SlotSet:

@@ -78,7 +78,7 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from raft_tpu_torch import chaos
+from raft_tpu_torch import chaos, tuning
 from raft_tpu_torch.config import RAFTConfig, TrainConfig
 from raft_tpu_torch.data.prefetch import (CudaBatchPut, DevicePipeline,
                                           PipelineInterrupted, host_put)
@@ -183,6 +183,20 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
     world = 1 if mesh is None else mesh.world
     chief = mesh is None or mesh.rank == 0
     say = functools.partial(print, flush=True) if chief else _silent
+    # Per-hardware tuning registry (tuning.py): fill every knob the user
+    # left at its RAFTConfig default from the tuned winner for (train,
+    # device_kind, image_size, per-rank batch).  Resolved HERE (not only
+    # inside make_train_step, which re-resolves idempotently) so the
+    # telemetry run_config can stamp what actually ran, and the printout
+    # tells the operator which knobs moved.
+    model_cfg, tuning_info = tuning.resolve_config(
+        model_cfg, "train", tuple(cfg.image_size),
+        max(cfg.batch_size // world, 1))
+    if tuning_info.applied:
+        say("tuning registry "
+            f"[{tuning_info.key}{'' if tuning_info.exact else ', nearest'}"
+            f"]: " + ", ".join(f"{k}={v}" for k, v in
+                               sorted(tuning_info.applied.items())))
     state = init_state(model_cfg, cfg, device=dev,
                        state_dict=restore_params)
     say(f"Parameter Count: "
@@ -192,7 +206,8 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
     # the loader's sample_quarantine events land in the same stream as
     # the steps, and a resume's fallback happens before the first step
     telem = TrainTelemetry(telemetry_dir, batch_size=cfg.batch_size,
-                           num_devices=world, image_size=cfg.image_size)
+                           num_devices=world, image_size=cfg.image_size,
+                           tuning_stamp=tuning_info.stamp())
     if loader is not None and telem.enabled:
         loader.sink = telem.sink
         loader.registry = telem.registry

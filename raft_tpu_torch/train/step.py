@@ -64,6 +64,13 @@ clip + AdamW/OneCycle update, on one device.
   guard skips, JAX reports the norm of the rejected update, which is not
   finite; the port's optimizer never forms that update (``found_inf``),
   so the parameters do not move and ``update_ratio`` is 0.
+- Tuning registry (``tuning.py``): on its first call the step consults
+  the per-hardware registry for the ``(train, device_kind, image_size,
+  per-rank batch)`` key and applies the tuned winners to every
+  ``RAFTConfig`` knob of the state's model still at its class default
+  (``RAFT.reconfigure``); explicit knobs always win, ``RAFT_TUNING=0``
+  disables, and a caller that already resolved tuning upstream
+  (``train/loop.py``) sees an idempotent no-op.
 - On the card the whole step (forward, backward, global norm, clip,
   learning rate, AdamW, statistics, guard; every microbatch) is one
   captured CUDA graph per batch shape, held by ``state.programs``
@@ -74,6 +81,7 @@ clip + AdamW/OneCycle update, on one device.
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
@@ -273,6 +281,20 @@ def _step_body(state: TrainState, cfg: TrainConfig, loss_fn: Callable,
                 param_norm=param_norm, update_ratio=update_ratio)
 
 
+def _apply_tuning(model: RAFT, cfg: TrainConfig, world: int) -> None:
+    """The tuning registry's train winners onto ``model`` (see the module
+    docstring)."""
+    from raft_tpu_torch import tuning
+
+    if not tuning.enabled():
+        return
+    tuned_cfg, info = tuning.resolve_config(
+        model.config, "train", tuple(cfg.image_size),
+        max(cfg.batch_size // max(world, 1), 1))
+    if info.applied:
+        model.reconfigure(tuned_cfg)
+
+
 def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
                     graphs: Optional[bool] = None,
                     mesh: Optional[Mesh] = None) -> Callable:
@@ -309,8 +331,13 @@ def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
     buffers: Dict[int, torch.Tensor] = {}
     ranks = None if mesh is None else (mesh.world, mesh.rank, mesh.backend,
                                        mesh.spatial)
+    tuned: "weakref.WeakSet[RAFT]" = weakref.WeakSet()
 
     def step_fn(state: TrainState, batch: Mapping):
+        if state.model not in tuned:
+            tuned.add(state.model)
+            _apply_tuning(state.model, cfg,
+                          1 if mesh is None else mesh.world)
         batch = _to_device(batch, dev)
         B = batch["image1"].shape[0]
         if B % accum:

@@ -176,6 +176,14 @@ class GraphCache:
             self.counter.record(key if ledger_key is None else ledger_key)
         return prog(args)
 
+    def warming(self, key: Hashable, args: Sequence[torch.Tensor],
+                resident: Sequence[torch.Tensor] = ()) -> bool:
+        """Whether the next call of ``key`` on these arguments runs
+        eagerly (a warm-up call, not a capture or a replay)."""
+        full = cache_key(key, args, resident)
+        return (full not in self._programs
+                and self._eager.get(full, 0) < WARMUP_CALLS)
+
     def drop(self, match: Callable[[Hashable], bool]) -> int:
         """Forget the programs (and eager-call counts) whose caller key
         ``match``es; their graphs, static buffers and private pools go

@@ -1658,6 +1658,75 @@ def test_serve_stream_and_retry_on_the_card(dev):
     assert all(np.isfinite(o["flow"]).all() for o in outs)
 
 
+def test_serve_tracing_adds_no_sync_to_replayed_slot_cycles(dev):
+    """Slot mode, the kernel configuration, every program captured: the
+    same requests one after another with tracing off, at rate 1 (each
+    under a root span), and off again.  Under
+    ``torch.cuda.set_sync_debug_mode("warn")`` every synchronization is
+    counted by the source line that made it: the engine's own (the
+    pageable input copies of an admission, the status read a cycle, the
+    upsample read at retirement; ``"error"`` would stop the cycle
+    itself).  The traced arm makes none that an untraced arm does not
+    make as often, and none from the tracing or cost modules: spans,
+    the cost book's observation and the MFU add no sync.  It records an
+    ``iter_step`` an iteration, with an MFU."""
+    import collections
+    import os
+    import warnings
+
+    from raft_tpu_torch.obs import trace
+    from raft_tpu_torch.serve import InferenceEngine, ServeConfig
+
+    class Sink:
+        def __init__(self):
+            self.spans = []
+
+        def emit(self, event, **fields):
+            self.spans.append(fields)
+
+    cfg = RAFTConfig.full(corr_impl="pallas", fused_gru=True)
+    sd = RAFT(RAFTConfig.full(), seed=0).state_dict()
+    pairs = _serve_pairs(2)
+    eng = InferenceEngine(sd, cfg, ServeConfig(
+        iters=4, batching="slot", slots=2)).start()
+    sink = Sink()
+    tracer = trace.Tracer(sink=sink, sample_rate=1.0)
+    try:
+        eng.warmup([(60, 92)])
+        eng.infer(*pairs[0], timeout=120)
+        torch.cuda.synchronize()
+        syncs = {}
+        for arm in ("off", "on", "off_again"):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    for a, b in pairs:
+                        root = (tracer.start_trace("req") if arm == "on"
+                                else trace.NOOP_SPAN)
+                        with trace.use_context(root):
+                            fut = eng.submit(a, b)
+                        fut.result(timeout=120)
+                        root.end()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs[arm] = collections.Counter(
+                (os.path.basename(w.filename), w.lineno) for w in caught
+                if "synchroniz" in str(w.message))
+        captures = eng.capture_counter.counts()
+    finally:
+        eng.stop()
+    assert set(captures.values()) == {1}
+    assert syncs["on"] and syncs["off"], syncs
+    for where, n in syncs["on"].items():
+        assert where[0] not in ("trace.py", "cost.py"), syncs
+        assert n <= max(syncs["off"][where], syncs["off_again"][where]), \
+            syncs
+    iters = [r for r in sink.spans if r["name"] == "iter_step"]
+    assert len(iters) == 2 * 4
+    assert all(0 < r["mfu"] < 1 and r["flops"] > 0 for r in iters)
+
+
 # --- the serving fleet's engines on the card -------------------------------
 
 

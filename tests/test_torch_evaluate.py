@@ -348,3 +348,59 @@ def test_cli_on_cpu_matches_jax_validator(weights, jax_eval_fn, trees,
         tcli.parse_args([*args, "--corr_dtype", "int4"])
     with pytest.raises(SystemExit):
         tcli.parse_args([*args, "--epe_delta", "float32"])
+
+
+def test_cli_telemetry_events(weights, trees, tmp_path, monkeypatch,
+                              capsys):
+    """``--telemetry_dir``: the JAX validator's stream — one
+    ``raft_eval_forward`` span event a batch, one ``cost_report`` a
+    forward shape (counted on its first call: ``inference_48x64``, the
+    JAX record's keys), the ``eval`` record with the printed EPE — and the
+    pad and EPE spans' histograms; ``RAFT_TELEMETRY_COST=0`` drops the
+    cost report."""
+    import json
+
+    from raft_tpu.obs import cost as jcost
+    from raft_tpu_torch.obs import default_registry, reset_default_sink
+
+    _, sd = weights
+    model = str(tmp_path / "w.pth")
+    torch.save(sd, model)
+    args = ["--model", model, "--dataset", "chairs", "--precision", "fp32",
+            "--iters", str(ITERS), "--data_root", trees["root"],
+            "--chairs_split", trees["split"], "--eval_batch", str(BS),
+            "--device", "cpu"]
+    streams = {}
+    for cost_on in ("1", "0"):
+        tdir = tmp_path / f"tel{cost_on}"
+        monkeypatch.setenv("RAFT_TELEMETRY_DIR", "unset")
+        monkeypatch.setenv("RAFT_TELEMETRY_COST", cost_on)
+        try:
+            res = tcli.main([*args, "--telemetry_dir", str(tdir)])
+        finally:
+            reset_default_sink()
+        (f,) = tdir.glob("*.jsonl")
+        streams[cost_on] = [json.loads(ln)
+                            for ln in f.read_text().splitlines()]
+    printed = capsys.readouterr().out
+    recs = streams["1"]
+    names = [(r["event"], r.get("name")) for r in recs]
+    assert names == [("cost_report", None),
+                     ("span", "raft_eval_forward"), ("eval", None)]
+    cost = recs[0]
+    want_keys = set(jcost.ProgramCost("p", 1.0, 1.0, pairs_per_call=BS)
+                    .as_record())
+    assert set(cost) - {"event", "t_wall", "t_mono", "process",
+                        "step"} == want_keys
+    assert cost["program"] == "inference_48x64"
+    assert cost["source"] == "counted" and cost["flops"] > 0
+    assert cost["pairs_per_call"] == BS
+    assert recs[1]["dataset"] == "chairs" and recs[1]["seconds"] > 0
+    assert recs[2]["dataset"] == "chairs"
+    assert f"Validation Chairs EPE: {recs[2]['chairs']:.3f}" in printed
+    assert abs(recs[2]["chairs"] - res["chairs"]) < 1e-9
+    assert [r["event"] for r in streams["0"]] == ["span", "eval"]
+    snap = default_registry().snapshot()
+    for name in ("raft_eval_pad_seconds", "raft_eval_epe_seconds",
+                 "raft_eval_forward_seconds"):
+        assert name in json.dumps(snap), name

@@ -128,10 +128,14 @@ _STUB_METRIC_KEYS = ("loss", "param_norm", "update_ratio", "nonfinite",
                      "epe_iter")
 
 
-def _stub_loop(monkeypatch):
-    """A step that bumps the counter, sleeps a little and returns spies."""
+def _stub_loop(monkeypatch, seen_cfgs=None):
+    """A step that bumps the counter, sleeps a little and returns spies;
+    ``seen_cfgs`` collects the model configurations the state is built
+    from."""
 
     def fake_init_state(model_cfg, cfg, device="cpu", state_dict=None):
+        if seen_cfgs is not None:
+            seen_cfgs.append(model_cfg)
         model = torch.nn.Linear(2, 2)
         return TrainState(
             model=model, optimizer=torch.optim.SGD(model.parameters(), 0.1),
@@ -185,9 +189,19 @@ def test_loop_no_added_host_reads_and_stream(tmp_path, monkeypatch,
     cadence is the same; the stream carries the JAX loop's events; the
     slow fetch before step 2 shows in its ``queue_wait_s``; and the JAX
     package's summary script folds it.  Serial pipeline, so the slow
-    fetch lands on a known step."""
-    _stub_loop(monkeypatch)
+    fetch lands on a known step.  A tuning registry written by the JAX
+    package's ``save_entry`` for the run's key moves the knob and is
+    stamped on ``run_config``, as the JAX loop stamps it."""
+    from raft_tpu import tuning as jtuning
+
+    seen_cfgs = []
+    _stub_loop(monkeypatch, seen_cfgs)
     monkeypatch.delenv("RAFT_TELEMETRY_DIR", raising=False)
+    monkeypatch.delenv("RAFT_TUNING", raising=False)
+    reg = str(tmp_path / "tuning.json")
+    key = jtuning.save_entry("train", (32, 32), 8, {"corr_block_size": 128},
+                             path=reg, device="cpu")
+    monkeypatch.setenv("RAFT_TUNING_REGISTRY", reg)
     tdir = tmp_path / "telemetry"
 
     def run(name, telemetry_dir, **kw):
@@ -214,7 +228,10 @@ def test_loop_no_added_host_reads_and_stream(tmp_path, monkeypatch,
     recs = _records(tdir)
     events = [r["event"] for r in recs]
     assert events[0] == "run_config" and events[-1] == "metrics_summary"
-    assert recs[0]["tuned"] is False
+    assert recs[0]["tuned"] is True and recs[0]["tuning_key"] == key
+    assert recs[0]["tuning_registry_hash"] == \
+        jtuning.registry_file_hash(reg)
+    assert [c.corr_block_size for c in seen_cfgs] == [128, 128]
     for ev in ("compile", "hbm_usage", "cost_report", "ckpt_commit"):
         assert ev in events, ev
     hbm = next(r for r in recs if r["event"] == "hbm_usage")

@@ -64,7 +64,9 @@ def test_import_loads_no_jax_and_no_raft_tpu():
             "raft_tpu_torch.serve.stats", "raft_tpu_torch.cli.serve",
             "raft_tpu_torch.obs", "raft_tpu_torch.obs.registry",
             "raft_tpu_torch.obs.events",
-            "raft_tpu_torch.obs.exposition"} <= set(MODULES)
+            "raft_tpu_torch.obs.exposition", "raft_tpu_torch.tuning",
+            "raft_tpu_torch.cli.cost",
+            "raft_tpu_torch.cli.incidents"} <= set(MODULES)
     for name in ("png_filters.c", "aug_ops.c"):
         assert (PKG / "native" / name).is_file()
 

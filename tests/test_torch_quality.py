@@ -302,3 +302,47 @@ def test_serve_config_quality_validation():
                dict(quality_sample_rate=0.5, quality_drift_threshold=0.0)):
         with pytest.raises(ValueError):
             ServeConfig(**kw)
+
+
+# ---------------------------------------------------------------------------
+# calibration against ground truth (twin of tests/test_quality.py's)
+# ---------------------------------------------------------------------------
+
+
+def test_quality_proxies_match_jax(monkeypatch):
+    """``evaluate_quality_proxies`` of both packages on the same seeded
+    weights and the same difficulty-graded labeled fixture (the JAX
+    test's): the same per-proxy Spearman rank correlation with the true
+    EPE (the photometric one >= 0.6, the JAX test's bar; the residual's
+    rank depends on the weights, and is the same in both packages), the
+    same sample count, and the EPE and proxy means within 1e-3 relative
+    (the two forwards' fp32 reordering through 4 iterations)."""
+    from raft_tpu import evaluate as jev
+    from raft_tpu.config import RAFTConfig as JaxRAFTConfig
+    from raft_tpu_torch import evaluate as tev
+
+    from test_quality import _GradedDataset
+    from test_torch_fixtures import small_raft_variables
+
+    torch.set_num_threads(1)
+    monkeypatch.setenv("RAFT_TUNING", "0")
+    variables, sd = small_raft_variables(0)
+    for mod in (jev, tev):
+        monkeypatch.setitem(mod.EARLY_EXIT_DATASETS, "chairs",
+                            lambda **kw: _GradedDataset())
+    kw = dict(dataset="chairs", iters=4, batch_size=4, bucket=False,
+              cycle=True)
+    want = jev.evaluate_quality_proxies(variables,
+                                        JaxRAFTConfig.small_model(), **kw)
+    got = tev.evaluate_quality_proxies(sd, CFG, device="cpu", **kw)
+    assert got["n"] == want["n"] == 8 and got["dataset"] == "chairs"
+    assert got["spearman"] == want["spearman"]
+    assert got["spearman"]["photometric"] >= 0.6
+    np.testing.assert_allclose(got["epe_mean"], want["epe_mean"],
+                               rtol=1e-3)
+    assert set(got["proxy_means"]) == {"photometric", "residual", "cycle"}
+    for k, v in want["proxy_means"].items():
+        np.testing.assert_allclose(got["proxy_means"][k], v, rtol=1e-3,
+                                   atol=1e-5, err_msg=k)
+    with pytest.raises(ValueError):
+        tev.evaluate_quality_proxies(sd, CFG, dataset="nope", device="cpu")

@@ -14,10 +14,11 @@ weights converted with ``convert.py``, ``device="cpu"``:
   exponential ladder, its jitter band, its deadline);
 - ``Counters``, ``LatencyRecorder``, the metric registry and its
   Prometheus text against the JAX package's on the same events;
-- ``ServeConfig``'s checks as JAX's, and each knob of a part not ported
-  refused by name; the serve CLI's flags;
-- an HTTP round trip, the structured 429, and ``/metrics`` /
-  ``/v1/healthz`` / ``/v1/stats`` on an engine on the CPU;
+- ``ServeConfig``'s checks as JAX's (the MFU floor and the incident
+  knobs too); the serve CLI's flags, every one of them working;
+- an HTTP round trip, the structured 429, ``/metrics`` /
+  ``/v1/healthz`` / ``/v1/stats`` and ``/debug/profile``'s 400 on an
+  engine on the CPU;
 - a CUDA error (or a pool reset that fails) crashing the engine instead
   of touching the device again, any other failure resetting the pool;
 - request mode's resident budget: the least recently used ``(bucket,
@@ -46,7 +47,6 @@ from raft_tpu_torch.evaluate import make_eval_fn
 from raft_tpu_torch.obs import MetricRegistry
 from raft_tpu_torch.serve import (Counters, InferenceEngine, LatencyRecorder,
                                   QueueFullError, ServeConfig)
-from raft_tpu_torch.serve.engine import UNPORTED_KNOBS
 from raft_tpu_torch.utils.graphs import cache_key
 from raft_tpu_torch.utils.profiling import CaptureCounter
 
@@ -487,7 +487,10 @@ def test_serve_config_checks_match_jax():
            dict(retry_backoff_max_s=0.01), dict(retry_deadline_s=0),
            dict(retry_jitter=1.0), dict(buckets=((44, 50),)),
            dict(quality_sample_rate=1.5), dict(quality_drift_window=1),
-           dict(slo_availability_target=1.0), dict(slo_window_s=0)]
+           dict(slo_availability_target=1.0), dict(slo_window_s=0),
+           dict(slo_mfu_floor=1.0), dict(slo_mfu_floor=-0.1),
+           dict(incident_window_s=0), dict(incident_quiet_s=0),
+           dict(incident_cooldown_s=-1)]
     for kw in bad:
         with pytest.raises(ValueError):
             JaxServeConfig(**kw)
@@ -495,33 +498,37 @@ def test_serve_config_checks_match_jax():
             ServeConfig(**kw)
     assert ServeConfig(max_batch=6).resolved_batch_sizes() == \
         JaxServeConfig(max_batch=6).resolved_batch_sizes() == (1, 2, 4, 6)
-    values = {"aot_dir": "d", "quality_cycle": True, "incidents": True}
-    for knob, item in UNPORTED_KNOBS.items():
-        default = ServeConfig.__dataclass_fields__[knob].default
-        value = values.get(knob, (default or 0) + 1)
-        with pytest.raises(ValueError, match=f"{knob}.*ROADMAP "
-                                             f"{item.split()[0]}"):
-            ServeConfig(**{knob: value})
+    # every knob is honoured: the MFU floor and the incident knobs take
+    # the values JAX's ServeConfig takes
+    good = dict(slo_mfu_floor=0.5, incidents=True, incident_window_s=2.0,
+                incident_quiet_s=3.0, incident_cooldown_s=0.0)
+    assert dataclasses.asdict(ServeConfig(**good)) == \
+        dataclasses.asdict(JaxServeConfig(**good))
 
 
 def test_serve_cli_flags(tmp_path):
-    """Every flag of the JAX serve CLI parses; each of a part not ported
-    stops the CLI with its ROADMAP item; the rest build a ServeConfig,
-    and the fleet flags (``--replicas``, ``--remote``, ``--autoscale``,
-    ``--aot-dir``, ``--hedge-timeout-s``) a fleet and its router that
-    serve on the CPU."""
+    """Every flag of the JAX serve CLI parses and none is refused
+    (``--trace-sample-rate`` configures the process tracer, as JAX's
+    does); the rest build a ServeConfig, and the fleet flags
+    (``--replicas``, ``--remote``, ``--autoscale``, ``--aot-dir``,
+    ``--hedge-timeout-s``) a fleet and its router that serve on the
+    CPU."""
     from raft_tpu.cli import serve as jcli
+    from raft_tpu_torch.obs import trace
     from raft_tpu_torch.serve import FlowRouter, RemoteReplica
 
     jax_dests = set(vars(jcli.parse_args([])))
     assert jax_dests <= set(vars(serve_cli.parse_args([])))
-    values = {"trace_sample_rate": ["0.5"]}
-    assert set(values) == set(serve_cli.UNPORTED)
-    for flag, rest in values.items():
-        item = serve_cli.UNPORTED[flag][1].split()[0]
-        with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-            serve_cli.main([f"--{flag.replace('_', '-')}", *rest,
-                            "--random-init", "--device", "cpu"])
+    assert serve_cli.UNPORTED == {}
+    try:
+        eng = serve_cli.build_engine(serve_cli.parse_args(
+            ["--random-init", "--small", "--device", "cpu", "--precision",
+             "fp32", "--iters", "2", "--trace-sample-rate", "0.5"]))
+        assert trace.default_tracer().sample_rate == 0.5
+        assert trace.default_tracer().enabled
+        eng.stop()
+    finally:
+        trace.reset_default_tracer()
     with pytest.raises(SystemExit, match="exactly one"):
         serve_cli.main(["--device", "cpu"])
     args = serve_cli.parse_args(
@@ -615,8 +622,8 @@ def test_http_round_trip_and_structured_429(sd, request_flows):
                 _post(url + "/v1/flow", b"not an npz")
             assert ei.value.code == 400
             with pytest.raises(urllib.error.HTTPError) as ei:
-                _post(url + "/debug/profile", b"")
-            assert ei.value.code == 501 and b"ROADMAP A8" in ei.value.read()
+                _post(url + "/debug/profile?seconds=abc", b"")
+            assert ei.value.code == 400 and b"number" in ei.value.read()
             text = urllib.request.urlopen(url + "/metrics").read().decode()
             assert "raft_serve_requests_rejected_total 1" in text
             assert 'raft_serve_compiles_total{batch="4"' in text

@@ -107,7 +107,8 @@ def test_policy_and_validation_match_jax():
 def test_engine_slo_knobs(tmp_path):
     """The engine builds a tracker for the objectives set (availability,
     latency), feeds it every outcome, and exposes the worst burn in
-    ``load_signals``; the MFU floor still refuses (the cost model)."""
+    ``load_signals``; the MFU floor is validated as JAX's and builds no
+    objective on the CPU, whose peak is unknown (as on JAX)."""
     torch.set_num_threads(1)
     cfg = RAFTConfig.small_model()
     sd = RAFT(cfg, seed=0).state_dict()
@@ -127,9 +128,12 @@ def test_engine_slo_knobs(tmp_path):
     assert sig["burn_rate"] > 0 and sig["mfu"] is None
     assert sig["max_queue"] == 256 and sig["pending"] == 0
     assert "raft_slo_burn_rate" in eng.metrics_text()
-    with pytest.raises(ValueError, match="slo_mfu_floor.*ROADMAP A8"):
-        ServeConfig(slo_mfu_floor=0.5)
-    for kw in (dict(slo_availability_target=1.0),
+    floor = InferenceEngine(sd, cfg, ServeConfig(
+        iters=2, slo_mfu_floor=0.5), device="cpu")
+    assert floor._slo is None and floor.stats()["slo"] == {"enabled": False}
+    floor.stop()
+    for kw in (dict(slo_mfu_floor=1.0), dict(slo_mfu_floor=-0.5),
+               dict(slo_availability_target=1.0),
                dict(slo_latency_target_ms=-1), dict(slo_window_s=0)):
         with pytest.raises(ValueError):
             ServeConfig(**kw)

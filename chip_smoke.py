@@ -260,7 +260,10 @@ Phases, each raising on failure (so the script exits nonzero):
    (the doubled change must fail it), losses within the bf16 bound,
    every kernel of the configuration counted on each rank, eager ms per
    step and the gloo all-reduce of the step's buffer (a host round
-   trip, not NCCL); (c) ``python -m raft_tpu_torch train --distributed``
+   trip, not NCCL), and with telemetry on in the ranks, the world-2
+   ``cost_report``: ``flops_per_pair`` within 1e-6 of the straight
+   world-1 step's counted the same way, and the MFU over the median
+   uncounted step; (c) ``python -m raft_tpu_torch train --distributed``
    with the variables of one rank: 2 steps, exit 0, a checkpoint
    stamped world 1;
 13. spatial: each image's rows split over two gloo ranks sharing the
@@ -6421,13 +6424,19 @@ def _ddp_world1(sd) -> dict:
 def _ddp_rank_main(rank: int, world: int, port: int, out: str) -> int:
     """(b) one rank of the 2-rank gloo run (``chip_smoke.py --ddp-rank``):
     ``DDP_SPLIT_STEPS`` eager chairs steps of the kernel configuration on
-    its rows of the global batches; writes its parameters, losses, launch
-    counts, ms/step and the gloo all-reduce's ms to ``out``."""
+    its rows of the global batches, with the train loop's telemetry on
+    (``out/tel<rank>``: the first step counted at world 2, its
+    ``cost_report``, a ``train_step`` a step); writes its parameters,
+    losses, launch counts, ms/step, the cost record and the gloo
+    all-reduce's ms to ``out``."""
     from raft_tpu_torch import config
     from raft_tpu_torch.config import RAFTConfig
     from raft_tpu_torch.models.raft import RAFT
+    from raft_tpu_torch.obs import cost as cost_mod
+    from raft_tpu_torch.obs.train import TrainTelemetry
     from raft_tpu_torch.parallel import mesh as mesh_mod
-    from raft_tpu_torch.train.step import init_state, make_train_step
+    from raft_tpu_torch.train.step import (init_state, make_train_step,
+                                           step_cost)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6442,12 +6451,23 @@ def _ddp_rank_main(rank: int, world: int, port: int, out: str) -> int:
     batches = [{k: v[rank * b:(rank + 1) * b] for k, v in
                 _chairs_batch(mesh.device, 110 + s).items()}
                for s in range(DDP_SPLIT_STEPS)]
+    telem = TrainTelemetry(os.path.join(out, f"tel{rank}"),
+                           batch_size=CHAIRS_B, num_devices=world,
+                           image_size=CHAIRS_HW)
     _reset_counts()
-    losses, times = [], []
-    for batch in batches:
+    losses, times, cost = [], [], None
+    for s, batch in enumerate(batches):
         t0 = time.perf_counter()
-        losses.append(float(step_fn(state, batch)[1]["loss"]))
+        # as the train loop does: the first step counted, at any world
+        with (cost_mod.counting() if s == 0 else
+              contextlib.nullcontext()) as counted:
+            losses.append(float(step_fn(state, batch)[1]["loss"]))
         times.append((time.perf_counter() - t0) * 1e3)
+        if s == 0:
+            cost = step_cost(counted, CHAIRS_B, world)
+            telem.record_cost(cost)
+        telem.record_step(s, times[-1] / 1e3, 0.0)
+    telem.close()
     torch.cuda.synchronize()
     counts = _counts()
     n = sum(p.numel() for p in state.model.parameters())
@@ -6463,7 +6483,8 @@ def _ddp_rank_main(rank: int, world: int, port: int, out: str) -> int:
                            _state_tensors(state).items()},
                 "losses": losses, "launches": counts, "step_ms": times,
                 "allreduce_ms": ar, "allreduce_bytes": buf.numel() * 4,
-                "nonfinite": int(state.nonfinite_steps)},
+                "nonfinite": int(state.nonfinite_steps),
+                "cost": cost.as_record()},
                os.path.join(out, f"rank{rank}.pt"))
     mesh_mod.shutdown()
     return 0
@@ -6499,29 +6520,40 @@ def _wait_ranks(procs, timeout: float = 600) -> None:
                                  f"{out[-3000:]}")
 
 
-def _ddp_straight(sd) -> dict:
+def _ddp_straight(sd):
     """The 2-rank run's straight twin: ``DDP_SPLIT_STEPS`` eager steps of
     the kernel configuration on the whole global batches, then again with
     each batch's rows in reverse order, the same computation summed in
     another order: its difference is the floor of reduction-order noise
     (a bias ahead of a norm has a zero gradient in exact arithmetic, and
-    Adam turns its rounding noise into steps of up to lr either way)."""
-    from raft_tpu_torch.train.step import init_state, make_train_step
+    Adam turns its rounding noise into steps of up to lr either way).
+    Returns the two runs and the world-1 cost of the first run's first
+    step, counted as the train loop counts it."""
+    from raft_tpu_torch.obs import cost as cost_mod
+    from raft_tpu_torch.train.step import (init_state, make_train_step,
+                                           step_cost)
 
     dev = torch.device("cuda")
     cfg, mcfg = _ddp_cfgs(True, CHAIRS_B)
     batches = [_chairs_batch(dev, 110 + s) for s in range(DDP_SPLIT_STEPS)]
-    runs = []
+    runs, cost = [], None
     for flip in (False, True):
         state = init_state(mcfg, cfg, state_dict=sd)
         step_fn = make_train_step(cfg, graphs=False)
-        losses = [float(step_fn(state, {k: v.flip(0) if flip else v
-                                        for k, v in b.items()})[1]["loss"])
-                  for b in batches]
+        losses = []
+        for s, b in enumerate(batches):
+            counted = flip or s > 0
+            with (contextlib.nullcontext() if counted
+                  else cost_mod.counting()) as count:
+                losses.append(float(step_fn(state, {
+                    k: v.flip(0) if flip else v
+                    for k, v in b.items()})[1]["loss"]))
+            if not counted:
+                cost = step_cost(count, CHAIRS_B, 1)
         runs.append((_state_tensors(state), losses))
         del state, step_fn
         torch.cuda.empty_cache()
-    return runs
+    return runs, cost
 
 
 def _ddp_two_ranks_check(sd, procs, out, straight) -> dict:
@@ -6532,10 +6564,27 @@ def _ddp_two_ranks_check(sd, procs, out, straight) -> dict:
     ``EAGER_SPREAD_FACTOR`` times the straight run's own spread under
     reversed rows, with the change doubled rejected; losses within ``BF16_LOSS_TOL``; every kernel
     of the configuration counted on each rank; the gloo all-reduce of the
-    step's buffer timed (a host round trip: it says nothing of NCCL)."""
+    step's buffer timed (a host round trip: it says nothing of NCCL);
+    each rank's telemetry stream holds the world-2 ``cost_report``, whose
+    ``flops_per_pair`` is the straight world-1 step's within 1e-6
+    relative, and the MFU over the median uncounted step."""
     _wait_ranks(procs)
+    straight, cost1 = straight
     ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
              for r in range(2)]
+    reports = []
+    for r in range(2):
+        for path in glob.glob(os.path.join(out, f"tel{r}", "*.jsonl")):
+            with open(path) as f:
+                reports += [e for e in map(json.loads, f)
+                            if e.get("event") == "cost_report"]
+    fpp = [rep["flops_per_pair"] for rep in reports]
+    fpp_rel = max(abs(x - cost1.flops_per_pair) / cost1.flops_per_pair
+                  for x in fpp) if fpp else None
+    median_s = statistics.median(ranks[0]["step_ms"][1:]) / 1e3
+    peak = ranks[0]["cost"]["peak_tflops"]
+    mfu2 = (ranks[0]["cost"]["flops"] / median_s / 1e12 / peak
+            if peak else None)
     p0 = {k: v.float() for k, v in sd.items()}
     (s1, l1), (s2, _) = straight
     params = [k for k in s1 if "running" not in k]
@@ -6565,7 +6614,19 @@ def _ddp_two_ranks_check(sd, procs, out, straight) -> dict:
                straight_losses=l1, launches=counts,
                step_ms=[r["step_ms"] for r in ranks],
                allreduce_ms=[r["allreduce_ms"] for r in ranks],
-               allreduce_bytes=ranks[0]["allreduce_bytes"])
+               allreduce_bytes=ranks[0]["allreduce_bytes"],
+               cost_flops_per_pair={"world2": fpp,
+                                    "world1": cost1.flops_per_pair},
+               cost_rel=fpp_rel, cost_world2=ranks[0]["cost"],
+               mfu_world2=mfu2, median_step_ms=median_s * 1e3)
+    print(f"[ddp] world-2 cost_report (rank telemetry, first step counted "
+          f"with the collectives outside the count): flops_per_pair "
+          f"{fpp} against world 1's {cost1.flops_per_pair} (rel "
+          f"{fpp_rel}); FLOPs a rank's step "
+          f"{ranks[0]['cost']['flops']:.4e}, bytes "
+          f"{ranks[0]['cost']['bytes']:.4e}; MFU over the median "
+          f"uncounted eager step ({median_s * 1e3:.1f} ms, gloo, two ranks "
+          f"sharing the card) {mfu2}", flush=True)
     print(f"[ddp] 2 gloo ranks on one card, B {CHAIRS_B // 2} a rank, "
           f"against the straight B {CHAIRS_B} run over {DDP_SPLIT_STEPS} "
           f"eager steps: ranks bit for bit {same}, parameter change "
@@ -6577,7 +6638,8 @@ def _ddp_two_ranks_check(sd, procs, out, straight) -> dict:
           f"through gloo, not NCCL): {res['allreduce_ms']} ms", flush=True)
     if not same or agree["leaf_ratio"] > 1.0 or doubled["leaf_ratio"] <= 1.0 \
             or loss_rel > BF16_LOSS_TOL or counts != [want_counts] * 2 \
-            or any(r["nonfinite"] for r in ranks):
+            or any(r["nonfinite"] for r in ranks) or len(fpp) != 2 \
+            or fpp_rel > 1e-6:
         raise AssertionError(f"ddp 2 ranks: {res}, want launches "
                              f"{want_counts}")
     return res

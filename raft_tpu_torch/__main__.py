@@ -11,6 +11,7 @@ the subcommands the port has::
     python -m raft_tpu_torch serve --random-init --port 8080
     python -m raft_tpu_torch cost --tiny --device cpu
     python -m raft_tpu_torch incidents list --telemetry-dir runs/tel
+    python -m raft_tpu_torch lint --json report.json
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ _SUBCOMMANDS = {
              "per-program FLOPs/bytes/roofline table"),
     "incidents": ("raft_tpu_torch.cli.incidents",
                   "browse incident bundles (list/show/timeline)"),
+    "lint": ("raft_tpu_torch.cli.lint",
+             "static analysis of the port (raftlint)"),
 }
 
 

@@ -82,7 +82,8 @@ class CudaBatchPut:
         i = self._next
         self._next = (i + 1) % len(self._ring)
         if self._events[i] is not None:
-            self._events[i].synchronize()
+            # the slot's last copy must have left before it is refilled
+            self._events[i].synchronize()  # raftlint: disable=JIT103
         bufs = self._ring[i]
         if bufs is None or any(bufs[k].shape != np.shape(batch[k])
                                for k in BATCH_KEYS):

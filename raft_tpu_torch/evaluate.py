@@ -480,6 +480,9 @@ def evaluate_epe_delta(state_dict, model_cfg: RAFTConfig, dtypes,
     for dt, d in deltas.items():
         line = ", ".join(f"{k}: {v:+.4f}" for k, v in d.items())
         print(f"EPE delta {dt} - {base} [{dataset}]: {line}", flush=True)
+    default_sink().emit("eval_epe_delta", dataset=dataset, base=base,
+                        dtypes=list(dtypes),
+                        deltas={dt: d for dt, d in deltas.items()})
     return {"dataset": dataset, "dtypes": list(dtypes),
             "per_dtype": per_dtype, f"delta_vs_{base}": deltas}
 

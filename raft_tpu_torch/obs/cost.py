@@ -21,7 +21,10 @@ Three pieces, as in the JAX package:
   has a hand-derived formula (the fused GRU gates, the fused lookup +
   convc1) their wrappers add it through :func:`note_analytic`; every
   other hand-written kernel counts zero, as XLA counts a Pallas custom
-  call on a TPU.  Such a cost's ``source`` is ``"counted"``.
+  call on a TPU.  Such a cost's ``source`` is ``"counted"``.  Under a
+  mesh the ranks' collectives run outside the count (:func:`uncounted`):
+  a rank counts its own forward and backward, so ``flops_per_pair`` is
+  the same at any world size.
 - **Ledger** (:class:`CostBook`): ``raft_cost_*`` gauges and one
   ``cost_report`` event per program, refreshed with MFU from each
   measured call's wall time (host floats only).
@@ -315,6 +318,22 @@ def counting() -> Iterator[Count]:
         with _ACTIVE_LOCK:
             _ACTIVE.remove(count)
         count.flops = float(flop_mode.get_total_flops())
+
+
+@contextlib.contextmanager
+def uncounted() -> Iterator[None]:
+    """Run the block outside every open :func:`counting` window: the
+    ranks' collectives (``parallel/mesh.py``, the step's reduction over
+    ranks) are not the rank's own work, and the counting modes are not
+    run around them.  With no window open (every call but a key's first,
+    every capture) it only tests a list."""
+    if not _ACTIVE:
+        yield
+        return
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        yield
 
 
 def counted_cost(count: Count, *, program: str,

@@ -139,7 +139,8 @@ class _SLOState:
         while obs and obs[0][0] < horizon:
             obs.popleft()
 
-    def counts(self, window_s: float, now: float) -> Tuple[int, int]:
+    def window_counts(self, window_s: float,
+                      now: float) -> Tuple[int, int]:
         """``(total, bad)`` over the trailing window."""
         horizon = now - window_s
         total = bad = 0
@@ -153,7 +154,7 @@ class _SLOState:
 
     def bad_frac(self, window_s: float, now: float) -> Optional[float]:
         """Bad fraction over the trailing window; None with no data."""
-        total, bad = self.counts(window_s, now)
+        total, bad = self.window_counts(window_s, now)
         if total == 0:
             return None
         return bad / total
@@ -254,8 +255,8 @@ class SLOTracker:
                 state.prune(now)
                 spec = state.spec
                 for i, w in enumerate(spec.windows):
-                    long_n, long_bad = state.counts(w.long_s, now)
-                    short_n, short_bad = state.counts(w.short_s, now)
+                    long_n, long_bad = state.window_counts(w.long_s, now)
+                    short_n, short_bad = state.window_counts(w.short_s, now)
                     if long_n < self._min_events or short_n == 0:
                         continue
                     long_rate = (long_bad / long_n) / spec.budget

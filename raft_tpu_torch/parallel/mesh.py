@@ -57,6 +57,8 @@ from typing import Dict, Iterator, Optional
 import torch
 import torch.distributed as dist
 
+from raft_tpu_torch.obs.cost import uncounted
+
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
 
@@ -235,14 +237,16 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
         ctx.group = group
-        out = t.clone()
-        dist.all_reduce(out, group=group)
+        with uncounted():
+            out = t.clone()
+            dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
+        with uncounted():
+            grad = grad.contiguous().clone()
+            dist.all_reduce(grad, group=ctx.group)
         return grad, None
 
 
@@ -257,7 +261,8 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh,
 def spatial_max_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """``t`` replaced in place by its maximum over the spatial group (no
     gradient: a calibration, such as a quantized level's scale)."""
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.spatial_group)
+    with uncounted():
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.spatial_group)
     return t
 
 
@@ -280,14 +285,15 @@ def _gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """``(N * n, ...)``: the contiguous ``(n, ...)`` pieces of the
     spatial group's ranks, in spatial order."""
     N, s = mesh.spatial, mesh.spatial_index
-    out = torch.empty((N * x.shape[0], *x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    if mesh.backend == "gloo" and x.is_cuda:
-        out.zero_()
-        out[s * x.shape[0]:(s + 1) * x.shape[0]].copy_(x)
-        dist.all_reduce(out, group=mesh.spatial_group)
-    else:
-        _GATHER(out, x, group=mesh.spatial_group)
+    with uncounted():
+        out = torch.empty((N * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        if mesh.backend == "gloo" and x.is_cuda:
+            out.zero_()
+            out[s * x.shape[0]:(s + 1) * x.shape[0]].copy_(x)
+            dist.all_reduce(out, group=mesh.spatial_group)
+        else:
+            _GATHER(out, x, group=mesh.spatial_group)
     return out
 
 
@@ -296,12 +302,14 @@ def _reduce_scatter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     summed over the spatial group (the adjoint of :func:`_gather`)."""
     N, s = mesh.spatial, mesh.spatial_index
     n = x.shape[0] // N
-    if mesh.backend == "gloo" and x.is_cuda:
-        t = x.clone()
-        dist.all_reduce(t, group=mesh.spatial_group)
-        return t[s * n:(s + 1) * n].clone()
-    out = torch.empty((n, *x.shape[1:]), dtype=x.dtype, device=x.device)
-    _SCATTER(out, x.contiguous(), group=mesh.spatial_group)
+    with uncounted():
+        if mesh.backend == "gloo" and x.is_cuda:
+            t = x.clone()
+            dist.all_reduce(t, group=mesh.spatial_group)
+            return t[s * n:(s + 1) * n].clone()
+        out = torch.empty((n, *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        _SCATTER(out, x.contiguous(), group=mesh.spatial_group)
     return out
 
 

@@ -744,7 +744,11 @@ class ReplicaFleet:
             # drain=False: a crashed/wedged engine cannot finish its
             # queue; fail the stragglers fast so the router fails them
             # over while we rebuild
-            self._drop(old, drain=False, timeout=10)
+            try:
+                old.stop(drain=False, timeout=10)
+            except Exception as e:
+                self._sink.emit("fleet_restart_stop_error",
+                                replica=r.name, error=str(e)[:300])
             del old
             self._reclaim()
         while not self._stop_event.is_set():

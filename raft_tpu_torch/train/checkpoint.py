@@ -102,7 +102,9 @@ def snapshot(state: TrainState) -> Dict[str, Any]:
                        "optimizer": state.optimizer.state_dict()},
                       pinned=on_card)
     if on_card:
-        torch.cuda.synchronize(next(state.model.parameters()).device)
+        # the pinned copies are read as soon as this returns
+        dev = next(state.model.parameters()).device
+        torch.cuda.synchronize(dev)  # raftlint: disable=JIT103
     snap.update(step=int(state.step),
                 nonfinite_steps=int(state.nonfinite_steps),
                 generator=state.generator.get_state())

@@ -39,11 +39,12 @@ Observability, at the JAX loop's places and with its events
   JSONL stream of ``run_config``, one ``train_step`` a step (host
   ``perf_counter`` floats only), ``compile`` (the step key's first,
   eager call), ``cost_report`` (that first call counted,
-  ``obs/cost.py``; at world 1 only: the counting modes are not run
-  around the ranks' collectives), ``hbm_usage`` (the allocator's peak,
-  reset before the first step and read after the capture),
-  ``train_health`` a Logger flush, and ``metrics_summary`` last; the
-  loader's ``sample_quarantine`` and the checkpoint manager's
+  ``obs/cost.py``, at any world size: the counting modes step aside
+  around the ranks' collectives, so each rank counts its own forward
+  and backward, and ``flops_per_pair`` is world 1's), ``hbm_usage``
+  (the allocator's peak, reset before the first step and read after the
+  capture), ``train_health`` a Logger flush, and ``metrics_summary``
+  last; the loader's ``sample_quarantine`` and the checkpoint manager's
   ``ckpt_fallback`` / ``ckpt_commit`` events land in the same stream.
 - Health: every rank's Logger (silent but on rank 0) feeds its own
   :class:`~raft_tpu_torch.obs.health.HealthMonitor` from its one
@@ -342,7 +343,7 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
             if watchdog is not None and warming:
                 watchdog.pause()
             count_cm = contextlib.nullcontext()
-            if step == start and telem.cost_enabled and world == 1:
+            if step == start and telem.cost_enabled:
                 count_cm = cost_mod.counting()
             t_d0 = time.perf_counter()
             try:
@@ -362,7 +363,8 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
                 in_flight.append(torch.cuda.Event())
                 in_flight[-1].record()
                 if len(in_flight) > 1:
-                    in_flight.pop(0).synchronize()
+                    # the bounded in-flight wait: at most two steps queued
+                    in_flight.pop(0).synchronize()  # raftlint: disable=JIT103
             profiler.maybe_stop(step, sync_on=metrics["loss"])
             step += 1
             if chief or health is not None:

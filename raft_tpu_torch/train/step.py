@@ -91,6 +91,7 @@ from raft_tpu_torch.config import (RAFTConfig, TrainConfig, backend_flags,
                                    entry_precision)
 from raft_tpu_torch.evaluate import DeviceLike, resolve_device
 from raft_tpu_torch.models.raft import RAFT
+from raft_tpu_torch.obs.cost import uncounted
 from raft_tpu_torch.parallel import mesh as mesh_mod
 from raft_tpu_torch.parallel.mesh import Mesh
 from raft_tpu_torch.train.loss import combined_valid, sequence_loss
@@ -247,8 +248,10 @@ def _step_body(state: TrainState, cfg: TrainConfig, loss_fn: Callable,
         if flat is None:
             flat = buffers[size] = torch.empty(size, dtype=torch.float32,
                                                device=loss.device)
-        loss, metrics = _reduce_over_ranks_(
-            grads, loss.detach(), metrics, n_valid, mesh, flat)
+        # the step's cost is the rank's own work (obs/cost.py)
+        with uncounted():
+            loss, metrics = _reduce_over_ranks_(
+                grads, loss.detach(), metrics, n_valid, mesh, flat)
     gnorm = global_norm(grads)
     clip_by_global_norm_(grads, cfg.clip, gnorm)
     for p, g in zip(params, grads):

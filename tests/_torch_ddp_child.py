@@ -25,7 +25,8 @@ and writes what the parent compares to ``OUT/rank<RANK>.pt``.  Then,
 given ``CLI_PORT``, it runs the train CLI's ``main`` with
 ``--distributed --device cpu --validation chairs`` on the chairs tree
 under ``OUT`` (rank 0 validates while rank 1 waits), its standard output
-in ``OUT/cli<RANK>.log`` and its exit code in ``OUT/cli<RANK>.json``.
+in ``OUT/cli<RANK>.log``, its exit code in ``OUT/cli<RANK>.json`` and
+its telemetry stream in ``OUT/cli_tel/``.
 
     python tests/_torch_ddp_child.py OUT WEIGHTS RANK WORLD PORT cuda
 
@@ -165,7 +166,8 @@ def noise_of(twin, ref):
 
 def cli_args(root, world=2):
     """The train CLI's flags: 2 chairs steps of the global batch at
-    32x48 with one validation, on the tree under ``root``."""
+    32x48 with one validation, on the tree under ``root``, telemetry into
+    ``root/cli_tel``."""
     return ["--distributed", "--device", "cpu", "--name", "cli",
             "--stage", "chairs", "--num_steps", "2",
             "--batch_size", str(B * world), "--image_size", str(H), str(W),
@@ -173,7 +175,8 @@ def cli_args(root, world=2):
             "2", "--validation", "chairs", "--num_workers", "1",
             "--data_root", os.path.join(root, "datasets"),
             "--chairs_split", os.path.join(root, "chairs_split.txt"),
-            "--ckpt_dir", os.path.join(root, "cli_ckpt")]
+            "--ckpt_dir", os.path.join(root, "cli_ckpt"),
+            "--telemetry_dir", os.path.join(root, "cli_tel")]
 
 
 def main(out, weights, rank, world, port, device="cpu", cli_port=None):

@@ -425,6 +425,36 @@ def test_train_cli_distributed_world_2(ranks, spawned):
     assert [r["ok"] for r in mgr.verify_all()] == [True]
 
 
+def test_train_cli_world_2_counts_the_step_cost(ranks, spawned):
+    """Case 6's telemetry: at world 2 each rank counts its first step
+    (the counting modes step aside around the collectives), so rank 0's
+    stream holds the train step's ``cost_report`` and its
+    ``flops_per_pair`` is world 1's: the same step of the global batch in
+    one process, counted the same way."""
+    from raft_tpu_torch.obs import cost as cost_mod
+    from raft_tpu_torch.train.step import step_cost
+
+    path = os.path.join(spawned["root"], "cli_tel", "telemetry-p0.jsonl")
+    with open(path) as f:
+        events = [json.loads(line) for line in f]
+    [report] = [e for e in events if e.get("event") == "cost_report"
+                and e.get("program") == "train_step"]
+    [run] = [e for e in events if e.get("event") == "run_config"]
+    assert run["num_devices"] == WORLD
+    # the CLI's chairs stage on the CPU: corr_impl auto is allpairs
+    cfg = TrainConfig(batch_size=child.B * WORLD, **child.TRAIN_KW)
+    state = init_state(RAFTConfig.full(corr_impl="allpairs"), cfg,
+                       device="cpu", state_dict=full_raft_variables(0)[1])
+    step_fn = make_train_step(cfg, device="cpu")
+    with cost_mod.counting() as counted:
+        step_fn(state, child.global_batch(0))
+    one = step_cost(counted, cfg.batch_size, 1, kind="cpu")
+    assert one.flops_per_pair > 0
+    np.testing.assert_allclose(report["flops_per_pair"], one.flops_per_pair,
+                               rtol=1e-6)
+    assert report["source"] == "counted"
+
+
 def test_world_one_mesh_is_the_plain_step():
     """A mesh of one gloo rank all-reduces (a sum of one, a division by
     1): two steps bit for bit the plain step's parameters, optimizer

@@ -315,6 +315,49 @@ def test_evaluate_epe_delta_matches_jax(weights, trees, capsys):
         tev.evaluate_epe_delta(sd, RAFTConfig.full(), ["float32", "int4"])
 
 
+class _Recorder:
+    """A sink that keeps each ``emit``'s event name and fields (off for
+    the cost report, which asks ``enabled`` first)."""
+
+    enabled = False
+
+    def __init__(self):
+        self.events = []
+
+    def emit(self, event, **fields):
+        self.events.append((event, fields))
+
+
+def test_evaluate_epe_delta_emits_the_jax_event(weights, trees,
+                                                monkeypatch, capsys):
+    """The ``eval_epe_delta`` event: JAX's name and fields (``dataset``,
+    ``base``, ``dtypes``, ``deltas``), its deltas within 1e-3 of JAX's."""
+    variables, sd = weights
+    kw = dict(dataset="chairs", iters=ITERS, batch_size=BS,
+              root=trees["chairs"], split_file=trees["split"])
+    sinks = {}
+    for name, mod in (("port", tev), ("jax", jev)):
+        sinks[name] = _Recorder()
+        monkeypatch.setattr(mod, "default_sink", lambda s=sinks[name]: s)
+    tev.evaluate_epe_delta(sd, RAFTConfig.full(), ["float32", "bfloat16"],
+                           device="cpu", **kw)
+    jev.evaluate_epe_delta(variables, JaxRAFTConfig.full(),
+                           ["float32", "bfloat16"], **kw)
+    capsys.readouterr()
+    [got], [want] = ([f for e, f in sinks[k].events if e == "eval_epe_delta"]
+                     for k in ("port", "jax"))
+    assert got.keys() == want.keys() == {"dataset", "base", "dtypes",
+                                         "deltas"}
+    assert (got["dataset"], got["base"], got["dtypes"]) == (
+        want["dataset"], want["base"], want["dtypes"]) == (
+        "chairs", "float32", ["float32", "bfloat16"])
+    assert got["deltas"].keys() == want["deltas"].keys() == {"bfloat16"}
+    assert got["deltas"]["bfloat16"].keys() == \
+        want["deltas"]["bfloat16"].keys()
+    for k, v in want["deltas"]["bfloat16"].items():
+        assert abs(got["deltas"]["bfloat16"][k] - v) <= 1e-3
+
+
 def test_cli_on_cpu_matches_jax_validator(weights, jax_eval_fn, trees,
                                           tmp_path, capsys):
     variables, sd = weights

@@ -330,6 +330,44 @@ def test_hang_restarts_only_the_wedged_replica(state_dict, aot_dir):
         fleet.stop()
 
 
+def test_restart_stop_error_names_the_replica(state_dict, aot_dir,
+                                              tmp_path):
+    """An old engine whose ``stop`` raises during the supervised restart
+    gives JAX's ``fleet_restart_stop_error`` with the replica and the
+    error, and the restart goes on to a fresh engine."""
+    from raft_tpu_torch.obs import EventSink
+
+    events = []
+    sink = EventSink(str(tmp_path))
+    sink.add_observer(events.append)
+    kw = dict(replicas=1, aot_dir=aot_dir, warmup_shapes=(SHAPE,),
+              auto_export_aot=False, restart_backoff_s=0.01,
+              restart_backoff_max_s=0.05, health_poll_s=0.02)
+    fleet = ReplicaFleet(state_dict, CFG, _serve_cfg(), FleetConfig(**kw),
+                         sink=sink, device="cpu").start()
+    try:
+        [victim] = fleet.replicas
+        eng = victim.engine
+        real_stop = eng.stop
+
+        def stop(*a, **k):
+            real_stop(*a, **k)
+            raise RuntimeError("teardown refused")
+
+        eng.stop = stop
+        chaos.install(chaos.FaultPlan.parse("replica_kill@batch=1"))
+        with pytest.raises(Exception):
+            eng.infer(*_images(np.random.default_rng(6)), timeout=30)
+        _wait_for(lambda: victim.restarts == 1 and victim.state == "ready",
+                  30, "the supervised restart")
+        assert victim.engine is not eng
+    finally:
+        fleet.stop()
+    errs = [e for e in events if e["event"].endswith("stop_error")]
+    assert [(e["event"], e["replica"], e["error"]) for e in errs] == [
+        ("fleet_restart_stop_error", victim.name, "teardown refused")]
+
+
 def test_hedge_covers_straggler(state_dict, aot_dir):
     """``replica_slow`` makes the primary a straggler; the hedge to the
     sibling answers long before it."""

@@ -214,7 +214,25 @@ Phases, each raising on failure (so the script exits nonzero):
    of a bf16 step at the things stage (400x720, batch 5, 12 iterations)
    for the on-demand, the ``allpairs_pallas`` and the int8 + fused
    configurations;
-11. train_cli: the training entry point on a synthetic FlyingChairs tree
+11. autotune: the autotuner (``python -m raft_tpu_torch autotune``,
+   ``cli/autotune.py``) and the forensic replay (``replay-step``,
+   ``cli/replay_step.py``) at the chairs stage (full model, 368x496, B 8,
+   12 iterations, bf16): ``run_sweep(kind='train')`` over a 4-point
+   sub-grid of the card's train grid (``corr_impl`` ``allpairs`` /
+   ``allpairs_pallas`` x ``fused_gru`` off / on, the upsample-loss
+   kernels in each) into a registry of its own, each point's pairs/s,
+   exact launches (the pyramid lookups, the four gate bodies and the
+   upsample-loss pair where the point runs them) and reserved memory
+   after its release (within 1 GiB of the phase's start); the same sweep
+   again a cache hit; a ``make_train_step`` reading that registry
+   reports ``tuned`` with the winner's key and runs its knobs; then the
+   loop (the shipped kernel configuration, telemetry on, a checkpoint a
+   step) over 3 batches, step 2's with an inf pixel, its bundle replayed
+   from the run's checkpoint (reproduced, ``--expect-nonfinite`` exit
+   0), and a clean bundle of step 1 replayed from the step-1 checkpoint
+   (finite, exit 1, the loop's loss within 1e-3); the default registry
+   (``~/.cache/raft_tpu/tuning.json``) is left as it was;
+12. train_cli: the training entry point on a synthetic FlyingChairs tree
    (24 training and 4 validation ``.ppm`` pairs at 384x512 with ``.flo``
    files and a split file): the native host library must load on this
    host (its build time, and whether cv2 is importable); the loader alone
@@ -243,7 +261,7 @@ Phases, each raising on failure (so the script exits nonzero):
    reused batch, and the prefetch-2 arm again with telemetry, health,
    tracing at rate 1 and the watchdog on (ms/step and its spread beside
    the off arm's; the stream's peak memory, FLOPs a pair and MFU);
-12. ddp: data-parallel training (``raft_tpu_torch/parallel``), on phase
+13. ddp: data-parallel training (``raft_tpu_torch/parallel``), on phase
    train_cli's tree: (a) world 1 over NCCL (the torchrun variables set
    in this process), the chairs stage (B 8, 12 iterations, bf16, the
    train CLI's defaults) through ``make_train_step(..., mesh=...)``
@@ -266,7 +284,7 @@ Phases, each raising on failure (so the script exits nonzero):
    uncounted step; (c) ``python -m raft_tpu_torch train --distributed``
    with the variables of one rank: 2 steps, exit 0, a checkpoint
    stamped world 1;
-13. spatial: each image's rows split over two gloo ranks sharing the
+14. spatial: each image's rows split over two gloo ranks sharing the
    card (``chip_smoke.py --spatial-rank`` children, ``data 1 x spatial
    2``), the chairs stage (368x496, global B 4, 12 iterations, bf16,
    eager, 2 steps) in three arms: the kernel configuration
@@ -282,7 +300,7 @@ Phases, each raising on failure (so the script exits nonzero):
    call with ``halo=1``), each rank's peak memory against the straight
    run's, and the spatial collectives' share of the kernel arm's last
    step on rank 0 under the profiler;
-14. small: the small model at full width (hidden 96, context 64, radius
+15. small: the small model at full width (hidden 96, context 64, radius
    3, C = 128): each kernel of its paths at its shapes against the plain
    version, timed beside its bound (run as phase small_kernels right
    after phase kernels, early in the process; the on-demand forward at the Sintel
@@ -304,7 +322,7 @@ Phases, each raising on failure (so the script exits nonzero):
    ``dots`` and ``save_corr`` + ``remat_upsample`` (peak memory, ms/step,
    launch counts a step), and each policy's fp32 gradients against
    ``none``;
-15. clis: subprocesses that are checked, not timed, side by side, on a
+16. clis: subprocesses that are checked, not timed, side by side, on a
    thread while phase train_cli's train CLI subprocesses run (nothing
    is timed or counted in this process meanwhile):
    ``python -m raft_tpu_torch curriculum`` on two small stages, killed
@@ -315,7 +333,7 @@ Phases, each raising on failure (so the script exits nonzero):
    ``python -m raft_tpu_torch cost`` at the chairs shapes (its table
    printed; the four programs counted and classified against the
    card's peaks);
-16. report: one JSON line ``{"kernels": [...]}`` (each kernel with its
+17. report: one JSON line ``{"kernels": [...]}`` (each kernel with its
    small-model launches and, where phase small timed it, its times
    there, and its launches per serving ``iter`` replay with, where phase
    serve timed it, its times at the slot shape, its launches through
@@ -428,6 +446,7 @@ def _profile(fn, reps: int = 2, warm: bool = True) -> dict:
     no device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_helper = time.perf_counter()
     if warm:
         fn()
     torch.cuda.synchronize()
@@ -463,6 +482,7 @@ def _profile(fn, reps: int = 2, warm: bool = True) -> dict:
         elif b > end:
             busy += b - end
             end = b
+    HELPER_S["_profile"] += time.perf_counter() - t_helper
     if not spans:
         return {"busy_ms": None, "wall_ms": wall, "idle_share": None,
                 "by_kind": {}}
@@ -472,16 +492,25 @@ def _profile(fn, reps: int = 2, warm: bool = True) -> dict:
             "by_kind": {k: v / reps / 1e3 for k, v in sorted(kinds.items())}}
 
 
-def _timed(fn, match, reps: int = 30) -> dict:
+# calls a kernel timing takes: CUDA-event reps and profiled reps (the
+# kernels read within 7% across runs at 30 and 20; the script's time
+# limit pays for phase autotune with the difference)
+TIMED_REPS, TIMED_DEVICE_REPS = 10, 10
+# seconds the script spent in the timing helpers, printed at its end
+HELPER_S = {"_timed": 0.0, "_timed_calls": 0, "_profile": 0.0}
+
+
+def _timed(fn, match, reps: int = TIMED_REPS) -> dict:
     """The profiler's device time of one call's kernels (``ms``) beside
     its CUDA-event time (host launch gaps included); raises when three
     traces report no device time, so that no event time stands in for a
     kernel's."""
+    t0 = time.perf_counter()
     event_ms = _time_ms(fn, reps=reps)
     for _ in range(3):
         # a trace that lost every launch (seen once, for the plain gate
         # forward: a few microseconds of work) is traced again
-        dev_ms = _device_ms(fn, match=match)
+        dev_ms = _device_ms(fn, reps=TIMED_DEVICE_REPS, match=match)
         if dev_ms is not None:
             break
         print(f"[profile] no device time for {match or 'a plain version'}"
@@ -489,6 +518,8 @@ def _timed(fn, match, reps: int = 30) -> dict:
     if dev_ms is None:
         raise AssertionError(f"the profiler reported no device time for "
                              f"{match or 'a plain version'}")
+    HELPER_S["_timed"] += time.perf_counter() - t0
+    HELPER_S["_timed_calls"] += 1
     return {"ms": dev_ms, "event_ms": event_ms, "device_ms": dev_ms}
 
 
@@ -3923,6 +3954,230 @@ def phase_train_cli(sd, train_res):
 
 
 # ---------------------------------------------------------------------------
+# phase autotune: the autotuner's sweep on the card, a consumer of its
+# entry, and the replay of the loop's forensic bundles
+# ---------------------------------------------------------------------------
+
+# the card's train grid cut to 4 points: both materialized lookups, the
+# gates unfused and fused, the upsample-loss kernels in every point
+AUTOTUNE_GRID = {"corr_impl": ["allpairs", "allpairs_pallas"],
+                 "fused_gru": [False, True],
+                 "upsample_loss_kernel": ["pallas"]}
+AUTOTUNE_STEPS, AUTOTUNE_WARMUP = 8, 2     # the CLI's defaults
+AUTOTUNE_RESERVED_GIB = 1.0   # reserved after a point's release vs start
+REPLAY_STEPS, REPLAY_POISONED = 3, 2       # the loop's steps, the inf one
+REPLAY_LOSS_REL = 1e-3        # clean replay (eager) vs the loop (captured)
+
+
+def _home_registry() -> tuple:
+    """The default registry file (``~/.cache/raft_tpu/tuning.json``):
+    whether it exists and its bytes' hash."""
+    path = os.path.join(os.path.expanduser("~"), ".cache", "raft_tpu",
+                        "tuning.json")
+    if not os.path.exists(path):
+        return path, None
+    with open(path, "rb") as f:
+        return path, hashlib.sha256(f.read()).hexdigest()
+
+
+def _sweep_launches(knobs: dict, steps: int) -> dict:
+    """A train point's launches over ``steps`` steps: the lookups 12 + 12
+    a step under ``allpairs_pallas``, the upsample-loss pair once a step,
+    each fused gate forward and backward twice an iteration."""
+    want = {"upsample_loss_fwd": steps, "upsample_loss_bwd": steps}
+    if knobs["corr_impl"] == "allpairs_pallas":
+        want.update(pyramid_lookup_fwd=CHAIRS_ITERS * steps,
+                    pyramid_lookup_bwd=CHAIRS_ITERS * steps)
+    if knobs["fused_gru"]:
+        for k in ("gru_gate_rh", "gru_gate_blend", "gru_gate_rh_bwd",
+                  "gru_gate_blend_bwd"):
+            want[k] = 2 * CHAIRS_ITERS * steps
+    return want
+
+
+def _autotune_sweep(work: str) -> dict:
+    """``run_sweep(kind='train')`` over :data:`AUTOTUNE_GRID` at the chairs
+    stage (full model, 368x496, B 8, 12 iterations, bf16) into a registry
+    of its own: every point timed with its kernels counted exactly, the
+    reserved memory after each point's release within
+    :data:`AUTOTUNE_RESERVED_GIB` of the start; the same sweep again a
+    cache hit; a ``make_train_step`` reading that registry reports
+    ``tuned`` with the winner's key and runs the winner's knobs."""
+    from raft_tpu_torch import tuning
+    from raft_tpu_torch.cli import autotune
+    from raft_tpu_torch.config import RAFTConfig, TrainConfig
+    from raft_tpu_torch.train.step import init_state, make_train_step
+
+    _free()
+    start = torch.cuda.memory_reserved() / 2.0 ** 30
+    out = os.path.join(work, "tuning.json")
+    kw = dict(hw=CHAIRS_HW, batch_per_chip=CHAIRS_B, iters=CHAIRS_ITERS,
+              steps=AUTOTUNE_STEPS, warmup=AUTOTUNE_WARMUP, time_box=600.0,
+              seed=0, out=out, device="cuda", grid=AUTOTUNE_GRID)
+    t0 = time.perf_counter()
+    rec = autotune.run_sweep("train", **kw)
+    sweep_s = time.perf_counter() - t0
+    cfg = rec["config"]
+    points = []
+    for r in cfg["results"]:
+        want = _sweep_launches(r["knobs"], AUTOTUNE_STEPS + AUTOTUNE_WARMUP)
+        points.append({**r, "expected_launches": want})
+        print(f"[autotune] {json.dumps(r['knobs'])}: {r['value']:.3f} "
+              f"pairs/s, reserved after release {r['reserved_gib']:.3f} GiB "
+              f"(start {start:.3f}), launches {r['launches']}", flush=True)
+        if r["launches"] != want:
+            raise AssertionError(f"autotune point {r['knobs']}: launches "
+                                 f"{r['launches']} != {want}")
+        if abs(r["reserved_gib"] - start) > AUTOTUNE_RESERVED_GIB:
+            raise AssertionError(f"autotune point {r['knobs']}: reserved "
+                                 f"{r['reserved_gib']} GiB, start {start}")
+    if len(points) != 4 or cfg["points_refused"] != 0:
+        raise AssertionError(f"autotune sweep: {cfg}")
+    t0 = time.perf_counter()
+    hit = autotune.run_sweep("train", **kw)
+    hit_s = time.perf_counter() - t0
+    print(f"[autotune] winner {json.dumps(cfg['knobs'])} at {rec['value']} "
+          f"pairs/s ({sweep_s:.1f} s); the same sweep again: cache hit "
+          f"{hit['config']['cache_hit']} ({hit_s:.2f} s)", flush=True)
+    if not hit["config"]["cache_hit"] or hit["config"]["knobs"] != \
+            cfg["knobs"]:
+        raise AssertionError(f"autotune cache: {hit}")
+
+    # the consumer: every knob at its default, the registry by the env
+    prev = os.environ.get(tuning.ENV_REGISTRY)
+    os.environ[tuning.ENV_REGISTRY] = out
+    try:
+        tcfg = TrainConfig(lr=2.5e-4, num_steps=120000, batch_size=CHAIRS_B,
+                           image_size=CHAIRS_HW, iters=CHAIRS_ITERS)
+        state = init_state(RAFTConfig.full(compute_dtype="bfloat16"), tcfg)
+        step_fn = make_train_step(tcfg)
+        _reset_counts()
+        state, metrics = step_fn(state, _chairs_batch(torch.device("cuda")))
+        loss = float(metrics["loss"])
+        consumed = _counts()
+        info, ran = step_fn.tuning_info, state.model.config
+    finally:
+        if prev is None:
+            os.environ.pop(tuning.ENV_REGISTRY, None)
+        else:
+            os.environ[tuning.ENV_REGISTRY] = prev
+    del state, step_fn, metrics
+    _free()
+    want = _sweep_launches(cfg["knobs"], 1)
+    print(f"[autotune] consumer step: tuned {info.tuned}, key {info.key}, "
+          f"applied {info.applied}, loss {loss:.4f}, launches "
+          f"{ {k: v for k, v in consumed.items() if v} }", flush=True)
+    if not (info.tuned and info.key == cfg["key"] and np.isfinite(loss)
+            and all(getattr(ran, k) == v for k, v in cfg["knobs"].items())
+            and {k: v for k, v in consumed.items() if v} == want):
+        raise AssertionError(f"autotune consumer: {info}, {ran}, {consumed}")
+    return {"points": points, "winner": cfg["knobs"], "key": cfg["key"],
+            "value": rec["value"], "card": cfg["card"],
+            "start_reserved_gib": start, "sweep_s": sweep_s,
+            "cache_hit_s": hit_s,
+            "consumer": {"tuned": info.tuned, "key": info.key,
+                         "applied": info.applied, "loss": loss}}
+
+
+def _replay_main(*args) -> tuple:
+    """``replay_step.main(args)`` in this process: its exit code and its
+    JSON report."""
+    import io
+
+    from raft_tpu_torch.cli import replay_step
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = replay_step.main(list(args))
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _autotune_replay(work: str) -> dict:
+    """The loop (the shipped kernel configuration, bf16, chairs B 8, 12
+    iterations, telemetry on, a checkpoint a step) over 3 synthetic
+    batches, step 2's with an inf pixel: the guard writes its bundle and
+    ``replay-step --expect-nonfinite`` from the run's checkpoint
+    reproduces it (exit 0); a clean bundle of step 1, replayed from the
+    step-1 checkpoint, is finite (exit 1) with the loop's loss at step 1
+    within :data:`REPLAY_LOSS_REL`."""
+    import shutil
+
+    from raft_tpu_torch.cli.autotune import _synth_batch
+    from raft_tpu_torch.config import RAFTConfig, TrainConfig
+    from raft_tpu_torch.obs import health
+    from raft_tpu_torch.train import loop
+
+    batches = [_synth_batch(CHAIRS_HW, CHAIRS_B, 40 + i)
+               for i in range(REPLAY_STEPS)]
+    batches[REPLAY_POISONED]["image1"][3, 200, 300, 1] = np.inf
+    cfg = TrainConfig(name="replay", lr=2.5e-4, num_steps=REPLAY_STEPS,
+                      batch_size=CHAIRS_B, image_size=CHAIRS_HW,
+                      iters=CHAIRS_ITERS, val_freq=1, log_freq=1,
+                      device_prefetch=1, forensic_keep=4,
+                      ckpt_dir=os.path.join(work, "ck"))
+    timings = []
+    t0 = time.perf_counter()
+    loop.train(RAFTConfig.full(compute_dtype="bfloat16", **KERNEL_CFG), cfg,
+               iter(batches), telemetry_dir=os.path.join(work, "tel"),
+               timings=timings, log=lambda line: None)
+    losses = [float(t["loss"]) for t in timings]
+    loop_s = time.perf_counter() - t0
+    (poisoned,) = glob.glob(os.path.join(work, "tel", "forensics", "*.npz"))
+    _, meta = health.load_forensic_bundle(poisoned)
+    ck = os.path.join(work, "ck", cfg.name)
+    ck1 = os.path.join(work, "ck1")
+    shutil.copytree(os.path.join(ck, "1"), os.path.join(ck1, "1"))
+    shutil.copy(os.path.join(ck, "topology.json"), ck1)
+    clean = health.write_forensic_bundle(
+        os.path.join(work, "clean"), 1, batches[1],
+        {k: v for k, v in meta.items() if k not in ("step", "batch_captured")})
+    t0 = time.perf_counter()
+    rc_p, rep_p = _replay_main("--bundle", poisoned, "--ckpt", ck,
+                               "--expect-nonfinite")
+    rc_c, rep_c = _replay_main("--bundle", clean, "--ckpt", ck1,
+                               "--expect-nonfinite")
+    replay_s = time.perf_counter() - t0
+    rel = abs(rep_c["loss"] - losses[1]) / abs(losses[1])
+    print(f"[autotune] loop losses {losses} ({loop_s:.1f} s); replay of the "
+          f"poisoned step {rep_p['step']}: rc {rc_p}, reproduced "
+          f"{rep_p['reproduced']}, restored step {rep_p['restored_step']}, "
+          f"batch {rep_p['batch_nonfinite_elements']}, "
+          f"{len(rep_p['nonfinite_grad_leaves'])} non-finite leaves; clean "
+          f"step 1: rc {rc_c}, loss {rep_c['loss']:.6f} vs the loop's "
+          f"{losses[1]:.6f} (rel {rel:.2e}) ({replay_s:.1f} s)", flush=True)
+    if not (rc_p == 0 and rep_p["reproduced"]
+            and rep_p["step"] == REPLAY_POISONED
+            and rep_p["restored_step"] == REPLAY_STEPS
+            and rep_p["batch_nonfinite_elements"]["image1"] == 1
+            and meta["rng"]["device"] == "cuda"):
+        raise AssertionError(f"replay of the poisoned bundle: {rep_p}")
+    if not (rc_c == 1 and not rep_c["reproduced"]
+            and rep_c["restored_step"] == 1 and rel <= REPLAY_LOSS_REL):
+        raise AssertionError(f"replay of the clean bundle: {rep_c}, loop "
+                             f"losses {losses}")
+    _free()
+    return {"loop_losses": losses, "loop_s": loop_s, "replay_s": replay_s,
+            "poisoned": {"rc": rc_p, **rep_p}, "clean": {"rc": rc_c, **rep_c},
+            "clean_loss_rel": rel}
+
+
+def phase_autotune() -> dict:
+    """The autotuner and the forensic replay on the card (see the module
+    docstring, phase 11); the default registry is left as it was."""
+    import shutil
+
+    work = os.path.join(WORK, "autotune")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    home, before = _home_registry()
+    res = {"sweep": _autotune_sweep(work),
+           "replay": _autotune_replay(work)}
+    if _home_registry()[1] != before:
+        raise AssertionError(f"phase autotune changed {home}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase small: the small model at full width, remat, curriculum, lk-compare
 # ---------------------------------------------------------------------------
 
@@ -7220,6 +7475,7 @@ def main(argv=None) -> int:
     demo_res = timed_phase(phase_demo, sd)
     eval_res = timed_phase(phase_eval, sd)
     train, train_counts = timed_phase(phase_train, sd)
+    autotune_res = timed_phase(phase_autotune)
     train_cli = timed_phase(phase_train_cli, sd, train)
     clis = train_cli.pop("clis")
     ddp = timed_phase(phase_ddp, sd, train_cli["tree"])
@@ -7229,6 +7485,11 @@ def main(argv=None) -> int:
     small["clis"], fleet["cli"] = clis["small"], clis["fleet"]
     cost_cli = clis["cost"]
     secs["total"] = time.perf_counter() - t0
+    secs["helpers"] = dict(HELPER_S)
+    print(f"[time] total: {secs['total']:.1f} s; in the timing helpers: "
+          f"_timed {HELPER_S['_timed']:.1f} s over "
+          f"{HELPER_S['_timed_calls']} calls, _profile "
+          f"{HELPER_S['_profile']:.1f} s", flush=True)
 
     sources = {
         "corr_ondemand": ("raft_tpu_torch/csrc/corr_ondemand.cu",
@@ -7314,7 +7575,14 @@ def main(argv=None) -> int:
             # spatial sharding: each of the 2 ranks' launches per arm
             "spatial": {"per_rank_launches": {
                 arm: [c.get(kname, 0) for c in spatial[arm]["launches"]]
-                for arm in SPATIAL_ARMS}, "per_rank_steps": SPATIAL_STEPS}})
+                for arm in SPATIAL_ARMS}, "per_rank_steps": SPATIAL_STEPS},
+            # the autotuner's sweep: launches in each of its 4 points (10
+            # steps each: the warm-up pair and the timed ones)
+            "autotune": {"per_point_launches": {
+                json.dumps(pt["knobs"], sort_keys=True):
+                pt["launches"].get(kname, 0)
+                for pt in autotune_res["sweep"]["points"]},
+                "steps_per_point": AUTOTUNE_STEPS + AUTOTUNE_WARMUP}})
         if kname.startswith("upsample_loss"):
             # the row-halo form at phase spatial's shard shape
             kernels[-1]["halo"] = {
@@ -7351,6 +7619,7 @@ def main(argv=None) -> int:
                        "eval": eval_res,
                        "train": train, "train_cli": train_cli,
                        "ddp": ddp, "spatial": spatial,
+                       "autotune": autotune_res,
                        "small": small, "cost_cli": cost_cli}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,6 +12,10 @@ the subcommands the port has::
     python -m raft_tpu_torch cost --tiny --device cpu
     python -m raft_tpu_torch incidents list --telemetry-dir runs/tel
     python -m raft_tpu_torch lint --json report.json
+    python -m raft_tpu_torch autotune --kind train --batch-per-chip 8
+    python -m raft_tpu_torch replay-step \
+        --bundle runs/tel/forensics/step00000042.npz \
+        --ckpt checkpoints/raft-chairs
 """
 
 from __future__ import annotations
@@ -37,6 +41,10 @@ _SUBCOMMANDS = {
                   "browse incident bundles (list/show/timeline)"),
     "lint": ("raft_tpu_torch.cli.lint",
              "static analysis of the port (raftlint)"),
+    "autotune": ("raft_tpu_torch.cli.autotune",
+                 "sweep the knobs on the card, write the tuning registry"),
+    "replay-step": ("raft_tpu_torch.cli.replay_step",
+                    "re-run a forensic bundle's step, find what blew up"),
 }
 
 

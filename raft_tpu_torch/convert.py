@@ -9,6 +9,8 @@
   ``mean``/``var`` <-> ``running_mean``/``running_var``.  The fused
   double-width ``convzr*`` GRU conv stays one conv, and the
   ``upsampler/mask_head`` scope is the port's mask head.
+  :func:`flax_path` maps one key (the name that a report on JAX's
+  side, ``scripts/replay_step.py``'s, gives the same leaf).
 - :func:`load_reference_pth`: a reference-format ``.pth`` (``module.``-
   prefixed keys from ``nn.DataParallel``), through the port's own copy of
   the key map of ``raft_tpu/convert.py:58-125``, including the merge of
@@ -106,6 +108,25 @@ def state_dict_from_flax(variables: Mapping[str, Any],
     return out
 
 
+def flax_path(key: str, ndim: int, keys) -> Tuple[str, ...]:
+    """The flax path ``(collection, *module, leaf)`` of the port's
+    ``state_dict`` entry ``key`` of rank ``ndim``; ``keys`` holds every
+    key of the model (a batch norm is told by its ``running_mean``)."""
+    *module, leaf = key.split(".")
+    is_bn = ".".join(module + ["running_mean"]) in keys
+    module = tuple(module)
+    if leaf in ("running_mean", "running_var"):
+        return ("batch_stats",) + module + ("BatchNorm_0", leaf[8:])
+    if is_bn and leaf in ("weight", "bias"):
+        return ("params",) + module + (
+            "BatchNorm_0", "scale" if leaf == "weight" else "bias")
+    if leaf == "weight" and ndim == 4:
+        return ("params",) + module + ("kernel",)
+    if leaf == "bias":
+        return ("params",) + module + ("bias",)
+    raise KeyError(f"unrecognized state_dict key {key}")
+
+
 def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]
                          ) -> Dict[str, Any]:
     """Inverse of :func:`state_dict_from_flax`: the port's ``state_dict``
@@ -113,22 +134,9 @@ def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]
     flat: Dict[Tuple[str, ...], np.ndarray] = {}
     for key, t in state_dict.items():
         arr = t.detach().cpu().numpy()
-        *module, leaf = key.split(".")
-        mod = ".".join(module)
-        module = tuple(module)
-        is_bn = f"{mod}.running_mean" in state_dict
-        if leaf in ("running_mean", "running_var"):
-            path = ("batch_stats",) + module + ("BatchNorm_0", leaf[8:])
-        elif is_bn and leaf in ("weight", "bias"):
-            path = ("params",) + module + (
-                "BatchNorm_0", "scale" if leaf == "weight" else "bias")
-        elif leaf == "weight" and arr.ndim == 4:
-            path = ("params",) + module + ("kernel",)
+        path = flax_path(key, arr.ndim, state_dict)
+        if path[-1] == "kernel":
             arr = arr.transpose(2, 3, 1, 0)                # OIHW -> HWIO
-        elif leaf == "bias":
-            path = ("params",) + module + ("bias",)
-        else:
-            raise KeyError(f"unrecognized state_dict key {key}")
         flat[path] = np.ascontiguousarray(arr)
     tree = _unflatten(flat)
     return {"params": tree.get("params", {}),

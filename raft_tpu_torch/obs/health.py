@@ -16,9 +16,12 @@ The bundle is the JAX package's format, one ``.npz`` with the batch's
 arrays and a ``__meta__`` JSON string, so ``raft_tpu.obs.health.
 load_forensic_bundle`` reads the port's bundles and
 :func:`load_forensic_bundle` reads JAX's.  ``meta["rng"]`` says what
-replays the port's dropout draw: the seed, the step and the state of the
+replays the port's dropout draw: the seed, the step, the state of the
 step's ``torch.Generator`` (``TrainState.generator``) before the step,
-as hex bytes of ``Generator.get_state()``.
+as hex bytes of ``Generator.get_state()``, and the generator's device
+type (a CUDA generator's state does not fit a CPU one's):
+``python -m raft_tpu_torch replay-step`` (``cli/replay_step.py``)
+re-runs the step from it.
 
 The monitor keeps a bounded ring of the most recent host batches
 (``TrainConfig.forensic_keep``); a flagged step older than the ring at
@@ -106,11 +109,13 @@ class HealthMonitor:
                  seed: int = 0, keep: int = 8,
                  initial_nonfinite: int = 0,
                  run_meta: Optional[Dict] = None,
-                 rank: Optional[int] = None):
+                 rank: Optional[int] = None,
+                 generator_device: Optional[str] = None):
         self.telemetry = telemetry
         self.forensics_dir = forensics_dir
         self.seed = int(seed)
         self.rank = rank
+        self.generator_device = generator_device
         self._ring: collections.deque = collections.deque(
             maxlen=max(int(keep), 1))
         self.nonfinite_total = int(initial_nonfinite)
@@ -169,7 +174,8 @@ class HealthMonitor:
             "rng": {"kind": "torch.Generator state before the step",
                     "seed": self.seed, "step": int(step),
                     "generator_state": (None if rng_state is None
-                                        else bytes(rng_state).hex())},
+                                        else bytes(rng_state).hex()),
+                    "device": self.generator_device},
             "metrics": {k: np.asarray(v).tolist()
                         for k, v in metrics.items()},
         }

@@ -260,7 +260,7 @@ def train(model_cfg: RAFTConfig, cfg: TrainConfig, batches=None, *,
             initial_nonfinite=int(state.nonfinite_steps),
             run_meta={"model_cfg": dataclasses.asdict(model_cfg),
                       "train_cfg": dataclasses.asdict(cfg)},
-            rank=rank_tag)
+            rank=rank_tag, generator_device=state.generator.device.type)
     keep_host = health is not None and cfg.forensic_keep > 0
     # every rank's logger feeds its own monitor; only rank 0's prints
     logger = Logger(cfg.log_freq, lr_fn=state.schedule,

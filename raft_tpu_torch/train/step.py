@@ -284,18 +284,17 @@ def _step_body(state: TrainState, cfg: TrainConfig, loss_fn: Callable,
                 param_norm=param_norm, update_ratio=update_ratio)
 
 
-def _apply_tuning(model: RAFT, cfg: TrainConfig, world: int) -> None:
+def _apply_tuning(model: RAFT, cfg: TrainConfig, world: int):
     """The tuning registry's train winners onto ``model`` (see the module
-    docstring)."""
+    docstring); returns the resolution's ``TuningInfo``."""
     from raft_tpu_torch import tuning
 
-    if not tuning.enabled():
-        return
     tuned_cfg, info = tuning.resolve_config(
         model.config, "train", tuple(cfg.image_size),
         max(cfg.batch_size // max(world, 1), 1))
     if info.applied:
         model.reconfigure(tuned_cfg)
+    return info
 
 
 def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
@@ -308,7 +307,9 @@ def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
     device tensors: ``loss``, ``epe``, ``1px``, ``3px``, ``5px``,
     ``loss_iter``, ``epe_iter``, ``grad_norm``, ``nonfinite``,
     ``param_norm`` and ``update_ratio`` (see the module docstring).
-    ``step_fn.graphs`` says whether the step runs as captured graphs.
+    ``step_fn.graphs`` says whether the step runs as captured graphs;
+    ``step_fn.tuning_info`` is the tuning registry's ``TuningInfo`` for
+    the last state first seen (None before the first call).
 
     ``graphs`` (default: on the card) runs the step as a captured graph
     per batch shape; ``False`` runs it eagerly (for comparisons).  Each
@@ -339,8 +340,8 @@ def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
     def step_fn(state: TrainState, batch: Mapping):
         if state.model not in tuned:
             tuned.add(state.model)
-            _apply_tuning(state.model, cfg,
-                          1 if mesh is None else mesh.world)
+            step_fn.tuning_info = _apply_tuning(
+                state.model, cfg, 1 if mesh is None else mesh.world)
         batch = _to_device(batch, dev)
         B = batch["image1"].shape[0]
         if B % accum:
@@ -362,6 +363,7 @@ def make_train_step(cfg: TrainConfig, device: DeviceLike = "cuda",
         return state, metrics
 
     step_fn.graphs = graphs
+    step_fn.tuning_info = None
     return step_fn
 
 

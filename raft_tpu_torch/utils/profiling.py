@@ -6,7 +6,8 @@ The JAX package counts one compile event per program it builds; the
 port's counterpart of a compiled program is a captured CUDA graph
 (``utils/graphs.py``), so callers record one event per graph they
 capture.  Tests then assert the invariant directly: steady traffic
-captures once per key, never per call.  As the JAX counter does, it
+captures once per key, never per call.  :func:`device_sync` is the one
+wait on the card that a timer outside this module takes.  As the JAX counter does, it
 mirrors each event into a metric registry (``raft_tpu_torch.obs``)
 when given one: the serving engine's ``raft_serve_compiles_total``.
 
@@ -145,6 +146,17 @@ class StepProfiler:
     def close(self) -> None:
         if self._prof is not None:
             self._finish()
+
+
+def device_sync(device) -> None:
+    """Wait for the work queued on ``device`` (a CUDA device): what closes
+    a timed region on the host clock (the autotuner's points).  Nothing on
+    the CPU, whose work is done when the call returns."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def annotate_step(step: int):

@@ -1476,6 +1476,117 @@ def test_resume_into_a_captured_step(dev, tmp_path):
         torch.backends.cudnn.deterministic = False
 
 
+def test_autotune_two_point_sweep_on_the_card(dev, tmp_path):
+    """``run_sweep`` of two train points on the card (the kernel
+    configuration, unfused and fused gates): an entry keyed by the card's
+    device kind, each point's kernels counted, the pallas pair in both,
+    the gates only in the fused one, and the same sweep again a hit."""
+    from raft_tpu_torch import tuning
+    from raft_tpu_torch.cli import autotune
+
+    out = str(tmp_path / "tuning.json")
+    kw = dict(hw=(64, 96), batch_per_chip=2, iters=3, steps=2, warmup=2,
+              time_box=600.0, seed=0, out=out, device=dev,
+              grid={"corr_impl": ["allpairs_pallas"],
+                    "upsample_loss_kernel": ["pallas"],
+                    "fused_gru": [False, True]})
+    rec = autotune.run_sweep("train", **kw)
+    name = torch.cuda.get_device_name(0)
+    cfg = rec["config"]
+    assert cfg["key"] == f"train|{name}|64x96|b2"
+    assert cfg["card"]["device_kind"] == name
+    key, entry, exact = tuning.lookup("train", (64, 96), 2, device=name,
+                                      path=out)
+    assert exact and key == cfg["key"] and entry["device_kind"] == name
+    assert len(cfg["results"]) == 2
+    for r in cfg["results"]:
+        n = r["launches"]
+        assert r["value"] > 0 and r["reserved_gib"] is not None
+        for k in ("pyramid_lookup_fwd", "pyramid_lookup_bwd",
+                  "upsample_loss_fwd", "upsample_loss_bwd"):
+            assert n.get(k, 0) > 0, (r["knobs"], n)
+        gates = ("gru_gate_rh", "gru_gate_blend", "gru_gate_rh_bwd",
+                 "gru_gate_blend_bwd")
+        assert all((n.get(k, 0) > 0) == r["knobs"]["fused_gru"]
+                   for k in gates), (r["knobs"], n)
+    assert autotune.run_sweep("train", **kw)["config"]["cache_hit"]
+
+
+def test_replay_restores_a_cuda_generator(dev, tmp_path):
+    """The loop on the card with dropout on and step 2's image poisoned:
+    its bundle holds the CUDA generator's state before the step.  A clean
+    bundle of step 1 with that step's generator state, replayed on the
+    card from the step-1 checkpoint, gives the loop's own loss at step 1
+    (so the same dropout masks); the generator a step later does not; the
+    poisoned bundle reproduces; the CPU refuses the CUDA generator, and
+    the card's checkpoint."""
+    import json
+    import shutil
+
+    from raft_tpu_torch.cli import replay_step
+    from raft_tpu_torch.obs import health
+    from raft_tpu_torch.train import loop
+    from raft_tpu_torch.train.checkpoint import CheckpointRestoreError
+
+    batches = list(_host_batches(3))
+    batches[2]["image1"][0, 3, 4, 1] = np.inf
+    states = []
+    real_note = health.HealthMonitor.note_batch
+
+    def note(self, step, host_batch, rng_state=None):
+        states.append(rng_state)
+        real_note(self, step, host_batch, rng_state)
+
+    cfg = dataclasses.replace(_graph_train_cfgs(), num_steps=3, log_freq=1,
+                              val_freq=1, device_prefetch=1,
+                              forensic_keep=4, ckpt_dir=str(tmp_path / "ck"))
+    timings = []
+    health.HealthMonitor.note_batch = note
+    try:
+        loop.train(RAFTConfig.full(dropout=0.1, **KERNEL_KW), cfg,
+                   iter(batches), device=dev, timings=timings,
+                   telemetry_dir=str(tmp_path / "tel"))
+    finally:
+        health.HealthMonitor.note_batch = real_note
+    (path,) = (tmp_path / "tel" / "forensics").glob("*.npz")
+    _, meta = health.load_forensic_bundle(str(path))
+    assert meta["rng"]["device"] == "cuda"
+    assert len(bytes.fromhex(meta["rng"]["generator_state"])) == 16
+    ck = tmp_path / "ck" / cfg.name
+    step1 = tmp_path / "ck1"
+    step1.mkdir()
+    shutil.copytree(ck / "1", step1 / "1")
+    shutil.copy(ck / "topology.json", step1)
+    rep = replay_step.replay(str(path), ckpt=str(ck), device=dev)
+    assert rep["reproduced"] and rep["restored_step"] == 3
+
+    def clean(tag, rng_state):
+        m = {k: v for k, v in meta.items()
+             if k not in ("step", "batch_captured")}
+        m["rng"] = dict(m["rng"], generator_state=bytes(rng_state).hex())
+        return health.write_forensic_bundle(str(tmp_path / tag), 1,
+                                            batches[1], m)
+
+    want = float(timings[1]["loss"])
+    got = replay_step.replay(clean("c1", states[1]), ckpt=str(step1),
+                             device=dev)
+    assert not got["reproduced"]
+    assert abs(got["loss"] - want) <= 1e-4 * abs(want), (got["loss"], want)
+    other = replay_step.replay(clean("c2", states[2]), ckpt=str(step1),
+                               device=dev)["loss"]
+    assert abs(other - want) > 1e-3 * abs(want), (other, want)
+    # on the CPU: the seeded init draws no substitute mask either, and
+    # the card's checkpoint (a CUDA generator's state) does not restore
+    with pytest.raises(SystemExit, match="cuda generator.*runs on cpu"):
+        replay_step.replay(clean("c3", states[1]), random_init=True,
+                           device="cpu")
+    with pytest.raises(CheckpointRestoreError,
+                       match="saved on another device type"):
+        replay_step.replay(clean("c4", states[1]), ckpt=str(step1),
+                           device="cpu")
+    assert json.dumps(rep)
+
+
 def test_capture_with_the_prefetch_thread_running(dev):
     """The step captured while ``DevicePipeline``'s producer thread copies
     the next batches on its own stream (depth 2): one capture, and the

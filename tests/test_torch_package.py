@@ -66,7 +66,8 @@ def test_import_loads_no_jax_and_no_raft_tpu():
             "raft_tpu_torch.obs.events",
             "raft_tpu_torch.obs.exposition", "raft_tpu_torch.tuning",
             "raft_tpu_torch.cli.cost",
-            "raft_tpu_torch.cli.incidents"} <= set(MODULES)
+            "raft_tpu_torch.cli.incidents", "raft_tpu_torch.cli.autotune",
+            "raft_tpu_torch.cli.replay_step"} <= set(MODULES)
     for name in ("png_filters.c", "aug_ops.c"):
         assert (PKG / "native" / name).is_file()
 
